@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --profile    # also profile the serving run
+    python3 chip_smoke.py --profile    # also profile serving and one
+                                       # decomposed forward
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -19,25 +20,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16 weights from a seed): 4 requests of 512/384/300/128 prompt
    tokens, two admitted while others decode, slots 4, rank 64, tail 16,
    32 new tokens each, max_len 1024.  Every request must finish, tails
-   must fold, and every kernel must have launched during the run; one
-   decode step's logits through the kernel route are held against the
-   plain ``_lowrank_attention`` route;
+   must fold, and each of the path's three kernels must have launched
+   during the run; one decode step's logits through the kernel route are
+   held against the plain ``_lowrank_attention`` route;
 5. conformance on a small input: greedy tokens of decomposed-KV serving
    at full rank (direct SVD) equal dense serving on a reduced float32
-   llama2 config, through the kernels.
+   llama2 config, through the kernels;
+6. the paper's activation-decomposition forward of llama2-7b at full
+   width and depth on the same weights: tokens [1, 4096] from
+   ``numpy.random.RandomState(0)``, the paper's best policy (the
+   10-layer set, rank 20, 3 % outlier channels), threshold 3.0,
+   ``attn_mode="dense"``.  The launch counts of one forward must be
+   exactly 50 lowrank_matmul / 20 outlier_stats / 400 left / 380 right
+   re-orth.  Route check against the same forward through the plain
+   versions (``backend="reference"``): on each decomposition's own
+   input both select the same channels (20 / 20); in bf16 the logits
+   agree within 2e-2 free running (on two prompts) and with the plain
+   route forced onto the kernel route's channels; in float32 (float32
+   weights) every decomposition selects the same channels end to end
+   and the logits agree within 1e-3.  One decomposition and one
+   projection at layer 10's real input are held kernel against plain in
+   float32; it prints the dense and decomposed forward times (median of
+   3, CUDA events), KL(dense ‖ decomposed) and peak memory.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside this script, it exits non-zero and prints no result.
+Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
+statistics, the B = 1 re-orth pair) against their plain versions at the
+shapes phase 6 gives them.  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the package beside this script, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate
@@ -64,6 +86,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_cold(fn, iters: int = 20) -> float:
+    """Median CUDA-event time of ``fn()`` with the 50 MB L2 flushed
+    before each call (a 256 MiB buffer is overwritten), as on the main
+    path, where other layers' work evicts the operands between calls."""
+    import torch
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def to_float32(tree):
+    """A float32 copy of a (nested dict) tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    return tree.float()
+
+
 def bound(bytes_: float, flops: float, dtype: str):
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -75,10 +124,11 @@ def bound(bytes_: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
-                expansion: int, gen):
-    """Inputs of one Lanczos step at serving shapes: A [B,S,H] float32, a
-    unit input vector, and a basis with ``filled`` orthonormal columns of
-    ``k`` (the rest zero, as mid-iteration)."""
+                expansion: int, gen, scalar: bool = False):
+    """Inputs of one Lanczos step: A [B,S,H] float32, a unit input vector,
+    and a basis with ``filled`` orthonormal columns of ``k`` (the rest
+    zero, as mid-iteration).  ``scalar`` times the B = 1 wrappers
+    ``reorth_right``/``reorth_left`` (one A [S, H]) instead."""
     import torch
     from repro_torch.kernels import lanczos_reorth as lr
     dev = "cuda"
@@ -89,30 +139,37 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
     q = torch.zeros(b, n, k, device=dev)
     q[..., :filled] = torch.linalg.qr(
         torch.randn(b, n, filled, generator=gen, device=dev))[0]
-    kern = lr.reorth_right_batched if side == "right" \
-        else lr.reorth_left_batched
-    plain = lr.reorth_right_batched_plain if side == "right" \
-        else lr.reorth_left_batched_plain
-    z_k, n_k = kern(a, x, q, expansion=expansion)
-    z_p, n_p = plain(a, x, q)
+    batched = getattr(lr, f"reorth_{side}_batched")
+    plain = getattr(lr, f"reorth_{side}_batched_plain")
+    if scalar:
+        one = getattr(lr, f"reorth_{side}")
+        a, x, q = a[0], x[0], q[0]
+        kern = lambda: one(a, x, q, expansion=expansion)
+        ref = lambda: tuple(t[0] for t in plain(a[None], x[None], q[None]))
+    else:
+        kern = lambda: batched(a, x, q, expansion=expansion)
+        ref = lambda: plain(a, x, q)
+    z_k, n_k = kern()
+    z_p, n_p = ref()
     torch.cuda.synchronize()
     err = (z_k - z_p).abs().max().item()
     tol = 1e-4 * z_p.abs().max().item()
     nerr = ((n_k - n_p).abs() / n_p.abs()).max().item()
+    name = f"reorth_{side}" if scalar else f"reorth_{side}_batched"
     if not err <= tol or not nerr <= 1e-4:
         raise AssertionError(
-            f"reorth_{side}_batched B={b}: max abs err {err:.3e} > {tol:.3e}"
+            f"{name} B={b}: max abs err {err:.3e} > {tol:.3e}"
             f" or norm rel err {nerr:.3e} > 1e-4")
-    ms = time_ms(lambda: kern(a, x, q, expansion=expansion))
-    plain_ms = time_ms(lambda: plain(a, x, q))
+    ms = time_ms(kern)
+    plain_ms = time_ms(ref)
     bytes_ = 4 * (b * s * h + b * m + b * n * k + b * n + b)
     flops = 2 * b * s * h + 8 * b * n * k + 2 * b * n
     bms, by = bound(bytes_, flops, "float32")
-    return dict(name=f"reorth_{side}_batched", route="cuda",
+    line = {("right", False): 233, ("left", False): 274,
+            ("right", True): 318, ("left", True): 358}[(side, scalar)]
+    return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/lanczos_reorth.cu",
-                replaces=("src/repro/kernels/lanczos_reorth.py:233"
-                          if side == "right" else
-                          "src/repro/kernels/lanczos_reorth.py:274"),
+                replaces=f"src/repro/kernels/lanczos_reorth.py:{line}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None,
                 shape=dict(B=b, S=s, H=h, k=k, filled=filled,
@@ -120,6 +177,86 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
                 tolerance="max|z_kernel - z_plain| <= 1e-4 max|z_plain|, "
                           "norm rel err <= 1e-4 (float32, reduction "
                           "order differs)")
+
+
+def lowrank_matmul_case(k: int, h: int, n: int, gen):
+    """Eq. 6 at the activation path's shapes: Vᵀ [1, k, H] @ W [H, N] in
+    bf16 (the main path), then the float32 instantiation on the same
+    values."""
+    import torch
+    from repro_torch.kernels import lowrank_matmul as lm
+    dev = "cuda"
+    vt = torch.randn(1, k, h, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(h, n, generator=gen, device=dev) * h ** -0.5).bfloat16()
+    got = lm.lowrank_matmul(vt, w)
+    want = lm.lowrank_matmul_plain(vt, w)
+    got32 = lm.lowrank_matmul(vt.float(), w.float())
+    want32 = lm.lowrank_matmul_plain(vt.float(), w.float())
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 ** -7 * want.float().abs().max().item()
+    err32 = (got32 - want32).abs().max().item()
+    tol32 = 1e-4 * want32.abs().max().item()
+    if not (err <= tol and err32 <= tol32):
+        raise AssertionError(f"lowrank_matmul N={n}: bf16 err {err:.3e} "
+                             f"(tol {tol:.3e}), float32 err {err32:.3e} "
+                             f"(tol {tol32:.3e})")
+    del got32, want32
+    vt2 = vt[0]
+    # L2-cold times first (W fits in the 50 MB L2 at N = 4096), then
+    # back-to-back times, as in every row
+    cold_ms = time_ms_cold(lambda: lm.lowrank_matmul(vt, w))
+    lib_cold_ms = time_ms_cold(lambda: torch.matmul(vt2, w))
+    ms = time_ms(lambda: lm.lowrank_matmul(vt, w))
+    plain_ms = time_ms(lambda: lm.lowrank_matmul_plain(vt, w))
+    lib_ms = time_ms(lambda: torch.matmul(vt2, w))
+    bytes_ = 2 * (k * h + h * n + k * n)
+    bms, by = bound(bytes_, 2 * k * h * n, "bfloat16")
+    return dict(name="lowrank_matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/lowrank_matmul.cu",
+                replaces="src/repro/kernels/lowrank_matmul.py:59",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms,
+                shape=dict(vt=[1, k, h], w=[h, n], dtype="bfloat16"),
+                ms_l2_cold=cold_ms, library_ms_l2_cold=lib_cold_ms,
+                max_abs_err_float32=err32,
+                tolerance="bf16: <= 2^-7 max|plain| (one bf16 ulp: both "
+                          "round float32 sums once); float32: <= 1e-4 "
+                          "max|plain| (sum order differs)")
+
+
+def outlier_stats_case(s: int, h: int, gen, threshold: float = 3.0):
+    """Outlier statistics of one prompt X [1, S, H] float32 with 8
+    planted outlier channels; both reductions are exact, so the kernel
+    must equal the plain version bit for bit."""
+    import torch
+    from repro_torch.kernels import outlier_extract as oe
+    dev = "cuda"
+    x = torch.randn(1, s, h, generator=gen, device=dev)
+    planted = torch.randperm(h, generator=gen, device=dev)[:8]
+    x[..., planted] *= 4.0
+    cnt, mx = oe.outlier_stats(x, threshold)
+    cp, mp = oe.outlier_stats_plain(x, threshold)
+    torch.cuda.synchronize()
+    err = max((cnt - cp).abs().max().item(), (mx - mp).abs().max().item())
+    if err != 0.0 or not (cnt[0, planted] > 0).all():
+        raise AssertionError(f"outlier_stats: max abs err {err} (must be "
+                             f"0) or a planted channel counted nothing")
+    cold_ms = time_ms_cold(lambda: oe.outlier_stats(x, threshold))
+    ms = time_ms(lambda: oe.outlier_stats(x, threshold))
+    plain_ms = time_ms(lambda: oe.outlier_stats_plain(x, threshold))
+    bms, by = bound(4 * s * h + 2 * 4 * h, 3 * s * h, "float32")
+    return dict(name="outlier_stats", route="cuda",
+                source="src/repro_torch/kernels/csrc/outlier_extract.cu",
+                replaces="src/repro/kernels/outlier_extract.py:53",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None,
+                shape=dict(x=[1, s, h], threshold=threshold,
+                           planted_channels=8,
+                           counted_channels=int((cnt > 0).sum().item())),
+                ms_l2_cold=cold_ms,
+                tolerance="exact (counts and maxima do not depend on the "
+                          "order of reduction)")
 
 
 def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
@@ -187,7 +324,19 @@ def phase_kernels(cfg):
                    torch.bfloat16, gen)
     print(json.dumps(dkv), flush=True)
     rows.append(dkv)
-    return rows
+    # the activation path (phase 6): one 4096-token prompt, rank 20
+    h, seq, r = cfg.d_model, 4096, 20
+    act = [lowrank_matmul_case(r, h, cfg.num_heads * cfg.resolved_head_dim,
+                               gen),
+           lowrank_matmul_case(r, h, cfg.d_ff, gen),
+           outlier_stats_case(seq, h, gen)]
+    for side in ("right", "left"):
+        act.append(reorth_case(side, 1, seq, h, r, r // 2, expansion, gen,
+                               scalar=True))
+        torch.cuda.empty_cache()
+    for rec in act:
+        print(json.dumps(rec), flush=True)
+    return rows + act
 
 
 # ---------------------------------------------------------------------------
@@ -210,22 +359,32 @@ def print_profile(prof) -> None:
                                     row_limit=25), flush=True)
 
 
-def serve_llama(cfg, profile: bool = False):
-    import numpy as np
-    import torch
-    from repro_torch.engine import DecomposeEngine, EngineConfig
-    from repro_torch.kernels import ops
-    from repro_torch.models import decomposed_kv as DK, transformer as T
-    from repro_torch.serving import Engine, Request
+SERVE_KERNELS = ("reorth_right_batched", "reorth_left_batched",
+                 "dkv_attention_stats")
 
+
+def init_llama(cfg):
+    """Random bf16 weights of the full model from seed 0, on the card."""
+    import torch
+    from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = T.init(cfg, gen, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     gib = T.param_bytes(params) / 2 ** 30
-    print(f"serve: {cfg.name} {cfg.num_layers} layers, {gib:.2f} GiB "
-          f"{cfg.dtype} weights drawn in {init_s:.1f}s", flush=True)
+    print(f"init: {cfg.name} {cfg.num_layers} layers, {gib:.2f} GiB "
+          f"{cfg.dtype} weights drawn in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return params
+
+
+def serve_llama(cfg, params, profile: bool = False):
+    import numpy as np
+    import torch
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, Request
+
     ecfg = EngineConfig(kv_rank=64, kv_tail=16)
 
     def engine():
@@ -275,7 +434,7 @@ def serve_llama(cfg, profile: bool = False):
         raise AssertionError("no tail fold happened")
     if st.prefill_batches < 3:
         raise AssertionError("staggered requests were not admitted apart")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} ({launches})")
@@ -325,9 +484,7 @@ def check_decode_routes(cfg, params, prompts, ecfg):
     # (b) logits of one decode step, float32 weights and cache (so the
     # comparison sees the routes' float32 roundoff, not bf16 rounding
     # amplified through the layers)
-    f32 = lambda t: {k: f32(v) for k, v in t.items()} \
-        if isinstance(t, dict) else t.float()
-    p32, c32 = f32(params), f32(cache)
+    p32, c32 = to_float32(params), to_float32(cache)
     cfg32 = cfg.replace(dtype="float32")
     tok = torch.tensor([7, 11], device="cuda")
     lg_k, _ = DK.decode_step_dkv(p32, cfg32, tok, c32, pos, frozen)
@@ -383,11 +540,262 @@ def conformance(cfg):
           f"{st.tail_folds} folds", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the activation-decomposition forward of llama2-7b
+# ---------------------------------------------------------------------------
+
+ACT_LAUNCHES = {"lowrank_matmul": 50, "outlier_stats": 20,
+                "reorth_left_batched": 400, "reorth_right_batched": 380,
+                "dkv_attention_stats": 0}
+ACT_LOGITS_TOL = 2e-2    # relative L2, bf16 kernel route vs plain route
+ACT_F32_TOL = 1e-3       # the same, float32 weights and forward
+ACT_SEQ = 4096           # the paper's 4K setting: tokens [1, ACT_SEQ]
+
+
+def median_ms(fn, runs: int = 3):
+    """Median of ``runs`` CUDA-event times of ``fn()`` (its result is
+    dropped before the next run), with every run's time."""
+    import torch
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), [round(t, 2) for t in times]
+
+
+def _recording(engine, log, keep_input: bool):
+    """Wrap ``engine.decompose_activation`` so each call appends (its
+    input or None, the selected outlier channels) to ``log``."""
+    orig = engine.decompose_activation
+
+    def rec(x, *a, **kw):
+        out = orig(x, *a, **kw)
+        log.append((x if keep_input else None, out.o_idx))
+        return out
+    engine.decompose_activation = rec
+
+
+def _forced_selection(log_k, agree):
+    """A stand-in for ``select_outlier_channels`` that returns, call by
+    call, the channels the kernel route selected (``log_k``), and appends
+    to ``agree`` whether the plain selection on this call's own input is
+    the same set."""
+    import torch
+    from repro_torch.core import outlier as ol
+    real, picks = ol.select_outlier_channels, iter(log_k)
+
+    def select(x, threshold, num_channels, stats=None):
+        idx = next(picks)[1]
+        agree.append(torch.equal(real(x, threshold, num_channels, stats),
+                                 idx))
+        return idx
+    return select
+
+
+def _route_gap(logits_k, logits_r, log_k, log_r) -> dict:
+    """Logits relative L2 gap and outlier-set agreement of two routes."""
+    import torch
+    lk, lr_ = logits_k.float(), logits_r.float()
+    same = [torch.equal(a[1], b[1]) for a, b in zip(log_k, log_r)]
+    return dict(finite=bool(torch.isfinite(lk).all()
+                            and torch.isfinite(lr_).all()),
+                rel=((lk - lr_).norm() / lr_.norm()).item(),
+                argmax=(lk.argmax(-1) == lr_.argmax(-1)).float().mean().item(),
+                n=len(same), same=sum(same), first_equal=same[:1] == [True])
+
+
+def activation_llama(cfg, params, profile: bool = False):
+    """Phase 6; returns the launch counts of one decomposed forward."""
+    import numpy as np
+    import torch
+    from repro_torch.core import outlier as ol
+    from repro_torch.core.outlier import ThresholdTable
+    from repro_torch.core.policy import (PAPER_BEST_CONFIG,
+                                         PAPER_LAYER_CONFIGS,
+                                         DecompositionPolicy)
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.outlier_extract import outlier_stats_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.steps import (make_decomposed_forward_step,
+                                           make_decomposed_quality_step)
+
+    name, rank = PAPER_BEST_CONFIG
+    policy = DecompositionPolicy.from_layer_list(
+        cfg.num_layers, PAPER_LAYER_CONFIGS[name], rank=rank,
+        outlier_frac=0.03)
+    # Random-weight rmsnorm outputs are about unit scale, so the default
+    # threshold of 6 would leave every count at 0; 3.0 makes the counts,
+    # and not only the max |x| tiebreak, pick the channels.
+    policy.thresholds = ThresholdTable(default=3.0)
+    engines = {b: DecomposeEngine(EngineConfig(policy=policy,
+                                               attn_mode="dense",
+                                               backend=b))
+               for b in ("cuda", "reference")}
+    fwd = {b: make_decomposed_forward_step(cfg, e)
+           for b, e in engines.items()}
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (1, ACT_SEQ))).long().cuda()
+    num_c = max(1, round(0.03 * cfg.d_model))
+    print(f"activation: {cfg.name} tokens [1, {ACT_SEQ}], layers "
+          f"{PAPER_LAYER_CONFIGS[name]} rank {rank}, {num_c} outlier "
+          f"channels, threshold 3.0, attn_mode dense", flush=True)
+
+    # (a) one forward through the kernels: exact launch counts
+    log_k, log_r = [], []
+    _recording(engines["cuda"], log_k, keep_input=True)
+    _recording(engines["reference"], log_r, keep_input=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits_k = fwd["cuda"](params, tokens)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches != ACT_LAUNCHES:
+        raise AssertionError(f"decomposed forward launches {launches} != "
+                             f"{ACT_LAUNCHES}: something bypassed the "
+                             f"kernels")
+    print("activation: launches " + json.dumps(launches), flush=True)
+
+    # (b) route check: the same forward through the plain versions on the
+    # card.  (b1) The selection itself: on the very input each
+    # kernel-route decomposition saw, the plain statistics pick the same
+    # channels, in all 20.  (b2) Free running, each route selects on its
+    # own inputs, which drift apart by bf16 rounding after the first
+    # decomposed layer.  (b3) Index-forced: the plain route takes the
+    # kernel route's selection at each decomposition, so what is left of
+    # the logits gap is the kernels' rounding alone.  (b4) b2 again on a
+    # second prompt (tokens from RandomState(1)).
+    per_call = [torch.equal(idx, ol.select_outlier_channels(
+        x.float(), 3.0, num_c, stats=outlier_stats_plain))
+        for x, idx in log_k]
+    logits_r = fwd["reference"](params, tokens)
+    free = _route_gap(logits_k, logits_r, log_k, log_r)
+    del logits_r
+    log_r.clear()
+    agree = []
+    with mock.patch.object(ol, "select_outlier_channels",
+                           _forced_selection(log_k, agree)):
+        logits_f = fwd["reference"](params, tokens)
+    forced = _route_gap(logits_k, logits_f, log_k, log_r)
+    del logits_k, logits_f
+    tokens1 = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (1, ACT_SEQ))).long().cuda()
+    x10 = log_k[2][0].float()        # layer 10's attention input, for (c)
+    log_k.clear()
+    log_r.clear()
+    second = _route_gap(fwd["cuda"](params, tokens1),
+                        fwd["reference"](params, tokens1), log_k, log_r)
+    torch.cuda.synchronize()
+    if ops.launch_counts() != {k: 2 * v for k, v in ACT_LAUNCHES.items()}:
+        raise AssertionError("the reference backend launched a kernel")
+    for e in engines.values():
+        del e.decompose_activation             # drop the recorder
+    del log_k, log_r, tokens1
+    for label, g in (("free running", free), ("index-forced", forced),
+                     ("free running, second prompt", second)):
+        print(f"activation: kernel vs reference route, {label}: logits rel "
+              f"L2 {g['rel']:.3e} (tol {ACT_LOGITS_TOL}), outlier sets "
+              f"equal in {g['same']}/{g['n']} decompositions, argmax "
+              f"agreement {g['argmax']:.4f}", flush=True)
+    print(f"activation: on the kernel route's own inputs the plain "
+          f"statistics select the kernel's channels in "
+          f"{sum(per_call)}/{len(per_call)} decompositions; in the "
+          f"index-forced run the plain route's own choice agreed in "
+          f"{sum(agree)}/{len(agree)}", flush=True)
+    gaps = (free, forced, second)
+    if not (len(per_call) == len(agree) == 20 and all(per_call)
+            and forced["same"] == 20
+            and all(g["finite"] and g["n"] == 20 and g["first_equal"]
+                    and g["rel"] <= ACT_LOGITS_TOL for g in gaps)):
+        raise AssertionError(f"activation routes disagree: {gaps} "
+                             f"per_call={per_call}")
+
+    # (c) layer 10's real attention input, float32, kernel vs plain
+    lp = policy.layer(10)
+    wq = {"w": params["layers"]["attn"]["wq"]["w"][10].float()}
+    lrs = {b: engines[b].decompose_activation(x10, lp=lp, threshold=3.0)
+           for b in engines}
+    s_k, s_r = lrs["cuda"].core, lrs["reference"].core
+    s_err = ((s_k - s_r).abs().max() / s_r.abs().max()).item()
+    rec = {b: lrs[b].reconstruct() for b in lrs}
+    rec_err = ((rec["cuda"] - rec["reference"]).norm()
+               / rec["reference"].norm()).item()
+    q = {b: engines[b].project(lrs[b], wq).reconstruct() for b in lrs}
+    q_err = ((q["cuda"] - q["reference"]).norm()
+             / q["reference"].norm()).item()
+    idx_eq = torch.equal(lrs["cuda"].o_idx, lrs["reference"].o_idx)
+    print(f"activation: layer 10 float32, kernel vs plain: singular "
+          f"values max rel err {s_err:.3e}, reconstruction rel err "
+          f"{rec_err:.3e}, Q projection rel err {q_err:.3e} (tol 1e-3 "
+          f"each), outlier sets equal {idx_eq}", flush=True)
+    if not (s_err <= 1e-3 and rec_err <= 1e-3 and q_err <= 1e-3
+            and idx_eq):
+        raise AssertionError("layer-10 decomposition: kernel route and "
+                             "plain route disagree")
+    del x10, wq, lrs, rec, q
+
+    # (d) KL(dense ‖ decomposed), then times and peak memory
+    kl = make_decomposed_quality_step(cfg, engines["cuda"])(params,
+                                                           tokens).item()
+    if not (np.isfinite(kl) and kl > 0):
+        raise AssertionError(f"KL(dense || decomposed) = {kl}")
+    T.forward(params, cfg, tokens)                 # warm the dense path
+    dense_ms, dense_all = median_ms(lambda: T.forward(params, cfg, tokens))
+    torch.cuda.reset_peak_memory_stats()
+    dec_ms, dec_all = median_ms(lambda: fwd["cuda"](params, tokens))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref_ms, ref_all = median_ms(lambda: fwd["reference"](params, tokens))
+    print(f"activation: KL(dense || decomposed) {kl:.6f}; forward ms "
+          f"(median of 3): dense {dense_ms:.2f} {dense_all}, decomposed "
+          f"via kernels {dec_ms:.2f} {dec_all}, decomposed via plain "
+          f"versions {ref_ms:.2f} {ref_all}; peak memory of the decomposed "
+          f"forward {peak:.2f} GiB", flush=True)
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            fwd["cuda"](params, tokens)
+            torch.cuda.synchronize()
+        print("activation: profile of one decomposed forward", flush=True)
+        print_profile(prof)
+
+    # (e) the route check in float32 at full size: float32 rounding keeps
+    # the two routes' inputs together, so every decomposition must select
+    # the same channels end to end and the logits agree within ACT_F32_TOL
+    p32, cfg32 = to_float32(params), cfg.replace(dtype="float32")
+    logs = {b: [] for b in engines}
+    for b, e in engines.items():
+        _recording(e, logs[b], keep_input=False)
+    out = {b: make_decomposed_forward_step(cfg32, e)(p32, tokens)
+           for b, e in engines.items()}
+    for e in engines.values():
+        del e.decompose_activation
+    g = _route_gap(out["cuda"], out["reference"], logs["cuda"],
+                   logs["reference"])
+    del p32, out
+    print(f"activation: kernel vs reference route, float32: logits rel L2 "
+          f"{g['rel']:.3e} (tol {ACT_F32_TOL}), outlier sets equal in "
+          f"{g['same']}/{g['n']} decompositions, argmax agreement "
+          f"{g['argmax']:.4f}", flush=True)
+    if not (g["finite"] and g["n"] == g["same"] == 20
+            and g["rel"] <= ACT_F32_TOL):
+        raise AssertionError(f"float32 activation routes disagree: {g}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile the serving run and print its device "
-                         "busy share and kernel time table")
+                    help="profile the serving run and one decomposed "
+                         "forward and print each one's device busy share "
+                         "and kernel time table")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -414,8 +822,18 @@ def main() -> int:
 
     cfg = get_arch("llama2-7b")
     rows = phase_kernels(cfg)
-    launches, _ = serve_llama(cfg, args.profile)
+    params = init_llama(cfg)
+    serve_launches, _ = serve_llama(cfg, params, args.profile)
+    torch.cuda.empty_cache()
     conformance(cfg)
+    act = activation_llama(cfg, params, args.profile)
+    # each kernel's launches from the run of the path that uses it: the
+    # serving run for the batched re-orth pair and dkv, the activation
+    # forward for the rest (its re-orth launches are all at B = 1)
+    launches = dict(serve_launches, lowrank_matmul=act["lowrank_matmul"],
+                    outlier_stats=act["outlier_stats"],
+                    reorth_right=act["reorth_right_batched"],
+                    reorth_left=act["reorth_left_batched"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

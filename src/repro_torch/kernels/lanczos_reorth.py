@@ -6,6 +6,9 @@ Counterpart of ``repro.kernels.lanczos_reorth.reorth_right_batched`` /
 * right: z_b = CGS2(A_bᵀ u_b, V_b) → (z [B, H], ‖z‖² [B])
 * left : w_b = CGS2(A_b v_b, U_b)  → (w [B, S], ‖w‖² [B])
 
+and the scalar ``reorth_right``/``reorth_left`` (one A [S, H]), which are
+B = 1 calls of the batched kernels, not kernels of their own.
+
 Each wrapper dispatches on the device of ``a``: a CPU tensor takes the
 plain PyTorch version beside it; a CUDA tensor launches the kernel in
 ``csrc/lanczos_reorth.cu`` (one CTA per batch element, ``expansion``
@@ -120,3 +123,19 @@ def reorth_left_batched(a, v, u_buf, *, expansion: int = 32) -> Pair:
 
 reorth_right_batched.launches = 0
 reorth_left_batched.launches = 0
+
+
+def reorth_right(a, u, v_buf, *, expansion: int = 32) -> Pair:
+    """z = CGS2(Aᵀu, V) for a [S,H], u [S], v_buf [H,k] → (z [H], ‖z‖²):
+    a B = 1 call of :func:`reorth_right_batched`."""
+    z, nrm = reorth_right_batched(a[None], u[None], v_buf[None],
+                                  expansion=expansion)
+    return z[0], nrm[0]
+
+
+def reorth_left(a, v, u_buf, *, expansion: int = 32) -> Pair:
+    """w = CGS2(A v, U) for a [S,H], v [H], u_buf [S,k] → (w [S], ‖w‖²):
+    a B = 1 call of :func:`reorth_left_batched`."""
+    w, nrm = reorth_left_batched(a[None], v[None], u_buf[None],
+                                 expansion=expansion)
+    return w[0], nrm[0]

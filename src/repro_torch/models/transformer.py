@@ -97,6 +97,24 @@ def _self_attention(lp: Params, h: torch.Tensor, cfg,
     return L.dense(lp["wo"], out), k, v
 
 
+def block(p: Params, x: torch.Tensor, positions: torch.Tensor,
+          cfg) -> torch.Tensor:
+    """One dense block: x [B, S, H] → x + attn(norm(x)) + mlp(norm(·))."""
+    x = x + _self_attention(p["attn"], norm(p["attn_norm"], x, cfg), cfg,
+                            positions)[0]
+    return x + L.mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.activation)
+
+
+def forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
+    b, s = tokens.shape
+    x = embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for i in range(cfg.num_layers):
+        x = block(L.layer_params(p["layers"], i), x, positions, cfg)
+    return logits_head(p, x, cfg)
+
+
 def forward_layers(p: Params, cfg, tokens: torch.Tensor):
     """Run every block over ``tokens`` [B, S] → (final hidden [B, S, H],
     per-layer K list, per-layer V list)."""

@@ -135,8 +135,11 @@ class TransformerDKVServing(ServingFamily):
         eng = self.eng
         pos = torch.from_numpy(eng.pos).to(eng.device)
         frozen = torch.from_numpy(eng.frozen_len).to(eng.device)
+        route = "kernel" if eng.dengine.config.backend == "cuda" \
+            else "plain"
         logits, eng.cache = DK.decode_step_dkv(eng.params, eng.cfg, tok,
-                                               eng.cache, pos, frozen)
+                                               eng.cache, pos, frozen,
+                                               attention=route)
         return logits
 
     def maybe_fold(self) -> None:

@@ -152,3 +152,108 @@ def test_dkv_stats_and_merge_match_jax_lowrank_attention():
         got = route(torch.from_numpy(q), tt(c), tt(tail),
                     torch.from_numpy(pos), torch.from_numpy(frozen), cfg)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 6 GEMM and outlier statistics (the activation path's kernels)
+# ---------------------------------------------------------------------------
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import lowrank_matmul as lrmm  # noqa: E402
+from repro_torch.kernels import outlier_extract as oe  # noqa: E402
+
+
+@pytest.mark.parametrize("k,h,n", [(1, 100, 100), (20, 100, 256),
+                                   (21, 96, 100), (20, 64, 256)])
+def test_lowrank_matmul_plain_matches_pallas_and_ref(k, h, n):
+    """Plain Vᵀ @ W == the JAX Pallas kernel (interpret mode; H = 100 does
+    not divide f = 8, N = 100 is not a multiple of its 128 block) ==
+    ``kernels/ref.py``, in float32; a batched Vᵀ [B, k, H] equals the
+    per-element products."""
+    rng = np.random.RandomState(k * 1000 + h + n)
+    vt = rng.randn(3, k, h).astype(np.float32)
+    w = rng.randn(h, n).astype(np.float32)
+    got = lrmm.lowrank_matmul(torch.from_numpy(vt), torch.from_numpy(w))
+    assert got.shape == (3, k, n) and got.dtype == torch.float32
+    for i in range(3):
+        want = jops.lowrank_matmul(vt[i], w, expansion=F, interpret=True)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got[i].numpy(),
+                                   np.asarray(jref.lowrank_matmul(vt[i], w)),
+                                   **TOL)
+
+
+def test_lowrank_matmul_plain_returns_vt_dtype():
+    """bf16 in, bf16 out: the float32 product rounded once, as the
+    reference einsum returns it."""
+    rng = np.random.RandomState(5)
+    vt = torch.from_numpy(rng.randn(20, 64).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randn(64, 48).astype(np.float32)).bfloat16()
+    got = lrmm.lowrank_matmul(vt, w)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, (vt.float() @ w.float()).bfloat16(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s,h,t", [(64, 96, 1.5), (32, 512, 2.0)])
+def test_outlier_stats_plain_matches_pallas(s, h, t):
+    """Counts and max |x| == the JAX Pallas kernel (interpret mode; S
+    divisible by f, as it asserts), exactly: both are exact."""
+    rng = np.random.RandomState(s + h)
+    x = rng.randn(2, s, h).astype(np.float32)
+    x[:, :, 7] *= 10.0
+    cnt, mx = oe.outlier_stats(torch.from_numpy(x), t)
+    assert cnt.shape == mx.shape == (2, h)
+    for i in range(2):
+        cj, mj = jops.outlier_stats(x[i], t, expansion=F, interpret=True)
+        np.testing.assert_array_equal(cnt[i].numpy(), np.asarray(cj))
+        np.testing.assert_array_equal(mx[i].numpy(), np.asarray(mj))
+    assert cnt[:, 7].min() > 0
+
+
+@pytest.mark.parametrize("s,h", [(13, 37), (1, 5), (50, 130)])
+def test_outlier_stats_plain_matches_ref_ragged(s, h):
+    """Ragged S and H (the CUDA kernel masks them) against the oracle."""
+    rng = np.random.RandomState(s * h)
+    x = (rng.randn(s, h) * 3).astype(np.float32)
+    cnt, mx = oe.outlier_stats(torch.from_numpy(x), 2.5)
+    cr, mr = jref.outlier_stats(x, 2.5)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cr))
+    np.testing.assert_array_equal(mx.numpy(), np.asarray(mr))
+
+
+def test_reorth_scalar_pair_is_batched_at_b1():
+    """``reorth_right``/``reorth_left`` (one A [S, H]) == the batched
+    plain versions at B = 1 == ``kernels/ref.py``."""
+    rng = np.random.RandomState(9)
+    s, h, k = 19, 27, 6
+    a = rng.randn(s, h).astype(np.float32)
+    u, v = rng.randn(s).astype(np.float32), rng.randn(h).astype(np.float32)
+    vb, ub = _basis(rng, 1, h, k, 3)[0], _basis(rng, 1, s, k, 3)[0]
+    t = torch.from_numpy
+    z, zn = lr.reorth_right(t(a), t(u), t(vb))
+    w, wn = lr.reorth_left(t(a), t(v), t(ub))
+    zb, znb = lr.reorth_right_batched_plain(t(a)[None], t(u)[None],
+                                            t(vb)[None])
+    wb, wnb = lr.reorth_left_batched_plain(t(a)[None], t(v)[None],
+                                           t(ub)[None])
+    torch.testing.assert_close(z, zb[0], rtol=0, atol=0)
+    torch.testing.assert_close(w, wb[0], rtol=0, atol=0)
+    assert zn.item() == znb[0].item() and wn.item() == wnb[0].item()
+    np.testing.assert_allclose(z.numpy(), np.asarray(jref.reorth_right(
+        a, u, vb)[0]), **TOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jref.reorth_left(
+        a, v, ub)[0]), **TOL)
+
+
+def test_reference_backend_runs_plain_versions():
+    """``make_kernels("reference")`` hands out the plain versions; the
+    default set dispatches through the counted wrappers."""
+    ref_set = ops.make_kernels("reference")
+    assert ref_set.lowrank_matmul is lrmm.lowrank_matmul_plain
+    assert ref_set.outlier_stats is oe.outlier_stats_plain
+    cuda_set = ops.make_kernels("cuda")
+    assert cuda_set.lowrank_matmul is ops.KERNELS["lowrank_matmul"]
+    assert cuda_set.outlier_stats is ops.KERNELS["outlier_stats"]
+    with pytest.raises(ValueError, match="backend"):
+        ops.make_kernels("pallas")

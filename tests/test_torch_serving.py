@@ -78,10 +78,11 @@ JDKV = dict(max_len=MAX_LEN, decompose_kv_rank=RANK, dkv_tail=TAIL,
             dkv_exact=True)
 
 
-def _dkv_engine(tcfg, tp, slots, exact=True, z0=None):
+def _dkv_engine(tcfg, tp, slots, exact=True, z0=None, backend="cuda"):
     """The port's engine at the recipe's settings (direct SVD unless
     ``exact`` is False)."""
-    ecfg = EngineConfig(kv_rank=RANK, kv_tail=TAIL, kv_exact=exact)
+    ecfg = EngineConfig(kv_rank=RANK, kv_tail=TAIL, kv_exact=exact,
+                        backend=backend)
     return Engine(tcfg, tp, slots=slots, max_len=MAX_LEN, device="cpu",
                   decompose_engine=DecomposeEngine(ecfg, z0=z0))
 
@@ -110,15 +111,19 @@ def test_dense_serving_tokens_equal_jax(f32):
     assert got == want
 
 
-def test_lanczos_dkv_serving_tokens_equal_jax(f32):
-    """Lanczos factorization (not direct SVD) with JAX's start vector."""
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_lanczos_dkv_serving_tokens_equal_jax(f32, backend):
+    """Lanczos factorization (not direct SVD) with JAX's start vector;
+    under ``backend="reference"`` decode takes the plain
+    ``_lowrank_attention`` route and the tokens are the same."""
     jcfg, jp, tcfg, tp = f32
     prompts = _prompts(jcfg.vocab)
     want, _ = _serve(JEngine(jcfg, jp, slots=2, max_len=MAX_LEN,
                              decompose_kv_rank=RANK, dkv_tail=TAIL),
                      JRequest, prompts, True)
     eng = _dkv_engine(tcfg, tp, 2, exact=False,
-                      z0=lambda h: np.asarray(_padded_z0(h, h)))
+                      z0=lambda h: np.asarray(_padded_z0(h, h)),
+                      backend=backend)
     got, st = _serve(eng, Request, prompts, True)
     assert st.tail_folds > 0
     assert got == want
