@@ -43,9 +43,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    float32; it prints the dense and decomposed forward times (median of
    3, CUDA events), KL(dense ‖ decomposed) and peak memory.
 
+7. paged serving of llama2-7b on the same weights (page 16, rank 64,
+   tail 16): (a) phase 4's traffic through ``Engine(paged=True)`` gives
+   phase 4's tokens, and every page comes back (slot and paged engines
+   run in turns, slot, paged, paged, slot, to compare their speeds); (b) shared-prefix
+   serving: 8 requests of a common 496-token system prompt
+   (``RandomState(2)``) plus 16 distinct tokens, request 0 at step 0 and
+   1-7 at step 2, 32 new tokens each, prefix cache 8: 1 miss and 7 hits,
+   no re-orth launch in any hit admission, folds, the paged kernel (and
+   not the slab one) launched, every page back after ``drop_all``; miss
+   and hit TTFT, decode tok/s and peak memory are printed; one paged
+   decode step through the kernel is held against the plain route
+   (attention 1e-4 in bf16, float32 logits 1e-3).
+
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
 statistics, the B = 1 re-orth pair) against their plain versions at the
-shapes phase 6 gives them.  The line before the last is
+shapes phase 6 gives them, and the paged dkv kernel bit for bit against
+the slab kernel at phase 4's shapes.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits non-zero and prints no result.
@@ -305,6 +319,77 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
                           "m abs err <= 1e-4 max|m|, l rel err <= 1e-4")
 
 
+def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
+                   gen):
+    """The paged dkv kernel at phase 4's shapes: one layer's pools, a
+    shuffled block table of pages_for(t_valid) pages per slot (sink
+    padding), checked BITWISE against the slab kernel on the gathered
+    rows, then against the plain version; the slab kernel is timed at the
+    same rows beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dkv_attention as dk
+    dev = "cuda"
+    n = -(-max(t_valid) // page)
+    npages = [-(-t // page) for t in t_valid]
+    P = sum(npages) + 1
+    k_pool = torch.randn(P, page, r, generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn(P, page, r, generator=gen, device=dev).to(dtype)
+    k_pool[0] = 0
+    v_pool[0] = 0
+    ids = (torch.randperm(P - 1, generator=gen, device=dev) + 1).tolist()
+    bt = torch.zeros(b, n, dtype=torch.int32)
+    for i, k in enumerate(npages):
+        bt[i, :k] = torch.tensor(ids[:k])
+        ids = ids[k:]
+    bt = bt.to(dev)
+    inner = torch.randn(b, g, r, generator=gen, device=dev) * 0.5
+    tv = torch.tensor(t_valid, dtype=torch.int32, device=dev)
+    kern = lambda: dk.dkv_attention_stats_paged(inner, k_pool, v_pool, bt,
+                                                tv, r)
+    got = kern()
+    ku = dk.gather_rows(k_pool, bt, r).contiguous()
+    vu = dk.gather_rows(v_pool, bt, r).contiguous()
+    slab = dk.dkv_attention_stats(inner, ku, vu, tv)
+    plain = dk.dkv_attention_stats_paged_plain(inner, k_pool, v_pool, bt,
+                                               tv, r)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, slab)):
+        raise AssertionError("dkv_attention_stats_paged is not bit-equal "
+                             "to the slab kernel on the gathered rows")
+    (a_k, m_k, l_k), (a_p, m_p, l_p) = got, plain
+    err = (a_k - a_p).abs().max().item()
+    merr = (m_k - m_p).abs().max().item()
+    lerr = ((l_k - l_p).abs() / l_p.abs()).max().item()
+    if not (err <= 1e-4 * a_p.abs().max().item()
+            and merr <= 1e-4 * m_p.abs().max().item() and lerr <= 1e-4):
+        raise AssertionError(f"dkv_attention_stats_paged: a err {err:.3e},"
+                             f" m err {merr:.3e}, l rel err {lerr:.3e}")
+    ms = time_ms(kern)
+    slab_ms = time_ms(lambda: dk.dkv_attention_stats(inner, ku, vu, tv))
+    plain_ms = time_ms(lambda: dk.dkv_attention_stats_paged_plain(
+        inner, k_pool, v_pool, bt, tv, r))
+    mask = (torch.arange(n * page, device=dev)[None, :]
+            < tv[:, None])[:, None, None, :]
+    q4, k4, v4 = inner.to(dtype)[:, None], ku[:, None], vu[:, None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=1.0))
+    rows = sum(t_valid)
+    elt = k_pool.element_size()
+    bytes_ = 4 * b * g * r + 2 * rows * r * elt + 4 * b + 4 * b * n \
+        + 4 * (b * g * r + 2 * b * g)
+    bms, by = bound(bytes_, 4 * g * r * rows, str(dtype).split(".")[-1])
+    return dict(name="dkv_attention_stats_paged", route="cuda",
+                source="src/repro_torch/kernels/csrc/dkv_attention.cu",
+                replaces="src/repro/kernels/dkv_attention.py:229",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, slab_kernel_ms=slab_ms,
+                shape=dict(B=b, G=g, r=r, page=page, table=[b, n],
+                           t_valid=list(t_valid), dtype=str(dtype)),
+                tolerance="bit-equal to dkv_attention_stats on the "
+                          "gathered rows; vs plain as dkv_attention_stats")
+
+
 def phase_kernels(cfg):
     import torch
     from repro_torch.engine import EngineConfig
@@ -324,6 +409,10 @@ def phase_kernels(cfg):
                    torch.bfloat16, gen)
     print(json.dumps(dkv), flush=True)
     rows.append(dkv)
+    paged = dkv_paged_case(4, cfg.num_heads, rank, (512, 384, 304, 128),
+                           16, torch.bfloat16, gen)
+    print(json.dumps(paged), flush=True)
+    rows.append(paged)
     # the activation path (phase 6): one 4096-token prompt, rank 20
     h, seq, r = cfg.d_model, 4096, 20
     act = [lowrank_matmul_case(r, h, cfg.num_heads * cfg.resolved_head_dim,
@@ -361,6 +450,24 @@ def print_profile(prof) -> None:
 
 SERVE_KERNELS = ("reorth_right_batched", "reorth_left_batched",
                  "dkv_attention_stats")
+SERVE_LENS = (512, 384, 300, 128)           # phase 4's prompt lengths
+SERVE_ARRIVALS = {0: [0, 1], 3: [2], 6: [3]}   # two arrive mid-decode
+
+
+def drive(eng, prompts, arrivals, max_new: int):
+    """Submit ``prompts[i]`` for each i of ``arrivals[step]`` before that
+    engine step, and step until every one of them finished."""
+    from repro_torch.serving import Request
+    n = sum(len(v) for v in arrivals.values())
+    done = []
+    for step in range(2000):
+        for i in arrivals.get(step, []):
+            eng.submit(Request(uid=i, prompt=prompts[i],
+                               max_new_tokens=max_new))
+        done.extend(eng.step())
+        if len(done) == n and not eng._occupied():
+            break
+    return done
 
 
 def init_llama(cfg):
@@ -393,7 +500,7 @@ def serve_llama(cfg, params, profile: bool = False):
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
-               for n in (512, 384, 300, 128)]
+               for n in SERVE_LENS]
     # warm-up: library handles and allocator, on a throwaway engine
     warm = engine()
     warm.submit(Request(uid=-1, prompt=prompts[3][:64], max_new_tokens=20))
@@ -402,7 +509,6 @@ def serve_llama(cfg, params, profile: bool = False):
     torch.cuda.synchronize()
 
     eng = engine()
-    arrivals = {0: [0, 1], 3: [2], 6: [3]}   # two arrive mid-decode
     torch.cuda.reset_peak_memory_stats()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -410,13 +516,7 @@ def serve_llama(cfg, params, profile: bool = False):
     if prof is not None:
         prof.__enter__()
     ops.reset_launch_counts()
-    done = []
-    for step in range(2000):
-        for i in arrivals.get(step, []):
-            eng.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32))
-        done.extend(eng.step())
-        if len(done) == 4 and not eng._occupied():
-            break
+    done = drive(eng, prompts, SERVE_ARRIVALS, 32)
     torch.cuda.synchronize()
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -449,7 +549,7 @@ def serve_llama(cfg, params, profile: bool = False):
     print("serve: launches " + json.dumps(launches), flush=True)
 
     check_decode_routes(cfg, params, prompts, ecfg)
-    return launches, st
+    return launches, {r.uid: r.out_tokens for r in done}
 
 
 def check_decode_routes(cfg, params, prompts, ecfg):
@@ -546,7 +646,7 @@ def conformance(cfg):
 
 ACT_LAUNCHES = {"lowrank_matmul": 50, "outlier_stats": 20,
                 "reorth_left_batched": 400, "reorth_right_batched": 380,
-                "dkv_attention_stats": 0}
+                "dkv_attention_stats": 0, "dkv_attention_stats_paged": 0}
 ACT_LOGITS_TOL = 2e-2    # relative L2, bf16 kernel route vs plain route
 ACT_F32_TOL = 1e-3       # the same, float32 weights and forward
 ACT_SEQ = 4096           # the paper's 4K setting: tokens [1, ACT_SEQ]
@@ -790,12 +890,245 @@ def activation_llama(cfg, params, profile: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: paged serving with shared-prefix reuse
+# ---------------------------------------------------------------------------
+
+PREFIX_LEN, USER_LEN, PREFIX_REQS = 496, 16, 8
+REORTH = ("reorth_right_batched", "reorth_left_batched")
+
+
+def paged_engine(cfg, params, prefix_cache: int = 0):
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine
+    ecfg = EngineConfig(kv_rank=64, kv_tail=16, kv_page=16,
+                        kv_prefix_cache=prefix_cache)
+    return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                  paged=True, decompose_engine=DecomposeEngine(ecfg))
+
+
+def check_pages_back(eng, what: str) -> None:
+    pg = eng.pager
+    if (pg.alloc.free_pages, pg.talloc.free_pages) != (
+            pg.num_pages - 1, pg.num_tail_pages - 1):
+        raise AssertionError(f"{what}: pages leaked ({pg.alloc.free_pages}"
+                             f"/{pg.num_pages - 1} U, {pg.talloc.free_pages}"
+                             f"/{pg.num_tail_pages - 1} tail free)")
+
+
+def paged_same_traffic(cfg, params, slot_tokens):
+    """(7a) Phase 4's traffic through ``paged=True`` (no prefix cache):
+    the same greedy tokens as the slot engine, every page back after the
+    drain, decode through the paged kernel only.  Slot and paged engines
+    run in turns (slot, paged, paged, slot) so their speeds compare
+    within the call."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    runs = {"slot": [], "paged": []}
+    for kind in ("slot", "paged", "paged", "slot"):
+        eng = paged_engine(cfg, params) if kind == "paged" else Engine(
+            cfg, params, slots=4, max_len=1024, device="cuda",
+            decompose_engine=DecomposeEngine(EngineConfig(kv_rank=64,
+                                                          kv_tail=16)))
+        ops.reset_launch_counts()
+        done = drive(eng, prompts, SERVE_ARRIVALS, 32)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        got = {r.uid: r.out_tokens for r in done}
+        if got != slot_tokens:
+            raise AssertionError(f"{kind} tokens {got} != phase 4 tokens "
+                                 f"{slot_tokens}")
+        if kind == "paged":
+            check_pages_back(eng, "paged 7a")
+            if launches["dkv_attention_stats"] or \
+                    launches["dkv_attention_stats_paged"] <= 0:
+                raise AssertionError(f"paged decode bypassed the paged "
+                                     f"kernel: {launches}")
+            pool = eng.pager.pool_bytes
+        runs[kind].append((eng.stats, launches))
+        del eng
+        torch.cuda.empty_cache()
+    fmt = lambda k, f: " / ".join(f(st) for st, _ in runs[k])  # noqa: E731
+    st = runs["paged"][0][0]
+    print(f"paged (a): phase 4 traffic, tokens equal to phase 4's "
+          f"({st.tokens_out} tokens, {st.tail_folds} folds), runs in turns "
+          f"slot, paged, paged, slot: decode_tok/s paged "
+          f"{fmt('paged', lambda x: f'{x.decode_tok_s:.2f}')} vs slot "
+          f"{fmt('slot', lambda x: f'{x.decode_tok_s:.2f}')}; prefill_s "
+          f"paged {fmt('paged', lambda x: f'{x.prefill_s:.4f}')} vs slot "
+          f"{fmt('slot', lambda x: f'{x.prefill_s:.4f}')}; pool "
+          f"{pool / 2 ** 20:.1f} MiB; every page back", flush=True)
+    print("paged (a): launches " + json.dumps(runs["paged"][0][1]),
+          flush=True)
+
+
+def paged_prefix_llama(cfg, params, profile: bool = False):
+    """(7b) Shared-prefix serving: request 0 misses and decomposes the
+    496-token system prompt; requests 1-7 admit as prefix hits with a
+    16-token suffix prefill and no re-orth launch.  Returns the launch
+    counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, cfg.vocab, PREFIX_LEN, dtype=np.int32)
+    prompts = [np.concatenate([system, rng.randint(
+        0, cfg.vocab, USER_LEN, dtype=np.int32)])
+        for _ in range(PREFIX_REQS)]
+    eng = paged_engine(cfg, params, prefix_cache=8)
+    hit_reorth, miss_reorth = [], []
+    for name, log in (("_admit_hits", hit_reorth),
+                      ("_admit_misses", miss_reorth)):
+        def counted(*a, _orig=getattr(eng.family, name), _log=log, **kw):
+            before = ops.launch_counts()
+            out = _orig(*a, **kw)
+            after = ops.launch_counts()
+            _log.append(sum(after[k] - before[k] for k in REORTH))
+            return out
+        setattr(eng.family, name, counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile else None
+    if prof is not None:
+        prof.__enter__()
+    ops.reset_launch_counts()
+    done = drive(eng, prompts, {0: [0], 2: list(range(1, PREFIX_REQS))},
+                 32)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        print("paged (b): profile of the shared-prefix run", flush=True)
+        print_profile(prof)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.stats
+    by = {r.uid: r for r in done}
+    if sorted(by) != list(range(PREFIX_REQS)) or any(
+            len(r.out_tokens) != 32 or not all(0 <= t < cfg.vocab
+                                               for t in r.out_tokens)
+            for r in done):
+        raise AssertionError(f"prefix run: unfinished or bad requests "
+                             f"{ {u: len(r.out_tokens) for u, r in by.items()} }")
+    if (st.prefix_misses, st.prefix_hits) != (1, PREFIX_REQS - 1):
+        raise AssertionError(f"prefix run: {st.prefix_misses} misses, "
+                             f"{st.prefix_hits} hits (want 1 and "
+                             f"{PREFIX_REQS - 1})")
+    if any(hit_reorth) or not hit_reorth or not all(miss_reorth):
+        raise AssertionError(f"re-orth launches per hit admission "
+                             f"{hit_reorth}, per miss {miss_reorth}")
+    if st.tail_folds <= 0 or launches["dkv_attention_stats"] or \
+            launches["dkv_attention_stats_paged"] <= 0:
+        raise AssertionError(f"prefix run: folds {st.tail_folds}, "
+                             f"launches {launches}")
+    pg = eng.pager
+    cached = len(pg.prefix)
+    pg.prefix.drop_all()
+    check_pages_back(eng, "paged 7b")
+    miss = by[0]
+    on_arrival = [by[u] for u in range(1, PREFIX_REQS)
+                  if by[u].t_dispatch - by[u].t_submit < 0.05]
+    ms = lambda x: x * 1e3   # noqa: E731
+    hit_ttft = [ms(r.t_first - r.t_submit) for r in on_arrival]
+    hit_admit = [ms(by[u].t_first - by[u].t_dispatch)
+                 for u in range(1, PREFIX_REQS)]
+    print(f"paged (b): shared prefix {PREFIX_LEN} + {USER_LEN} tokens x "
+          f"{PREFIX_REQS} requests: misses {st.prefix_misses}, hits "
+          f"{st.prefix_hits}, stalls {st.stalls}, folds {st.tail_folds}, "
+          f"{cached} prefix entries, re-orth launches per hit admission "
+          f"{hit_reorth} (per miss {miss_reorth}); every page back after "
+          f"drop_all", flush=True)
+    print(f"paged (b): miss TTFT {ms(miss.t_first - miss.t_submit):.2f} ms"
+          f"; hit TTFT (admitted on arrival, {len(hit_ttft)}) mean "
+          f"{statistics.mean(hit_ttft):.2f} ms {[round(x, 2) for x in hit_ttft]}"
+          f"; hit admission (dispatch to first token, {len(hit_admit)}) "
+          f"mean {statistics.mean(hit_admit):.2f} ms; prefill_s "
+          f"{st.prefill_s:.4f}, decode_s {st.decode_s:.4f}, decode_tok/s "
+          f"{st.decode_tok_s:.2f}, mean_itl_ms {ms(st.mean_itl_s):.2f}, "
+          f"peak_mem_gib {peak:.2f}", flush=True)
+    print("paged (b): launches " + json.dumps(launches), flush=True)
+    check_paged_routes(cfg, params, prompts)
+    return launches
+
+
+def check_paged_routes(cfg, params, prompts):
+    """One paged decode step, kernel route vs the plain oracle route
+    (gathered slab + ``_lowrank_attention``), on a full-width paged cache
+    (2 prompts of 286 tokens on shuffled pages, frozen 286 / 200, random
+    tails): every layer's attention in bf16, then the float32 logits."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.models import decomposed_kv as DK
+    from repro_torch.serving.paged import PagedDKV
+    toks = torch.from_numpy(np.stack([prompts[0][:286],
+                                      prompts[1][:286]])).long().cuda()
+    _, fresh = DK.prefill_dkv(params, cfg, toks, 64, tail=16,
+                              engine=DecomposeEngine(EngineConfig(
+                                  kv_rank=64, kv_tail=16)))
+    pg = PagedDKV(cfg, slots=2, max_len=1024, rank=64, tail=16, page=16,
+                  device="cuda")
+    n = pg.pages_for(286)
+    ids = pg.alloc.alloc(2 * n)
+    np.random.RandomState(3).shuffle(ids)
+    bt_u = pg.bt_tensor([ids[:n], ids[n:]])
+    bt_t = pg.bt_tensor([pg.talloc.alloc(pg.ntp) for _ in range(2)])
+    pg.write_fresh(fresh, bt_u, bt_t, [0, 1], [0, 1])
+    r = fresh["k_u"].shape[-1]
+    del fresh
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for pool in pg.cache["tail"].values():
+        pool[:, 1:].normal_(generator=gen)
+    frozen = torch.tensor([286, 200], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([300, 300], dtype=torch.int32, device="cuda")
+    geom = (286, r, 16)
+    tail_rows = DK._tail_rows(bt_t, pg.page, 16)
+    q = torch.randn(2, 1, cfg.num_heads, cfg.resolved_head_dim,
+                    generator=gen, device="cuda").bfloat16()
+    worst = 0.0
+    views = DK._paged_views(pg.cache, r)
+    for i in range(cfg.num_layers):
+        c = {k: v[i] for k, v in views.items()}
+        args = (q, c, pos, frozen, bt_u, tail_rows, 286, cfg)
+        o_k = DK._paged_attention(*args)
+        o_p = DK._paged_lowrank_attention(*args)
+        worst = max(worst, ((o_k - o_p).norm() / o_p.norm()).item())
+    if not worst <= 1e-4:
+        raise AssertionError(f"paged attention routes differ: rel err "
+                             f"{worst:.3e}")
+    p32, cfg32 = to_float32(params), cfg.replace(dtype="float32")
+    tok = torch.tensor([7, 11], device="cuda")
+    lg = {}
+    for route in ("kernel", "plain"):
+        lg[route], _ = DK.decode_step_dkv_paged(
+            p32, cfg32, tok, to_float32(pg.cache), pos, frozen, bt_u, bt_t,
+            *geom, attention=route)
+    del p32
+    lg_k, lg_p = lg["kernel"][:, :cfg.vocab], lg["plain"][:, :cfg.vocab]
+    rel = ((lg_k - lg_p).norm() / lg_p.norm()).item()
+    if not (torch.isfinite(lg_k).all() and rel <= 1e-3):
+        raise AssertionError(f"paged decode logits, kernel vs plain route: "
+                             f"relative L2 error {rel:.3e} > 1e-3")
+    print(f"paged (b): kernel vs plain paged decode route: attention rel "
+          f"err {worst:.3e} over {cfg.num_layers} bf16 layers (tol 1e-4); "
+          f"float32 logits rel L2 err {rel:.3e} (tol 1e-3), argmax equal "
+          f"{bool((lg_k.argmax(-1) == lg_p.argmax(-1)).all())}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile the serving run and one decomposed "
-                         "forward and print each one's device busy share "
-                         "and kernel time table")
+                    help="profile the serving run, one decomposed "
+                         "forward and the shared-prefix paged run, and "
+                         "print each one's device busy share and kernel "
+                         "time table")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -823,17 +1156,23 @@ def main() -> int:
     cfg = get_arch("llama2-7b")
     rows = phase_kernels(cfg)
     params = init_llama(cfg)
-    serve_launches, _ = serve_llama(cfg, params, args.profile)
+    serve_launches, slot_tokens = serve_llama(cfg, params, args.profile)
     torch.cuda.empty_cache()
     conformance(cfg)
     act = activation_llama(cfg, params, args.profile)
+    torch.cuda.empty_cache()
+    paged_same_traffic(cfg, params, slot_tokens)
+    paged = paged_prefix_llama(cfg, params, args.profile)
     # each kernel's launches from the run of the path that uses it: the
     # serving run for the batched re-orth pair and dkv, the activation
-    # forward for the rest (its re-orth launches are all at B = 1)
+    # forward for the rest (its re-orth launches are all at B = 1), the
+    # shared-prefix run for the paged dkv kernel
     launches = dict(serve_launches, lowrank_matmul=act["lowrank_matmul"],
                     outlier_stats=act["outlier_stats"],
                     reorth_right=act["reorth_right_batched"],
-                    reorth_left=act["reorth_left_batched"])
+                    reorth_left=act["reorth_left_batched"],
+                    dkv_attention_stats_paged=paged[
+                        "dkv_attention_stats_paged"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

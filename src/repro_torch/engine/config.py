@@ -1,8 +1,7 @@
 """EngineConfig — the knobs of the decomposition pipeline the port runs.
 
-Counterpart of ``repro.engine.config.EngineConfig`` (the paging,
-fused-decode, async and mesh fields arrive with the modules that read
-them):
+Counterpart of ``repro.engine.config.EngineConfig`` (the fused-decode,
+async and mesh fields arrive with the modules that read them):
 
 * ``policy``      — per-layer decomposition directives
                     (``core.policy.DecompositionPolicy``, paper §6.2);
@@ -24,6 +23,11 @@ them):
                     decomposed-KV knobs (rank 0 disables; ``kv_exact``
                     factorizes by direct SVD).  ``serving.Engine`` reads
                     them from here and nowhere else.
+* ``kv_page`` / ``kv_pool_pages`` / ``kv_prefix_cache`` — paged-cache
+                    geometry (``serving.Engine(paged=True)``): rows per
+                    page, total pool pages (0 = sized from slots ×
+                    max_len with fold headroom), and the prefix-cache
+                    entry capacity (0 = no prefix reuse).
 * ``sched_*``     — scheduler knobs: prefill lengths round up to
                     ``sched_bucket``, admission runs every
                     ``sched_admit_every`` decode rounds.
@@ -50,6 +54,9 @@ class EngineConfig:
     kv_tail: int = 128
     kv_iters_extra: int = 8
     kv_exact: bool = False
+    kv_page: int = 16                   # rows per page (paged serving)
+    kv_pool_pages: int = 0              # page-pool size (0 = auto-sized)
+    kv_prefix_cache: int = 0            # prefix-cache entries (0 = off)
     sched_bucket: int = 16
     sched_admit_every: int = 1
 

@@ -14,7 +14,12 @@ them with exact attention over the dense tail.  Unlike the Pallas kernel
 (one (batch, kv-head) slice, a static ``t_valid``), ``t_valid`` is a
 per-slot int32 tensor: serving's ``frozen_len`` is per slot.
 
-The wrapper dispatches on the device of ``inner``: CPU takes the plain
+:func:`dkv_attention_stats_paged` computes the same statistics with the
+U rows read THROUGH a block table out of page pools (paged serving); on
+the card it is the same kernel with another row loader, bit-identical to
+:func:`dkv_attention_stats` on the gathered rows at equal rank.
+
+Each wrapper dispatches on the device of ``inner``: CPU takes the plain
 version; CUDA launches ``csrc/dkv_attention.cu`` or raises.
 """
 from __future__ import annotations
@@ -32,17 +37,25 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def dkv_attention_stats_plain(inner, k_u, v_u, t_valid) -> Stats:
-    """Plain version: full-score masked softmax statistics.
-    inner [B,G,r]; k_u, v_u [B,T,r]; t_valid int [B]."""
-    t = k_u.shape[1]
-    s = torch.einsum("bgr,btr->bgt", inner.float(), k_u.float())
-    valid = (torch.arange(t, device=inner.device)[None, :]
-             < t_valid.to(inner.device).long()[:, None])[:, None, :]
-    s = torch.where(valid, s, torch.full_like(s, NEG))
-    m = s.amax(-1)
-    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
-    a = torch.einsum("bgt,btr->bgr", p, v_u.float())
-    return a, m, p.sum(-1)
+    """Plain version: the masked softmax statistics of each slot over
+    exactly its ``t_valid`` rows, one slot at a time — so the result
+    does not depend on how many rows follow ``t_valid`` or how they are
+    laid out (the paged plain version, on gathered rows, is this one bit
+    for bit).  inner [B,G,r]; k_u, v_u [B,T,r]; t_valid int [B]."""
+    b, g, r = inner.shape
+    f32 = dict(device=inner.device, dtype=torch.float32)
+    a = torch.zeros(b, g, r, **f32)
+    m = torch.full((b, g), NEG, **f32)
+    l_ = torch.zeros(b, g, **f32)
+    for i, n in enumerate(t_valid.clamp(0, k_u.shape[1]).tolist()):
+        if n == 0:
+            continue            # every row masked: a = 0, m = NEG, l = 0
+        s = inner[i].float() @ k_u[i, :n].float().T          # [G, n]
+        m[i] = s.amax(-1)
+        p = torch.exp(s - m[i][:, None])
+        a[i] = p @ v_u[i, :n].float()
+        l_[i] = p.sum(-1)
+    return a, m, l_
 
 
 _BOUND = False
@@ -55,6 +68,10 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.dcom_dkv_stats_f32, lib.dcom_dkv_stats_bf16):
             fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+            fn.restype = i
+        for fn in (lib.dcom_dkv_stats_paged_f32,
+                   lib.dcom_dkv_stats_paged_bf16):
+            fn.argtypes = [vp] * 8 + [i] * 6 + [vp]
             fn.restype = i
         lib.dcom_dkv_smem_bytes.argtypes = [i, i]
         lib.dcom_dkv_smem_bytes.restype = ctypes.c_size_t
@@ -91,14 +108,7 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
             raise ValueError("dkv_attention_stats: inputs must be "
                              f"contiguous and on {inner.device}")
     lib = _lib()
-    smem = lib.dcom_dkv_smem_bytes(g, r)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"dkv_attention_stats: G={g}, r={r} needs {smem} B "
-                         f"of shared memory per block (limit {SMEM_LIMIT})")
-    f32 = dict(device=inner.device, dtype=torch.float32)
-    a = torch.empty(b, g, r, **f32)
-    m = torch.empty(b, g, **f32)
-    l_ = torch.empty(b, g, **f32)
+    a, m, l_ = _outputs(lib, "dkv_attention_stats", inner)
     fn = lib.dcom_dkv_stats_f32 if k_u.dtype == torch.float32 \
         else lib.dcom_dkv_stats_bf16
     err = fn(inner.data_ptr(), k_u.data_ptr(), v_u.data_ptr(),
@@ -112,6 +122,94 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
 
 
 dkv_attention_stats.launches = 0
+
+
+def _outputs(lib, name: str, inner) -> Stats:
+    """Check the block's shared memory and allocate (a, m, l)."""
+    b, g, r = inner.shape
+    smem = lib.dcom_dkv_smem_bytes(g, r)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: G={g}, r={r} needs {smem} B of shared "
+                         f"memory per block (limit {SMEM_LIMIT})")
+    f32 = dict(device=inner.device, dtype=torch.float32)
+    return (torch.empty(b, g, r, **f32), torch.empty(b, g, **f32),
+            torch.empty(b, g, **f32))
+
+
+def gather_rows(pool, block_table, r: int) -> torch.Tensor:
+    """pool [P, page, r_pool], block_table [B, n] → the slab view
+    [B, n·page, r] (each slot's pages in table order, first r columns)."""
+    b, n = block_table.shape
+    g = pool[block_table.long()]                    # [B, n, page, r_pool]
+    return g.reshape(b, n * pool.shape[1], pool.shape[2])[..., :r]
+
+
+def dkv_attention_stats_paged_plain(inner, k_u_pages, v_u_pages,
+                                    block_table, t_valid, r: int) -> Stats:
+    """Plain version: gather the rows, then the slab plain version."""
+    return dkv_attention_stats_plain(
+        inner, gather_rows(k_u_pages, block_table, r),
+        gather_rows(v_u_pages, block_table, r), t_valid)
+
+
+def dkv_attention_stats_paged(inner, k_u_pages, v_u_pages, block_table,
+                              t_valid, r: int) -> Stats:
+    """Rank-space flash statistics with U read through a block table.
+
+    inner [B, G, r] float32; k_u_pages, v_u_pages [P, page, r_pool]
+    float32 or bfloat16 (one layer's pools); block_table int32 [B, n]
+    (page id 0 is the all-zero sink); t_valid int32 [B]; ``r`` ≤ r_pool
+    columns are read → (a [B, G, r], m [B, G], l [B, G]) float32, the
+    statistics of :func:`dkv_attention_stats` over the gathered rows
+    ``pool[block_table[b, t // page], t % page, :r]``, t < n·page."""
+    if inner.device.type == "cpu":
+        return dkv_attention_stats_paged_plain(inner, k_u_pages, v_u_pages,
+                                               block_table, t_valid, r)
+    if inner.device.type != "cuda":
+        raise ValueError(f"dkv_attention_stats_paged: unsupported device "
+                         f"{inner.device}")
+    b, g, r_in = inner.shape
+    if inner.dtype != torch.float32:
+        raise ValueError(f"inner must be float32, got {inner.dtype}")
+    if k_u_pages.dtype != v_u_pages.dtype or k_u_pages.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"U pools must share float32 or bfloat16, got "
+                         f"{k_u_pages.dtype}/{v_u_pages.dtype}")
+    if k_u_pages.dim() != 3 or v_u_pages.shape != k_u_pages.shape:
+        raise ValueError(f"U pools must be [P, page, r_pool], got "
+                         f"{tuple(k_u_pages.shape)}/"
+                         f"{tuple(v_u_pages.shape)}")
+    _, page, r_pool = k_u_pages.shape
+    if not 1 <= r == r_in <= r_pool:
+        raise ValueError(f"dkv_attention_stats_paged: r={r} must equal "
+                         f"inner's {r_in} and be in 1..r_pool={r_pool}")
+    if block_table.dim() != 2 or block_table.shape[0] != b \
+            or block_table.dtype != torch.int32 \
+            or tuple(t_valid.shape) != (b,) or t_valid.dtype != torch.int32:
+        raise ValueError(f"dkv_attention_stats_paged: block_table "
+                         f"{tuple(block_table.shape)} {block_table.dtype}, "
+                         f"t_valid {tuple(t_valid.shape)} {t_valid.dtype} "
+                         f"(int32 [B, n] and [B] with B={b})")
+    for t_ in (inner, k_u_pages, v_u_pages, block_table, t_valid):
+        if not t_.is_contiguous() or t_.device != inner.device:
+            raise ValueError("dkv_attention_stats_paged: inputs must be "
+                             f"contiguous and on {inner.device}")
+    lib = _lib()
+    a, m, l_ = _outputs(lib, "dkv_attention_stats_paged", inner)
+    fn = lib.dcom_dkv_stats_paged_f32 if k_u_pages.dtype == torch.float32 \
+        else lib.dcom_dkv_stats_paged_bf16
+    err = fn(inner.data_ptr(), k_u_pages.data_ptr(), v_u_pages.data_ptr(),
+             block_table.data_ptr(), t_valid.data_ptr(), a.data_ptr(),
+             m.data_ptr(), l_.data_ptr(), b, g, block_table.shape[1], page,
+             r_pool, r, torch.cuda.current_stream(inner.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dkv_attention_stats_paged kernel launch "
+                           f"failed (cudaError {err})")
+    dkv_attention_stats_paged.launches += 1
+    return a, m, l_
+
+
+dkv_attention_stats_paged.launches = 0
 
 
 def merge_with_tail(a, m, l, v_vt, tail_scores, tail_v) -> torch.Tensor:

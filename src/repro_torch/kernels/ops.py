@@ -32,6 +32,7 @@ KERNELS = {
     "reorth_right_batched": _lr.reorth_right_batched,
     "reorth_left_batched": _lr.reorth_left_batched,
     "dkv_attention_stats": _dkv.dkv_attention_stats,
+    "dkv_attention_stats_paged": _dkv.dkv_attention_stats_paged,
     "lowrank_matmul": _lrmm.lowrank_matmul,
     "outlier_stats": _ol.outlier_stats,
 }

@@ -11,6 +11,16 @@ PyTorch versions of the kernels), e.g. for a smoke run without a GPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
       --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4
+
+``--paged`` serves the decomposed cache from page pools (``--kv-page``
+rows per page), ``--kv-prefix-cache N`` keeps up to N decomposed prompts
+for prefix reuse, and ``--shared-prefix L`` gives every request the same
+first L prompt tokens, so later requests admit as prefix hits:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
+      --requests 8 --prompt-len 512 --shared-prefix 496 --max-new 32 \\
+      --max-len 1024 --decompose-kv-rank 64 --dkv-tail 16 --paged \\
+      --kv-prefix-cache 8
 """
 from __future__ import annotations
 
@@ -44,6 +54,17 @@ def main(argv=None) -> None:
                     help="dense recent-token tail length")
     ap.add_argument("--dkv-exact", action="store_true",
                     help="direct-SVD KV factorization (near-full rank)")
+    ap.add_argument("--paged", action="store_true",
+                    help="page-pool decomposed KV cache (needs "
+                         "--decompose-kv-rank > 0)")
+    ap.add_argument("--kv-page", type=int, default=dflt.kv_page,
+                    help="rows per page of the paged cache")
+    ap.add_argument("--kv-prefix-cache", type=int,
+                    default=dflt.kv_prefix_cache,
+                    help="prefix-cache entries of the paged cache (0=off)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="the first N prompt tokens are the same in "
+                         "every request (a common system prompt)")
     ap.add_argument("--expansion", type=int, default=dflt.expansion,
                     help="compute-expansion factor f = warps per CTA of "
                          "the re-orth kernels (1..32)")
@@ -59,14 +80,17 @@ def main(argv=None) -> None:
     params = T.init(cfg, gen, device=device)
     dengine = DecomposeEngine(EngineConfig(
         expansion=args.expansion, kv_rank=args.decompose_kv_rank,
-        kv_tail=args.dkv_tail, kv_exact=args.dkv_exact))
+        kv_tail=args.dkv_tail, kv_exact=args.dkv_exact,
+        kv_page=args.kv_page, kv_prefix_cache=args.kv_prefix_cache))
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
-                 decompose_engine=dengine, device=device)
+                 decompose_engine=dengine, device=device, paged=args.paged)
     rng = np.random.RandomState(0)
+    shared = rng.randint(0, cfg.vocab, args.shared_prefix, dtype=np.int32)
     for i in range(args.requests):
-        eng.submit(Request(uid=i, prompt=rng.randint(
-            0, cfg.vocab, args.prompt_len, dtype=np.int32),
-            max_new_tokens=args.max_new))
+        own = rng.randint(0, cfg.vocab, args.prompt_len - len(shared),
+                          dtype=np.int32)
+        eng.submit(Request(uid=i, prompt=np.concatenate([shared, own]),
+                           max_new_tokens=args.max_new))
     ops.reset_launch_counts()
     done = eng.run()
     for r in sorted(done, key=lambda r: r.uid):
@@ -80,6 +104,10 @@ def main(argv=None) -> None:
           f"tokens={s.tokens_out} prefill_s={s.prefill_s:.3f} "
           f"decode_s={s.decode_s:.3f} decode_tok/s={s.decode_tok_s:.1f} "
           f"ttft={s.mean_ttft_s * 1e3:.1f}ms itl={s.mean_itl_s * 1e3:.1f}ms")
+    if eng.pager is not None:
+        print(f"paged: page={eng.pager.page} pool_pages="
+              f"{eng.pager.num_pages} prefix_hits={s.prefix_hits} "
+              f"prefix_misses={s.prefix_misses} stalls={s.stalls}")
     print("kernel launches: " + " ".join(
         f"{k}={v}" for k, v in ops.launch_counts().items()))
 

@@ -20,6 +20,11 @@ Decode has two attention routes with one meaning:
 
 Tail writes, splices and decode updates work IN PLACE on the cache
 tensors (the JAX version rebuilds them functionally).
+
+The paged half (below :func:`splice_dkv`) keeps the prefix U rows and
+the dense tail in page pools indexed by per-slot block tables; its decode
+reads U through the block table inside the kernel
+(``dkv_attention_stats_paged``) instead of gathering a slab every step.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ import torch.nn.functional as F
 
 from ..core.lowrank import LowRank, retruncate
 from ..engine import DecomposeEngine
-from ..kernels.dkv_attention import NEG, dkv_attention_stats, merge_with_tail
+from ..kernels.dkv_attention import (NEG, dkv_attention_stats,
+                                     dkv_attention_stats_paged,
+                                     merge_with_tail)
 from ..platform import torch_dtype
 from . import layers as L
 from . import transformer as T
@@ -122,22 +129,20 @@ def _lowrank_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
     return out.reshape(b, 1, nh * hd)
 
 
-def _factored_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
-                        cfg) -> torch.Tensor:
-    """Same contract as :func:`_lowrank_attention`, computed as rank-space
-    flash statistics of the prefix (the dkv kernel) merged with the exact
-    tail (``merge_with_tail``)."""
+def _merge_attention(q, k_vt, v_vt, tail_kv: Params, pos, frozen_len,
+                     cfg, prefix_stats) -> torch.Tensor:
+    """Rank-space flash statistics of the prefix (``prefix_stats(inner)``
+    → (a, m, l), a dkv kernel) merged with the exact tail
+    (``merge_with_tail``); k_vt, v_vt [B, r, kvw] are the slot factors."""
     nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = nh // kvh
     b = q.shape[0]
-    r = c["k_vt"].shape[1]
+    r = k_vt.shape[1]
     scale = hd ** -0.5
     qg = q[:, 0].reshape(b, kvh, g, hd).float()
-    k_vt = c["k_vt"].float().reshape(b, r, kvh, hd)
+    k_vt = k_vt.float().reshape(b, r, kvh, hd)
     inner = torch.einsum("bkgd,brkd->bkgr", qg, k_vt) * scale
-    a, m, l_ = dkv_attention_stats(inner.reshape(b, nh, r).contiguous(),
-                                   c["k_u"].contiguous(),
-                                   c["v_u"].contiguous(), frozen_len)
+    a, m, l_ = prefix_stats(inner.reshape(b, nh, r).contiguous())
 
     tk = tail_kv["k"].float()
     sc_tail = torch.einsum("bkgd,btkd->bkgt", qg, tk) * scale
@@ -146,11 +151,22 @@ def _factored_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
     valid = tail_pos <= pos[:, None]
     sc_tail = torch.where(valid[:, None, None, :], sc_tail,
                           torch.full_like(sc_tail, NEG))
-    v_vt = c["v_vt"].float().reshape(b, r, kvh, hd).permute(0, 2, 1, 3)
+    v_vt = v_vt.float().reshape(b, r, kvh, hd).permute(0, 2, 1, 3)
     tail_v = tail_kv["v"].float().permute(0, 2, 1, 3)        # [B,kvh,tl,d]
     out = merge_with_tail(a.reshape(b, kvh, g, r), m.reshape(b, kvh, g, 1),
                           l_.reshape(b, kvh, g, 1), v_vt, sc_tail, tail_v)
     return out.reshape(b, 1, nh * hd)
+
+
+def _factored_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
+                        cfg) -> torch.Tensor:
+    """Same contract as :func:`_lowrank_attention`, computed as rank-space
+    flash statistics of the prefix (the dkv kernel) merged with the exact
+    tail (``merge_with_tail``)."""
+    k_u, v_u = c["k_u"].contiguous(), c["v_u"].contiguous()
+    return _merge_attention(
+        q, c["k_vt"], c["v_vt"], tail_kv, pos, frozen_len, cfg,
+        lambda inner: dkv_attention_stats(inner, k_u, v_u, frozen_len))
 
 
 _ATTENTION = {"kernel": _factored_attention, "plain": _lowrank_attention}
@@ -288,3 +304,286 @@ def splice_dkv(live: Params, fresh: Params, slot_indices) -> Params:
         old[:, idx] = fresh["tail"][key][:, src].to(old.dtype)
         out["tail"][key] = old
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paged layout (block tables over the decomposed cache)
+# ---------------------------------------------------------------------------
+#
+# The low-rank prefix U rows and the dense tail live in fixed-size PAGE
+# POOLS indexed by per-slot page lists (block tables, host-side):
+#
+#   k_u_pages / v_u_pages  [nl, P,  page, r]          prefix U row pool
+#   k_vt / v_vt            [nl, B,  r,    kvw]        per-slot factors
+#   tail.k_pages / v_pages [nl, TP, page, kvh, hd]    dense tail row pool
+#
+# Page id 0 is the WRITE SINK: block-table padding and the fold-scatter
+# targets of non-folding slots point at it.  The U sink stays ALL-ZERO
+# (fold scatters write zeros for non-folding rows), because a block
+# table's padding reads it as zero rows.  A page holds the same row range
+# for every layer (one block table per slot).  ``gather_pages`` sliced to
+# the slot engine's slab geometry (``t_need``/``r_need``, mirrored on the
+# host by ``serving.paged.PagedDKV``) reproduces the slab arrays bit for
+# bit, so paged decode and folds do the slot engine's arithmetic; folds
+# write into FRESH pages (copy-on-write), so prefix pages shared between
+# slots and the prefix cache are never rewritten.
+
+
+def init_paged_cache(cfg, batch: int, num_pages: int, page: int, rank: int,
+                     num_tail_pages: int, device=None) -> Params:
+    """Zeroed page pools + per-slot factor rows of the paged cache."""
+    nl, dt = cfg.num_layers, torch_dtype(cfg.dtype)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
+    return {"k_u_pages": z(nl, num_pages, page, rank),
+            "v_u_pages": z(nl, num_pages, page, rank),
+            "k_vt": z(nl, batch, rank, cfg.kv_width),
+            "v_vt": z(nl, batch, rank, cfg.kv_width),
+            "tail": {"k_pages": z(nl, num_tail_pages, page, kvh, hd),
+                     "v_pages": z(nl, num_tail_pages, page, kvh, hd)}}
+
+
+def gather_pages(pool: torch.Tensor, bt: torch.Tensor,
+                 rows: Optional[int] = None) -> torch.Tensor:
+    """pool [nl, P, page, …], bt int [B, n] → rows [nl, B, t, …]: each
+    slot's pages concatenated along time; ``rows`` zero-pads or slices
+    the time axis to a target slab length."""
+    g = pool[:, bt.long()]                          # [nl, B, n, page, ...]
+    nl, b, n, pg = g.shape[:4]
+    g = g.reshape(nl, b, n * pg, *g.shape[4:])
+    return g if rows is None else _pad_axis(g[:, :, :rows], 2, rows)
+
+
+def scatter_pages(pool: torch.Tensor, rows: torch.Tensor,
+                  bt: torch.Tensor) -> torch.Tensor:
+    """Write rows [nl, B, t, …] into pool pages ``bt`` [B, n] IN PLACE
+    (``t`` zero-padded or sliced to n·page) and return the pool.
+    Duplicate ids (the sink) are allowed: every U-sink write is zeros."""
+    nl, b = rows.shape[:2]
+    n, page = bt.shape[1], pool.shape[2]
+    rows = _pad_axis(rows[:, :, :n * page], 2, n * page)
+    pool[:, bt.long()] = rows.reshape(nl, b, n, page,
+                                      *rows.shape[3:]).to(pool.dtype)
+    return pool
+
+
+def write_prefix_pages(pool: torch.Tensor, u: torch.Tensor,
+                       bt: torch.Tensor, src) -> torch.Tensor:
+    """Scatter freshly prefilled U factors (batch rows ``src`` of
+    u [nl, nb, s, r_eff]) into pool pages ``bt`` [m, n] in place; the
+    rank axis is zero-padded to the pool width (zero columns are inert)."""
+    u = u[:, torch.as_tensor(src, device=u.device).long()]
+    return scatter_pages(pool, _pad_axis(u, 3, pool.shape[-1]), bt)
+
+
+def _gathered_cache(cache: Params, bt_u, bt_t, t_need: int, r_need: int,
+                    tail_len: int) -> Params:
+    """The slot engine's slab view of a paged cache, sliced to the
+    mirrored slab geometry (so the arithmetic on it is the slab's)."""
+    tail = cache["tail"]
+    return {
+        "k_u": gather_pages(cache["k_u_pages"], bt_u,
+                            t_need)[..., :r_need].contiguous(),
+        "v_u": gather_pages(cache["v_u_pages"], bt_u,
+                            t_need)[..., :r_need].contiguous(),
+        "k_vt": cache["k_vt"][:, :, :r_need].contiguous(),
+        "v_vt": cache["v_vt"][:, :, :r_need].contiguous(),
+        "tail": {"k": gather_pages(tail["k_pages"], bt_t, tail_len),
+                 "v": gather_pages(tail["v_pages"], bt_t, tail_len)},
+    }
+
+
+def _tail_rows(bt_t: torch.Tensor, page: int, tail_len: int) -> torch.Tensor:
+    """Each slot's first ``tail_len`` tail rows as flat row ids [B,
+    tail_len] into a layer's tail pool viewed as [TP·page, kvh, hd]."""
+    rows = bt_t.long()[:, :, None] * page + torch.arange(
+        page, device=bt_t.device)
+    return rows.reshape(bt_t.shape[0], -1)[:, :tail_len]
+
+
+def _paged_views(cache: Params, r_need: int) -> Params:
+    """Per-step views of a paged cache, indexed by layer: U pools
+    [nl, P, page, r], slot factors sliced to ``r_need`` columns
+    [nl, B, r_need, kvw] (contiguous, as the slab's), tail pools
+    flattened to [nl, TP·page, kvh, hd] (views: tail writes land in the
+    pools)."""
+    t = cache["tail"]
+    return {"k_u_pages": cache["k_u_pages"],
+            "v_u_pages": cache["v_u_pages"],
+            "k_vt": cache["k_vt"][:, :, :r_need].contiguous(),
+            "v_vt": cache["v_vt"][:, :, :r_need].contiguous(),
+            "tail_k": t["k_pages"].flatten(1, 2),
+            "tail_v": t["v_pages"].flatten(1, 2)}
+
+
+def _paged_attention(q, c: Params, pos, frozen_len, bt_u, tail_rows,
+                     t_need: int, cfg) -> torch.Tensor:
+    """Attention of one layer (``c``: :func:`_paged_views` at one layer)
+    on the kernel route: U read through ``bt_u`` inside the paged dkv
+    kernel (rows below ``frozen_len``, so ``t_need`` is not needed),
+    merged with the exact tail rows ``tail_rows`` (:func:`_tail_rows`)."""
+    ku, vu, r = c["k_u_pages"], c["v_u_pages"], c["k_vt"].shape[1]
+    return _merge_attention(
+        q, c["k_vt"], c["v_vt"],
+        {"k": c["tail_k"][tail_rows], "v": c["tail_v"][tail_rows]}, pos,
+        frozen_len, cfg,
+        lambda inner: dkv_attention_stats_paged(inner, ku, vu, bt_u,
+                                                frozen_len, r))
+
+
+def _paged_lowrank_attention(q, c: Params, pos, frozen_len, bt_u,
+                             tail_rows, t_need: int, cfg) -> torch.Tensor:
+    """The oracle route: the gathered slab view (``t_need`` rows, the
+    factors' columns) + ``_lowrank_attention``."""
+    r = c["k_vt"].shape[1]
+    u = {k: gather_pages(c[k + "_pages"][None], bt_u,
+                         t_need)[0][..., :r] for k in ("k_u", "v_u")}
+    return _lowrank_attention(
+        q, dict(u, k_vt=c["k_vt"], v_vt=c["v_vt"]),
+        {"k": c["tail_k"][tail_rows], "v": c["tail_v"][tail_rows]}, pos,
+        frozen_len, cfg)
+
+
+_PAGED_ATTENTION = {"kernel": _paged_attention,
+                    "plain": _paged_lowrank_attention}
+
+
+def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
+                          cache: Params, pos: torch.Tensor,
+                          frozen_len: torch.Tensor, bt_u: torch.Tensor,
+                          bt_t: torch.Tensor, t_need: int, r_need: int,
+                          tail_len: int, *, attention: str = "kernel"
+                          ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode through the block tables (int32 [B, n] and
+    [B, ntp]).  Each slot's new K/V row is written IN PLACE into its tail
+    page (row ``clamp(pos − frozen_len, 0, tail_len − 1)``, as the slab
+    step clamps).  ``"kernel"`` reads the prefix U rows through ``bt_u``
+    inside ``dkv_attention_stats_paged`` (``r_need`` columns, rows below
+    ``frozen_len``); ``"plain"`` gathers the slab view and runs
+    ``_lowrank_attention``, the oracle.  ``t_need``/``r_need``/
+    ``tail_len`` are the slot engine's slab dims.  Returns (logits
+    [B, V], cache)."""
+    attend = _PAGED_ATTENTION[attention]
+    kvh, nh = cfg.num_kv_heads, cfg.num_heads
+    page = cache["tail"]["k_pages"].shape[2]
+    views = _paged_views(cache, r_need)
+    tail_rows = _tail_rows(bt_t, page, tail_len)
+    slot = torch.clamp(pos - frozen_len, 0, tail_len - 1).long()
+    wrow = tail_rows[torch.arange(token.shape[0], device=token.device),
+                     slot]
+    x = T.embed(p, cfg, token)[:, None, :]
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        h = T.norm(lp["attn_norm"], x, cfg)
+        q = L.split_heads(L.dense(lp["attn"]["wq"], h), nh)
+        k_new = L.split_heads(L.dense(lp["attn"]["wk"], h), kvh)
+        v_new = L.split_heads(L.dense(lp["attn"]["wv"], h), kvh)
+        q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = L.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        c = {k: v[i] for k, v in views.items()}
+        c["tail_k"][wrow] = k_new[:, 0].to(c["tail_k"].dtype)
+        c["tail_v"][wrow] = v_new[:, 0].to(c["tail_v"].dtype)
+        a = attend(q, c, pos, frozen_len, bt_u, tail_rows, t_need, cfg)
+        x = x + L.dense(lp["attn"]["wo"], a.to(x.dtype))
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    return T.logits_head(p, x, cfg)[:, 0], cache
+
+
+def compress_tail_paged(cache: Params, cfg, rank: int, frozen_len, fold,
+                        new_frozen, bt_u, bt_u_new, bt_t, t_need: int,
+                        r_need: int, tail_len: int) -> Params:
+    """Paged tail fold: gather the slab view, run :func:`compress_tail`
+    (the slab's arithmetic), then scatter the retruncated prefix rows into
+    FRESH pages ``bt_u_new`` — old pages are never written, so pages
+    shared with other slots or the prefix cache stay intact
+    (copy-on-write).  Non-folding slots' ``bt_u_new`` rows point at the
+    sink and scatter ZEROS, so the sink stays all-zero.  Updates the
+    pools and factor rows in place and returns the cache; the caller
+    swaps block tables and releases the folded slots' old pages."""
+    slab = _gathered_cache(cache, bt_u, bt_t, t_need, r_need, tail_len)
+    folded = compress_tail(slab, cfg, rank, frozen_len=frozen_len,
+                           fold=fold, new_frozen=new_frozen)
+    r_pool = cache["k_u_pages"].shape[-1]
+    fm = torch.as_tensor(fold, device=cache["k_vt"].device).bool()
+    fm = fm.reshape(-1)[None, :, None, None]
+    for key in ("k_u", "v_u"):
+        u = _pad_axis(folded[key], 3, r_pool)
+        scatter_pages(cache[key + "_pages"],
+                      torch.where(fm, u, torch.zeros_like(u)), bt_u_new)
+    for key in ("k_vt", "v_vt"):
+        vt = _pad_axis(folded[key], 2, r_pool).to(cache[key].dtype)
+        cache[key] = torch.where(fm, vt, cache[key])
+    for key in ("k", "v"):
+        scatter_pages(cache["tail"][key + "_pages"], folded["tail"][key],
+                      bt_t)
+    return cache
+
+
+def prefill_suffix_dkv(p: Params, cfg, tokens: torch.Tensor,
+                       prefix: Params, start, slen, tail_len: int
+                       ) -> Tuple[torch.Tensor, Params]:
+    """Tail-only prefill for a prefix-cache hit: no prefix forward and no
+    Lanczos.  ``tokens`` [B, S] is each slot's suffix beyond its matched
+    frozen prefix, RIGHT-padded (rows at or past ``slen[b]`` are pad);
+    ``prefix`` holds the gathered cached factors {k_u/v_u [nl, B, L, r],
+    k_vt/v_vt [nl, B, r, kvw]}; ``start`` [B] (the matched prefix length,
+    the slot's frozen_len) sets RoPE positions ``start + i``.  Returns
+    (logits at each slot's last real row [B, V], dense tails {k, v}
+    [nl, B, tail_len, kvh, hd] with rows ≥ slen zeroed).  Its products
+    are plain einsums, as in the reference."""
+    b, s = tokens.shape
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = nh // kvh
+    scale = hd ** -0.5
+    dev, dt = tokens.device, torch_dtype(cfg.dtype)
+    start = torch.as_tensor(start, device=dev).long().reshape(b)
+    slen = torch.as_tensor(slen, device=dev).long().reshape(b)
+    x = T.embed(p, cfg, tokens)
+    positions = start[:, None] + torch.arange(s, device=dev)[None, :]
+    row = torch.arange(s, device=dev)
+    live_row = row[None, :] < slen[:, None]              # [B, S] real rows
+    causal = row[:, None] >= row[None, :]                # [S, S]
+    t_pre = prefix["k_u"].shape[2]
+    pre_valid = torch.arange(t_pre, device=dev)[None, :] < start[:, None]
+    tails = {"k": [], "v": []}
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        h = T.norm(lp["attn_norm"], x, cfg)
+        q = L.split_heads(L.dense(lp["attn"]["wq"], h), nh)
+        k = L.split_heads(L.dense(lp["attn"]["wk"], h), kvh)
+        v = L.split_heads(L.dense(lp["attn"]["wv"], h), kvh)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        qg = q.reshape(b, s, kvh, g, hd).float()
+        # prefix scores through the cached factors
+        kvt4 = prefix["k_vt"][i].float().reshape(b, -1, kvh, hd)
+        inner = torch.einsum("bskgd,brkd->bskgr", qg, kvt4)
+        sc_pre = torch.einsum("bskgr,btr->bskgt", inner,
+                              prefix["k_u"][i].float()) * scale
+        sc_pre = torch.where(pre_valid[:, None, None, None, :], sc_pre,
+                             torch.full_like(sc_pre, NEG))
+        # within-suffix causal scores (exact)
+        sc_suf = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
+        sc_suf = torch.where(causal[None, :, None, None, :], sc_suf,
+                             torch.full_like(sc_suf, NEG))
+        pr = torch.softmax(torch.cat([sc_pre, sc_suf], dim=-1), dim=-1)
+        p_pre, p_suf = pr[..., :t_pre], pr[..., t_pre:]
+        tmp = torch.einsum("bskgt,btr->bskgr", p_pre,
+                           prefix["v_u"][i].float())
+        vvt4 = prefix["v_vt"][i].float().reshape(b, -1, kvh, hd)
+        out = torch.einsum("bskgr,brkd->bskgd", tmp, vvt4)
+        out = out + torch.einsum("bskgt,btkd->bskgd", p_suf, v.float())
+        x = x + L.dense(lp["attn"]["wo"],
+                        out.reshape(b, s, nh * hd).to(x.dtype))
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+        # suffix K/V become the slot's dense tail; pad rows zeroed so
+        # later folds see what a full prefill would have left
+        zmask = live_row[:, :, None, None]
+        for key, val in (("k", k), ("v", v)):
+            t_ = torch.where(zmask, val, torch.zeros_like(val)).to(dt)
+            tails[key].append(_pad_axis(t_, 1, tail_len))
+    x_last = x[torch.arange(b, device=dev), torch.clamp(slen - 1, min=0)]
+    logits = T.logits_head(p, x_last[:, None], cfg)[:, 0]
+    return logits, {k: torch.stack(v) for k, v in tails.items()}

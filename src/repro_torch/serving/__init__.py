@@ -12,6 +12,16 @@ decode, tail folds) lives behind the ``ServingFamily`` of
 the decompose engine's ``EngineConfig.kv_rank`` is > 0; its ``kv_tail``
 and ``kv_exact`` set the tail length and the factorization).
 
+``paged=True`` (decomposed KV only) swaps the slab for the page pools
+of ``serving.paged``: prefix U rows and dense tails in refcounted pages
+behind per-slot block tables, and with ``EngineConfig.kv_prefix_cache``
+> 0 a prefix cache whose hits admit with a tail-only suffix prefill (no
+prefix forward, no Lanczos).  Before each admission the family reserves
+pages (``reserve``); a batch the pools cannot take yet is requeued in
+arrival order and counted as a stall, and with nothing live to free
+pages that is a ``RuntimeError``.  A finished slot's pages are released
+at once (``free_slot``).
+
 Decode runs one token per live slot per step (``decode_block=1``).
 Sampling is greedy, on the device, with one host readback per step —
 the engine's only synchronization.  A request finishes on its token
@@ -47,7 +57,10 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0            # perf_counter stamps (0.0 = not yet)
+    t_dispatch: float = 0.0          # admission started
+    t_first: float = 0.0             # first token out
     t_last: float = 0.0
+    seq: int = -1                    # arrival stamp (Scheduler.submit)
 
 
 @dataclasses.dataclass
@@ -57,12 +70,18 @@ class EngineStats:
     ``prefill_s`` sums admissions (forward prefill, KV factorization,
     splice and the first-token readback); ``decode_s`` sums decode rounds
     (tail folds included).  Both end in a host readback of sampled
-    tokens, so on the card they cover the device work they launched."""
+    tokens, so on the card they cover the device work they launched.
+    ``prefix_hits``/``prefix_misses`` count admitted requests by prefix
+    lookup outcome, ``stalls`` admissions deferred on page capacity
+    (paged serving)."""
     prefills: int = 0
     prefill_batches: int = 0
     decode_steps: int = 0
     tokens_out: int = 0
     tail_folds: int = 0
+    prefix_hits: int = 0
+    prefix_misses: int = 0
+    stalls: int = 0
     wall_s: float = 0.0
     prefill_s: float = 0.0
     decode_s: float = 0.0
@@ -86,14 +105,24 @@ class Scheduler:
     """FIFO queue with prefill-length bucketing: ``next_batch`` serves the
     head of the queue plus later requests of the same bucket, keeping a
     free slot for every older request of another bucket (head-bucket
-    starvation guard)."""
+    starvation guard).  Every submission gets an arrival stamp ``seq``;
+    :meth:`requeue` merges a deferred batch back on it, so a deferral
+    never jumps requests that arrived between the batch's members."""
 
     def __init__(self, bucket: int = 16):
         self.bucket = max(1, bucket)
         self._q: List[Request] = []
+        self._seq = 0
 
     def submit(self, req: Request) -> None:
+        if req.seq < 0:
+            req.seq = self._seq
+            self._seq += 1
         self._q.append(req)
+
+    def requeue(self, batch: List[Request]) -> None:
+        """Return a deferred batch to the queue in ARRIVAL order."""
+        self._q = sorted(self._q + list(batch), key=lambda r: r.seq)
 
     def __len__(self) -> int:
         return len(self._q)
@@ -123,11 +152,11 @@ class Scheduler:
 class Engine:
     """Continuous-batching engine over the dense transformer, with the
     decomposed KV cache when ``decompose_engine.config.kv_rank`` > 0
-    (no decompose engine: dense KV)."""
+    (no decompose engine: dense KV), on page pools when ``paged``."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  decompose_engine: Optional[DecomposeEngine] = None,
-                 device=None):
+                 device=None, paged: bool = False):
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
         self.slots, self.max_len = slots, max_len
@@ -142,7 +171,8 @@ class Engine:
         self.frozen_len = np.zeros((slots,), np.int32)
         self.rank_eff = np.zeros((slots,), np.int32)
         self.live: List[Optional[Request]] = [None] * slots
-        self.family = serving_family(self)
+        self.pager = None            # serving.paged.PagedDKV when paged
+        self.family = serving_family(self, paged=paged)
         self.cache = self.family.alloc()
         self.sched = Scheduler(bucket=ecfg.sched_bucket)
         self.admit_every = max(1, ecfg.sched_admit_every)
@@ -195,22 +225,33 @@ class Engine:
                 or self.pos[slot] >= self.max_len - 1):
             req.done = True
             self.live[slot] = None
+            self.family.free_slot(slot)
             return True
         return False
 
-    def _toks(self, batch: List[Request], rows: int,
-              plen: int) -> torch.Tensor:
+    def _toks_np(self, batch: List[Request], rows: int,
+                 plen: int) -> np.ndarray:
         """Prompts LEFT-padded with token 0 to ``plen`` (as the JAX
         engine pads them), one row per request, extra rows all padding."""
         toks = np.zeros((rows, plen), np.int32)
         for j, req in enumerate(batch):
             toks[j, plen - len(req.prompt):] = req.prompt
-        return torch.from_numpy(toks).long().to(self.device)
+        return toks
+
+    def _toks(self, batch: List[Request], rows: int,
+              plen: int) -> torch.Tensor:
+        """:meth:`_toks_np` as a token tensor on the device."""
+        return torch.from_numpy(self._toks_np(batch, rows, plen)).long().to(
+            self.device)
 
     def _admit(self) -> List[Request]:
         """Drain the queue into the free slots, one prefill launch per
-        length bucket."""
+        length bucket (paged: one per prefix-hit group plus one for the
+        misses).  A batch the family cannot take yet is requeued and
+        admission stops (a stall); with nothing live that can never
+        unblock, so it raises."""
         finished: List[Request] = []
+        blocked = False
         while True:
             free = [i for i, r in enumerate(self.live) if r is None]
             if not free or not len(self.sched):
@@ -222,22 +263,35 @@ class Engine:
             plen = self.sched.bucket_of(maxp)
             if plen >= self.max_len:     # bucket past the cache: exact length
                 plen = maxp
+            ctx = self.family.reserve(batch, plen)
+            if ctx is None:
+                self.sched.requeue(batch)
+                self.stats.stalls += 1
+                blocked = True
+                break
             slots_idx = free[:len(batch)]
             t0 = time.perf_counter()
-            nxt, fls = self.family.admit(batch, slots_idx, plen)
-            now = time.perf_counter()
-            self.stats.prefill_s += now - t0
+            for req in batch:
+                req.t_dispatch = t0
             self.stats.prefills += len(batch)
-            self.stats.prefill_batches += 1
-            for j, (slot, req) in enumerate(zip(slots_idx, batch)):
-                self.live[slot] = req
-                self.pos[slot] = plen
-                self.frozen_len[slot] = fls[j]
-                req.out_tokens.append(int(nxt[j]))
-                req.t_last = now
-                self.stats.ttft_s.append(now - req.t_submit)
-                if self._check_stop(slot, req):
-                    finished.append(req)
+            for idx, (nxt, fls) in self.family.admit(batch, slots_idx, plen,
+                                                     ctx):
+                now = time.perf_counter()
+                self.stats.prefill_s += now - t0
+                self.stats.prefill_batches += 1
+                t0 = now
+                for j, k in enumerate(idx):
+                    slot, req = slots_idx[k], batch[k]
+                    self.live[slot] = req
+                    self.pos[slot] = plen
+                    self.frozen_len[slot] = fls[j]
+                    req.out_tokens.append(int(nxt[j]))
+                    req.t_first = req.t_last = now
+                    self.stats.ttft_s.append(now - req.t_submit)
+                    if self._check_stop(slot, req):
+                        finished.append(req)
+        if blocked and not self._occupied():
+            raise RuntimeError(self.family.capacity_msg(self.sched._q[0]))
         return finished
 
     def _last_tokens(self) -> np.ndarray:

@@ -8,21 +8,30 @@ admission.  Registered families:
   engine's ``EngineConfig.kv_rank`` is > 0: prefill factorizes K/V
   through the engine's DecomposeEngine, decode attends through the
   factors, and each slot's dense tail folds back (``compress_tail`` with
-  a per-slot mask) when THAT slot's tail fills.
+  a per-slot mask) when THAT slot's tail fills.  ``paged=True`` swaps
+  the slab for ``serving.paged``'s page pools and prefix cache
+  (``eng.pager``): admission splits into prefix HITS (tail-only suffix
+  prefill over shared pages) and MISSES (the slab path's prefill, then
+  the pages), decode reads U through the block tables inside the paged
+  dkv kernel, and folds copy-on-write into fresh pages.
 
-All mutable serving state (``cache``, ``pos``, ``frozen_len``,
-``rank_eff``, ``live``) stays on the Engine; families hold no state.
+Admission is sync: the reference's dispatch/complete ticket split is
+kept as one call that completes inline.  All mutable serving state
+(``cache``, ``pos``, ``frozen_len``, ``rank_eff``, ``live``, ``pager``)
+stays on the Engine; families hold no state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models import decomposed_kv as DK, transformer as T
+from .paged import PagedDKV
 
 Admitted = Tuple[np.ndarray, np.ndarray]       # (first tokens, frozen lens)
+Group = Tuple[List[int], Admitted]             # (batch positions, admitted)
 
 
 def _pow2(n: int) -> int:
@@ -46,7 +55,7 @@ def family_names() -> List[str]:
     return sorted(_REGISTRY)
 
 
-def serving_family(eng) -> "ServingFamily":
+def serving_family(eng, paged: bool = False) -> "ServingFamily":
     """A decomposed-KV rank > 0 selects transformer-dkv, otherwise the
     model config's family key."""
     key = "transformer-dkv" if eng.dkv_rank else eng.cfg.family
@@ -54,15 +63,19 @@ def serving_family(eng) -> "ServingFamily":
     if cls is None:
         raise ValueError(f"no ServingFamily registered for {key!r} "
                          f"(have {family_names()})")
-    return cls(eng)
+    return cls(eng, paged=paged)
 
 
 class ServingFamily:
     """The base class IS the dense-KV slab path: a [L, slots, max_len,
     kvh, d] cache, prefill + splice admission, one-token decode, no
     folds."""
+    paged_capable = False
 
-    def __init__(self, eng):
+    def __init__(self, eng, paged: bool = False):
+        if paged and not self.paged_capable:
+            raise ValueError("paged serving runs on the decomposed KV "
+                             "cache (set EngineConfig.kv_rank > 0)")
         self.eng = eng
 
     def alloc(self):
@@ -70,14 +83,32 @@ class ServingFamily:
         return T.init_cache(eng.cfg, eng.slots, eng.max_len,
                             device=eng.device)
 
+    def free_slot(self, slot: int) -> None:
+        """Release per-slot resources (paged block tables) on finish."""
+
+    def reserve(self, batch: List[Any], plen: int):
+        """Capacity check before admission: an opaque non-None context
+        for :meth:`admit`, or None to defer the batch (the engine
+        requeues it and counts a stall)."""
+        return True
+
+    def capacity_msg(self, head) -> str:
+        """Diagnostic for a deferral that can never unblock."""
+        return (f"request uid={head.uid} (prompt {len(head.prompt)} "
+                f"tokens) is blocked on serving capacity with no "
+                f"in-flight work to free resources")
+
     def _batch_rows(self, n: int) -> int:
         """Admission batches pad to a power of two (bounded shape set)."""
         return min(_pow2(n), max(self.eng.slots, 1))
 
-    def admit(self, batch: List[Any], slots_idx: List[int],
-              plen: int) -> Admitted:
-        """Prefill ``batch`` into ``slots_idx``; returns the first sampled
-        tokens and the slots' frozen lengths."""
+    def admit(self, batch: List[Any], slots_idx: List[int], plen: int,
+              ctx=None) -> Iterator[Group]:
+        """Prefill ``batch`` into ``slots_idx`` (``ctx`` from
+        :meth:`reserve`), yielding each group as it completes: the batch
+        positions it covers and their (first sampled tokens, frozen
+        lengths).  The engine activates a group's slots before the next
+        group's prefill runs (the reference's ticket order)."""
         eng = self.eng
         toks = eng._toks(batch, self._batch_rows(len(batch)), plen)
         logits, fresh = T.prefill(eng.params, eng.cfg, toks, eng.max_len)
@@ -85,7 +116,8 @@ class ServingFamily:
         n = len(batch)
         for key in ("k", "v"):
             eng.cache[key][:, idx] = fresh[key][:, :n]
-        return eng._sample_host(logits)[:n], np.zeros(n, np.int32)
+        yield list(range(n)), (eng._sample_host(logits)[:n],
+                               np.zeros(n, np.int32))
 
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
@@ -105,22 +137,112 @@ class DenseKVServing(ServingFamily):
 
 @register_family("transformer-dkv")
 class TransformerDKVServing(ServingFamily):
-    """The paper's low-rank decomposed-KV serving path (dense family)."""
+    """The paper's low-rank decomposed-KV serving path (dense family),
+    on the slab or (``paged=True``) on page pools with a prefix cache."""
+    paged_capable = True
 
-    def __init__(self, eng):
+    def __init__(self, eng, paged: bool = False):
         assert eng.cfg.family == "dense", "decomposed KV: dense family"
-        super().__init__(eng)
+        super().__init__(eng, paged=paged)
+        if paged:
+            ec = eng.dengine.config
+            eng.pager = PagedDKV(
+                eng.cfg, slots=eng.slots, max_len=eng.max_len,
+                rank=eng.dkv_rank, tail=eng.dkv_tail, page=ec.kv_page,
+                pool_pages=ec.kv_pool_pages,
+                prefix_capacity=ec.kv_prefix_cache, device=eng.device)
 
     def alloc(self):
         return None                  # built at the first prefill
 
-    def admit(self, batch: List[Any], slots_idx: List[int],
-              plen: int) -> Admitted:
+    def free_slot(self, slot: int) -> None:
+        if self.eng.pager is not None:
+            self.eng.pager.free_slot(slot)
+
+    def _route(self) -> str:
+        return "kernel" if self.eng.dengine.config.backend == "cuda" \
+            else "plain"
+
+    def _prefill(self, toks: torch.Tensor):
+        eng = self.eng
+        return DK.prefill_dkv(eng.params, eng.cfg, toks, eng.dkv_rank,
+                              tail=eng.dkv_tail, exact=eng.dkv_exact,
+                              engine=eng.dengine)
+
+    # -- admission -------------------------------------------------------
+    def reserve(self, batch: List[Any], plen: int):
+        eng = self.eng
+        if eng.pager is None:
+            return True
+        # prefix lookups FIRST (page refs taken per hit), so the
+        # reservation below only counts the MISSES' pages and its
+        # evictions can never invalidate this batch's hits
+        looks = self._lookup_prefixes(batch, plen)
+        n_miss = sum(1 for g in looks if g is None)
+        if not self._reserve_pages(n_miss, len(batch), plen):
+            # the pools can't take this batch yet: release the hit refs
+            # taken above (they were installed nowhere) and let the
+            # engine requeue + stall
+            for got in looks:
+                if got is not None:
+                    eng.pager.alloc.release(got[2])
+            return None
+        return looks
+
+    def capacity_msg(self, head) -> str:
+        pg = self.eng.pager
+        return (f"request uid={head.uid} (prompt {len(head.prompt)} tokens)"
+                f" is blocked on page capacity with no in-flight work to "
+                f"free pages — raise kv_pool_pages (pool: "
+                f"{pg.num_pages} U pages / "
+                f"{pg.num_tail_pages} tail pages) or lower the "
+                f"prompt length / admission batch")
+
+    def _lookup_prefixes(self, batch: List[Any], plen: int) -> list:
+        """Prefix-cache lookups for one admission batch.  Each hit's
+        shared page refs are taken IMMEDIATELY, before any reservation
+        eviction or same-batch miss insertion can release them.  Lookups
+        run unrecorded: hits and misses are counted at admission, once
+        per admitted request, so deferrals do not inflate them."""
+        eng = self.eng
+        pg = eng.pager
+        out: list = []
+        for req in batch:
+            got = None
+            if pg.prefix is not None:
+                found = pg.prefix.lookup(eng._toks_np([req], 1, plen)[0],
+                                         eng.dkv_tail,
+                                         plen - len(req.prompt),
+                                         record=False)
+                if found is not None:
+                    ent, match_len = found
+                    share = ent.pages[:match_len // pg.page]
+                    pg.alloc.ref(share)
+                    got = (ent, match_len, share)
+            out.append(got)
+        return out
+
+    def _reserve_pages(self, n_miss: int, n_req: int, plen: int) -> bool:
+        """Can the pools take this batch (``n_miss`` full prefills plus a
+        tail per request)?  Evicts prefix-cache entries LRU-first if that
+        frees enough — hits are unaffected, they already hold refs."""
+        pg = self.eng.pager
+        need_u = n_miss * pg.pages_for(plen)
+        need_t = n_req * pg.ntp
+        while pg.alloc.free_pages < need_u and pg.prefix is not None \
+                and len(pg.prefix):
+            pg.prefix._evict()
+        return pg.alloc.free_pages >= need_u \
+            and pg.talloc.free_pages >= need_t
+
+    def admit(self, batch: List[Any], slots_idx: List[int], plen: int,
+              ctx=None) -> Iterator[Group]:
+        if self.eng.pager is not None:
+            yield from self._admit_paged(batch, slots_idx, plen, ctx)
+            return
         eng = self.eng
         toks = eng._toks(batch, self._batch_rows(len(batch)), plen)
-        logits, fresh = DK.prefill_dkv(
-            eng.params, eng.cfg, toks, eng.dkv_rank, tail=eng.dkv_tail,
-            exact=eng.dkv_exact, engine=eng.dengine)
+        logits, fresh = self._prefill(toks)
         n = len(batch)
         if eng.cache is None:
             eng.cache = DK.init_cache(
@@ -129,19 +251,136 @@ class TransformerDKVServing(ServingFamily):
                 device=eng.device)
         eng.cache = DK.splice_dkv(eng.cache, fresh, slots_idx)
         eng.rank_eff[slots_idx] = fresh["k_u"].shape[-1]
-        return eng._sample_host(logits)[:n], np.full(n, plen, np.int32)
+        yield list(range(n)), (eng._sample_host(logits)[:n],
+                               np.full(n, plen, np.int32))
 
+    def _admit_paged(self, batch: List[Any], slots_idx: List[int],
+                     plen: int, looks: Optional[list]) -> Iterator[Group]:
+        """Paged admission: the prefix lookups of :meth:`reserve` (hit
+        page refs already taken) split the batch into HITS (tail-only
+        suffix prefill over refcounted shared pages — no prefix forward,
+        no Lanczos), one group per (match length, entry rank), and MISSES
+        (the slab path's prefill at the same pow2 batch padding, so the
+        factors are the slab engine's, then their pages)."""
+        eng = self.eng
+        pg = eng.pager
+        n = len(batch)
+        padded = eng._toks_np(batch, n, plen)
+        hits: dict = {}            # (L, r_eff) -> [(j, entry, share), ...]
+        misses: List[int] = []
+        for j in range(n):
+            got = looks[j] if isinstance(looks, list) else None
+            if got is not None:
+                ent, match_len, share = got
+                hits.setdefault((match_len, ent.r_eff),
+                                []).append((j, ent, share))
+            else:
+                misses.append(j)
+        if pg.prefix is not None:
+            nh = n - len(misses)
+            eng.stats.prefix_hits += nh
+            eng.stats.prefix_misses += len(misses)
+            pg.prefix.hits += nh
+            pg.prefix.misses += len(misses)
+        # hits first: they only consume tail pages, and their factor
+        # pages already carry this batch's refs
+        for (match_len, r_ent), group in sorted(hits.items(),
+                                                key=lambda kv: kv[0]):
+            yield self._admit_hits(slots_idx, plen, padded, match_len,
+                                   r_ent, group)
+        if misses:
+            yield self._admit_misses(batch, slots_idx, plen, padded, misses)
+
+    def _admit_hits(self, slots_idx: List[int], plen: int,
+                    padded: np.ndarray, match_len: int, r_ent: int,
+                    group: list) -> Group:
+        eng = self.eng
+        pg = eng.pager
+        m = len(group)
+        stoks = np.stack([padded[j][match_len:] for j, _, _ in group])
+        bt_t = []
+        for _ in group:
+            tpages = pg.talloc.alloc(pg.ntp)
+            assert tpages is not None, "tail pages after _reserve_pages"
+            bt_t.append(tpages)
+        slots_l = [slots_idx[j] for j, _, _ in group]
+        dev = eng.device
+        logits = pg.write_hits(
+            eng.params, torch.from_numpy(stoks).long().to(dev),
+            pg.bt_tensor([share for _, _, share in group]),
+            torch.stack([ent.k_vt for _, ent, _ in group], dim=1),
+            torch.stack([ent.v_vt for _, ent, _ in group], dim=1),
+            np.full(m, match_len, np.int32),
+            np.full(m, plen - match_len, np.int32),
+            pg.bt_tensor(bt_t), slots_l, match_len, r_ent)
+        # the shared-prefix refs taken at lookup transfer to the slots;
+        # free_slot releases each exactly once
+        for gi, (slot, (_, _, share)) in enumerate(zip(slots_l, group)):
+            pg.bt_u[slot], pg.bt_t[slot] = list(share), bt_t[gi]
+            eng.rank_eff[slot] = r_ent
+        nxt = eng._sample_host(logits)[:m]
+        pg.slab_t = max(pg.slab_t, match_len)
+        pg.slab_r = max(pg.slab_r, r_ent)
+        return [j for j, _, _ in group], (nxt, np.full(m, match_len,
+                                                       np.int32))
+
+    def _admit_misses(self, batch: List[Any], slots_idx: List[int],
+                      plen: int, padded: np.ndarray,
+                      misses: List[int]) -> Group:
+        eng = self.eng
+        pg = eng.pager
+        nb = self._batch_rows(len(misses))
+        mtoks = np.zeros((nb, plen), np.int32)
+        for mi, j in enumerate(misses):
+            mtoks[mi] = padded[j]
+        logits, fresh = self._prefill(
+            torch.from_numpy(mtoks).long().to(eng.device))
+        npg = pg.pages_for(plen)
+        bt_u, bt_t = [], []
+        for _ in misses:
+            pages = pg.alloc.alloc(npg)
+            tpages = pg.talloc.alloc(pg.ntp)
+            assert pages is not None and tpages is not None, \
+                "page reservation failed after _reserve_pages"
+            bt_u.append(pages)
+            bt_t.append(tpages)
+        slots_l = [slots_idx[j] for j in misses]
+        r_eff = fresh["k_u"].shape[-1]
+        src = list(range(len(misses)))
+        pg.write_fresh(fresh, pg.bt_tensor(bt_u), pg.bt_tensor(bt_t),
+                       slots_l, src)
+        for mi, slot in enumerate(slots_l):
+            pg.bt_u[slot], pg.bt_t[slot] = bt_u[mi], bt_t[mi]
+            eng.rank_eff[slot] = r_eff
+        nxt = eng._sample_host(logits)[:len(misses)]
+        pg.slab_t = max(pg.slab_t, plen)
+        pg.slab_r = max(pg.slab_r, r_eff)
+        if pg.prefix is not None:
+            for mi, j in enumerate(misses):
+                pg.prefix.insert(padded[j].copy(), bt_u[mi],
+                                 fresh["k_vt"][:, mi].clone(),
+                                 fresh["v_vt"][:, mi].clone(), r_eff,
+                                 n_pad=plen - len(batch[j].prompt))
+        return misses, (nxt, np.full(len(misses), plen, np.int32))
+
+    # -- decode ----------------------------------------------------------
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
         pos = torch.from_numpy(eng.pos).to(eng.device)
         frozen = torch.from_numpy(eng.frozen_len).to(eng.device)
-        route = "kernel" if eng.dengine.config.backend == "cuda" \
-            else "plain"
+        pg = eng.pager
+        if pg is not None:
+            logits, pg.cache = DK.decode_step_dkv_paged(
+                eng.params, eng.cfg, tok, pg.cache, pos, frozen,
+                pg.bt_tensor(pg.bt_u), pg.bt_tensor(pg.bt_t, pg.ntp),
+                pg.slab_t, pg.slab_r, eng.dkv_tail, attention=self._route())
+            return logits
         logits, eng.cache = DK.decode_step_dkv(eng.params, eng.cfg, tok,
                                                eng.cache, pos, frozen,
-                                               attention=route)
+                                               attention=self._route())
         return logits
 
+    # -- folds -----------------------------------------------------------
     def maybe_fold(self) -> None:
         """Fold every live slot whose tail is full, and co-fold live slots
         at least half full so staggered slots re-synchronize their fold
@@ -152,8 +391,10 @@ class TransformerDKVServing(ServingFamily):
         must = live_m & (occ >= eng.dkv_tail)
         if must.any():
             fold = must | (live_m & (occ >= max(1, eng.dkv_tail // 2)))
-            self._fold_slots(live_m, fold)
-
+            if eng.pager is not None:
+                self._fold_slots_paged(live_m, must, fold)
+            else:
+                self._fold_slots(live_m, fold)
     def _fold_slots(self, live_m: np.ndarray, fold: np.ndarray) -> None:
         eng = self.eng
         r_in = int(eng.cache["k_u"].shape[-1])
@@ -178,3 +419,57 @@ class TransformerDKVServing(ServingFamily):
                                             :r_need].contiguous()
         for key in ("k_vt", "v_vt"):
             eng.cache[key] = eng.cache[key][:, :, :r_need].contiguous()
+
+    def _fold_slots_paged(self, live_m: np.ndarray, must: np.ndarray,
+                          fold: np.ndarray) -> np.ndarray:
+        """Paged tail fold: retruncated prefixes land in FRESH pages
+        (copy-on-write — shared and prefix-cache pages are never
+        rewritten); the folded slots' old page refs are released after
+        the scatter.  Falls back to must-only folds when the pool can't
+        take the co-folds, then evicts prefix entries."""
+        eng = self.eng
+        pg = eng.pager
+
+        def grab(mask):
+            idxs = [int(i) for i in np.where(mask)[0]]
+            need = {i: pg.pages_for(int(eng.pos[i])) for i in idxs}
+            if sum(need.values()) > pg.alloc.free_pages:
+                return None
+            return {i: pg.alloc.alloc(n) for i, n in need.items()}
+
+        newp = grab(fold)
+        if newp is None:
+            fold = must
+            newp = grab(fold)
+        while newp is None and pg.prefix is not None and len(pg.prefix):
+            pg.prefix._evict()
+            newp = grab(fold)
+        if newp is None:
+            raise RuntimeError(
+                "paged KV pool exhausted during a tail fold — raise "
+                "kv_pool_pages (or lower slots/max_len)")
+        npn = max(len(v) for v in newp.values())
+        new_frozen = np.where(fold, eng.pos,
+                              eng.frozen_len).astype(np.int32)
+        dev = eng.device
+        pg.cache = DK.compress_tail_paged(
+            pg.cache, eng.cfg, eng.dkv_rank,
+            frozen_len=torch.from_numpy(eng.frozen_len).to(dev),
+            fold=torch.from_numpy(fold).to(dev),
+            new_frozen=torch.from_numpy(new_frozen).to(dev),
+            bt_u=pg.bt_tensor(pg.bt_u),
+            bt_u_new=pg.bt_tensor([newp.get(i, [])
+                                   for i in range(eng.slots)], npn),
+            bt_t=pg.bt_tensor(pg.bt_t, pg.ntp), t_need=pg.slab_t,
+            r_need=pg.slab_r, tail_len=eng.dkv_tail)
+        r_fold = DK.fold_rank(eng.dkv_rank, pg.slab_r, pg.slab_t,
+                              eng.dkv_tail)
+        for i, pages in newp.items():
+            pg.alloc.release(pg.bt_u[i])
+            pg.bt_u[i] = pages
+            eng.rank_eff[i] = r_fold
+        eng.frozen_len = new_frozen
+        eng.stats.tail_folds += int(fold.sum())
+        pg.slab_t = int(eng.frozen_len[live_m].max())
+        pg.slab_r = int(eng.rank_eff[live_m].max())
+        return fold

@@ -67,6 +67,95 @@ def test_dkv_kernel_matches_plain(cuda, dtype):
         torch.testing.assert_close(x, y, **TOL)
 
 
+@pytest.mark.parametrize("page", [16, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_dkv_kernel_equals_slab_kernel(cuda, dtype, page):
+    """The paged kernel reads U through the block table and is BIT-EQUAL
+    to the slab kernel on the gathered rows at equal r: permuted page ids,
+    a page size that does not divide the 32-row tile (12), a partial last
+    page, t_valid 0, r = 40 of r_pool = 48, and a slab longer than the
+    table's n·page rows (its extra rows lie past every t_valid)."""
+    g = torch.Generator(device=cuda).manual_seed(page)
+    dt = getattr(torch, dtype)
+    b, nh, r_pool, r, n, P = 4, 8, 48, 40, 9, 64
+    k_pool = torch.randn(P, page, r_pool, generator=g, device=cuda).to(dt)
+    v_pool = torch.randn(P, page, r_pool, generator=g, device=cuda).to(dt)
+    k_pool[0] = 0
+    v_pool[0] = 0
+    ids = (torch.randperm(P - 1, generator=g, device=cuda)[:b * n] + 1)
+    bt = ids.reshape(b, n).to(torch.int32).contiguous()
+    bt[3, 5:] = 0                       # table padding reads the sink
+    tv = torch.tensor([n * page, n * page - 5, 0, 5 * page - 3],
+                      dtype=torch.int32, device=cuda)
+    inner = torch.randn(b, nh, r, generator=g, device=cuda)
+    before = dk.dkv_attention_stats_paged.launches
+    got = dk.dkv_attention_stats_paged(inner, k_pool, v_pool, bt, tv, r)
+    assert dk.dkv_attention_stats_paged.launches == before + 1
+    ku = dk.gather_rows(k_pool, bt, r).contiguous()
+    vu = dk.gather_rows(v_pool, bt, r).contiguous()
+    for t_slab in (n * page, n * page + 20):
+        pad = t_slab - n * page
+        slab = dk.dkv_attention_stats(
+            inner, torch.nn.functional.pad(ku, (0, 0, 0, pad)),
+            torch.nn.functional.pad(vu, (0, 0, 0, pad)), tv)
+        for x, y in zip(got, slab):
+            assert torch.equal(x, y)
+    want = dk.dkv_attention_stats_paged_plain(inner, k_pool, v_pool, bt,
+                                              tv, r)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **TOL)
+    with pytest.raises(ValueError, match="r_pool"):
+        dk.dkv_attention_stats_paged(
+            torch.randn(b, nh, r_pool + 8, device=cuda), k_pool, v_pool, bt,
+            tv, r_pool + 8)
+
+
+def test_paged_engine_matches_slot_engine_on_card(cuda):
+    """Reduced float32 llama2: the paged engine's greedy tokens equal the
+    slot engine's through the kernels (paged decode launches only the
+    paged dkv kernel), and a prefix hit admits with no re-orth launch."""
+    import numpy as np
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine, Request
+    cfg = get_arch("llama2-7b").reduced().replace(dtype="float32")
+    p = T.init(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    sys_p = rng.randint(0, cfg.vocab, 28, dtype=np.int32)
+    prompts = [np.concatenate([sys_p, rng.randint(0, cfg.vocab, 4,
+                                                  dtype=np.int32)])
+               for _ in range(3)]
+
+    def serve(paged, prefix=0):
+        ecfg = EngineConfig(kv_rank=16, kv_tail=8, kv_page=4,
+                            kv_prefix_cache=prefix)
+        eng = Engine(cfg, p, slots=2, max_len=96, device=cuda, paged=paged,
+                     decompose_engine=DecomposeEngine(ecfg))
+        ops.reset_launch_counts()
+        done = []
+        for step in range(300):
+            if step < len(prompts):
+                eng.submit(Request(uid=step, prompt=prompts[step],
+                                   max_new_tokens=12))
+            done.extend(eng.step())
+            if len(done) == len(prompts) and not any(eng.live):
+                break
+        return {r.uid: r.out_tokens for r in done}, eng, ops.launch_counts()
+
+    slot, _, c_slot = serve(False)
+    paged, eng, c_paged = serve(True)
+    assert eng.stats.tail_folds > 0
+    assert paged == slot
+    assert c_slot["dkv_attention_stats"] > 0
+    assert c_paged["dkv_attention_stats_paged"] > 0
+    assert c_paged["dkv_attention_stats"] == 0
+    # prefix cache on: the first request misses, the others hit
+    _, eng, counts = serve(True, prefix=4)
+    assert (eng.stats.prefix_misses, eng.stats.prefix_hits) == (1, 2)
+    reorth = counts["reorth_right_batched"] + counts["reorth_left_batched"]
+    assert reorth == c_paged["reorth_right_batched"] // 3 \
+        + c_paged["reorth_left_batched"] // 3
+
+
 def test_decode_routes_agree_on_card(cuda):
     """Reduced float32 llama2: a decomposed-KV prefill (Lanczos through the
     re-orth kernels) and one decode step through the dkv kernel give the
@@ -168,6 +257,7 @@ def test_decomposed_forward_routes_agree_on_card(cuda):
             assert counts == {"reorth_right_batched": 4 * 7,
                               "reorth_left_batched": 4 * 8,
                               "dkv_attention_stats": 0,
+                              "dkv_attention_stats_paged": 0,
                               "lowrank_matmul": 2 * 5,
                               "outlier_stats": 4}, counts
         else:
