@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --profile    # also profile serving and one
-                                       # decomposed forward
+    python3 chip_smoke.py --profile    # also profile serving, one
+                                       # decomposed forward, the shared-
+                                       # prefix run and Mamba2 serving
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -55,11 +56,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and hit TTFT, decode tok/s and peak memory are printed; one paged
    decode step through the kernel is held against the plain route
    (attention 1e-4 in bf16, float32 logits 1e-3).
+8. Mamba2 serving of ``mamba2-780m`` at full width and depth (random bf16
+   weights from seed 0; the llama2-7b weights are freed first): phase
+   4's traffic (prompts of 512/384/300/128 tokens on its arrival
+   schedule, 32 new tokens, 4 slots, max_len 1024, greedy), so prefill
+   runs both chunk regimes (Q = 64 with the inter-chunk scan, one chunk
+   of Q = 304).  Every request must finish, ``ssd_chunk_intra`` must
+   launch exactly 48 times per prefill launch and no other kernel at
+   all; a route check against ``backend="reference"`` on the card
+   prefills the 512- and 300-token prompts through both routes: logits
+   relative L2 within 2e-2 in bf16 and 1e-3 with float32 weights, final
+   SSM and conv state within the same relative L2 in bf16 and allclose
+   (rtol 1e-3, atol 1e-3 of the largest entry) in float32.
 
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
 statistics, the B = 1 re-orth pair) against their plain versions at the
-shapes phase 6 gives them, and the paged dkv kernel bit for bit against
-the slab kernel at phase 4's shapes.  The line before the last is
+shapes phase 6 gives them, the paged dkv kernel bit for bit against
+the slab kernel at phase 4's shapes, and the intra-chunk SSD kernel at
+phase 8's two shapes.  Phase 5 also serves reduced float32
+``mamba2-780m`` through the SSD kernel: staggered tokens equal each
+request's solo tokens and the ``backend="reference"`` route's tokens.
+The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits non-zero and prints no result.
@@ -67,6 +84,8 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -390,8 +409,46 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
                           "gathered rows; vs plain as dkv_attention_stats")
 
 
+def ssd_case(g: int, q: int, nh: int, hd: int, gen):
+    """The intra-chunk SSD term at one of phase 8's prefill shapes: cb
+    [G, Q, Q], a decreasing log-decay l, dt > 0 and x, all float32."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as sc
+    dev = "cuda"
+    cb = torch.randn(g, q, q, generator=gen, device=dev) * 0.3
+    l = torch.cumsum(-torch.randn(g, q, nh, generator=gen,
+                                  device=dev).abs() * 0.05, dim=1)
+    dt = torch.randn(g, q, nh, generator=gen, device=dev).abs()
+    x = torch.randn(g, q, nh, hd, generator=gen, device=dev)
+    got = sc.ssd_chunk_intra(cb, l, dt, x)
+    want = sc.ssd_chunk_intra_plain(cb, l, dt, x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"ssd_chunk_intra G={g} Q={q}: max abs err "
+                             f"{err:.3e} > {tol:.3e}")
+    ms = time_ms(lambda: sc.ssd_chunk_intra(cb, l, dt, x))
+    plain_ms = time_ms(lambda: sc.ssd_chunk_intra_plain(cb, l, dt, x))
+    # each input read once, y written once; 2·hd FMA operations plus the
+    # masked decay (subtract, exp, two products) per (q, s <= q, head)
+    bytes_ = 4 * (g * q * q + 2 * g * q * nh + 2 * g * q * nh * hd)
+    flops = nh * g * q * (q + 1) // 2 * (2 * hd + 4)
+    bms, by = bound(bytes_, flops, "float32")
+    return dict(name="ssd_chunk_intra", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                replaces="src/repro/kernels/ssd_chunk.py:70",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None,
+                shape=dict(G=g, Q=q, nh=nh, hd=hd),
+                tolerance="max|y_kernel - y_plain| <= 1e-4 max|y_plain| "
+                          "(float32, sums in another order; "
+                          "tests/test_kernels.py uses 1e-4)")
+
+
 def phase_kernels(cfg):
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.engine import EngineConfig
     expansion = EngineConfig().expansion
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -425,7 +482,14 @@ def phase_kernels(cfg):
         torch.cuda.empty_cache()
     for rec in act:
         print(json.dumps(rec), flush=True)
-    return rows + act
+    # Mamba2 prefill (phase 8): a 512-token prompt in 8 chunks of 64, and
+    # the 300-token prompt bucketed to one chunk of 304
+    m2 = get_arch(MAMBA_ARCH)
+    ssd_rows = [ssd_case(g, q, m2.ssm_heads, m2.ssm_head_dim, gen)
+                for g, q in ((8, 64), (1, 304))]
+    for rec in ssd_rows:
+        print(json.dumps(rec), flush=True)
+    return rows + act + ssd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +510,24 @@ def print_profile(prof) -> None:
               f"(busy share {busy / max(span, 1):.3f})", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25), flush=True)
+
+
+@contextlib.contextmanager
+def profiled(enabled: bool, title: str):
+    """Profile the enclosed work (CPU and CUDA activities, ending in a
+    synchronize) when ``enabled``, then print ``title`` and the profile."""
+    if not enabled:
+        yield
+        return
+    import torch
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        yield
+        torch.cuda.synchronize()
+    print(title, flush=True)
+    print_profile(prof)
 
 
 SERVE_KERNELS = ("reorth_right_batched", "reorth_left_batched",
@@ -470,27 +552,61 @@ def drive(eng, prompts, arrivals, max_new: int):
     return done
 
 
-def init_llama(cfg):
+def init_weights(cfg):
     """Random bf16 weights of the full model from seed 0, on the card."""
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.models.api import model_fns
     gen = torch.Generator(device="cuda").manual_seed(0)
+    before = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
-    params = T.init(cfg, gen, device="cuda")
+    params = model_fns(cfg).init(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     gib = T.param_bytes(params) / 2 ** 30
     print(f"init: {cfg.name} {cfg.num_layers} layers, {gib:.2f} GiB "
-          f"{cfg.dtype} weights drawn in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+          f"{cfg.dtype} weights drawn in {time.perf_counter() - t0:.1f}s "
+          f"({before:.2f} GiB of device memory in use before)", flush=True)
     return params
+
+
+def serve_traffic(engine, prompts, profile: bool, title: str):
+    """Warm up a throwaway ``engine()`` (library handles and allocator:
+    one 64-token request, 20 new tokens), then drive phase 4's traffic
+    (32 new tokens each) through a fresh one with every launch count at
+    0, profiled when asked.  Returns (engine, finished requests, launch
+    counts, peak device memory in GiB)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+    warm = engine()
+    warm.submit(Request(uid=-1, prompt=prompts[3][:64], max_new_tokens=20))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    eng = engine()
+    torch.cuda.reset_peak_memory_stats()
+    with profiled(profile, title):
+        ops.reset_launch_counts()
+        done = drive(eng, prompts, SERVE_ARRIVALS, 32)
+        torch.cuda.synchronize()
+    return eng, done, ops.launch_counts(), \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_finished(done, vocab: int, what: str) -> None:
+    """Requests 0-3 finished with 32 tokens each, all in the vocab."""
+    if sorted(r.uid for r in done) != [0, 1, 2, 3] or any(
+            len(r.out_tokens) != 32 or not all(0 <= t < vocab
+                                               for t in r.out_tokens)
+            for r in done):
+        raise AssertionError(f"{what}: unfinished or bad requests "
+                             f"{ {r.uid: r.out_tokens for r in done} }")
 
 
 def serve_llama(cfg, params, profile: bool = False):
     import numpy as np
-    import torch
     from repro_torch.engine import DecomposeEngine, EngineConfig
-    from repro_torch.kernels import ops
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine
 
     ecfg = EngineConfig(kv_rank=64, kv_tail=16)
 
@@ -501,35 +617,10 @@ def serve_llama(cfg, params, profile: bool = False):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
                for n in SERVE_LENS]
-    # warm-up: library handles and allocator, on a throwaway engine
-    warm = engine()
-    warm.submit(Request(uid=-1, prompt=prompts[3][:64], max_new_tokens=20))
-    warm.run()
-    del warm
-    torch.cuda.synchronize()
-
-    eng = engine()
-    torch.cuda.reset_peak_memory_stats()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA]) if profile else None
-    if prof is not None:
-        prof.__enter__()
-    ops.reset_launch_counts()
-    done = drive(eng, prompts, SERVE_ARRIVALS, 32)
-    torch.cuda.synchronize()
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        print_profile(prof)
-    launches = ops.launch_counts()
+    eng, done, launches, peak = serve_traffic(
+        engine, prompts, profile, "serve: profile of the serving run")
     st = eng.stats
-    if sorted(r.uid for r in done) != [0, 1, 2, 3]:
-        raise AssertionError(f"unfinished requests: "
-                             f"{[r.uid for r in done]}")
-    for r in done:
-        if len(r.out_tokens) != 32 or not all(
-                0 <= t < cfg.vocab for t in r.out_tokens):
-            raise AssertionError(f"req {r.uid}: bad tokens {r.out_tokens}")
+    check_finished(done, cfg.vocab, "serve")
     if st.tail_folds <= 0:
         raise AssertionError("no tail fold happened")
     if st.prefill_batches < 3:
@@ -538,7 +629,6 @@ def serve_llama(cfg, params, profile: bool = False):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} ({launches})")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"serve: tokens={st.tokens_out} decode_steps={st.decode_steps} "
           f"folds={st.tail_folds} prefill_batches={st.prefill_batches} "
           f"prefill_s={st.prefill_s:.4f} decode_s={st.decode_s:.4f} "
@@ -640,13 +730,63 @@ def conformance(cfg):
           f"{st.tail_folds} folds", flush=True)
 
 
+def conformance_mamba2():
+    """Reduced float32 mamba2-780m through the SSD kernel: staggered
+    arrivals (one every 3 steps, slots 4, max_len 96, 12 new tokens) give
+    each request's solo tokens and the ``backend="reference"`` route's
+    tokens; the kernel launches once per layer per prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba2 as M
+    from repro_torch.serving import Engine
+    small = get_arch(MAMBA_ARCH).reduced().replace(dtype="float32")
+    params = M.init(small, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, small.vocab, n, dtype=np.int32)
+               for n in (7, 12, 19, 5, 70)]
+
+    def serve(slots, uids, backend="cuda"):
+        eng = Engine(small, params, slots=slots, max_len=96, device="cuda",
+                     decompose_engine=DecomposeEngine(EngineConfig(
+                         backend=backend)))
+        ops.reset_launch_counts()
+        done = drive(eng, prompts, {3 * k: [u] for k, u in enumerate(uids)},
+                     12)
+        torch.cuda.synchronize()
+        return {r.uid: r.out_tokens for r in done}, eng.stats, \
+            ops.launch_counts()
+
+    uids = list(range(len(prompts)))
+    got, st, counts = serve(4, uids)
+    solo = {u: serve(1, [u])[0][u] for u in uids}
+    ref, _, ref_counts = serve(4, uids, "reference")
+    if counts["ssd_chunk_intra"] != small.num_layers * st.prefill_batches \
+            or any(v for k, v in counts.items() if k != "ssd_chunk_intra") \
+            or any(ref_counts.values()) or st.prefill_batches < 2:
+        raise AssertionError(f"mamba2 conformance launches {counts} "
+                             f"(reference {ref_counts}), "
+                             f"{st.prefill_batches} prefills")
+    if got != solo or got != ref:
+        raise AssertionError(f"mamba2 staggered tokens {got} != solo {solo}"
+                             f" or != reference route {ref}")
+    print(f"conformance: {small.name} float32 staggered == solo == "
+          f"reference-route greedy tokens, {len(got)} requests, "
+          f"{st.prefill_batches} prefills, {counts['ssd_chunk_intra']} SSD "
+          f"kernel launches", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the activation-decomposition forward of llama2-7b
 # ---------------------------------------------------------------------------
 
 ACT_LAUNCHES = {"lowrank_matmul": 50, "outlier_stats": 20,
                 "reorth_left_batched": 400, "reorth_right_batched": 380,
-                "dkv_attention_stats": 0, "dkv_attention_stats_paged": 0}
+                "dkv_attention_stats": 0, "dkv_attention_stats_paged": 0,
+                "ssd_chunk_intra": 0}
 ACT_LOGITS_TOL = 2e-2    # relative L2, bf16 kernel route vs plain route
 ACT_F32_TOL = 1e-3       # the same, float32 weights and forward
 ACT_SEQ = 4096           # the paper's 4K setting: tokens [1, ACT_SEQ]
@@ -857,14 +997,8 @@ def activation_llama(cfg, params, profile: bool = False):
           f"versions {ref_ms:.2f} {ref_all}; peak memory of the decomposed "
           f"forward {peak:.2f} GiB", flush=True)
     if profile:
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        with prof:
+        with profiled(True, "activation: profile of one decomposed forward"):
             fwd["cuda"](params, tokens)
-            torch.cuda.synchronize()
-        print("activation: profile of one decomposed forward", flush=True)
-        print_profile(prof)
 
     # (e) the route check in float32 at full size: float32 rounding keeps
     # the two routes' inputs together, so every decomposition must select
@@ -994,19 +1128,11 @@ def paged_prefix_llama(cfg, params, profile: bool = False):
         setattr(eng.family, name, counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA]) if profile else None
-    if prof is not None:
-        prof.__enter__()
-    ops.reset_launch_counts()
-    done = drive(eng, prompts, {0: [0], 2: list(range(1, PREFIX_REQS))},
-                 32)
-    torch.cuda.synchronize()
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        print("paged (b): profile of the shared-prefix run", flush=True)
-        print_profile(prof)
+    with profiled(profile, "paged (b): profile of the shared-prefix run"):
+        ops.reset_launch_counts()
+        done = drive(eng, prompts,
+                     {0: [0], 2: list(range(1, PREFIX_REQS))}, 32)
+        torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     st = eng.stats
@@ -1122,13 +1248,114 @@ def check_paged_routes(cfg, params, prompts):
           f"{bool((lg_k.argmax(-1) == lg_p.argmax(-1)).all())}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: Mamba2 serving of mamba2-780m
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH = "mamba2-780m"
+MAMBA_TOL = {"bfloat16": 2e-2, "float32": 1e-3}   # route check, rel L2
+
+
+def serve_mamba2(cfg, params, profile: bool = False):
+    """Phase 8: phase 4's traffic through the ssm family; returns the
+    launch counts of the run."""
+    import numpy as np
+    from repro_torch.serving import Engine
+
+    def engine():
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda")
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    eng, done, launches, peak = serve_traffic(
+        engine, prompts, profile, "mamba2: profile of the serving run")
+    st = eng.stats
+    check_finished(done, cfg.vocab, "mamba2")
+    if st.prefill_batches < 3:
+        raise AssertionError("mamba2: staggered requests were not admitted "
+                             "apart")
+    want = cfg.num_layers * st.prefill_batches
+    if launches["ssd_chunk_intra"] != want or any(
+            v for k, v in launches.items() if k != "ssd_chunk_intra"):
+        raise AssertionError(f"mamba2 launches {launches}: want exactly "
+                             f"{want} ssd_chunk_intra and nothing else")
+    cache_mib = sum(t.numel() * t.element_size()
+                    for t in eng.cache.values()) / 2 ** 20
+    print(f"mamba2: {cfg.name} tokens={st.tokens_out} decode_steps="
+          f"{st.decode_steps} prefill_batches={st.prefill_batches} "
+          f"prefill_s={st.prefill_s:.4f} decode_s={st.decode_s:.4f} "
+          f"decode_tok/s={st.decode_tok_s:.2f} "
+          f"mean_ttft_ms={st.mean_ttft_s * 1e3:.2f} "
+          f"mean_itl_ms={st.mean_itl_s * 1e3:.2f} peak_mem_gib={peak:.2f} "
+          f"state_slots_mib={cache_mib:.1f}", flush=True)
+    print("mamba2: launches " + json.dumps(launches), flush=True)
+    check_mamba2_routes(cfg, params, prompts)
+    return launches
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_mamba2_routes(cfg, params, prompts):
+    """One prefill each of the 512- and the 300-token prompt (left-padded
+    to its bucket of 304, as the engine pads it) through the kernel route
+    and the ``backend="reference"`` route, in bf16 and with float32
+    weights: logits, final SSM state and conv state."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba2 as M
+    routes = {b: ops.make_kernels(b) for b in ("cuda", "reference")}
+    p32, cfg32 = to_float32(params), cfg.replace(dtype="float32")
+    by_len = {len(x): x for x in prompts}
+    for n in (512, 300):
+        plen = -(-n // 16) * 16
+        toks = torch.zeros(1, plen, dtype=torch.long, device="cuda")
+        toks[0, plen - n:] = torch.from_numpy(by_len[n]).long()
+        for dt, (p, c) in (("bfloat16", (params, cfg)),
+                           ("float32", (p32, cfg32))):
+            out = {}
+            for b, ks in routes.items():
+                before = ops.launch_counts()["ssd_chunk_intra"]
+                out[b] = M.prefill(p, c, toks, kernels=ks)
+                torch.cuda.synchronize()
+                ran = ops.launch_counts()["ssd_chunk_intra"] - before
+                if ran != (cfg.num_layers if b == "cuda" else 0):
+                    raise AssertionError(f"mamba2 route {b}: {ran} SSD "
+                                         f"kernel launches")
+            (lk, sk), (lr_, sr) = out["cuda"], out["reference"]
+            lk, lr_ = lk[:, :cfg.vocab], lr_[:, :cfg.vocab]
+            gaps = {"logits": _rel(lk, lr_), "ssm": _rel(sk["ssm"], sr["ssm"]),
+                    "conv": _rel(sk["conv"], sr["conv"])}
+            tol = MAMBA_TOL[dt]
+            ok = torch.isfinite(lk).all().item() and all(
+                g <= tol for g in gaps.values())
+            if dt == "float32":
+                for key in ("ssm", "conv"):
+                    scale = sr[key].abs().max().item()
+                    ok = ok and torch.allclose(sk[key], sr[key], rtol=1e-3,
+                                               atol=1e-3 * scale)
+            print(f"mamba2: kernel vs reference route, prompt {n} (Q = "
+                  f"{64 if plen % 64 == 0 else plen}), {dt}: rel L2 logits "
+                  f"{gaps['logits']:.3e}, ssm state {gaps['ssm']:.3e}, conv "
+                  f"state {gaps['conv']:.3e} (tol {tol}), argmax equal "
+                  f"{bool((lk.argmax(-1) == lr_.argmax(-1)).all())}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"mamba2 routes disagree ({dt}, "
+                                     f"prompt {n}): {gaps}")
+            del out
+    del p32
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="profile the serving run, one decomposed "
-                         "forward and the shared-prefix paged run, and "
-                         "print each one's device busy share and kernel "
-                         "time table")
+                         "forward, the shared-prefix paged run and the "
+                         "Mamba2 serving run, and print each one's device "
+                         "busy share and kernel time table")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1155,24 +1382,37 @@ def main() -> int:
 
     cfg = get_arch("llama2-7b")
     rows = phase_kernels(cfg)
-    params = init_llama(cfg)
+    params = init_weights(cfg)
     serve_launches, slot_tokens = serve_llama(cfg, params, args.profile)
     torch.cuda.empty_cache()
     conformance(cfg)
+    conformance_mamba2()
     act = activation_llama(cfg, params, args.profile)
     torch.cuda.empty_cache()
     paged_same_traffic(cfg, params, slot_tokens)
     paged = paged_prefix_llama(cfg, params, args.profile)
+    # the earlier phases' engines hold the llama2-7b weights in reference
+    # cycles (engine <-> family): collect them, so phase 8's peak memory
+    # is Mamba2's own
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2 = get_arch(MAMBA_ARCH)
+    m2_params = init_weights(m2)
+    mamba = serve_mamba2(m2, m2_params, args.profile)
+    del m2_params
     # each kernel's launches from the run of the path that uses it: the
     # serving run for the batched re-orth pair and dkv, the activation
     # forward for the rest (its re-orth launches are all at B = 1), the
-    # shared-prefix run for the paged dkv kernel
+    # shared-prefix run for the paged dkv kernel, Mamba2 serving for the
+    # SSD kernel
     launches = dict(serve_launches, lowrank_matmul=act["lowrank_matmul"],
                     outlier_stats=act["outlier_stats"],
                     reorth_right=act["reorth_right_batched"],
                     reorth_left=act["reorth_left_batched"],
                     dkv_attention_stats_paged=paged[
-                        "dkv_attention_stats_paged"])
+                        "dkv_attention_stats_paged"],
+                    ssd_chunk_intra=mamba["ssd_chunk_intra"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

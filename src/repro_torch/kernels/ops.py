@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.ops`` and the JAX engine's backend
 registry.  :func:`make_kernels` gives a :class:`KernelSet` — the Lanczos
 hooks (ONE fused re-orth launch per Lanczos pass for the whole batch),
-the Eq. 6 GEMM and the outlier statistics — for one of two backends:
+the Eq. 6 GEMM, the outlier statistics and the intra-chunk SSD term of
+Mamba2 — for one of two backends:
 
 * ``"cuda"`` (default): each wrapper dispatches on the device of its
   tensors — the CUDA kernel for CUDA tensors, the plain version for CPU
@@ -24,6 +25,7 @@ from typing import Callable, Dict, NamedTuple
 from ..core.lanczos import BatchedLanczosHooks
 from . import dkv_attention as _dkv, lanczos_reorth as _lr
 from . import lowrank_matmul as _lrmm, outlier_extract as _ol
+from . import ssd_chunk as _ssd
 
 BACKENDS = ("cuda", "reference")
 
@@ -35,6 +37,7 @@ KERNELS = {
     "dkv_attention_stats_paged": _dkv.dkv_attention_stats_paged,
     "lowrank_matmul": _lrmm.lowrank_matmul,
     "outlier_stats": _ol.outlier_stats,
+    "ssd_chunk_intra": _ssd.ssd_chunk_intra,
 }
 
 
@@ -51,6 +54,7 @@ class KernelSet(NamedTuple):
     hooks: BatchedLanczosHooks
     lowrank_matmul: Callable      # (vt [..., k, H], w [H, N]) -> [..., k, N]
     outlier_stats: Callable       # (x [..., S, H], T) -> (counts, maxabs)
+    ssd_chunk_intra: Callable     # (cb, l, dt, x [G,Q,nh,hd]) -> y
 
 
 def _check_backend(backend: str) -> None:
@@ -83,10 +87,12 @@ def make_batched_hooks(expansion: int = 32,
 
 @functools.lru_cache(maxsize=None)
 def make_kernels(backend: str = "cuda", expansion: int = 32) -> KernelSet:
-    """Every kernel of the activation path for ``backend``."""
+    """Every kernel of the activation path and of the Mamba2 scan for
+    ``backend``."""
     _check_backend(backend)
     hooks = make_batched_hooks(expansion, backend)
     if backend == "reference":
         return KernelSet(hooks, _lrmm.lowrank_matmul_plain,
-                         _ol.outlier_stats_plain)
-    return KernelSet(hooks, _lrmm.lowrank_matmul, _ol.outlier_stats)
+                         _ol.outlier_stats_plain, _ssd.ssd_chunk_intra_plain)
+    return KernelSet(hooks, _lrmm.lowrank_matmul, _ol.outlier_stats,
+                     _ssd.ssd_chunk_intra)

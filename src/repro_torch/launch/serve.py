@@ -21,6 +21,15 @@ first L prompt tokens, so later requests admit as prefix hits:
       --requests 8 --prompt-len 512 --shared-prefix 496 --max-new 32 \\
       --max-len 1024 --decompose-kv-rank 64 --dkv-tail 16 --paged \\
       --kv-prefix-cache 8
+
+``--arch mamba2-780m`` serves the Mamba2 (ssm) family: O(1) state slots,
+prefill through the chunked SSD scan whose intra-chunk term is the CUDA
+kernel ``ssd_chunk_intra`` (the decomposed-KV flags do not apply):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --requests 4 --prompt-len 512 --max-new 32 --max-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ import torch
 from ..configs import get_arch
 from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import ops
-from ..models import transformer as T
+from ..models.api import model_fns
 from ..platform import device_name, resolve_device
 from ..serving import Engine, Request
 
@@ -77,7 +86,7 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     gen = torch.Generator(device=device).manual_seed(0)
-    params = T.init(cfg, gen, device=device)
+    params = model_fns(cfg).init(cfg, gen, device=device)
     dengine = DecomposeEngine(EngineConfig(
         expansion=args.expansion, kv_rank=args.decompose_kv_rank,
         kv_tail=args.dkv_tail, kv_exact=args.dkv_exact,

@@ -1,0 +1,297 @@
+"""Mamba2 SSD (state-space duality): chunked dual form + O(1) decode state.
+
+Counterpart of ``repro.models.mamba2``: the same parameter tree (layers
+stacked on a leading L axis), the same float32 SSD arithmetic and the
+same decode state.  The chunked algorithm:
+
+* intra-chunk term — the attention-like masked product
+  M[t, s] = (C_t·B_s)·exp(l_t − l_s)·dt_s for s ≤ t within a chunk,
+  through the kernel set's ``ssd_chunk_intra`` (the CUDA kernel on the
+  card, its plain version on the host or under ``backend="reference"``);
+  C·Bᵀ, which is head-independent, is one ``torch.matmul`` outside it;
+* inter-chunk term — per-chunk final states combined by a sequential
+  scan over chunks (a Python loop), then broadcast back through C_t.
+
+The chunk is ``CHUNK`` tokens, or the whole sequence when ``CHUNK`` does
+not divide it (the reference's rule), so a bucketed prompt of 304 tokens
+is one chunk of 304.
+
+Decode carries (conv [B, w−1, ch] in ``cfg.dtype``, ssm [B, nh, hd, ds]
+float32) per layer, O(1) in sequence length; ``decode_step`` updates the
+state tree IN PLACE, one layer slice at a time.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.ops import KernelSet, make_kernels
+from ..platform import torch_dtype
+from . import layers as L
+from . import transformer as T
+
+Params = L.Params
+
+CHUNK = 64
+
+
+# ---------------------------------------------------------------------------
+# Init: the distributions of repro.models.mamba2 (ssd_init, init)
+# ---------------------------------------------------------------------------
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights on ``device`` from ``generator``: N(0, 1/in) for the
+    projections, N(0, 1/d_model) for the embedding, N(0, 0.01) for the
+    conv taps, zero conv bias, A = −exp(0), D = 1, dt_bias = 0 (float32),
+    ones for norm scales.  Each layer's slice is drawn in float32 and
+    stored in ``cfg.dtype``."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    nl, h, di = cfg.num_layers, cfg.d_model, cfg.d_inner
+    ds, nh = cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * ds
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32) * std).to(dt)
+
+    def stacked(shape, std):
+        w = torch.empty((nl,) + shape, device=dev, dtype=dt)
+        for i in range(nl):
+            w[i] = normal(shape, std)
+        return w
+
+    def full(shape, value, dtype):
+        return torch.full((nl,) + shape, value, device=dev, dtype=dtype)
+
+    ssd = {
+        "in_proj": {"w": stacked((h, 2 * di + 2 * ds + nh), h ** -0.5)},
+        "conv_w": stacked((cfg.ssm_conv_width, conv_ch), 0.1),
+        "conv_b": full((conv_ch,), 0.0, dt),
+        "a_log": full((nh,), 0.0, torch.float32),
+        "d": full((nh,), 1.0, torch.float32),
+        "dt_bias": full((nh,), 0.0, torch.float32),
+        "norm": {"scale": full((di,), 1.0, dt)},
+        "out_proj": {"w": stacked((di, h), di ** -0.5)},
+    }
+    return {"embed": {"w": normal((cfg.padded_vocab, h), h ** -0.5)},
+            "layers": {"norm": {"scale": full((h,), 1.0, dt)}, "ssd": ssd},
+            "final_norm": {"scale": torch.ones(h, device=dev, dtype=dt)},
+            "lm_head": {"w": normal((h, cfg.padded_vocab), h ** -0.5)}}
+
+
+# ---------------------------------------------------------------------------
+# Core SSD math
+# ---------------------------------------------------------------------------
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold shortcut
+    (``F.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _conv_causal(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x [B, S, C], w [W, C].  The taps sum in
+    float32 in the reference's order, then silu, then the cast."""
+    width, s = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):            # width is 4: unrolled taps
+        out = out + xp[:, i:i + s, :].float() * w[i].float()
+    return L.silu(out + b.float()).to(x.dtype)
+
+
+def _split_proj(proj: torch.Tensor, cfg):
+    di, ds = cfg.d_inner, cfg.ssm_state
+    z = proj[..., :di]
+    xbc = proj[..., di:2 * di + 2 * ds]
+    dt_raw = proj[..., 2 * di + 2 * ds:]
+    return z, xbc, dt_raw
+
+
+def _ssd_inputs(p: Params, x_in: torch.Tensor, cfg):
+    """in_proj and the causal conv of one layer: (z, raw xbc, x heads
+    [B,S,nh,hd], B [B,S,ds], C [B,S,ds], dt [B,S,nh]), float32 but z and
+    the raw xbc."""
+    b, s, _ = x_in.shape
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    z, xbc_raw, dt_raw = _split_proj(L.dense(p["in_proj"], x_in), cfg)
+    xbc = _conv_causal(xbc_raw, p["conv_w"], p["conv_b"])
+    xh = xbc[..., :di].reshape(b, s, nh, hd).float()
+    bm = xbc[..., di:di + ds].float()
+    cm = xbc[..., di + ds:].float()
+    dt = softplus(dt_raw.float() + p["dt_bias"])
+    return z, xbc_raw, xh, bm, cm, dt
+
+
+def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
+              inputs) -> torch.Tensor:
+    """The chunked SSD of one layer on its ``_ssd_inputs``; [B, S, H]."""
+    z, _, xh, bm, cm, dt = inputs
+    b, s, _ = x_in.shape
+    di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    da = dt * -torch.exp(p["a_log"])                       # [B, S, nh] < 0
+
+    q = min(CHUNK, s)
+    if s % q != 0:
+        q = s
+    nc = s // q
+
+    def ch(t):  # chunked view
+        return t.reshape((b, nc, q) + t.shape[2:])
+
+    xh_c, bm_c, cm_c, dt_c, da_c = map(ch, (xh, bm, cm, dt, da))
+    l = torch.cumsum(da_c, dim=2)                          # [B,nc,Q,nh]
+
+    # ---- intra-chunk: the kernel set's ssd_chunk_intra -----------------
+    cb = torch.matmul(cm_c, bm_c.transpose(-1, -2))        # [B,nc,Q,Q]
+    g = b * nc
+    y_intra = kernels.ssd_chunk_intra(
+        cb.reshape(g, q, q), l.reshape(g, q, nh).contiguous(),
+        dt_c.reshape(g, q, nh).contiguous(),
+        xh_c.reshape(g, q, nh, hd).contiguous()).reshape(b, nc, q, nh, hd)
+
+    # ---- inter-chunk: recurrence over chunk states ----------------------
+    decay_to_end = torch.exp(l[:, :, -1:, :] - l)          # [B,nc,Q,nh]
+    w = (dt_c * decay_to_end)[..., None] * xh_c            # [B,nc,Q,nh,hd]
+    states = torch.einsum("bcsd,bcsnp->bcnpd", bm_c, w)    # [B,nc,nh,hd,ds]
+    gc = torch.exp(l[:, :, -1, :])                         # [B,nc,nh]
+    h = torch.zeros_like(states[:, 0])
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = gc[:, c, :, None, None] * h + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # [B,nc,nh,hd,ds]
+    y_inter = torch.einsum("bcqd,bcnpd->bcqnp", cm_c, h_prevs) \
+        * torch.exp(l)[..., None]
+
+    y = (y_intra + y_inter).reshape(b, s, nh, hd) \
+        + p["d"][None, None, :, None] * xh
+    y = y.reshape(b, s, di) * L.silu(z.float())
+    y = L.rmsnorm(p["norm"], y.to(x_in.dtype), cfg.norm_eps)
+    return L.dense(p["out_proj"], y)
+
+
+def ssd_apply(p: Params, x_in: torch.Tensor, cfg,
+              kernels: Optional[KernelSet] = None) -> torch.Tensor:
+    """Full-sequence SSD: x_in [B, S, H] → [B, S, H]; the intra-chunk term
+    through ``kernels.ssd_chunk_intra`` (default: the ``"cuda"`` set,
+    which dispatches on the device)."""
+    kernels = kernels or make_kernels()
+    return _ssd_core(p, x_in, cfg, kernels, _ssd_inputs(p, x_in, cfg))
+
+
+def ssd_decode(p: Params, x_in: torch.Tensor, state: Params,
+               cfg) -> Tuple[torch.Tensor, Params]:
+    """One-token SSD step: x_in [B, 1, H]; state = {conv [B, W−1, ch],
+    ssm [B, nh, hd, ds]} → (out [B, 1, H], new state)."""
+    b = x_in.shape[0]
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    z, xbc, dt_raw = _split_proj(L.dense(p["in_proj"], x_in), cfg)
+
+    conv_in = torch.cat([state["conv"], xbc.to(state["conv"].dtype)],
+                        dim=1)                              # [B, W, ch]
+    xbc_c = torch.einsum("bwc,wc->bc", conv_in.float(), p["conv_w"].float())
+    xbc_c = L.silu(xbc_c + p["conv_b"].float())
+    new_conv = conv_in[:, 1:, :]
+
+    xh = xbc_c[:, :di].reshape(b, nh, hd)
+    bm = xbc_c[:, di:di + ds]                               # [B, ds]
+    cm = xbc_c[:, di + ds:]
+
+    dt = softplus(dt_raw[:, 0].float() + p["dt_bias"])
+    g = torch.exp(dt * -torch.exp(p["a_log"]))              # [B, nh]
+
+    h = state["ssm"].float()
+    h = g[:, :, None, None] * h \
+        + (dt[:, :, None] * xh)[..., None] * bm[:, None, None, :]
+    y = torch.einsum("bd,bnpd->bnp", cm, h) + p["d"][None, :, None] * xh
+    y = y.reshape(b, 1, di) * L.silu(z.float())
+    y = L.rmsnorm(p["norm"], y.to(x_in.dtype), cfg.norm_eps)
+    return L.dense(p["out_proj"], y), {"conv": new_conv,
+                                       "ssm": h.to(state["ssm"].dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Model-level
+# ---------------------------------------------------------------------------
+
+def block(p: Params, x: torch.Tensor, cfg,
+          kernels: Optional[KernelSet] = None) -> torch.Tensor:
+    return x + ssd_apply(p["ssd"], L.rmsnorm(p["norm"], x, cfg.norm_eps),
+                         cfg, kernels)
+
+
+def forward(p: Params, cfg, tokens: torch.Tensor,
+            kernels: Optional[KernelSet] = None) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
+    x = T.embed(p, cfg, tokens)
+    for i in range(cfg.num_layers):
+        x = block(L.layer_params(p["layers"], i), x, cfg, kernels)
+    return T.logits_head(p, x, cfg)
+
+
+def init_state(cfg, batch: int, max_len: Optional[int] = None,
+               device=None) -> Params:
+    """Zero decode state of ``batch`` slots (no time axis: ``max_len`` is
+    unused); conv in ``cfg.dtype``, ssm float32."""
+    del max_len
+    nl, conv_ch = cfg.num_layers, cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1, conv_ch),
+                            device=device, dtype=torch_dtype(cfg.dtype)),
+        "ssm": torch.zeros((nl, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), device=device,
+                           dtype=torch.float32),
+    }
+
+
+def prefill(p: Params, cfg, tokens: torch.Tensor,
+            max_len: Optional[int] = None,
+            kernels: Optional[KernelSet] = None
+            ) -> Tuple[torch.Tensor, Params]:
+    """Full forward that also assembles each layer's final (conv, ssm)
+    state.  Returns (last-position logits [B, V], state).  The state
+    reuses the layer's in_proj and conv outputs (the reference computes
+    them again); its decay is the reference's full-sequence cumsum."""
+    del max_len
+    kernels = kernels or make_kernels()
+    b, s = tokens.shape
+    x = T.embed(p, cfg, tokens)
+    state = init_state(cfg, b, device=tokens.device)
+    w1 = cfg.ssm_conv_width - 1
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        h_in = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
+        inputs = _ssd_inputs(lp["ssd"], h_in, cfg)
+        x = x + _ssd_core(lp["ssd"], h_in, cfg, kernels, inputs)
+        _, xbc_raw, xh, bm, _, dt = inputs
+        state["conv"][i] = xbc_raw[:, -w1:, :]
+        l = torch.cumsum(dt * -torch.exp(lp["ssd"]["a_log"]), dim=1)
+        decay_to_end = torch.exp(l[:, -1:, :] - l)          # [B, S, nh]
+        w = (dt * decay_to_end)[..., None] * xh             # [B,S,nh,hd]
+        state["ssm"][i] = torch.einsum("bsd,bsnp->bnpd", bm, w)
+    logits = T.logits_head(p, x[:, -1:, :], cfg)[:, 0]
+    return logits, state
+
+
+def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
+                pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """One-token step: token [B] → (logits [B, V], state).  ``pos`` is
+    unused (the SSM state is position-free); the state is updated IN
+    PLACE, one layer slice at a time."""
+    del pos
+    x = T.embed(p, cfg, token)[:, None, :]
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        st = {"conv": state["conv"][i], "ssm": state["ssm"][i]}
+        y, st = ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x, cfg.norm_eps),
+                           st, cfg)
+        state["conv"][i] = st["conv"]
+        state["ssm"][i] = st["ssm"]
+        x = x + y
+    return T.logits_head(p, x, cfg)[:, 0], state

@@ -8,9 +8,10 @@ rounded up to the scheduler bucket, batch to a power of two) and their
 fresh cache rows are spliced into the live cache — live slots are never
 re-prefilled.  Everything family-specific (cache layout, prefill, splice,
 decode, tail folds) lives behind the ``ServingFamily`` of
-``serving.families``: ``dense`` or ``transformer-dkv`` (selected when
-the decompose engine's ``EngineConfig.kv_rank`` is > 0; its ``kv_tail``
-and ``kv_exact`` set the tail length and the factorization).
+``serving.families``: ``dense``, ``ssm`` (Mamba2 state slots) or
+``transformer-dkv`` (selected when the decompose engine's
+``EngineConfig.kv_rank`` is > 0; its ``kv_tail`` and ``kv_exact`` set
+the tail length and the factorization).
 
 ``paged=True`` (decomposed KV only) swaps the slab for the page pools
 of ``serving.paged``: prefix U rows and dense tails in refcounted pages
@@ -150,9 +151,10 @@ class Scheduler:
 
 
 class Engine:
-    """Continuous-batching engine over the dense transformer, with the
-    decomposed KV cache when ``decompose_engine.config.kv_rank`` > 0
-    (no decompose engine: dense KV), on page pools when ``paged``."""
+    """Continuous-batching engine over the config's family (dense
+    transformer or Mamba2), with the decomposed KV cache when
+    ``decompose_engine.config.kv_rank`` > 0 (dense family only), on page
+    pools when ``paged``."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  decompose_engine: Optional[DecomposeEngine] = None,

@@ -4,6 +4,10 @@ Counterpart of ``repro.serving.families`` for the slot path with sync
 admission.  Registered families:
 
 * ``dense`` — plain dense-KV transformer serving (the base class);
+* ``ssm`` — Mamba2: the cache is an O(1) state slot per sequence (conv
+  window + SSM state, no time axis); prefill runs the chunked scan with
+  the kernel set of the engine's ``EngineConfig.backend``; no folds and
+  no pager (``pos`` still advances for the budget);
 * ``transformer-dkv`` — the decomposed-KV path, selected whenever the
   engine's ``EngineConfig.kv_rank`` is > 0: prefill factorizes K/V
   through the engine's DecomposeEngine, decode attends through the
@@ -27,7 +31,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import decomposed_kv as DK, transformer as T
+from ..kernels.ops import make_kernels
+from ..models import decomposed_kv as DK
+from ..models.api import model_fns
 from .paged import PagedDKV
 
 Admitted = Tuple[np.ndarray, np.ndarray]       # (first tokens, frozen lens)
@@ -67,9 +73,10 @@ def serving_family(eng, paged: bool = False) -> "ServingFamily":
 
 
 class ServingFamily:
-    """The base class IS the dense-KV slab path: a [L, slots, max_len,
-    kvh, d] cache, prefill + splice admission, one-token decode, no
-    folds."""
+    """The base class IS the generic slab path, through the family's
+    ``models.api.model_fns``: a cache whose every leaf has its slot axis
+    at 1 (dense: K/V [L, slots, max_len, kvh, d]), prefill + splice
+    admission, one-token decode, no folds."""
     paged_capable = False
 
     def __init__(self, eng, paged: bool = False):
@@ -77,11 +84,12 @@ class ServingFamily:
             raise ValueError("paged serving runs on the decomposed KV "
                              "cache (set EngineConfig.kv_rank > 0)")
         self.eng = eng
+        self.fns = model_fns(eng.cfg)
 
     def alloc(self):
         eng = self.eng
-        return T.init_cache(eng.cfg, eng.slots, eng.max_len,
-                            device=eng.device)
+        return self.fns.init_cache(eng.cfg, eng.slots, eng.max_len,
+                                   device=eng.device)
 
     def free_slot(self, slot: int) -> None:
         """Release per-slot resources (paged block tables) on finish."""
@@ -111,19 +119,28 @@ class ServingFamily:
         group's prefill runs (the reference's ticket order)."""
         eng = self.eng
         toks = eng._toks(batch, self._batch_rows(len(batch)), plen)
-        logits, fresh = T.prefill(eng.params, eng.cfg, toks, eng.max_len)
+        logits, fresh = self._prefill(toks)
         idx = torch.as_tensor(slots_idx, device=eng.device)
         n = len(batch)
-        for key in ("k", "v"):
-            eng.cache[key][:, idx] = fresh[key][:, :n]
+        for key, live in eng.cache.items():
+            new = fresh[key]
+            assert new.shape[1] == toks.shape[0] and \
+                new.shape[:1] + new.shape[2:] == live.shape[:1] + \
+                live.shape[2:], f"cache leaf {key!r}: slot axis is not 1"
+            live[:, idx] = new[:, :n]
         yield list(range(n)), (eng._sample_host(logits)[:n],
                                np.zeros(n, np.int32))
+
+    def _prefill(self, toks: torch.Tensor):
+        """(last logits, fresh cache of ``toks``' rows)."""
+        eng = self.eng
+        return self.fns.prefill(eng.params, eng.cfg, toks, eng.max_len)
 
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
         pos = torch.from_numpy(eng.pos).long().to(eng.device)
-        logits, eng.cache = T.decode_step(eng.params, eng.cfg, tok,
-                                          eng.cache, pos)
+        logits, eng.cache = self.fns.decode_step(eng.params, eng.cfg, tok,
+                                                 eng.cache, pos)
         return logits
 
     def maybe_fold(self) -> None:
@@ -133,6 +150,26 @@ class ServingFamily:
 @register_family("dense")
 class DenseKVServing(ServingFamily):
     """Plain dense-KV transformer serving: the base path unmodified."""
+
+
+@register_family("ssm")
+class Mamba2Serving(ServingFamily):
+    """Mamba2/SSM serving: the "cache" is O(1) per slot — conv window
+    [L, slots, w−1, ch] + SSM state [L, slots, nh, hd, ds] — a STATE SLOT
+    with no time axis.  ``pos`` still advances (budget bookkeeping) but
+    never indexes device state; there is nothing to fold; admission
+    splices whole state rows.  Prefill runs the chunked scan through the
+    kernel set of ``eng.dengine.config.backend`` (``"cuda"``: the SSD
+    kernel on the card; ``"reference"``: its plain version)."""
+
+    def __init__(self, eng, paged: bool = False):
+        super().__init__(eng, paged=paged)
+        self.kernels = make_kernels(eng.dengine.config.backend)
+
+    def _prefill(self, toks: torch.Tensor):
+        eng = self.eng
+        return self.fns.prefill(eng.params, eng.cfg, toks, eng.max_len,
+                                kernels=self.kernels)
 
 
 @register_family("transformer-dkv")

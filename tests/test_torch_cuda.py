@@ -15,6 +15,7 @@ from repro_torch.kernels import dkv_attention as dk  # noqa: E402
 from repro_torch.kernels import lanczos_reorth as lr  # noqa: E402
 from repro_torch.kernels import lowrank_matmul as lrmm  # noqa: E402
 from repro_torch.kernels import outlier_extract as oe  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import decomposed_kv as DK  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -259,10 +260,85 @@ def test_decomposed_forward_routes_agree_on_card(cuda):
                               "dkv_attention_stats": 0,
                               "dkv_attention_stats_paged": 0,
                               "lowrank_matmul": 2 * 5,
-                              "outlier_stats": 4}, counts
+                              "outlier_stats": 4,
+                              "ssd_chunk_intra": 0}, counts
         else:
             assert all(v == 0 for v in counts.values()), counts
     for a, b in zip(logs["cuda"], logs["reference"]):
         assert torch.equal(a, b)
     lk, lp = outs["cuda"], outs["reference"]
     assert ((lk - lp).norm() / lp.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("g,q,nh,hd", [(3, 16, 6, 64), (8, 64, 6, 64),
+                                       (2, 80, 5, 32), (1, 304, 6, 96),
+                                       (1, 1008, 6, 64)])
+def test_ssd_chunk_kernel_matches_plain(cuda, g, q, nh, hd):
+    """Intra-chunk SSD term: Q = 16, 64, 80, 304 (one bucketed prompt)
+    and 1008 (many 64-row query tiles), nh not a multiple of 4, hd 32,
+    64 and 96 (a ragged second column slice).  float32 sums in another
+    order: 1e-4 relative and absolute, as the JAX kernel test."""
+    gen = torch.Generator(device=cuda).manual_seed(q + hd)
+    cb = torch.randn(g, q, q, generator=gen, device=cuda) * 0.3
+    da = -torch.randn(g, q, nh, generator=gen, device=cuda).abs() * 0.05
+    l = torch.cumsum(da, dim=1)
+    dt = torch.randn(g, q, nh, generator=gen, device=cuda).abs()
+    x = torch.randn(g, q, nh, hd, generator=gen, device=cuda)
+    before = ssd.ssd_chunk_intra.launches
+    got = ssd.ssd_chunk_intra(cb, l, dt, x)
+    want = ssd.ssd_chunk_intra_plain(cb, l, dt, x)
+    assert ssd.ssd_chunk_intra.launches == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    # a steep decay overflows exp(l_q - l_s) above the diagonal: masked
+    steep = torch.cumsum(da * 800, dim=1)
+    got = ssd.ssd_chunk_intra(cb, steep, dt, x)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, ssd.ssd_chunk_intra_plain(cb, steep, dt, x), **TOL)
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_chunk_intra(cb, l, dt, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_chunk_intra(cb.transpose(1, 2), l, dt, x)
+
+
+def test_mamba2_engine_on_card(cuda):
+    """Reduced float32 mamba2-780m served on the card with staggered
+    arrivals: each request's solo tokens, the ``backend="reference"``
+    route's tokens, and the SSD kernel launched once per layer per
+    prefill (and never under "reference")."""
+    import numpy as np
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.models import mamba2 as M
+    from repro_torch.serving import Engine, Request
+    cfg = get_arch("mamba2-780m").reduced().replace(dtype="float32")
+    p = M.init(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (7, 12, 19, 5, 70)]
+
+    def serve(slots, todo, backend="cuda"):
+        eng = Engine(cfg, p, slots=slots, max_len=96, device=cuda,
+                     decompose_engine=DecomposeEngine(EngineConfig(
+                         backend=backend)))
+        ops.reset_launch_counts()
+        done = []
+        for step in range(300):
+            if step % 3 == 0 and step // 3 < len(todo):
+                i = todo[step // 3]
+                eng.submit(Request(uid=i, prompt=prompts[i],
+                                   max_new_tokens=12))
+            done.extend(eng.step())
+            if len(done) == len(todo) and not any(eng.live):
+                break
+        return {r.uid: r.out_tokens for r in done}, eng.stats, \
+            ops.launch_counts()
+
+    got, st, counts = serve(4, list(range(len(prompts))))
+    assert st.prefill_batches >= 2
+    assert counts["ssd_chunk_intra"] == cfg.num_layers * st.prefill_batches
+    assert all(v == 0 for k, v in counts.items() if k != "ssd_chunk_intra")
+    for i in range(len(prompts)):
+        assert serve(1, [i])[0][i] == got[i], i
+    ref, _, counts = serve(4, list(range(len(prompts))), "reference")
+    assert ref == got
+    assert all(v == 0 for v in counts.values()), counts
