@@ -69,11 +69,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    SSM and conv state within the same relative L2 in bf16 and allclose
    (rtol 1e-3, atol 1e-3 of the largest entry) in float32.
 
+9. the autotuner and the paper's Fig. 12 expansion sweep: the A/B of
+   ``repro_torch.launch.fig12.run_ab`` at four operating points (matvec
+   and rmatvec at A [4096, 4096] float32, L2 flushed per call, and at the
+   paper's batch 64, S = H = 4096 in bf16): the whole grid f = 1..128
+   measured through the CUDA kernel, the tuner's pruning replayed on that
+   table, tuned / default (f = 8) / optimum printed with f = 1 over the
+   optimum, tuned within 1.05x of the optimum asserted, and the launch
+   counters raised by exactly the calls of each A/B; the H100 cost
+   model's constants fitted to the matvec sweeps; a measured tune of the
+   re-orth kernel's warps per CTA at phase 4's [32, 512, 4096] (printed,
+   not gated; a second tune hits the cache); and an
+   ``EngineConfig(expansion="auto")`` decomposition of one such batch,
+   bit-identical to the engine pinned at the resolved f.  The tuning
+   cache is a temporary file of the run.
+
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
 statistics, the B = 1 re-orth pair) against their plain versions at the
 shapes phase 6 gives them, the paged dkv kernel bit for bit against
 the slab kernel at phase 4's shapes, and the intra-chunk SSD kernel at
-phase 8's two shapes.  Phase 5 also serves reduced float32
+phase 8's two shapes, and the four expanded matvec wrappers at
+phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
+bit-identical).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
 request's solo tokens and the ``backend="reference"`` route's tokens.
 The line before the last is
@@ -87,9 +104,11 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -446,6 +465,57 @@ def ssd_case(g: int, q: int, nh: int, hd: int, gen):
                           "tests/test_kernels.py uses 1e-4)")
 
 
+MATVEC_LINES = {"matvec": 65, "rmatvec": 174, "matvec_batched": 122,
+                "rmatvec_batched": 148}   # src/repro/kernels/matvec_expand.py
+
+
+def matvec_case(name: str, shape, dtype, gen):
+    """One of the four expanded matvec wrappers at the default f = 8 and
+    512 rows (columns) per CTA against its plain version: A ``shape`` in
+    ``dtype``, the vector in ``dtype``; reruns must be bit-identical.  A
+    2-D (scalar) shape is timed with the L2 flushed before each call; the
+    yardstick is one PyTorch call (``torch.mv`` / ``torch.bmm``)."""
+    import torch
+    from repro_torch.kernels import matvec_expand as mv
+    dev = "cuda"
+    a = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    n_vec = shape[-1] if name.startswith("matvec") else shape[-2]
+    x = torch.randn(*shape[:-2], n_vec, generator=gen, device=dev).to(dtype)
+    key = "row_block" if name.startswith("matvec") else "col_block"
+    kw = {"expansion": 8, key: 512}
+    kern = lambda: getattr(mv, name)(a, x, **kw)  # noqa: E731
+    plain = lambda: getattr(mv, f"{name}_plain")(a, x, **kw)  # noqa: E731
+    lib = {"matvec": lambda: torch.mv(a, x),
+           "rmatvec": lambda: torch.mv(a.T, x),
+           "matvec_batched": lambda: torch.bmm(a, x[..., None]),
+           "rmatvec_batched": lambda: torch.bmm(x[:, None], a)}[name]
+    got, want = kern(), plain()
+    again = kern()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol
+            and torch.equal(got, again)):
+        raise AssertionError(f"{name} {list(shape)} {dtype}: max abs err "
+                             f"{err:.3e} > {tol:.3e} or reruns differ")
+    timer = time_ms_cold if len(shape) == 2 else time_ms
+    ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+    bytes_ = a.numel() * a.element_size() + x.numel() * x.element_size() \
+        + got.numel() * 4
+    bms, by = bound(bytes_, 2 * a.numel(), str(dtype).split(".")[-1])
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/matvec_expand.cu",
+                replaces=f"src/repro/kernels/matvec_expand.py:"
+                         f"{MATVEC_LINES[name]}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms,
+                shape=dict(a=list(shape), dtype=str(dtype), **kw,
+                           l2_flushed=len(shape) == 2),
+                tolerance="max|y_kernel - y_plain| <= 1e-4 max|y_plain| "
+                          "(float32 sums in another order); reruns "
+                          "bit-identical")
+
+
 def phase_kernels(cfg):
     import torch
     from repro_torch.configs import get_arch
@@ -489,7 +559,17 @@ def phase_kernels(cfg):
                 for g, q in ((8, 64), (1, 304))]
     for rec in ssd_rows:
         print(json.dumps(rec), flush=True)
-    return rows + act + ssd_rows
+    # the expanded matvec pair (phase 9's Fig. 12 operating points): A
+    # [4096, 4096] float32 and the paper's batch 64, S = H = 4096 in bf16
+    mv_rows = []
+    for shape, dt in ((FIG12_SCALAR, torch.float32),
+                      (FIG12_BATCHED, torch.bfloat16)):
+        for op in ("matvec", "rmatvec"):
+            name = op if len(shape) == 2 else f"{op}_batched"
+            mv_rows.append(matvec_case(name, shape, dt, gen))
+            print(json.dumps(mv_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    return rows + act + ssd_rows + mv_rows
 
 
 # ---------------------------------------------------------------------------
@@ -786,7 +866,8 @@ def conformance_mamba2():
 ACT_LAUNCHES = {"lowrank_matmul": 50, "outlier_stats": 20,
                 "reorth_left_batched": 400, "reorth_right_batched": 380,
                 "dkv_attention_stats": 0, "dkv_attention_stats_paged": 0,
-                "ssd_chunk_intra": 0}
+                "ssd_chunk_intra": 0, "matvec": 0, "rmatvec": 0,
+                "matvec_batched": 0, "rmatvec_batched": 0}
 ACT_LOGITS_TOL = 2e-2    # relative L2, bf16 kernel route vs plain route
 ACT_F32_TOL = 1e-3       # the same, float32 weights and forward
 ACT_SEQ = 4096           # the paper's 4K setting: tokens [1, ACT_SEQ]
@@ -1349,6 +1430,114 @@ def check_mamba2_routes(cfg, params, prompts):
     del p32
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the autotuner and the Fig. 12 expansion sweep
+# ---------------------------------------------------------------------------
+
+FIG12_SCALAR = (4096, 4096)              # float32, L2 flushed per call
+FIG12_BATCHED = (64, 4096, 4096)         # the paper's Fig. 12 geometry, bf16
+FIG12_POINTS = (("matvec", FIG12_SCALAR, "float32"),
+                ("matvec", FIG12_BATCHED, "bfloat16"),
+                ("rmatvec", FIG12_SCALAR, "float32"),
+                ("rmatvec", FIG12_BATCHED, "bfloat16"))
+REORTH_TUNE = (32, 512, 4096)            # phase 4's re-orth shape (B = 32)
+
+
+def phase_fig12():
+    """The Fig. 12 A/B (``launch.fig12.run_ab``) at each operating point:
+    the whole f grid swept through the CUDA kernel, the tuner's pruning
+    replayed, tuned within 1.05x of the swept optimum (asserted), and the
+    launch counters raised by exactly the calls the A/B made.  Then a
+    measured tune of the re-orth kernel's warps at phase 4's shape (not
+    gated; a second tune must hit the cache), and an
+    ``EngineConfig(expansion="auto")`` decomposition of one [32, 512,
+    4096] batch, bit-identical to the engine pinned at the resolved f.
+    Returns the launch counts of the four A/Bs."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fig12
+    model = fig12.model_rows()
+    print(f"fig12: the paper's accelerator model (arithmetic, not a "
+          f"measurement): f*={model['f_star']}, f=1 over f* "
+          f"{model['speedup_vs_f1']:.2f}x", flush=True)
+    sweeps = {}
+    ops.reset_launch_counts()
+    for op, shape, dt in FIG12_POINTS:
+        name = op if len(shape) == 2 else f"{op}_batched"
+        before = ops.launch_counts()
+        data = fig12.run_ab(op, shape, dt, reps=5, device="cuda")
+        torch.cuda.empty_cache()
+        after = ops.launch_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        for line in fig12.ab_lines(data):
+            print(line, flush=True)
+        print("fig12: " + json.dumps(data), flush=True)
+        if ran != {name: data["calls"]}:
+            raise AssertionError(f"fig12 {name}: launches {ran}, want "
+                                 f"exactly {data['calls']} of {name}")
+        if sorted(data["swept_s"]) != [1, 2, 4, 8, 16, 32, 64, 128]:
+            raise AssertionError(f"fig12 {name}: swept f "
+                                 f"{sorted(data['swept_s'])}")
+        fig12.check_gate(data)
+        sweeps[(op, len(shape))] = data["swept_s"]
+    launches = ops.launch_counts()
+    fit = tune.cost_model.fit_h100(
+        sweeps[("matvec", 2)], FIG12_SCALAR, sweeps[("matvec", 3)],
+        FIG12_BATCHED, "float32", "bfloat16")
+    print(f"fig12: H100 model constants fitted to the matvec sweeps: "
+          f"sat_warps={fit['sat_warps']:.1f} (per-warp rate "
+          f"{fit['per_warp_bytes_s'] / 1e9:.3f} GB/s) cta_s="
+          f"{fit['cta_s']:.3e} combine_s={fit['combine_s']:.3e}; in use: "
+          f"sat_warps={tune.H100.sat_warps} cta_s={tune.H100.cta_s:.1e} "
+          f"combine_s={tune.H100.combine_s:.1e}", flush=True)
+
+    fix = {"backend": "cuda"}
+    before = ops.launch_counts()["reorth_right_batched"]
+    res = tune.tune("lanczos_reorth", REORTH_TUNE, "float32", fix=fix,
+                    prune=None, measure_candidates=True, device="cuda",
+                    force=True)
+    ran = ops.launch_counts()["reorth_right_batched"] - before
+    if ran != len(res.table) * 7:
+        raise AssertionError(f"re-orth tune: {ran} launches, want "
+                             f"{len(res.table) * 7}")
+    again = tune.tune("lanczos_reorth", REORTH_TUNE, "float32", fix=fix,
+                      measure_candidates=True, device="cuda")
+    if again.source != "cache" or again.best != res.best:
+        raise AssertionError(f"re-orth tune did not hit its cache entry: "
+                             f"{again.source} {again.best}")
+    curve = " ".join(f"f{c['expansion']}={m * 1e3:.4f}"
+                     for c, _, m in sorted(res.table,
+                                           key=lambda r: r[0]["expansion"]))
+    pick = min(res.table, key=lambda r: r[1])[0]["expansion"]
+    print(f"fig12: re-orth (right) warps per CTA at B, S, H = "
+          f"{REORTH_TUNE}: measured ms {curve}; model pick f={pick}, "
+          f"measured best f={res.best['expansion']} (not gated); second "
+          f"tune answered from the {again.source}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(*REORTH_TUNE, generator=gen, device="cuda")
+    auto = DecomposeEngine(EngineConfig(expansion="auto"))
+    f = auto.resolve_expansion(REORTH_TUNE[1], REORTH_TUNE[2],
+                               REORTH_TUNE[0], "float32", "cuda")
+    pinned = DecomposeEngine(EngineConfig(expansion=f))
+    lr_a, lr_p = auto.decompose(x, 64, iters=72), pinned.decompose(x, 64,
+                                                                 iters=72)
+    kv_a, kv_p = auto.decompose_kv(x, 64), pinned.decompose_kv(x, 64)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in (
+        (lr_a.u, lr_p.u), (lr_a.core, lr_p.core), (lr_a.vt, lr_p.vt),
+        (kv_a[0], kv_p[0]), (kv_a[1], kv_p[1])))
+    if not same:
+        raise AssertionError(f"expansion='auto' (f={f}) differs from the "
+                             f"engine pinned at f={f}")
+    print(f"fig12: {auto!r} resolved f={f} for {list(REORTH_TUNE)} "
+          f"(the measured entry); decompose and decompose_kv bit-identical "
+          f"to expansion={f}", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1373,6 +1562,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    # the tuner's cache lives in a temporary file for this run only
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp.name, "cache.json")
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -1401,18 +1593,22 @@ def main() -> int:
     m2_params = init_weights(m2)
     mamba = serve_mamba2(m2, m2_params, args.profile)
     del m2_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig = phase_fig12()
     # each kernel's launches from the run of the path that uses it: the
     # serving run for the batched re-orth pair and dkv, the activation
     # forward for the rest (its re-orth launches are all at B = 1), the
     # shared-prefix run for the paged dkv kernel, Mamba2 serving for the
-    # SSD kernel
+    # SSD kernel, the Fig. 12 A/Bs for the matvec pair
     launches = dict(serve_launches, lowrank_matmul=act["lowrank_matmul"],
                     outlier_stats=act["outlier_stats"],
                     reorth_right=act["reorth_right_batched"],
                     reorth_left=act["reorth_left_batched"],
                     dkv_attention_stats_paged=paged[
                         "dkv_attention_stats_paged"],
-                    ssd_chunk_intra=mamba["ssd_chunk_intra"])
+                    ssd_chunk_intra=mamba["ssd_chunk_intra"],
+                    **{k: fig[k] for k in MATVEC_LINES})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -17,6 +17,9 @@ async and mesh fields arrive with the modules that read them):
                     re-orth kernels it is the number of warps of the CTA
                     that splits each reduction into f partial sums plus a
                     small combine (1..32; 32 fills a 1024-thread block).
+                    ``"auto"``: resolved per shape bucket through
+                    ``repro_torch.tune`` (the ``lanczos_reorth`` space,
+                    the engine's backend pinned).
 * ``attn_mode``   — ``"dense"`` | ``"preserved"`` consumption of the
                     decomposed Q/K/V inputs (paper §3.2).
 * ``kv_rank`` / ``kv_tail`` / ``kv_iters_extra`` / ``kv_exact`` — the
@@ -35,7 +38,7 @@ async and mesh fields arrive with the modules that read them):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 from ..core.outlier import ThresholdTable
 from ..core.policy import DecompositionPolicy, LayerPolicy
@@ -48,7 +51,7 @@ ATTN_MODES = ("dense", "preserved")
 class EngineConfig:
     policy: Optional[DecompositionPolicy] = None
     backend: str = "cuda"
-    expansion: int = 32
+    expansion: Union[int, str] = 32     # warps per CTA, or "auto"
     attn_mode: str = "dense"
     kv_rank: int = 0
     kv_tail: int = 128
@@ -61,10 +64,12 @@ class EngineConfig:
     sched_admit_every: int = 1
 
     def __post_init__(self):
-        if not isinstance(self.expansion, int) \
-                or not 1 <= self.expansion <= 32:
-            raise ValueError(f"expansion must be an int in 1..32, "
-                             f"got {self.expansion!r}")
+        if self.expansion != "auto" and (
+                not isinstance(self.expansion, int)
+                or isinstance(self.expansion, bool)
+                or not 1 <= self.expansion <= 32):
+            raise ValueError(f"expansion must be an int in 1..32 or "
+                             f"'auto', got {self.expansion!r}")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")

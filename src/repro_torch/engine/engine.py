@@ -5,7 +5,9 @@ Counterpart of ``repro.engine.DecomposeEngine``.  It owns, end to end:
 1. **Backend** — ``EngineConfig.backend`` picks the kernel set once, at
    construction (``kernels.ops.make_kernels``): ``"cuda"`` dispatches
    each kernel on its tensors' device, ``"reference"`` runs every
-   kernel's plain version.
+   kernel's plain version.  With ``expansion="auto"`` the re-orth
+   kernels' f resolves per shape bucket (``resolve_expansion``), and the
+   decomposition takes the (cached) kernel set at that f.
 2. **Batched Lanczos** — ``decompose`` runs the fused re-orth kernels,
    one launch per Lanczos pass for the whole [B, S, H] batch.  The
    kernels mask ragged shapes themselves, so nothing is padded.
@@ -52,8 +54,13 @@ class DecomposeEngine:
         self.config = config or EngineConfig()
         self._z0_fn = z0 or default_z0
         self._z0: Dict[Tuple[int, str], torch.Tensor] = {}
-        self.kernels = ops.make_kernels(self.config.backend,
-                                        self.config.expansion)
+        self._auto_expansion = self.config.expansion == "auto"
+        # with "auto", the set for the f-independent kernels; the Lanczos
+        # hooks come from kernels_for() at the resolved f
+        self.kernels = ops.make_kernels(
+            self.config.backend,
+            EngineConfig().expansion if self._auto_expansion
+            else self.config.expansion)
 
     # -- config passthroughs ---------------------------------------------
     def layer_policy(self, idx: int) -> LayerPolicy:
@@ -65,6 +72,34 @@ class DecomposeEngine:
     @property
     def attn_mode(self) -> str:
         return self.config.attn_mode
+
+    def resolve_expansion(self, s_dim: int, h_dim: int, batch: int = 1,
+                          dtype: object = "float32",
+                          device: object = "cuda") -> int:
+        """The f this engine runs a [batch, S, H] decomposition at on
+        ``device``: the configured int, or — for ``"auto"`` — the
+        ``repro_torch.tune`` answer for this shape bucket with the
+        engine's backend pinned (cache hit or cost model, behind an
+        in-process lru, so the per-layer path is a dict lookup)."""
+        if not self._auto_expansion:
+            return self.config.expansion
+        from .. import tune
+        return tune.tuned_expansion((int(batch), int(s_dim), int(h_dim)),
+                                    dtype=str(dtype),
+                                    backend=self.config.backend,
+                                    device=device)
+
+    def kernels_for(self, x: torch.Tensor) -> ops.KernelSet:
+        """The kernel set a decomposition of x [..., S, H] runs: the
+        engine's own, or with ``"auto"`` the set at the resolved f."""
+        if not self._auto_expansion:
+            return self.kernels
+        batch = 1
+        for d in x.shape[:-2]:
+            batch *= int(d)
+        f = self.resolve_expansion(x.shape[-2], x.shape[-1], max(1, batch),
+                                   x.dtype, x.device)
+        return ops.make_kernels(self.config.backend, f)
 
     # -- stage 1: batched Lanczos ------------------------------------------
     def start_vector(self, width: int, device: torch.device) -> torch.Tensor:
@@ -78,7 +113,8 @@ class DecomposeEngine:
                   iters: Optional[int] = None) -> LowRank:
         """x [..., S, H] → LowRank by one batched Lanczos run."""
         z0 = self.start_vector(x.shape[-1], x.device)
-        return lz.decompose(x, rank, iters, z0=z0, hooks=self.kernels.hooks)
+        return lz.decompose(x, rank, iters, z0=z0,
+                            hooks=self.kernels_for(x).hooks)
 
     # -- stage 2: policy-driven multi-track activation decomposition -------
     def decompose_activation(self, x: torch.Tensor,

@@ -139,3 +139,14 @@ def reorth_left(a, v, u_buf, *, expansion: int = 32) -> Pair:
     w, nrm = reorth_left_batched(a[None], v[None], u_buf[None],
                                  expansion=expansion)
     return w[0], nrm[0]
+
+
+# -- tunable space (see repro_torch.tune): f is the warps per CTA here ------
+from ..tune.space import (EXPANSION_GRID, TunableParam,  # noqa: E402
+                          TunableSpace, register_space)
+
+register_space(TunableSpace("lanczos_reorth", (
+    TunableParam("expansion", EXPANSION_GRID, default=32),
+    TunableParam("backend", ("cuda", "reference"), default="cuda"),
+    TunableParam("reorth", ("cgs2",), default="cgs2"),
+)))

@@ -24,8 +24,8 @@ from typing import Callable, Dict, NamedTuple
 
 from ..core.lanczos import BatchedLanczosHooks
 from . import dkv_attention as _dkv, lanczos_reorth as _lr
-from . import lowrank_matmul as _lrmm, outlier_extract as _ol
-from . import ssd_chunk as _ssd
+from . import lowrank_matmul as _lrmm, matvec_expand as _mv
+from . import outlier_extract as _ol, ssd_chunk as _ssd
 
 BACKENDS = ("cuda", "reference")
 
@@ -38,6 +38,10 @@ KERNELS = {
     "lowrank_matmul": _lrmm.lowrank_matmul,
     "outlier_stats": _ol.outlier_stats,
     "ssd_chunk_intra": _ssd.ssd_chunk_intra,
+    "matvec": _mv.matvec,
+    "rmatvec": _mv.rmatvec,
+    "matvec_batched": _mv.matvec_batched,
+    "rmatvec_batched": _mv.rmatvec_batched,
 }
 
 

@@ -30,6 +30,15 @@ kernel ``ssd_chunk_intra`` (the decomposed-KV flags do not apply):
       --requests 4 --prompt-len 512 --max-new 32 --max-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --reduced --device cpu
+
+``--expansion auto`` resolves the re-orth kernels' f per shape bucket
+through ``repro_torch.tune`` and, during warmup, pre-tunes the shapes
+admission will launch (``--no-pretune`` skips that); point
+``REPRO_TUNE_CACHE`` at a temporary file to keep a run hermetic:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
+      --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4 \\
+      --expansion auto
 """
 from __future__ import annotations
 
@@ -44,6 +53,35 @@ from ..kernels import ops
 from ..models.api import model_fns
 from ..platform import device_name, resolve_device
 from ..serving import Engine, Request
+
+
+def _expansion(text: str):
+    """``--expansion``: "auto" or an int (EngineConfig validates it)."""
+    return text if text == "auto" else int(text)
+
+
+def pretune_admission(cfg, dengine, slots: int, prompt_len: int,
+                      device) -> None:
+    """Serving warmup for ``expansion="auto"``: resolve the re-orth f of
+    every shape admission will launch — the prefill decomposition
+    ``decompose_kv`` runs on [num_layers · n, plen_bucket, kvw] for each
+    power-of-two admission batch n <= slots (and slots itself) — with the
+    engine's backend pinned, and print one line per entry."""
+    from .. import tune
+    bucket = max(1, dengine.config.sched_bucket)
+    plen = -(-prompt_len // bucket) * bucket
+    slots = max(1, slots)
+    nbs, n = {slots}, 1
+    while n < slots:
+        nbs.add(n)
+        n *= 2
+    pre = tune.pretune(
+        {"lanczos_reorth": [(cfg.num_layers * n, plen, cfg.kv_width)
+                            for n in sorted(nbs)]},
+        fix={"backend": dengine.config.backend}, device=device)
+    for key, res in pre.items():
+        print(f"pretune[{res.kernel}]: f={res.best['expansion']} "
+              f"({res.source}, {key})")
 
 
 def main(argv=None) -> None:
@@ -74,9 +112,13 @@ def main(argv=None) -> None:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="the first N prompt tokens are the same in "
                          "every request (a common system prompt)")
-    ap.add_argument("--expansion", type=int, default=dflt.expansion,
+    ap.add_argument("--expansion", type=_expansion, default=dflt.expansion,
                     help="compute-expansion factor f = warps per CTA of "
-                         "the re-orth kernels (1..32)")
+                         "the re-orth kernels (1..32), or auto (tuned "
+                         "per shape bucket)")
+    ap.add_argument("--no-pretune", action="store_true",
+                    help="with --expansion auto, skip the warmup "
+                         "pre-tune of the admission shapes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -91,6 +133,9 @@ def main(argv=None) -> None:
         expansion=args.expansion, kv_rank=args.decompose_kv_rank,
         kv_tail=args.dkv_tail, kv_exact=args.dkv_exact,
         kv_page=args.kv_page, kv_prefix_cache=args.kv_prefix_cache))
+    if args.expansion == "auto" and not args.no_pretune \
+            and args.decompose_kv_rank > 0:
+        pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                  decompose_engine=dengine, device=device, paged=args.paged)
     rng = np.random.RandomState(0)

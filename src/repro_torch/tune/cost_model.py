@@ -1,0 +1,224 @@
+"""Analytic cost model of the compute-expansion U-curve on the port's devices.
+
+Counterpart of ``repro.tune.cost_model``, re-derived for the H100 (the
+JAX package's v5e constants are a TPU's and are not carried over).  It
+predicts the seconds of one launch of a kernel at a candidate operating
+point, per (shape, dtype, device):
+
+* **memory side** (left of f*): both expansion kernels stream their
+  operand once and are bound by bytes.  On the TPU the grid runs in
+  order on one core and f alone sets the blocks in flight; here CTAs run
+  in parallel on 132 SMs, and what engages bandwidth is the number of
+  warps in flight: ``batch × ceil(S / row_block) × f`` CTAs of 8 warps
+  for the matvec pair, B CTAs of f warps for the re-orth kernel.  The
+  streaming time is ``bytes / (bw · min(warps, sat) / sat)`` — the
+  batched Fig. 12 shape (512 CTAs at f = 1) is already saturated, the
+  scalar one (8 CTAs) is not.  NON-INCREASING in f.
+* **compute side** (right of f*): the streaming floor at full bandwidth
+  plus everything that grows with f — the float32 partials written and
+  read back (``8·B·f·n`` bytes for f > 1), the fixed cost of each CTA
+  spread over the SMs, the combine launch (f > 1), the per-split cost of
+  the plain version's split loop (CPU), and the re-orth kernel's
+  replicated combine work.  NON-DECREASING in f.
+
+``predict`` returns ``max(memory, compute)`` — the max of a
+non-increasing and a non-decreasing function, hence UNIMODAL along the
+expansion grid, which is the contract the tuner's pruning relies on.
+The model is a pruner, not an oracle: the tuner measures the survivors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
+
+#: dtype name (with or without the ``torch.`` prefix) → bytes; others 4
+DTYPE_BYTES = {"float32": 4, "float16": 2, "bfloat16": 2}
+
+#: threads of one matvec-pair CTA (``kThreads`` of csrc/matvec_expand.cu)
+MATVEC_WARPS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceModel:
+    """Roofline denominators and the fitted costs of one device."""
+    name: str
+    peak_flops: float      # FLOP/s of the kernels' float32 arithmetic
+    hbm_bw: float          # bytes/s of device memory
+    sms: int               # streaming multiprocessors (CPU: 1)
+    sat_warps: int         # warps in flight at bandwidth saturation
+    cta_s: float           # fixed seconds per CTA (prologue, tail, launch)
+    combine_s: float       # seconds of the f > 1 combine launch
+    split_s: float         # seconds per split of the plain version's loop
+
+
+#: Fitted constants of the H100 model: :func:`fit_h100` on chip_smoke.py
+#: phase 9's matvec sweeps (NVIDIA H100 80GB HBM3 at 700 W; PERF.md):
+#: 2068 warps, 1.19e-7 s, and a combine intercept that fits at 0 (the
+#: combine's cost hides in the partials' traffic term).
+H100_SAT_WARPS = 2048      # warps in flight at bandwidth saturation
+H100_CTA_S = 1.2e-7        # per-CTA cost, spread over the SMs
+H100_COMBINE_S = 0.0       # the combine launch
+
+#: NVIDIA H100 SXM (data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on
+#: the CUDA cores (both kernels compute in float32), 132 SMs.
+H100 = DeviceModel("h100", peak_flops=67e12, hbm_bw=3.35e12, sms=132,
+                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S,
+                   combine_s=H100_COMBINE_S, split_s=0.0)
+
+#: ``device="cpu"`` runs of the plain versions: f engages no parallel
+#: units (the memory side is flat); each split of the plain matvec pair
+#: is one more eager product, so the model prefers small f there.
+CPU = DeviceModel("cpu", peak_flops=5e10, hbm_bw=2e10, sms=1, sat_warps=1,
+                  cta_s=0.0, combine_s=0.0, split_s=2e-5)
+
+
+def detect_device(device: Any = "cuda") -> DeviceModel:
+    """The model of ``device``: the H100 model for a CUDA device, the CPU
+    model for the host."""
+    import torch
+    return CPU if torch.device(device).type == "cpu" else H100
+
+
+def device_kind(device: Any = "cuda") -> str:
+    """Stable cache-key string of ``device``, prefixed so it never
+    collides with the JAX package's keys in a shared cache file
+    (``torch-cuda:NVIDIA H100 80GB HBM3``, ``torch-cpu``).  Raises
+    without a card unless the host is asked for."""
+    from ..platform import device_name, resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "torch-cpu"
+    return f"torch-cuda:{device_name(dev)}"
+
+
+def dtype_bytes(dtype: Any) -> int:
+    return DTYPE_BYTES.get(str(dtype).replace("torch.", ""), 4)
+
+
+# ---------------------------------------------------------------------------
+# Per-kernel terms: (bytes streamed, flops, warps in flight, extra bytes,
+# CTAs, splits, combine launches), each a function of the candidate.
+# ---------------------------------------------------------------------------
+
+Terms = Tuple[float, float, float, float, float, float, float]
+
+
+def _expand_terms(b: int, n_out: int, n_red: int, dtb: int, f: int,
+                  block: int) -> Terms:
+    """One launch of an expanded matvec: A [b, n_out, n_red] read once,
+    f splits of the n_red reduction, ``block`` outputs per CTA."""
+    from ..kernels.matvec_expand import split_len
+    bytes_ = b * n_out * n_red * dtb + b * n_red * dtb + b * n_out * 4
+    ctas = b * -(-n_out // max(1, min(block, n_out))) * f
+    extra = 8.0 * b * f * n_out if f > 1 else 0.0
+    splits = -(-n_red // split_len(n_red, f))
+    return (bytes_, 2.0 * b * n_out * n_red, ctas * MATVEC_WARPS, extra,
+            ctas, splits, 1.0 if f > 1 else 0.0)
+
+
+def _terms_matvec_expand(shape, dtb, cand) -> Terms:
+    """y = A·v over A [S, H] or [B, S, H]; the H reduction split f ways,
+    ``row_block`` rows per CTA."""
+    b, s, h = (1, *shape) if len(shape) == 2 else shape
+    return _expand_terms(b, s, h, dtb, int(cand["expansion"]),
+                         int(cand.get("row_block", 512)))
+
+
+def _terms_rmatvec_expand(shape, dtb, cand) -> Terms:
+    """z = Aᵀ·u over A [S, H] or [B, S, H]; the S reduction split f ways,
+    ``col_block`` columns per CTA."""
+    b, s, h = (1, *shape) if len(shape) == 2 else shape
+    return _expand_terms(b, h, s, dtb, int(cand["expansion"]),
+                         int(cand.get("col_block", 512)))
+
+
+def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:
+    """One fused right re-orth step over A [B, S, H] (float32 in the
+    kernel) against a k-column basis (k from a 4th dim, else 16): one CTA
+    of f warps per batch element; each warp adds its k partials into the
+    combine of two CGS2 sweeps (replicated work that grows with f)."""
+    b, s, h, k = shape if len(shape) == 4 else (*shape, 16)
+    f = int(cand["expansion"])
+    bytes_ = b * (4 * s * h + 3 * 4 * h * k + 4 * s + 4 * h)
+    flops = b * (2 * s * h + 8 * h * k) + b * 2 * f * k
+    return bytes_, flops, b * f, 0.0, b, 0.0, 0.0
+
+
+KERNEL_TERMS: Dict[str, Callable[[Sequence[int], int, Mapping[str, Any]],
+                                 Terms]] = {
+    "lanczos_reorth": _terms_lanczos_reorth,
+    "matvec_expand": _terms_matvec_expand,
+    "rmatvec_expand": _terms_rmatvec_expand,
+}
+
+
+def predict(kernel: str, shape: Sequence[int], dtype: Any,
+            cand: Mapping[str, Any], device: DeviceModel = H100) -> float:
+    """Predicted seconds for one launch of ``kernel`` at operating point
+    ``cand`` — max(memory side, compute side), unimodal in f."""
+    try:
+        terms = KERNEL_TERMS[kernel]
+    except KeyError:
+        raise KeyError(f"no cost model for kernel {kernel!r}; "
+                       f"known: {sorted(KERNEL_TERMS)}") from None
+    f = int(cand["expansion"])
+    if f < 1:
+        raise ValueError(f"expansion must be >= 1, got {f}")
+    bytes_, flops, warps, extra, ctas, splits, combines = terms(
+        tuple(int(d) for d in shape), dtype_bytes(dtype), cand)
+    dev = device
+    t_mem = bytes_ / (dev.hbm_bw * min(warps, dev.sat_warps)
+                      / dev.sat_warps)
+    t_comp = (bytes_ + extra) / dev.hbm_bw + flops / dev.peak_flops \
+        + dev.cta_s * ctas / dev.sms + dev.combine_s * combines \
+        + dev.split_s * splits
+    return max(t_mem, t_comp)
+
+
+def predict_curve(kernel: str, shape: Sequence[int], dtype: Any,
+                  candidates: Sequence[Mapping[str, Any]],
+                  device: DeviceModel = H100
+                  ) -> Tuple[Tuple[Dict[str, Any], float], ...]:
+    """(candidate, predicted_s) per candidate, in candidate order."""
+    return tuple((dict(c), predict(kernel, shape, dtype, c, device))
+                 for c in candidates)
+
+
+def fit_h100(scalar: Mapping[int, float], scalar_shape: Sequence[int],
+             batched: Mapping[int, float], batched_shape: Sequence[int],
+             dtype_scalar: Any, dtype_batched: Any) -> Dict[str, float]:
+    """Fit the H100 model's three constants to two measured f sweeps
+    ({f: seconds}) of the matvec at 512 rows per CTA:
+
+    * ``sat_warps`` from the scalar sweep's f = 1 point (the fewest
+      warps): the per-warp rate it shows, against the data-sheet rate;
+    * ``cta_s`` and ``combine_s`` by least squares on the batched
+      sweep, which is saturated at f = 1: t(f) − t(1) − partials(f)/bw
+      = combine_s + cta_s · (CTAs(f) − CTAs(1)) / SMs over f > 1
+      (both clamped at 0)."""
+    terms = _terms_matvec_expand
+    bw, sms = H100.hbm_bw, H100.sms
+    cand = lambda f: {"expansion": f, "row_block": 512}  # noqa: E731
+    b1, _, w1, *_ = terms(tuple(scalar_shape), dtype_bytes(dtype_scalar),
+                          cand(1))
+    per_warp = b1 / (scalar[1] * w1)
+    t1 = batched[1]
+    _, _, _, _, c1, _, _ = terms(tuple(batched_shape),
+                                 dtype_bytes(dtype_batched), cand(1))
+    xs, ys = [], []
+    for f, t in sorted(batched.items()):
+        if f == 1:
+            continue
+        _, _, _, extra, ctas, _, _ = terms(tuple(batched_shape),
+                                           dtype_bytes(dtype_batched),
+                                           cand(f))
+        xs.append((ctas - c1) / sms)
+        ys.append(t - t1 - extra / bw)
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    sxx = sum((x - mx) ** 2 for x in xs)
+    slope = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / sxx \
+        if sxx else 0.0
+    return {"sat_warps": bw / per_warp, "cta_s": max(0.0, slope),
+            "combine_s": max(0.0, my - slope * mx),
+            "per_warp_bytes_s": per_warp}

@@ -14,6 +14,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import dkv_attention as dk  # noqa: E402
 from repro_torch.kernels import lanczos_reorth as lr  # noqa: E402
 from repro_torch.kernels import lowrank_matmul as lrmm  # noqa: E402
+from repro_torch.kernels import matvec_expand as mv  # noqa: E402
 from repro_torch.kernels import outlier_extract as oe  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -261,7 +262,9 @@ def test_decomposed_forward_routes_agree_on_card(cuda):
                               "dkv_attention_stats_paged": 0,
                               "lowrank_matmul": 2 * 5,
                               "outlier_stats": 4,
-                              "ssd_chunk_intra": 0}, counts
+                              "ssd_chunk_intra": 0, "matvec": 0,
+                              "rmatvec": 0, "matvec_batched": 0,
+                              "rmatvec_batched": 0}, counts
         else:
             assert all(v == 0 for v in counts.values()), counts
     for a, b in zip(logs["cuda"], logs["reference"]):
@@ -342,3 +345,92 @@ def test_mamba2_engine_on_card(cuda):
     ref, _, counts = serve(4, list(range(len(prompts))), "reference")
     assert ref == got
     assert all(v == 0 for v in counts.values()), counts
+
+
+MV_FS = (1, 2, 4, 8, 16, 32, 64, 128)     # the matvec spaces' f grid
+
+
+@pytest.mark.parametrize("dtype,vdtype", [("float32", "float32"),
+                                          ("bfloat16", "bfloat16"),
+                                          ("bfloat16", "float32")])
+@pytest.mark.parametrize("b,s,h,block", [(3, 300, 200, 512),
+                                         (1, 37, 1030, 128),
+                                         (2, 513, 96, 64),
+                                         (1, 64, 4096, 512)])
+def test_matvec_kernels_match_plain_every_f(cuda, dtype, vdtype, b, s, h,
+                                            block):
+    """The four expanded matvec wrappers against their plain versions at
+    every f of the grid, ragged S and H (H = 1030 takes the 2/4-byte
+    loads, the others the 16-byte path), a block that does not divide
+    the output; reruns bit-identical; each call counts one launch of its
+    own wrapper.  float32 sums in another order: 1e-5 relative, 1e-4
+    absolute (|y| ~ sqrt(n))."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    dt, vdt = getattr(torch, dtype), getattr(torch, vdtype)
+    a = torch.randn(b, s, h, generator=gen, device=cuda).to(dt)
+    v = torch.randn(b, h, generator=gen, device=cuda).to(vdt)
+    u = torch.randn(b, s, generator=gen, device=cuda).to(vdt)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    for f in MV_FS:
+        before = {k: ops.KERNELS[k].launches for k in
+                  ("matvec", "rmatvec", "matvec_batched", "rmatvec_batched")}
+        y = mv.matvec_batched(a, v, expansion=f, row_block=block)
+        z = mv.rmatvec_batched(a, u, expansion=f, col_block=block)
+        torch.testing.assert_close(y, mv.matvec_batched_plain(
+            a, v, expansion=f), **tol)
+        torch.testing.assert_close(z, mv.rmatvec_batched_plain(
+            a, u, expansion=f), **tol)
+        assert torch.equal(y, mv.matvec_batched(a, v, expansion=f,
+                                                row_block=block))
+        assert torch.equal(z, mv.rmatvec_batched(a, u, expansion=f,
+                                                 col_block=block))
+        y0 = mv.matvec(a[0], v[0], expansion=f, row_block=block)
+        z0 = mv.rmatvec(a[0], u[0], expansion=f, col_block=block)
+        assert torch.equal(y0, y[0]) and torch.equal(z0, z[0])
+        after = {k: ops.KERNELS[k].launches for k in before}
+        assert {k: after[k] - before[k] for k in before} == {
+            "matvec": 1, "rmatvec": 1, "matvec_batched": 2,
+            "rmatvec_batched": 2}
+        assert y.dtype == z.dtype == torch.float32
+
+
+def test_matvec_kernels_refuse_what_they_do_not_take(cuda):
+    a = torch.randn(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mv.matvec_batched(a.transpose(1, 2), torch.randn(2, 8, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mv.matvec_batched(a.half(), torch.randn(2, 16, device=cuda).half())
+    with pytest.raises(ValueError, match="do not match"):
+        mv.rmatvec_batched(a, torch.randn(2, 16, device=cuda))
+    with pytest.raises(ValueError, match="expansion"):
+        mv.matvec(a[0], torch.randn(16, device=cuda), expansion=0)
+    with pytest.raises(ValueError, match="block"):
+        mv.rmatvec(a[0], torch.randn(8, device=cuda), col_block=8192)
+
+
+def test_measured_tune_on_card_hits_cache(cuda, tmp_path, monkeypatch):
+    """A measured tune of the matvec space on the card keys its entry
+    under the card's own device kind, persists it, and a second tune
+    (a fresh cache object over the same file) answers from the cache;
+    an ``expansion="auto"`` engine on the card decomposes bit-identically
+    to the engine pinned at its resolved f."""
+    from repro_torch import tune
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    path = str(tmp_path / "cache.json")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", path)
+    kw = dict(shape=(512, 1024), dtype="float32", fix={"row_block": 128},
+              prune=3, reps=2, device=cuda)
+    r1 = tune.tune("matvec_expand", measure_candidates=True, **kw)
+    assert r1.source == "measured" and r1.measured_s > 0
+    assert r1.key.startswith("torch-cuda:")
+    r2 = tune.tune("matvec_expand", measure_candidates=True,
+                   cache=tune.TuningCache(path), **kw)
+    assert r2.source == "cache" and r2.best == r1.best
+    x = torch.randn(3, 40, 96, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    auto = DecomposeEngine(EngineConfig(expansion="auto"))
+    f = auto.resolve_expansion(40, 96, 3, "float32", cuda)
+    pinned = DecomposeEngine(EngineConfig(expansion=f))
+    la, lp = auto.decompose(x, 6), pinned.decompose(x, 6)
+    for p, q in ((la.u, lp.u), (la.core, lp.core), (la.vt, lp.vt)):
+        assert torch.equal(p, q)

@@ -1,0 +1,320 @@
+"""The port's autotuner (``repro_torch.tune``) against the JAX package's.
+
+Spaces, grids and defaults where the meaning is shared, the cache's key
+rules and file format (each package reads the other's file), the H100
+and host cost models' unimodality as a hypothesis property, the tuner on
+``device="cpu"`` (model mode, measured mode, the in-process lru,
+pretune), ``EngineConfig(expansion="auto")`` bit-identical to the
+pinned-f engine, the serve CLI's ``--expansion auto`` and the Fig. 12
+entry point end to end on the plain versions.  The cache is a temporary
+file in every test (``REPRO_TUNE_CACHE``).
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from repro import tune as jtune  # noqa: E402
+from repro_torch import tune  # noqa: E402
+from repro_torch.engine import DecomposeEngine, EngineConfig  # noqa: E402
+from repro_torch.tune import cost_model  # noqa: E402
+
+KERNELS = ("lanczos_reorth", "matvec_expand", "rmatvec_expand")
+
+
+@pytest.fixture()
+def tmp_cache(tmp_path, monkeypatch):
+    """Point the default cache at a fresh file; the lru is keyed on the
+    cache path, so each test resolves from scratch."""
+    path = str(tmp_path / "cache.json")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", path)
+    tune.reset_stats()
+    return path
+
+
+def _x(shape, seed=0):
+    return torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Spaces
+# ---------------------------------------------------------------------------
+
+def test_spaces_match_jax_where_the_meaning_is_shared():
+    assert tune.EXPANSION_GRID == jtune.EXPANSION_GRID
+    assert tune.BLOCK_GRID == jtune.BLOCK_GRID
+    assert dataclasses.astuple(tune.get_space("matvec_expand")) == \
+        dataclasses.astuple(jtune.get_space("matvec_expand"))
+    assert set(tune.available_spaces()) == set(KERNELS)
+    # lanczos_reorth: the same f grid, but f is warps per CTA here
+    lr = tune.get_space("lanczos_reorth")
+    assert lr.param("expansion").choices == jtune.get_space(
+        "lanczos_reorth").param("expansion").choices
+    assert lr.default() == {"expansion": EngineConfig().expansion,
+                            "backend": "cuda", "reorth": "cgs2"}
+    assert lr.param("backend").choices == ("cuda", "reference")
+    rmv = tune.get_space("rmatvec_expand")
+    assert rmv.default() == {"expansion": 8, "col_block": 512}
+    assert rmv.param("expansion").choices == (1, 2, 4, 8, 16, 32, 64, 128)
+    c1 = list(tune.get_space("matvec_expand").candidates())
+    assert c1 == list(tune.get_space("matvec_expand").candidates())
+    assert len(c1) == tune.get_space("matvec_expand").size() == 24
+    with pytest.raises(KeyError):
+        tune.get_space("no-such-kernel")
+
+
+def test_candidates_pin_params_and_keep_both_backends():
+    cands = tune.candidates_for("lanczos_reorth", fix={"backend": "cuda"})
+    assert [c["expansion"] for c in cands] == list(tune.EXPANSION_GRID)
+    assert all(c["backend"] == "cuda" for c in cands)
+    assert {c["backend"] for c in tune.candidates_for("lanczos_reorth")} \
+        == {"cuda", "reference"}
+
+
+# ---------------------------------------------------------------------------
+# Cache: keys and the shared file
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 33, 48), (1, 64), (32, 512, 4096),
+                                   (5,), (4096, 4096), (64, 300, 1)])
+def test_shape_bucket_and_entry_key_equal_jax(shape):
+    assert tune.shape_bucket(shape) == jtune.shape_bucket(shape)
+    for kind in ("torch-cpu", "torch-cuda:NVIDIA H100 80GB HBM3"):
+        assert tune.entry_key(kind, "matvec_expand", shape, "bfloat16") \
+            == jtune.entry_key(kind, "matvec_expand", shape, "bfloat16")
+
+
+def test_cache_file_is_shared_both_ways_without_key_collisions(tmp_cache):
+    res = tune.tune("matvec_expand", (16, 32), device="cpu",
+                    fix={"row_block": 128}, persist=True)
+    assert res.key.startswith("torch-cpu/")
+    assert jtune.device_kind() != "torch-cpu"
+    back = jtune.TuningCache(tmp_cache)
+    assert back.get(res.key)["best"] == res.best
+    back.put("cpu:cpu/matvec_expand/16x32/float32/-", {"v": 1})
+    back.save()                              # merge-save keeps ours
+    mine = tune.TuningCache(tmp_cache)
+    assert mine.get("cpu:cpu/matvec_expand/16x32/float32/-") == {"v": 1}
+    assert mine.get(res.key)["best"] == res.best
+    with open(tmp_cache) as fh:
+        assert json.load(fh)["schema"] == 1
+
+
+@pytest.mark.parametrize("text", ["{not json", "[1, 2]",
+                                  '{"schema": 2, "entries": {"k": 1}}',
+                                  '{"schema": 1, "entries": [1]}'])
+def test_cache_corruption_reads_as_empty(tmp_cache, text):
+    with open(tmp_cache, "w") as fh:
+        fh.write(text)
+    c = tune.TuningCache(tmp_cache)
+    assert c.get("k") is None and len(c) == 0
+    c.put("k", {"v": 1})
+    c.save()                                 # overwrites the bad file
+    assert tune.TuningCache(tmp_cache).get("k") == {"v": 1}
+
+
+# ---------------------------------------------------------------------------
+# Cost model
+# ---------------------------------------------------------------------------
+
+def _curve(kernel, shape, dtype, model):
+    space = tune.get_space(kernel)
+    block = [p.name for p in space.params if p.name.endswith("block")]
+    fix = {block[0]: 512} if block else {"backend": "cuda"}
+    return [t for _, t in tune.predict_curve(
+        kernel, shape, dtype, tune.candidates_for(kernel, fix), model)]
+
+
+def _unimodal(ts):
+    i = ts.index(min(ts))
+    return all(a >= b for a, b in zip(ts[:i], ts[1:i + 1])) and all(
+        a <= b for a, b in zip(ts[i:], ts[i + 1:]))
+
+
+@settings(max_examples=60, deadline=None)
+@given(kernel=st.sampled_from(KERNELS),
+       b=st.integers(1, 128), s=st.integers(1, 8192),
+       h=st.integers(1, 8192), two_d=st.booleans(),
+       dtype=st.sampled_from(["float32", "bfloat16"]),
+       model=st.sampled_from([tune.H100, tune.CPU]))
+def test_cost_models_are_unimodal_along_the_grid(kernel, b, s, h, two_d,
+                                                  dtype, model):
+    shape = (s, h) if two_d and kernel != "lanczos_reorth" else (b, s, h)
+    ts = _curve(kernel, shape, dtype, model)
+    assert all(t > 0 for t in ts) and _unimodal(ts), ts
+
+
+def test_h100_model_reads_ctas_in_flight_not_f():
+    """The batched Fig. 12 shape already has 512 CTAs at f = 1: the model
+    must not predict it starved there, while the scalar shape (8 CTAs)
+    gains several-fold from expansion; the host model gains nothing."""
+    for kernel in ("matvec_expand", "rmatvec_expand"):
+        batched = _curve(kernel, (64, 4096, 4096), "bfloat16", tune.H100)
+        scalar = _curve(kernel, (4096, 4096), "float32", tune.H100)
+        assert batched[0] <= 1.05 * min(batched)
+        assert scalar[0] >= 4 * min(scalar)
+        host = _curve(kernel, (4096, 4096), "float32", tune.CPU)
+        assert host[0] == min(host)
+    with pytest.raises(KeyError):
+        tune.predict("nope", (2, 2), "float32", {"expansion": 1})
+
+
+# ---------------------------------------------------------------------------
+# Tuner on the host
+# ---------------------------------------------------------------------------
+
+def test_model_mode_is_deterministic(tmp_cache):
+    kw = dict(fix={"backend": "cuda"}, device="cpu")
+    r1 = tune.tune("lanczos_reorth", (2, 48, 96), **kw)
+    r2 = tune.tune("lanczos_reorth", (2, 48, 96), **kw)
+    assert r1.best == r2.best and r1.source == "model"
+    assert r2.source == "cache"                      # in-process hit
+    r3 = tune.tune("lanczos_reorth", (2, 48, 96), force=True, **kw)
+    assert r3.best == r1.best and r3.source == "model"
+    assert tune.stats.answers == {"cache": 1, "model": 2, "measured": 0}
+
+
+def test_measured_tune_on_cpu_persists_and_hits_cache(tmp_cache):
+    kw = dict(shape=(16, 32), dtype="float32", fix={"row_block": 128},
+              prune=2, reps=1, device="cpu")
+    r1 = tune.tune("matvec_expand", measure_candidates=True, **kw)
+    assert r1.source == "measured" and r1.measured_s > 0
+    assert len(r1.table) == 2 and all(m is not None for _, _, m in r1.table)
+    assert r1.shape == (16, 32)
+    r2 = tune.tune("matvec_expand", measure_candidates=True,
+                   cache=tune.TuningCache(tmp_cache), **kw)
+    assert r2.source == "cache" and r2.best == r1.best
+
+
+def test_cache_entry_outside_its_own_space_is_ignored(tmp_cache):
+    """A lanczos_reorth entry naming f = 64 (a matvec f, not a warp
+    count) is not taken from the cache: the tuner answers again."""
+    key = tune.entry_key("torch-cpu", "lanczos_reorth", (2, 48, 96),
+                         "float32") + "/backend=cuda"
+    c = tune.default_cache()
+    c.put(key, {"kernel": "lanczos_reorth", "shape": [2, 64, 128],
+                "dtype": "float32", "predicted_s": 1.0, "measured_s": 1.0,
+                "best": {"expansion": 64, "backend": "cuda",
+                         "reorth": "cgs2"}, "table": []})
+    res = tune.tune("lanczos_reorth", (2, 48, 96), fix={"backend": "cuda"},
+                    device="cpu")
+    assert res.source == "model" and res.best["expansion"] in \
+        tune.EXPANSION_GRID
+
+
+def test_tuned_expansion_is_an_in_process_lru(tmp_cache, tmp_path,
+                                              monkeypatch):
+    f1 = tune.tuned_expansion((2, 48, 96), backend="cuda", device="cpu")
+    f2 = tune.tuned_expansion((2, 50, 100), backend="cuda", device="cpu")
+    assert isinstance(f1, int) and f1 == f2      # one shape bucket
+    assert (tune.stats.lru_lookups, tune.stats.lru_misses) == (2, 1)
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "other.json"))
+    tune.tuned_expansion((2, 48, 96), backend="cuda", device="cpu")
+    assert tune.stats.lru_misses == 2            # keyed on the cache path
+
+
+def test_pretune_warms_the_cache(tmp_cache):
+    out = tune.pretune({"lanczos_reorth": [(2, 48, 96), (4, 48, 96)],
+                        "matvec_expand": [(64, 128)]},
+                       fix=None, device="cpu")
+    assert len(out) == 3
+    for key, res in out.items():
+        assert key.startswith("torch-cpu/") and "expansion" in res.best
+        assert tune.default_cache().get(key) is not None
+
+
+def test_entry_points_need_a_gpu_or_explicit_cpu(tmp_cache, monkeypatch):
+    from repro_torch.launch import fig12
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune.tune("matvec_expand", (16, 32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune.measure_candidate("matvec_expand", (16, 32), "float32",
+                               {"expansion": 1})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fig12.main(["--quick"])
+
+
+# ---------------------------------------------------------------------------
+# Engine: expansion="auto"
+# ---------------------------------------------------------------------------
+
+def test_engine_config_rejects_bad_expansion():
+    for bad in ("turbo", 0, 33, True, 8.0):
+        with pytest.raises(ValueError):
+            EngineConfig(expansion=bad)
+    assert EngineConfig(expansion="auto").expansion == "auto"
+    assert EngineConfig(expansion=32).expansion == 32
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_auto_engine_bit_identical_to_pinned_f(tmp_cache, backend):
+    x = _x((2, 33, 48), seed=3)
+    auto = DecomposeEngine(EngineConfig(backend=backend, expansion="auto"))
+    assert repr(auto).count("expansion=auto") == 1
+    f = auto.resolve_expansion(33, 48, batch=2, device="cpu")
+    assert isinstance(f, int) and f in tune.EXPANSION_GRID
+    fixed = DecomposeEngine(EngineConfig(backend=backend, expansion=f))
+    la, lf = auto.decompose(x, 5), fixed.decompose(x, 5)
+    for a, b in ((la.u, lf.u), (la.core, lf.core), (la.vt, lf.vt)):
+        assert torch.equal(a, b)
+    ua, va = auto.decompose_kv(x, 4)
+    uf, vf = fixed.decompose_kv(x, 4)
+    assert torch.equal(ua, uf) and torch.equal(va, vf)
+    assert tune.stats.lru_lookups >= 2 and tune.stats.lru_misses == 1
+    key = tune.entry_key("torch-cpu", "lanczos_reorth", (2, 33, 48),
+                         "float32") + f"/backend={backend}"
+    assert tune.default_cache().get(key)["best"]["expansion"] == f
+
+
+def test_serve_cli_expansion_auto_prints_pretune(tmp_cache, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "llama2-7b", "--reduced", "--device", "cpu",
+                "--decompose-kv-rank", "8", "--dkv-tail", "4",
+                "--requests", "2", "--slots", "4", "--max-new", "3",
+                "--expansion", "auto"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("pretune[")]
+    # admission batches 1, 2, 4 over 2 layers, prompt bucket 16, kvw 64
+    assert [ln.split(", ")[1].split("/")[2] for ln in lines] == [
+        "2x16x64", "4x16x64", "8x16x64"]
+    assert all("(model, torch-cpu/lanczos_reorth/" in ln for ln in lines)
+    assert "expansion=auto" in out
+    serve.main(["--arch", "llama2-7b", "--reduced", "--device", "cpu",
+                "--decompose-kv-rank", "8", "--dkv-tail", "4",
+                "--requests", "1", "--max-new", "2", "--expansion", "auto",
+                "--no-pretune"])
+    assert "pretune[" not in capsys.readouterr().out
+
+
+def test_fig12_cpu_quick_runs_the_ab_end_to_end(tmp_cache, tmp_path,
+                                                capsys):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fig12
+    out = tmp_path / "fig12.json"
+    ops.reset_launch_counts()
+    fig12.main(["--device", "cpu", "--quick", "--out", str(out)])
+    data = json.loads(out.read_text())
+    ab = data["ab"]
+    assert data["model"]["f_star"] == 8
+    assert sorted(int(f) for f in ab["swept_s"]) == [1, 2, 4, 8, 16, 32,
+                                                     64, 128]
+    assert len(ab["pruned_fs"]) == tune.DEFAULT_PRUNE
+    assert ab["tuned_f"] in ab["pruned_fs"] and ab["tuned_vs_opt"] <= 1.05
+    assert ab["device_kind"] == "torch-cpu" and ab["shape"] == [128, 256]
+    assert ab["calls"] >= 8 * (2 + 3)
+    text = capsys.readouterr().out
+    assert "the paper's accelerator, not a measurement" in text
+    assert "tuned/opt" in text
+    # the host run takes the plain versions: no kernel launched
+    assert all(v == 0 for v in ops.launch_counts().values())
+    rmv = fig12.run_ab("rmatvec", (2, 64, 96), "bfloat16", reps=2,
+                       device="cpu")
+    assert rmv["kernel"] == "rmatvec_expand" and rmv["flush_l2"] is False
+    assert cost_model.detect_device("cpu") is tune.CPU
