@@ -57,7 +57,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step through the kernel is held against the plain route
    (attention 1e-4 in bf16, float32 logits 1e-3).
 8. Mamba2 serving of ``mamba2-780m`` at full width and depth (random bf16
-   weights from seed 0; the llama2-7b weights are freed first): phase
+   weights from seed 0; the llama2-7b weights are dropped first, and the
+   device must then hold under 0.5 GiB: every earlier engine is freed
+   without a garbage-collection pass, as again after Mamba2): phase
    4's traffic (prompts of 512/384/300/128 tokens on its arrival
    schedule, 32 new tokens, 4 slots, max_len 1024, greedy), so prefill
    runs both chunk regimes (Q = 64 with the inter-chunk scan, one chunk
@@ -86,11 +88,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
 statistics, the B = 1 re-orth pair) against their plain versions at the
-shapes phase 6 gives them, the paged dkv kernel bit for bit against
+shapes phase 6 gives them (the Eq. 6 GEMM's reruns bit-identical, its
+times warm and L2-cold beside ``torch.matmul``'s), the paged dkv kernel bit for bit against
 the slab kernel at phase 4's shapes, and the intra-chunk SSD kernel at
 phase 8's two shapes, and the four expanded matvec wrappers at
 phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
-bit-identical).  Phase 5 also serves reduced float32
+bit-identical; times L2-flushed and warm beside the library call's).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
 request's solo tokens and the ``backend="reference"`` route's tokens.
 The line before the last is
@@ -102,7 +105,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import gc
 import json
 import os
 import statistics
@@ -124,12 +126,21 @@ def fail(msg: str) -> int:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean CUDA-event time of ``iters`` back-to-back calls (operands
+    warm in L2).  The device first spins for twice as long as the host
+    takes to enqueue the calls, so the events time the device's work,
+    not the host's launch overhead."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * min(1.0, 2 * host_s * iters + 1e-4)))
     start.record()
     for _ in range(iters):
         fn()
@@ -242,18 +253,22 @@ def lowrank_matmul_case(k: int, h: int, n: int, gen):
     w = (torch.randn(h, n, generator=gen, device=dev) * h ** -0.5).bfloat16()
     got = lm.lowrank_matmul(vt, w)
     want = lm.lowrank_matmul_plain(vt, w)
-    got32 = lm.lowrank_matmul(vt.float(), w.float())
-    want32 = lm.lowrank_matmul_plain(vt.float(), w.float())
+    again = lm.lowrank_matmul(vt, w)
+    vt32, w32 = vt.float(), w.float()
+    got32 = lm.lowrank_matmul(vt32, w32)
+    want32 = lm.lowrank_matmul_plain(vt32, w32)
+    again32 = lm.lowrank_matmul(vt32, w32)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 2 ** -7 * want.float().abs().max().item()
     err32 = (got32 - want32).abs().max().item()
     tol32 = 1e-4 * want32.abs().max().item()
-    if not (err <= tol and err32 <= tol32):
+    if not (err <= tol and err32 <= tol32 and torch.equal(got, again)
+            and torch.equal(got32, again32)):
         raise AssertionError(f"lowrank_matmul N={n}: bf16 err {err:.3e} "
                              f"(tol {tol:.3e}), float32 err {err32:.3e} "
-                             f"(tol {tol32:.3e})")
-    del got32, want32
+                             f"(tol {tol32:.3e}), or reruns differ")
+    del got32, want32, again32, vt32, w32
     vt2 = vt[0]
     # L2-cold times first (W fits in the 50 MB L2 at N = 4096), then
     # back-to-back times, as in every row
@@ -274,7 +289,8 @@ def lowrank_matmul_case(k: int, h: int, n: int, gen):
                 max_abs_err_float32=err32,
                 tolerance="bf16: <= 2^-7 max|plain| (one bf16 ulp: both "
                           "round float32 sums once); float32: <= 1e-4 "
-                          "max|plain| (sum order differs)")
+                          "max|plain| (sum order differs); reruns "
+                          "bit-identical")
 
 
 def outlier_stats_case(s: int, h: int, gen, threshold: float = 3.0):
@@ -498,8 +514,16 @@ def matvec_case(name: str, shape, dtype, gen):
             and torch.equal(got, again)):
         raise AssertionError(f"{name} {list(shape)} {dtype}: max abs err "
                              f"{err:.3e} > {tol:.3e} or reruns differ")
-    timer = time_ms_cold if len(shape) == 2 else time_ms
+    # the scalar shape as a Lanczos step finds it (L2 flushed), the
+    # batched one back to back (2 GiB of A passes the 50 MB L2 anyway);
+    # each also at the other setting, kernel and library call
+    timer, other = (time_ms_cold, time_ms) if len(shape) == 2 \
+        else (time_ms, time_ms_cold)
     ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+    ms_o, lib_ms_o = other(kern), other(lib)
+    extra = dict(ms_warm=ms_o, library_ms_warm=lib_ms_o) \
+        if len(shape) == 2 else dict(ms_l2_cold=ms_o,
+                                     library_ms_l2_cold=lib_ms_o)
     bytes_ = a.numel() * a.element_size() + x.numel() * x.element_size() \
         + got.numel() * 4
     bms, by = bound(bytes_, 2 * a.numel(), str(dtype).split(".")[-1])
@@ -510,7 +534,7 @@ def matvec_case(name: str, shape, dtype, gen):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms,
                 shape=dict(a=list(shape), dtype=str(dtype), **kw,
-                           l2_flushed=len(shape) == 2),
+                           l2_flushed=len(shape) == 2), **extra,
                 tolerance="max|y_kernel - y_plain| <= 1e-4 max|y_plain| "
                           "(float32 sums in another order); reruns "
                           "bit-identical")
@@ -1208,6 +1232,7 @@ def paged_prefix_llama(cfg, params, profile: bool = False):
             return out
         setattr(eng.family, name, counted)
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     with profiled(profile, "paged (b): profile of the shared-prefix run"):
         ops.reset_launch_counts()
@@ -1259,7 +1284,9 @@ def paged_prefix_llama(cfg, params, profile: bool = False):
           f"mean {statistics.mean(hit_admit):.2f} ms; prefill_s "
           f"{st.prefill_s:.4f}, decode_s {st.decode_s:.4f}, decode_tok/s "
           f"{st.decode_tok_s:.2f}, mean_itl_ms {ms(st.mean_itl_s):.2f}, "
-          f"peak_mem_gib {peak:.2f}", flush=True)
+          f"peak_mem_gib {peak:.2f} (resident before the run "
+          f"{resident:.2f}: weights and this engine's pools; 7a's engines "
+          f"freed)", flush=True)
     print("paged (b): launches " + json.dumps(launches), flush=True)
     check_paged_routes(cfg, params, prompts)
     return launches
@@ -1538,6 +1565,20 @@ def phase_fig12():
     return launches
 
 
+def check_freed(what: str, limit_gib: float = 0.5) -> None:
+    """Once the phases of a model are over and its weights dropped, the
+    device holds less than ``limit_gib`` (every engine of the model
+    freed without a garbage-collection pass)."""
+    import torch
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"freed: {what} dropped, {held:.3f} GiB still allocated",
+          flush=True)
+    if held >= limit_gib:
+        raise AssertionError(f"{what}: {held:.2f} GiB still allocated "
+                             f"after its weights and engines were dropped")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1583,18 +1624,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     paged_same_traffic(cfg, params, slot_tokens)
     paged = paged_prefix_llama(cfg, params, args.profile)
-    # the earlier phases' engines hold the llama2-7b weights in reference
-    # cycles (engine <-> family): collect them, so phase 8's peak memory
-    # is Mamba2's own
+    # a dropped engine frees its cache and weights at once (its family
+    # holds it weakly), so no garbage collection runs between phases
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    check_freed("llama2-7b")
     m2 = get_arch(MAMBA_ARCH)
     m2_params = init_weights(m2)
     mamba = serve_mamba2(m2, m2_params, args.profile)
     del m2_params
-    gc.collect()
-    torch.cuda.empty_cache()
+    check_freed("mamba2-780m")
     fig = phase_fig12()
     # each kernel's launches from the run of the path that uses it: the
     # serving run for the batched re-orth pair and dkv, the activation

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""A/B of kernel rows between two checkouts of the port, on one GPU.
+
+    git archive <commit> | tar -x -C .ab/base      # a directory .gitignore lists
+    python3 kernel_ab.py .ab/base .                # base, new, new, base
+    python3 kernel_ab.py .ab/base . --out ab.json
+
+Each checkout is measured in its own process, in turns (base, new, new,
+base), so both run on the same card within one run.  A process puts
+that checkout's ``src`` first on the path, builds its kernels and calls
+the phase-3 cases of that checkout's own ``chip_smoke.py`` on the same
+seeded inputs, timed for both by the new checkout's ``time_ms`` and
+``time_ms_cold`` (so the two differ only in their code under test): ``lowrank_matmul_case`` at Vᵀ [1, 20, 4096] @ W [4096,
+4096] and [4096, 11008] bf16, ``matvec_case`` for ``rmatvec`` at A
+[4096, 4096] float32 (L2 flushed per call) and ``rmatvec_batched`` at
+[64, 4096, 4096] bf16.  Each case holds the kernel against its plain
+version, as in ``chip_smoke.py``.  The times of the rows (``ms``,
+``library_ms`` and whatever else the checkout's case reports) are
+printed per run, one JSON line each, and written to ``--out`` if given.
+Without CUDA it exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CASES = (("lowrank_matmul", (20, 4096, 4096)),
+         ("lowrank_matmul", (20, 4096, 11008)),
+         ("rmatvec", (4096, 4096)),
+         ("rmatvec_batched", (64, 4096, 4096)))
+
+
+def load_smoke(root: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def child(root: Path, timers: Path) -> dict:
+    """The rows of :data:`CASES`, measured by ``root``'s own cases with
+    the timers of ``timers``' ``chip_smoke.py``."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    smoke = load_smoke(root, "ab_smoke")
+    timing = load_smoke(timers, "ab_timers")
+    smoke.time_ms, smoke.time_ms_cold = timing.time_ms, timing.time_ms_cold
+    from repro_torch.kernels import build
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, shape in CASES:
+        if name == "lowrank_matmul":
+            rec = smoke.lowrank_matmul_case(*shape, gen)
+        else:
+            dt = torch.float32 if len(shape) == 2 else torch.bfloat16
+            rec = smoke.matvec_case(name, shape, dt, gen)
+        rows.append({k: v for k, v in rec.items()
+                     if k in ("name", "max_abs_err", "bound_ms")
+                     or k.endswith("ms") or "ms_" in k})
+        rows[-1]["shape"] = list(shape)
+        torch.cuda.empty_cache()
+    return {"root": str(root), "rows": rows}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("base", type=Path, help="checkout measured first/last")
+    ap.add_argument("new", type=Path, help="checkout measured in between")
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--child", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        print(json.dumps(child(args.child.resolve(), args.new.resolve())),
+              flush=True)
+        return 0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs = []
+    for label, root in (("base", args.base), ("new", args.new),
+                        ("new", args.new), ("base", args.base)):
+        proc = subprocess.run(
+            [sys.executable, __file__, str(args.base), str(args.new),
+             "--child", str(root)], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)
+            return proc.returncode
+        run = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                   label=label)
+        runs.append(run)
+        for row in run["rows"]:
+            print(json.dumps(dict(row, label=label)), flush=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": smi, "runs": runs},
+                                       indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

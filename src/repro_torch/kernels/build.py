@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-Every ``csrc/*.cu`` compiles on its own with
+Every ``csrc/*.cu`` (with the shared ``csrc/*.cuh`` headers) compiles on
+its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
          -Xcompiler -fPIC -o build/<name>-<digest>.so csrc/<name>.cu
@@ -8,7 +9,7 @@ Every ``csrc/*.cu`` compiles on its own with
 into ``build/`` beside this module (git-ignored), one ``nvcc`` per source,
 all started together.  The sources have a plain C interface (no PyTorch
 headers), so a build takes seconds; the result is loaded with ``ctypes``.
-The file name carries a digest of the source and flags, so a stale
+The file name carries a digest of the source, headers and flags, so a stale
 library is never loaded and an unchanged one is not rebuilt.  Only the
 sources in the repository are compiled; nothing is fetched.
 """
@@ -47,7 +48,10 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    """The library of ``src``, named by a digest of the source, the shared
+    headers of ``csrc/`` and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(FLAGS).encode())
     return BUILD / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 

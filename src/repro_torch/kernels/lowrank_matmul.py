@@ -10,8 +10,9 @@ float32 and rounds once, where it writes the output.
 The wrapper dispatches on the device of ``vt``: a CPU tensor takes the
 plain PyTorch version beside it; a CUDA tensor launches the kernel in
 ``csrc/lowrank_matmul.cu`` or raises — there is no fallback.
-``lowrank_matmul.launches`` counts its kernel launches (the kernel's
-fixed-order combine of the H splits is part of the same launch).
+``lowrank_matmul.launches`` counts its kernel launches (the fixed-order
+combine of the H splits, through the cluster's shared memory, is part of
+the same launch).
 """
 from __future__ import annotations
 
@@ -37,10 +38,8 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.dcom_lrmm_f32, lib.dcom_lrmm_bf16):
-            fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+            fn.argtypes = [vp, vp, vp, i, i, i, i, vp]
             fn.restype = i
-        lib.dcom_lrmm_splits.argtypes = [i, i, i, i]
-        lib.dcom_lrmm_splits.restype = i
         _BOUND = True
     return lib
 
@@ -48,12 +47,6 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
-def _splits(m: int, h: int, n: int, sms: int) -> int:
-    """The H splits f of a launch (sizes the float32 scratch f·M·N)."""
-    return _lib().dcom_lrmm_splits(m, h, n, sms)
 
 
 def lowrank_matmul(vt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -81,18 +74,15 @@ def lowrank_matmul(vt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.zeros(shape, device=vt.device, dtype=vt.dtype)
     out = torch.empty(shape, device=vt.device, dtype=vt.dtype)
     lib = _lib()
-    sms = _sms(vt.device.index)
-    f = _splits(m, h, n, sms)
-    scratch = torch.empty(f * m * n if f > 1 else 1, device=vt.device,
-                          dtype=torch.float32)
     fn = lib.dcom_lrmm_f32 if vt.dtype == torch.float32 \
         else lib.dcom_lrmm_bf16
-    err = fn(vt.data_ptr(), w.data_ptr(), out.data_ptr(),
-             scratch.data_ptr(), m, h, n, sms,
+    err = fn(vt.data_ptr(), w.data_ptr(), out.data_ptr(), m, h, n,
+             _sms(vt.device.index),
              torch.cuda.current_stream(vt.device).cuda_stream)
     if err:
         raise RuntimeError(f"lowrank_matmul kernel launch failed "
-                           f"(cudaError {err})")
+                           f"(cudaError or, for its tensor maps, CUresult "
+                           f"{err})")
     lowrank_matmul.launches += 1
     return out
 

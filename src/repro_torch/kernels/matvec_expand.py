@@ -20,13 +20,18 @@ kernels.
 
 Each wrapper dispatches on the device of ``a``: a CPU tensor takes the
 plain PyTorch version beside it; a CUDA tensor launches the kernels in
-``csrc/matvec_expand.cu`` (the split pass, then the fixed-order combine
-when f > 1) or raises — there is no fallback.  ``launches`` on each of
-the four wrappers counts its calls that launched.
+``csrc/matvec_expand.cu`` or raises — there is no fallback.  matvec is
+the split pass, then the fixed-order combine when f > 1; rmatvec is one
+launch, whose last CTA of each column block adds the f partials (it
+takes a ticket from a per-device counter buffer that it leaves zeroed,
+so launches that share it run one after another on one stream).
+``launches`` on each of the four wrappers counts its calls that
+launched.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -103,16 +108,32 @@ def _lib() -> ctypes.CDLL:
     lib = library("matvec_expand")
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.dcom_matvec, lib.dcom_rmatvec):
-            fn.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
-            fn.restype = i
+        lib.dcom_matvec.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, i,
+                                    i, i, vp]
+        lib.dcom_rmatvec.argtypes = [i, i, vp, vp, vp, vp, vp, i, i, i, i,
+                                     i, i, i, vp]
+        lib.dcom_matvec.restype = lib.dcom_rmatvec.restype = i
         _BOUND = True
     return lib
 
 
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed rmatvec combine counters on ``device`` (the
+    kernel resets each one it uses)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def _launch(name: str, a, x, expansion: int, block: int) -> torch.Tensor:
-    """One launch of the split pass (plus the combine when f > 1) for
-    a [B,S,H] and its vector x; ``name`` is "matvec" or "rmatvec"."""
+    """One call of the kernel for a [B,S,H] and its vector x; ``name`` is
+    "matvec" (the split pass, plus the combine when f > 1) or "rmatvec"
+    (one launch)."""
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
     f = _check_expansion(expansion)
@@ -144,13 +165,21 @@ def _launch(name: str, a, x, expansion: int, block: int) -> torch.Tensor:
     width = 16 // a.element_size()       # elements per 16-byte load of A
     vec = h % width == 0 and a.data_ptr() % 16 == 0 and (
         x.data_ptr() % 16 == 0 if name == "matvec" else block % width == 0)
-    fn = _lib().dcom_matvec if name == "matvec" else _lib().dcom_rmatvec
-    err = fn(_DTYPES[a.dtype], _DTYPES[x.dtype], a.data_ptr(), x.data_ptr(),
-             None if part is None else part.data_ptr(), out.data_ptr(),
-             b, s, h, f, split, block, int(vec),
-             torch.cuda.current_stream(a.device).cuda_stream)
+    block = min(block, n_out)      # the same grid; a tighter rmatvec ring
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (_DTYPES[a.dtype], _DTYPES[x.dtype], a.data_ptr(), x.data_ptr(),
+            ptr(part))
+    if name == "matvec":
+        err = _lib().dcom_matvec(*args, out.data_ptr(), b, s, h, f, split,
+                                 block, int(vec), stream)
+    else:
+        tickets = _tickets(a.device, b * blocks) if f > 1 else None
+        err = _lib().dcom_rmatvec(*args, ptr(tickets), out.data_ptr(), b, s,
+                                  h, f, split, block, int(vec), stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"{name} kernel launch failed (cudaError or, "
+                           f"for its tensor map, CUresult {err})")
     return out
 
 

@@ -22,10 +22,14 @@ admission.  Registered families:
 Admission is sync: the reference's dispatch/complete ticket split is
 kept as one call that completes inline.  All mutable serving state
 (``cache``, ``pos``, ``frozen_len``, ``rank_eff``, ``live``, ``pager``)
-stays on the Engine; families hold no state.
+stays on the Engine; families hold no state.  A family reaches its
+engine through a ``weakref.proxy``: the engine owns the family, so a
+dropped engine frees its cache and weights at once, without waiting for
+the cyclic garbage collector (the reference keeps the cycle).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -83,7 +87,7 @@ class ServingFamily:
         if paged and not self.paged_capable:
             raise ValueError("paged serving runs on the decomposed KV "
                              "cache (set EngineConfig.kv_rank > 0)")
-        self.eng = eng
+        self.eng = weakref.proxy(eng)     # no engine <-> family cycle
         self.fns = model_fns(eng.cfg)
 
     def alloc(self):

@@ -10,14 +10,16 @@ point, per (shape, dtype, device):
   order on one core and f alone sets the blocks in flight; here CTAs run
   in parallel on 132 SMs, and what engages bandwidth is the number of
   warps in flight: ``batch × ceil(S / row_block) × f`` CTAs of 8 warps
-  for the matvec pair, B CTAs of f warps for the re-orth kernel.  The
+  for matvec, B CTAs of f warps for the re-orth kernel.  An rmatvec CTA
+  keeps a ring of shared-memory stages in flight, so its term counts
+  bytes in flight, in units of what one matvec warp keeps (2 KB).  The
   streaming time is ``bytes / (bw · min(warps, sat) / sat)`` — the
   batched Fig. 12 shape (512 CTAs at f = 1) is already saturated, the
   scalar one (8 CTAs) is not.  NON-INCREASING in f.
 * **compute side** (right of f*): the streaming floor at full bandwidth
   plus everything that grows with f — the float32 partials written and
   read back (``8·B·f·n`` bytes for f > 1), the fixed cost of each CTA
-  spread over the SMs, the combine launch (f > 1), the per-split cost of
+  spread over the SMs, matvec's combine launch (f > 1), the per-split cost of
   the plain version's split loop (CPU), and the re-orth kernel's
   replicated combine work.  NON-DECREASING in f.
 
@@ -36,6 +38,13 @@ DTYPE_BYTES = {"float32": 4, "float16": 2, "bfloat16": 2}
 
 #: threads of one matvec-pair CTA (``kThreads`` of csrc/matvec_expand.cu)
 MATVEC_WARPS = 8
+#: bytes one matvec warp keeps in flight: 32 lanes x 16 B x 4 unrolled loads
+MATVEC_WARP_FLIGHT = 2048
+#: the rmatvec CTA's ring (``kStages``, ``kStageBytes`` of the same file):
+#: all stages but the one being summed are in flight
+RMATVEC_STAGES = 3
+RMATVEC_STAGE_BYTES = 32 * 1024
+RMATVEC_MAX_ROWS = 256             # a TMA box has at most 256 rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +133,35 @@ def _terms_matvec_expand(shape, dtb, cand) -> Terms:
                          int(cand.get("row_block", 512)))
 
 
+def rmatvec_flight(s: int, h: int, dtb: int, f: int, col_block: int
+                   ) -> Tuple[int, int]:
+    """(CTAs per batch element, bytes one CTA keeps in flight) of an
+    rmatvec launch over A [S, H]: its ring's stages but one, each of
+    ``32 KB // row`` rows (1 to 256) of ``col_block`` columns, at most
+    the CTA's whole [split × col_block] tile."""
+    from ..kernels.matvec_expand import split_len
+    cb = max(1, min(col_block, h))
+    row = cb * dtb
+    stage = min(RMATVEC_MAX_ROWS,
+                max(1, RMATVEC_STAGE_BYTES // row)) * row
+    tile = min(split_len(s, f), s) * row
+    return -(-h // cb) * f, min((RMATVEC_STAGES - 1) * stage, tile)
+
+
 def _terms_rmatvec_expand(shape, dtb, cand) -> Terms:
     """z = Aᵀ·u over A [S, H] or [B, S, H]; the S reduction split f ways,
-    ``col_block`` columns per CTA."""
+    ``col_block`` columns per CTA, one launch (the last CTA of a column
+    block adds the partials).  Its warps in flight are the CTAs' bytes in
+    flight over :data:`MATVEC_WARP_FLIGHT`."""
+    from ..kernels.matvec_expand import split_len
     b, s, h = (1, *shape) if len(shape) == 2 else shape
-    return _expand_terms(b, h, s, dtb, int(cand["expansion"]),
-                         int(cand.get("col_block", 512)))
+    f = int(cand["expansion"])
+    ctas, flight = rmatvec_flight(s, h, dtb, f,
+                                  int(cand.get("col_block", 512)))
+    bytes_ = b * s * h * dtb + b * s * dtb + b * h * 4
+    extra = 8.0 * b * f * h if f > 1 else 0.0
+    return (bytes_, 2.0 * b * s * h, b * ctas * flight / MATVEC_WARP_FLIGHT,
+            extra, b * ctas, -(-s // split_len(s, f)), 0.0)
 
 
 def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:

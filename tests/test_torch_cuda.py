@@ -184,12 +184,17 @@ def test_decode_routes_agree_on_card(cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,k,h,n", [(1, 20, 4096, 256), (2, 21, 100, 100),
-                                     (1, 1, 64, 32000), (3, 13, 777, 301)])
+                                     (1, 1, 64, 32000), (3, 13, 777, 301),
+                                     (1, 64, 512, 384), (5, 13, 256, 200),
+                                     (2, 20, 40, 1000), (1, 20, 2048, 136)])
 def test_lowrank_matmul_kernel_matches_plain(cuda, dtype, b, k, h, n):
-    """Eq. 6 GEMM: k = 1, 20, 21 (M = B·k up to 63, so two M chunks),
-    ragged H and N, N = 32000 (a vocab).  float32: the sums differ only
-    in order (1e-4 relative to the largest output); bf16: the float32
-    results round to bf16 once, so at most one bf16 ulp apart."""
+    """Eq. 6 GEMM: k = 1, 20, 21 (M = B·k up to 63), M = 64 (one full M
+    chunk) and 65 (a second chunk of one row), ragged H and N, H = 40
+    (shorter than one 64-row ring stage), N = 200 and 136 (not multiples
+    of the 128-column tile), H split 8 ways (a full cluster: N = 256 and
+    136 give 2 tiles), N = 32000 (a vocab).  float32: the sums differ
+    only in order (1e-4 relative to the largest output); bf16: the
+    float32 results round to bf16 once, so at most one bf16 ulp apart."""
     g = torch.Generator(device=cuda).manual_seed(b * k + h + n)
     dt = getattr(torch, dtype)
     vt = torch.randn(b, k, h, generator=g, device=cuda).to(dt)
@@ -356,22 +361,25 @@ MV_FS = (1, 2, 4, 8, 16, 32, 64, 128)     # the matvec spaces' f grid
 @pytest.mark.parametrize("b,s,h,block", [(3, 300, 200, 512),
                                          (1, 37, 1030, 128),
                                          (2, 513, 96, 64),
-                                         (1, 64, 4096, 512)])
+                                         (1, 64, 4096, 512),
+                                         (2, 2000, 64, 8)])
 def test_matvec_kernels_match_plain_every_f(cuda, dtype, vdtype, b, s, h,
                                             block):
     """The four expanded matvec wrappers against their plain versions at
-    every f of the grid, ragged S and H (H = 1030 takes the 2/4-byte
-    loads, the others the 16-byte path), a block that does not divide
-    the output; reruns bit-identical; each call counts one launch of its
-    own wrapper.  float32 sums in another order: 1e-5 relative, 1e-4
-    absolute (|y| ~ sqrt(n))."""
+    every f of the grid and f = 1024, ragged S and H (H = 1030 takes the
+    2/4-byte loads, the others the 16-byte path), a block that does not
+    divide the output, and splits shorter than one rmatvec ring stage
+    (f = 1024 gives 8-row splits; 8 columns a block give 512- or
+    1024-row stages); reruns bit-identical; each call counts one launch
+    of its own wrapper.  float32 sums in another order: 1e-5 relative,
+    1e-4 absolute (|y| ~ sqrt(n))."""
     gen = torch.Generator(device=cuda).manual_seed(s + h)
     dt, vdt = getattr(torch, dtype), getattr(torch, vdtype)
     a = torch.randn(b, s, h, generator=gen, device=cuda).to(dt)
     v = torch.randn(b, h, generator=gen, device=cuda).to(vdt)
     u = torch.randn(b, s, generator=gen, device=cuda).to(vdt)
     tol = dict(rtol=1e-5, atol=1e-4)
-    for f in MV_FS:
+    for f in MV_FS + (1024,):
         before = {k: ops.KERNELS[k].launches for k in
                   ("matvec", "rmatvec", "matvec_batched", "rmatvec_batched")}
         y = mv.matvec_batched(a, v, expansion=f, row_block=block)

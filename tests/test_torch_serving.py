@@ -13,6 +13,9 @@ PyTorch's by an ulp, which moves a bf16 rounding, which flips a greedy
 argmax at a near-tie — ROADMAP C), so the bf16 recipe holds the port to
 the reference's own bar instead: decomposed-KV tokens == dense tokens.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -21,6 +24,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.configs import all_archs  # noqa: E402
+from repro.engine import (DecomposeEngine as JDecomposeEngine,  # noqa: E402
+                          EngineConfig as JEngineConfig)
 from repro.engine.engine import _padded_z0  # noqa: E402
 from repro.models import model_fns  # noqa: E402
 from repro.serving import Engine as JEngine, Request as JRequest  # noqa: E402
@@ -154,3 +159,47 @@ def test_engine_reads_dkv_settings_from_engine_config():
     eng = _dkv_engine(tcfg, None, 2, exact=False)
     assert (eng.dkv_rank, eng.dkv_tail, eng.dkv_exact) == (RANK, TAIL, False)
     assert type(eng.family).__name__ == "TransformerDKVServing"
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_dropped_engine_frees_its_cache_without_gc(f32, paged):
+    """The serving family reaches its engine through a weak proxy, so
+    with the cyclic collector off, ``del eng`` frees the engine and every
+    tensor of its KV cache (slot slab, or page pools) at once.  The
+    tokens are the JAX engine's at the same settings."""
+    jcfg, jp, tcfg, tp = f32
+    prompts = _prompts(jcfg.vocab)
+    kw = dict(kv_rank=RANK, kv_tail=TAIL, kv_exact=True, kv_page=4)
+    want, _ = _serve(JEngine(jcfg, jp, slots=2, **JDKV, paged=paged,
+                             decompose_engine=JDecomposeEngine(
+                                 JEngineConfig(**kw))),
+                     JRequest, prompts, True)
+    gc.collect()
+    gc.disable()
+    try:
+        eng = Engine(tcfg, tp, slots=2, max_len=MAX_LEN, device="cpu",
+                     paged=paged,
+                     decompose_engine=DecomposeEngine(EngineConfig(**kw)))
+        got, st = _serve(eng, Request, prompts, True)
+        leaves = list(_tensors(eng.cache))
+        if paged:
+            leaves += list(_tensors(eng.pager.cache))
+        assert leaves and st.tail_folds > 0
+        refs = [weakref.ref(t) for t in leaves] + [weakref.ref(eng)]
+        del eng, leaves
+        dead = [r() is None for r in refs]
+    finally:
+        gc.enable()
+    assert all(dead), f"{dead.count(False)} of {len(dead)} still alive"
+    assert got == want
