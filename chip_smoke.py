@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within the stated tolerance, then CUDA-event times of the kernel, the
    plain version and a one-call PyTorch yardstick, and the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations
-   over the peak rate of the inputs' type, whichever is larger);
+   over the peak rate of the inputs' type, whichever is larger).  An
+   empty kernel is timed first (``launch floor:``); the dkv and matvec
+   rows carry it as ``launch_floor_ms``, and the dkv rows also their
+   reruns held bit-identical and their and SDPA's times with the L2
+   flushed before each call;
 4. decomposed-KV serving of llama2-7b at full width and depth (random
    bf16 weights from a seed): 4 requests of 512/384/300/128 prompt
    tokens, two admitted while others decode, slots 4, rank 64, tail 16,
@@ -107,6 +111,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -167,6 +172,22 @@ def time_ms_cold(fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_floor_ms() -> float:
+    """:func:`time_ms` of an empty one-warp kernel: the least a launch of
+    any kernel takes under the same timer."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.build import library
+    fn = library("launch_floor").dcom_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if fn(1, stream):
+            raise RuntimeError("empty kernel launch failed")
+    return time_ms(run)
 
 
 def to_float32(tree):
@@ -327,6 +348,14 @@ def outlier_stats_case(s: int, h: int, gen, threshold: float = 3.0):
                           "order of reduction)")
 
 
+def kernel_and_library_ms(kern, lib) -> dict:
+    """The kernel's and the library call's times, warm (``ms``,
+    ``library_ms``) and with the L2 flushed before each call."""
+    return dict(ms=time_ms(kern), library_ms=time_ms(lib),
+                ms_l2_cold=time_ms_cold(kern),
+                library_ms_l2_cold=time_ms_cold(lib))
+
+
 def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
     import torch
     import torch.nn.functional as F
@@ -336,9 +365,14 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
     k_u = torch.randn(b, t, r, generator=gen, device=dev).to(dtype)
     v_u = torch.randn(b, t, r, generator=gen, device=dev).to(dtype)
     tv = torch.tensor(t_valid, dtype=torch.int32, device=dev)
-    a_k, m_k, l_k = dk.dkv_attention_stats(inner, k_u, v_u, tv)
+    kern = lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv)  # noqa: E731
+    got = kern()
+    again = kern()
+    a_k, m_k, l_k = got
     a_p, m_p, l_p = dk.dkv_attention_stats_plain(inner, k_u, v_u, tv)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("dkv_attention_stats: reruns differ")
     err = (a_k - a_p).abs().max().item()
     tol = 1e-4 * a_p.abs().max().item()
     merr = (m_k - m_p).abs().max().item()
@@ -348,14 +382,13 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
         raise AssertionError(f"dkv_attention_stats: a err {err:.3e} (tol "
                              f"{tol:.3e}), m err {merr:.3e}, l rel err "
                              f"{lerr:.3e}")
-    ms = time_ms(lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv))
     plain_ms = time_ms(lambda: dk.dkv_attention_stats_plain(inner, k_u,
                                                             v_u, tv))
     # yardstick: one SDPA call over the same prefix rows (normalized a/l)
     mask = (torch.arange(t, device=dev)[None, :] < tv[:, None])[:, None, :]
     q4, k4, v4 = inner.to(dtype)[:, None], k_u[:, None], v_u[:, None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask[:, None], scale=1.0))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask[:, None], scale=1.0)
     rows = sum(min(int(x), t) for x in t_valid)
     elt = k_u.element_size()
     bytes_ = 4 * b * g * r + 2 * rows * r * elt + 4 * b \
@@ -365,12 +398,13 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
     return dict(name="dkv_attention_stats", route="cuda",
                 source="src/repro_torch/kernels/csrc/dkv_attention.cu",
                 replaces="src/repro/kernels/dkv_attention.py:115",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms,
+                max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, **kernel_and_library_ms(kern, lib),
                 shape=dict(B=b, G=g, T=t, r=r, t_valid=list(t_valid),
                            dtype=str(dtype)),
                 tolerance="max|a_kernel - a_plain| <= 1e-4 max|a_plain|, "
-                          "m abs err <= 1e-4 max|m|, l rel err <= 1e-4")
+                          "m abs err <= 1e-4 max|m|, l rel err <= 1e-4; "
+                          "reruns bit-identical")
 
 
 def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
@@ -402,6 +436,7 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
     kern = lambda: dk.dkv_attention_stats_paged(inner, k_pool, v_pool, bt,
                                                 tv, r)
     got = kern()
+    again = kern()
     ku = dk.gather_rows(k_pool, bt, r).contiguous()
     vu = dk.gather_rows(v_pool, bt, r).contiguous()
     slab = dk.dkv_attention_stats(inner, ku, vu, tv)
@@ -411,6 +446,8 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
     if not all(torch.equal(x, y) for x, y in zip(got, slab)):
         raise AssertionError("dkv_attention_stats_paged is not bit-equal "
                              "to the slab kernel on the gathered rows")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("dkv_attention_stats_paged: reruns differ")
     (a_k, m_k, l_k), (a_p, m_p, l_p) = got, plain
     err = (a_k - a_p).abs().max().item()
     merr = (m_k - m_p).abs().max().item()
@@ -419,15 +456,14 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
             and merr <= 1e-4 * m_p.abs().max().item() and lerr <= 1e-4):
         raise AssertionError(f"dkv_attention_stats_paged: a err {err:.3e},"
                              f" m err {merr:.3e}, l rel err {lerr:.3e}")
-    ms = time_ms(kern)
     slab_ms = time_ms(lambda: dk.dkv_attention_stats(inner, ku, vu, tv))
     plain_ms = time_ms(lambda: dk.dkv_attention_stats_paged_plain(
         inner, k_pool, v_pool, bt, tv, r))
     mask = (torch.arange(n * page, device=dev)[None, :]
             < tv[:, None])[:, None, None, :]
     q4, k4, v4 = inner.to(dtype)[:, None], ku[:, None], vu[:, None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, scale=1.0))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask, scale=1.0)
     rows = sum(t_valid)
     elt = k_pool.element_size()
     bytes_ = 4 * b * g * r + 2 * rows * r * elt + 4 * b + 4 * b * n \
@@ -436,12 +472,14 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
     return dict(name="dkv_attention_stats_paged", route="cuda",
                 source="src/repro_torch/kernels/csrc/dkv_attention.cu",
                 replaces="src/repro/kernels/dkv_attention.py:229",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms, slab_kernel_ms=slab_ms,
+                max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, **kernel_and_library_ms(kern, lib),
+                slab_kernel_ms=slab_ms,
                 shape=dict(B=b, G=g, r=r, page=page, table=[b, n],
                            t_valid=list(t_valid), dtype=str(dtype)),
                 tolerance="bit-equal to dkv_attention_stats on the "
-                          "gathered rows; vs plain as dkv_attention_stats")
+                          "gathered rows; vs plain as dkv_attention_stats; "
+                          "reruns bit-identical")
 
 
 def ssd_case(g: int, q: int, nh: int, hd: int, gen):
@@ -548,6 +586,9 @@ def phase_kernels(cfg):
     gen = torch.Generator(device="cuda").manual_seed(0)
     kvw, rank = cfg.kv_width, 64
     iters = rank + 8              # decompose_kv: rank + kv_iters_extra
+    floor = launch_floor_ms()     # beside the rows whose bound is below it
+    print(f"launch floor: an empty kernel takes {floor:.5f} ms under the "
+          f"warm timer", flush=True)
     rows = []
     for b in (cfg.num_layers, 4 * cfg.num_layers):      # 1 and 4 prompts
         for side in ("right", "left"):
@@ -558,10 +599,12 @@ def phase_kernels(cfg):
         torch.cuda.empty_cache()
     dkv = dkv_case(4, cfg.num_heads, 512, rank, (512, 384, 304, 128),
                    torch.bfloat16, gen)
+    dkv["launch_floor_ms"] = floor
     print(json.dumps(dkv), flush=True)
     rows.append(dkv)
     paged = dkv_paged_case(4, cfg.num_heads, rank, (512, 384, 304, 128),
                            16, torch.bfloat16, gen)
+    paged["launch_floor_ms"] = floor
     print(json.dumps(paged), flush=True)
     rows.append(paged)
     # the activation path (phase 6): one 4096-token prompt, rank 20
@@ -590,7 +633,8 @@ def phase_kernels(cfg):
                       (FIG12_BATCHED, torch.bfloat16)):
         for op in ("matvec", "rmatvec"):
             name = op if len(shape) == 2 else f"{op}_batched"
-            mv_rows.append(matvec_case(name, shape, dt, gen))
+            mv_rows.append(dict(matvec_case(name, shape, dt, gen),
+                                launch_floor_ms=floor))
             print(json.dumps(mv_rows[-1]), flush=True)
         torch.cuda.empty_cache()
     return rows + act + ssd_rows + mv_rows
@@ -599,6 +643,12 @@ def phase_kernels(cfg):
 # ---------------------------------------------------------------------------
 # Phase 4: serving llama2-7b at full width
 # ---------------------------------------------------------------------------
+
+#: the device functions of src/repro_torch/kernels/csrc/*.cu
+PORT_KERNELS = ("reorth_right_kernel", "reorth_left_kernel",
+                "dkv_stats_kernel", "lrmm_kernel", "outlier_stats_kernel",
+                "ssd_chunk_intra_kernel", "matvec_kernel", "rmatvec_kernel")
+
 
 def print_profile(prof) -> None:
     """The device's busy share of a profiled serving run and its kernel
@@ -612,6 +662,19 @@ def print_profile(prof) -> None:
         print(f"profile: {len(events)} device kernels, summed device time "
               f"{busy / 1e3:.1f} ms over a {span / 1e3:.1f} ms span "
               f"(busy share {busy / max(span, 1):.3f})", flush=True)
+        # the port's own kernels, each with its share of the device time,
+        # whether or not the table below shows them
+        own: dict = {}
+        for e in events:
+            m = re.search(r"\(anonymous namespace\)::(\w+)", e.name)
+            if m and m.group(1) in PORT_KERNELS:
+                n, us = own.get(m.group(1), (0, 0.0))
+                own[m.group(1)] = (n + 1, us + e.time_range.end
+                                   - e.time_range.start)
+        for name, (n, us) in sorted(own.items()):
+            print(f"profile: kernel {name}: {n} launches, {us / 1e3:.1f} ms "
+                  f"({us / n:.1f} us each), {100 * us / busy:.2f} % of the "
+                  f"device time", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25), flush=True)
 
@@ -1516,9 +1579,8 @@ def phase_fig12():
     print(f"fig12: H100 model constants fitted to the matvec sweeps: "
           f"sat_warps={fit['sat_warps']:.1f} (per-warp rate "
           f"{fit['per_warp_bytes_s'] / 1e9:.3f} GB/s) cta_s="
-          f"{fit['cta_s']:.3e} combine_s={fit['combine_s']:.3e}; in use: "
-          f"sat_warps={tune.H100.sat_warps} cta_s={tune.H100.cta_s:.1e} "
-          f"combine_s={tune.H100.combine_s:.1e}", flush=True)
+          f"{fit['cta_s']:.3e}; in use: sat_warps={tune.H100.sat_warps} "
+          f"cta_s={tune.H100.cta_s:.1e}", flush=True)
 
     fix = {"backend": "cuda"}
     before = ops.launch_counts()["reorth_right_batched"]

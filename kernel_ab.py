@@ -7,16 +7,21 @@
 
 Each checkout is measured in its own process, in turns (base, new, new,
 base), so both run on the same card within one run.  A process puts
-that checkout's ``src`` first on the path, builds its kernels and calls
-the phase-3 cases of that checkout's own ``chip_smoke.py`` on the same
-seeded inputs, timed for both by the new checkout's ``time_ms`` and
-``time_ms_cold`` (so the two differ only in their code under test): ``lowrank_matmul_case`` at Vᵀ [1, 20, 4096] @ W [4096,
-4096] and [4096, 11008] bf16, ``matvec_case`` for ``rmatvec`` at A
-[4096, 4096] float32 (L2 flushed per call) and ``rmatvec_batched`` at
-[64, 4096, 4096] bf16.  Each case holds the kernel against its plain
-version, as in ``chip_smoke.py``.  The times of the rows (``ms``,
-``library_ms`` and whatever else the checkout's case reports) are
-printed per run, one JSON line each, and written to ``--out`` if given.
+that checkout's ``src`` first on the path, builds its kernels and runs
+the phase-3 cases of the NEW checkout's ``chip_smoke.py`` on the same
+seeded inputs (the wrappers' interface is shared), timed by its
+``time_ms`` and ``time_ms_cold``, so the two runs differ only in the
+kernels under test: ``lowrank_matmul_case`` at Vᵀ [1, 20, 4096] @ W
+[4096, 4096] and [4096, 11008] bf16, ``dkv_case`` and ``dkv_paged_case``
+at phase 4's decode shape (inner [4, 32, 64], U [4, 512, 64] bf16,
+t_valid 512/384/304/128; 16-row pages), and ``matvec_case`` for
+``matvec`` and ``rmatvec`` at A [4096, 4096] float32 (L2 flushed per
+call) and ``matvec_batched`` and ``rmatvec_batched`` at [64, 4096,
+4096] bf16, all at f = 8.  Each case holds the kernel against its plain
+version, as in ``chip_smoke.py``.  Each run also times an empty kernel
+(``launch_floor_ms``).  The times of the rows (``ms``, ``library_ms`` and
+whatever else the case reports) are printed per run, one JSON line
+each, and written to ``--out`` if given.
 Without CUDA it exits non-zero.
 """
 from __future__ import annotations
@@ -28,9 +33,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+DKV = dict(b=4, g=32, r=64, t_valid=(512, 384, 304, 128))   # phase 4
 CASES = (("lowrank_matmul", (20, 4096, 4096)),
          ("lowrank_matmul", (20, 4096, 11008)),
+         ("dkv_attention_stats", (4, 32, 512, 64)),
+         ("dkv_attention_stats_paged", (4, 32, 512, 64)),
+         ("matvec", (4096, 4096)),
          ("rmatvec", (4096, 4096)),
+         ("matvec_batched", (64, 4096, 4096)),
          ("rmatvec_batched", (64, 4096, 4096)))
 
 
@@ -41,16 +51,14 @@ def load_smoke(root: Path, name: str):
     return mod
 
 
-def child(root: Path, timers: Path) -> dict:
-    """The rows of :data:`CASES`, measured by ``root``'s own cases with
-    the timers of ``timers``' ``chip_smoke.py``."""
+def child(root: Path, cases: Path) -> dict:
+    """The rows of :data:`CASES`: ``root``'s kernels measured by the cases
+    and timers of ``cases``' ``chip_smoke.py``."""
     sys.path.insert(0, str(root / "src"))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
-    smoke = load_smoke(root, "ab_smoke")
-    timing = load_smoke(timers, "ab_timers")
-    smoke.time_ms, smoke.time_ms_cold = timing.time_ms, timing.time_ms_cold
+    smoke = load_smoke(cases, "ab_smoke")
     from repro_torch.kernels import build
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -58,6 +66,13 @@ def child(root: Path, timers: Path) -> dict:
     for name, shape in CASES:
         if name == "lowrank_matmul":
             rec = smoke.lowrank_matmul_case(*shape, gen)
+        elif name == "dkv_attention_stats":
+            rec = smoke.dkv_case(DKV["b"], DKV["g"], shape[2], DKV["r"],
+                                 DKV["t_valid"], torch.bfloat16, gen)
+        elif name == "dkv_attention_stats_paged":
+            rec = smoke.dkv_paged_case(DKV["b"], DKV["g"], DKV["r"],
+                                       DKV["t_valid"], 16, torch.bfloat16,
+                                       gen)
         else:
             dt = torch.float32 if len(shape) == 2 else torch.bfloat16
             rec = smoke.matvec_case(name, shape, dt, gen)
@@ -66,7 +81,10 @@ def child(root: Path, timers: Path) -> dict:
                      or k.endswith("ms") or "ms_" in k})
         rows[-1]["shape"] = list(shape)
         torch.cuda.empty_cache()
-    return {"root": str(root), "rows": rows}
+    floor = smoke.launch_floor_ms() if (
+        root / "src/repro_torch/kernels/csrc/launch_floor.cu").exists() \
+        else None                         # a checkout without the kernel
+    return {"root": str(root), "rows": rows, "launch_floor_ms": floor}
 
 
 def main() -> int:
@@ -101,6 +119,8 @@ def main() -> int:
         runs.append(run)
         for row in run["rows"]:
             print(json.dumps(dict(row, label=label)), flush=True)
+        print(json.dumps({"launch_floor_ms": run["launch_floor_ms"],
+                          "label": label}), flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": smi, "runs": runs},

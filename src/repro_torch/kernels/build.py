@@ -12,6 +12,9 @@ headers), so a build takes seconds; the result is loaded with ``ctypes``.
 The file name carries a digest of the source, headers and flags, so a stale
 library is never loaded and an unchanged one is not rebuilt.  Only the
 sources in the repository are compiled; nothing is fetched.
+
+:func:`tickets` hands out the counters of the kernels whose last CTA to
+arrive combines the partials of a launch.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
@@ -33,6 +36,7 @@ SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use (B)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_TICKETS: Dict[Tuple[object, str], "torch.Tensor"] = {}
 
 
 def nvcc_path() -> str:
@@ -100,3 +104,16 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(paths[name]))
             _LIBS[name] = lib
         return lib
+
+
+def tickets(device, n: int, owner: str):
+    """At least ``n`` zeroed int32 ticket counters on ``device`` for the
+    kernels of ``owner``.  A kernel resets each counter it uses before its
+    launch ends, so launches that share a buffer must run one after
+    another (one stream)."""
+    import torch
+    t = _TICKETS.get((device, owner))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(device, owner)] = t
+    return t

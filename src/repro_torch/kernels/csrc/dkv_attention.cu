@@ -19,33 +19,47 @@
 // instruction is shared, so on the gathered rows at equal R the paged
 // statistics are bit-identical to the slab statistics.
 //
-// What bounds it on the H100: one decode step reads each slot's U_k and
-// U_v rows below t_valid once (4*R bytes per row in bf16) and does 4*G*R
-// flops per row, G flops per byte.  Against the tensor cores' bf16 rate
-// (ridge ~295 flop/byte) that is bytes-bound: the floor is the U bytes
-// over 3.35 TB/s.  This first kernel does its products on the FMA units
-// (67 TFLOP/s float32, ridge ~20 flop/byte), where G = 32 heads makes it
-// operation-limited; moving the two products onto mma is later work.
+// What bounds it on the H100: neither bytes nor operations.  A decode step
+// reads each slot's U_k and U_v rows below t_valid once (4*R bytes a row
+// in bf16) and does 4*G*R float32 operations a row: at serving's shape
+// (4 slots of up to 512 rows, G 32, R 64) ~340 KB and ~11 MFLOP, 0.1 us
+// of bytes and 0.16 us of FMA issue, below the ~2 us an empty launch
+// takes.  What is left is latency: a walk over the rows in series costs
+// one dependent round of loads, products and block barriers per tile,
+// and a split of the rows costs the round trips of its merge.
 //
-// Design: one CTA per slot.  U is shared by every head of the slot, so the
-// CTA reads each U row once for all G query rows, instead of once per
-// (slot, kv-head) as the Pallas grid does.  The time axis is walked in
-// tiles of 32 rows staged (as float32) in shared memory; one warp per head
-// updates the online-softmax state (m, l) for a tile with shuffles (one
-// row per lane), and the rank-space accumulator a [G,R] stays in shared
-// memory across tiles.  Tiles at or past t_valid are skipped: they would
-// add probability 0 and leave the running max unchanged, so skipping them
-// is exact.  A tile may span several pages, or part of one (any page
-// size): the paged loader resolves the page of every row it stages.  With
-// a handful of slots the grid covers few SMs; splitting the time axis over
-// CTAs with a combine is later work.
+// Design: the rows are cut into chunks of TC = 32 rows by row index (chunk
+// c holds rows [32c, 32c + 32)) and the heads into groups of GH = 8; the
+// grid is (chunks of T, head groups, B), sized from the shapes alone, so
+// the host never reads t_valid.  A CTA whose chunk starts at or past
+// t_valid[b] returns at once (chunk 0 always runs, so t_valid = 0 gives
+// a = 0, m = -1e30, l = 0).  Each CTA stages inner while t_valid is in
+// flight, then its chunk's U_k and U_v rows (16-byte loads where the rows
+// are aligned, all in flight together) as float32 in shared memory; one
+// warp per head scores its 32 rows, one row a lane, and takes the chunk's
+// max, probabilities and sum with shuffles; the lanes then sum P U_v along
+// R.  The result is the chunk's (m_c, l_c, a_c).  A slot whose t_valid
+// fits one chunk writes it as the output.  Otherwise each chunk writes it
+// to float32 scratch and takes a ticket; the last CTA of a (slot, head
+// group) to arrive merges the chunks in chunk order c = 0, 1, ...:
+//   m = max_c m_c,  l = sum_c l_c exp(m_c - m),  a = sum_c a_c exp(m_c - m)
+// (its loads of the a_c are in flight while m is found) and resets its
+// ticket for the next launch: one launch, no atomics on the data,
+// bit-identical reruns.  Both loaders share the chunking by row index and
+// the merge order, so paged and slab stay bit-equal.  A one-chunk merge
+// gives the chunk's own bits (exp(0) = 1), so the direct write agrees with
+// it.  The products stay float32 FMAs: they are not what costs time, and
+// a bf16 mma would round inner and the probabilities.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TT = 32;            // time rows per tile (one per lane)
+constexpr int TC = 32;            // rows per chunk (one per lane)
+constexpr int GH = 8;             // heads per CTA
+constexpr int NT = 32 * GH;       // a warp per head
+constexpr int CCH = 16;           // chunks' loads in flight in the merge
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -64,6 +78,22 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
+}
+
+// The 16 bytes at p as float32 (4 floats or 8 bf16).
+__device__ __forceinline__ void load16(const float* p, float* o) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(q[i]);
+    o[2 * i] = x.x;
+    o[2 * i + 1] = x.y;
+  }
 }
 
 // Row loaders: the element offset of row t (column 0) of slot b.
@@ -89,181 +119,334 @@ struct PagedRows {
   }
 };
 
-// Shared layout (floats): inner [G*R] | acc [G*R] | uk [TT*(R+1)] |
-// uv [TT*R] | pr [G*TT] | m [G] | l [G] | corr [G].  uk rows are padded by
-// one float so the score loop (lanes along t) hits distinct banks.
-template <typename T, typename Rows>
-__global__ void __launch_bounds__(512)
-dkv_stats_kernel(const float* __restrict__ inner, const Rows rows,
-                 const int* __restrict__ t_valid, float* __restrict__ a_out,
-                 float* __restrict__ m_out, float* __restrict__ l_out, int G,
-                 int R) {
-  extern __shared__ float sm[];
-  float* inn = sm;
-  float* acc = inn + G * R;
-  float* uk = acc + G * R;
-  float* uv = uk + TT * (R + 1);
-  float* pr = uv + TT * R;
-  float* mrow = pr + G * TT;
-  float* lrow = mrow + G;
-  float* crow = lrow + G;
+// Shared layout (floats), the chunk's pass: inner [GH*R] | uk [TC*ks] |
+// uv [TC*R] | pr [GH*TC], with ks = R | 1 (an odd row stride, so the
+// score loop, lanes along rows, hits distinct banks); the merge reuses the
+// same floats for sc [GH*nc] (each chunk's scale exp(m_c - m)) and
+// sl [GH*nc] (l_c scaled).
+size_t smem_bytes(int R, int nc) {
+  const size_t pass = (size_t)GH * R + (size_t)TC * (R | 1) +
+                      (size_t)TC * R + (size_t)GH * TC;
+  const size_t merge = 2 * (size_t)GH * nc;
+  return sizeof(float) * (pass > merge ? pass : merge);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const size_t b = blockIdx.x;
-  const int tv = min(max(t_valid[b], 0), rows.tn);
+// Partials of chunk c of (slot b, head group g): a at
+// pa[(((b * NG + g) * nc + c) * GH + h) * R], m and l at the same index
+// over R in pm and pl.
+template <typename T, typename Rows, bool VEC>
+__global__ void __launch_bounds__(NT)
+dkv_stats_kernel(const float* __restrict__ inner, const Rows rows,
+                 const int* __restrict__ t_valid, float* __restrict__ pa,
+                 float* __restrict__ pm, float* __restrict__ pl,
+                 unsigned* __restrict__ tickets, float* __restrict__ a_out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
+                 int G, int R) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ bool last;
+  const int c = blockIdx.x, nc = gridDim.x;
+  const int grp = blockIdx.y, ng = gridDim.y, g0 = grp * GH;
+  const size_t b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gn = min(GH, G - g0);                // heads of this CTA
+  const int ks = R | 1;
+  float* inn = sm;
+  float* uk = inn + GH * R;
+  float* uv = uk + TC * ks;
+  float* pr = uv + TC * R;
   const T* __restrict__ ku = rows.ku;
   const T* __restrict__ vu = rows.vu;
-  inner += b * G * R;
 
-  for (int i = threadIdx.x; i < G * R; i += blockDim.x) {
-    inn[i] = inner[i];
-    acc[i] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    mrow[g] = kNeg;
-    lrow[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t0 = 0; t0 < tv; t0 += TT) {
-    // stage the U_k / U_v tile as float32 (rows past t_valid as zeros)
-    for (int i = threadIdx.x; i < TT * R; i += blockDim.x) {
-      const int t = i / R, c = i - t * R;
-      const int row = t0 + t;
+  // stage inner (heads past G as zeros) while t_valid is in flight, then
+  // the chunk's rows as float32 (rows past t_valid as zeros: they are
+  // multiplied by probability 0)
+  const int tv_raw = t_valid[b];
+  for (int i = tid; i < GH * R; i += NT)
+    inn[i] = i < gn * R ? inner[(b * G + g0) * R + i] : 0.f;
+  const int tv = min(max(tv_raw, 0), rows.tn);
+  const int nact = max(1, (tv + TC - 1) / TC);   // chunks holding rows
+  if (c >= nact) return;
+  const int t0 = c * TC, nr = min(TC, tv - t0);  // rows below t_valid
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T);            // elements per 16 bytes
+    constexpr int K = 4;                         // loads of a thread in flight
+    const int nv = R / E, items = TC * nv;
+    for (int i0 = 0; i0 < items; i0 += K * NT) {
+      float kx[K][E], vx[K][E];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = i0 + k * NT + tid, t = i / nv;
+        if (i < items && t < nr) {
+          const size_t off = rows.row(b, t0 + t) + (i - t * nv) * E;
+          load16(ku + off, kx[k]);
+          load16(vu + off, vx[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kx[k][e] = vx[k][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = i0 + k * NT + tid, t = i / nv, q = (i - t * nv) * E;
+        if (i < items) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            uk[t * ks + q + e] = kx[k][e];
+            uv[t * R + q + e] = vx[k][e];
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < TC * R; i += NT) {
+      const int t = i / R, q = i - t * R;
       float kx = 0.f, vx = 0.f;
-      if (row < tv) {
-        const size_t off = rows.row(b, row) + c;
+      if (t < nr) {
+        const size_t off = rows.row(b, t0 + t) + q;
         kx = to_f32(ku[off]);
         vx = to_f32(vu[off]);
       }
-      uk[t * (R + 1) + c] = kx;
-      uv[t * R + c] = vx;
+      uk[t * ks + q] = kx;
+      uv[t * R + q] = vx;
     }
-    __syncthreads();
-    // scores of the tile for every head
-    for (int i = threadIdx.x; i < G * TT; i += blockDim.x) {
-      const int g = i / TT, t = i - g * TT;
-      const float* iq = inn + g * R;
-      const float* kr = uk + t * (R + 1);
-      float s = 0.f;
-      for (int c = 0; c < R; ++c) s += iq[c] * kr[c];
-      pr[i] = (t0 + t < tv) ? s : kNeg;
+  }
+  __syncthreads();
+
+  // the scores of the warp's head, one row a lane (four partial sums)
+  const int hl = warp;                           // a warp per head
+  const float* iq = inn + hl * R;
+  const float* kr = uk + lane * ks;
+  float s4[4] = {0.f, 0.f, 0.f, 0.f};
+  int q = 0;
+  for (; q + 4 <= R; q += 4)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s4[k] = fmaf(iq[q + k], kr[q + k], s4[k]);
+  for (; q < R; ++q) s4[0] = fmaf(iq[q], kr[q], s4[0]);
+  const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+  const bool valid = lane < nr;
+  const float mc = warp_max(valid ? s : kNeg);
+  const float p = valid ? expf(s - mc) : 0.f;
+  const float lc = warp_sum(p);
+  pr[hl * TC + lane] = p;
+  __syncwarp();
+
+  // a_c = P U_v for the warp's head, lanes along R (two columns a lane
+  // at a time)
+  const bool direct = nact == 1;
+  const bool mine = hl < gn;
+  const size_t pidx = ((b * ng + grp) * nc + c) * GH + hl;
+  const float* ph = pr + hl * TC;
+  for (int q0 = lane; q0 < R; q0 += 64) {
+    const int q1 = min(q0 + 32, R - 1);          // a spare lane repeats R-1
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < TC; ++t) {
+      a0 = fmaf(ph[t], uv[t * R + q0], a0);
+      a1 = fmaf(ph[t], uv[t * R + q1], a1);
     }
-    __syncthreads();
-    // online softmax: one warp per head, one tile row per lane
-    for (int g = warp; g < G; g += nw) {
-      const float s = pr[g * TT + lane];
-      const bool valid = t0 + lane < tv;
-      const float m_old = mrow[g];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(p);
-      pr[g * TT + lane] = p;
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        crow[g] = c;
-        lrow[g] = lrow[g] * c + psum;
-        mrow[g] = m_new;
+    if (mine) {
+      float* dst = direct ? a_out + (b * G + g0 + hl) * R : pa + pidx * R;
+      dst[q0] = a0;
+      if (q0 + 32 < R) dst[q0 + 32] = a1;
+    }
+  }
+  if (mine && lane == 0) {
+    if (direct) {
+      m_out[b * G + g0 + hl] = mc;
+      l_out[b * G + g0 + hl] = lc;
+    } else {
+      pm[pidx] = mc;
+      pl[pidx] = lc;
+    }
+  }
+  if (direct) return;
+
+  __threadfence();                 // the partial visible device-wide
+  __syncthreads();                 // before the ticket is taken
+  if (tid == 0) {
+    unsigned* tk = tickets + b * ng + grp;
+    last = atomicAdd(tk, 1u) == (unsigned)(nact - 1);
+    if (last) *tk = 0u;            // every chunk has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the merge, chunks in order.  Each thread's first CCH chunks of a
+  // (two outputs a thread) are loaded first, so they are in flight while
+  // the warp of each head finds m and each chunk's scale exp(m_c - m),
+  // its lanes along the chunks.
+  const size_t base = (b * ng + grp) * nc * GH;  // chunk 0, head 0
+  const float* pc = pa + base * R;               // chunk k at k * GH * R
+  float y[2][CCH];
+  auto load = [&](int i0, int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int k = 0; k < CCH; ++k) {
+        const int i = i0 + u * NT;
+        y[u][k] = i < gn * R && k0 + k < nact
+                      ? __ldcg(pc + (size_t)(k0 + k) * GH * R + i)
+                      : 0.f;
+      }
+  };
+  load(tid, 0);
+  float* sc = sm;                                // [GH][nc]
+  float* sl = sc + GH * nc;                      // [GH][nc] l_c scaled
+  if (mine) {
+    float* sch = sc + hl * nc;
+    float* slh = sl + hl * nc;
+    float m = kNeg;
+    for (int k = lane; k < nact; k += 32) {
+      const size_t i = base + (size_t)k * GH + hl;
+      sch[k] = __ldcg(pm + i);
+      slh[k] = __ldcg(pl + i);
+      m = fmaxf(m, sch[k]);
+    }
+    m = warp_max(m);
+    for (int k = lane; k < nact; k += 32) {
+      const float e = expf(sch[k] - m);
+      sch[k] = e;
+      slh[k] *= e;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float l = 0.f;
+      for (int k = 0; k < nact; ++k) l += slh[k];
+      m_out[b * G + g0 + hl] = m;
+      l_out[b * G + g0 + hl] = l;
+    }
+  }
+  __syncthreads();
+  for (int i0 = tid; i0 < gn * R; i0 += 2 * NT) {
+    float x[2] = {0.f, 0.f};
+    for (int k0 = 0; k0 < nact; k0 += CCH) {
+      if (i0 != tid || k0 != 0) load(i0, k0);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* sch = sc + min(i0 + u * NT, gn * R - 1) / R * nc + k0;
+#pragma unroll
+        for (int k = 0; k < CCH; ++k)
+          if (k0 + k < nact) x[u] = fmaf(y[u][k], sch[k], x[u]);
       }
     }
-    __syncthreads();
-    // a <- a * c + P U_v
-    for (int i = threadIdx.x; i < G * R; i += blockDim.x) {
-      const int g = i / R, c = i - g * R;
-      const float* pg = pr + g * TT;
-      float s = acc[i] * crow[g];
-#pragma unroll 8
-      for (int t = 0; t < TT; ++t) s += pg[t] * uv[t * R + c];
-      acc[i] = s;
-    }
-    __syncthreads();
-  }
-
-  a_out += b * G * R;
-  for (int i = threadIdx.x; i < G * R; i += blockDim.x) a_out[i] = acc[i];
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m_out[b * G + g] = mrow[g];
-    l_out[b * G + g] = lrow[g];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (i0 + u * NT < gn * R) a_out[(b * G + g0) * R + i0 + u * NT] = x[u];
   }
 }
 
-size_t smem_bytes(int G, int R) {
-  return sizeof(float) * (2 * (size_t)G * R + (size_t)TT * (R + 1) +
-                          (size_t)TT * R + (size_t)G * TT + 3 * (size_t)G);
-}
-
-template <typename T, typename Rows>
-int launch(const float* inner, const Rows& rows, const int* t_valid,
-           float* a, float* m, float* l, int B, int G, int R, void* stream) {
-  const size_t smem = smem_bytes(G, R);
+template <typename T, typename Rows, bool VEC>
+int launch_vec(const float* inner, const Rows& rows, const int* t_valid,
+               float* part, unsigned* tickets, float* a, float* m, float* l,
+               int B, int G, int R, void* stream) {
+  const int nc = (rows.tn + TC - 1) / TC, ng = (G + GH - 1) / GH;
+  if (nc == 0 || B == 0) return 0;
+  const size_t smem = smem_bytes(R, nc);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkv_stats_kernel<T, Rows>,
+        dkv_stats_kernel<T, Rows, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dkv_stats_kernel<T, Rows><<<B, 512, smem, (cudaStream_t)stream>>>(
-      inner, rows, t_valid, a, m, l, G, R);
+  const size_t np = (size_t)B * ng * nc * GH;
+  const dim3 grid(nc, ng, B);
+  dkv_stats_kernel<T, Rows, VEC><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      inner, rows, t_valid, part, part + np * R, part + np * (R + 1),
+      tickets, a, m, l, G, R);
   return (int)cudaGetLastError();
+}
+
+// The 16-byte path when every row starts 16-byte aligned and R columns
+// are whole 16-byte vectors.
+template <typename T, typename Rows>
+int launch(const float* inner, const Rows& rows, const int* t_valid,
+           float* part, unsigned* tickets, float* a, float* m, float* l,
+           int B, int G, int R, void* stream) {
+  const bool vec = (R * sizeof(T)) % 16 == 0 &&
+                   (rows.stride * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(rows.ku) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(rows.vu) % 16 == 0;
+  return vec ? launch_vec<T, Rows, true>(inner, rows, t_valid, part, tickets,
+                                         a, m, l, B, G, R, stream)
+             : launch_vec<T, Rows, false>(inner, rows, t_valid, part,
+                                          tickets, a, m, l, B, G, R, stream);
 }
 
 template <typename T>
 int slab(const float* inner, const void* ku, const void* vu,
-         const int* t_valid, float* a, float* m, float* l, int B, int G,
-         int Tn, int R, void* stream) {
+         const int* t_valid, float* part, unsigned* tickets, float* a,
+         float* m, float* l, int B, int G, int Tn, int R, void* stream) {
   const SlabRows<T> rows{static_cast<const T*>(ku),
                          static_cast<const T*>(vu), Tn, R};
-  return launch<T>(inner, rows, t_valid, a, m, l, B, G, R, stream);
+  return launch<T>(inner, rows, t_valid, part, tickets, a, m, l, B, G, R,
+                   stream);
 }
 
 template <typename T>
 int paged(const float* inner, const void* ku, const void* vu, const int* bt,
-          const int* t_valid, float* a, float* m, float* l, int B, int G,
-          int n, int page, int r_pool, int R, void* stream) {
+          const int* t_valid, float* part, unsigned* tickets, float* a,
+          float* m, float* l, int B, int G, int n, int page, int r_pool,
+          int R, void* stream) {
   const PagedRows<T> rows{static_cast<const T*>(ku),
                           static_cast<const T*>(vu), bt, n * page, r_pool,
                           page, n};
-  return launch<T>(inner, rows, t_valid, a, m, l, B, G, R, stream);
+  return launch<T>(inner, rows, t_valid, part, tickets, a, m, l, B, G, R,
+                   stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t dcom_dkv_smem_bytes(int G, int R) { return smem_bytes(G, R); }
+// Dynamic shared memory of one CTA at rank R over T rows.
+size_t dcom_dkv_smem_bytes(int R, int Tn) {
+  return smem_bytes(R, (Tn + TC - 1) / TC);
+}
+
+// Floats of scratch a launch takes (the chunks' partials) and the ticket
+// counters it takes (zeroed; each launch leaves them zeroed).
+size_t dcom_dkv_scratch_floats(int B, int G, int Tn, int R) {
+  return (size_t)B * ((G + GH - 1) / GH) * ((Tn + TC - 1) / TC) * GH *
+         (R + 2);
+}
+int dcom_dkv_tickets(int B, int G) { return B * ((G + GH - 1) / GH); }
 
 // Return value of every launcher: the cudaError_t of the launch (0 = ok).
 int dcom_dkv_stats_f32(const float* inner, const void* ku, const void* vu,
-                       const int* t_valid, float* a, float* m, float* l,
-                       int B, int G, int Tn, int R, void* stream) {
-  return slab<float>(inner, ku, vu, t_valid, a, m, l, B, G, Tn, R, stream);
+                       const int* t_valid, float* part, unsigned* tickets,
+                       float* a, float* m, float* l, int B, int G, int Tn,
+                       int R, void* stream) {
+  return slab<float>(inner, ku, vu, t_valid, part, tickets, a, m, l, B, G,
+                     Tn, R, stream);
 }
 
 int dcom_dkv_stats_bf16(const float* inner, const void* ku, const void* vu,
-                        const int* t_valid, float* a, float* m, float* l,
-                        int B, int G, int Tn, int R, void* stream) {
-  return slab<__nv_bfloat16>(inner, ku, vu, t_valid, a, m, l, B, G, Tn, R,
-                             stream);
+                        const int* t_valid, float* part, unsigned* tickets,
+                        float* a, float* m, float* l, int B, int G, int Tn,
+                        int R, void* stream) {
+  return slab<__nv_bfloat16>(inner, ku, vu, t_valid, part, tickets, a, m, l,
+                             B, G, Tn, R, stream);
 }
 
 // Pools [P, page, r_pool]; bt [B, n] page ids; the first R columns read.
 int dcom_dkv_stats_paged_f32(const float* inner, const void* ku,
                              const void* vu, const int* bt,
-                             const int* t_valid, float* a, float* m,
+                             const int* t_valid, float* part,
+                             unsigned* tickets, float* a, float* m,
                              float* l, int B, int G, int n, int page,
                              int r_pool, int R, void* stream) {
-  return paged<float>(inner, ku, vu, bt, t_valid, a, m, l, B, G, n, page,
-                      r_pool, R, stream);
+  return paged<float>(inner, ku, vu, bt, t_valid, part, tickets, a, m, l, B,
+                      G, n, page, r_pool, R, stream);
 }
 
 int dcom_dkv_stats_paged_bf16(const float* inner, const void* ku,
                               const void* vu, const int* bt,
-                              const int* t_valid, float* a, float* m,
+                              const int* t_valid, float* part,
+                              unsigned* tickets, float* a, float* m,
                               float* l, int B, int G, int n, int page,
                               int r_pool, int R, void* stream) {
-  return paged<__nv_bfloat16>(inner, ku, vu, bt, t_valid, a, m, l, B, G, n,
-                              page, r_pool, R, stream);
+  return paged<__nv_bfloat16>(inner, ku, vu, bt, t_valid, part, tickets, a,
+                              m, l, B, G, n, page, r_pool, R, stream);
 }
 
 }  // extern "C"

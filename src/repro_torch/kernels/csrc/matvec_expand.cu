@@ -20,25 +20,29 @@
 // blocks, batch), and each CTA reduces its rows x (H/f) (or (S/f) x cols)
 // tile in float32 into one partial per output element.  The f partials of
 // an output are added in block order j = 0 .. f-1 (f = 1 writes the
-// output directly): matvec writes them to a float32 workspace [B, f, n]
-// and a second launch adds them; rmatvec folds that combine into its own
-// launch (the last CTA of a column block to arrive adds them).  No
-// atomics on the data: reruns at a fixed f are bit-identical, and the
-// block-order sum mirrors the reference's accumulation.  Expansion
-// engages more CTAs and so more of the card's memory bandwidth; past
-// saturation the partials' traffic and the per-CTA cost of ever smaller
-// tiles grow with f (the right side of the U).
+// output directly) in the same launch: each CTA writes its partial to a
+// float32 workspace [B, f, n], and the last CTA of its row (column) block
+// to arrive adds them.  No atomics on the data: reruns at a fixed f are
+// bit-identical, and the block-order sum mirrors the reference's
+// accumulation.  Expansion engages more CTAs and so more of the card's
+// memory bandwidth; past saturation the partials' traffic and the
+// per-CTA cost of ever smaller tiles grow with f (the right side of the
+// U).
 //
-// Memory access.  matvec: a group of L lanes (L a power of two, <= 32)
-// walks one row's slice with 16-byte loads along H, then reduces by
-// shuffles; a warp covers 32/L rows at a time.  rmatvec: a CTA's bytes
-// in flight set its rate, and per-thread loads cannot keep enough in
-// flight, so the CTA streams its tile through a three-stage shared-memory
-// ring fed by TMA box copies from a producer warp, ~64 KB in flight, and
-// its other threads sum the landed stages from shared memory.  Ragged shapes
-// are masked, never padded; the 16-byte path is taken when H and the
-// block are multiples of the vector width and the pointers are 16-byte
-// aligned, else 4/2-byte loads (rmatvec: element copies into the ring).
+// Memory access.  A CTA's bytes in flight set its rate, and per-thread
+// loads cannot keep enough in flight (a warp walking one row keeps one
+// row's loads in flight), so each CTA streams its tile through a
+// shared-memory ring of 32 KB stages fed by TMA box copies from a
+// producer warp, and its other threads sum the landed stages from shared
+// memory.  Both keep three stages, two in flight, so two CTAs fit an SM
+// (a deeper ring was no faster at Fig. 12's points).  rmatvec's threads
+// lie along the columns.  matvec's lie along the rows, one row each, so
+// a row's sum needs no shuffles and v is read by all lanes of a warp at
+// once; its boxes are 128 bytes wide and swizzled so those row-parallel
+// loads hit distinct banks.  Ragged shapes are masked, never padded; the
+// 16-byte path is taken when H (and rmatvec's block) is a multiple of
+// the vector width and A is 16-byte aligned, else element copies into
+// the same ring layout.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,52 +100,207 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
   }
 }
 
-// Partial y over the split [j*split, j*split + split) of H for the rows
-// [r0, r0 + rb) of batch element b.  part: [B, f, S].  lpr lanes per row.
-template <typename TA, typename TV, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
-                  float* __restrict__ part, int S, int H, int rb, int split,
-                  int lpr) {
-  const int j = blockIdx.x, f = gridDim.x;
-  const size_t b = blockIdx.z;
-  const int r0 = blockIdx.y * rb, r1 = min(S, r0 + rb);
-  const int c0 = min(H, j * split), c1 = min(H, c0 + split);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int rpw = 32 / lpr, sub = lane / lpr, li = lane % lpr;
-  const TA* ab = a + b * S * H;
-  const TV* vb = v + b * H;
-  float* out = part + (b * f + j) * S;
-  // rbase is uniform across the warp, so every lane reaches the shuffles
-  for (int rbase = r0 + warp * rpw; rbase < r1; rbase += nw * rpw) {
-    const int r = rbase + sub;
-    float acc = 0.f;
-    if (r < r1) {
-      const TA* row = ab + (size_t)r * H;
-#pragma unroll 4
-      for (int c = c0 + li * VEC; c < c1; c += lpr * VEC) {
-        float x[VEC], y[VEC];
-        load_vec<TA, VEC>(row + c, x);
-        load_vec<TV, VEC>(vb + c, y);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc += x[e] * y[e];
-      }
-    }
-    for (int o = lpr >> 1; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (li == 0 && r < r1) out[r] = acc;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// rmatvec: one pass, the split partials combined by the last CTA to arrive.
+// The shared-memory ring of both directions.
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;              // ring depth: 2 stages in flight
 constexpr int kStageBytes = 32 * 1024;  // bytes of A per ring stage
 constexpr int kMaxColBlock = 4096;      // MAX_COL_BLOCK of the wrapper
 constexpr int kUChunk = 2048;           // rows of u staged at a time
+constexpr int kVChunk = 2048;           // matvec: columns of v staged at a time
+
+// ---------------------------------------------------------------------------
+// matvec: one pass, the split partials combined by the last CTA to arrive.
+// ---------------------------------------------------------------------------
+
+// A matvec ring stage: kThreads x 128 bytes of A (32 KB) as ncg boxes of
+// [br rows][128 bytes] side by side along H, written with the 128-byte
+// swizzle (dcom::swz): br is the CTA's row block rounded up to a power of
+// two in 8 .. 256, so a stage holds br rows of ncg * E columns (E
+// elements make 128 bytes).
+struct MvStage {
+  int br, ncg, cols, box;
+  __host__ __device__ MvStage(int rb, int elem) {
+    br = 8;
+    while (br < 256 && br < rb) br <<= 1;
+    ncg = kThreads / br;
+    cols = ncg * (128 / elem);
+    box = br * (128 / elem);
+  }
+};
+
+// y[b, r0:r0+rb] over the split [c0, c1) = [j*split, j*split + split) of
+// H.  The CTA streams its [rb x split] tile of A through a ring of
+// kStages shared-memory stages of 32 KB, in row groups of br rows, each
+// walked along the split one stage (ncg * E columns) at a time.  A
+// producer warp (threads kThreads .. kThreads + 31) fills each free slot:
+// on the 16-byte path with TMA box copies of `map` (A as [B*S, H], boxes
+// of [br][E], 128-byte swizzle; rows past the tile and columns past the
+// split are not summed, columns past H arrive as zeros) counted on the
+// slot's "full" mbarrier, on the masked path with element copies into the
+// same layout.  Each of the kThreads consumers owns one row of one box
+// (column group cg, row r): it waits on "full", adds its row's 128 bytes
+// times v (staged in shared memory as float32, kVChunk columns at a time,
+// read by every lane of a warp at once) into four accumulators, and
+// releases the slot on its "empty" mbarrier, one arrival per warp.  The
+// swizzle puts eight consecutive rows of one 16-byte column chunk in
+// eight different bank groups, so a warp's loads are conflict-free.  At
+// the end of a row group the column groups' sums are added in order
+// cg = 0 .. ncg-1.  With f == 1 the CTA writes y.  Otherwise it writes
+// its float32 partial to part[b, j, :], and the last of the f CTAs of
+// its row block to take a ticket adds the f partials in block order
+// j = 0 .. f-1, writes y and resets the ticket to 0 for the next launch:
+// one launch, no atomics on the data, bit-identical reruns.
+template <typename TA, typename TV, int VEC>
+__global__ void __launch_bounds__(kThreads + 32)
+    matvec_kernel(const __grid_constant__ CUtensorMap map,
+                  const TA* __restrict__ a, const TV* __restrict__ v,
+                  float* __restrict__ part, float* __restrict__ y,
+                  unsigned* __restrict__ tickets, int S, int H, int rb,
+                  int split) {
+  constexpr int E = 128 / sizeof(TA);     // elements of a 128-byte box row
+  constexpr int NV = 16 / sizeof(TA);     // elements of a 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TA* ring = reinterpret_cast<TA*>(dcom::align1024(smem_raw));
+  __shared__ __align__(16) float vs[kVChunk];
+  __shared__ float red[kThreads];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x, f = gridDim.x;
+  const size_t b = blockIdx.z;
+  const int r0 = blockIdx.y * rb, rows = min(S, r0 + rb) - r0;
+  const int c0 = min(H, j * split), cw = min(H, c0 + split) - c0;
+  const MvStage sg(rb, sizeof(TA));
+  const int ncs = (cw + sg.cols - 1) / sg.cols;   // stages of a row group
+  const int nst = (rows + sg.br - 1) / sg.br * ncs;
+  const int stage = sg.box * sg.ncg;              // elements of a stage
+  float* out = (f == 1 ? y + b * S : part + (b * f + j) * S) + r0;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      dcom::mbar_init(&full[s], VEC > 1 ? 1 : 32);
+      dcom::mbar_init(&empty[s], kThreads / 32);
+    }
+    dcom::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kThreads) {                  // the producer warp
+    const int lane = tid - kThreads;
+    for (int t = 0; t < nst; ++t) {
+      const int slot = t % kStages, g = t / ncs, cs = t - g * ncs;
+      if (t >= kStages) dcom::mbar_wait(&empty[slot], (t / kStages - 1) & 1);
+      TA* dst = ring + (size_t)slot * stage;
+      if constexpr (VEC > 1) {
+        if (lane == 0) {
+          dcom::mbar_expect(&full[slot], stage * sizeof(TA));
+          for (int k = 0; k < sg.ncg; ++k)
+            dcom::tma_load_2d(dst + k * sg.box, &map,
+                              c0 + cs * sg.cols + k * E,
+                              (int)(b * S) + r0 + g * sg.br, &full[slot]);
+        }
+      } else {
+        const int nr = min(sg.br, rows - g * sg.br);
+        const int nc = min(sg.cols, cw - cs * sg.cols);
+        const TA* at = a + (b * S + r0 + g * sg.br) * H + c0 + cs * sg.cols;
+        for (int i = lane; i < nr * nc; i += 32) {
+          const int r = i / nc, q = i - r * nc;
+          dst[dcom::swz<TA>(r, q, sg.br)] = at[(size_t)r * H + q];
+        }
+        dcom::mbar_arrive(&full[slot]);
+      }
+    }
+  } else {                                // the consumers
+    const int cg = tid / sg.br, r = tid - cg * sg.br;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < nst; ++t) {
+      const int slot = t % kStages, g = t / ncs, cs = t - g * ncs;
+      const int col = cs * sg.cols;       // the stage's first column
+      if (col % kVChunk == 0 && (t == 0 || cw > kVChunk)) {
+        if (t > 0) dcom::sync_consumers(kThreads);
+        for (int q = tid; q < kVChunk; q += kThreads)  // v as float32
+          vs[q] = col + q < cw ? to_f(v[b * H + c0 + col + q]) : 0.f;
+        dcom::sync_consumers(kThreads);
+      }
+      dcom::mbar_wait(&full[slot], (t / kStages) & 1);
+      const TA* row = ring + (size_t)slot * stage + cg * sg.box + r * E;
+      const int cb = col + cg * E;        // the box's first column
+      const float* vb = vs + cb % kVChunk;
+      if (cb + E <= cw) {                 // the whole box row in the split
+#pragma unroll
+        for (int k = 0; k < E / NV; ++k) {
+          float x[NV], w[NV];
+          load_vec<TA, NV>(row + ((k ^ (r & 7)) * NV), x);
+          load_vec<float, NV>(vb + k * NV, w);
+#pragma unroll
+          for (int e = 0; e < NV; ++e)
+            acc[k & 3] = fmaf(x[e], w[e], acc[k & 3]);
+        }
+      } else {                            // columns past the split: not added
+#pragma unroll
+        for (int k = 0; k < E / NV; ++k) {
+          float x[NV], w[NV];
+          load_vec<TA, NV>(row + ((k ^ (r & 7)) * NV), x);
+          load_vec<float, NV>(vb + k * NV, w);
+#pragma unroll
+          for (int e = 0; e < NV; ++e)
+            acc[k & 3] = cb + k * NV + e < cw ? fmaf(x[e], w[e], acc[k & 3])
+                                              : acc[k & 3];
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) dcom::mbar_arrive(&empty[slot]);
+      if (cs == ncs - 1) {                // the row group's sums
+        const float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+        const int i = g * sg.br + r;
+        if (sg.ncg == 1) {
+          if (i < rows) out[i] = sum;
+        } else {
+          red[tid] = sum;
+          dcom::sync_consumers(kThreads);
+          if (cg == 0 && i < rows) {
+            float x = 0.f;
+            for (int q = 0; q < sg.ncg; ++q) x += red[q * sg.br + r];
+            out[i] = x;
+          }
+          dcom::sync_consumers(kThreads);
+        }
+      }
+    }
+  }
+  if (ncs == 0)                           // an empty split adds zeros
+    for (int i = tid; i < rows; i += blockDim.x) out[i] = 0.f;
+  if (f == 1) return;
+  __threadfence();                        // partial visible device-wide
+  __syncthreads();                        // before the ticket is taken
+  if (tid == 0) {
+    unsigned* tk = tickets + b * gridDim.y + blockIdx.y;
+    last = atomicAdd(tk, 1u) == (unsigned)(f - 1);
+    if (last) *tk = 0u;                   // every split has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  const float* pp = part + b * f * S + r0;
+  for (int i = tid; i < rows; i += blockDim.x) {
+    float sum = 0.f;
+    int q = 0;
+    for (; q + 8 <= f; q += 8) {          // eight loads in flight, then
+      float x[8];                         // added in block order
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = __ldcg(pp + (size_t)(q + k) * S + i);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += x[k];
+    }
+    for (; q < f; ++q) sum += __ldcg(pp + (size_t)q * S + i);
+    y[b * S + r0 + i] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rmatvec: one pass, the split partials combined by the last CTA to arrive.
+// ---------------------------------------------------------------------------
 
 // One ring stage of a CTA with cb columns: `rows` rows of A as nbox boxes
 // of [rows][boxc] (a TMA box is at most 256 columns and 256 rows; boxc a
@@ -227,7 +386,8 @@ __global__ void __launch_bounds__(kThreads + 32)
     const TA* at = a + (b * S + s0) * H + c0;
     for (int t = 0; t < nst; ++t) {
       const int slot = t % kStages;
-      if (t >= kStages) dcom::mbar_wait(&empty[slot], (t / kStages - 1) & 1);
+      if (t >= kStages)
+        dcom::mbar_wait(&empty[slot], (t / kStages - 1) & 1);
       TA* dst = ring + (size_t)slot * sg.size;
       if constexpr (VEC > 1) {
         if (lane == 0) {
@@ -350,30 +510,26 @@ __global__ void __launch_bounds__(kThreads + 32)
   }
 }
 
-// out[b, i] = sum_{j < f} part[b, j, i], in block order j = 0 .. f-1.
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-                   int f, int n, size_t total) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t b = idx / n, i = idx % n;
-  const float* p = part + b * f * n + i;
-  float s = 0.f;
-  for (int j = 0; j < f; ++j) s += p[(size_t)j * n];
-  out[idx] = s;
-}
-
 template <typename TA, typename TV, int VEC>
-int launch_matvec(const void* a, const void* v, float* part, int B, int S,
-                  int H, int f, int split, int rb, cudaStream_t st) {
-  // lanes per row: enough to cover the split's vectors, at most a warp
-  const int nvec = (split + VEC - 1) / VEC;
-  int lpr = 1;
-  while (lpr < 32 && lpr < nvec) lpr <<= 1;
+int launch_matvec(const void* a, const void* v, float* part, float* y,
+                  unsigned* tickets, int B, int S, int H, int f, int split,
+                  int rb, cudaStream_t st) {
+  const MvStage sg(rb, sizeof(TA));
+  CUtensorMap map = {};
+  if (VEC > 1) {
+    const int e = dcom::make_map_2d(&map, a, sizeof(TA), (long)B * S, H,
+                                    sg.br, 128 / sizeof(TA), true);
+    if (e != 0) return e;
+  }
+  const size_t smem = (size_t)kStages * kStageBytes + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(   // on the current device
+      matvec_kernel<TA, TV, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(f, (S + rb - 1) / rb, B);
-  matvec_kernel<TA, TV, VEC><<<grid, kThreads, 0, st>>>(
-      static_cast<const TA*>(a), static_cast<const TV*>(v), part, S, H, rb,
-      split, lpr);
+  matvec_kernel<TA, TV, VEC><<<grid, kThreads + 32, smem, st>>>(
+      map, static_cast<const TA*>(a), static_cast<const TV*>(v), part, y,
+      tickets, S, H, rb, split);
   return (int)cudaGetLastError();
 }
 
@@ -403,14 +559,6 @@ int launch_rmatvec(const void* a, const void* u, float* part, float* z,
   return (int)cudaGetLastError();
 }
 
-int combine(const float* part, float* out, int B, int f, int n,
-            cudaStream_t st) {
-  const size_t total = (size_t)B * n;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  combine_kernel<<<blocks, kThreads, 0, st>>>(part, out, f, n, total);
-  return (int)cudaGetLastError();
-}
-
 // Dispatch on (A type, vector type, 16-byte path).  A's vector width is
 // 16 bytes of its own type; the vector operand is read at the same width.
 #define DCOM_MV_DISPATCH(FN)                                                  \
@@ -430,22 +578,23 @@ int combine(const float* part, float* out, int B, int f, int n,
 
 extern "C" {
 
-// y[b, s] = sum_h A[b, s, h] v[b, h].  a_dtype / v_dtype: 0 float32, 1 bf16.
-// part: float32 [B, f, S] workspace (unused when f == 1).  split: columns
-// per CTA (the wrapper's rule); rb: rows per CTA; vec: take the 16-byte
-// path.  Returns the cudaError_t of the launches (0 = success).
+// y[b, s] = sum_h A[b, s, h] v[b, h] in one launch.  a_dtype / v_dtype:
+// 0 float32, 1 bf16.  part: float32 [B, f, S] partials and tickets:
+// B * ceil(S / rb) zeroed counters, left zeroed (both unused when
+// f == 1); split: columns per CTA (the wrapper's rule); rb: rows per CTA;
+// vec: take the 16-byte path.  Returns the
+// cudaError_t of the launch (0 = success), or the CUresult of a tensor map
+// that cannot be made.
 int dcom_matvec(int a_dtype, int v_dtype, const void* a, const void* v,
-                float* part, float* y, int B, int S, int H, int f, int split,
-                int rb, int vec, void* stream) {
+                float* part, unsigned* tickets, float* y, int B, int S,
+                int H, int f, int split, int rb, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool a_bf16 = a_dtype == kBf16, v_bf16 = v_dtype == kBf16;
-  float* dst = f == 1 ? y : part;
   int err;
-#define ARGS a, v, dst, B, S, H, f, split, rb, st
+#define ARGS a, v, part, y, tickets, B, S, H, f, split, rb, st
   DCOM_MV_DISPATCH(launch_matvec)
 #undef ARGS
-  if (err || f == 1) return err;
-  return combine(part, y, B, f, S, st);
+  return err;
 }
 
 // z[b, h] = sum_s A[b, s, h] u[b, s] in one launch.  part: float32

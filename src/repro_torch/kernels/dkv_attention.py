@@ -20,7 +20,11 @@ the card it is the same kernel with another row loader, bit-identical to
 :func:`dkv_attention_stats` on the gathered rows at equal rank.
 
 Each wrapper dispatches on the device of ``inner``: CPU takes the plain
-version; CUDA launches ``csrc/dkv_attention.cu`` or raises.
+version; CUDA launches ``csrc/dkv_attention.cu`` or raises.  One call is
+one launch: the time axis is cut into 32-row chunks over CTAs, and the
+last CTA of each (slot, head group) merges the chunks (it takes a ticket
+from a per-device counter buffer that it leaves zeroed, so launches that
+share it run one after another on one stream).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from .build import SMEM_LIMIT, library
+from .build import SMEM_LIMIT, library, tickets
 
 NEG = -1e30
 
@@ -67,14 +71,18 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.dcom_dkv_stats_f32, lib.dcom_dkv_stats_bf16):
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+            fn.argtypes = [vp] * 9 + [i] * 4 + [vp]
             fn.restype = i
         for fn in (lib.dcom_dkv_stats_paged_f32,
                    lib.dcom_dkv_stats_paged_bf16):
-            fn.argtypes = [vp] * 8 + [i] * 6 + [vp]
+            fn.argtypes = [vp] * 10 + [i] * 6 + [vp]
             fn.restype = i
         lib.dcom_dkv_smem_bytes.argtypes = [i, i]
+        lib.dcom_dkv_scratch_floats.argtypes = [i, i, i, i]
         lib.dcom_dkv_smem_bytes.restype = ctypes.c_size_t
+        lib.dcom_dkv_scratch_floats.restype = ctypes.c_size_t
+        lib.dcom_dkv_tickets.argtypes = [i, i]
+        lib.dcom_dkv_tickets.restype = i
         _BOUND = True
     return lib
 
@@ -108,12 +116,13 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
             raise ValueError("dkv_attention_stats: inputs must be "
                              f"contiguous and on {inner.device}")
     lib = _lib()
-    a, m, l_ = _outputs(lib, "dkv_attention_stats", inner)
+    part, tk, a, m, l_ = _buffers(lib, "dkv_attention_stats", inner, t)
     fn = lib.dcom_dkv_stats_f32 if k_u.dtype == torch.float32 \
         else lib.dcom_dkv_stats_bf16
     err = fn(inner.data_ptr(), k_u.data_ptr(), v_u.data_ptr(),
-             t_valid.data_ptr(), a.data_ptr(), m.data_ptr(), l_.data_ptr(),
-             b, g, t, r, torch.cuda.current_stream(inner.device).cuda_stream)
+             t_valid.data_ptr(), part.data_ptr(), tk.data_ptr(),
+             a.data_ptr(), m.data_ptr(), l_.data_ptr(), b, g, t, r,
+             torch.cuda.current_stream(inner.device).cuda_stream)
     if err:
         raise RuntimeError(f"dkv_attention_stats kernel launch failed "
                            f"(cudaError {err})")
@@ -124,15 +133,18 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
 dkv_attention_stats.launches = 0
 
 
-def _outputs(lib, name: str, inner) -> Stats:
-    """Check the block's shared memory and allocate (a, m, l)."""
+def _buffers(lib, name: str, inner, t: int):
+    """Check the CTA's shared memory for T = ``t`` rows and allocate the
+    chunks' float32 scratch, the ticket counters and (a, m, l)."""
     b, g, r = inner.shape
-    smem = lib.dcom_dkv_smem_bytes(g, r)
+    smem = lib.dcom_dkv_smem_bytes(r, t)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: G={g}, r={r} needs {smem} B of shared "
-                         f"memory per block (limit {SMEM_LIMIT})")
+        raise ValueError(f"{name}: r={r} over T={t} rows needs {smem} B of "
+                         f"shared memory per block (limit {SMEM_LIMIT})")
     f32 = dict(device=inner.device, dtype=torch.float32)
-    return (torch.empty(b, g, r, **f32), torch.empty(b, g, **f32),
+    return (torch.empty(lib.dcom_dkv_scratch_floats(b, g, t, r), **f32),
+            tickets(inner.device, lib.dcom_dkv_tickets(b, g), "dkv"),
+            torch.empty(b, g, r, **f32), torch.empty(b, g, **f32),
             torch.empty(b, g, **f32))
 
 
@@ -195,13 +207,16 @@ def dkv_attention_stats_paged(inner, k_u_pages, v_u_pages, block_table,
             raise ValueError("dkv_attention_stats_paged: inputs must be "
                              f"contiguous and on {inner.device}")
     lib = _lib()
-    a, m, l_ = _outputs(lib, "dkv_attention_stats_paged", inner)
+    n = block_table.shape[1]
+    part, tk, a, m, l_ = _buffers(lib, "dkv_attention_stats_paged", inner,
+                                  n * page)
     fn = lib.dcom_dkv_stats_paged_f32 if k_u_pages.dtype == torch.float32 \
         else lib.dcom_dkv_stats_paged_bf16
     err = fn(inner.data_ptr(), k_u_pages.data_ptr(), v_u_pages.data_ptr(),
-             block_table.data_ptr(), t_valid.data_ptr(), a.data_ptr(),
-             m.data_ptr(), l_.data_ptr(), b, g, block_table.shape[1], page,
-             r_pool, r, torch.cuda.current_stream(inner.device).cuda_stream)
+             block_table.data_ptr(), t_valid.data_ptr(), part.data_ptr(),
+             tk.data_ptr(), a.data_ptr(), m.data_ptr(), l_.data_ptr(),
+             b, g, n, page, r_pool, r,
+             torch.cuda.current_stream(inner.device).cuda_stream)
     if err:
         raise RuntimeError(f"dkv_attention_stats_paged kernel launch "
                            f"failed (cudaError {err})")

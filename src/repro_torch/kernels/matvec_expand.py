@@ -20,22 +20,19 @@ kernels.
 
 Each wrapper dispatches on the device of ``a``: a CPU tensor takes the
 plain PyTorch version beside it; a CUDA tensor launches the kernels in
-``csrc/matvec_expand.cu`` or raises — there is no fallback.  matvec is
-the split pass, then the fixed-order combine when f > 1; rmatvec is one
-launch, whose last CTA of each column block adds the f partials (it
-takes a ticket from a per-device counter buffer that it leaves zeroed,
-so launches that share it run one after another on one stream).
-``launches`` on each of the four wrappers counts its calls that
-launched.
+``csrc/matvec_expand.cu`` or raises — there is no fallback.  Each call is
+one launch: every CTA streams its tile through a shared-memory ring fed
+by TMA copies, and when f > 1 the last CTA of each row (column) block
+adds the f partials.  ``launches`` on each of the four wrappers counts its
+calls that launched.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-from .build import library
+from .build import library, tickets
 
 SPLIT_ALIGN = 8          # split length granule (16 bytes of bf16)
 MAX_EXPANSION = 1024
@@ -108,32 +105,19 @@ def _lib() -> ctypes.CDLL:
     lib = library("matvec_expand")
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcom_matvec.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, i,
-                                    i, i, vp]
-        lib.dcom_rmatvec.argtypes = [i, i, vp, vp, vp, vp, vp, i, i, i, i,
-                                     i, i, i, vp]
-        lib.dcom_matvec.restype = lib.dcom_rmatvec.restype = i
+        for fn in (lib.dcom_matvec, lib.dcom_rmatvec):
+            fn.argtypes = [i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+            fn.restype = i
         _BOUND = True
     return lib
 
 
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed rmatvec combine counters on ``device`` (the
-    kernel resets each one it uses)."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
-
-
 def _launch(name: str, a, x, expansion: int, block: int) -> torch.Tensor:
-    """One call of the kernel for a [B,S,H] and its vector x; ``name`` is
-    "matvec" (the split pass, plus the combine when f > 1) or "rmatvec"
-    (one launch)."""
+    """One launch of the kernel for a [B,S,H] and its vector x; ``name``
+    is "matvec" or "rmatvec".  When f > 1 the last CTA of each row
+    (column) block adds the f partials, taking a ticket from a per-device
+    counter buffer that it leaves zeroed, so launches that share it run
+    one after another on one stream."""
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
     f = _check_expansion(expansion)
@@ -164,19 +148,15 @@ def _launch(name: str, a, x, expansion: int, block: int) -> torch.Tensor:
         if f > 1 else None
     width = 16 // a.element_size()       # elements per 16-byte load of A
     vec = h % width == 0 and a.data_ptr() % 16 == 0 and (
-        x.data_ptr() % 16 == 0 if name == "matvec" else block % width == 0)
-    block = min(block, n_out)      # the same grid; a tighter rmatvec ring
+        name == "matvec" or block % width == 0)
+    block = min(block, n_out)      # the same grid; a tighter ring
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    tk = tickets(a.device, b * blocks, "matvec") if f > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = (_DTYPES[a.dtype], _DTYPES[x.dtype], a.data_ptr(), x.data_ptr(),
-            ptr(part))
-    if name == "matvec":
-        err = _lib().dcom_matvec(*args, out.data_ptr(), b, s, h, f, split,
-                                 block, int(vec), stream)
-    else:
-        tickets = _tickets(a.device, b * blocks) if f > 1 else None
-        err = _lib().dcom_rmatvec(*args, ptr(tickets), out.data_ptr(), b, s,
-                                  h, f, split, block, int(vec), stream)
+            ptr(part), ptr(tk), out.data_ptr(), b, s, h, f, split, block)
+    fn = _lib().dcom_matvec if name == "matvec" else _lib().dcom_rmatvec
+    err = fn(*args, int(vec), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError or, "
                            f"for its tensor map, CUresult {err})")

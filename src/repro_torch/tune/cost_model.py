@@ -9,19 +9,19 @@ point, per (shape, dtype, device):
   operand once and are bound by bytes.  On the TPU the grid runs in
   order on one core and f alone sets the blocks in flight; here CTAs run
   in parallel on 132 SMs, and what engages bandwidth is the number of
-  warps in flight: ``batch × ceil(S / row_block) × f`` CTAs of 8 warps
-  for matvec, B CTAs of f warps for the re-orth kernel.  An rmatvec CTA
-  keeps a ring of shared-memory stages in flight, so its term counts
-  bytes in flight, in units of what one matvec warp keeps (2 KB).  The
-  streaming time is ``bytes / (bw · min(warps, sat) / sat)`` — the
-  batched Fig. 12 shape (512 CTAs at f = 1) is already saturated, the
-  scalar one (8 CTAs) is not.  NON-INCREASING in f.
+  bytes in flight: ``batch × ceil(S / row_block) × f`` CTAs for matvec
+  (``batch × ceil(H / col_block) × f`` for rmatvec), each keeping the
+  stages of its shared-memory ring but one in flight (at most its tile),
+  counted in units of 2 KB ("warps"); B CTAs of f warps for the re-orth
+  kernel.  The streaming time is ``bytes / (bw · min(warps, sat) /
+  sat)`` — the batched Fig. 12 shape (512 CTAs at f = 1) is already
+  saturated, the scalar one (8 CTAs) is not.  NON-INCREASING in f.
 * **compute side** (right of f*): the streaming floor at full bandwidth
   plus everything that grows with f — the float32 partials written and
   read back (``8·B·f·n`` bytes for f > 1), the fixed cost of each CTA
-  spread over the SMs, matvec's combine launch (f > 1), the per-split cost of
-  the plain version's split loop (CPU), and the re-orth kernel's
-  replicated combine work.  NON-DECREASING in f.
+  spread over the SMs, the per-split cost of the plain version's split
+  loop (CPU), and the re-orth kernel's replicated combine work.
+  NON-DECREASING in f.
 
 ``predict`` returns ``max(memory, compute)`` — the max of a
 non-increasing and a non-decreasing function, hence UNIMODAL along the
@@ -36,14 +36,14 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 #: dtype name (with or without the ``torch.`` prefix) → bytes; others 4
 DTYPE_BYTES = {"float32": 4, "float16": 2, "bfloat16": 2}
 
-#: threads of one matvec-pair CTA (``kThreads`` of csrc/matvec_expand.cu)
-MATVEC_WARPS = 8
-#: bytes one matvec warp keeps in flight: 32 lanes x 16 B x 4 unrolled loads
+#: the unit of bytes in flight ("a warp"; ``sat_warps`` counts in it):
+#: 32 lanes x 16 B x 4 loads
 MATVEC_WARP_FLIGHT = 2048
-#: the rmatvec CTA's ring (``kStages``, ``kStageBytes`` of the same file):
-#: all stages but the one being summed are in flight
-RMATVEC_STAGES = 3
-RMATVEC_STAGE_BYTES = 32 * 1024
+#: the ring of a matvec or rmatvec CTA (``kStages``, ``kStageBytes`` of
+#: csrc/matvec_expand.cu): all stages but the one being summed are in
+#: flight
+RING_STAGES = 3
+RING_STAGE_BYTES = 32 * 1024
 RMATVEC_MAX_ROWS = 256             # a TMA box has at most 256 rows
 
 
@@ -56,29 +56,25 @@ class DeviceModel:
     sms: int               # streaming multiprocessors (CPU: 1)
     sat_warps: int         # warps in flight at bandwidth saturation
     cta_s: float           # fixed seconds per CTA (prologue, tail, launch)
-    combine_s: float       # seconds of the f > 1 combine launch
     split_s: float         # seconds per split of the plain version's loop
 
 
 #: Fitted constants of the H100 model: :func:`fit_h100` on chip_smoke.py
-#: phase 9's matvec sweeps (NVIDIA H100 80GB HBM3 at 700 W; PERF.md):
-#: 2068 warps, 1.19e-7 s, and a combine intercept that fits at 0 (the
-#: combine's cost hides in the partials' traffic term).
-H100_SAT_WARPS = 2048      # warps in flight at bandwidth saturation
-H100_CTA_S = 1.2e-7        # per-CTA cost, spread over the SMs
-H100_COMBINE_S = 0.0       # the combine launch
+#: phase 9's sweeps of the one-launch matvec (NVIDIA H100 80GB HBM3 at
+#: 700 W; PERF.md): 1716.3 warps, 1.06e-6 s.
+H100_SAT_WARPS = 1716      # warps in flight at bandwidth saturation
+H100_CTA_S = 1.06e-6       # per-CTA cost, spread over the SMs
 
 #: NVIDIA H100 SXM (data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on
 #: the CUDA cores (both kernels compute in float32), 132 SMs.
 H100 = DeviceModel("h100", peak_flops=67e12, hbm_bw=3.35e12, sms=132,
-                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S,
-                   combine_s=H100_COMBINE_S, split_s=0.0)
+                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S, split_s=0.0)
 
 #: ``device="cpu"`` runs of the plain versions: f engages no parallel
 #: units (the memory side is flat); each split of the plain matvec pair
 #: is one more eager product, so the model prefers small f there.
 CPU = DeviceModel("cpu", peak_flops=5e10, hbm_bw=2e10, sms=1, sat_warps=1,
-                  cta_s=0.0, combine_s=0.0, split_s=2e-5)
+                  cta_s=0.0, split_s=2e-5)
 
 
 def detect_device(device: Any = "cuda") -> DeviceModel:
@@ -106,31 +102,38 @@ def dtype_bytes(dtype: Any) -> int:
 
 # ---------------------------------------------------------------------------
 # Per-kernel terms: (bytes streamed, flops, warps in flight, extra bytes,
-# CTAs, splits, combine launches), each a function of the candidate.
+# CTAs, splits), each a function of the candidate.
 # ---------------------------------------------------------------------------
 
-Terms = Tuple[float, float, float, float, float, float, float]
+Terms = Tuple[float, float, float, float, float, float]
 
 
-def _expand_terms(b: int, n_out: int, n_red: int, dtb: int, f: int,
-                  block: int) -> Terms:
-    """One launch of an expanded matvec: A [b, n_out, n_red] read once,
-    f splits of the n_red reduction, ``block`` outputs per CTA."""
+def matvec_flight(b: int, s: int, h: int, dtb: int, f: int,
+                  row_block: int) -> Tuple[int, int]:
+    """(CTAs, bytes one CTA keeps in flight) of a matvec launch over A
+    [b, S, H]: its ring's 32 KB stages but one, at most the CTA's whole
+    [row_block × split] tile."""
     from ..kernels.matvec_expand import split_len
-    bytes_ = b * n_out * n_red * dtb + b * n_red * dtb + b * n_out * 4
-    ctas = b * -(-n_out // max(1, min(block, n_out))) * f
-    extra = 8.0 * b * f * n_out if f > 1 else 0.0
-    splits = -(-n_red // split_len(n_red, f))
-    return (bytes_, 2.0 * b * n_out * n_red, ctas * MATVEC_WARPS, extra,
-            ctas, splits, 1.0 if f > 1 else 0.0)
+    rb = max(1, min(row_block, s))
+    tile = rb * min(split_len(h, f), h) * dtb
+    return (b * -(-s // rb) * f,
+            min((RING_STAGES - 1) * RING_STAGE_BYTES, tile))
 
 
 def _terms_matvec_expand(shape, dtb, cand) -> Terms:
     """y = A·v over A [S, H] or [B, S, H]; the H reduction split f ways,
-    ``row_block`` rows per CTA."""
+    ``row_block`` rows per CTA, one launch (the last CTA of a row block
+    adds the partials).  Its warps in flight are the CTAs' bytes in
+    flight over :data:`MATVEC_WARP_FLIGHT`."""
+    from ..kernels.matvec_expand import split_len
     b, s, h = (1, *shape) if len(shape) == 2 else shape
-    return _expand_terms(b, s, h, dtb, int(cand["expansion"]),
-                         int(cand.get("row_block", 512)))
+    f = int(cand["expansion"])
+    ctas, flight = matvec_flight(b, s, h, dtb, f,
+                                 int(cand.get("row_block", 512)))
+    bytes_ = b * s * h * dtb + b * h * dtb + b * s * 4
+    extra = 8.0 * b * f * s if f > 1 else 0.0
+    return (bytes_, 2.0 * b * s * h, ctas * flight / MATVEC_WARP_FLIGHT,
+            extra, ctas, -(-h // split_len(h, f)))
 
 
 def rmatvec_flight(s: int, h: int, dtb: int, f: int, col_block: int
@@ -143,9 +146,9 @@ def rmatvec_flight(s: int, h: int, dtb: int, f: int, col_block: int
     cb = max(1, min(col_block, h))
     row = cb * dtb
     stage = min(RMATVEC_MAX_ROWS,
-                max(1, RMATVEC_STAGE_BYTES // row)) * row
+                max(1, RING_STAGE_BYTES // row)) * row
     tile = min(split_len(s, f), s) * row
-    return -(-h // cb) * f, min((RMATVEC_STAGES - 1) * stage, tile)
+    return -(-h // cb) * f, min((RING_STAGES - 1) * stage, tile)
 
 
 def _terms_rmatvec_expand(shape, dtb, cand) -> Terms:
@@ -161,7 +164,7 @@ def _terms_rmatvec_expand(shape, dtb, cand) -> Terms:
     bytes_ = b * s * h * dtb + b * s * dtb + b * h * 4
     extra = 8.0 * b * f * h if f > 1 else 0.0
     return (bytes_, 2.0 * b * s * h, b * ctas * flight / MATVEC_WARP_FLIGHT,
-            extra, b * ctas, -(-s // split_len(s, f)), 0.0)
+            extra, b * ctas, -(-s // split_len(s, f)))
 
 
 def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:
@@ -173,7 +176,7 @@ def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:
     f = int(cand["expansion"])
     bytes_ = b * (4 * s * h + 3 * 4 * h * k + 4 * s + 4 * h)
     flops = b * (2 * s * h + 8 * h * k) + b * 2 * f * k
-    return bytes_, flops, b * f, 0.0, b, 0.0, 0.0
+    return bytes_, flops, b * f, 0.0, b, 0.0
 
 
 KERNEL_TERMS: Dict[str, Callable[[Sequence[int], int, Mapping[str, Any]],
@@ -196,14 +199,13 @@ def predict(kernel: str, shape: Sequence[int], dtype: Any,
     f = int(cand["expansion"])
     if f < 1:
         raise ValueError(f"expansion must be >= 1, got {f}")
-    bytes_, flops, warps, extra, ctas, splits, combines = terms(
+    bytes_, flops, warps, extra, ctas, splits = terms(
         tuple(int(d) for d in shape), dtype_bytes(dtype), cand)
     dev = device
     t_mem = bytes_ / (dev.hbm_bw * min(warps, dev.sat_warps)
                       / dev.sat_warps)
     t_comp = (bytes_ + extra) / dev.hbm_bw + flops / dev.peak_flops \
-        + dev.cta_s * ctas / dev.sms + dev.combine_s * combines \
-        + dev.split_s * splits
+        + dev.cta_s * ctas / dev.sms + dev.split_s * splits
     return max(t_mem, t_comp)
 
 
@@ -219,15 +221,16 @@ def predict_curve(kernel: str, shape: Sequence[int], dtype: Any,
 def fit_h100(scalar: Mapping[int, float], scalar_shape: Sequence[int],
              batched: Mapping[int, float], batched_shape: Sequence[int],
              dtype_scalar: Any, dtype_batched: Any) -> Dict[str, float]:
-    """Fit the H100 model's three constants to two measured f sweeps
+    """Fit the H100 model's two constants to two measured f sweeps
     ({f: seconds}) of the matvec at 512 rows per CTA:
 
     * ``sat_warps`` from the scalar sweep's f = 1 point (the fewest
-      warps): the per-warp rate it shows, against the data-sheet rate;
-    * ``cta_s`` and ``combine_s`` by least squares on the batched
+      bytes in flight): the rate per warp in flight it shows, against
+      the data-sheet rate;
+    * ``cta_s`` by least squares through the origin on the batched
       sweep, which is saturated at f = 1: t(f) − t(1) − partials(f)/bw
-      = combine_s + cta_s · (CTAs(f) − CTAs(1)) / SMs over f > 1
-      (both clamped at 0)."""
+      = cta_s · (CTAs(f) − CTAs(1)) / SMs over f > 1 (clamped at 0; one
+      launch at every f, so nothing else grows with f)."""
     terms = _terms_matvec_expand
     bw, sms = H100.hbm_bw, H100.sms
     cand = lambda f: {"expansion": f, "row_block": 512}  # noqa: E731
@@ -235,22 +238,16 @@ def fit_h100(scalar: Mapping[int, float], scalar_shape: Sequence[int],
                           cand(1))
     per_warp = b1 / (scalar[1] * w1)
     t1 = batched[1]
-    _, _, _, _, c1, _, _ = terms(tuple(batched_shape),
-                                 dtype_bytes(dtype_batched), cand(1))
-    xs, ys = [], []
+    c1 = terms(tuple(batched_shape), dtype_bytes(dtype_batched), cand(1))[4]
+    sxy = sxx = 0.0
     for f, t in sorted(batched.items()):
         if f == 1:
             continue
-        _, _, _, extra, ctas, _, _ = terms(tuple(batched_shape),
-                                           dtype_bytes(dtype_batched),
-                                           cand(f))
-        xs.append((ctas - c1) / sms)
-        ys.append(t - t1 - extra / bw)
-    n = len(xs)
-    mx, my = sum(xs) / n, sum(ys) / n
-    sxx = sum((x - mx) ** 2 for x in xs)
-    slope = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / sxx \
-        if sxx else 0.0
-    return {"sat_warps": bw / per_warp, "cta_s": max(0.0, slope),
-            "combine_s": max(0.0, my - slope * mx),
+        _, _, _, extra, ctas, _ = terms(tuple(batched_shape),
+                                        dtype_bytes(dtype_batched), cand(f))
+        x = (ctas - c1) / sms
+        sxy += x * (t - t1 - extra / bw)
+        sxx += x * x
+    return {"sat_warps": bw / per_warp,
+            "cta_s": max(0.0, sxy / sxx) if sxx else 0.0,
             "per_warp_bytes_s": per_warp}

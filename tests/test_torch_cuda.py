@@ -54,19 +54,51 @@ def test_reorth_kernel_matches_plain(cuda, side):
         kern(a, x, q.transpose(1, 2).contiguous().transpose(1, 2))
 
 
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches (after a
+    warm-up call, so one-time allocations are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dkv_kernel_matches_plain(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
+@pytest.mark.parametrize("b,nh,t,r,t_valid", [
+    (3, 6, 77, 10, (77, 31, 0)),          # G < one head group, T ragged
+    (4, 32, 512, 64, (512, 384, 304, 128)),   # phase 4's decode shape
+    (2, 12, 100, 40, (64, 96)),           # on chunk boundaries; G 8 + 4
+    (2, 8, 1000, 16, (1000, 33)),         # 32 chunks: two merge rounds
+    (1, 9, 40, 24, (0,)),                 # t_valid 0 alone
+])
+def test_dkv_kernel_matches_plain(cuda, dtype, b, nh, t, r, t_valid):
+    """The chunked dkv kernel against the plain version: t_valid 0 (a = 0,
+    m = -1e30, l = 0), t_valid ending mid-chunk and on a chunk boundary,
+    T not a multiple of the 32-row chunk, G not a multiple of the 8-head
+    group, phase 4's G 32 / r 64 with its four slots, more chunks than one
+    merge round holds; 16-byte rows (r 40, 24, 64, 16 in bf16) and element
+    loads (r 10).  Reruns are bit-identical, and a call is one launch."""
+    g = torch.Generator(device=cuda).manual_seed(t + r)
     dt = getattr(torch, dtype)
-    b, nh, t, r = 3, 6, 77, 10
     inner = torch.randn(b, nh, r, generator=g, device=cuda)
     k_u = torch.randn(b, t, r, generator=g, device=cuda).to(dt)
     v_u = torch.randn(b, t, r, generator=g, device=cuda).to(dt)
-    tv = torch.tensor([77, 31, 0], dtype=torch.int32, device=cuda)
+    tv = torch.tensor(t_valid, dtype=torch.int32, device=cuda)
+    before = dk.dkv_attention_stats.launches
     got = dk.dkv_attention_stats(inner, k_u, v_u, tv)
+    assert dk.dkv_attention_stats.launches == before + 1
     want = dk.dkv_attention_stats_plain(inner, k_u, v_u, tv)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, **TOL)
+    for x, y in zip(got, dk.dkv_attention_stats(inner, k_u, v_u, tv)):
+        assert torch.equal(x, y)
+    kernels = _device_kernels(
+        lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv))
+    assert len(kernels) == 1 and "dkv_stats_kernel" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("page", [16, 12])
@@ -362,7 +394,8 @@ MV_FS = (1, 2, 4, 8, 16, 32, 64, 128)     # the matvec spaces' f grid
                                          (1, 37, 1030, 128),
                                          (2, 513, 96, 64),
                                          (1, 64, 4096, 512),
-                                         (2, 2000, 64, 8)])
+                                         (2, 2000, 64, 8),
+                                         (2, 40, 4102, 16)])
 def test_matvec_kernels_match_plain_every_f(cuda, dtype, vdtype, b, s, h,
                                             block):
     """The four expanded matvec wrappers against their plain versions at
@@ -370,8 +403,9 @@ def test_matvec_kernels_match_plain_every_f(cuda, dtype, vdtype, b, s, h,
     2/4-byte loads, the others the 16-byte path), a block that does not
     divide the output, and splits shorter than one rmatvec ring stage
     (f = 1024 gives 8-row splits; 8 columns a block give 512- or
-    1024-row stages); reruns bit-identical; each call counts one launch
-    of its own wrapper.  float32 sums in another order: 1e-5 relative,
+    1024-row stages), H = 4102 (element copies, splits wider than one
+    2048-column matvec panel at f = 1 and 2); reruns bit-identical; each
+    call counts one launch of its own wrapper.  float32 sums in another order: 1e-5 relative,
     1e-4 absolute (|y| ~ sqrt(n))."""
     gen = torch.Generator(device=cuda).manual_seed(s + h)
     dt, vdt = getattr(torch, dtype), getattr(torch, vdtype)
@@ -400,6 +434,20 @@ def test_matvec_kernels_match_plain_every_f(cuda, dtype, vdtype, b, s, h,
             "matvec": 1, "rmatvec": 1, "matvec_batched": 2,
             "rmatvec_batched": 2}
         assert y.dtype == z.dtype == torch.float32
+
+
+@pytest.mark.parametrize("f", [1, 8, 1024])
+@pytest.mark.parametrize("name", ["matvec_batched", "rmatvec_batched"])
+def test_matvec_call_is_one_launch(cuda, name, f):
+    """At any f one call is one device kernel: the f partials are added
+    by the last CTA of each block in the same launch (no combine
+    launch)."""
+    a = torch.randn(2, 300, 520, device=cuda)
+    x = torch.randn(2, 520 if name == "matvec_batched" else 300,
+                    device=cuda)
+    kernels = _device_kernels(lambda: getattr(mv, name)(a, x, expansion=f))
+    assert len(kernels) == 1 and name.split("_")[0] + "_kernel" in \
+        kernels[0], kernels
 
 
 def test_matvec_kernels_refuse_what_they_do_not_take(cuda):

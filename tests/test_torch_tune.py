@@ -168,6 +168,30 @@ def test_h100_model_reads_ctas_in_flight_not_f():
 @pytest.mark.parametrize("shape,dtype,f,block,ctas,flight", [
     ((4096, 4096), "float32", 8, 512, 64, 2 * 32768),   # phase 3's point
     ((64, 4096, 4096), "bfloat16", 8, 512, 64 * 64, 2 * 32768),
+    ((4096, 4096), "float32", 1, 512, 8, 2 * 32768),
+    ((4096, 4096), "float32", 1024, 8, 512 * 1024, 8 * 32),  # tile < stage
+    ((300, 200), "float32", 1, 4096, 1, 2 * 32768),     # block clipped to S
+    ((40, 200), "float32", 2, 4096, 2, 40 * 104 * 4),   # whole tile
+])
+def test_matvec_term_counts_ctas_and_bytes_in_flight(shape, dtype, f,
+                                                     block, ctas, flight):
+    """The matvec term follows its kernel: B x ceil(S / row_block) x f
+    CTAs, each with its ring's 32 KB stages but one in flight or its
+    whole tile when that is shorter, counted in units of 2 KB; one
+    launch, the partials' traffic for f > 1."""
+    from repro_torch.tune import cost_model as cm
+    cand = {"expansion": f, "row_block": block}
+    _, _, warps, extra, n_ctas, _ = cm._terms_matvec_expand(
+        shape, cm.dtype_bytes(dtype), cand)
+    assert n_ctas == ctas
+    assert warps == ctas * flight / cm.MATVEC_WARP_FLIGHT
+    b = shape[0] if len(shape) == 3 else 1
+    assert extra == (8.0 * b * f * shape[-2] if f > 1 else 0.0)
+
+
+@pytest.mark.parametrize("shape,dtype,f,block,ctas,flight", [
+    ((4096, 4096), "float32", 8, 512, 64, 2 * 32768),   # phase 3's point
+    ((64, 4096, 4096), "bfloat16", 8, 512, 64 * 64, 2 * 32768),
     ((4096, 4096), "float32", 1024, 8, 512 * 1024, 8 * 32),  # split < stage
     ((300, 200), "float32", 1, 4096, 1, 2 * 40 * 800),  # block clipped to H
 ])
@@ -179,9 +203,9 @@ def test_rmatvec_term_counts_ctas_and_bytes_in_flight(shape, dtype, f,
     matvec warps (2 KB in flight each); one launch, no combine."""
     from repro_torch.tune import cost_model as cm
     cand = {"expansion": f, "col_block": block}
-    _, _, warps, extra, n_ctas, _, combines = cm._terms_rmatvec_expand(
+    _, _, warps, extra, n_ctas, _ = cm._terms_rmatvec_expand(
         shape, cm.dtype_bytes(dtype), cand)
-    assert n_ctas == ctas and combines == 0.0
+    assert n_ctas == ctas
     assert warps == ctas * flight / cm.MATVEC_WARP_FLIGHT
     b = shape[0] if len(shape) == 3 else 1
     assert extra == (8.0 * b * f * shape[-1] if f > 1 else 0.0)
