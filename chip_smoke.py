@@ -17,8 +17,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version and a one-call PyTorch yardstick, and the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations
    over the peak rate of the inputs' type, whichever is larger).  An
-   empty kernel is timed first (``launch floor:``); the dkv and matvec
-   rows carry it as ``launch_floor_ms``, and the dkv rows also their
+   empty kernel is timed first (``launch floor:``); the re-orth, dkv
+   and matvec rows carry it as ``launch_floor_ms`` (the re-orth rows
+   also their time with the L2 flushed before each call, ``ms_l2_cold``,
+   beside the plain version's, their f and their cluster's CTAs), and
+   the dkv rows also their
    reruns held bit-identical and their and SDPA's times with the L2
    flushed before each call;
 4. decomposed-KV serving of llama2-7b at full width and depth (random
@@ -84,8 +87,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    optimum, tuned within 1.05x of the optimum asserted, and the launch
    counters raised by exactly the calls of each A/B; the H100 cost
    model's constants fitted to the matvec sweeps; a measured tune of the
-   re-orth kernel's warps per CTA at phase 4's [32, 512, 4096] (printed,
-   not gated; a second tune hits the cache); and an
+   re-orth kernel's blocks per element f (a cluster of min(f, 16) CTAs)
+   at phase 4's [32, 512, 4096] and phase 6's [1, 4096, 4096] (printed
+   with the model's curve, not gated; a second tune hits the cache) and
+   the left step's curve at both; and an
    ``EngineConfig(expansion="auto")`` decomposition of one such batch,
    bit-identical to the engine pinned at the resolved f.  The tuning
    cache is a temporary file of the run.
@@ -223,6 +228,11 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
     q = torch.zeros(b, n, k, device=dev)
     q[..., :filled] = torch.linalg.qr(
         torch.randn(b, n, filled, generator=gen, device=dev))[0]
+    # CTAs per batch element and clusters resident at once (a checkout from
+    # before the cluster kernel, as kernel_ab.py's base may be, runs one
+    # CTA per element)
+    cluster = getattr(lr, "cluster_ctas", lambda f: 1)
+    resident = getattr(lr, "resident_clusters", lambda *a: None)
     batched = getattr(lr, f"reorth_{side}_batched")
     plain = getattr(lr, f"reorth_{side}_batched_plain")
     if scalar:
@@ -244,8 +254,8 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
         raise AssertionError(
             f"{name} B={b}: max abs err {err:.3e} > {tol:.3e}"
             f" or norm rel err {nerr:.3e} > 1e-4")
-    ms = time_ms(kern)
-    plain_ms = time_ms(ref)
+    ms, ms_cold = time_ms(kern), time_ms_cold(kern)
+    plain_ms, plain_cold = time_ms(ref), time_ms_cold(ref)
     bytes_ = 4 * (b * s * h + b * m + b * n * k + b * n + b)
     flops = 2 * b * s * h + 8 * b * n * k + 2 * b * n
     bms, by = bound(bytes_, flops, "float32")
@@ -255,7 +265,10 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
                 source="src/repro_torch/kernels/csrc/lanczos_reorth.cu",
                 replaces=f"src/repro/kernels/lanczos_reorth.py:{line}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None,
+                bound_by=by, library_ms=None, ms_l2_cold=ms_cold,
+                plain_ms_l2_cold=plain_cold, expansion=expansion,
+                cluster=cluster(expansion),
+                resident_clusters=resident(side, s, h, k, expansion),
                 shape=dict(B=b, S=s, H=h, k=k, filled=filled,
                            expansion=expansion),
                 tolerance="max|z_kernel - z_plain| <= 1e-4 max|z_plain|, "
@@ -592,8 +605,8 @@ def phase_kernels(cfg):
     rows = []
     for b in (cfg.num_layers, 4 * cfg.num_layers):      # 1 and 4 prompts
         for side in ("right", "left"):
-            rec = reorth_case(side, b, 512, kvw, iters, iters // 2,
-                              expansion, gen)
+            rec = dict(reorth_case(side, b, 512, kvw, iters, iters // 2,
+                                   expansion, gen), launch_floor_ms=floor)
             print(json.dumps(rec), flush=True)
             rows.append(rec)
         torch.cuda.empty_cache()
@@ -614,8 +627,8 @@ def phase_kernels(cfg):
            lowrank_matmul_case(r, h, cfg.d_ff, gen),
            outlier_stats_case(seq, h, gen)]
     for side in ("right", "left"):
-        act.append(reorth_case(side, 1, seq, h, r, r // 2, expansion, gen,
-                               scalar=True))
+        act.append(dict(reorth_case(side, 1, seq, h, r, r // 2, expansion,
+                                    gen, scalar=True), launch_floor_ms=floor))
         torch.cuda.empty_cache()
     for rec in act:
         print(json.dumps(rec), flush=True)
@@ -1531,6 +1544,7 @@ FIG12_POINTS = (("matvec", FIG12_SCALAR, "float32"),
                 ("rmatvec", FIG12_SCALAR, "float32"),
                 ("rmatvec", FIG12_BATCHED, "bfloat16"))
 REORTH_TUNE = (32, 512, 4096)            # phase 4's re-orth shape (B = 32)
+REORTH_TUNE_ACT = (1, 4096, 4096)        # phase 6's (B = 1)
 
 
 def phase_fig12():
@@ -1538,8 +1552,9 @@ def phase_fig12():
     the whole f grid swept through the CUDA kernel, the tuner's pruning
     replayed, tuned within 1.05x of the swept optimum (asserted), and the
     launch counters raised by exactly the calls the A/B made.  Then a
-    measured tune of the re-orth kernel's warps at phase 4's shape (not
-    gated; a second tune must hit the cache), and an
+    measured tune of the re-orth kernel's blocks per element at phase 4's
+    and phase 6's shapes (not gated; a second tune must hit the cache),
+    and an
     ``EngineConfig(expansion="auto")`` decomposition of one [32, 512,
     4096] batch, bit-identical to the engine pinned at the resolved f.
     Returns the launch counts of the four A/Bs."""
@@ -1583,29 +1598,49 @@ def phase_fig12():
           f"cta_s={tune.H100.cta_s:.1e}", flush=True)
 
     fix = {"backend": "cuda"}
-    before = ops.launch_counts()["reorth_right_batched"]
-    res = tune.tune("lanczos_reorth", REORTH_TUNE, "float32", fix=fix,
-                    prune=None, measure_candidates=True, device="cuda",
-                    force=True)
-    ran = ops.launch_counts()["reorth_right_batched"] - before
-    if ran != len(res.table) * 7:
-        raise AssertionError(f"re-orth tune: {ran} launches, want "
-                             f"{len(res.table) * 7}")
-    again = tune.tune("lanczos_reorth", REORTH_TUNE, "float32", fix=fix,
-                      measure_candidates=True, device="cuda")
-    if again.source != "cache" or again.best != res.best:
-        raise AssertionError(f"re-orth tune did not hit its cache entry: "
-                             f"{again.source} {again.best}")
-    curve = " ".join(f"f{c['expansion']}={m * 1e3:.4f}"
-                     for c, _, m in sorted(res.table,
-                                           key=lambda r: r[0]["expansion"]))
-    pick = min(res.table, key=lambda r: r[1])[0]["expansion"]
-    print(f"fig12: re-orth (right) warps per CTA at B, S, H = "
-          f"{REORTH_TUNE}: measured ms {curve}; model pick f={pick}, "
-          f"measured best f={res.best['expansion']} (not gated); second "
-          f"tune answered from the {again.source}", flush=True)
-
+    for shape in (REORTH_TUNE, REORTH_TUNE_ACT):
+        before = ops.launch_counts()["reorth_right_batched"]
+        res = tune.tune("lanczos_reorth", shape, "float32", fix=fix,
+                        prune=None, measure_candidates=True, device="cuda",
+                        force=True)
+        ran = ops.launch_counts()["reorth_right_batched"] - before
+        if ran != len(res.table) * 7:
+            raise AssertionError(f"re-orth tune: {ran} launches, want "
+                                 f"{len(res.table) * 7}")
+        again = tune.tune("lanczos_reorth", shape, "float32", fix=fix,
+                          measure_candidates=True, device="cuda")
+        if again.source != "cache" or again.best != res.best:
+            raise AssertionError(f"re-orth tune did not hit its cache "
+                                 f"entry: {again.source} {again.best}")
+        table = sorted(res.table, key=lambda r: r[0]["expansion"])
+        curve = " ".join(f"f{c['expansion']}={m * 1e3:.4f}"
+                         for c, _, m in table)
+        model = " ".join(f"f{c['expansion']}={p * 1e3:.4f}"
+                         for c, p, _ in table)
+        pick = min(res.table, key=lambda r: r[1])[0]["expansion"]
+        print(f"fig12: re-orth (right) blocks per element at B, S, H = "
+              f"{shape} (cluster of min(f, 16) CTAs): measured ms {curve}; "
+              f"model ms {model}; model pick f={pick}, measured best "
+              f"f={res.best['expansion']} (not gated); second tune "
+              f"answered from the {again.source}", flush=True)
+        torch.cuda.empty_cache()
+    # the left step has no space of its own (the tuner times right steps):
+    # its curve at the same shapes, warm, on the tune's k = 16 zero basis
+    from repro_torch.kernels import lanczos_reorth as lr
     gen = torch.Generator(device="cuda").manual_seed(9)
+    for b, s, h in (REORTH_TUNE, REORTH_TUNE_ACT):
+        a = torch.randn(b, s, h, generator=gen, device="cuda")
+        v = torch.randn(b, h, generator=gen, device="cuda")
+        u_buf = torch.zeros(b, s, 16, device="cuda")
+        def step(f):
+            return lambda: lr.reorth_left_batched(a, v, u_buf, expansion=f)
+        curve = " ".join(f"f{f}={time_ms(step(f)):.4f}"
+                         for f in tune.EXPANSION_GRID)
+        print(f"fig12: re-orth (left) blocks per element at B, S, H = "
+              f"{(b, s, h)}: measured ms {curve} (warm)", flush=True)
+        del a
+        torch.cuda.empty_cache()
+
     x = torch.randn(*REORTH_TUNE, generator=gen, device="cuda")
     auto = DecomposeEngine(EngineConfig(expansion="auto"))
     f = auto.resolve_expansion(REORTH_TUNE[1], REORTH_TUNE[2],

@@ -11,7 +11,12 @@ that checkout's ``src`` first on the path, builds its kernels and runs
 the phase-3 cases of the NEW checkout's ``chip_smoke.py`` on the same
 seeded inputs (the wrappers' interface is shared), timed by its
 ``time_ms`` and ``time_ms_cold``, so the two runs differ only in the
-kernels under test: ``lowrank_matmul_case`` at Vᵀ [1, 20, 4096] @ W
+kernels under test: ``reorth_case`` for the fused re-orth pair at phase
+6's B = 1 shape (A [4096, 4096], k = 20, 10 columns filled) and phase
+4's [32, 512, 4096] (k = 72, 36 filled), each checkout at its own
+``EngineConfig().expansion`` (f counted warps per CTA before the
+cluster kernel, blocks along the output axis since), warm and L2-cold
+with the plain version beside; ``lowrank_matmul_case`` at Vᵀ [1, 20, 4096] @ W
 [4096, 4096] and [4096, 11008] bf16, ``dkv_case`` and ``dkv_paged_case``
 at phase 4's decode shape (inner [4, 32, 64], U [4, 512, 64] bf16,
 t_valid 512/384/304/128; 16-row pages), and ``matvec_case`` for
@@ -34,7 +39,13 @@ import sys
 from pathlib import Path
 
 DKV = dict(b=4, g=32, r=64, t_valid=(512, 384, 304, 128))   # phase 4
-CASES = (("lowrank_matmul", (20, 4096, 4096)),
+REORTH = dict(scalar=(4096, 4096, 20, 10),          # phase 6: S, H, k, filled
+              batched=(32, 512, 4096, 72, 36))    # phase 4: B, S, H, k, filled
+CASES = (("reorth_right", REORTH["scalar"]),
+         ("reorth_left", REORTH["scalar"]),
+         ("reorth_right_batched", REORTH["batched"]),
+         ("reorth_left_batched", REORTH["batched"]),
+         ("lowrank_matmul", (20, 4096, 4096)),
          ("lowrank_matmul", (20, 4096, 11008)),
          ("dkv_attention_stats", (4, 32, 512, 64)),
          ("dkv_attention_stats_paged", (4, 32, 512, 64)),
@@ -63,8 +74,23 @@ def child(root: Path, cases: Path) -> dict:
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
+    # f at this checkout's own default: its meaning differs between the
+    # kernels of two checkouts (warps per CTA before the cluster kernel,
+    # blocks along the output axis since)
+    from repro_torch.engine import EngineConfig
+    expansion = EngineConfig().expansion
     for name, shape in CASES:
-        if name == "lowrank_matmul":
+        if name.startswith("reorth"):
+            side = name.split("_")[1]
+            if name.endswith("batched"):
+                b, s, h, k, filled = shape
+                rec = smoke.reorth_case(side, b, s, h, k, filled, expansion,
+                                        gen)
+            else:
+                s, h, k, filled = shape
+                rec = smoke.reorth_case(side, 1, s, h, k, filled, expansion,
+                                        gen, scalar=True)
+        elif name == "lowrank_matmul":
             rec = smoke.lowrank_matmul_case(*shape, gen)
         elif name == "dkv_attention_stats":
             rec = smoke.dkv_case(DKV["b"], DKV["g"], shape[2], DKV["r"],
@@ -77,7 +103,8 @@ def child(root: Path, cases: Path) -> dict:
             dt = torch.float32 if len(shape) == 2 else torch.bfloat16
             rec = smoke.matvec_case(name, shape, dt, gen)
         rows.append({k: v for k, v in rec.items()
-                     if k in ("name", "max_abs_err", "bound_ms")
+                     if k in ("name", "max_abs_err", "bound_ms", "expansion",
+                              "cluster", "resident_clusters")
                      or k.endswith("ms") or "ms_" in k})
         rows[-1]["shape"] = list(shape)
         torch.cuda.empty_cache()

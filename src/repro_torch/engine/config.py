@@ -13,11 +13,16 @@ async and mesh fields arrive with the modules that read them):
                     tensors are (JAX's ``"reference"`` backend), chosen
                     explicitly to hold a run through the kernels against
                     the same run without them.
-* ``expansion``   — the paper's compute-expansion factor f.  In the CUDA
-                    re-orth kernels it is the number of warps of the CTA
-                    that splits each reduction into f partial sums plus a
-                    small combine (1..32; 32 fills a 1024-thread block).
-                    ``"auto"``: resolved per shape bucket through
+* ``expansion``   — the paper's compute-expansion factor f (1..32): in
+                    the re-orth kernels, as in the JAX package, the number
+                    of blocks along the output axis, each reducing its
+                    part plus a small combine; on the card one batch
+                    element is a cluster of min(f, 16) CTAs.  The default
+                    16 is the fastest f at B = 1 [4096, 4096] (the
+                    decomposed forward) and near the best at B = 32
+                    [32, 512, 4096] (PERF.md's measured curves; the best
+                    there is smaller).  ``"auto"``: resolved per shape
+                    bucket through
                     ``repro_torch.tune`` (the ``lanczos_reorth`` space,
                     the engine's backend pinned).
 * ``attn_mode``   — ``"dense"`` | ``"preserved"`` consumption of the
@@ -42,6 +47,7 @@ from typing import Optional, Union
 
 from ..core.outlier import ThresholdTable
 from ..core.policy import DecompositionPolicy, LayerPolicy
+from ..kernels.lanczos_reorth import DEFAULT_EXPANSION
 from ..kernels.ops import BACKENDS
 
 ATTN_MODES = ("dense", "preserved")
@@ -51,7 +57,7 @@ ATTN_MODES = ("dense", "preserved")
 class EngineConfig:
     policy: Optional[DecompositionPolicy] = None
     backend: str = "cuda"
-    expansion: Union[int, str] = 32     # warps per CTA, or "auto"
+    expansion: Union[int, str] = DEFAULT_EXPANSION   # blocks, or "auto"
     attn_mode: str = "dense"
     kv_rank: int = 0
     kv_tail: int = 128

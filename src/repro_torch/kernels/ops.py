@@ -67,11 +67,12 @@ def _check_backend(backend: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def make_batched_hooks(expansion: int = 32,
+def make_batched_hooks(expansion: int = _lr.DEFAULT_EXPANSION,
                        backend: str = "cuda") -> BatchedLanczosHooks:
     """Hooks whose steps are the fused re-orth kernels at ``expansion``
-    warps per CTA, or their plain versions under ``"reference"`` (cached,
-    so an engine reuses one pair)."""
+    blocks along the output axis (a cluster of min(f, 16) CTAs per batch
+    element), or their plain versions under ``"reference"`` (cached, so
+    an engine reuses one pair)."""
     _check_backend(backend)
     if backend == "reference":
         return BatchedLanczosHooks(
@@ -90,7 +91,8 @@ def make_batched_hooks(expansion: int = 32,
 
 
 @functools.lru_cache(maxsize=None)
-def make_kernels(backend: str = "cuda", expansion: int = 32) -> KernelSet:
+def make_kernels(backend: str = "cuda",
+                 expansion: int = _lr.DEFAULT_EXPANSION) -> KernelSet:
     """Every kernel of the activation path and of the Mamba2 scan for
     ``backend``."""
     _check_backend(backend)

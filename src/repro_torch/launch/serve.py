@@ -113,9 +113,9 @@ def main(argv=None) -> None:
                     help="the first N prompt tokens are the same in "
                          "every request (a common system prompt)")
     ap.add_argument("--expansion", type=_expansion, default=dflt.expansion,
-                    help="compute-expansion factor f = warps per CTA of "
-                         "the re-orth kernels (1..32), or auto (tuned "
-                         "per shape bucket)")
+                    help="compute-expansion factor f = blocks along the "
+                         "output axis of the re-orth kernels (1..32), or "
+                         "auto (tuned per shape bucket)")
     ap.add_argument("--no-pretune", action="store_true",
                     help="with --expansion auto, skip the warmup "
                          "pre-tune of the admission shapes")

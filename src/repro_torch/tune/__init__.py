@@ -18,7 +18,8 @@ from .cost_model import (CPU, H100, DeviceModel, detect_device, device_kind,
                          predict, predict_curve)
 from .measure import measure_candidate, timeit
 from .space import (BLOCK_GRID, EXPANSION_GRID, TunableParam, TunableSpace,
-                    available_spaces, get_space, register_space)
+                    available_spaces, get_space, register_space,
+                    space_revision)
 from .tuner import (DEFAULT_PRUNE, TuneResult, candidates_for, pretune,
                     reset_stats, stats, tune, tuned_expansion)
 
@@ -28,6 +29,6 @@ __all__ = [
     "available_spaces", "candidates_for", "default_cache", "default_path",
     "detect_device", "device_kind", "entry_key", "get_space",
     "measure_candidate", "predict", "predict_curve", "pretune",
-    "register_space", "reset_stats", "shape_bucket",
+    "register_space", "reset_stats", "shape_bucket", "space_revision",
     "stats", "timeit", "tune", "tuned_expansion",
 ]

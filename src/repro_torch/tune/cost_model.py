@@ -12,16 +12,17 @@ point, per (shape, dtype, device):
   bytes in flight: ``batch × ceil(S / row_block) × f`` CTAs for matvec
   (``batch × ceil(H / col_block) × f`` for rmatvec), each keeping the
   stages of its shared-memory ring but one in flight (at most its tile),
-  counted in units of 2 KB ("warps"); B CTAs of f warps for the re-orth
-  kernel.  The streaming time is ``bytes / (bw · min(warps, sat) /
-  sat)`` — the batched Fig. 12 shape (512 CTAs at f = 1) is already
-  saturated, the scalar one (8 CTAs) is not.  NON-INCREASING in f.
+  counted in units of 2 KB ("warps"); for the re-orth kernel a cluster
+  of min(f, 16) CTAs per batch element, each with a ring of its own.
+  The streaming time is ``bytes / (bw · min(warps, sat) / sat)`` — the
+  batched Fig. 12 shape (512 CTAs at f = 1) is already saturated, the
+  scalar one (8 CTAs) is not.  NON-INCREASING in f.
 * **compute side** (right of f*): the streaming floor at full bandwidth
   plus everything that grows with f — the float32 partials written and
   read back (``8·B·f·n`` bytes for f > 1), the fixed cost of each CTA
   spread over the SMs, the per-split cost of the plain version's split
-  loop (CPU), and the re-orth kernel's replicated combine work.
-  NON-DECREASING in f.
+  loop (CPU), and the re-orth kernel's cluster combine (each CTA reads
+  the f blocks' partials twice).  NON-DECREASING in f.
 
 ``predict`` returns ``max(memory, compute)`` — the max of a
 non-increasing and a non-decreasing function, hence UNIMODAL along the
@@ -167,16 +168,36 @@ def _terms_rmatvec_expand(shape, dtb, cand) -> Terms:
             extra, b * ctas, -(-s // split_len(s, f)))
 
 
+def reorth_flight(b: int, s: int, h: int, k: int, f: int
+                  ) -> Tuple[int, int, int]:
+    """(CTAs, bytes one CTA keeps in flight, reads of Q) of a right re-orth
+    launch over A [b, S, H] at f blocks along H: a cluster of min(f, 16)
+    CTAs per batch element, each keeping two ring stages of 32 KB in
+    flight (at most its share of A); Q is read once where each CTA's Q
+    rows fit in its shared memory, else once per CGS2 sweep (3x)."""
+    from ..kernels.lanczos_reorth import cluster_ctas, q_in_smem
+    c = cluster_ctas(f)
+    flight = min(2 * RING_STAGE_BYTES, -(-4 * s * h // c))
+    return b * c, flight, 1 if q_in_smem("right", s, h, k, f) else 3
+
+
 def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:
     """One fused right re-orth step over A [B, S, H] (float32 in the
-    kernel) against a k-column basis (k from a 4th dim, else 16): one CTA
-    of f warps per batch element; each warp adds its k partials into the
-    combine of two CGS2 sweeps (replicated work that grows with f)."""
+    kernel) against a k-column basis (k from a 4th dim, else 16), at f
+    blocks along H (:func:`reorth_flight`).  The bytes count A and Q
+    once; where Q is read three times the two extra reads slow the
+    memory side (its warps in flight count the bytes of A and Q once of
+    every byte moved).  The cluster combine reads f blocks' k partials
+    in each CTA, twice."""
     b, s, h, k = shape if len(shape) == 4 else (*shape, 16)
     f = int(cand["expansion"])
-    bytes_ = b * (4 * s * h + 3 * 4 * h * k + 4 * s + 4 * h)
-    flops = b * (2 * s * h + 8 * h * k) + b * 2 * f * k
-    return bytes_, flops, b * f, 0.0, b, 0.0
+    ctas, flight, q_reads = reorth_flight(b, s, h, k, f)
+    bytes_ = b * (4 * s * h + 4 * h * k + 4 * s + 4 * h)
+    moved = bytes_ + (q_reads - 1) * b * 4 * h * k
+    flops = b * (2 * s * h + 8 * h * k)
+    extra = 8.0 * ctas * f * k
+    return (bytes_, flops, ctas * flight / MATVEC_WARP_FLIGHT * bytes_
+            / moved, extra, ctas, 0.0)
 
 
 KERNEL_TERMS: Dict[str, Callable[[Sequence[int], int, Mapping[str, Any]],

@@ -85,8 +85,8 @@ def _rand(seed: int, shape: Sequence[int], dtype: Any,
 
 def _bench_lanczos_reorth(shape, dtype, cand, device) -> Callable[[], Any]:
     """One fused right re-orth step over A [B, S, H] against a k-column
-    zero basis (k from a 4th dim, else 16) at the candidate's warps per
-    CTA, or the plain step under ``backend="reference"``.  The engine
+    zero basis (k from a 4th dim, else 16) at the candidate's blocks
+    along H, or the plain step under ``backend="reference"``.  The engine
     hands the kernel float32 A whatever the activation's dtype, so A is
     float32 here too."""
     from ..kernels import ops

@@ -63,11 +63,21 @@ class TunableSpace:
 
 
 _REGISTRY: Dict[str, TunableSpace] = {}
+_REVISIONS: Dict[str, int] = {}
 
 
-def register_space(space: TunableSpace) -> TunableSpace:
+def register_space(space: TunableSpace, revision: int = 0) -> TunableSpace:
+    """Register ``space``.  ``revision`` counts changes of what a kernel's
+    operating point means: the tuner reuses a cache entry only if it was
+    made under the same revision."""
     _REGISTRY[space.kernel] = space
+    _REVISIONS[space.kernel] = revision
     return space
+
+
+def space_revision(kernel: str) -> int:
+    get_space(kernel)
+    return _REVISIONS[kernel]
 
 
 def get_space(kernel: str) -> TunableSpace:

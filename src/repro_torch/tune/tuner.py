@@ -27,7 +27,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 from ..platform import resolve_device
 from . import cost_model, measure
 from .cache import TuningCache, default_cache, entry_key, shape_bucket
-from .space import TunableSpace, get_space
+from .space import TunableSpace, get_space, space_revision
 
 #: Production prune width: how many model-ranked candidates a measured
 #: tune benchmarks.  One constant, so the Fig. 12 A/B replays exactly the
@@ -101,14 +101,17 @@ def candidates_for(kernel: str, fix: Optional[Mapping[str, Any]] = None
     return tuple(out)
 
 
-def _in_space(kernel: str, best: Mapping[str, Any],
+def _in_space(kernel: str, entry: Mapping[str, Any],
               fix: Optional[Mapping[str, Any]]) -> bool:
-    """``best`` names every param of the kernel's own space with one of
-    its choices (or the pinned value)."""
+    """``entry`` was made under the kernel's current revision, and its
+    best names every param of the kernel's own space with one of its
+    choices (or the pinned value)."""
     fix = fix or {}
-    return all(p.name in best and (best[p.name] in p.choices
-                                   or fix.get(p.name) == best[p.name])
-               for p in get_space(kernel).params)
+    best = entry.get("best", {})
+    return entry.get("revision", 0) == space_revision(kernel) and all(
+        p.name in best and (best[p.name] in p.choices
+                            or fix.get(p.name) == best[p.name])
+        for p in get_space(kernel).params)
 
 
 def _from_entry(key: str, entry: Mapping[str, Any]) -> TuneResult:
@@ -124,8 +127,9 @@ def _from_entry(key: str, entry: Mapping[str, Any]) -> TuneResult:
 
 
 def _to_entry(res: TuneResult) -> Dict[str, Any]:
-    return {"kernel": res.kernel, "shape": list(res.shape),
-            "dtype": res.dtype, "best": dict(res.best),
+    return {"kernel": res.kernel, "revision": space_revision(res.kernel),
+            "shape": list(res.shape), "dtype": res.dtype,
+            "best": dict(res.best),
             "source": res.source, "predicted_s": res.predicted_s,
             "measured_s": res.measured_s,
             "table": [{"params": dict(c), "predicted_s": p,
@@ -161,7 +165,7 @@ def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
         entry = cache.get(key)
         if entry is not None and (entry.get("measured_s") is not None
                                   or not measure_candidates) \
-                and _in_space(kernel, entry.get("best", {}), fix):
+                and _in_space(kernel, entry, fix):
             stats.answers["cache"] += 1
             return _from_entry(key, entry)
 

@@ -32,26 +32,82 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("side", ["right", "left"])
-def test_reorth_kernel_matches_plain(cuda, side):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, s, h, k = 5, 37, 203, 19           # ragged on purpose
+REORTH_FS = (1, 2, 8, 16, 32)
+
+
+def _reorth_inputs(cuda, side, b, s, h, k, filled, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     a = torch.randn(b, s, h, generator=g, device=cuda)
     n, m = (h, s) if side == "right" else (s, h)
     x = torch.randn(b, m, generator=g, device=cuda)
-    q = torch.linalg.qr(torch.randn(b, n, k, generator=g,
-                                    device=cuda))[0].contiguous()
+    x = x / x.norm(dim=-1, keepdim=True)
+    q = torch.zeros(b, n, k, device=cuda)
+    q[..., :filled] = torch.linalg.qr(
+        torch.randn(b, n, filled, generator=g, device=cuda))[0]
+    return a, x, q
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("b,s,h,k,filled", [
+    (5, 37, 203, 19, 19),         # ragged; H % 4 != 0: element copies
+    (3, 7, 256, 5, 5),            # left: S = 7 < f, empty blocks
+    (2, 515, 1028, 1, 1),         # k = 1; TMA boxes ragged at S and H
+    (2, 300, 1000, 72, 36),       # phase 4's k, half filled; N % f != 0
+    (2, 260, 520, 256, 256),      # the kernel's largest k
+    (1, 4096, 4096, 20, 10),      # phase 6's B = 1 step
+    (128, 24, 64, 8, 8),          # more clusters than the card holds
+])
+def test_reorth_kernel_matches_plain(cuda, side, b, s, h, k, filled):
+    """The cluster kernel against its plain version at every f of
+    REORTH_FS (min(f, 16) CTAs an element, two blocks a CTA at f = 32);
+    reruns bit-identical; one launch counted per call."""
+    a, x, q = _reorth_inputs(cuda, side, b, s, h, k, filled)
     kern = getattr(lr, f"reorth_{side}_batched")
     plain = getattr(lr, f"reorth_{side}_batched_plain")
-    before = kern.launches
-    for f in (1, 8, 32):
+    zp, nzp = plain(a, x, q)
+    for f in REORTH_FS:
+        before = kern.launches
         z, nz = kern(a, x, q, expansion=f)
-        zp, nzp = plain(a, x, q)
+        z2, nz2 = kern(a, x, q, expansion=f)
+        assert kern.launches == before + 2
         torch.testing.assert_close(z, zp, **TOL)
         torch.testing.assert_close(nz, nzp, **TOL)
-    assert kern.launches == before + 3
+        assert torch.equal(z, z2) and torch.equal(nz, nz2), f
+    if b == 1:                     # the scalar wrappers are B = 1 calls
+        one = getattr(lr, f"reorth_{side}")
+        z1, n1 = one(a[0], x[0], q[0], expansion=16)
+        assert torch.equal(z1, kern(a, x, q, expansion=16)[0][0])
     with pytest.raises(ValueError, match="contiguous"):
-        kern(a, x, q.transpose(1, 2).contiguous().transpose(1, 2))
+        kern(a, x, torch.zeros(b, 2 * q.shape[1], k, device=cuda)[:, ::2])
+
+
+@pytest.mark.parametrize("f", [1, 16, 32])
+@pytest.mark.parametrize("side", ["right", "left"])
+def test_reorth_call_is_one_launch(cuda, side, f):
+    """At any f one call is one device kernel: the cluster combines its
+    blocks' partials through distributed shared memory in the launch."""
+    a, x, q = _reorth_inputs(cuda, side, 3, 300, 520, 24, 12)
+    kern = getattr(lr, f"reorth_{side}_batched")
+    kernels = _device_kernels(lambda: kern(a, x, q, expansion=f))
+    assert len(kernels) == 1 and f"reorth_{side}_kernel" in kernels[0], \
+        kernels
+
+
+def test_reorth_kernel_refuses_what_it_does_not_take(cuda):
+    a, x, q = _reorth_inputs(cuda, "right", 2, 40, 64, 4, 4)
+    for f in (0, 33):
+        with pytest.raises(ValueError, match="blocks"):
+            lr.reorth_right_batched(a, x, q, expansion=f)
+    with pytest.raises(ValueError, match="basis columns"):
+        lr.reorth_right_batched(a, x, torch.zeros(2, 64, 257, device=cuda))
+    lib = lr._lib()                # the wrapper's Q rule is the kernel's
+    for side, s, h, k in (("right", 4096, 4096, 20), ("left", 4096, 4096, 20),
+                          ("right", 512, 4096, 72), ("left", 512, 4096, 72),
+                          ("left", 7, 203, 19), ("right", 37, 203, 256)):
+        for f in REORTH_FS:
+            assert lr.q_in_smem(side, s, h, k, f) == bool(
+                lib.dcom_reorth_q_in_smem(0 if side == "right" else 1, s, h,
+                                          k, f)), (side, s, h, k, f)
 
 
 def _device_kernels(fn):

@@ -52,7 +52,7 @@ def test_spaces_match_jax_where_the_meaning_is_shared():
     assert dataclasses.astuple(tune.get_space("matvec_expand")) == \
         dataclasses.astuple(jtune.get_space("matvec_expand"))
     assert set(tune.available_spaces()) == set(KERNELS)
-    # lanczos_reorth: the same f grid, but f is warps per CTA here
+    # lanczos_reorth: the same f grid; f is blocks along N here, as in JAX
     lr = tune.get_space("lanczos_reorth")
     assert lr.param("expansion").choices == jtune.get_space(
         "lanczos_reorth").param("expansion").choices
@@ -211,6 +211,35 @@ def test_rmatvec_term_counts_ctas_and_bytes_in_flight(shape, dtype, f,
     assert extra == (8.0 * b * f * shape[-1] if f > 1 else 0.0)
 
 
+@pytest.mark.parametrize("b,s,h,k,f,q_once", [
+    (1, 4096, 4096, 20, 16, True),     # phase 6's step: Q rows 20 KB a CTA
+    (32, 512, 4096, 72, 16, True),     # phase 4's step: 72 KB a CTA
+    (32, 512, 4096, 72, 8, False),     # 147 KB: Q read in every sweep
+    (32, 512, 4096, 72, 32, True),     # two blocks a CTA
+    (1, 4096, 4096, 20, 1, False),     # one CTA holds all of H
+    (4, 64, 256, 8, 2, True),
+])
+def test_reorth_term_counts_cluster_ctas_and_q_once_where_it_fits(
+        b, s, h, k, f, q_once):
+    """The re-orth term follows the cluster kernel: B x min(f, 16) CTAs,
+    two 32 KB ring stages in flight each (at most its share of A); the
+    bytes count A and Q once, and where a CTA's Q rows do not fit in its
+    shared memory the two re-reads slow the memory side; the combine
+    reads the f blocks' k partials in every CTA, twice."""
+    from repro_torch.kernels import lanczos_reorth as lr
+    from repro_torch.tune import cost_model as cm
+    bytes_, flops, warps, extra, ctas, splits = cm._terms_lanczos_reorth(
+        (b, s, h, k), 4, {"expansion": f})
+    assert ctas == b * min(f, 16) == b * lr.cluster_ctas(f)
+    assert lr.q_in_smem("right", s, h, k, f) is q_once
+    assert bytes_ == b * (4 * s * h + 4 * h * k + 4 * s + 4 * h)
+    moved = bytes_ + (0 if q_once else 2 * b * 4 * h * k)
+    flight = min(2 * cm.RING_STAGE_BYTES, -(-4 * s * h // min(f, 16)))
+    assert warps == pytest.approx(ctas * flight / cm.MATVEC_WARP_FLIGHT
+                                  * bytes_ / moved)
+    assert extra == 8.0 * ctas * f * k and splits == 0.0
+
+
 # ---------------------------------------------------------------------------
 # Tuner on the host
 # ---------------------------------------------------------------------------
@@ -252,6 +281,27 @@ def test_cache_entry_outside_its_own_space_is_ignored(tmp_cache):
                     device="cpu")
     assert res.source == "model" and res.best["expansion"] in \
         tune.EXPANSION_GRID
+
+
+def test_reorth_cache_entry_of_the_old_meaning_is_a_miss(tmp_cache):
+    """An entry written before the cluster kernel (no revision: its f
+    counted warps per CTA) is not reused, though its f lies in the grid;
+    the new answer carries the space's revision and is reused."""
+    key = tune.entry_key("torch-cpu", "lanczos_reorth", (2, 48, 96),
+                         "float32") + "/backend=cuda"
+    c = tune.default_cache()
+    c.put(key, {"kernel": "lanczos_reorth", "shape": [2, 64, 128],
+                "dtype": "float32", "predicted_s": 1.0, "measured_s": 1.0,
+                "best": {"expansion": 32, "backend": "cuda",
+                         "reorth": "cgs2"}, "table": []})
+    kw = dict(fix={"backend": "cuda"}, device="cpu")
+    res = tune.tune("lanczos_reorth", (2, 48, 96), **kw)
+    assert res.source == "model"
+    assert c.get(key)["revision"] == tune.space_revision(
+        "lanczos_reorth") == 1
+    assert tune.space_revision("matvec_expand") == 0
+    again = tune.tune("lanczos_reorth", (2, 48, 96), **kw)
+    assert again.source == "cache" and again.best == res.best
 
 
 def test_tuned_expansion_is_an_in_process_lru(tmp_cache, tmp_path,
