@@ -96,11 +96,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cache is a temporary file of the run.
 
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
-statistics, the B = 1 re-orth pair) against their plain versions at the
-shapes phase 6 gives them (the Eq. 6 GEMM's reruns bit-identical, its
-times warm and L2-cold beside ``torch.matmul``'s), the paged dkv kernel bit for bit against
-the slab kernel at phase 4's shapes, and the intra-chunk SSD kernel at
-phase 8's two shapes, and the four expanded matvec wrappers at
+statistics in bf16, as phase 6 feeds them, and in float32, the B = 1
+re-orth pair) against their plain versions at the shapes phase 6 gives
+them (the Eq. 6 GEMM's reruns bit-identical, its times warm and L2-cold
+beside ``torch.matmul``'s; the outlier rows warm, L2-cold and with an
+L2 flushed by reading, ``ms_l2_cold_clean``), the paged
+dkv kernel bit for bit against the slab kernel at phase 4's shapes, the
+intra-chunk SSD kernel at phase 8's four prefill shapes (reruns
+bit-identical; warm and L2-cold, beside the empty launch and the
+shape's launches per run), and the four expanded matvec wrappers at
 phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
 bit-identical; times L2-flushed and warm beside the library call's).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
@@ -159,16 +163,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms_cold(fn, iters: int = 20) -> float:
+def time_ms_cold(fn, iters: int = 20, clean: bool = False) -> float:
     """Median CUDA-event time of ``fn()`` with the 50 MB L2 flushed
     before each call (a 256 MiB buffer is overwritten), as on the main
-    path, where other layers' work evicts the operands between calls."""
+    path, where other layers' work evicts the operands between calls.
+    The overwrite leaves the L2 full of dirty lines, which ``fn`` must
+    write back as it reads; ``clean`` flushes by reading the buffer
+    instead, so only ``fn``'s own traffic is timed."""
     import torch
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -327,36 +337,43 @@ def lowrank_matmul_case(k: int, h: int, n: int, gen):
                           "bit-identical")
 
 
-def outlier_stats_case(s: int, h: int, gen, threshold: float = 3.0):
-    """Outlier statistics of one prompt X [1, S, H] float32 with 8
-    planted outlier channels; both reductions are exact, so the kernel
-    must equal the plain version bit for bit."""
+def outlier_stats_case(s: int, h: int, gen, threshold: float = 3.0,
+                       dtype: str = "bfloat16"):
+    """Outlier statistics of one prompt X [1, S, H] in ``dtype`` (phase 6
+    hands the kernel the bf16 activation) with 8 planted outlier channels;
+    both reductions are exact, so the kernel must equal the plain version
+    bit for bit.  Times warm and with the L2 flushed before each call."""
     import torch
     from repro_torch.kernels import outlier_extract as oe
     dev = "cuda"
     x = torch.randn(1, s, h, generator=gen, device=dev)
     planted = torch.randperm(h, generator=gen, device=dev)[:8]
     x[..., planted] *= 4.0
+    x = x.to(getattr(torch, dtype))
     cnt, mx = oe.outlier_stats(x, threshold)
     cp, mp = oe.outlier_stats_plain(x, threshold)
     torch.cuda.synchronize()
     err = max((cnt - cp).abs().max().item(), (mx - mp).abs().max().item())
     if err != 0.0 or not (cnt[0, planted] > 0).all():
-        raise AssertionError(f"outlier_stats: max abs err {err} (must be "
-                             f"0) or a planted channel counted nothing")
+        raise AssertionError(f"outlier_stats {dtype}: max abs err {err} "
+                             f"(must be 0) or a planted channel counted "
+                             f"nothing")
     cold_ms = time_ms_cold(lambda: oe.outlier_stats(x, threshold))
+    clean_ms = time_ms_cold(lambda: oe.outlier_stats(x, threshold),
+                            clean=True)
     ms = time_ms(lambda: oe.outlier_stats(x, threshold))
     plain_ms = time_ms(lambda: oe.outlier_stats_plain(x, threshold))
-    bms, by = bound(4 * s * h + 2 * 4 * h, 3 * s * h, "float32")
+    bms, by = bound(x.element_size() * s * h + 2 * 4 * h, 3 * s * h,
+                    "float32")
     return dict(name="outlier_stats", route="cuda",
                 source="src/repro_torch/kernels/csrc/outlier_extract.cu",
                 replaces="src/repro/kernels/outlier_extract.py:53",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None,
-                shape=dict(x=[1, s, h], threshold=threshold,
+                shape=dict(x=[1, s, h], dtype=dtype, threshold=threshold,
                            planted_channels=8,
                            counted_channels=int((cnt > 0).sum().item())),
-                ms_l2_cold=cold_ms,
+                ms_l2_cold=cold_ms, ms_l2_cold_clean=clean_ms,
                 tolerance="exact (counts and maxima do not depend on the "
                           "order of reduction)")
 
@@ -495,9 +512,12 @@ def dkv_paged_case(b: int, g: int, r: int, t_valid, page: int, dtype,
                           "reruns bit-identical")
 
 
-def ssd_case(g: int, q: int, nh: int, hd: int, gen):
+def ssd_case(g: int, q: int, nh: int, hd: int, gen, per_run=None):
     """The intra-chunk SSD term at one of phase 8's prefill shapes: cb
-    [G, Q, Q], a decreasing log-decay l, dt > 0 and x, all float32."""
+    [G, Q, Q], a decreasing log-decay l, dt > 0 and x, all float32; reruns
+    must be bit-identical.  Times warm and with the L2 flushed before each
+    call (another layer's work runs between two calls on the main path).
+    ``per_run``: the shape's launches in one run of phase 8."""
     import torch
     from repro_torch.kernels import ssd_chunk as sc
     dev = "cuda"
@@ -506,31 +526,40 @@ def ssd_case(g: int, q: int, nh: int, hd: int, gen):
                                   device=dev).abs() * 0.05, dim=1)
     dt = torch.randn(g, q, nh, generator=gen, device=dev).abs()
     x = torch.randn(g, q, nh, hd, generator=gen, device=dev)
-    got = sc.ssd_chunk_intra(cb, l, dt, x)
+    kern = lambda: sc.ssd_chunk_intra(cb, l, dt, x)  # noqa: E731
+    got = kern()
+    again = kern()
     want = sc.ssd_chunk_intra_plain(cb, l, dt, x)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 1e-4 * want.abs().max().item()
-    if not (torch.isfinite(got).all() and err <= tol):
+    if not (torch.isfinite(got).all() and err <= tol
+            and torch.equal(got, again)):
         raise AssertionError(f"ssd_chunk_intra G={g} Q={q}: max abs err "
-                             f"{err:.3e} > {tol:.3e}")
-    ms = time_ms(lambda: sc.ssd_chunk_intra(cb, l, dt, x))
+                             f"{err:.3e} > {tol:.3e} or reruns differ")
+    ms, ms_cold = time_ms(kern), time_ms_cold(kern)
     plain_ms = time_ms(lambda: sc.ssd_chunk_intra_plain(cb, l, dt, x))
     # each input read once, y written once; 2·hd FMA operations plus the
     # masked decay (subtract, exp, two products) per (q, s <= q, head)
     bytes_ = 4 * (g * q * q + 2 * g * q * nh + 2 * g * q * nh * hd)
     flops = nh * g * q * (q + 1) // 2 * (2 * hd + 4)
     bms, by = bound(bytes_, flops, "float32")
+    plan = getattr(sc, "heads_for", None)   # absent in older checkouts
     return dict(name="ssd_chunk_intra", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
                 replaces="src/repro/kernels/ssd_chunk.py:70",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None,
+                bound_by=by, library_ms=None, ms_l2_cold=ms_cold,
                 shape=dict(G=g, Q=q, nh=nh, hd=hd),
+                heads_per_item=plan(g, q, nh, hd, x.device) if plan else None,
+                launches_per_run=per_run,
                 tolerance="max|y_kernel - y_plain| <= 1e-4 max|y_plain| "
                           "(float32, sums in another order; "
-                          "tests/test_kernels.py uses 1e-4)")
+                          "tests/test_kernels.py uses 1e-4); reruns "
+                          "bit-identical")
 
+
+SSD_SHAPES = ((8, 64), (6, 64), (2, 64), (1, 304))   # phase 8's (G, Q)
 
 MATVEC_LINES = {"matvec": 65, "rmatvec": 174, "matvec_batched": 122,
                 "rmatvec_batched": 148}   # src/repro/kernels/matvec_expand.py
@@ -625,18 +654,21 @@ def phase_kernels(cfg):
     act = [lowrank_matmul_case(r, h, cfg.num_heads * cfg.resolved_head_dim,
                                gen),
            lowrank_matmul_case(r, h, cfg.d_ff, gen),
-           outlier_stats_case(seq, h, gen)]
+           outlier_stats_case(seq, h, gen, dtype="bfloat16"),
+           outlier_stats_case(seq, h, gen, dtype="float32")]
     for side in ("right", "left"):
         act.append(dict(reorth_case(side, 1, seq, h, r, r // 2, expansion,
                                     gen, scalar=True), launch_floor_ms=floor))
         torch.cuda.empty_cache()
     for rec in act:
         print(json.dumps(rec), flush=True)
-    # Mamba2 prefill (phase 8): a 512-token prompt in 8 chunks of 64, and
-    # the 300-token prompt bucketed to one chunk of 304
+    # Mamba2 prefill (phase 8): the 512-, 384- and 128-token prompts in 8,
+    # 6 and 2 chunks of 64, and the 300-token prompt bucketed to one chunk
+    # of 304; each shape launches once per layer of a run
     m2 = get_arch(MAMBA_ARCH)
-    ssd_rows = [ssd_case(g, q, m2.ssm_heads, m2.ssm_head_dim, gen)
-                for g, q in ((8, 64), (1, 304))]
+    ssd_rows = [dict(ssd_case(g, q, m2.ssm_heads, m2.ssm_head_dim, gen,
+                              per_run=m2.num_layers), launch_floor_ms=floor)
+                for g, q in SSD_SHAPES]
     for rec in ssd_rows:
         print(json.dumps(rec), flush=True)
     # the expanded matvec pair (phase 9's Fig. 12 operating points): A

@@ -4,6 +4,8 @@
     git archive <commit> | tar -x -C .ab/base      # a directory .gitignore lists
     python3 kernel_ab.py .ab/base .                # base, new, new, base
     python3 kernel_ab.py .ab/base . --out ab.json
+    python3 kernel_ab.py .ab/base . --only ssd_chunk_intra,outlier_stats \
+        --repeat 3                                 # base, new, new, base x3
 
 Each checkout is measured in its own process, in turns (base, new, new,
 base), so both run on the same card within one run.  A process puts
@@ -22,8 +24,12 @@ at phase 4's decode shape (inner [4, 32, 64], U [4, 512, 64] bf16,
 t_valid 512/384/304/128; 16-row pages), and ``matvec_case`` for
 ``matvec`` and ``rmatvec`` at A [4096, 4096] float32 (L2 flushed per
 call) and ``matvec_batched`` and ``rmatvec_batched`` at [64, 4096,
-4096] bf16, all at f = 8.  Each case holds the kernel against its plain
-version, as in ``chip_smoke.py``.  Each run also times an empty kernel
+4096] bf16, all at f = 8, ``ssd_case`` at phase 8's four prefill shapes
+(G 8, 6, 2 at Q 64 and G 1 at Q 304; nh 48, hd 64) and
+``outlier_stats_case`` at phase 6's X [1, 4096, 4096] in bf16 and float32
+(a checkout whose kernel refuses bf16 reports the refusal instead; its
+path fed the kernel the float32 copy).  Each case holds the kernel
+against its plain version, as in ``chip_smoke.py``.  Each run also times an empty kernel
 (``launch_floor_ms``).  The times of the rows (``ms``, ``library_ms`` and
 whatever else the case reports) are printed per run, one JSON line
 each, and written to ``--out`` if given.
@@ -52,7 +58,13 @@ CASES = (("reorth_right", REORTH["scalar"]),
          ("matvec", (4096, 4096)),
          ("rmatvec", (4096, 4096)),
          ("matvec_batched", (64, 4096, 4096)),
-         ("rmatvec_batched", (64, 4096, 4096)))
+         ("rmatvec_batched", (64, 4096, 4096)),
+         ("ssd_chunk_intra", (8, 64, 48, 64)),
+         ("ssd_chunk_intra", (6, 64, 48, 64)),
+         ("ssd_chunk_intra", (2, 64, 48, 64)),
+         ("ssd_chunk_intra", (1, 304, 48, 64)),
+         ("outlier_stats", (4096, 4096, "bfloat16")),
+         ("outlier_stats", (4096, 4096, "float32")))
 
 
 def load_smoke(root: Path, name: str):
@@ -62,9 +74,10 @@ def load_smoke(root: Path, name: str):
     return mod
 
 
-def child(root: Path, cases: Path) -> dict:
-    """The rows of :data:`CASES`: ``root``'s kernels measured by the cases
-    and timers of ``cases``' ``chip_smoke.py``."""
+def child(root: Path, cases: Path, only=None) -> dict:
+    """The rows of :data:`CASES` (those named in ``only``, if given):
+    ``root``'s kernels measured by the cases and timers of ``cases``'
+    ``chip_smoke.py``."""
     sys.path.insert(0, str(root / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -80,6 +93,8 @@ def child(root: Path, cases: Path) -> dict:
     from repro_torch.engine import EngineConfig
     expansion = EngineConfig().expansion
     for name, shape in CASES:
+        if only and name not in only:
+            continue
         if name.startswith("reorth"):
             side = name.split("_")[1]
             if name.endswith("batched"):
@@ -99,12 +114,21 @@ def child(root: Path, cases: Path) -> dict:
             rec = smoke.dkv_paged_case(DKV["b"], DKV["g"], DKV["r"],
                                        DKV["t_valid"], 16, torch.bfloat16,
                                        gen)
+        elif name == "ssd_chunk_intra":
+            rec = smoke.ssd_case(*shape, gen)
+        elif name == "outlier_stats":
+            s, h, dt = shape
+            try:
+                rec = smoke.outlier_stats_case(s, h, gen, dtype=dt)
+            except ValueError as e:              # a kernel that refuses dt
+                rec = dict(name=name, refused=str(e))
         else:
             dt = torch.float32 if len(shape) == 2 else torch.bfloat16
             rec = smoke.matvec_case(name, shape, dt, gen)
         rows.append({k: v for k, v in rec.items()
                      if k in ("name", "max_abs_err", "bound_ms", "expansion",
-                              "cluster", "resident_clusters")
+                              "cluster", "resident_clusters", "refused",
+                              "heads_per_item")
                      or k.endswith("ms") or "ms_" in k})
         rows[-1]["shape"] = list(shape)
         torch.cuda.empty_cache()
@@ -119,11 +143,17 @@ def main() -> int:
     ap.add_argument("base", type=Path, help="checkout measured first/last")
     ap.add_argument("new", type=Path, help="checkout measured in between")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="rounds of base, new, new, base")
+    ap.add_argument("--only", default="",
+                    help="comma-separated case names (default: all)")
     ap.add_argument("--child", type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(child(args.child.resolve(), args.new.resolve())),
+        only = set(filter(None, args.only.split(",")))
+        print(json.dumps(child(args.child.resolve(), args.new.resolve(),
+                               only)),
               flush=True)
         return 0
     smi = subprocess.run(
@@ -133,10 +163,11 @@ def main() -> int:
     print(smi, flush=True)
     runs = []
     for label, root in (("base", args.base), ("new", args.new),
-                        ("new", args.new), ("base", args.base)):
+                        ("new", args.new), ("base", args.base)) * args.repeat:
         proc = subprocess.run(
             [sys.executable, __file__, str(args.base), str(args.new),
-             "--child", str(root)], capture_output=True, text=True,
+             "--child", str(root), "--only", args.only],
+            capture_output=True, text=True,
             timeout=900)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)

@@ -125,19 +125,25 @@ class DecomposeEngine:
 
         Each prompt decomposes on its own (paper §3.1).  The channel count
         is ``max(1, round(outlier_frac · H))`` (Python's ``round``, as in
-        the reference); extraction and Lanczos run on the float32 copy of
-        x, and the factors and the outlier values are cast back to
-        ``x.dtype`` before any projection (where the reference casts)."""
+        the reference).  The channel statistics read x in its own dtype
+        where the kernel takes it (float32 or bf16: |x| is exact in float32
+        either way, so the selection is that of the float32 copy); the
+        split and Lanczos run on the float32 copy of x, and the factors and
+        the outlier values are cast back to ``x.dtype`` before any
+        projection (where the reference casts)."""
         if lp is None:
             lp = self.layer_policy(layer_idx)
         if threshold is None:
             threshold = self.threshold(layer_idx)
         num_c = max(1, round(lp.outlier_frac * x.shape[-1])) \
             if lp.outlier_frac > 0 else 0
+        if num_c:           # before the float32 copy evicts x from the L2
+            sx = x if x.dtype == torch.bfloat16 else x.float()
+            idx = ol.select_outlier_channels(sx.contiguous(), threshold,
+                                             num_c, self.kernels.outlier_stats)
         x32 = x.to(torch.float32).contiguous()
         if num_c:
-            base, vals, idx = ol.extract(x32, threshold, num_c,
-                                         self.kernels.outlier_stats)
+            base, vals = ol.split_outliers(x32, idx)
         else:
             base = x32
         lr = self.decompose(base, lp.rank, iters=lp.effective_iters)

@@ -19,6 +19,7 @@ arrive combines the partials of a launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -104,6 +105,13 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(paths[name]))
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def tickets(device, n: int, owner: str):

@@ -94,6 +94,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box of a 3-D / 4-D `map` at coordinates (c0 innermost, ...).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Offset in elements of (row r, column c) in a run of [rows][128-byte]
 // boxes written with CU_TENSOR_MAP_SWIZZLE_128B: box c / E holds columns
 // [E * box, E * box + E), and in each row its 16-byte chunks are permuted
@@ -106,6 +127,26 @@ __device__ __forceinline__ int swz(int r, int c, int rows) {
   return (c / E) * rows * E + r * E + (((cc / V) ^ (r & 7)) * V) + cc % V;
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// Host: cuTensorMapEncodeTiled, looked up once (nullptr if it is missing).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+    encode = (EncodeTiled)fn;
+  }
+  return encode;
+}
+
 // Host: a tiled map of the row-major [rows, cols] tensor at `base`
 // (element size `elem`; cols * elem and base 16-byte aligned) with boxes
 // of [box_rows, box_cols]; out-of-range elements read as zero.  Returns
@@ -113,21 +154,8 @@ __device__ __forceinline__ int swz(int r, int c, int rows) {
 inline int make_map_2d(CUtensorMap* map, const void* base, int elem,
                        long rows, long cols, int box_rows, int box_cols,
                        bool swizzle) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        fn == nullptr)
-      return (int)CUDA_ERROR_NOT_FOUND;
-    encode = (Encode)fn;
-  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -140,6 +168,24 @@ inline int make_map_2d(CUtensorMap* map, const void* base, int elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Host: a tiled, unswizzled float32 map of `rank` (2..5) dimensions,
+// innermost first: dims[i] elements, strides[i] bytes between
+// consecutive indices of dimension i + 1 (multiples of 16), boxes of
+// box[i] elements; out-of-range elements read as zero.  Returns a
+// CUresult (0 = success).
+inline int make_map_f32(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+                     const_cast<void*>(base), dims, strides, box, step,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace dcom

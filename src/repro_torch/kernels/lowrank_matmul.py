@@ -17,11 +17,10 @@ the same launch).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .build import library
+from .build import library, sm_count
 
 
 def lowrank_matmul_plain(vt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -42,11 +41,6 @@ def _lib() -> ctypes.CDLL:
             fn.restype = i
         _BOUND = True
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def lowrank_matmul(vt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -77,7 +71,7 @@ def lowrank_matmul(vt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = lib.dcom_lrmm_f32 if vt.dtype == torch.float32 \
         else lib.dcom_lrmm_bf16
     err = fn(vt.data_ptr(), w.data_ptr(), out.data_ptr(), m, h, n,
-             _sms(vt.device.index),
+             sm_count(vt.device.index),
              torch.cuda.current_stream(vt.device).cuda_stream)
     if err:
         raise RuntimeError(f"lowrank_matmul kernel launch failed "

@@ -302,21 +302,52 @@ def test_lowrank_matmul_kernel_matches_plain(cuda, dtype, b, k, h, n):
         lrmm.lowrank_matmul(vt.float(), w.bfloat16())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h", [(1, 4096, 512), (2, 37, 203),
-                                   (3, 1000, 96)])
-def test_outlier_stats_kernel_matches_plain(cuda, b, s, h):
-    """Counts and max |x| are exact on both routes, so they are equal."""
+                                   (3, 1000, 96), (1, 4096, 4096)])
+def test_outlier_stats_kernel_matches_plain(cuda, b, s, h, dtype):
+    """Counts and max |x| are exact on both routes, so they are equal, for
+    float32 and bf16 input (H 203: masked scalar loads; [1, 4096, 4096]:
+    phase 6's shape, S split over CTAs)."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
-    x = torch.randn(b, s, h, generator=g, device=cuda) * 1.5
+    x = (torch.randn(b, s, h, generator=g, device=cuda) * 1.5).to(
+        getattr(torch, dtype))
     x[:, :, 3] *= 4.0
     before = oe.outlier_stats.launches
     cnt, mx = oe.outlier_stats(x, 3.0)
     cp, mp = oe.outlier_stats_plain(x, 3.0)
     assert oe.outlier_stats.launches == before + 1
+    assert cnt.dtype == mx.dtype == torch.float32
     assert torch.equal(cnt, cp) and torch.equal(mx, mp)
     assert cnt[:, 3].min().item() > 0
-    with pytest.raises(ValueError, match="float32"):
-        oe.outlier_stats(x.bfloat16(), 3.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        oe.outlier_stats(x.half(), 3.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_outlier_stats_second_call_is_not_stale(cuda, dtype):
+    """A second call on other inputs with smaller maxima and fewer
+    outliers gives its own statistics: no partial or ticket of the first
+    call survives into it (the S splits combine inside each launch)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dt = getattr(torch, dtype)
+    x1 = (torch.randn(2, 4096, 1024, generator=g, device=cuda) * 4).to(dt)
+    x2 = (torch.randn(2, 4096, 1024, generator=g, device=cuda) * 0.5).to(dt)
+    c1, m1 = oe.outlier_stats(x1, 3.0)
+    c2, m2 = oe.outlier_stats(x2, 3.0)
+    for (c, m), x in (((c1, m1), x1), ((c2, m2), x2)):
+        cp, mp = oe.outlier_stats_plain(x, 3.0)
+        assert torch.equal(c, cp) and torch.equal(m, mp)
+    assert (m2 < m1).all() and c2.sum() < c1.sum()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_outlier_stats_call_is_one_launch(cuda, dtype):
+    """One call is one device kernel: no memset before it, no combine
+    after it."""
+    x = torch.randn(1, 4096, 4096, device=cuda).to(getattr(torch, dtype))
+    names = _device_kernels(lambda: oe.outlier_stats(x, 3.0))
+    assert len(names) == 1 and "outlier_stats_kernel" in names[0], names
 
 
 def test_decomposed_forward_routes_agree_on_card(cuda):
@@ -368,12 +399,18 @@ def test_decomposed_forward_routes_agree_on_card(cuda):
 
 @pytest.mark.parametrize("g,q,nh,hd", [(3, 16, 6, 64), (8, 64, 6, 64),
                                        (2, 80, 5, 32), (1, 304, 6, 96),
-                                       (1, 1008, 6, 64)])
+                                       (1, 1008, 6, 64), (2, 70, 5, 30),
+                                       (8, 64, 48, 64), (6, 64, 48, 64),
+                                       (2, 64, 48, 64), (1, 304, 48, 64)])
 def test_ssd_chunk_kernel_matches_plain(cuda, g, q, nh, hd):
     """Intra-chunk SSD term: Q = 16, 64, 80, 304 (one bucketed prompt)
     and 1008 (many 64-row query tiles), nh not a multiple of 4, hd 32,
-    64 and 96 (a ragged second column slice).  float32 sums in another
-    order: 1e-4 relative and absolute, as the JAX kernel test."""
+    64 and 96 (a ragged second column slice), Q 70 / hd 30 (rows of cb
+    and x not whole 16-byte units), and phase 8's four full-width shapes
+    (mamba2-780m: nh 48, hd 64; G 8, 6, 2 at Q 64, which take blocks of
+    heads, and G 1 at Q 304).  float32 sums in another order: 1e-4
+    relative and absolute, as the JAX kernel test, and 1e-4 of max|y|
+    (chip_smoke.py's bound); reruns bit-identical."""
     gen = torch.Generator(device=cuda).manual_seed(q + hd)
     cb = torch.randn(g, q, q, generator=gen, device=cuda) * 0.3
     da = -torch.randn(g, q, nh, generator=gen, device=cuda).abs() * 0.05
@@ -385,6 +422,8 @@ def test_ssd_chunk_kernel_matches_plain(cuda, g, q, nh, hd):
     want = ssd.ssd_chunk_intra_plain(cb, l, dt, x)
     assert ssd.ssd_chunk_intra.launches == before + 1
     torch.testing.assert_close(got, want, **TOL)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got, ssd.ssd_chunk_intra(cb, l, dt, x))
     # a steep decay overflows exp(l_q - l_s) above the diagonal: masked
     steep = torch.cumsum(da * 800, dim=1)
     got = ssd.ssd_chunk_intra(cb, steep, dt, x)
@@ -395,6 +434,18 @@ def test_ssd_chunk_kernel_matches_plain(cuda, g, q, nh, hd):
         ssd.ssd_chunk_intra(cb, l, dt, x.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_chunk_intra(cb.transpose(1, 2), l, dt, x)
+
+
+def test_ssd_chunk_call_is_one_launch(cuda):
+    """One call at phase 8's G 8 × Q 64 is one device kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cb = torch.randn(8, 64, 64, generator=gen, device=cuda)
+    l = torch.cumsum(-torch.rand(8, 64, 48, generator=gen, device=cuda),
+                     dim=1)
+    dt = torch.rand(8, 64, 48, generator=gen, device=cuda)
+    x = torch.randn(8, 64, 48, 64, generator=gen, device=cuda)
+    names = _device_kernels(lambda: ssd.ssd_chunk_intra(cb, l, dt, x))
+    assert len(names) == 1 and "ssd_chunk_intra_kernel" in names[0], names
 
 
 def test_mamba2_engine_on_card(cuda):

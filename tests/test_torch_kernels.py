@@ -195,17 +195,23 @@ def test_lowrank_matmul_plain_returns_vt_dtype():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,h,t", [(64, 96, 1.5), (32, 512, 2.0)])
-def test_outlier_stats_plain_matches_pallas(s, h, t):
+def test_outlier_stats_plain_matches_pallas(s, h, t, dtype):
     """Counts and max |x| == the JAX Pallas kernel (interpret mode; S
-    divisible by f, as it asserts), exactly: both are exact."""
+    divisible by f, as it asserts), exactly: both are exact.  In bf16 both
+    take the same bf16 values (the reference casts them to float32 in the
+    kernel, the port's plain version before it)."""
     rng = np.random.RandomState(s + h)
     x = rng.randn(2, s, h).astype(np.float32)
     x[:, :, 7] *= 10.0
-    cnt, mx = oe.outlier_stats(torch.from_numpy(x), t)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    cnt, mx = oe.outlier_stats(xt, t)
     assert cnt.shape == mx.shape == (2, h)
+    assert cnt.dtype == mx.dtype == torch.float32
     for i in range(2):
-        cj, mj = jops.outlier_stats(x[i], t, expansion=F, interpret=True)
+        cj, mj = jops.outlier_stats(xj[i], t, expansion=F, interpret=True)
         np.testing.assert_array_equal(cnt[i].numpy(), np.asarray(cj))
         np.testing.assert_array_equal(mx[i].numpy(), np.asarray(mj))
     assert cnt[:, 7].min() > 0

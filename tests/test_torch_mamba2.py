@@ -141,6 +141,20 @@ def test_ssd_chunk_plain_masks_before_the_exponent_overflows():
         *[jnp.asarray(a) for a in arrs])), **KTOL)
 
 
+@pytest.mark.parametrize("g,q,want", [(8, 64, 3), (6, 64, 3), (2, 64, 1),
+                                       (1, 304, 1), (64, 64, 4)])
+def test_ssd_kernel_takes_blocks_of_heads_where_they_pay(g, q, want):
+    """The CUDA kernel's heads per item at mamba2-780m's nh 48, hd 64 on
+    132 SMs: a block of heads (one staging of cb for all of them) where the
+    greedy schedule of items ends no later than with single heads, one head
+    where the grid would run short of items (G 2) or an item's cb boxes do
+    not fit the kernel's 4 ring slots (Q 304: 6 boxes)."""
+    assert ssd.heads_per_item(g, q, 48, 64, 132) == want
+    # a block of heads only while an item's cb boxes fit its slots
+    assert ssd.heads_per_item(8, 256, 48, 64, 132, cb_slots=4) == 1
+    assert ssd.heads_per_item(8, 128, 48, 64, 132, cb_slots=4) >= 1
+
+
 def test_kernel_sets_route_the_ssd_term():
     """``KernelSet.ssd_chunk_intra``: the counted wrapper under "cuda",
     the plain version under "reference"."""

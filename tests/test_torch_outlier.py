@@ -75,6 +75,32 @@ def test_measured_extraction_frac_matches_jax():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
+def test_engine_selects_on_bf16_as_on_its_float32_copy():
+    """``DecomposeEngine.decompose_activation`` hands the statistics the
+    activation in its own dtype: on a bf16 activation it selects the same
+    channels as on its float32 copy and as the reference's
+    ``select_outlier_channels`` on those float32 values (|x| of a bf16
+    value is exact in float32)."""
+    from repro_torch.core.policy import LayerPolicy
+    from repro_torch.engine import DecomposeEngine
+    x, planted = _spiky(21, b=2, s=40, h=128, n_spiky=4)
+    xb = torch.from_numpy(x).bfloat16()
+    lp = LayerPolicy(decompose=True, rank=4, iters=8, outlier_frac=0.03)
+    num_c = round(0.03 * 128)
+    eng = DecomposeEngine()
+    got = eng.decompose_activation(xb, lp=lp, threshold=3.0)
+    copy = eng.decompose_activation(xb.float(), lp=lp, threshold=3.0)
+    want = np.asarray(jol.select_outlier_channels(
+        jnp.asarray(xb.float().numpy()), jnp.asarray(3.0, jnp.float32),
+        num_c))
+    assert got.o_idx.shape == (2, num_c)
+    assert torch.equal(got.o_idx, copy.o_idx)
+    np.testing.assert_array_equal(got.o_idx.numpy(), want)
+    for i in range(2):
+        assert planted[i] <= set(got.o_idx[i].tolist())
+    assert got.o_dense.dtype == torch.bfloat16
+
+
 def test_calibrate_threshold_equals_jax():
     rng = np.random.RandomState(0)
     samples = rng.randn(4, 128, 256).astype(np.float32)
