@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --profile    # also profile serving, one
-                                       # decomposed forward, the shared-
-                                       # prefix run and Mamba2 serving
+    python3 chip_smoke.py --profile    # also profile serving (single-
+                                       # step and fused), one decomposed
+                                       # forward, the shared-prefix run
+                                       # and Mamba2 serving
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -30,7 +31,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    32 new tokens each, max_len 1024.  Every request must finish, tails
    must fold, and each of the path's three kernels must have launched
    during the run; one decode step's logits through the kernel route are
-   held against the plain ``_lowrank_attention`` route;
+   held against the plain ``_lowrank_attention`` route.  Then the same
+   traffic fused (``decode_block=8``, each block the replay of a
+   captured CUDA graph; blocks cut at the arrival rounds): tokens equal
+   to the single-step run's, no block decoded eagerly, and the replays'
+   kernel launches (the warm-up's apart) equal the single-step run's;
+   the same pair at 128 new tokens (more replays than captures); an eos
+   run (``eos_id`` = request 0's 16th token) fused and single-step with
+   equal tokens and ``stopped_eos``; and ``dispatch:``, one eager decode
+   step against one replay of its graph (the cost model's host
+   constant).  Each fused line prints decode tok/s (with and without
+   the host time of warm-up and capture) against single-step, blocks,
+   captures, replays and peak memory;
 5. conformance on a small input: greedy tokens of decomposed-KV serving
    at full rank (direct SVD) equal dense serving on a reduced float32
    llama2 config, through the kernels;
@@ -54,7 +66,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. paged serving of llama2-7b on the same weights (page 16, rank 64,
    tail 16): (a) phase 4's traffic through ``Engine(paged=True)`` gives
    phase 4's tokens, and every page comes back (slot and paged engines
-   run in turns, slot, paged, paged, slot, to compare their speeds); (b) shared-prefix
+   run in turns, slot, paged, paged, slot, to compare their speeds), and
+   fused at 32 and 128 new tokens, as in phase 4; (b) shared-prefix
    serving: 8 requests of a common 496-token system prompt
    (``RandomState(2)``) plus 16 distinct tokens, request 0 at step 0 and
    1-7 at step 2, 32 new tokens each, prefix cache 8: 1 miss and 7 hits,
@@ -72,7 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    runs both chunk regimes (Q = 64 with the inter-chunk scan, one chunk
    of Q = 304).  Every request must finish, ``ssd_chunk_intra`` must
    launch exactly 48 times per prefill launch and no other kernel at
-   all; a route check against ``backend="reference"`` on the card
+   all (and fused at 32 and 128 new tokens, as in phase 4); a route
+   check against ``backend="reference"`` on the card
    prefills the 512- and 300-token prompts through both routes: logits
    relative L2 within 2e-2 in bf16 and 1e-3 with float32 weights, final
    SSM and conv state within the same relative L2 in bf16 and allclose
@@ -749,15 +763,23 @@ SERVE_ARRIVALS = {0: [0, 1], 3: [2], 6: [3]}   # two arrive mid-decode
 
 
 def drive(eng, prompts, arrivals, max_new: int):
-    """Submit ``prompts[i]`` for each i of ``arrivals[step]`` before that
-    engine step, and step until every one of them finished."""
+    """Submit ``prompts[i]`` for each i of ``arrivals[r]`` once the engine
+    has run r decode rounds (a single-step engine runs one round a step),
+    and step until every one of them finished.  A fused engine's blocks
+    are cut at each arrival round (``decode_block`` lowered for that
+    block), so it admits every request at the round a single-step engine
+    does and the two give the same tokens."""
     from repro_torch.serving import Request
     n = sum(len(v) for v in arrivals.values())
+    block, rounds = eng.decode_block, sorted(arrivals)
     done = []
-    for step in range(2000):
-        for i in arrivals.get(step, []):
-            eng.submit(Request(uid=i, prompt=prompts[i],
-                               max_new_tokens=max_new))
+    for _ in range(2000):
+        while rounds and rounds[0] <= eng._round:
+            for i in arrivals[rounds.pop(0)]:
+                eng.submit(Request(uid=i, prompt=prompts[i],
+                                   max_new_tokens=max_new))
+        eng.decode_block = min(block, rounds[0] - eng._round) if rounds \
+            else block
         done.extend(eng.step())
         if len(done) == n and not eng._occupied():
             break
@@ -805,14 +827,120 @@ def serve_traffic(engine, prompts, profile: bool, title: str):
         torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def check_finished(done, vocab: int, what: str) -> None:
-    """Requests 0-3 finished with 32 tokens each, all in the vocab."""
+def check_finished(done, vocab: int, what: str, n: int = 32) -> None:
+    """Requests 0-3 finished with ``n`` tokens each, all in the vocab."""
     if sorted(r.uid for r in done) != [0, 1, 2, 3] or any(
-            len(r.out_tokens) != 32 or not all(0 <= t < vocab
-                                               for t in r.out_tokens)
+            len(r.out_tokens) != n or not all(0 <= t < vocab
+                                              for t in r.out_tokens)
             for r in done):
         raise AssertionError(f"{what}: unfinished or bad requests "
                              f"{ {r.uid: r.out_tokens for r in done} }")
+
+
+# ---------------------------------------------------------------------------
+# Fused decode blocks (phases 4, 7a and 8): the same traffic at
+# decode_block = FUSED_BLOCK, every block a replayed CUDA graph
+# ---------------------------------------------------------------------------
+
+FUSED_BLOCK = 8                       # the decode_block space's default
+LONG_NEW = 128                        # new tokens of the long pair
+
+
+def serve_once(engine, prompts, max_new: int, profile: bool = False,
+               title: str = "", eos_id=None):
+    """Phase 4's traffic (``max_new`` new tokens each) through a fresh
+    ``engine()`` with every launch count at 0, profiled when asked.
+    Returns (engine, {uid: tokens}, launch counts, peak GiB)."""
+    import torch
+    from repro_torch.kernels import ops
+    eng = engine()
+    eng.eos_id = eos_id
+    torch.cuda.reset_peak_memory_stats()
+    with profiled(profile, title):
+        ops.reset_launch_counts()
+        done = drive(eng, prompts, SERVE_ARRIVALS, max_new)
+        torch.cuda.synchronize()
+    if eos_id is None:
+        check_finished(done, eng.cfg.vocab, title, max_new)
+    return eng, {r.uid: r.out_tokens for r in done}, ops.launch_counts(), \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def decode_rates(st, graphs=None) -> str:
+    """decode tok/s of a run and, for a fused run, without the host time
+    its warm-up and captures took (they run inside decode rounds)."""
+    out = f"{st.decode_tok_s:.2f}"
+    if graphs is not None and graphs.capture_s:
+        out += (f" ({st.tokens_out / (st.decode_s - graphs.capture_s):.2f}"
+                f" without {graphs.capture_s:.2f} s of capture)")
+    return out
+
+
+def check_fused(what: str, eng, tokens, launches, single_tokens,
+                single_launches=None) -> None:
+    """A fused run: its tokens are the single-step run's, every block
+    replayed a graph (none decoded eagerly), and, given the single-step
+    run's launch counts, its replays' kernel launches (without the
+    warm-up's) equal them."""
+    if tokens != single_tokens:
+        raise AssertionError(f"{what}: fused tokens {tokens} != single-step "
+                             f"tokens {single_tokens}")
+    g, st = eng.graphs, eng.stats
+    if g.eager or g.replays != st.blocks or not g.replays:
+        raise AssertionError(f"{what}: {g.eager} blocks decoded eagerly, "
+                             f"{g.replays} replays for {st.blocks} blocks")
+    if single_launches is not None:
+        got = {k: v - g.warmup_launches.get(k, 0)
+               for k, v in launches.items()}
+        if got != single_launches:
+            raise AssertionError(f"{what}: fused launches {got} (warm-up "
+                                 f"{g.warmup_launches}) != single-step "
+                                 f"{single_launches}")
+
+
+def fused_line(what: str, max_new: int, st, fused, peak) -> None:
+    """One line comparing a single-step run (its stats ``st``) with its
+    fused twin (engine ``fused``)."""
+    fs, g = fused.stats, fused.graphs
+    print(f"{what}: {max_new} new tokens, decode_block={fused.decode_block}"
+          f" tokens equal to single-step; decode_tok/s fused "
+          f"{decode_rates(fs, g)} vs single-step {decode_rates(st)}; "
+          f"decode_s {fs.decode_s:.4f} vs {st.decode_s:.4f}; blocks "
+          f"{fs.blocks} for {fs.decode_steps} steps (single-step "
+          f"{st.blocks}); graph captures={g.captures} replays={g.replays} "
+          f"warm-up launches {json.dumps(g.warmup_launches)}; capture_s="
+          f"{g.capture_s:.3f}; folds {fs.tail_folds}/{st.tail_folds}; "
+          f"fused peak_mem_gib={peak:.2f}", flush=True)
+
+
+def fused_pairs(what: str, engine, prompts, single, tokens, launches,
+                profile: bool, long_ref=None):
+    """The fused twin of a finished 32-token single-step run (its stats
+    ``single``, ``tokens`` and ``launches``), then the pair at LONG_NEW
+    tokens
+    (single-step, then fused; the single-step tokens are also held
+    against ``long_ref`` where given).  Returns the long run's
+    single-step tokens."""
+    fused, ftok, flaunch, peak = serve_once(
+        lambda: engine(FUSED_BLOCK), prompts, 32, profile,
+        f"{what}: profile of the fused serving run "
+        f"(decode_block={FUSED_BLOCK})")
+    check_fused(what, fused, ftok, flaunch, tokens, launches)
+    fused_line(f"{what} fused", 32, single, fused, peak)
+    del fused
+    long1, ltok, llaunch, _ = serve_once(lambda: engine(1), prompts,
+                                         LONG_NEW)
+    if long_ref is not None and ltok != long_ref:
+        raise AssertionError(f"{what}: {LONG_NEW}-token tokens differ from "
+                             f"phase 4's")
+    longf, ftok, flaunch, peak = serve_once(lambda: engine(FUSED_BLOCK),
+                                            prompts, LONG_NEW)
+    check_fused(f"{what} {LONG_NEW}", longf, ftok, flaunch, ltok, llaunch)
+    if longf.graphs.replays <= longf.graphs.captures:
+        raise AssertionError(f"{what}: {longf.graphs.replays} replays for "
+                             f"{longf.graphs.captures} captures")
+    fused_line(f"{what} fused", LONG_NEW, long1.stats, longf, peak)
+    return ltok
 
 
 def serve_llama(cfg, params, profile: bool = False):
@@ -822,9 +950,10 @@ def serve_llama(cfg, params, profile: bool = False):
 
     ecfg = EngineConfig(kv_rank=64, kv_tail=16)
 
-    def engine():
+    def engine(decode_block: int = 1):
         return Engine(cfg, params, slots=4, max_len=1024,
-                      decompose_engine=DecomposeEngine(ecfg), device="cuda")
+                      decompose_engine=DecomposeEngine(ecfg), device="cuda",
+                      decode_block=decode_block)
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
@@ -849,9 +978,66 @@ def serve_llama(cfg, params, profile: bool = False):
           f"mean_itl_ms={st.mean_itl_s * 1e3:.2f} peak_mem_gib={peak:.2f}",
           flush=True)
     print("serve: launches " + json.dumps(launches), flush=True)
+    tokens = {r.uid: r.out_tokens for r in done}
+
+    long_tokens = fused_pairs("serve", engine, prompts, st, tokens,
+                              launches, profile)
+    # a stop token: request 0's 16th single-step token ends every request
+    # that emits it, at the same round single-step and fused
+    eos = tokens[0][15]
+    e1, t1, _, _ = serve_once(engine, prompts, 32, eos_id=eos)
+    ef, tf, _, _ = serve_once(lambda: engine(FUSED_BLOCK), prompts, 32,
+                              eos_id=eos)
+    check_fused("serve eos", ef, tf, {}, t1)
+    if not 1 <= ef.stats.stopped_eos == e1.stats.stopped_eos:
+        raise AssertionError(f"serve eos: stopped_eos fused "
+                             f"{ef.stats.stopped_eos} vs single-step "
+                             f"{e1.stats.stopped_eos}")
+    print(f"serve eos: eos_id={eos} (request 0's 16th token): tokens equal, "
+          f"stopped_eos {ef.stats.stopped_eos} = {e1.stats.stopped_eos}, "
+          f"stopped_budget {ef.stats.stopped_budget} = "
+          f"{e1.stats.stopped_budget}, decode steps {ef.stats.decode_steps} "
+          f"in {ef.stats.blocks} blocks", flush=True)
+    del e1, ef
+    measure_dispatch(engine, prompts)
 
     check_decode_routes(cfg, params, prompts, ecfg)
-    return launches, {r.uid: r.out_tokens for r in done}
+    return launches, tokens, long_tokens
+
+
+def measure_dispatch(engine, prompts) -> None:
+    """Host dispatch of one decode step: the same step (4 admitted slots)
+    eager, sampled and read back, against one replay of its captured
+    1-step graph, read back (median of 7 each; the cost model's
+    ``H100_HOST_DISPATCH_S`` is their difference)."""
+    import torch
+    from repro_torch.serving import Request
+    eng = engine(FUSED_BLOCK)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    eng._admit()
+    tok, stops = eng._last_tokens(), eng._stop_table()
+    tok_dev = torch.from_numpy(tok).long().to(eng.device)
+
+    def eager():
+        eng._sample_host(eng.family.decode(tok_dev))
+
+    def replay():
+        eng.family.decode_block(tok, 1, stops)
+
+    def median_s(fn):
+        fn()
+        ts = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    e, r = median_s(eager), median_s(replay)
+    print(f"dispatch: one eager decode step {e * 1e3:.3f} ms, one replay of "
+          f"its captured graph {r * 1e3:.3f} ms (4 slots, both read back); "
+          f"host dispatch per step {(e - r) * 1e3:.3f} ms", flush=True)
 
 
 def check_decode_routes(cfg, params, prompts, ecfg):
@@ -1245,13 +1431,15 @@ PREFIX_LEN, USER_LEN, PREFIX_REQS = 496, 16, 8
 REORTH = ("reorth_right_batched", "reorth_left_batched")
 
 
-def paged_engine(cfg, params, prefix_cache: int = 0):
+def paged_engine(cfg, params, prefix_cache: int = 0,
+                 decode_block: int = 1):
     from repro_torch.engine import DecomposeEngine, EngineConfig
     from repro_torch.serving import Engine
     ecfg = EngineConfig(kv_rank=64, kv_tail=16, kv_page=16,
                         kv_prefix_cache=prefix_cache)
     return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
-                  paged=True, decompose_engine=DecomposeEngine(ecfg))
+                  paged=True, decompose_engine=DecomposeEngine(ecfg),
+                  decode_block=decode_block)
 
 
 def check_pages_back(eng, what: str) -> None:
@@ -1263,12 +1451,14 @@ def check_pages_back(eng, what: str) -> None:
                              f"/{pg.num_tail_pages - 1} tail free)")
 
 
-def paged_same_traffic(cfg, params, slot_tokens):
+def paged_same_traffic(cfg, params, slot_tokens, long_tokens,
+                       profile: bool = False):
     """(7a) Phase 4's traffic through ``paged=True`` (no prefix cache):
     the same greedy tokens as the slot engine, every page back after the
     drain, decode through the paged kernel only.  Slot and paged engines
     run in turns (slot, paged, paged, slot) so their speeds compare
-    within the call."""
+    within the call.  Then the paged fused twins at 32 and LONG_NEW new
+    tokens (tokens equal to phase 4's)."""
     import numpy as np
     import torch
     from repro_torch.engine import DecomposeEngine, EngineConfig
@@ -1313,6 +1503,9 @@ def paged_same_traffic(cfg, params, slot_tokens):
           f"{pool / 2 ** 20:.1f} MiB; every page back", flush=True)
     print("paged (a): launches " + json.dumps(runs["paged"][0][1]),
           flush=True)
+    fused_pairs("paged (a)", lambda blk: paged_engine(
+        cfg, params, decode_block=blk), prompts, st, slot_tokens,
+        runs["paged"][0][1], profile, long_ref=long_tokens)
 
 
 def paged_prefix_llama(cfg, params, profile: bool = False):
@@ -1478,8 +1671,9 @@ def serve_mamba2(cfg, params, profile: bool = False):
     import numpy as np
     from repro_torch.serving import Engine
 
-    def engine():
-        return Engine(cfg, params, slots=4, max_len=1024, device="cuda")
+    def engine(decode_block: int = 1):
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                      decode_block=decode_block)
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
@@ -1506,6 +1700,8 @@ def serve_mamba2(cfg, params, profile: bool = False):
           f"mean_itl_ms={st.mean_itl_s * 1e3:.2f} peak_mem_gib={peak:.2f} "
           f"state_slots_mib={cache_mib:.1f}", flush=True)
     print("mamba2: launches " + json.dumps(launches), flush=True)
+    fused_pairs("mamba2", engine, prompts, st,
+                {r.uid: r.out_tokens for r in done}, launches, profile)
     check_mamba2_routes(cfg, params, prompts)
     return launches
 
@@ -1745,13 +1941,14 @@ def main() -> int:
     cfg = get_arch("llama2-7b")
     rows = phase_kernels(cfg)
     params = init_weights(cfg)
-    serve_launches, slot_tokens = serve_llama(cfg, params, args.profile)
+    serve_launches, slot_tokens, long_tokens = serve_llama(cfg, params,
+                                                           args.profile)
     torch.cuda.empty_cache()
     conformance(cfg)
     conformance_mamba2()
     act = activation_llama(cfg, params, args.profile)
     torch.cuda.empty_cache()
-    paged_same_traffic(cfg, params, slot_tokens)
+    paged_same_traffic(cfg, params, slot_tokens, long_tokens, args.profile)
     paged = paged_prefix_llama(cfg, params, args.profile)
     # a dropped engine frees its cache and weights at once (its family
     # holds it weakly), so no garbage collection runs between phases

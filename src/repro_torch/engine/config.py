@@ -1,7 +1,7 @@
 """EngineConfig — the knobs of the decomposition pipeline the port runs.
 
-Counterpart of ``repro.engine.config.EngineConfig`` (the fused-decode,
-async and mesh fields arrive with the modules that read them):
+Counterpart of ``repro.engine.config.EngineConfig`` (the async and mesh
+fields arrive with the modules that read them):
 
 * ``policy``      — per-layer decomposition directives
                     (``core.policy.DecompositionPolicy``, paper §6.2);
@@ -38,7 +38,16 @@ async and mesh fields arrive with the modules that read them):
                     entry capacity (0 = no prefix reuse).
 * ``sched_*``     — scheduler knobs: prefill lengths round up to
                     ``sched_bucket``, admission runs every
-                    ``sched_admit_every`` decode rounds.
+                    ``sched_admit_every`` decode rounds, and one
+                    admission batch takes at most ``sched_max_admit``
+                    requests (0 = as many as there are free slots).
+* ``decode_block`` — fused decode steps per launch (serving): 1
+                    (default) decodes one token per dispatch; N > 1 runs
+                    up to N steps as one fixed-length loop, replayed as a
+                    captured CUDA graph on the card (token-exact: the
+                    engine caps each block at the next fold, budget or
+                    admission round, and a stop token halts it);
+                    ``"auto"`` picks N through ``repro_torch.tune``.
 """
 from __future__ import annotations
 
@@ -68,6 +77,8 @@ class EngineConfig:
     kv_prefix_cache: int = 0            # prefix-cache entries (0 = off)
     sched_bucket: int = 16
     sched_admit_every: int = 1
+    sched_max_admit: int = 0
+    decode_block: Union[int, str] = 1   # fused decode steps, or "auto"
 
     def __post_init__(self):
         if self.expansion != "auto" and (
@@ -76,6 +87,12 @@ class EngineConfig:
                 or not 1 <= self.expansion <= 32):
             raise ValueError(f"expansion must be an int in 1..32 or "
                              f"'auto', got {self.expansion!r}")
+        if self.decode_block != "auto" and (
+                not isinstance(self.decode_block, int)
+                or isinstance(self.decode_block, bool)
+                or self.decode_block < 1):
+            raise ValueError(f"decode_block must be a positive int or "
+                             f"'auto', got {self.decode_block!r}")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")

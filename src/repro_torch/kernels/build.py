@@ -114,6 +114,13 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def ticket_buffers() -> list:
+    """Every ticket buffer handed out so far (a captured CUDA graph keeps
+    them alive: :func:`tickets` may replace a buffer with a larger one,
+    and the graph still writes the old one)."""
+    return list(_TICKETS.values())
+
+
 def tickets(device, n: int, owner: str):
     """At least ``n`` zeroed int32 ticket counters on ``device`` for the
     kernels of ``owner``.  A kernel resets each counter it uses before its

@@ -31,6 +31,17 @@ kernel ``ssd_chunk_intra`` (the decomposed-KV flags do not apply):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --reduced --device cpu
 
+``--decode-block N`` fuses up to N decode steps into one launch (a
+replayed CUDA graph on the card; ``auto`` tunes N), ``--eos-id`` stops a
+request on that token, ``--admission gang`` keeps the legacy
+whole-batch admission, ``--sched-bucket``/``--admit-every``/
+``--max-admit`` set the scheduler, and ``--backend reference`` runs the
+plain versions of every kernel (the route check):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
+      --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4 \\
+      --decode-block 4 --eos-id 7 --max-admit 2
+
 ``--expansion auto`` resolves the re-orth kernels' f per shape bucket
 through ``repro_torch.tune`` and, during warmup, pre-tunes the shapes
 admission will launch (``--no-pretune`` skips that); point
@@ -52,11 +63,13 @@ from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import ops
 from ..models.api import model_fns
 from ..platform import device_name, resolve_device
-from ..serving import Engine, Request
+from ..kernels.ops import BACKENDS
+from ..serving import ADMISSIONS, Engine, Request
 
 
 def _expansion(text: str):
-    """``--expansion``: "auto" or an int (EngineConfig validates it)."""
+    """``--expansion``/``--decode-block``: "auto" or an int
+    (EngineConfig validates it)."""
     return text if text == "auto" else int(text)
 
 
@@ -116,6 +129,28 @@ def main(argv=None) -> None:
                     help="compute-expansion factor f = blocks along the "
                          "output axis of the re-orth kernels (1..32), or "
                          "auto (tuned per shape bucket)")
+    ap.add_argument("--backend", default=dflt.backend, choices=BACKENDS,
+                    help="cuda: the CUDA kernels on the card (plain "
+                         "versions on the host); reference: the plain "
+                         "versions everywhere (the route check)")
+    ap.add_argument("--decode-block", type=_expansion,
+                    default=dflt.decode_block,
+                    help="fused decode steps per launch (1 = one per "
+                         "token; N > 1 replays a captured CUDA graph on "
+                         "the card, token-exact), or auto (tuned)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop token: a request finishes (and frees its "
+                         "slot) the moment it emits it")
+    ap.add_argument("--admission", default="per_slot", choices=ADMISSIONS,
+                    help="admission policy (gang = legacy whole-batch "
+                         "prefill, for A/B runs)")
+    ap.add_argument("--sched-bucket", type=int, default=dflt.sched_bucket,
+                    help="prefill length bucket")
+    ap.add_argument("--admit-every", type=int,
+                    default=dflt.sched_admit_every,
+                    help="decode rounds between admission checks")
+    ap.add_argument("--max-admit", type=int, default=dflt.sched_max_admit,
+                    help="requests per admission batch (0 = free slots)")
     ap.add_argument("--no-pretune", action="store_true",
                     help="with --expansion auto, skip the warmup "
                          "pre-tune of the admission shapes")
@@ -130,14 +165,19 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_fns(cfg).init(cfg, gen, device=device)
     dengine = DecomposeEngine(EngineConfig(
-        expansion=args.expansion, kv_rank=args.decompose_kv_rank,
-        kv_tail=args.dkv_tail, kv_exact=args.dkv_exact,
-        kv_page=args.kv_page, kv_prefix_cache=args.kv_prefix_cache))
+        backend=args.backend, expansion=args.expansion,
+        kv_rank=args.decompose_kv_rank, kv_tail=args.dkv_tail,
+        kv_exact=args.dkv_exact, kv_page=args.kv_page,
+        kv_prefix_cache=args.kv_prefix_cache,
+        sched_bucket=args.sched_bucket,
+        sched_admit_every=args.admit_every,
+        sched_max_admit=args.max_admit, decode_block=args.decode_block))
     if args.expansion == "auto" and not args.no_pretune \
             and args.decompose_kv_rank > 0:
         pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
-                 decompose_engine=dengine, device=device, paged=args.paged)
+                 decompose_engine=dengine, device=device, paged=args.paged,
+                 eos_id=args.eos_id, admission=args.admission)
     rng = np.random.RandomState(0)
     shared = rng.randint(0, cfg.vocab, args.shared_prefix, dtype=np.int32)
     for i in range(args.requests):
@@ -150,14 +190,20 @@ def main(argv=None) -> None:
     for r in sorted(done, key=lambda r: r.uid):
         print(f"req {r.uid}: {r.out_tokens}")
     s = eng.stats
+    g = eng.graphs
     print(f"engine: {dengine} family={type(eng.family).__name__} "
           f"arch={cfg.name} layers={cfg.num_layers} "
-          f"device={device_name(device)}")
+          f"device={device_name(device)} admission={eng.admission} "
+          f"decode_block={eng.decode_block}")
     print(f"stats: prefills={s.prefills} batches={s.prefill_batches} "
-          f"decode_steps={s.decode_steps} folds={s.tail_folds} "
-          f"tokens={s.tokens_out} prefill_s={s.prefill_s:.3f} "
-          f"decode_s={s.decode_s:.3f} decode_tok/s={s.decode_tok_s:.1f} "
+          f"decode_steps={s.decode_steps} blocks={s.blocks} "
+          f"folds={s.tail_folds} tokens={s.tokens_out} "
+          f"stopped_eos={s.stopped_eos} stopped_budget={s.stopped_budget} "
+          f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
+          f"decode_tok/s={s.decode_tok_s:.1f} "
           f"ttft={s.mean_ttft_s * 1e3:.1f}ms itl={s.mean_itl_s * 1e3:.1f}ms")
+    print(f"graphs: captures={g.captures} replays={g.replays} "
+          f"eager={g.eager} capture_s={g.capture_s:.3f}")
     if eng.pager is not None:
         print(f"paged: page={eng.pager.page} pool_pages="
               f"{eng.pager.num_pages} prefix_hits={s.prefix_hits} "

@@ -174,12 +174,13 @@ _ATTENTION = {"kernel": _factored_attention, "plain": _lowrank_attention}
 
 def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
                     pos: torch.Tensor, frozen_len: torch.Tensor, *,
-                    attention: str = "kernel"
+                    attention: str = "kernel", live=None
                     ) -> Tuple[torch.Tensor, Params]:
     """One-token decode over the decomposed cache.  ``pos`` and
     ``frozen_len`` are int32 [B]; each slot writes its new K/V row at tail
     row ``pos − frozen_len`` (clamped into the tail, as JAX's
-    ``dynamic_update_slice`` clamps).  Returns (logits [B, V], cache)."""
+    ``dynamic_update_slice`` clamps), unless its ``live`` (bool [B]) is
+    False.  Returns (logits [B, V], cache)."""
     attend = _ATTENTION[attention]
     kvh, nh = cfg.num_kv_heads, cfg.num_heads
     tl = cache["tail"]["k"].shape[2]
@@ -195,8 +196,8 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
         q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = L.apply_rope(k_new, pos[:, None], cfg.rope_theta)
         tail = {"k": cache["tail"]["k"][i], "v": cache["tail"]["v"][i]}
-        tail["k"][rows, slot] = k_new[:, 0].to(tail["k"].dtype)
-        tail["v"][rows, slot] = v_new[:, 0].to(tail["v"].dtype)
+        L.write_rows(tail["k"], (rows, slot), k_new[:, 0], live)
+        L.write_rows(tail["v"], (rows, slot), v_new[:, 0], live)
         layer_c = {key: cache[key][i]
                    for key in ("k_u", "k_vt", "v_u", "v_vt")}
         a = attend(q, layer_c, tail, pos, frozen_len, cfg)
@@ -204,6 +205,25 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
                       cfg.activation)
     return T.logits_head(p, x, cfg)[:, 0], cache
+
+
+def decode_block_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
+                     pos: torch.Tensor, frozen_len: torch.Tensor, n_steps,
+                     stop_table: torch.Tensor, *, max_block: int,
+                     attention: str = "kernel"):
+    """Up to ``n_steps`` (≤ ``max_block``) greedy decode steps over the
+    slab cache as one fixed-length loop (``api.run_decode_block``), the
+    form a CUDA graph captures.  ``frozen_len`` is loop-invariant: the
+    serving engine caps ``n_steps`` at the fold horizon, so every fold
+    still happens between blocks, at the occupancy the single-step engine
+    folds at.  Returns ``(buf [max_block, B], steps, done, cache)``."""
+    from . import api
+
+    def step(t, c, ps, live):
+        return decode_step_dkv(p, cfg, t, c, ps, frozen_len,
+                               attention=attention, live=live)
+    return api.run_decode_block(step, max_block, token, cache, pos,
+                                n_steps, stop_table)
 
 
 def fold_rank(rank: int, r_in: int, t_frozen: int, tl: int) -> int:
@@ -452,8 +472,8 @@ def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
                           cache: Params, pos: torch.Tensor,
                           frozen_len: torch.Tensor, bt_u: torch.Tensor,
                           bt_t: torch.Tensor, t_need: int, r_need: int,
-                          tail_len: int, *, attention: str = "kernel"
-                          ) -> Tuple[torch.Tensor, Params]:
+                          tail_len: int, *, attention: str = "kernel",
+                          live=None) -> Tuple[torch.Tensor, Params]:
     """One-token decode through the block tables (int32 [B, n] and
     [B, ntp]).  Each slot's new K/V row is written IN PLACE into its tail
     page (row ``clamp(pos − frozen_len, 0, tail_len − 1)``, as the slab
@@ -461,8 +481,9 @@ def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
     inside ``dkv_attention_stats_paged`` (``r_need`` columns, rows below
     ``frozen_len``); ``"plain"`` gathers the slab view and runs
     ``_lowrank_attention``, the oracle.  ``t_need``/``r_need``/
-    ``tail_len`` are the slot engine's slab dims.  Returns (logits
-    [B, V], cache)."""
+    ``tail_len`` are the slot engine's slab dims (the kernel route reads
+    no ``t_need``).  A slot whose ``live`` (bool [B]) is False writes
+    nothing.  Returns (logits [B, V], cache)."""
     attend = _PAGED_ATTENTION[attention]
     kvh, nh = cfg.num_kv_heads, cfg.num_heads
     page = cache["tail"]["k_pages"].shape[2]
@@ -481,13 +502,37 @@ def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
         q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = L.apply_rope(k_new, pos[:, None], cfg.rope_theta)
         c = {k: v[i] for k, v in views.items()}
-        c["tail_k"][wrow] = k_new[:, 0].to(c["tail_k"].dtype)
-        c["tail_v"][wrow] = v_new[:, 0].to(c["tail_v"].dtype)
+        L.write_rows(c["tail_k"], wrow, k_new[:, 0], live)
+        L.write_rows(c["tail_v"], wrow, v_new[:, 0], live)
         a = attend(q, c, pos, frozen_len, bt_u, tail_rows, t_need, cfg)
         x = x + L.dense(lp["attn"]["wo"], a.to(x.dtype))
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
                       cfg.activation)
     return T.logits_head(p, x, cfg)[:, 0], cache
+
+
+def decode_block_dkv_paged(p: Params, cfg, token: torch.Tensor,
+                           cache: Params, pos: torch.Tensor,
+                           frozen_len: torch.Tensor, bt_u: torch.Tensor,
+                           bt_t: torch.Tensor, n_steps,
+                           stop_table: torch.Tensor, t_need: int,
+                           r_need: int, tail_len: int, *, max_block: int,
+                           attention: str = "kernel"):
+    """The paged twin of :func:`decode_block_dkv`: each step is
+    :func:`decode_step_dkv_paged`, so the kernel route reads U through
+    the block tables inside the paged kernel at every step (the
+    reference gathers the slab view once per block; the tokens are the
+    same, since the gathered rows are the slab's).  The block tables and
+    the prefix pools are loop-invariant: folds and admissions, their only
+    writers, run between blocks."""
+    from . import api
+
+    def step(t, c, ps, live):
+        return decode_step_dkv_paged(p, cfg, t, c, ps, frozen_len, bt_u,
+                                     bt_t, t_need, r_need, tail_len,
+                                     attention=attention, live=live)
+    return api.run_decode_block(step, max_block, token, cache, pos,
+                                n_steps, stop_table)
 
 
 def compress_tail_paged(cache: Params, cfg, rank: int, frozen_len, fold,

@@ -114,10 +114,25 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).reshape(b, s, nh * hd)
 
 
+def write_rows(buf: torch.Tensor, index, new: torch.Tensor,
+               live=None) -> None:
+    """``buf[index] = new`` IN PLACE, where ``index`` picks one row per
+    slot (new [B, ...]); a slot whose ``live`` (bool [B]) is False keeps
+    its old row — the halted steps of a fused decode block write
+    nothing."""
+    new = new.to(buf.dtype)
+    if live is not None:
+        keep = live.reshape((-1,) + (1,) * (new.dim() - 1))
+        new = torch.where(keep, new, buf[index])
+    buf[index] = new
+
+
 def decode_attention(p: Params, x: torch.Tensor, cache: Params,
-                     pos: torch.Tensor, cfg) -> torch.Tensor:
+                     pos: torch.Tensor, cfg, live=None) -> torch.Tensor:
     """One-token attention: x [B, 1, H], cache k/v [B, T, kvh, d], pos [B].
-    Writes the new K/V row of each slot into ``cache`` IN PLACE."""
+    Writes the new K/V row of each slot into ``cache`` IN PLACE, at row
+    ``pos`` clamped into the cache (as JAX's ``dynamic_update_slice``
+    clamps); a slot whose ``live`` (bool [B]) is False writes nothing."""
     nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     b = x.shape[0]
     t = cache["k"].shape[1]
@@ -127,8 +142,9 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params,
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
-    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    wpos = torch.clamp(pos, max=t - 1)
+    write_rows(cache["k"], (rows, wpos), k_new[:, 0], live)
+    write_rows(cache["v"], (rows, wpos), v_new[:, 0], live)
     k, v = cache["k"], cache["v"]
 
     sc = _gqa_scores(q, k) * (hd ** -0.5)                     # [B,nh,1,T]

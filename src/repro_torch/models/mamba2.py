@@ -280,18 +280,20 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
 
 
 def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
-                pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
     """One-token step: token [B] → (logits [B, V], state).  ``pos`` is
     unused (the SSM state is position-free); the state is updated IN
-    PLACE, one layer slice at a time."""
+    PLACE, one layer slice at a time, except for a slot whose ``live``
+    (bool [B]) is False."""
     del pos
     x = T.embed(p, cfg, token)[:, None, :]
+    every = slice(None)
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         st = {"conv": state["conv"][i], "ssm": state["ssm"][i]}
         y, st = ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x, cfg.norm_eps),
                            st, cfg)
-        state["conv"][i] = st["conv"]
-        state["ssm"][i] = st["ssm"]
+        L.write_rows(state["conv"][i], every, st["conv"], live)
+        L.write_rows(state["ssm"][i], every, st["ssm"], live)
         x = x + y
     return T.logits_head(p, x, cfg)[:, 0], state

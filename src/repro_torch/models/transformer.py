@@ -160,16 +160,17 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
 
 
 def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
-                pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
     """One-token step: token [B], pos [B] → (logits [B, V], cache).  The
-    cache is updated IN PLACE (one row per slot per layer)."""
+    cache is updated IN PLACE (one row per slot per layer); a slot whose
+    ``live`` (bool [B]) is False writes nothing."""
     x = embed(p, cfg, token)[:, None, :]
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         x = x + L.decode_attention(lp["attn"],
                                    norm(lp["attn_norm"], x, cfg),
-                                   layer_cache, pos, cfg)
+                                   layer_cache, pos, cfg, live)
         x = x + L.mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg),
                       cfg.activation)
     return logits_head(p, x, cfg)[:, 0], cache

@@ -14,6 +14,7 @@ it), so all three are pinned here, once, at import.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -48,3 +49,11 @@ def device_name(device: Optional[torch.device] = None) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return "cpu"
+
+
+@functools.lru_cache(maxsize=None)
+def capture_stream(index: int) -> "torch.cuda.Stream":
+    """The one side stream of CUDA device ``index`` that every CUDA-graph
+    warm-up and capture of the process runs on: each new stream would
+    get a cuBLAS workspace of its own, which the process keeps."""
+    return torch.cuda.Stream(torch.device("cuda", index))

@@ -3,15 +3,18 @@
 Counterpart of the slot mode of ``repro.serving.Engine``: ``slots``
 concurrent sequences share one cache; a finished sequence frees its slot
 at once; queued requests prefill into free slots.  Admission is per
-slot: only the newly admitted requests are prefilled (prompt length
-rounded up to the scheduler bucket, batch to a power of two) and their
-fresh cache rows are spliced into the live cache — live slots are never
-re-prefilled.  Everything family-specific (cache layout, prefill, splice,
-decode, tail folds) lives behind the ``ServingFamily`` of
-``serving.families``: ``dense``, ``ssm`` (Mamba2 state slots) or
-``transformer-dkv`` (selected when the decompose engine's
-``EngineConfig.kv_rank`` is > 0; its ``kv_tail`` and ``kv_exact`` set
-the tail length and the factorization).
+slot (``admission="per_slot"``, the default): only the newly admitted
+requests are prefilled (prompt length rounded up to the scheduler bucket,
+batch to a power of two) and their fresh cache rows are spliced into the
+live cache — live slots are never re-prefilled.  ``admission="gang"``
+keeps the legacy policy for A/B runs: one whole-slot-batch prefill per
+admission, into an all-free engine except for the dense family.
+Everything family-specific (cache layout, prefill, splice, decode,
+fused blocks, tail folds, the scheduler's admission cost) lives behind
+the ``ServingFamily`` of ``serving.families``: ``dense``, ``ssm`` (Mamba2
+state slots) or ``transformer-dkv`` (selected when the decompose
+engine's ``EngineConfig.kv_rank`` is > 0; its ``kv_tail`` and
+``kv_exact`` set the tail length and the factorization).
 
 ``paged=True`` (decomposed KV only) swaps the slab for the page pools
 of ``serving.paged``: prefix U rows and dense tails in refcounted pages
@@ -23,16 +26,27 @@ arrival order and counted as a stall, and with nothing live to free
 pages that is a ``RuntimeError``.  A finished slot's pages are released
 at once (``free_slot``).
 
-Decode runs one token per live slot per step (``decode_block=1``).
-Sampling is greedy, on the device, with one host readback per step —
-the engine's only synchronization.  A request finishes on its token
-budget or at the end of the cache (stop tokens are not ported yet).
+A request stops the moment it emits ``eos_id`` (its own, else the
+engine's) or one of its ``stop_tokens``, or when it spends its token
+budget or the cache; ``EngineStats`` counts the two kinds of finish.
+Sampling is greedy, on the device.
+
+``decode_block=1`` decodes one token per live slot per step, with one
+host readback per step.  ``decode_block > 1`` runs up to that many steps
+as ONE fixed-length loop (``models.api.run_decode_block``), replayed as a
+captured CUDA graph on the card (``serving.graphs``), with one readback
+per block.  Tokens equal the single-step engine's by construction: the
+host caps each block at the next budget end, tail fold and admission
+round (``_block_len``), and the block halts on device after the first
+step in which a slot samples a stop token, so folds, admissions and
+finishes happen between blocks at the rounds the single-step engine runs
+them.  ``"auto"`` resolves the block through ``repro_torch.tune``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,9 +54,12 @@ import torch
 from ..engine import DecomposeEngine
 from ..platform import resolve_device
 from .families import ServingFamily, family_names, serving_family
+from .graphs import BlockGraphs
 
-__all__ = ["Engine", "EngineStats", "Request", "Scheduler", "ServingFamily",
-           "family_names", "greedy_sampler"]
+__all__ = ["ADMISSIONS", "Engine", "EngineStats", "Request", "Scheduler",
+           "ServingFamily", "family_names", "greedy_sampler"]
+
+ADMISSIONS = ("per_slot", "gang")
 
 
 def greedy_sampler(logits: torch.Tensor) -> torch.Tensor:
@@ -55,12 +72,15 @@ class Request:
     uid: int
     prompt: np.ndarray               # [S] int32
     max_new_tokens: int = 16
+    eos_id: Optional[int] = None     # stop token (None = engine default)
+    stop_tokens: Tuple[int, ...] = ()   # extra stop tokens
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0            # perf_counter stamps (0.0 = not yet)
     t_dispatch: float = 0.0          # admission started
     t_first: float = 0.0             # first token out
     t_last: float = 0.0
+    t_done: float = 0.0
     seq: int = -1                    # arrival stamp (Scheduler.submit)
 
 
@@ -74,12 +94,18 @@ class EngineStats:
     tokens, so on the card they cover the device work they launched.
     ``prefix_hits``/``prefix_misses`` count admitted requests by prefix
     lookup outcome, ``stalls`` admissions deferred on page capacity
-    (paged serving)."""
+    (paged serving).  ``decode_steps`` counts decode rounds and
+    ``blocks`` decode launches (equal unless fused blocks batch rounds);
+    ``stopped_eos``/``stopped_budget`` count finishes on a stop token
+    and on the budget or the cache end."""
     prefills: int = 0
     prefill_batches: int = 0
     decode_steps: int = 0
+    blocks: int = 0
     tokens_out: int = 0
     tail_folds: int = 0
+    stopped_eos: int = 0
+    stopped_budget: int = 0
     prefix_hits: int = 0
     prefix_misses: int = 0
     stalls: int = 0
@@ -103,15 +129,20 @@ class EngineStats:
 
 
 class Scheduler:
-    """FIFO queue with prefill-length bucketing: ``next_batch`` serves the
-    head of the queue plus later requests of the same bucket, keeping a
-    free slot for every older request of another bucket (head-bucket
+    """FIFO queue with prefill-cost bucketing: ``next_batch`` serves the
+    head of the queue plus later requests of the same bucket of
+    ``cost(request)`` (the family's admission cost; the prompt length by
+    default), at most ``max_admit`` of them (0 = the free slots), keeping
+    a free slot for every older request of another bucket (head-bucket
     starvation guard).  Every submission gets an arrival stamp ``seq``;
     :meth:`requeue` merges a deferred batch back on it, so a deferral
     never jumps requests that arrived between the batch's members."""
 
-    def __init__(self, bucket: int = 16):
+    def __init__(self, bucket: int = 16, max_admit: int = 0,
+                 cost: Optional[Callable[[Request], int]] = None):
         self.bucket = max(1, bucket)
+        self.max_admit = max_admit
+        self.cost = cost if cost is not None else (lambda r: len(r.prompt))
         self._q: List[Request] = []
         self._seq = 0
 
@@ -128,19 +159,25 @@ class Scheduler:
     def __len__(self) -> int:
         return len(self._q)
 
+    @property
+    def pending(self) -> List[Request]:
+        return list(self._q)
+
     def bucket_of(self, plen: int) -> int:
         return -(-max(int(plen), 1) // self.bucket) * self.bucket
 
     def next_batch(self, free_slots: int) -> List[Request]:
         if not self._q or free_slots < 1:
             return []
-        want = self.bucket_of(len(self._q[0].prompt))
+        cap = free_slots if self.max_admit < 1 \
+            else min(free_slots, self.max_admit)
+        want = self.bucket_of(self.cost(self._q[0]))
         take: List[Request] = []
         keep: List[Request] = []
         skipped = set()
         for r in self._q:
-            bk = self.bucket_of(len(r.prompt))
-            if bk == want and len(take) + len(skipped) < free_slots:
+            bk = self.bucket_of(self.cost(r))
+            if bk == want and len(take) + len(skipped) < cap:
                 take.append(r)
             else:
                 keep.append(r)
@@ -154,14 +191,25 @@ class Engine:
     """Continuous-batching engine over the config's family (dense
     transformer or Mamba2), with the decomposed KV cache when
     ``decompose_engine.config.kv_rank`` > 0 (dense family only), on page
-    pools when ``paged``."""
+    pools when ``paged``.  ``eos_id`` is the stop token of requests that
+    name none; ``decode_block`` (default: the engine config's) is the
+    fused block length, an int or ``"auto"``."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  decompose_engine: Optional[DecomposeEngine] = None,
-                 device=None, paged: bool = False):
+                 device=None, paged: bool = False,
+                 eos_id: Optional[int] = None, admission: str = "per_slot",
+                 decode_block: Optional[Union[int, str]] = None):
+        if admission not in ADMISSIONS:
+            raise ValueError(f"admission must be one of {ADMISSIONS}, got "
+                             f"{admission!r}")
+        if paged and admission == "gang":
+            raise ValueError("paged serving admits per slot")
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
         self.slots, self.max_len = slots, max_len
+        self.admission = admission
+        self.eos_id = eos_id
         self.dengine = decompose_engine or DecomposeEngine()
         ecfg = self.dengine.config
         self.dkv_rank = ecfg.kv_rank
@@ -176,12 +224,32 @@ class Engine:
         self.pager = None            # serving.paged.PagedDKV when paged
         self.family = serving_family(self, paged=paged)
         self.cache = self.family.alloc()
-        self.sched = Scheduler(bucket=ecfg.sched_bucket)
+        self.sched = Scheduler(bucket=ecfg.sched_bucket,
+                               max_admit=ecfg.sched_max_admit,
+                               cost=self.family.prefill_cost)
         self.admit_every = max(1, ecfg.sched_admit_every)
+        blk = ecfg.decode_block if decode_block is None else decode_block
+        if blk == "auto":
+            from .. import tune
+            blk = tune.tuned_decode_block(
+                (slots, self.family.tune_horizon(), cfg.kv_width),
+                device=self.device)
+        self.decode_block = max(1, int(blk))
+        cap = self.family.block_cap()
+        if cap is not None:
+            self.decode_block = min(self.decode_block, cap)
+        # the fused blocks' CUDA graphs: owned here, freed with the engine
+        self.graphs = BlockGraphs(self.device)
         self.stats = EngineStats()
+        # completed decode rounds (a fused block advances it by its
+        # steps): admission due-ness reads it
         self._round = 0
 
     # -- public API ------------------------------------------------------
+    @property
+    def queue(self) -> List[Request]:
+        return self.sched._q
+
     def submit(self, req: Request) -> None:
         if len(req.prompt) >= self.max_len:
             raise ValueError(
@@ -192,14 +260,15 @@ class Engine:
         self.sched.submit(req)
 
     def step(self) -> List[Request]:
-        """Admit if due, then decode one token per live slot.  Returns the
-        requests that finished in this step."""
+        """Admit if due, then decode: one token per live slot, or a fused
+        block of up to ``decode_block`` tokens.  Returns the requests that
+        finished in this step."""
         t0 = time.perf_counter()
         finished: List[Request] = []
         if self._round % self.admit_every == 0 or not self._occupied():
             finished.extend(self._admit())
         if self._occupied():
-            finished.extend(self._decode_round())
+            finished.extend(self._decode_rounds())
         else:
             self._round += 1         # an idle step still advances the clock
         self.stats.wall_s += time.perf_counter() - t0
@@ -221,43 +290,70 @@ class Engine:
         """Sample on the device, read the tokens back (the one sync)."""
         return greedy_sampler(logits).cpu().numpy()
 
-    def _check_stop(self, slot: int, req: Request) -> bool:
-        """Free the slot once the request spent its budget or the cache."""
+    def _stops(self, req: Request) -> frozenset:
+        eos = req.eos_id if req.eos_id is not None else self.eos_id
+        toks = set(req.stop_tokens)
+        if eos is not None:
+            toks.add(eos)
+        return frozenset(toks)
+
+    def _finish(self, slot: int, req: Request, now: float, *,
+                eos: bool) -> None:
+        """Free a slot the moment its request stops (token or budget)."""
+        req.done = True
+        req.t_done = now
+        self.live[slot] = None
+        self.family.free_slot(slot)
+        if eos:
+            self.stats.stopped_eos += 1
+        else:
+            self.stats.stopped_budget += 1
+
+    def _check_stop(self, slot: int, req: Request, now: float) -> bool:
+        """Stop-token, then budget / cache-end check after a token."""
+        if req.out_tokens and req.out_tokens[-1] in self._stops(req):
+            self._finish(slot, req, now, eos=True)
+            return True
         if (len(req.out_tokens) >= req.max_new_tokens
                 or self.pos[slot] >= self.max_len - 1):
-            req.done = True
-            self.live[slot] = None
-            self.family.free_slot(slot)
+            self._finish(slot, req, now, eos=False)
             return True
         return False
 
-    def _toks_np(self, batch: List[Request], rows: int,
-                 plen: int) -> np.ndarray:
+    def _toks_np(self, batch: List[Request], rows: int, plen: int,
+                 rows_of: Optional[List[int]] = None) -> np.ndarray:
         """Prompts LEFT-padded with token 0 to ``plen`` (as the JAX
-        engine pads them), one row per request, extra rows all padding."""
+        engine pads them), request j in row ``rows_of[j]`` (default j),
+        every other row all padding."""
         toks = np.zeros((rows, plen), np.int32)
         for j, req in enumerate(batch):
-            toks[j, plen - len(req.prompt):] = req.prompt
+            row = j if rows_of is None else rows_of[j]
+            toks[row, plen - len(req.prompt):] = req.prompt
         return toks
 
-    def _toks(self, batch: List[Request], rows: int,
-              plen: int) -> torch.Tensor:
+    def _toks(self, batch: List[Request], rows: int, plen: int,
+              rows_of: Optional[List[int]] = None) -> torch.Tensor:
         """:meth:`_toks_np` as a token tensor on the device."""
-        return torch.from_numpy(self._toks_np(batch, rows, plen)).long().to(
+        return torch.from_numpy(self._toks_np(batch, rows, plen,
+                                              rows_of)).long().to(
             self.device)
 
     def _admit(self) -> List[Request]:
         """Drain the queue into the free slots, one prefill launch per
         length bucket (paged: one per prefix-hit group plus one for the
-        misses).  A batch the family cannot take yet is requeued and
-        admission stops (a stall); with nothing live that can never
-        unblock, so it raises."""
+        misses; gang: one whole-slot-batch launch per admission).  A batch
+        the family cannot take yet is requeued and admission stops (a
+        stall); with nothing live that can never unblock, so it raises."""
         finished: List[Request] = []
         blocked = False
         while True:
             free = [i for i, r in enumerate(self.live) if r is None]
             if not free or not len(self.sched):
                 break
+            has_live = self._occupied()
+            if self.admission == "gang" and has_live \
+                    and not self.family.gang_live_splice:
+                break                # the legacy gang waits for all slots
             batch = self.sched.next_batch(len(free))
             if not batch:
                 break
@@ -276,25 +372,43 @@ class Engine:
             for req in batch:
                 req.t_dispatch = t0
             self.stats.prefills += len(batch)
+            if self.admission == "gang":
+                logits = self.family.gang(batch, slots_idx, plen, has_live)
+                nxt = self._sample_host(logits)[slots_idx]
+                self.stats.prefill_batches += 1
+                self._activate(batch, slots_idx, plen, nxt,
+                               self.family.frozen_after_prefill(
+                                   len(batch), plen), t0, finished)
+                break                # one gang per admission
             for idx, (nxt, fls) in self.family.admit(batch, slots_idx, plen,
                                                      ctx):
-                now = time.perf_counter()
-                self.stats.prefill_s += now - t0
                 self.stats.prefill_batches += 1
-                t0 = now
-                for j, k in enumerate(idx):
-                    slot, req = slots_idx[k], batch[k]
-                    self.live[slot] = req
-                    self.pos[slot] = plen
-                    self.frozen_len[slot] = fls[j]
-                    req.out_tokens.append(int(nxt[j]))
-                    req.t_first = req.t_last = now
-                    self.stats.ttft_s.append(now - req.t_submit)
-                    if self._check_stop(slot, req):
-                        finished.append(req)
+                t0 = self._activate([batch[k] for k in idx],
+                                    [slots_idx[k] for k in idx], plen, nxt,
+                                    fls, t0, finished)
         if blocked and not self._occupied():
             raise RuntimeError(self.family.capacity_msg(self.sched._q[0]))
         return finished
+
+    def _activate(self, batch: List[Request], slots_idx: List[int],
+                  plen: int, nxt: np.ndarray, fls: np.ndarray, t0: float,
+                  finished: List[Request]) -> float:
+        """Occupy the slots of one completed prefill group (started at
+        ``t0``), stamp first tokens and TTFT, and apply the first-token
+        stop check (finishes go to ``finished``).  Returns the completion
+        time, where the next group's prefill time starts."""
+        now = time.perf_counter()
+        self.stats.prefill_s += now - t0
+        for j, (slot, req) in enumerate(zip(slots_idx, batch)):
+            self.live[slot] = req
+            self.pos[slot] = plen
+            self.frozen_len[slot] = fls[j]
+            req.out_tokens.append(int(nxt[j]))
+            req.t_first = req.t_last = now
+            self.stats.ttft_s.append(now - req.t_submit)
+            if self._check_stop(slot, req, now):
+                finished.append(req)
+        return now
 
     def _last_tokens(self) -> np.ndarray:
         tok = np.zeros((self.slots,), np.int32)
@@ -303,14 +417,25 @@ class Engine:
                 tok[i] = req.out_tokens[-1]
         return tok
 
-    def _decode_round(self) -> List[Request]:
+    def _decode_rounds(self) -> List[Request]:
+        """One decode launch: the single-step round (``decode_block`` 1)
+        or a fused block.  Fold checks run first, at the boundary, with
+        the same cadence either way; ``decode_s`` covers both."""
         t0 = time.perf_counter()
         self.family.maybe_fold()
+        if self.decode_block <= 1:
+            done = self._decode_round()
+        else:
+            done = self._decode_block_round()
+        self.stats.decode_s += time.perf_counter() - t0
+        return done
+
+    def _decode_round(self) -> List[Request]:
         tok = torch.from_numpy(self._last_tokens()).long().to(self.device)
         nxt = self._sample_host(self.family.decode(tok))
         now = time.perf_counter()
-        self.stats.decode_s += now - t0
         self.stats.decode_steps += 1
+        self.stats.blocks += 1
         self._round += 1
         done: List[Request] = []
         for i, req in enumerate(self.live):
@@ -321,6 +446,72 @@ class Engine:
             self.stats.tokens_out += 1
             self.stats.itl_s.append(now - req.t_last)
             req.t_last = now
-            if self._check_stop(i, req):
+            if self._check_stop(i, req, now):
+                done.append(req)
+        return done
+
+    # -- fused block decode ------------------------------------------------
+    def _block_len(self) -> int:
+        """Steps the next fused block may run before a host event is due
+        (every horizon follows from engine state; stop tokens, the one
+        event that does not, halt the block on the device):
+
+        * budget: no live slot decodes past ``max_new_tokens`` or the
+          cache end;
+        * fold: the family's ``fold_horizon()`` (steps until some tail
+          fills), None for families whose state never grows;
+        * admission: with ``admit_every > 1`` and a queue, the next due
+          round (with ``admit_every == 1`` a deferred request waits for
+          a slot to free or a fold, both block boundaries already).
+        """
+        blk = self.decode_block
+        for i, req in enumerate(self.live):
+            if req is None:
+                continue
+            blk = min(blk, req.max_new_tokens - len(req.out_tokens),
+                      (self.max_len - 1) - int(self.pos[i]))
+        fh = self.family.fold_horizon()
+        if fh is not None:
+            blk = min(blk, fh)
+        if len(self.sched) and self.admit_every > 1:
+            due = (self._round // self.admit_every + 1) * self.admit_every
+            blk = min(blk, due - self._round)
+        return max(1, blk)
+
+    def _stop_table(self) -> np.ndarray:
+        """int32 [slots, W] stop tokens of each slot, −1-padded (a dead
+        slot's row matches no token); W is the widest live stop set."""
+        sets = [sorted(self._stops(r)) if r is not None else []
+                for r in self.live]
+        w = max([len(x) for x in sets] + [1])
+        tbl = np.full((self.slots, w), -1, np.int32)
+        for i, x in enumerate(sets):
+            tbl[i, :len(x)] = x
+        return tbl
+
+    def _decode_block_round(self) -> List[Request]:
+        blk = self._block_len()
+        t0 = time.perf_counter()
+        toks, steps = self.family.decode_block(self._last_tokens(), blk,
+                                               self._stop_table())
+        now = time.perf_counter()
+        # one wall time per launch, attributed wall/steps to each token
+        per_tok = (now - t0) / max(steps, 1)
+        self.stats.decode_steps += steps
+        self.stats.blocks += 1
+        self._round += steps
+        done: List[Request] = []
+        for i, req in enumerate(self.live):
+            if req is None:
+                continue
+            req.out_tokens.extend(int(t) for t in toks[:, i])
+            self.pos[i] += steps
+            self.stats.tokens_out += steps
+            self.stats.itl_s.extend([per_tok] * steps)
+            req.t_last = now
+            # a stop can only sit on the block's last step (the block
+            # halts there), so this check sees what the single-step
+            # engine's per-round check would have
+            if self._check_stop(i, req, now):
                 done.append(req)
         return done

@@ -20,9 +20,16 @@ admission.  Registered families:
   dkv kernel, and folds copy-on-write into fresh pages.
 
 Admission is sync: the reference's dispatch/complete ticket split is
-kept as one call that completes inline.  All mutable serving state
+kept as one call that completes inline; ``gang`` is the legacy
+whole-slot-batch admission (dense alone may gang into a live cache,
+``gang_live_splice``).  ``decode_block`` runs up to n decode steps as one
+fixed-length loop through ``serving.graphs`` (a replayed CUDA graph on
+the card); ``prefill_cost``, ``tune_horizon``, ``block_cap`` and
+``fold_horizon`` feed the scheduler, the ``decode_block="auto"`` tuner
+and the engine's block horizon.  All mutable serving state
 (``cache``, ``pos``, ``frozen_len``, ``rank_eff``, ``live``, ``pager``)
-stays on the Engine; families hold no state.  A family reaches its
+stays on the Engine; a family holds only the static buffers its fused
+blocks' graphs read (``_static``).  A family reaches its
 engine through a ``weakref.proxy``: the engine owns the family, so a
 dropped engine frees its cache and weights at once, without waiting for
 the cyclic garbage collector (the reference keeps the cycle).
@@ -37,7 +44,8 @@ import torch
 
 from ..kernels.ops import make_kernels
 from ..models import decomposed_kv as DK
-from ..models.api import model_fns
+from ..models.api import model_fns, run_decode_block
+from .graphs import pin, unpack
 from .paged import PagedDKV
 
 Admitted = Tuple[np.ndarray, np.ndarray]       # (first tokens, frozen lens)
@@ -46,6 +54,23 @@ Group = Tuple[List[int], Admitted]             # (batch positions, admitted)
 
 def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+#: the fused block's slab U buffers round their row axis up to this, so a
+#: fold (which moves ``t_need``) rarely changes the captured shapes
+ROW_PAD = 128
+
+
+def _shapes(tree) -> tuple:
+    """(key, shape, address) of every tensor of a cache tree: what a
+    captured graph reads."""
+    out = []
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            out.extend((k,) + t for t in _shapes(v))
+        else:
+            out.append((k, tuple(v.shape), v.data_ptr()))
+    return tuple(out)
 
 
 _REGISTRY: Dict[str, type] = {}
@@ -82,6 +107,9 @@ class ServingFamily:
     at 1 (dense: K/V [L, slots, max_len, kvh, d]), prefill + splice
     admission, one-token decode, no folds."""
     paged_capable = False
+    #: gang admission may splice into a cache with live slots (dense
+    #: alone); every other family gangs only on an all-free engine
+    gang_live_splice = False
 
     def __init__(self, eng, paged: bool = False):
         if paged and not self.paged_capable:
@@ -89,6 +117,8 @@ class ServingFamily:
                              "cache (set EngineConfig.kv_rank > 0)")
         self.eng = weakref.proxy(eng)     # no engine <-> family cycle
         self.fns = model_fns(eng.cfg)
+        # the cache buffers the fused block's graphs read (graphs.pin)
+        self._static: Dict[str, Any] = {}
 
     def alloc(self):
         eng = self.eng
@@ -97,6 +127,27 @@ class ServingFamily:
 
     def free_slot(self, slot: int) -> None:
         """Release per-slot resources (paged block tables) on finish."""
+
+    def frozen_after_prefill(self, n: int, plen: int) -> np.ndarray:
+        """Per-slot ``frozen_len`` right after a prefill of ``plen``."""
+        return np.zeros(n, np.int32)
+
+    # -- scheduling ------------------------------------------------------
+    def prefill_cost(self, req) -> int:
+        """Admission cost the scheduler buckets on (the prompt length)."""
+        return len(req.prompt)
+
+    def tune_horizon(self) -> int:
+        """Decode horizon of the ``decode_block="auto"`` cost model."""
+        return self.eng.max_len
+
+    def block_cap(self) -> Optional[int]:
+        """Upper bound on the fused block length (None = uncapped)."""
+        return None
+
+    def fold_horizon(self) -> Optional[int]:
+        """Steps until some live slot must fold (None = never folds)."""
+        return None
 
     def reserve(self, batch: List[Any], plen: int):
         """Capacity check before admission: an opaque non-None context
@@ -140,6 +191,24 @@ class ServingFamily:
         eng = self.eng
         return self.fns.prefill(eng.params, eng.cfg, toks, eng.max_len)
 
+    def gang(self, batch: List[Any], slots_idx: List[int], plen: int,
+             has_live: bool) -> torch.Tensor:
+        """Legacy admission: prefill the WHOLE slot batch (request j in
+        row ``slots_idx[j]``, idle and live rows as padding), splice the
+        admitted rows into a live cache where the family may
+        (``gang_live_splice``), else replace the cache (every slot is
+        free then).  Returns the logits of every row."""
+        eng = self.eng
+        logits, cache = self._prefill(eng._toks(batch, eng.slots, plen,
+                                                slots_idx))
+        if has_live:
+            idx = torch.as_tensor(slots_idx, device=eng.device)
+            for key, live in eng.cache.items():
+                live[:, idx] = cache[key][:, idx]
+        else:
+            eng.cache = cache
+        return logits
+
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
         pos = torch.from_numpy(eng.pos).long().to(eng.device)
@@ -147,13 +216,42 @@ class ServingFamily:
                                                  eng.cache, pos)
         return logits
 
+    def _capturable(self) -> bool:
+        """Whether the fused block replays a CUDA graph (the card)."""
+        return self.eng.device.type == "cuda"
+
+    def decode_block(self, tok: np.ndarray, n: int, stops: np.ndarray
+                     ) -> Tuple[np.ndarray, int]:
+        """Up to ``n`` greedy decode steps of every slot in one launch
+        (``api.run_decode_block``, halted by ``stops`` int32 [slots, W]):
+        returns (tokens [steps, slots], steps) on the host."""
+        eng = self.eng
+        pin(eng.cache, self._static)
+        cache, fns, params, cfg = eng.cache, self.fns, eng.params, eng.cfg
+
+        def body(tok, pos, stops, n_steps):
+            def step(t, c, ps, live):
+                return fns.decode_step(params, cfg, t, c, ps, live)
+            buf, steps, _, _ = run_decode_block(
+                step, n, tok.long(), cache, pos.long(), n_steps, stops)
+            return buf, steps
+
+        key = (type(self).__name__, n, eng.slots, stops.shape[1],
+               _shapes(cache))
+        feed = {"tok": tok, "pos": eng.pos, "stops": stops,
+                "n_steps": np.int32(n)}
+        return unpack(eng.graphs.run(key, body, feed,
+                                     capture=self._capturable()), eng.slots)
+
     def maybe_fold(self) -> None:
         """Tail-fold check at a decode boundary (no-op without a tail)."""
 
 
 @register_family("dense")
 class DenseKVServing(ServingFamily):
-    """Plain dense-KV transformer serving: the base path unmodified."""
+    """Plain dense-KV transformer serving: the base path, plus the one
+    legacy privilege — gang admission may splice into a live cache."""
+    gang_live_splice = True
 
 
 @register_family("ssm")
@@ -199,6 +297,22 @@ class TransformerDKVServing(ServingFamily):
     def free_slot(self, slot: int) -> None:
         if self.eng.pager is not None:
             self.eng.pager.free_slot(slot)
+
+    def frozen_after_prefill(self, n: int, plen: int) -> np.ndarray:
+        return np.full(n, plen, np.int32)
+
+    # -- scheduling ------------------------------------------------------
+    def tune_horizon(self) -> int:
+        return self.eng.dkv_tail
+
+    def block_cap(self) -> Optional[int]:
+        return self.eng.dkv_tail     # the fold cadence bounds every block
+
+    def fold_horizon(self) -> Optional[int]:
+        eng = self.eng
+        occ = max(int(eng.pos[i] - eng.frozen_len[i])
+                  for i, r in enumerate(eng.live) if r is not None)
+        return eng.dkv_tail - occ
 
     def _route(self) -> str:
         return "kernel" if self.eng.dengine.config.backend == "cuda" \
@@ -404,6 +518,17 @@ class TransformerDKVServing(ServingFamily):
                                  n_pad=plen - len(batch[j].prompt))
         return misses, (nxt, np.full(len(misses), plen, np.int32))
 
+    def gang(self, batch: List[Any], slots_idx: List[int], plen: int,
+             has_live: bool) -> torch.Tensor:
+        """Legacy admission on an all-free engine (``gang_live_splice``
+        is False): prefill every slot row, the fresh cache replaces the
+        old one."""
+        eng = self.eng
+        logits, eng.cache = self._prefill(eng._toks(batch, eng.slots, plen,
+                                                    slots_idx))
+        eng.rank_eff[slots_idx] = eng.cache["k_u"].shape[-1]
+        return logits
+
     # -- decode ----------------------------------------------------------
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
@@ -420,6 +545,86 @@ class TransformerDKVServing(ServingFamily):
                                                eng.cache, pos, frozen,
                                                attention=self._route())
         return logits
+
+    def _capturable(self) -> bool:
+        # the plain statistics read t_valid on the host (the route check
+        # runs its blocks eagerly, by design)
+        return super()._capturable() and self._route() == "kernel"
+
+    def decode_block(self, tok: np.ndarray, n: int, stops: np.ndarray
+                     ) -> Tuple[np.ndarray, int]:
+        eng = self.eng
+        if eng.pager is not None:
+            return self._decode_block_paged(tok, n, stops)
+        c = eng.cache
+        nl, b, t, r = c["k_u"].shape
+        st = self._static
+        if "k_u" not in st or st["k_u"].shape[2] < t \
+                or st["k_u"].shape[3] != r:
+            # the U buffers grow or change rank: new buffers, and the
+            # graphs that read the old go.  Rows: t plus one tail (a fold
+            # adds at most a tail's rows to t), rounded up to ROW_PAD
+            tp = -(-(t + eng.dkv_tail) // ROW_PAD) * ROW_PAD
+            st.clear()
+            for key in ("k_u", "v_u"):
+                st[key] = torch.zeros(nl, b, tp, r, device=eng.device,
+                                      dtype=c[key].dtype)
+            st["views"], st["pinned"] = {}, {}
+            eng.graphs.clear()
+        for key in ("k_u", "v_u"):
+            # the exact slab stays a view of the padded buffer: folds and
+            # splices work on it; the graph reads the whole buffer, and
+            # rows at or past a live slot's frozen_len are never read
+            if c[key] is not st["views"].get(key):
+                view = st[key][:, :, :t]
+                view.copy_(c[key])
+                c[key] = st["views"][key] = view
+        pin(c, st["pinned"], skip=("k_u", "v_u"))
+        cache = {"k_u": st["k_u"], "v_u": st["v_u"], "k_vt": c["k_vt"],
+                 "v_vt": c["v_vt"], "tail": c["tail"]}
+        params, cfg, route = eng.params, eng.cfg, self._route()
+
+        def body(tok, pos, frozen, stops, n_steps):
+            buf, steps, _, _ = DK.decode_block_dkv(
+                params, cfg, tok.long(), cache, pos, frozen, n_steps, stops,
+                max_block=n, attention=route)
+            return buf, steps
+
+        key = ("slab", route, n, eng.slots, stops.shape[1], _shapes(cache))
+        feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
+                "stops": stops, "n_steps": np.int32(n)}
+        return unpack(eng.graphs.run(key, body, feed,
+                                     capture=self._capturable()), eng.slots)
+
+    def _decode_block_paged(self, tok: np.ndarray, n: int,
+                            stops: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Paged fused block: the pools are written in place; the slot
+        factors, which a fold rebinds, are pinned; the block tables pad
+        to ``pages_for(max_len)`` columns, so their width never changes a
+        graph's key (the paged kernel reads rows below ``frozen_len``)."""
+        eng = self.eng
+        pg = eng.pager
+        pin(pg.cache, self._static)
+        cache = pg.cache
+        params, cfg, route = eng.params, eng.cfg, self._route()
+        t_need, r_need, tl = pg.slab_t, pg.slab_r, eng.dkv_tail
+
+        def body(tok, pos, frozen, stops, bt_u, bt_t, n_steps):
+            buf, steps, _, _ = DK.decode_block_dkv_paged(
+                params, cfg, tok.long(), cache, pos, frozen, bt_u, bt_t,
+                n_steps, stops, t_need, r_need, tl, max_block=n,
+                attention=route)
+            return buf, steps
+
+        key = ("paged", route, n, eng.slots, stops.shape[1], r_need,
+               _shapes(cache))
+        feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
+                "stops": stops,
+                "bt_u": pg.bt_array(pg.bt_u, pg.pages_for(eng.max_len)),
+                "bt_t": pg.bt_array(pg.bt_t, pg.ntp),
+                "n_steps": np.int32(n)}
+        return unpack(eng.graphs.run(key, body, feed,
+                                     capture=self._capturable()), eng.slots)
 
     # -- folds -----------------------------------------------------------
     def maybe_fold(self) -> None:

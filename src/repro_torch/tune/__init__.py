@@ -17,18 +17,19 @@ from .cache import (TuningCache, default_cache, default_path, entry_key,
 from .cost_model import (CPU, H100, DeviceModel, detect_device, device_kind,
                          predict, predict_curve)
 from .measure import measure_candidate, timeit
-from .space import (BLOCK_GRID, EXPANSION_GRID, TunableParam, TunableSpace,
-                    available_spaces, get_space, register_space,
-                    space_revision)
+from .space import (BLOCK_GRID, DECODE_BLOCK_GRID, EXPANSION_GRID,
+                    TunableParam, TunableSpace, available_spaces, get_space,
+                    register_space, space_revision)
 from .tuner import (DEFAULT_PRUNE, TuneResult, candidates_for, pretune,
-                    reset_stats, stats, tune, tuned_expansion)
+                    reset_stats, stats, tune, tuned_decode_block,
+                    tuned_expansion)
 
 __all__ = [
-    "BLOCK_GRID", "CPU", "DEFAULT_PRUNE", "DeviceModel", "EXPANSION_GRID",
-    "H100", "TunableParam", "TunableSpace", "TuneResult", "TuningCache",
+    "BLOCK_GRID", "CPU", "DECODE_BLOCK_GRID", "DEFAULT_PRUNE",
+    "DeviceModel", "EXPANSION_GRID", "H100", "TunableParam", "TunableSpace", "TuneResult", "TuningCache",
     "available_spaces", "candidates_for", "default_cache", "default_path",
     "detect_device", "device_kind", "entry_key", "get_space",
     "measure_candidate", "predict", "predict_curve", "pretune",
     "register_space", "reset_stats", "shape_bucket", "space_revision",
-    "stats", "timeit", "tune", "tuned_expansion",
+    "stats", "timeit", "tune", "tuned_decode_block", "tuned_expansion",
 ]

@@ -58,6 +58,9 @@ class DeviceModel:
     sat_warps: int         # warps in flight at bandwidth saturation
     cta_s: float           # fixed seconds per CTA (prologue, tail, launch)
     split_s: float         # seconds per split of the plain version's loop
+    #: host seconds a fused decode block saves per step it absorbs: one
+    #: eager decode step against one replay of its captured graph
+    host_dispatch_s: float = 0.0
 
 
 #: Fitted constants of the H100 model: :func:`fit_h100` on chip_smoke.py
@@ -66,14 +69,23 @@ class DeviceModel:
 H100_SAT_WARPS = 1716      # warps in flight at bandwidth saturation
 H100_CTA_S = 1.06e-6       # per-CTA cost, spread over the SMs
 
+#: Host dispatch a captured decode block saves per step: chip_smoke.py
+#: phase 4's ``dispatch:`` line, one eager decode step of full llama2-7b
+#: on the decomposed cache (4 slots) against one replay of the same step
+#: as a CUDA graph (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+H100_HOST_DISPATCH_S = 30.047e-3
+
 #: NVIDIA H100 SXM (data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on
 #: the CUDA cores (both kernels compute in float32), 132 SMs.
 H100 = DeviceModel("h100", peak_flops=67e12, hbm_bw=3.35e12, sms=132,
-                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S, split_s=0.0)
+                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S, split_s=0.0,
+                   host_dispatch_s=H100_HOST_DISPATCH_S)
 
 #: ``device="cpu"`` runs of the plain versions: f engages no parallel
 #: units (the memory side is flat); each split of the plain matvec pair
-#: is one more eager product, so the model prefers small f there.
+#: is one more eager product, so the model prefers small f there.  The
+#: host replays no graphs: a fused block dispatches every step it runs,
+#: so it saves nothing (``host_dispatch_s`` 0).
 CPU = DeviceModel("cpu", peak_flops=5e10, hbm_bw=2e10, sms=1, sat_warps=1,
                   cta_s=0.0, split_s=2e-5)
 
@@ -208,10 +220,37 @@ KERNEL_TERMS: Dict[str, Callable[[Sequence[int], int, Mapping[str, Any]],
 }
 
 
+def _predict_decode_block(shape: Sequence[int], dtb: int,
+                          cand: Mapping[str, Any],
+                          dev: DeviceModel) -> float:
+    """Per-TOKEN seconds of the fused serving decode at block length k,
+    for shape (slots b, decode horizon t, kv row width w): ``t_step``,
+    the roofline time of one step (the [b, t, w] K/V working set streamed
+    once, 4·b·t·w operations), plus the host dispatch amortized over
+    ``min(k, t)`` (a block cannot outrun the fold or budget horizon t),
+    plus the steps past the horizon, which a captured block still runs.
+    A 1e-9·k tie-break keeps the minimum unique.  Non-increasing
+    amortization plus non-decreasing waste: unimodal in k."""
+    b, t, w = shape
+    k = int(cand["block"])
+    if k < 1:
+        raise ValueError(f"block must be >= 1, got {k}")
+    t_step = max(2 * b * t * w * dtb / dev.hbm_bw,
+                 4.0 * b * t * w / dev.peak_flops)
+    k_eff = min(k, max(1, t))
+    return t_step + dev.host_dispatch_s / k_eff \
+        + t_step * (k - k_eff) / k + 1e-9 * k
+
+
 def predict(kernel: str, shape: Sequence[int], dtype: Any,
             cand: Mapping[str, Any], device: DeviceModel = H100) -> float:
     """Predicted seconds for one launch of ``kernel`` at operating point
-    ``cand`` — max(memory side, compute side), unimodal in f."""
+    ``cand`` — max(memory side, compute side), unimodal in f.  (For the
+    ``decode_block`` pseudo kernel: seconds per token of the serving
+    decode.)"""
+    if kernel == "decode_block":
+        return _predict_decode_block(tuple(int(d) for d in shape),
+                                     dtype_bytes(dtype), cand, device)
     try:
         terms = KERNEL_TERMS[kernel]
     except KeyError:

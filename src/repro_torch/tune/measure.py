@@ -30,7 +30,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..platform import resolve_device, torch_dtype
+from ..platform import capture_stream, resolve_device, torch_dtype
 
 DRAWS = 1 << 20                 # numpy draws per input; the rest repeats
 FLUSH_BYTES = 256 * 2 ** 20     # > 5 × the H100's 50 MB L2
@@ -111,7 +111,55 @@ def _bench_expand(name: str, block_key: str):
     return build
 
 
+DECODE_TOKENS = 32              # tokens one decode_block measurement runs
+
+
+def _bench_decode_block(shape, dtype, cand, device) -> Callable[[], Any]:
+    """Serving decode proxy, the same for every candidate: 32 tokens of
+    a step that streams a [b, t, w] K/V working set (scores, softmax,
+    weighted sum), cut into ceil(32 / k) blocks of k steps, each block
+    read back like the engine's per-block sync.  On the card each block
+    is the replay of one captured CUDA graph of k steps (captured here,
+    after a warm-up, outside the timed calls); on the host it runs
+    eagerly."""
+    b, t, w = shape
+    k = int(cand["block"])
+    launches = -(-DECODE_TOKENS // k)
+    kv = _rand(0, (b, t, w), dtype, device)
+    q = _rand(1, (b, w), "float32", device)
+
+    def block():
+        x = q
+        for _ in range(k):
+            p = torch.softmax(torch.einsum("bw,btw->bt", x, kv.float()), -1)
+            x = torch.einsum("bt,btw->bw", p, kv.float())
+        return x
+
+    if device.type == "cuda":
+        side = capture_stream(device.index if device.index is not None
+                              else torch.cuda.current_device())
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            block()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = block()
+
+        def run():
+            for _ in range(launches):
+                graph.replay()
+                out[0, 0].item()
+        return run
+
+    def run():
+        for _ in range(launches):
+            block()[0, 0].item()
+    return run
+
+
 _BENCH = {
+    "decode_block": _bench_decode_block,
     "lanczos_reorth": _bench_lanczos_reorth,
     "matvec_expand": _bench_expand("matvec", "row_block"),
     "rmatvec_expand": _bench_expand("rmatvec", "col_block"),

@@ -107,3 +107,12 @@ def _import_kernel_spaces() -> None:
 # sides of the Fig. 12 U-curve (the matvec spaces extend it to 128).
 EXPANSION_GRID = (1, 2, 4, 8, 16, 32)
 BLOCK_GRID = (128, 256, 512)
+
+# Fused serving decode: steps per launch.  Not a kernel — the serving
+# loop registers here directly, as in the JAX package.  1 is one dispatch
+# per token; long blocks amortize the host's dispatch but overshoot the
+# fold and budget horizons (the engine then caps each block).
+DECODE_BLOCK_GRID = (1, 2, 4, 8, 16, 32)
+register_space(TunableSpace("decode_block", (
+    TunableParam("block", DECODE_BLOCK_GRID, 8),
+)))

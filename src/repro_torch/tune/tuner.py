@@ -13,8 +13,9 @@ Counterpart of ``repro.tune.tuner``.  ``tune`` is the one entry point:
    at the bucketed shape on ``device``; the winner is persisted, so step
    1 hits next time.
 
-``tuned_expansion`` adds the in-process lru the engine resolves
-``expansion="auto"`` through.  The engine always pins its own backend
+``tuned_expansion`` and ``tuned_decode_block`` add the in-process lru
+the engines resolve ``expansion="auto"`` and ``decode_block="auto"``
+through.  The engine always pins its own backend
 through ``fix``, so the tuner never swaps a backend under an engine.
 :data:`stats` counts lookups, lru misses and answers by source.
 """
@@ -223,6 +224,26 @@ def tuned_expansion(shape: Sequence[int], dtype: Any = "float32",
     return _tuned_expansion(kernel, shape_bucket(shape), _dtype_name(dtype),
                             backend, str(resolve_device(device)),
                             default_cache().path)
+
+
+@functools.lru_cache(maxsize=None)
+def _tuned_decode_block(bucket: Tuple[int, ...], dtype: str, device: str,
+                        cache_path: str) -> int:
+    stats.lru_misses += 1
+    res = tune("decode_block", bucket, dtype, device=device)
+    return int(res.best["block"])
+
+
+def tuned_decode_block(shape: Sequence[int], dtype: Any = "float32",
+                       device: Any = "cuda") -> int:
+    """The fused decode block length the serving engine should run for
+    this (slots, decode horizon, kv width) bucket on ``device`` — answers
+    ``Engine(decode_block="auto")`` as :func:`tuned_expansion` answers
+    ``expansion="auto"``."""
+    stats.lru_lookups += 1
+    return _tuned_decode_block(shape_bucket(shape), _dtype_name(dtype),
+                               str(resolve_device(device)),
+                               default_cache().path)
 
 
 def pretune(shapes: Mapping[str, Sequence[Sequence[int]]],

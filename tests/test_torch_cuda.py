@@ -597,3 +597,148 @@ def test_measured_tune_on_card_hits_cache(cuda, tmp_path, monkeypatch):
     la, lp = auto.decompose(x, 6), pinned.decompose(x, 6)
     for p, q in ((la.u, lp.u), (la.core, lp.core), (la.vt, lp.vt)):
         assert torch.equal(p, q)
+
+
+# ---------------------------------------------------------------------------
+# Fused decode blocks replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+FUSED_ARCH = {"slab": "llama2-7b", "paged": "llama2-7b", "dense": "llama2-7b",
+              "ssm": "mamba2-780m"}
+
+
+def _fused_serve(cuda, kind, dtype, block, params=None, eos=None):
+    """Reduced ``FUSED_ARCH[kind]`` in ``dtype``, 2 slots, prompts of
+    12/7/15/30 tokens up front, 12 new tokens each (dkv: rank 16, tail 8,
+    page 4).  Returns (tokens, engine, launch counts, params)."""
+    import numpy as np
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import Engine, Request
+    cfg = get_arch(FUSED_ARCH[kind]).reduced().replace(dtype=dtype)
+    if params is None:
+        params = model_fns(cfg).init(
+            cfg, torch.Generator(device=cuda).manual_seed(0))
+    kv = kind in ("slab", "paged")
+    ecfg = EngineConfig(kv_rank=16 if kv else 0, kv_tail=8, kv_page=4,
+                        decode_block=block)
+    eng = Engine(cfg, params, slots=2, max_len=96, device=cuda,
+                 paged=kind == "paged", eos_id=eos,
+                 decompose_engine=DecomposeEngine(ecfg))
+    rng = np.random.RandomState(0)
+    for i, n in enumerate((12, 7, 15, 30)):
+        eng.submit(Request(uid=i, prompt=rng.randint(0, cfg.vocab, n,
+                                                     dtype=np.int32),
+                           max_new_tokens=12))
+    ops.reset_launch_counts()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return {r.uid: r.out_tokens for r in done}, eng, ops.launch_counts(), \
+        params
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["slab", "paged", "dense", "ssm"])
+def test_graph_blocks_token_equal_single_step(cuda, kind, dtype):
+    """Blocks of 4 replayed as CUDA graphs give the single-step engine's
+    tokens for every family, in float32 and bf16 (the kernel route is
+    bit-equal at the graphs' padded rows); nothing decodes eagerly; the
+    kernel launches of the replays equal the single-step run's."""
+    base, e1, c1, p = _fused_serve(cuda, kind, dtype, 1)
+    got, eb, cb, _ = _fused_serve(cuda, kind, dtype, 4, p)
+    assert got == base
+    g = eb.graphs
+    assert g.eager == 0 and g.replays == eb.stats.blocks > 0
+    assert g.captures <= g.replays and eb.stats.blocks < e1.stats.blocks
+    for name, n in c1.items():
+        assert cb[name] - g.warmup_launches.get(name, 0) == n, name
+    if kind in ("slab", "paged"):
+        assert e1.stats.tail_folds > 0 and sum(c1.values()) > 0
+    # a stop token mid-block halts the replay on the device
+    eos = base[0][5]
+    b_eos, e_eos, _, _ = _fused_serve(cuda, kind, dtype, 1, p, eos=eos)
+    g_eos, f_eos, _, _ = _fused_serve(cuda, kind, dtype, 4, p, eos=eos)
+    assert g_eos == b_eos and f_eos.stats.stopped_eos == \
+        e_eos.stats.stopped_eos >= 1
+
+
+def test_graph_same_key_replays_without_capture(cuda):
+    """A block whose key was captured replays without a new capture; the
+    reference route runs its blocks eagerly (its plain statistics read
+    ``t_valid`` on the host), with the same tokens."""
+    got, eng, _, p = _fused_serve(cuda, "slab", "float32", 4)
+    caps, reps = eng.graphs.captures, eng.graphs.replays
+    assert reps > caps >= 1
+    tok = eng._last_tokens()
+    stops = eng._stop_table()
+    eng.family.decode_block(tok, 4, stops)
+    eng.family.decode_block(tok, 4, stops)
+    assert eng.graphs.captures in (caps, caps + 1)
+    caps2 = eng.graphs.captures
+    eng.family.decode_block(tok, 4, stops)
+    assert eng.graphs.captures == caps2
+    assert eng.graphs.replays == reps + 3
+    # dropping every graph drops their pool; the next capture takes anew
+    eng.graphs.clear()
+    eng.family.decode_block(tok, 4, stops)
+    assert eng.graphs.captures == caps2 + 1
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine, Request
+    import numpy as np
+    cfg = get_arch("llama2-7b").reduced().replace(dtype="float32")
+    ref = Engine(cfg, p, slots=2, max_len=96, device=cuda,
+                 decompose_engine=DecomposeEngine(EngineConfig(
+                     kv_rank=16, kv_tail=8, decode_block=4,
+                     backend="reference")))
+    rng = np.random.RandomState(0)
+    for i, n in enumerate((12, 7, 15, 30)):
+        ref.submit(Request(uid=i, prompt=rng.randint(0, cfg.vocab, n,
+                                                     dtype=np.int32),
+                           max_new_tokens=12))
+    done = ref.run()
+    assert {r.uid: r.out_tokens for r in done} == got
+    assert ref.graphs.captures == 0 and ref.graphs.eager > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dkv_kernel_bit_equal_at_padded_rows(cuda, dtype):
+    """The slab dkv kernel over U padded to a multiple of 128 rows (the
+    graphs' static buffers, stale data past the exact rows) is bit-equal
+    to the kernel over the exact rows: it reads rows below t_valid."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = getattr(torch, dtype)
+    b, nh, t, r = 4, 32, 529, 64
+    inner = torch.randn(b, nh, r, device=cuda, generator=g)
+    ku = torch.randn(b, t, r, device=cuda, generator=g).to(dt)
+    vu = torch.randn(b, t, r, device=cuda, generator=g).to(dt)
+    tv = torch.tensor([529, 512, 0, 33], dtype=torch.int32, device=cuda)
+    pad = lambda u: torch.cat([u, torch.randn(  # noqa: E731
+        b, 640 - t, r, device=cuda, generator=g).to(dt)], 1).contiguous()
+    for x, y in zip(dk.dkv_attention_stats(inner, ku, vu, tv),
+                    dk.dkv_attention_stats(inner, pad(ku), pad(vu), tv)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["slab", "paged"])
+def test_dropped_engine_frees_its_graphs_without_gc(cuda, kind):
+    """``del eng`` frees the engine, its graphs (and with them their
+    memory pool), their static input buffers and the cache the graphs
+    read at once, with the cyclic collector off."""
+    import gc
+    import weakref
+    _, _, _, p = _fused_serve(cuda, kind, "float32", 1)
+    gc.collect()
+    gc.disable()
+    try:
+        _, eng, _, _ = _fused_serve(cuda, kind, "float32", 4, p)
+        ents = list(eng.graphs._lru.values())
+        assert ents and eng.graphs.captures > 0
+        cache = eng.pager.cache if kind == "paged" else eng.cache
+        held = [eng, eng.graphs] + [e.graph for e in ents] \
+            + [e.flat for e in ents] + [cache["k_vt"], cache["tail"]["v" if
+                                         kind == "slab" else "v_pages"]]
+        refs = [weakref.ref(x) for x in held]
+        del eng, ents, cache, held
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

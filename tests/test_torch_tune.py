@@ -51,7 +51,11 @@ def test_spaces_match_jax_where_the_meaning_is_shared():
     assert tune.BLOCK_GRID == jtune.BLOCK_GRID
     assert dataclasses.astuple(tune.get_space("matvec_expand")) == \
         dataclasses.astuple(jtune.get_space("matvec_expand"))
-    assert set(tune.available_spaces()) == set(KERNELS)
+    assert set(tune.available_spaces()) == set(KERNELS) | {"decode_block"}
+    # the fused serving decode's block space is the reference's
+    assert tune.DECODE_BLOCK_GRID == jtune.space.DECODE_BLOCK_GRID
+    assert dataclasses.astuple(tune.get_space("decode_block")) == \
+        dataclasses.astuple(jtune.get_space("decode_block"))
     # lanczos_reorth: the same f grid; f is blocks along N here, as in JAX
     lr = tune.get_space("lanczos_reorth")
     assert lr.param("expansion").choices == jtune.get_space(
@@ -335,6 +339,84 @@ def test_entry_points_need_a_gpu_or_explicit_cpu(tmp_cache, monkeypatch):
                                {"expansion": 1})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fig12.main(["--quick"])
+
+
+@settings(max_examples=60, deadline=None)
+@given(b=st.integers(1, 64), t=st.integers(1, 4096),
+       w=st.integers(1, 8192), dtype=st.sampled_from(["float32",
+                                                     "bfloat16"]),
+       model=st.sampled_from([tune.H100, tune.CPU]))
+def test_decode_block_model_is_unimodal(b, t, w, dtype, model):
+    """Per-token seconds of the fused decode over the block grid:
+    unimodal, positive; on the host (no graphs: a block saves no
+    dispatch) the best block is 1."""
+    ts = [tune.predict("decode_block", (b, t, w), dtype, c, model)
+          for c in tune.candidates_for("decode_block")]
+    assert all(x > 0 for x in ts) and _unimodal(ts), ts
+    if model is tune.CPU:
+        assert ts.index(min(ts)) == 0
+
+
+def test_decode_block_model_amortizes_the_host_dispatch(tmp_cache):
+    """On the H100 model a long horizon takes the longest block and a
+    horizon of 4 steps takes 4 (past it a block's steps are waste); the
+    host model takes 1."""
+    assert tune.tune("decode_block", (4, 512, 1024),
+                     device="cpu").best == {"block": 1}
+    curve = dict((c["block"], p) for c, p in tune.predict_curve(
+        "decode_block", (4, 4, 1024), "float32",
+        tune.candidates_for("decode_block"), tune.H100))
+    assert min(curve, key=curve.get) == 4
+    curve = dict((c["block"], p) for c, p in tune.predict_curve(
+        "decode_block", (4, 512, 1024), "float32",
+        tune.candidates_for("decode_block"), tune.H100))
+    assert min(curve, key=curve.get) == 32
+
+
+def test_tuned_decode_block_measured_on_cpu(tmp_cache):
+    """The decode_block measurement harness times the proxy on the host
+    and the measured winner persists; ``tuned_decode_block`` is an
+    in-process lru over the cache."""
+    res = tune.tune("decode_block", (2, 16, 32), measure_candidates=True,
+                    prune=2, reps=1, device="cpu")
+    assert res.source == "measured" and res.measured_s > 0
+    k = tune.tuned_decode_block((2, 16, 32), device="cpu")
+    assert k in tune.DECODE_BLOCK_GRID
+    assert tune.tuned_decode_block((2, 16, 32), device="cpu") == k
+    assert tune.stats.lru_misses == 1 and tune.stats.lru_lookups == 2
+
+
+@pytest.mark.parametrize("kv_rank", [0, 8])
+def test_auto_decode_block_token_equal_to_pinned(tmp_cache, kv_rank):
+    """``Engine(decode_block="auto")`` resolves through the tuner and
+    serves the tokens of the engine pinned at the resolved block (and of
+    the single-step engine)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import Engine, Request
+    cfg = get_arch("deepseek-7b").reduced().replace(dtype="float32")
+    p = model_fns(cfg).init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (12, 7, 15)]
+
+    def serve(block):
+        eng = Engine(cfg, p, slots=2, max_len=64, device="cpu",
+                     decode_block=block,
+                     decompose_engine=DecomposeEngine(EngineConfig(
+                         kv_rank=kv_rank, kv_tail=4, kv_exact=True)))
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=pr, max_new_tokens=8))
+        return {r.uid: r.out_tokens for r in eng.run()}, eng
+
+    got, auto = serve("auto")
+    assert auto.decode_block in tune.DECODE_BLOCK_GRID
+    key = tune.entry_key("torch-cpu", "decode_block",
+                         (2, 4 if kv_rank else 64, cfg.kv_width),
+                         "float32") + "/-"
+    assert tune.default_cache().get(key)["best"]["block"] == \
+        auto.decode_block
+    assert serve(auto.decode_block)[0] == got == serve(1)[0]
 
 
 # ---------------------------------------------------------------------------
