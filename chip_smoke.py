@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile    # also profile serving (single-
                                        # step and fused), one decomposed
                                        # forward, the shared-prefix run
-                                       # and Mamba2 serving
+                                       # and Mamba2, hybrid and MoE
+                                       # serving
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -109,6 +110,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bit-identical to the engine pinned at the resolved f.  The tuning
    cache is a temporary file of the run.
 
+10. async admission on llama2-7b (after phase 7, the same weights):
+   phase 4's traffic through ``prefill_async=True`` engines, whose
+   prefills run on the prefill stream: sync and ``"ready"`` slab runs
+   in turns (sync, ready, ready, sync), and a ready paged run: every
+   request finished, a ticket in flight at least once, every slot and
+   page back; in ``ready_order="deterministic"``, slab and paged at
+   ``decode_block`` 1 and 8, tokens equal to the sync run's in the same
+   call (and phase 4's).  Each run prints decode tok/s, the TTFT split
+   (queue wait + prefill) and the mean and largest ITL of the streams
+   already live in the steps that dispatched or spliced a prefill,
+   against the other steps' mean.
+11. hybrid serving of ``zamba2-1.2b`` at full width and depth (38
+   layers, d_model 2048, 32 heads, d_ff 8192, state 64, a shared
+   attention block every 6 layers; random bf16 weights from seed 0,
+   after Mamba2's are freed) on phase 4's traffic: exactly 32
+   ``ssd_chunk_intra`` launches per prefill launch and no other kernel;
+   fused (``decode_block=8``) tokens equal to single-step's with every
+   block a replay; sync and ready runs in turns, as in phase 10 (ready
+   tokens equal to sync's: rows never interact); async deterministic
+   tokens, single-step and fused, equal to sync's; the replayed decode
+   step against its bound; phase
+   8's prefill route check (512- and 300-token prompts, bf16 and
+   float32: logits, Mamba2 states, the shared block's K).
+12. MoE serving of ``olmoe-1b-7b`` at full width and depth (16 layers,
+   d_model 2048, 64 experts top 8, expert d_ff 1024; random bf16
+   weights) at its own capacity factor 1.25 on phase 4's traffic: no
+   port kernel launched; fused tokens equal to single-step's, every
+   block a replay; sync and ready runs in turns (ready tokens may
+   differ: an admission a step later changes the batches that share
+   expert capacity); async deterministic equal to sync; the replayed
+   decode step against its bound (every weight and the KV cache read
+   once, all 64 experts' weights among them).
+
+Each phase prints its seconds (``phase <name>: ... s``);
+``--only a,b`` runs some phases for development and prints no result.
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
 statistics in bf16, as phase 6 feeds them, and in float32, the B = 1
 re-orth pair) against their plain versions at the shapes phase 6 gives
@@ -116,9 +152,9 @@ them (the Eq. 6 GEMM's reruns bit-identical, its times warm and L2-cold
 beside ``torch.matmul``'s; the outlier rows warm, L2-cold and with an
 L2 flushed by reading, ``ms_l2_cold_clean``), the paged
 dkv kernel bit for bit against the slab kernel at phase 4's shapes, the
-intra-chunk SSD kernel at phase 8's four prefill shapes (reruns
-bit-identical; warm and L2-cold, beside the empty launch and the
-shape's launches per run), and the four expanded matvec wrappers at
+intra-chunk SSD kernel at phase 8's four prefill shapes and at phase
+11's two (nh 64: G 8 × Q 64 and G 1 × Q 304; reruns bit-identical; warm
+and L2-cold, beside the empty launch and the shape's launches per run), and the four expanded matvec wrappers at
 phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
 bit-identical; times L2-flushed and warm beside the library call's).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
@@ -574,6 +610,7 @@ def ssd_case(g: int, q: int, nh: int, hd: int, gen, per_run=None):
 
 
 SSD_SHAPES = ((8, 64), (6, 64), (2, 64), (1, 304))   # phase 8's (G, Q)
+HYBRID_SSD_SHAPES = ((8, 64), (1, 304))              # phase 11's, nh 64
 
 MATVEC_LINES = {"matvec": 65, "rmatvec": 174, "matvec_batched": 122,
                 "rmatvec_batched": 148}   # src/repro/kernels/matvec_expand.py
@@ -683,6 +720,15 @@ def phase_kernels(cfg):
     ssd_rows = [dict(ssd_case(g, q, m2.ssm_heads, m2.ssm_head_dim, gen,
                               per_run=m2.num_layers), launch_floor_ms=floor)
                 for g, q in SSD_SHAPES]
+    # zamba2's prefill (phase 11): nh 64, d_state 64; the 512-token
+    # prompt in 8 chunks of 64 and the 300-token one as one chunk of 304,
+    # each launched once per Mamba2 block of a prefill
+    zb = get_arch(HYBRID_ARCH)
+    n_mamba = zb.num_layers - zb.num_layers // zb.attn_period
+    ssd_rows += [dict(ssd_case(g, q, zb.ssm_heads, zb.ssm_head_dim, gen,
+                               per_run=n_mamba), launch_floor_ms=floor,
+                      arch=HYBRID_ARCH)
+                 for g, q in HYBRID_SSD_SHAPES]
     for rec in ssd_rows:
         print(json.dumps(rec), flush=True)
     # the expanded matvec pair (phase 9's Fig. 12 operating points): A
@@ -762,13 +808,16 @@ SERVE_LENS = (512, 384, 300, 128)           # phase 4's prompt lengths
 SERVE_ARRIVALS = {0: [0, 1], 3: [2], 6: [3]}   # two arrive mid-decode
 
 
-def drive(eng, prompts, arrivals, max_new: int):
+def drive(eng, prompts, arrivals, max_new: int, itl=None):
     """Submit ``prompts[i]`` for each i of ``arrivals[r]`` once the engine
     has run r decode rounds (a single-step engine runs one round a step),
     and step until every one of them finished.  A fused engine's blocks
     are cut at each arrival round (``decode_block`` lowered for that
     block), so it admits every request at the round a single-step engine
-    does and the two give the same tokens."""
+    does and the two give the same tokens.  ``itl`` (a dict of two
+    lists), when given, collects the inter-token latencies of the streams
+    already live in each step: under ``"admission"`` those of steps that
+    dispatched or spliced a prefill, under ``"other"`` the rest."""
     from repro_torch.serving import Request
     n = sum(len(v) for v in arrivals.values())
     block, rounds = eng.decode_block, sorted(arrivals)
@@ -780,7 +829,12 @@ def drive(eng, prompts, arrivals, max_new: int):
                                    max_new_tokens=max_new))
         eng.decode_block = min(block, rounds[0] - eng._round) if rounds \
             else block
+        st = eng.stats
+        mark = (st.prefills, len(st.ttft_s), len(st.itl_s))
         done.extend(eng.step())
+        if itl is not None:
+            adm = (st.prefills, len(st.ttft_s)) != mark[:2]
+            itl["admission" if adm else "other"].extend(st.itl_s[mark[2]:])
         if len(done) == n and not eng._occupied():
             break
     return done
@@ -1523,8 +1577,8 @@ def paged_prefix_llama(cfg, params, profile: bool = False):
         for _ in range(PREFIX_REQS)]
     eng = paged_engine(cfg, params, prefix_cache=8)
     hit_reorth, miss_reorth = [], []
-    for name, log in (("_admit_hits", hit_reorth),
-                      ("_admit_misses", miss_reorth)):
+    for name, log in (("_dispatch_hits", hit_reorth),
+                      ("_dispatch_misses", miss_reorth)):
         def counted(*a, _orig=getattr(eng.family, name), _log=log, **kw):
             before = ops.launch_counts()
             out = _orig(*a, **kw)
@@ -1890,6 +1944,379 @@ def phase_fig12():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: async admission on llama2-7b's decomposed KV
+# ---------------------------------------------------------------------------
+
+def _mean_ms(xs) -> str:
+    return f"{statistics.fmean(xs) * 1e3:.2f}" if xs else "n/a"
+
+
+def _itl_text(itl) -> str:
+    adm = itl["admission"]
+    return (f"itl_ms admission steps mean {_mean_ms(adm)} max "
+            f"{max(adm) * 1e3 if adm else 0:.2f} ({len(adm)} tokens), "
+            f"other steps mean {_mean_ms(itl['other'])}")
+
+
+def run_async(tag: str, what: str, eng, prompts, max_new: int = 32):
+    """Phase 4's traffic through ``eng``; an async engine must end with
+    no ticket, no reserved slot and (paged) every page back.  Prints one
+    line (decode tok/s, the TTFT split, the live streams' ITL in
+    admission steps against the others).  Returns ({uid: tokens},
+    stats)."""
+    import torch
+    itl = {"admission": [], "other": []}
+    # tickets whose prefill had already finished when dispatch returned
+    # (its host waited for the device inside the prefill)
+    early = []
+    if eng.prefill_stream is not None:
+        dispatch = eng.family.dispatch
+
+        def probed(*a, **kw):
+            tickets = dispatch(*a, **kw)
+            early.extend(t.ready() for t in tickets)
+            return tickets
+        eng.family.dispatch = probed
+    done = drive(eng, prompts, SERVE_ARRIVALS, max_new, itl)
+    # the wrapper and the family hold each other: drop it, or the cycle
+    # keeps the family's graph buffers until a garbage collection
+    eng.family.__dict__.pop("dispatch", None)
+    torch.cuda.synchronize()
+    check_finished(done, eng.cfg.vocab, f"{tag} {what}", max_new)
+    if eng._pool or eng._reserved.any() or eng._occupied():
+        raise AssertionError(f"{tag} {what}: tickets or slots left over")
+    if eng.pager is not None:
+        check_pages_back(eng, f"{tag} {what}")
+    if eng.decode_block > 1 and (eng.graphs.eager
+                                 or eng.graphs.replays != eng.stats.blocks):
+        raise AssertionError(f"{tag} {what}: {eng.graphs.eager} eager "
+                             f"blocks")
+    st = eng.stats
+    print(f"{tag}: {what}: decode_tok/s={st.decode_tok_s:.2f} "
+          f"ttft_ms={_mean_ms(st.ttft_s)} (queue {_mean_ms(st.ttft_queue_s)}"
+          f" + prefill {_mean_ms(st.ttft_compute_s)}) prefill_s="
+          f"{st.prefill_s:.4f} {_itl_text(itl)} inflight_peak="
+          f"{st.prefill_inflight_peak} folds={st.tail_folds} "
+          f"blocks={st.blocks}"
+          + (f" tickets done at dispatch {sum(early)} of {len(early)}"
+             if early else ""), flush=True)
+    return {r.uid: r.out_tokens for r in done}, st
+
+
+def sync_ready_turns(tag: str, engine, prompts):
+    """Sync and async ``"ready"`` single-step runs in turns (sync, ready,
+    ready, sync), so their TTFT and ITL compare within the call.  A ready
+    run must finish everything with a ticket in flight at least once.
+    Returns the sync run's tokens and whether each ready run's equal
+    them."""
+    runs = {}
+    for kind in ("sync", "ready", "ready", "sync"):
+        kw = {} if kind == "sync" else dict(prefill_async=True,
+                                            ready_order="ready")
+        got, st = run_async(tag, f"{kind} single-step", engine(1, **kw),
+                            prompts)
+        if kind == "ready" and st.prefill_inflight_peak < 1:
+            raise AssertionError(f"{tag}: no ticket was ever in flight")
+        runs.setdefault(kind, []).append(got)
+    sync = runs["sync"][0]
+    if runs["sync"][1] != sync:
+        raise AssertionError(f"{tag}: two sync runs gave different tokens")
+    return sync, [got == sync for got in runs["ready"]]
+
+
+def phase_async(cfg, params, slot_tokens=None):
+    """Phase 4's traffic through ``prefill_async=True`` engines: sync and
+    ``"ready"`` slab runs in turns (every request finished, every slot
+    back, a ticket in flight); in deterministic order, slab and paged,
+    single-step and fused, the sync run's tokens (and phase 4's); a
+    ready paged run with every page back."""
+    import numpy as np
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+
+    def engine(block=1, paged=False, **kw):
+        ecfg = EngineConfig(kv_rank=64, kv_tail=16, kv_page=16)
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                      paged=paged, decompose_engine=DecomposeEngine(ecfg),
+                      decode_block=block, **kw)
+
+    sync, ready_equal = sync_ready_turns("async", engine, prompts)
+    if slot_tokens is not None and sync != slot_tokens:
+        raise AssertionError("async phase: sync tokens differ from phase 4's")
+    for paged in (False, True):
+        for block in (1, FUSED_BLOCK):
+            what = f"deterministic {'paged' if paged else 'slab'} " \
+                   f"decode_block={block}"
+            got, st = run_async("async", what, engine(
+                block, paged, prefill_async=True,
+                ready_order="deterministic"), prompts)
+            if got != sync or st.prefill_inflight_peak:
+                raise AssertionError(f"async {what}: tokens differ from the "
+                                     f"sync run's")
+    got, st = run_async("async", "ready paged single-step", engine(
+        1, True, prefill_async=True, ready_order="ready"), prompts)
+    if st.prefill_inflight_peak < 1:
+        raise AssertionError("async ready paged: no ticket was in flight")
+    print(f"async: deterministic tokens equal to sync everywhere; ready "
+          f"runs' tokens equal to sync: slab {ready_equal}, paged "
+          f"{got == sync} (co-folds follow admission rounds); every slot "
+          f"and page back", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: hybrid serving of zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-1.2b"
+
+
+def _n_mamba(cfg) -> int:
+    return cfg.num_layers - cfg.num_layers // cfg.attn_period
+
+
+def _step_bound_ms(params, cache) -> float:
+    """The least time of one decode step: every weight but the embedding
+    table (one row of it is read) and every cache leaf read once, over
+    the card's memory rate."""
+    import torch
+    from repro_torch.models import transformer as T
+    leaves = [t for t in _leaves(cache) if isinstance(t, torch.Tensor)]
+    b = T.param_bytes(params) - T.param_bytes(params["embed"]) \
+        + sum(t.numel() * t.element_size() for t in leaves)
+    return b / HBM_BYTES_S * 1e3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def replayed_step_ms(engine, prompts) -> tuple:
+    """One replayed fused block of FUSED_BLOCK steps on 4 admitted slots
+    (no stop token, so every step runs), read back: median of 5, per
+    step.  Returns (ms per step, the step's bound in ms)."""
+    import torch
+    from repro_torch.serving import Request
+    eng = engine(FUSED_BLOCK)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    eng._admit()
+    tok, stops = eng._last_tokens(), eng._stop_table()
+    eng.family.decode_block(tok, FUSED_BLOCK, stops)        # capture
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, steps = eng.family.decode_block(tok, FUSED_BLOCK, stops)
+        ts.append((time.perf_counter() - t0) / steps)
+    if eng.graphs.eager:
+        raise AssertionError("replayed step: a block ran eagerly")
+    return statistics.median(ts) * 1e3, _step_bound_ms(eng.params,
+                                                       eng.cache)
+
+
+def serve_family_phase(tag: str, cfg, params, profile: bool, launch_check,
+                       rows_independent: bool):
+    """Phase 4's traffic through the config's own family: single-step
+    (profiled when asked), its fused twin at FUSED_BLOCK (tokens equal,
+    every block a replay), sync and ``"ready"`` runs in turns (ready
+    tokens equal to sync's where rows never interact, i.e. where an
+    admission a step later changes no other row), and async
+    deterministic single-step and fused (tokens equal to the sync
+    run's).  ``launch_check(launches, prefill_batches)`` holds the
+    kernel launches of the first sync run.  Returns (the engine
+    factory, prompts, the fused engine)."""
+    import numpy as np
+    from repro_torch.serving import Engine
+
+    def engine(decode_block: int = 1, **kw):
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                      decode_block=decode_block, **kw)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    eng, done, launches, peak = serve_traffic(
+        engine, prompts, profile, f"{tag}: profile of the serving run")
+    st = eng.stats
+    check_finished(done, cfg.vocab, tag)
+    if st.prefill_batches < 3:
+        raise AssertionError(f"{tag}: staggered requests were not admitted "
+                             f"apart")
+    launch_check(launches, st.prefill_batches)
+    tokens = {r.uid: r.out_tokens for r in done}
+    print(f"{tag}: {cfg.name} tokens={st.tokens_out} decode_steps="
+          f"{st.decode_steps} prefill_batches={st.prefill_batches} "
+          f"prefill_s={st.prefill_s:.4f} decode_s={st.decode_s:.4f} "
+          f"decode_tok/s={st.decode_tok_s:.2f} "
+          f"mean_ttft_ms={st.mean_ttft_s * 1e3:.2f} "
+          f"mean_itl_ms={st.mean_itl_s * 1e3:.2f} peak_mem_gib={peak:.2f}",
+          flush=True)
+    print(f"{tag}: launches " + json.dumps(launches), flush=True)
+    del eng
+    fused, ftok, flaunch, fpeak = serve_once(
+        lambda: engine(FUSED_BLOCK), prompts, 32, profile,
+        f"{tag}: profile of the fused serving run "
+        f"(decode_block={FUSED_BLOCK})")
+    check_fused(tag, fused, ftok, flaunch, tokens, launches)
+    fused_line(f"{tag} fused", 32, st, fused, fpeak)
+    sync, ready_equal = sync_ready_turns(tag, engine, prompts)
+    if sync != tokens or (rows_independent and not all(ready_equal)):
+        raise AssertionError(f"{tag}: sync or ready tokens differ from the "
+                             f"first run's ({ready_equal})")
+    print(f"{tag} async: ready runs' tokens equal to sync {ready_equal}",
+          flush=True)
+    for blk in (1, FUSED_BLOCK):
+        det, dtok, dlaunch, _ = serve_once(
+            lambda: engine(blk, prefill_async=True,
+                           ready_order="deterministic"), prompts, 32)
+        if dtok != tokens:
+            raise AssertionError(f"{tag}: async deterministic tokens "
+                                 f"(decode_block={blk}) differ from sync")
+        if blk > 1:
+            check_fused(f"{tag} async", det, dtok, dlaunch, tokens,
+                        launches)
+        print(f"{tag} async: deterministic, decode_block={blk}: tokens "
+              f"equal to sync; decode_tok/s={det.stats.decode_tok_s:.2f} "
+              f"ttft_ms={_mean_ms(det.stats.ttft_s)} (queue "
+              f"{_mean_ms(det.stats.ttft_queue_s)} + prefill "
+              f"{_mean_ms(det.stats.ttft_compute_s)})", flush=True)
+        del det
+    return engine, prompts, fused
+
+
+def serve_hybrid(cfg, params, profile: bool = False):
+    """Phase 11: zamba2-1.2b on phase 4's traffic; exactly one
+    ``ssd_chunk_intra`` launch per Mamba2 block per prefill launch and
+    no other kernel; the prefill route check.  Returns the launch counts
+    of the sync run."""
+    n = _n_mamba(cfg)
+    seen = {}
+
+    def check(launches, batches):
+        seen.update(launches)
+        if launches["ssd_chunk_intra"] != n * batches or any(
+                v for k, v in launches.items() if k != "ssd_chunk_intra"):
+            raise AssertionError(f"hybrid launches {launches}: want exactly "
+                                 f"{n * batches} ssd_chunk_intra and "
+                                 f"nothing else")
+        print(f"hybrid: {launches['ssd_chunk_intra']} ssd_chunk_intra "
+              f"launches = {n} Mamba2 blocks x {batches} prefill launches",
+              flush=True)
+
+    engine, prompts, fused = serve_family_phase("hybrid", cfg, params,
+                                                profile, check, True)
+    ms, bms = replayed_step_ms(engine, prompts)
+    print(f"hybrid: replayed decode step {ms:.3f} ms (4 slots, block of "
+          f"{FUSED_BLOCK}) vs bound {bms:.3f} ms (weights and state read "
+          f"once)", flush=True)
+    del fused
+    check_hybrid_routes(cfg, params, prompts)
+    return seen
+
+
+def check_hybrid_routes(cfg, params, prompts):
+    """Phase 8's route check on the hybrid prefill: the 512- and 300-token
+    prompts through the kernel route and ``backend="reference"``, bf16
+    and float32 weights: logits, the Mamba2 states and the shared
+    block's K."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid as H
+    routes = {b: ops.make_kernels(b) for b in ("cuda", "reference")}
+    p32, cfg32 = to_float32(params), cfg.replace(dtype="float32")
+    by_len = {len(x): x for x in prompts}
+    n_m = _n_mamba(cfg)
+    for n in (512, 300):
+        plen = -(-n // 16) * 16
+        toks = torch.zeros(1, plen, dtype=torch.long, device="cuda")
+        toks[0, plen - n:] = torch.from_numpy(by_len[n]).long()
+        for dt, (p, c) in (("bfloat16", (params, cfg)),
+                           ("float32", (p32, cfg32))):
+            out = {}
+            for b, ks in routes.items():
+                before = ops.launch_counts()["ssd_chunk_intra"]
+                out[b] = H.prefill(p, c, toks, kernels=ks)
+                torch.cuda.synchronize()
+                ran = ops.launch_counts()["ssd_chunk_intra"] - before
+                if ran != (n_m if b == "cuda" else 0):
+                    raise AssertionError(f"hybrid route {b}: {ran} SSD "
+                                         f"kernel launches")
+            (lk, sk), (lr_, sr) = out["cuda"], out["reference"]
+            lk, lr_ = lk[:, :cfg.vocab], lr_[:, :cfg.vocab]
+            pairs = {"ssm": (sk["mamba"]["ssm"], sr["mamba"]["ssm"]),
+                     "conv": (sk["mamba"]["conv"], sr["mamba"]["conv"]),
+                     "attn_k": (sk["attn"]["k"], sr["attn"]["k"])}
+            gaps = {"logits": _rel(lk, lr_)}
+            gaps.update({k: _rel(a, b) for k, (a, b) in pairs.items()})
+            tol = MAMBA_TOL[dt]
+            ok = torch.isfinite(lk).all().item() and all(
+                g <= tol for g in gaps.values())
+            if dt == "float32":
+                for a, b in (pairs["ssm"], pairs["conv"]):
+                    scale = b.abs().max().item()
+                    ok = ok and torch.allclose(a, b, rtol=1e-3,
+                                               atol=1e-3 * scale)
+            print(f"hybrid: kernel vs reference route, prompt {n}, {dt}: "
+                  f"rel L2 " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in gaps.items())
+                  + f" (tol {tol}), argmax equal "
+                  f"{bool((lk.argmax(-1) == lr_.argmax(-1)).all())}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"hybrid routes disagree ({dt}, "
+                                     f"prompt {n}): {gaps}")
+            del out
+    del p32
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: MoE serving of olmoe-1b-7b
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+
+
+def serve_moe(cfg, params, profile: bool = False):
+    """Phase 12: olmoe-1b-7b at its own capacity factor on phase 4's
+    traffic (no kernel of the port on this path: every count stays 0);
+    the replayed decode step against its bound."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    def check(launches, batches):
+        if any(launches.values()):
+            raise AssertionError(f"moe launched port kernels: {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    # MoE rows interact through expert capacity: a ready admission a step
+    # later changes the batches, so ready tokens may differ from sync's
+    engine, prompts, fused = serve_family_phase("moe", cfg, params, profile,
+                                                check, False)
+    del fused
+    ms, bms = replayed_step_ms(engine, prompts)
+    e, h, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    experts = 3 * e * h * f * 2 * (cfg.num_layers - cfg.first_k_dense)
+    print(f"moe: replayed decode step {ms:.3f} ms (4 slots, capacity "
+          f"factor {cfg.capacity_factor}, block of {FUSED_BLOCK}) vs bound "
+          f"{bms:.3f} ms (every weight and the KV cache read once; all "
+          f"{e} experts' weights alone {experts / 2 ** 30:.2f} GiB = "
+          f"{experts / HBM_BYTES_S * 1e3:.3f} ms); weights "
+          f"{T.param_bytes(params) / 2 ** 30:.2f} GiB, peak_mem_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
+
+
+PHASES = ("kernels", "serve", "conformance", "activation", "paged",
+          "async", "mamba2", "hybrid", "moe", "fig12")
+
+
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
     """Once the phases of a model are over and its weights dropped, the
     device holds less than ``limit_gib`` (every engine of the model
@@ -1909,8 +2336,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile the serving run, one decomposed "
                          "forward, the shared-prefix paged run and the "
-                         "Mamba2 serving run, and print each one's device "
-                         "busy share and kernel time table")
+                         "Mamba2, hybrid and MoE serving runs, and print "
+                         "each one's device busy share and kernel time "
+                         "table")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run (a partial run, "
+                         f"for development; prints no result): {PHASES}")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1938,28 +2369,69 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    only = set(args.only.split(",")) if args.only else set(PHASES)
+    unknown = only - set(PHASES)
+    if unknown:
+        return fail(f"unknown phases {sorted(unknown)}; have {PHASES}")
+
+    @contextlib.contextmanager
+    def phase(name):
+        t = time.perf_counter()
+        yield
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+
     cfg = get_arch("llama2-7b")
-    rows = phase_kernels(cfg)
-    params = init_weights(cfg)
-    serve_launches, slot_tokens, long_tokens = serve_llama(cfg, params,
-                                                           args.profile)
-    torch.cuda.empty_cache()
-    conformance(cfg)
-    conformance_mamba2()
-    act = activation_llama(cfg, params, args.profile)
-    torch.cuda.empty_cache()
-    paged_same_traffic(cfg, params, slot_tokens, long_tokens, args.profile)
-    paged = paged_prefix_llama(cfg, params, args.profile)
-    # a dropped engine frees its cache and weights at once (its family
-    # holds it weakly), so no garbage collection runs between phases
-    del params
-    check_freed("llama2-7b")
-    m2 = get_arch(MAMBA_ARCH)
-    m2_params = init_weights(m2)
-    mamba = serve_mamba2(m2, m2_params, args.profile)
-    del m2_params
-    check_freed("mamba2-780m")
-    fig = phase_fig12()
+    rows = serve_launches = slot_tokens = long_tokens = None
+    if "kernels" in only:
+        with phase("kernels"):
+            rows = phase_kernels(cfg)
+    if only & {"serve", "conformance", "activation", "paged", "async"}:
+        params = init_weights(cfg)
+        if "serve" in only:
+            with phase("serve"):
+                serve_launches, slot_tokens, long_tokens = serve_llama(
+                    cfg, params, args.profile)
+            torch.cuda.empty_cache()
+        if "conformance" in only:
+            with phase("conformance"):
+                conformance(cfg)
+                conformance_mamba2()
+        if "activation" in only:
+            with phase("activation"):
+                act = activation_llama(cfg, params, args.profile)
+            torch.cuda.empty_cache()
+        if "paged" in only:
+            with phase("paged"):
+                if slot_tokens is not None:
+                    paged_same_traffic(cfg, params, slot_tokens, long_tokens,
+                                       args.profile)
+                paged = paged_prefix_llama(cfg, params, args.profile)
+        if "async" in only:
+            with phase("async"):
+                phase_async(cfg, params, slot_tokens)
+        # a dropped engine frees its cache and weights at once (its family
+        # holds it weakly), so no garbage collection runs between phases
+        del params
+        check_freed("llama2-7b")
+    for name, arch, serve in (("mamba2", MAMBA_ARCH, serve_mamba2),
+                              ("hybrid", HYBRID_ARCH, serve_hybrid),
+                              ("moe", MOE_ARCH, serve_moe)):
+        if name in only:
+            with phase(name):
+                m_cfg = get_arch(arch)
+                m_params = init_weights(m_cfg)
+                got = serve(m_cfg, m_params, args.profile)
+                if name == "mamba2":
+                    mamba = got
+                del m_params
+                check_freed(arch)
+    if "fig12" in only:
+        with phase("fig12"):
+            fig = phase_fig12()
+    if only != set(PHASES):
+        print(f"only: phases {sorted(only)} passed (no result line: a "
+              f"partial run)", flush=True)
+        return 0
     # each kernel's launches from the run of the path that uses it: the
     # serving run for the batched re-orth pair and dkv, the activation
     # forward for the rest (its re-orth launches are all at B = 1), the

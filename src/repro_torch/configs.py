@@ -2,9 +2,12 @@
 
 The fields, ``padded_vocab``, ``resolved_head_dim``, ``d_inner``,
 ``ssm_heads`` and ``reduced()`` mirror ``repro.configs.base.ArchConfig``
-for the two families ported: the dense decoder-only transformer with a
-gated MLP, no biases and an untied LM head, and the attention-free Mamba2
-(``ssm``); fields other configs vary arrive with them.
+for the four families ported: the dense decoder-only transformer with a
+gated MLP, no biases and an untied LM head, the attention-free Mamba2
+(``ssm``), the token-choice top-k mixture of experts (``moe``, with the
+kimi-style leading dense layers and shared experts) and the Zamba2-style
+hybrid (``hybrid``: Mamba2 blocks plus one shared attention block every
+``attn_period`` layers); fields other configs vary arrive with them.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Dict, Optional
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # "dense" | "ssm"
+    family: str                      # "dense" | "ssm" | "moe" | "hybrid"
     num_layers: int
     d_model: int
     num_heads: int                   # 0 for attention-free (mamba2)
@@ -25,11 +28,20 @@ class ArchConfig:
     head_dim: Optional[int] = None   # default d_model // num_heads
     activation: str = "silu"         # gated (SwiGLU) MLP
     rope_theta: float = 10_000.0
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # per-expert FFN dim (d_ff: dense)
+    n_shared_experts: int = 0
+    first_k_dense: int = 0           # leading dense layers (kimi-style)
+    capacity_factor: float = 1.25
     # --- SSM (mamba2) ---
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv_width: int = 4
+    # --- hybrid (zamba2) ---
+    attn_period: int = 0             # one shared attention block every N
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
 
@@ -65,15 +77,21 @@ class ArchConfig:
         package, so a reduced config names the same shapes in both)."""
         kw = dict(
             name=self.name + "-smoke",
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers, 4 if self.attn_period else 2),
             d_model=128,
             num_heads=min(self.num_heads, 4),
             num_kv_heads=min(self.num_kv_heads, 2),
             head_dim=32 if self.num_heads else None,
             d_ff=256,
             vocab=512)
+        if self.num_experts:
+            kw.update(num_experts=8, top_k=2, moe_d_ff=64,
+                      n_shared_experts=min(self.n_shared_experts, 1),
+                      first_k_dense=min(self.first_k_dense, 1))
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32)
+        if self.attn_period:
+            kw.update(attn_period=2)
         return self.replace(**kw)
 
 
@@ -111,3 +129,31 @@ register(ArchConfig(
     num_layers=48, d_model=1536, num_heads=0, num_kv_heads=0,
     d_ff=0, vocab=50280,
     ssm_state=128, ssm_expand=2, ssm_head_dim=64))
+
+# 64 experts top-8, per-expert d_ff 1024, MHA [arXiv:2409.02060].
+register(ArchConfig(
+    name="olmoe-1b-7b", family="moe",
+    num_layers=16, d_model=2048, num_heads=16, num_kv_heads=16,
+    d_ff=1024, vocab=50304,
+    num_experts=64, top_k=8, moe_d_ff=1024))
+
+# Mamba2 backbone plus one SHARED attention+MLP block invoked every
+# attn_period layers (38 = 6 x (5 mamba + shared attention) + 2 mamba;
+# the released model's per-invocation LoRA deltas are omitted, as in the
+# reference) [arXiv:2411.15242].
+register(ArchConfig(
+    name="zamba2-1.2b", family="hybrid",
+    num_layers=38, d_model=2048, num_heads=32, num_kv_heads=32,
+    d_ff=8192, vocab=32000,
+    ssm_state=64, ssm_expand=2, ssm_head_dim=64,
+    attn_period=6))
+
+# 384 experts top-8, one shared expert, first layer dense (the
+# reference's paper-table config).  Only its reduced variant runs: the
+# full model does not fit one card.
+register(ArchConfig(
+    name="kimi-k2-1t-a32b", family="moe",
+    num_layers=61, d_model=7168, num_heads=64, num_kv_heads=8,
+    d_ff=18432, vocab=163840,
+    num_experts=384, top_k=8, moe_d_ff=2048,
+    n_shared_experts=1, first_k_dense=1))

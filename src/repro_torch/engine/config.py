@@ -1,7 +1,7 @@
 """EngineConfig — the knobs of the decomposition pipeline the port runs.
 
-Counterpart of ``repro.engine.config.EngineConfig`` (the async and mesh
-fields arrive with the modules that read them):
+Counterpart of ``repro.engine.config.EngineConfig`` (the mesh field
+arrives with the module that reads it):
 
 * ``policy``      — per-layer decomposition directives
                     (``core.policy.DecompositionPolicy``, paper §6.2);
@@ -48,6 +48,11 @@ fields arrive with the modules that read them):
                     engine caps each block at the next fold, budget or
                     admission round, and a stop token halts it);
                     ``"auto"`` picks N through ``repro_torch.tune``.
+* ``prefill_async`` — serving admission dispatches each prefill as a
+                    ticket (on the card: on a side stream, with an event
+                    as its done-probe) and splices it at a decode
+                    boundary (``serving.Engine(prefill_async=,
+                    ready_order=)``; the engine's argument wins).
 """
 from __future__ import annotations
 
@@ -79,6 +84,7 @@ class EngineConfig:
     sched_admit_every: int = 1
     sched_max_admit: int = 0
     decode_block: Union[int, str] = 1   # fused decode steps, or "auto"
+    prefill_async: bool = False         # ticketed admission (serving)
 
     def __post_init__(self):
         if self.expansion != "auto" and (
@@ -93,6 +99,9 @@ class EngineConfig:
                 or self.decode_block < 1):
             raise ValueError(f"decode_block must be a positive int or "
                              f"'auto', got {self.decode_block!r}")
+        if not isinstance(self.prefill_async, bool):
+            raise ValueError(f"prefill_async must be a bool, got "
+                             f"{self.prefill_async!r}")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")

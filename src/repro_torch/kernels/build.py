@@ -37,7 +37,7 @@ SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use (B)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_TICKETS: Dict[Tuple[object, str], "torch.Tensor"] = {}
+_TICKETS: Dict[Tuple[object, str, int], "torch.Tensor"] = {}
 
 
 def nvcc_path() -> str:
@@ -123,12 +123,17 @@ def ticket_buffers() -> list:
 
 def tickets(device, n: int, owner: str):
     """At least ``n`` zeroed int32 ticket counters on ``device`` for the
-    kernels of ``owner``.  A kernel resets each counter it uses before its
-    launch ends, so launches that share a buffer must run one after
-    another (one stream)."""
+    kernels of ``owner``, launched on the current stream.  A kernel
+    resets each counter it uses before its launch ends, so launches that
+    share a buffer must run one after another: one buffer per (device,
+    owner, stream), so that launches on two streams — an async prefill
+    on the prefill stream, decode on the current stream — never share
+    counters (the serving engine checks this where it takes the prefill
+    stream)."""
     import torch
-    t = _TICKETS.get((device, owner))
+    key = (device, owner, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[(device, owner)] = t
+        _TICKETS[key] = t
     return t

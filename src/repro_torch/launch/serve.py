@@ -42,6 +42,18 @@ plain versions of every kernel (the route check):
       --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4 \\
       --decode-block 4 --eos-id 7 --max-admit 2
 
+``--arch olmoe-1b-7b`` serves the mixture-of-experts family and
+``--arch zamba2-1.2b`` the hybrid (Mamba2 plus a shared attention
+block); ``kimi-k2-1t-a32b`` (MoE with a leading dense layer and a shared
+expert) runs only with ``--reduced``.  ``--prefill-async`` dispatches
+each admission's prefill as a ticket (on a side stream of the card) and
+``--ready-order`` picks when tickets complete: ``ready`` (as their
+prefills finish, decode going on meanwhile) or ``deterministic`` (at
+their dispatch round: the sync engine's tokens):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --reduced --device cpu --prefill-async --ready-order deterministic
+
 ``--expansion auto`` resolves the re-orth kernels' f per shape bucket
 through ``repro_torch.tune`` and, during warmup, pre-tunes the shapes
 admission will launch (``--no-pretune`` skips that); point
@@ -64,7 +76,10 @@ from ..kernels import ops
 from ..models.api import model_fns
 from ..platform import device_name, resolve_device
 from ..kernels.ops import BACKENDS
-from ..serving import ADMISSIONS, Engine, Request
+from ..serving import ADMISSIONS, READY_ORDERS, Engine, Request
+
+#: configs too large for one card: served only ``--reduced``
+REDUCED_ONLY = ("kimi-k2-1t-a32b",)
 
 
 def _expansion(text: str):
@@ -154,9 +169,18 @@ def main(argv=None) -> None:
     ap.add_argument("--no-pretune", action="store_true",
                     help="with --expansion auto, skip the warmup "
                          "pre-tune of the admission shapes")
+    ap.add_argument("--prefill-async", action="store_true",
+                    help="dispatch each admission's prefill as a ticket "
+                         "(on a side stream of the card)")
+    ap.add_argument("--ready-order", default="ready", choices=READY_ORDERS,
+                    help="with --prefill-async: complete tickets as they "
+                         "finish (ready) or at their dispatch round "
+                         "(deterministic: the sync engine's tokens)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.arch in REDUCED_ONLY and not args.reduced:
+        ap.error(f"{args.arch} does not fit one card: add --reduced")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
@@ -171,13 +195,15 @@ def main(argv=None) -> None:
         kv_prefix_cache=args.kv_prefix_cache,
         sched_bucket=args.sched_bucket,
         sched_admit_every=args.admit_every,
-        sched_max_admit=args.max_admit, decode_block=args.decode_block))
+        sched_max_admit=args.max_admit, decode_block=args.decode_block,
+        prefill_async=args.prefill_async))
     if args.expansion == "auto" and not args.no_pretune \
             and args.decompose_kv_rank > 0:
         pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                  decompose_engine=dengine, device=device, paged=args.paged,
-                 eos_id=args.eos_id, admission=args.admission)
+                 eos_id=args.eos_id, admission=args.admission,
+                 ready_order=args.ready_order)
     rng = np.random.RandomState(0)
     shared = rng.randint(0, cfg.vocab, args.shared_prefix, dtype=np.int32)
     for i in range(args.requests):
@@ -194,14 +220,20 @@ def main(argv=None) -> None:
     print(f"engine: {dengine} family={type(eng.family).__name__} "
           f"arch={cfg.name} layers={cfg.num_layers} "
           f"device={device_name(device)} admission={eng.admission} "
-          f"decode_block={eng.decode_block}")
+          f"decode_block={eng.decode_block} "
+          f"prefill_async={eng.prefill_async} "
+          f"ready_order={eng.ready_order}")
     print(f"stats: prefills={s.prefills} batches={s.prefill_batches} "
           f"decode_steps={s.decode_steps} blocks={s.blocks} "
           f"folds={s.tail_folds} tokens={s.tokens_out} "
           f"stopped_eos={s.stopped_eos} stopped_budget={s.stopped_budget} "
           f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
           f"decode_tok/s={s.decode_tok_s:.1f} "
-          f"ttft={s.mean_ttft_s * 1e3:.1f}ms itl={s.mean_itl_s * 1e3:.1f}ms")
+          f"ttft={s.mean_ttft_s * 1e3:.1f}ms "
+          f"(queue {s.mean_ttft_queue_s * 1e3:.1f}ms + prefill "
+          f"{s.mean_ttft_compute_s * 1e3:.1f}ms) "
+          f"itl={s.mean_itl_s * 1e3:.1f}ms "
+          f"inflight_peak={s.prefill_inflight_peak}")
     print(f"graphs: captures={g.captures} replays={g.replays} "
           f"eager={g.eager} capture_s={g.capture_s:.3f}")
     if eng.pager is not None:

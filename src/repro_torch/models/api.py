@@ -11,15 +11,23 @@ share one signature:
   [B, V], cache), updating the cache in place (a row whose ``live`` is
   False writes nothing);
 * ``init_cache(cfg, batch, max_len, device=None)`` → the zero cache of
-  ``batch`` slots, every leaf with its slot axis at 1.
+  ``batch`` slots; a leaf's slot axis is where :func:`cache_batch_axes`
+  finds it (1 for dense, moe and ssm; the hybrid's grouped Mamba2 state
+  has it at 2).
+
+Admission support (every family): :func:`splice_cache` writes fresh
+prefill rows into a live cache IN PLACE, and :func:`tree_ready` /
+:func:`splice_on_ready` are the non-blocking done-probe and
+splice-if-done of the async engine's tickets, over ``torch.cuda.Event``s.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
-from . import mamba2, transformer
+from . import hybrid, mamba2, moe, transformer
 
 
 class ModelFns(NamedTuple):
@@ -30,7 +38,8 @@ class ModelFns(NamedTuple):
 
 
 def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
-                     cache, pos: torch.Tensor, n_steps, stop_table):
+                     cache, pos: torch.Tensor, n_steps, stop_table,
+                     slot_live=None):
     """Up to ``n_steps`` (≤ ``max_block``) greedy decode steps as ONE
     fixed-length loop over device tensors, with no host read inside — the
     form a CUDA graph captures (counterpart of
@@ -45,6 +54,14 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
     with ``live`` all False and ``tok``/``pos`` frozen, so it changes no
     state.
 
+    ``slot_live`` (bool [B], optional) marks the slots that hold a
+    request: a dead slot's token and position stay where they were, as
+    in the single-step engine, whose dead rows decode token 0 at a fixed
+    position every round (the cache writes still follow ``active``, as a
+    single step writes every row).  Rows then never see a difference
+    between the two engines, which matters where rows interact (the MoE
+    capacity: a dead row's token takes a slot in its experts).
+
     Returns ``(buf int32 [max_block, B], steps int32 [], done bool [B],
     cache)`` as the reference does: rows of ``buf`` at or past ``steps``
     are zero, and ``done`` is the stop mask of the last step taken.
@@ -58,14 +75,15 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
     for i in range(max_block):
         active = ~halted & (n > i)                       # bool []
         logits, cache = step(tok, cache, pos, active.expand(b))
+        adv = active if slot_live is None else active & slot_live
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        buf[i] = torch.where(active, nxt, 0)
+        buf[i] = torch.where(adv, nxt, 0)
         hit = (nxt[:, None] == stop_table).any(dim=1)
         done = torch.where(active, hit, done)
         halted = halted | (active & hit.any())
         steps = steps + active.to(torch.int32)
-        tok = torch.where(active, nxt.to(tok.dtype), tok)
-        pos = pos + active.to(pos.dtype)
+        tok = torch.where(adv, nxt.to(tok.dtype), tok)
+        pos = pos + adv.to(pos.dtype)
     return buf, steps, done, cache
 
 
@@ -74,6 +92,9 @@ _FAMILY = {
                       transformer.decode_step, transformer.init_cache),
     "ssm": ModelFns(mamba2.init, mamba2.prefill, mamba2.decode_step,
                     mamba2.init_state),
+    "moe": ModelFns(moe.init, moe.prefill, moe.decode_step, moe.init_cache),
+    "hybrid": ModelFns(hybrid.init, hybrid.prefill, hybrid.decode_step,
+                       hybrid.init_state),
 }
 
 
@@ -83,3 +104,87 @@ def model_fns(cfg) -> ModelFns:
     except KeyError:
         raise ValueError(f"family {cfg.family!r} is not ported; ported: "
                          f"{sorted(_FAMILY)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Cache splicing and the done-probe (admission support, every family)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+@functools.lru_cache(maxsize=None)
+def cache_batch_axes(cfg):
+    """Tree (matching ``init_cache``'s) of each leaf's slot axis, found by
+    building the cache at two batch sizes on the ``meta`` device (no
+    memory, no per-family table to drift when a family adds a leaf)."""
+    fns = model_fns(cfg)
+    a = fns.init_cache(cfg, 2, 8, device="meta")
+    b = fns.init_cache(cfg, 5, 8, device="meta")
+
+    def axis(x, y):
+        d = [i for i, (m, n) in enumerate(zip(x.shape, y.shape)) if m != n]
+        assert len(d) == 1, f"ambiguous batch axis for leaf {tuple(x.shape)}"
+        return d[0]
+
+    return tree_map(axis, a, b)
+
+
+def splice_cache(cfg, old, new, slot_indices, src_indices=None):
+    """Write batch rows ``src_indices`` (default ``0…n−1``) of ``new``
+    into ``old`` at ``slot_indices`` along each leaf's slot axis, IN
+    PLACE, so that buffers a captured graph reads keep their address.
+    ``new`` may carry more rows than ``len(slot_indices)`` (bucketed
+    prefill padding); the excess is dropped.  Returns ``old``."""
+    axes = cache_batch_axes(cfg)
+
+    def one(o, nw, ax):
+        idx = torch.as_tensor(slot_indices, device=o.device).long()
+        src = torch.arange(idx.numel(), device=o.device) \
+            if src_indices is None else \
+            torch.as_tensor(src_indices, device=o.device).long()
+        o.movedim(ax, 0)[idx] = nw.movedim(ax, 0)[src].to(o.dtype)
+        return o
+
+    tree_map(one, old, new, axes)
+    return old
+
+
+def tree_leaves(tree):
+    """The leaves of nested dicts, lists and tuples (None skipped)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def tree_ready(tree) -> bool:
+    """Non-blocking done-probe over a tree whose leaves may be
+    ``torch.cuda.Event``s: True when every event has completed
+    (``Event.query()``, which never blocks).  Leaves without ``query``
+    (tensors, numpy arrays, scalars) count as ready: on the host a
+    prefill has finished when its call returns."""
+    return all(leaf.query() for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.cuda.Event))
+
+
+def splice_on_ready(cfg, old, new, slot_indices, src_indices=None,
+                    event=None):
+    """Splice-if-done: when ``event`` (the prefill's, on its side stream)
+    has completed, the current stream waits on it (a no-op on the
+    device, but it orders the reads) and :func:`splice_cache` runs;
+    otherwise returns None — "not yet, keep decoding" — without
+    blocking."""
+    if not tree_ready(event):
+        return None
+    if event is not None:
+        torch.cuda.current_stream().wait_event(event)
+    return splice_cache(cfg, old, new, slot_indices, src_indices)

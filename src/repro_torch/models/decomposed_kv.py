@@ -210,10 +210,11 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
 def decode_block_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
                      pos: torch.Tensor, frozen_len: torch.Tensor, n_steps,
                      stop_table: torch.Tensor, *, max_block: int,
-                     attention: str = "kernel"):
+                     attention: str = "kernel", slot_live=None):
     """Up to ``n_steps`` (≤ ``max_block``) greedy decode steps over the
-    slab cache as one fixed-length loop (``api.run_decode_block``), the
-    form a CUDA graph captures.  ``frozen_len`` is loop-invariant: the
+    slab cache as one fixed-length loop (``api.run_decode_block``, whose
+    ``slot_live`` freezes dead slots), the form a CUDA graph captures.
+    ``frozen_len`` is loop-invariant: the
     serving engine caps ``n_steps`` at the fold horizon, so every fold
     still happens between blocks, at the occupancy the single-step engine
     folds at.  Returns ``(buf [max_block, B], steps, done, cache)``."""
@@ -223,7 +224,7 @@ def decode_block_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
         return decode_step_dkv(p, cfg, t, c, ps, frozen_len,
                                attention=attention, live=live)
     return api.run_decode_block(step, max_block, token, cache, pos,
-                                n_steps, stop_table)
+                                n_steps, stop_table, slot_live)
 
 
 def fold_rank(rank: int, r_in: int, t_frozen: int, tl: int) -> int:
@@ -517,7 +518,7 @@ def decode_block_dkv_paged(p: Params, cfg, token: torch.Tensor,
                            bt_t: torch.Tensor, n_steps,
                            stop_table: torch.Tensor, t_need: int,
                            r_need: int, tail_len: int, *, max_block: int,
-                           attention: str = "kernel"):
+                           attention: str = "kernel", slot_live=None):
     """The paged twin of :func:`decode_block_dkv`: each step is
     :func:`decode_step_dkv_paged`, so the kernel route reads U through
     the block tables inside the paged kernel at every step (the
@@ -532,7 +533,7 @@ def decode_block_dkv_paged(p: Params, cfg, token: torch.Tensor,
                                      bt_t, t_need, r_need, tail_len,
                                      attention=attention, live=live)
     return api.run_decode_block(step, max_block, token, cache, pos,
-                                n_steps, stop_table)
+                                n_steps, stop_table, slot_live)
 
 
 def compress_tail_paged(cache: Params, cfg, rank: int, frozen_len, fold,

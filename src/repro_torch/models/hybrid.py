@@ -1,0 +1,203 @@
+"""Zamba2-style hybrid: a Mamba2 backbone plus one SHARED attention block.
+
+Counterpart of ``repro.models.hybrid``.  Layer layout (``num_layers`` in
+all): groups of (attn_period − 1) Mamba2 blocks, each group followed by
+one invocation of the single shared attention+MLP block (the same
+weights every time, a KV cache of its own per invocation), plus a tail
+of leftover Mamba2 blocks.  zamba2-1.2b: 38 = 6 × (5 mamba + shared
+attention) + 2 mamba, so a prefill runs 32 Mamba2 blocks and launches
+the intra-chunk SSD term 32 times.  The released model's per-invocation
+LoRA deltas are omitted, as in the reference.
+
+The decode state keeps the reference's layout: mamba conv/ssm
+[g, mpg, B, …], attention K/V [g, B, T, kvh, d], tail conv/ssm
+[tail, B, …]; its slot axis is not at the same place in every leaf,
+which ``models.api.cache_batch_axes`` finds by probing.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.ops import KernelSet, make_kernels
+from ..platform import torch_dtype
+from . import layers as L
+from . import mamba2 as M
+from . import transformer as T
+
+Params = L.Params
+
+
+def _layout(cfg) -> Tuple[int, int, int]:
+    """(groups, mamba blocks per group, tail mamba blocks)."""
+    per = cfg.attn_period
+    groups = cfg.num_layers // per
+    return groups, per - 1, cfg.num_layers - groups * per
+
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights on ``device`` from ``generator`` (the reference's
+    distributions): the grouped Mamba2 blocks [g, mpg, …], the shared
+    dense block (unstacked) and the tail blocks [tail, …]."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    groups, mpg, tail = _layout(cfg)
+    normal = T.normal_drawer(generator, dev, dt)
+    mamba = M.init_blocks(cfg, groups * mpg, normal, dev)
+    shared = L.layer_params(T.init_blocks(cfg, 1, normal, dev), 0)
+    p = {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
+         "mamba": _regroup(mamba, groups, mpg),
+         "shared": shared,
+         "final_norm": {"scale": torch.ones(d, device=dev, dtype=dt)},
+         "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
+    if tail:
+        p["mamba_tail"] = M.init_blocks(cfg, tail, normal, dev)
+    return p
+
+
+def _regroup(tree, groups: int, mpg: int):
+    if isinstance(tree, dict):
+        return {k: _regroup(v, groups, mpg) for k, v in tree.items()}
+    return tree.view((groups, mpg) + tuple(tree.shape[1:]))
+
+
+def _mamba_blocks(p: Params, cfg):
+    """Every Mamba2 block in layer order, as (group or None, index in
+    group or tail, params)."""
+    groups, mpg, tail = _layout(cfg)
+    for g in range(groups):
+        gp = L.layer_params(p["mamba"], g)
+        for j in range(mpg):
+            yield g, j, L.layer_params(gp, j)
+    for j in range(tail):
+        yield None, j, L.layer_params(p["mamba_tail"], j)
+
+
+def forward(p: Params, cfg, tokens: torch.Tensor,
+            kernels: Optional[KernelSet] = None) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
+    b, s = tokens.shape
+    _, mpg, _ = _layout(cfg)
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for g, j, lp in _mamba_blocks(p, cfg):
+        x = M.block(lp, x, cfg, kernels)
+        if g is not None and j == mpg - 1:
+            x = T.block(p["shared"], x, positions, cfg)
+    return T.logits_head(p, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_state(cfg, batch: int, max_len: int, device=None) -> Params:
+    """Zero decode state in the reference's layout (conv and K/V in
+    ``cfg.dtype``, ssm float32)."""
+    groups, mpg, tail = _layout(cfg)
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    w1, nh, shd, ds = (cfg.ssm_conv_width - 1, cfg.ssm_heads,
+                       cfg.ssm_head_dim, cfg.ssm_state)
+
+    def z(shape, dtype=dt):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    st = {"mamba": {"conv": z((groups, mpg, batch, w1, conv_ch)),
+                    "ssm": z((groups, mpg, batch, nh, shd, ds),
+                             torch.float32)},
+          "attn": {"k": z((groups, batch, max_len, kvh, hd)),
+                   "v": z((groups, batch, max_len, kvh, hd))}}
+    if tail:
+        st["tail"] = {"conv": z((tail, batch, w1, conv_ch)),
+                      "ssm": z((tail, batch, nh, shd, ds), torch.float32)}
+    return st
+
+
+def _mamba_state(st: Params, g, j):
+    """The (conv, ssm) slices of one block of the state tree (views)."""
+    if g is None:
+        return {"conv": st["tail"]["conv"][j], "ssm": st["tail"]["ssm"][j]}
+    return {"conv": st["mamba"]["conv"][g, j],
+            "ssm": st["mamba"]["ssm"][g, j]}
+
+
+def _mamba_state_of(lp: Params, inputs, cfg) -> Params:
+    """Final (conv, ssm) state of a Mamba2 block from its ``_ssd_inputs``:
+    the reference's own formula (``repro.models.hybrid._mamba_state_of``):
+    the conv tail is the last w−1 rows of the PRE-conv xbc, and the ssm
+    state the einsum ``bsd,bsn,bsnp->bnpd`` of B, dt·decay_to_end and x
+    over the full-sequence cumsum of the decay, in float32."""
+    _, xbc_raw, xh, bm, _, dtv = inputs
+    w1 = cfg.ssm_conv_width - 1
+    da = dtv * -torch.exp(lp["ssd"]["a_log"])
+    l = torch.cumsum(da, dim=1)
+    decay_to_end = torch.exp(l[:, -1:, :] - l)                 # [B, S, nh]
+    # the path jnp.einsum's optimizer takes: the elementwise pair first,
+    # then one contraction over s
+    w = (dtv * decay_to_end)[..., None] * xh                   # [B,S,nh,hd]
+    ssm = torch.einsum("bsd,bsnp->bnpd", bm, w)
+    return {"conv": xbc_raw[:, -w1:, :], "ssm": ssm}
+
+
+def prefill(p: Params, cfg, tokens: torch.Tensor,
+            max_len: Optional[int] = None,
+            kernels: Optional[KernelSet] = None
+            ) -> Tuple[torch.Tensor, Params]:
+    """Full forward that also assembles the decode state: each Mamba2
+    block's final (conv, ssm) state and each shared-block invocation's
+    K/V.  The SSD runs through ``mamba2._ssd_core`` with ``kernels``
+    (the CUDA ``ssd_chunk_intra`` on the card).  Returns (last-position
+    logits [B, V], state)."""
+    kernels = kernels or make_kernels()
+    b, s = tokens.shape
+    _, mpg, _ = _layout(cfg)
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    st = init_state(cfg, b, max_len or s, device=tokens.device)
+    sh = p["shared"]
+    for g, j, lp in _mamba_blocks(p, cfg):
+        h_in = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
+        inputs = M._ssd_inputs(lp["ssd"], h_in, cfg)
+        for key, v in _mamba_state_of(lp, inputs, cfg).items():
+            _mamba_state(st, g, j)[key].copy_(v)
+        x = x + M._ssd_core(lp["ssd"], h_in, cfg, kernels, inputs)
+        if g is not None and j == mpg - 1:
+            a, k, v = T._self_attention(sh["attn"],
+                                        T.norm(sh["attn_norm"], x, cfg),
+                                        cfg, positions)
+            st["attn"]["k"][g, :, :s] = k
+            st["attn"]["v"][g, :, :s] = v
+            x = x + a
+            x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
+                          cfg.activation)
+    return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], st
+
+
+def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
+    """One-token step: token [B], pos [B] → (logits [B, V], state).  The
+    state is updated IN PLACE, one block's slice at a time; a slot whose
+    ``live`` (bool [B]) is False writes nothing."""
+    _, mpg, _ = _layout(cfg)
+    x = T.embed(p, cfg, token)[:, None, :]
+    every = slice(None)
+    sh = p["shared"]
+    for g, j, lp in _mamba_blocks(p, cfg):
+        cur = _mamba_state(state, g, j)
+        y, new = M.ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x,
+                                                   cfg.norm_eps), cur, cfg)
+        L.write_rows(cur["conv"], every, new["conv"], live)
+        L.write_rows(cur["ssm"], every, new["ssm"], live)
+        x = x + y
+        if g is not None and j == mpg - 1:
+            kv = {"k": state["attn"]["k"][g], "v": state["attn"]["v"][g]}
+            x = x + L.decode_attention(sh["attn"],
+                                       T.norm(sh["attn_norm"], x, cfg),
+                                       kv, pos, cfg, live)
+            x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
+                          cfg.activation)
+    return T.logits_head(p, x, cfg)[:, 0], state

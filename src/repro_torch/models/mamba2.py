@@ -40,30 +40,23 @@ CHUNK = 64
 # Init: the distributions of repro.models.mamba2 (ssd_init, init)
 # ---------------------------------------------------------------------------
 
-def init(cfg, generator: torch.Generator, device=None) -> Params:
-    """Random weights on ``device`` from ``generator``: N(0, 1/in) for the
-    projections, N(0, 1/d_model) for the embedding, N(0, 0.01) for the
-    conv taps, zero conv bias, A = −exp(0), D = 1, dt_bias = 0 (float32),
-    ones for norm scales.  Each layer's slice is drawn in float32 and
-    stored in ``cfg.dtype``."""
-    dev = torch.device(device if device is not None else generator.device)
+def init_blocks(cfg, n: int, normal, device) -> Params:
+    """``n`` Mamba2 blocks stacked on a leading axis: N(0, 1/in) for the
+    projections, N(0, 0.01) for the conv taps, zero conv bias,
+    A = −exp(0), D = 1, dt_bias = 0 (float32), ones for norm scales."""
     dt = torch_dtype(cfg.dtype)
-    nl, h, di = cfg.num_layers, cfg.d_model, cfg.d_inner
+    h, di = cfg.d_model, cfg.d_inner
     ds, nh = cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * ds
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32) * std).to(dt)
-
     def stacked(shape, std):
-        w = torch.empty((nl,) + shape, device=dev, dtype=dt)
-        for i in range(nl):
+        w = torch.empty((n,) + shape, device=device, dtype=dt)
+        for i in range(n):
             w[i] = normal(shape, std)
         return w
 
     def full(shape, value, dtype):
-        return torch.full((nl,) + shape, value, device=dev, dtype=dtype)
+        return torch.full((n,) + shape, value, device=device, dtype=dtype)
 
     ssd = {
         "in_proj": {"w": stacked((h, 2 * di + 2 * ds + nh), h ** -0.5)},
@@ -75,8 +68,20 @@ def init(cfg, generator: torch.Generator, device=None) -> Params:
         "norm": {"scale": full((di,), 1.0, dt)},
         "out_proj": {"w": stacked((di, h), di ** -0.5)},
     }
+    return {"norm": {"scale": full((h,), 1.0, dt)}, "ssd": ssd}
+
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights on ``device`` from ``generator``: the blocks of
+    :func:`init_blocks`, N(0, 1/d_model) for the embedding and the head.
+    Each layer's slice is drawn in float32 and stored in ``cfg.dtype``."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    h = cfg.d_model
+    normal = T.normal_drawer(generator, dev, dt)
+    layers = init_blocks(cfg, cfg.num_layers, normal, dev)
     return {"embed": {"w": normal((cfg.padded_vocab, h), h ** -0.5)},
-            "layers": {"norm": {"scale": full((h,), 1.0, dt)}, "ssd": ssd},
+            "layers": layers,
             "final_norm": {"scale": torch.ones(h, device=dev, dtype=dt)},
             "lm_head": {"w": normal((h, cfg.padded_vocab), h ** -0.5)}}
 

@@ -1,0 +1,284 @@
+"""Token-choice top-k mixture of experts (olmoe-1b-7b, kimi-k2-1t-a32b).
+
+Counterpart of ``repro.models.moe`` (its GSPMD formulation; the
+expert-parallel ``moe_ffn_shard_map`` waits for the port's mesh).
+Dispatch is sort-based with static capacity buffers:
+
+  1. router top-k → (expert id, gate) per token slot,
+  2. rank in expert from sorted runs,
+  3. token indices scattered into an [E, C] slot table (a token past its
+     expert's capacity C is dropped),
+  4. the expert FFN as batched products over [E, C, H] buffers,
+  5. combine: gather, then the gate-weighted sum over the k slots.
+
+Every step is a device tensor op with no host read, so a decode step
+captures into a CUDA graph.  Where PyTorch's defaults differ from the
+JAX ops, the port pins the reference's semantics: ties in the router
+break to the lower expert index (``jax.lax.top_k``; a stable descending
+sort here), both argsorts are stable (``jnp.argsort``), the per-expert
+counts are a ``scatter_add_`` into a fixed [E] tensor (``torch.bincount``
+reads its input's max on the host), and the capacity drop writes into a
+spare column (``mode="drop"``; an out-of-range index is a device assert
+in torch).
+
+kimi-k2 extras: ``first_k_dense`` leading dense blocks and
+``n_shared_experts`` always-on shared experts added to the MoE output.
+Decode routes the WHOLE slot batch, dead and padding rows included, as
+the reference does: their tokens take capacity too.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..platform import torch_dtype
+from . import layers as L
+from . import transformer as T
+
+Params = L.Params
+
+AUX_LOSS_COEF = 0.01
+
+
+# ---------------------------------------------------------------------------
+# Init: the distributions of repro.models.moe (moe_ffn_init, init)
+# ---------------------------------------------------------------------------
+
+def moe_ffn_init(cfg, n: int, normal, device) -> Params:
+    """The MoE FFNs of ``n`` layers stacked on a leading axis: router,
+    gate and up N(0, 1/d_model), down N(0, 1/moe_d_ff), one expert's
+    matrix at a time; the shared experts as one gated MLP of width
+    ``moe_d_ff · n_shared_experts``."""
+    dt = torch_dtype(cfg.dtype)
+    e, h, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+
+    def experts(shape, std):
+        w = torch.empty((n, e) + shape, device=device, dtype=dt)
+        for i in range(n):
+            for j in range(e):
+                w[i, j] = normal(shape, std)
+        return w
+
+    def stacked(in_dim, out_dim):
+        w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
+        for i in range(n):
+            w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
+        return {"w": w}
+
+    p = {"router": stacked(h, e),
+         "w_gate": experts((h, f), h ** -0.5),
+         "w_up": experts((h, f), h ** -0.5),
+         "w_down": experts((f, h), f ** -0.5)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"gate": stacked(h, fs), "up": stacked(h, fs),
+                       "down": stacked(fs, h)}
+    return p
+
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights on ``device`` from ``generator`` (the reference's
+    distributions; layout: MoE blocks under ``layers``, the leading dense
+    blocks under ``dense_layers``)."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
+    normal = T.normal_drawer(generator, dev, dt)
+    blocks = T.init_blocks(cfg, nm, normal, dev)
+    del blocks["mlp"]
+    blocks["moe"] = moe_ffn_init(cfg, nm, normal, dev)
+    p = {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
+         "layers": blocks,
+         "final_norm": {"scale": torch.ones(d, device=dev, dtype=dt)},
+         "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
+    if nd:
+        p["dense_layers"] = T.init_blocks(cfg, nd, normal, dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN
+# ---------------------------------------------------------------------------
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values, and on
+    ties the lower index first (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots per expert: ceil(tokens · top_k · capacity_factor / E)."""
+    return max(1, math.ceil(tokens * cfg.top_k * cfg.capacity_factor
+                            / cfg.num_experts))
+
+
+def route(p: Params, xf: torch.Tensor, cfg):
+    """Router of ``xf`` [T, H] → (gates [T, k] float32, expert ids [T, k],
+    rank of each (token, slot) in its expert [T·k], aux loss)."""
+    e, k = cfg.num_experts, cfg.top_k
+    t = xf.shape[0]
+    dev = xf.device
+    logits = xf.float() @ p["router"]["w"].float()
+    probs = torch.softmax(logits, dim=-1)                       # [T, E]
+    gate_vals, eidx = top_k(probs, k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balancing loss
+    me = probs.mean(dim=0)
+    first = torch.zeros(e, device=dev).scatter_add_(
+        0, eidx[:, 0], torch.ones(t, device=dev))
+    aux = e * torch.sum(me * (first / t)) * AUX_LOSS_COEF
+
+    # rank in expert from sorted runs (both argsorts stable, as jnp's)
+    slots_e = eidx.reshape(t * k)
+    order = torch.argsort(slots_e, stable=True)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, slots_e, torch.ones_like(slots_e))
+    starts = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(t * k, device=dev) - starts[slots_e[order]]
+    rank = rank_sorted[torch.argsort(order, stable=True)]
+    return gate_vals, eidx, rank, aux
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """x [B, S, H] → (y [B, S, H], aux loss []).  Capacity is per call:
+    ceil(B·S · top_k · capacity_factor / E) slots an expert."""
+    b, s, h = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    t = b * s
+    cap = capacity(cfg, t)
+    dev = x.device
+    xf = x.reshape(t, h)
+    gate_vals, eidx, rank, aux = route(p, xf, cfg)
+    slots_e = eidx.reshape(t * k)
+    slot_tok = torch.arange(t * k, device=dev) // k
+
+    # dispatch: the slot table, with a spare column that takes the drops
+    table = torch.full((e, cap + 1), t, dtype=torch.long, device=dev)
+    table[slots_e, torch.clamp(rank, max=cap)] = slot_tok
+    x_pad = torch.cat([xf, xf.new_zeros(1, h)], dim=0)
+    buf = x_pad[table[:, :cap]]                                 # [E, C, H]
+
+    # expert FFN: plain batched products (the reference's einsums)
+    act = L._ACT[cfg.activation]
+    hidden = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    out_buf = torch.bmm(hidden, p["w_down"])                    # [E, C, H]
+
+    # combine
+    in_cap = rank < cap
+    y_slots = out_buf[slots_e, torch.clamp(rank, max=cap - 1)]  # [T·k, H]
+    y_slots = torch.where(in_cap[:, None], y_slots,
+                          torch.zeros_like(y_slots))
+    y = (y_slots.reshape(t, k, h)
+         * gate_vals.to(y_slots.dtype)[..., None]).sum(dim=1)
+    y = y.reshape(b, s, h).to(x.dtype)
+    if "shared" in p:
+        y = y + L.mlp(p["shared"], x, cfg.activation)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Blocks / model
+# ---------------------------------------------------------------------------
+
+def moe_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
+              cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = x + T._self_attention(p["attn"], T.norm(p["attn_norm"], x, cfg),
+                              cfg, positions)[0]
+    y, aux = moe_ffn(p["moe"], T.norm(p["mlp_norm"], x, cfg), cfg)
+    return x + y, aux
+
+
+def forward(p: Params, cfg, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (logits [B, S, V], summed aux loss)."""
+    b, s = tokens.shape
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for i in range(cfg.first_k_dense):
+        x = T.block(L.layer_params(p["dense_layers"], i), x, positions, cfg)
+    aux = torch.zeros((), device=tokens.device)
+    for i in range(cfg.num_layers - cfg.first_k_dense):
+        x, a = moe_block(L.layer_params(p["layers"], i), x, positions, cfg)
+        aux = aux + a
+    return T.logits_head(p, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
+    """Zero KV cache: ``moe`` (and, with leading dense layers, ``dense``)
+    K/V [L, batch, max_len, kvh, d]."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
+    dt = torch_dtype(cfg.dtype)
+
+    def kv(n):
+        shape = (n, batch, max_len, kvh, hd)
+        return {"k": torch.zeros(shape, device=device, dtype=dt),
+                "v": torch.zeros(shape, device=device, dtype=dt)}
+
+    c = {"moe": kv(nm)}
+    if nd:
+        c["dense"] = kv(nd)
+    return c
+
+
+def prefill(p: Params, cfg, tokens: torch.Tensor,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence forward that also emits the KV cache.  Returns
+    (last-position logits [B, V], cache)."""
+    b, s = tokens.shape
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+
+    def attn(lp, x, c, i):
+        a, k, v = T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x,
+                                                       cfg), cfg, positions)
+        c["k"][i, :, :s] = k
+        c["v"][i, :, :s] = v
+        return x + a
+
+    for i in range(cfg.first_k_dense):
+        lp = L.layer_params(p["dense_layers"], i)
+        x = attn(lp, x, cache["dense"], i)
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    for i in range(cfg.num_layers - cfg.first_k_dense):
+        lp = L.layer_params(p["layers"], i)
+        x = attn(lp, x, cache["moe"], i)
+        x = x + moe_ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
+    return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], cache
+
+
+def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
+    """One-token step: token [B], pos [B] → (logits [B, V], cache).  The
+    cache is updated IN PLACE; a slot whose ``live`` (bool [B]) is False
+    writes nothing, but its token still routes (and takes capacity)."""
+    x = T.embed(p, cfg, token)[:, None, :]
+
+    def attn(lp, x, c, i):
+        return x + L.decode_attention(
+            lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+            {"k": c["k"][i], "v": c["v"][i]}, pos, cfg, live)
+
+    for i in range(cfg.first_k_dense):
+        lp = L.layer_params(p["dense_layers"], i)
+        x = attn(lp, x, cache["dense"], i)
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    for i in range(cfg.num_layers - cfg.first_k_dense):
+        lp = L.layer_params(p["layers"], i)
+        x = attn(lp, x, cache["moe"], i)
+        x = x + moe_ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
+    return T.logits_head(p, x, cfg)[:, 0], cache

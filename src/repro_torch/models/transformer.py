@@ -21,6 +21,39 @@ Params = L.Params
 # Init: the distributions of repro.models.layers (dense/embed/norm init)
 # ---------------------------------------------------------------------------
 
+def normal_drawer(generator: torch.Generator, device, dtype):
+    """``normal(shape, std)``: N(0, std²) drawn in float32 on ``device``
+    from ``generator`` and stored in ``dtype``."""
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * std).to(dtype)
+    return normal
+
+
+def init_blocks(cfg, n: int, normal, device) -> Params:
+    """``n`` dense blocks stacked on a leading axis: N(0, 1/in) for the
+    projections, ones for norm scales; one layer's matrix at a time."""
+    dt = torch_dtype(cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def stacked(in_dim, out_dim):
+        w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
+        for i in range(n):
+            w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
+        return {"w": w}
+
+    ones = lambda *shape: torch.ones(shape, device=device, dtype=dt)
+    return {
+        "attn_norm": {"scale": ones(n, d)},
+        "attn": {"wq": stacked(d, nh * hd), "wk": stacked(d, kvh * hd),
+                 "wv": stacked(d, kvh * hd), "wo": stacked(nh * hd, d)},
+        "mlp_norm": {"scale": ones(n, d)},
+        "mlp": {"up": stacked(d, f), "down": stacked(f, d),
+                "gate": stacked(d, f)},
+    }
+
+
 def init(cfg, generator: torch.Generator, device=None) -> Params:
     """Random weights on ``device`` from ``generator``: N(0, 1/in) for
     projections, N(0, 1/d_model) for the embedding, ones for norm scales.
@@ -28,31 +61,12 @@ def init(cfg, generator: torch.Generator, device=None) -> Params:
     so a full-width model never holds more than one float32 matrix."""
     dev = torch.device(device if device is not None else generator.device)
     dt = torch_dtype(cfg.dtype)
-    nl, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-
-    def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32) * std).to(dt)
-
-    def stacked(in_dim, out_dim):
-        w = torch.empty(nl, in_dim, out_dim, device=dev, dtype=dt)
-        for i in range(nl):
-            w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
-        return {"w": w}
-
-    ones = lambda *shape: torch.ones(shape, device=dev, dtype=dt)
-    layers = {
-        "attn_norm": {"scale": ones(nl, d)},
-        "attn": {"wq": stacked(d, nh * hd), "wk": stacked(d, kvh * hd),
-                 "wv": stacked(d, kvh * hd), "wo": stacked(nh * hd, d)},
-        "mlp_norm": {"scale": ones(nl, d)},
-        "mlp": {"up": stacked(d, f), "down": stacked(f, d),
-                "gate": stacked(d, f)},
-    }
+    d = cfg.d_model
+    normal = normal_drawer(generator, dev, dt)
+    layers = init_blocks(cfg, cfg.num_layers, normal, dev)
     return {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
             "layers": layers,
-            "final_norm": {"scale": ones(d)},
+            "final_norm": {"scale": torch.ones(d, device=dev, dtype=dt)},
             "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
 
 

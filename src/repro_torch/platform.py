@@ -44,6 +44,19 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
+def host_to_device(arr, device: torch.device,
+                   dtype: torch.dtype = torch.long) -> torch.Tensor:
+    """A host array as a ``dtype`` tensor on ``device``.  To a CUDA
+    device the copy leaves from pinned memory without blocking the host
+    (a copy from pageable memory waits for the whole stream: an async
+    prefill's dispatch would wait for the prefill stream, and with it
+    for the decode work it follows)."""
+    t = torch.from_numpy(arr).to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def device_name(device: Optional[torch.device] = None) -> str:
     dev = torch.device("cpu") if device is None else torch.device(device)
     if dev.type == "cuda":
@@ -56,4 +69,13 @@ def capture_stream(index: int) -> "torch.cuda.Stream":
     """The one side stream of CUDA device ``index`` that every CUDA-graph
     warm-up and capture of the process runs on: each new stream would
     get a cuBLAS workspace of its own, which the process keeps."""
+    return torch.cuda.Stream(torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_stream(index: int) -> "torch.cuda.Stream":
+    """The one side stream of CUDA device ``index`` that async serving
+    engines run their prefills on (one per process, for the reason
+    :func:`capture_stream` gives; apart from it, so a capture never
+    shares a stream with a prefill)."""
     return torch.cuda.Stream(torch.device("cuda", index))

@@ -1,4 +1,4 @@
-"""Serving engine: slot-based continuous batching (sync admission).
+"""Serving engine: slot-based continuous batching.
 
 Counterpart of the slot mode of ``repro.serving.Engine``: ``slots``
 concurrent sequences share one cache; a finished sequence frees its slot
@@ -11,10 +11,25 @@ keeps the legacy policy for A/B runs: one whole-slot-batch prefill per
 admission, into an all-free engine except for the dense family.
 Everything family-specific (cache layout, prefill, splice, decode,
 fused blocks, tail folds, the scheduler's admission cost) lives behind
-the ``ServingFamily`` of ``serving.families``: ``dense``, ``ssm`` (Mamba2
-state slots) or ``transformer-dkv`` (selected when the decompose
-engine's ``EngineConfig.kv_rank`` is > 0; its ``kv_tail`` and
-``kv_exact`` set the tail length and the factorization).
+the ``ServingFamily`` of ``serving.families``: ``dense``, ``moe``,
+``ssm`` (Mamba2 state slots), ``hybrid`` (Zamba2) or ``transformer-dkv``
+(selected when the decompose engine's ``EngineConfig.kv_rank`` is > 0;
+its ``kv_tail`` and ``kv_exact`` set the tail length and the
+factorization).
+
+Admission dispatches each prefill as a ticket and completes it with a
+splice and the first-token sample (``serving.families.PrefillTicket``).
+A sync engine completes every ticket where it dispatched it.
+``prefill_async=True`` (DESIGN.md §12) runs the prefills on one side
+stream of the card (``platform.prefill_stream``; on the host a ticket is
+ready at dispatch) and completes them in one of two orders:
+``ready_order="deterministic"`` at their dispatch round, which replays
+the sync schedule through the ticket machinery (tokens equal the sync
+engine's), or ``"ready"``: tickets wait in a pool, reserving their
+slots, while decode goes on, and each is spliced at the first step
+boundary where its event has completed (with nothing live to decode,
+the pool's head is completed at once).  ``cancel_pending`` unwinds the
+pool.  Async admission with ``admission="gang"`` is refused.
 
 ``paged=True`` (decomposed KV only) swaps the slab for the page pools
 of ``serving.paged``: prefix U rows and dense tails in refcounted pages
@@ -52,14 +67,18 @@ import numpy as np
 import torch
 
 from ..engine import DecomposeEngine
-from ..platform import resolve_device
-from .families import ServingFamily, family_names, serving_family
+from ..kernels import build
+from ..platform import host_to_device, prefill_stream, resolve_device
+from .families import (PrefillTicket, ServingFamily, family_names,
+                       serving_family)
 from .graphs import BlockGraphs
 
-__all__ = ["ADMISSIONS", "Engine", "EngineStats", "Request", "Scheduler",
-           "ServingFamily", "family_names", "greedy_sampler"]
+__all__ = ["ADMISSIONS", "READY_ORDERS", "Engine", "EngineStats",
+           "PrefillTicket", "Request", "Scheduler", "ServingFamily",
+           "family_names", "greedy_sampler"]
 
 ADMISSIONS = ("per_slot", "gang")
+READY_ORDERS = ("ready", "deterministic")
 
 
 def greedy_sampler(logits: torch.Tensor) -> torch.Tensor:
@@ -97,7 +116,11 @@ class EngineStats:
     (paged serving).  ``decode_steps`` counts decode rounds and
     ``blocks`` decode launches (equal unless fused blocks batch rounds);
     ``stopped_eos``/``stopped_budget`` count finishes on a stop token
-    and on the budget or the cache end."""
+    and on the budget or the cache end.  Each TTFT splits into its queue
+    wait (submit → dispatch, ``ttft_queue_s``) and its prefill
+    (dispatch → first token, ``ttft_compute_s``);
+    ``prefill_inflight_peak`` is the most tickets an async ``"ready"``
+    engine held in flight at once."""
     prefills: int = 0
     prefill_batches: int = 0
     decode_steps: int = 0
@@ -109,15 +132,28 @@ class EngineStats:
     prefix_hits: int = 0
     prefix_misses: int = 0
     stalls: int = 0
+    prefill_inflight_peak: int = 0
     wall_s: float = 0.0
     prefill_s: float = 0.0
     decode_s: float = 0.0
     ttft_s: List[float] = dataclasses.field(default_factory=list)
+    ttft_queue_s: List[float] = dataclasses.field(default_factory=list)
+    ttft_compute_s: List[float] = dataclasses.field(default_factory=list)
     itl_s: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def mean_ttft_s(self) -> float:
         return float(np.mean(self.ttft_s)) if self.ttft_s else 0.0
+
+    @property
+    def mean_ttft_queue_s(self) -> float:
+        return float(np.mean(self.ttft_queue_s)) if self.ttft_queue_s \
+            else 0.0
+
+    @property
+    def mean_ttft_compute_s(self) -> float:
+        return float(np.mean(self.ttft_compute_s)) if self.ttft_compute_s \
+            else 0.0
 
     @property
     def mean_itl_s(self) -> float:
@@ -188,21 +224,27 @@ class Scheduler:
 
 
 class Engine:
-    """Continuous-batching engine over the config's family (dense
-    transformer or Mamba2), with the decomposed KV cache when
+    """Continuous-batching engine over the config's family (dense, MoE,
+    Mamba2 or hybrid), with the decomposed KV cache when
     ``decompose_engine.config.kv_rank`` > 0 (dense family only), on page
     pools when ``paged``.  ``eos_id`` is the stop token of requests that
     name none; ``decode_block`` (default: the engine config's) is the
-    fused block length, an int or ``"auto"``."""
+    fused block length, an int or ``"auto"``; ``prefill_async`` (default:
+    the engine config's) and ``ready_order`` select async admission."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  decompose_engine: Optional[DecomposeEngine] = None,
                  device=None, paged: bool = False,
                  eos_id: Optional[int] = None, admission: str = "per_slot",
-                 decode_block: Optional[Union[int, str]] = None):
+                 decode_block: Optional[Union[int, str]] = None,
+                 prefill_async: Optional[bool] = None,
+                 ready_order: str = "ready"):
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be one of {ADMISSIONS}, got "
                              f"{admission!r}")
+        if ready_order not in READY_ORDERS:
+            raise ValueError(f"ready_order must be one of {READY_ORDERS}, "
+                             f"got {ready_order!r}")
         if paged and admission == "gang":
             raise ValueError("paged serving admits per slot")
         self.device = resolve_device(device)
@@ -222,6 +264,21 @@ class Engine:
         self.rank_eff = np.zeros((slots,), np.int32)
         self.live: List[Optional[Request]] = [None] * slots
         self.pager = None            # serving.paged.PagedDKV when paged
+        if prefill_async is None:
+            prefill_async = ecfg.prefill_async
+        self.prefill_async = bool(prefill_async)
+        self.ready_order = ready_order
+        if self.prefill_async and admission == "gang":
+            raise ValueError("async prefill admits per slot (gang replaces "
+                             "the whole cache: there is nothing to overlap)")
+        # the side stream the async prefills run on (None: the current
+        # stream, where sync engines and the host run them)
+        self.prefill_stream = None
+        if self.prefill_async and self.device.type == "cuda":
+            self.prefill_stream = _prefill_stream(self.device)
+        self._pool: List[PrefillTicket] = []       # in-flight admissions
+        self._reserved = np.zeros(slots, bool)     # dispatched, not spliced
+        self.admit_log: List[int] = []             # uids in dispatch order
         self.family = serving_family(self, paged=paged)
         self.cache = self.family.alloc()
         self.sched = Scheduler(bucket=ecfg.sched_bucket,
@@ -265,9 +322,13 @@ class Engine:
         finished in this step."""
         t0 = time.perf_counter()
         finished: List[Request] = []
+        if self._pool:
+            # splice the tickets whose prefills have finished; with
+            # nothing live to decode, complete the pool's head at once
+            finished.extend(self._drain_pool(block=not self._decoding()))
         if self._round % self.admit_every == 0 or not self._occupied():
             finished.extend(self._admit())
-        if self._occupied():
+        if self._decoding():
             finished.extend(self._decode_rounds())
         else:
             self._round += 1         # an idle step still advances the clock
@@ -275,6 +336,8 @@ class Engine:
         return finished
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Step until no slot is live or reserved and the queue is
+        empty."""
         finished: List[Request] = []
         for _ in range(max_steps):
             finished.extend(self.step())
@@ -283,8 +346,14 @@ class Engine:
         return finished
 
     # -- internals -------------------------------------------------------
-    def _occupied(self) -> bool:
+    def _decoding(self) -> bool:
+        """Any slot live (a reserved slot does not decode)."""
         return any(r is not None for r in self.live)
+
+    def _occupied(self) -> bool:
+        """Any slot live or reserved by an in-flight ticket."""
+        return self._decoding() or bool(self._reserved.any()) \
+            or bool(self._pool)
 
     def _sample_host(self, logits: torch.Tensor) -> np.ndarray:
         """Sample on the device, read the tokens back (the one sync)."""
@@ -334,23 +403,24 @@ class Engine:
     def _toks(self, batch: List[Request], rows: int, plen: int,
               rows_of: Optional[List[int]] = None) -> torch.Tensor:
         """:meth:`_toks_np` as a token tensor on the device."""
-        return torch.from_numpy(self._toks_np(batch, rows, plen,
-                                              rows_of)).long().to(
-            self.device)
+        return host_to_device(self._toks_np(batch, rows, plen, rows_of),
+                              self.device)
 
     def _admit(self) -> List[Request]:
         """Drain the queue into the free slots, one prefill launch per
         length bucket (paged: one per prefix-hit group plus one for the
         misses; gang: one whole-slot-batch launch per admission).  A batch
         the family cannot take yet is requeued and admission stops (a
-        stall); with nothing live that can never unblock, so it raises."""
+        stall); with nothing live or in flight that can never unblock, so
+        it raises.  Async ``"ready"`` engines only dispatch here."""
         finished: List[Request] = []
         blocked = False
         while True:
-            free = [i for i, r in enumerate(self.live) if r is None]
+            free = [i for i, r in enumerate(self.live)
+                    if r is None and not self._reserved[i]]
             if not free or not len(self.sched):
                 break
-            has_live = self._occupied()
+            has_live = self._decoding()
             if self.admission == "gang" and has_live \
                     and not self.family.gang_live_splice:
                 break                # the legacy gang waits for all slots
@@ -367,48 +437,113 @@ class Engine:
                 self.stats.stalls += 1
                 blocked = True
                 break
-            slots_idx = free[:len(batch)]
-            t0 = time.perf_counter()
-            for req in batch:
-                req.t_dispatch = t0
-            self.stats.prefills += len(batch)
+            finished.extend(self._admit_batch(batch, free[:len(batch)],
+                                              plen, has_live, ctx))
             if self.admission == "gang":
-                logits = self.family.gang(batch, slots_idx, plen, has_live)
-                nxt = self._sample_host(logits)[slots_idx]
-                self.stats.prefill_batches += 1
-                self._activate(batch, slots_idx, plen, nxt,
-                               self.family.frozen_after_prefill(
-                                   len(batch), plen), t0, finished)
                 break                # one gang per admission
-            for idx, (nxt, fls) in self.family.admit(batch, slots_idx, plen,
-                                                     ctx):
-                self.stats.prefill_batches += 1
-                t0 = self._activate([batch[k] for k in idx],
-                                    [slots_idx[k] for k in idx], plen, nxt,
-                                    fls, t0, finished)
         if blocked and not self._occupied():
             raise RuntimeError(self.family.capacity_msg(self.sched._q[0]))
         return finished
 
+    def _admit_batch(self, batch: List[Request], slots_idx: List[int],
+                     plen: int, has_live: bool, ctx) -> List[Request]:
+        """One admission batch: stamp dispatch, launch the prefill (its
+        tickets), then complete them here (sync and deterministic) or
+        leave them in the pool (``"ready"``)."""
+        t0 = time.perf_counter()
+        for req in batch:
+            req.t_dispatch = t0
+        self.admit_log.extend(r.uid for r in batch)
+        self.stats.prefills += len(batch)
+        if self.admission == "gang":
+            logits = self.family.gang(batch, slots_idx, plen, has_live)
+            nxt = self._sample_host(logits)[slots_idx]
+            self.stats.prefill_batches += 1
+            self.stats.prefill_s += time.perf_counter() - t0
+            return self._activate(batch, slots_idx, plen, nxt,
+                                  self.family.frozen_after_prefill(
+                                      len(batch), plen))
+        self._reserved[slots_idx] = True
+        tickets = self.family.dispatch(batch, slots_idx, plen, ctx)
+        self.stats.prefill_s += time.perf_counter() - t0
+        if self.prefill_async and self.ready_order == "ready":
+            self._pool.extend(tickets)
+            self.stats.prefill_inflight_peak = max(
+                self.stats.prefill_inflight_peak, len(self._pool))
+            return []
+        finished: List[Request] = []
+        for t in tickets:
+            finished.extend(self._finish_ticket(t))
+        return finished
+
+    def _finish_ticket(self, t: PrefillTicket) -> List[Request]:
+        t0 = time.perf_counter()
+        nxt, fls = t.complete()
+        self.stats.prefill_s += time.perf_counter() - t0
+        return self._activate(t.requests, t.slots, t.plen, nxt, fls)
+
+    def _drain_pool(self, *, block: bool) -> List[Request]:
+        """Splice the pool's tickets whose prefills have finished, in
+        dispatch order, never waiting on one (``ready()`` is an event
+        query); with ``block`` the head is completed even if not ready
+        (its ``complete`` then waits on the device, as a sync engine
+        would)."""
+        finished: List[Request] = []
+        rest: List[PrefillTicket] = []
+        for i, t in enumerate(self._pool):
+            if (block and i == 0) or t.ready():
+                finished.extend(self._finish_ticket(t))
+            else:
+                rest.append(t)
+        self._pool = rest
+        return finished
+
+    def cancel_pending(self, requeue: bool = True) -> int:
+        """Cancel every in-flight ticket: its slots are freed, paged
+        tickets release their pages and prefix refs (each exactly once),
+        and its requests go back to the queue in arrival order
+        (``requeue=False`` drops them).  Dispatch-side counts are taken
+        back, so a re-admitted request is not counted twice.  The device
+        work is not interrupted; its results are never spliced.  Returns
+        the number of cancelled requests."""
+        n = 0
+        for t in self._pool:
+            t.cancel()
+            self._reserved[t.slots] = False
+            self.stats.prefills -= len(t.requests)
+            for req in t.requests:
+                req.t_dispatch = 0.0
+                n += 1
+                for k in range(len(self.admit_log) - 1, -1, -1):
+                    if self.admit_log[k] == req.uid:
+                        del self.admit_log[k]
+                        break
+            if requeue:
+                self.sched.requeue(t.requests)
+        self._pool = []
+        return n
+
     def _activate(self, batch: List[Request], slots_idx: List[int],
-                  plen: int, nxt: np.ndarray, fls: np.ndarray, t0: float,
-                  finished: List[Request]) -> float:
-        """Occupy the slots of one completed prefill group (started at
-        ``t0``), stamp first tokens and TTFT, and apply the first-token
-        stop check (finishes go to ``finished``).  Returns the completion
-        time, where the next group's prefill time starts."""
+                  plen: int, nxt: np.ndarray,
+                  fls: np.ndarray) -> List[Request]:
+        """Occupy the slots of one completed ticket, stamp first tokens
+        and the TTFT split, and apply the first-token stop check.
+        Returns the requests that finished on their first token."""
         now = time.perf_counter()
-        self.stats.prefill_s += now - t0
+        finished: List[Request] = []
         for j, (slot, req) in enumerate(zip(slots_idx, batch)):
+            self._reserved[slot] = False
             self.live[slot] = req
             self.pos[slot] = plen
             self.frozen_len[slot] = fls[j]
             req.out_tokens.append(int(nxt[j]))
             req.t_first = req.t_last = now
             self.stats.ttft_s.append(now - req.t_submit)
+            self.stats.ttft_queue_s.append(req.t_dispatch - req.t_submit)
+            self.stats.ttft_compute_s.append(now - req.t_dispatch)
             if self._check_stop(slot, req, now):
                 finished.append(req)
-        return now
+        return finished
 
     def _last_tokens(self) -> np.ndarray:
         tok = np.zeros((self.slots,), np.int32)
@@ -515,3 +650,18 @@ class Engine:
             if self._check_stop(i, req, now):
                 done.append(req)
         return done
+
+
+def _prefill_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The prefill stream of ``device``, checked against the kernels'
+    ticket counters: a launch on it must not share an owner's counters
+    with a launch on the current stream (``kernels.build.tickets``)."""
+    side = prefill_stream(device.index if device.index is not None
+                          else torch.cuda.current_device())
+    with torch.cuda.stream(side):
+        mine = build.tickets(device, 1, "prefill-stream-check")
+    theirs = build.tickets(device, 1, "prefill-stream-check")
+    if mine.data_ptr() == theirs.data_ptr():
+        raise RuntimeError("kernel ticket counters are shared across "
+                           "streams: an async prefill would race decode")
+    return side

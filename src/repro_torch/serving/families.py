@@ -8,6 +8,11 @@ admission.  Registered families:
   window + SSM state, no time axis); prefill runs the chunked scan with
   the kernel set of the engine's ``EngineConfig.backend``; no folds and
   no pager (``pos`` still advances for the budget);
+* ``moe`` — mixture of experts on the dense-KV slab (the router's state
+  is recomputed every step, so nothing beyond K/V is spliced);
+* ``hybrid`` — Zamba2: grouped Mamba2 state slots plus the shared
+  block's K/V, whose slot axes differ by leaf; prefill runs the SSD with
+  the engine's kernel set, as ``ssm`` does;
 * ``transformer-dkv`` — the decomposed-KV path, selected whenever the
   engine's ``EngineConfig.kv_rank`` is > 0: prefill factorizes K/V
   through the engine's DecomposeEngine, decode attends through the
@@ -19,12 +24,18 @@ admission.  Registered families:
   the pages), decode reads U through the block tables inside the paged
   dkv kernel, and folds copy-on-write into fresh pages.
 
-Admission is sync: the reference's dispatch/complete ticket split is
-kept as one call that completes inline; ``gang`` is the legacy
-whole-slot-batch admission (dense alone may gang into a live cache,
-``gang_live_splice``).  ``decode_block`` runs up to n decode steps as one
-fixed-length loop through ``serving.graphs`` (a replayed CUDA graph on
-the card); ``prefill_cost``, ``tune_horizon``, ``block_cap`` and
+Admission is split as in the reference: ``dispatch`` launches one
+admission batch's prefill and returns its ``PrefillTicket``s, and each
+ticket's ``complete`` splices the fresh rows (``models.api.splice_cache``
+in place, for every family's cache layout) and samples the first token;
+``cancel`` unwinds a ticket that never completes.  With an async engine
+on the card the prefill runs on the engine's prefill stream and the
+ticket's probe is an event recorded after it (``_on_side``/``_join``);
+sync engines and the host complete where they dispatch.  ``gang`` is the
+legacy whole-slot-batch admission (dense alone may gang into a live
+cache, ``gang_live_splice``).  ``decode_block`` runs up to n decode
+steps as one fixed-length loop through ``serving.graphs`` (a replayed
+CUDA graph on the card); ``prefill_cost``, ``tune_horizon``, ``block_cap`` and
 ``fold_horizon`` feed the scheduler, the ``decode_block="auto"`` tuner
 and the engine's block horizon.  All mutable serving state
 (``cache``, ``pos``, ``frozen_len``, ``rank_eff``, ``live``, ``pager``)
@@ -36,20 +47,23 @@ the cyclic garbage collector (the reference keeps the cycle).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 import weakref
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.ops import make_kernels
 from ..models import decomposed_kv as DK
+from ..models import api
 from ..models.api import model_fns, run_decode_block
+from ..platform import host_to_device
 from .graphs import pin, unpack
 from .paged import PagedDKV
 
 Admitted = Tuple[np.ndarray, np.ndarray]       # (first tokens, frozen lens)
-Group = Tuple[List[int], Admitted]             # (batch positions, admitted)
 
 
 def _pow2(n: int) -> int:
@@ -71,6 +85,74 @@ def _shapes(tree) -> tuple:
         else:
             out.append((k, tuple(v.shape), v.data_ptr()))
     return tuple(out)
+
+
+@dataclasses.dataclass
+class PrefillTicket:
+    """One in-flight admission launch (counterpart of the reference's).
+
+    Made at dispatch: the prefill has been launched, the target slots are
+    reserved and (paged) the pages allocated and the prefix-hit refs
+    held, so nothing decode does meanwhile can invalidate it.  ``probe``
+    is the ``torch.cuda.Event`` recorded after the prefill on the
+    engine's prefill stream, or None where the prefill ran on the
+    current stream (sync engines, the host), which makes the ticket
+    ready at dispatch.  ``complete()`` → (first tokens, frozen lengths)
+    splices and samples, the one point that waits on the device;
+    ``cancel()`` releases pages and refs without waiting on it."""
+    requests: List[Any]
+    slots: List[int]
+    plen: int
+    probe: Any
+    complete: Callable[[], Admitted]
+    cancel: Callable[[], None]
+    t_dispatch: float = 0.0
+
+    def ready(self) -> bool:
+        return api.tree_ready(self.probe)
+
+
+def _noop() -> None:
+    pass
+
+
+def _live(eng) -> np.ndarray:
+    """int32 [slots]: 1 where a slot holds a request (a fused block's
+    ``slot_live``; a reserved slot is not live until its ticket
+    completes)."""
+    return np.array([r is not None for r in eng.live], np.int32)
+
+
+def _on_side(eng, fn):
+    """Run the prefill ``fn()`` where the engine's admissions run: on its
+    prefill stream when it has one (async on the card; the stream first
+    waits for the current stream, whose pending writes the prefill may
+    read), else inline.  Returns (``fn()``'s result, the event recorded
+    after it on the prefill stream, or None)."""
+    side = eng.prefill_stream
+    if side is None:
+        return fn(), None
+    side.wait_stream(torch.cuda.current_stream(eng.device))
+    with torch.cuda.stream(side):
+        out = fn()
+    ev = torch.cuda.Event()
+    ev.record(side)
+    return out, ev
+
+
+def _join(eng, ev, tree) -> None:
+    """Order the current stream after a ticket's prefill (``ev``) before
+    it reads ``tree``, the prefill's outputs, and mark their memory as in
+    use on the current stream: they were allocated on the prefill
+    stream, and the caching allocator would otherwise hand it to the
+    next prefill while a splice still reads it."""
+    if ev is None:
+        return
+    cur = torch.cuda.current_stream(eng.device)
+    cur.wait_event(ev)
+    for leaf in api.tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf.record_stream(cur)
 
 
 _REGISTRY: Dict[str, type] = {}
@@ -151,7 +233,7 @@ class ServingFamily:
 
     def reserve(self, batch: List[Any], plen: int):
         """Capacity check before admission: an opaque non-None context
-        for :meth:`admit`, or None to defer the batch (the engine
+        for :meth:`dispatch`, or None to defer the batch (the engine
         requeues it and counts a stall)."""
         return True
 
@@ -165,26 +247,30 @@ class ServingFamily:
         """Admission batches pad to a power of two (bounded shape set)."""
         return min(_pow2(n), max(self.eng.slots, 1))
 
-    def admit(self, batch: List[Any], slots_idx: List[int], plen: int,
-              ctx=None) -> Iterator[Group]:
-        """Prefill ``batch`` into ``slots_idx`` (``ctx`` from
-        :meth:`reserve`), yielding each group as it completes: the batch
-        positions it covers and their (first sampled tokens, frozen
-        lengths).  The engine activates a group's slots before the next
-        group's prefill runs (the reference's ticket order)."""
+    def _ticket(self, batch: List[Any], slots_idx: List[int], plen: int,
+                probe, complete, cancel=_noop) -> PrefillTicket:
+        self.eng.stats.prefill_batches += 1
+        return PrefillTicket(list(batch), list(slots_idx), plen, probe,
+                             complete, cancel, time.perf_counter())
+
+    def dispatch(self, batch: List[Any], slots_idx: List[int], plen: int,
+                 ctx=None) -> List[PrefillTicket]:
+        """Launch the prefill of one admission batch (``ctx`` from
+        :meth:`reserve`; rows padded to a power of two) and return its
+        tickets.  A ticket's ``complete`` splices the fresh rows into the
+        live cache in place and samples the first tokens."""
         eng = self.eng
-        toks = eng._toks(batch, self._batch_rows(len(batch)), plen)
-        logits, fresh = self._prefill(toks)
-        idx = torch.as_tensor(slots_idx, device=eng.device)
+        rows = self._batch_rows(len(batch))
+        (logits, fresh), ev = _on_side(
+            eng, lambda: self._prefill(eng._toks(batch, rows, plen)))
         n = len(batch)
-        for key, live in eng.cache.items():
-            new = fresh[key]
-            assert new.shape[1] == toks.shape[0] and \
-                new.shape[:1] + new.shape[2:] == live.shape[:1] + \
-                live.shape[2:], f"cache leaf {key!r}: slot axis is not 1"
-            live[:, idx] = new[:, :n]
-        yield list(range(n)), (eng._sample_host(logits)[:n],
-                               np.zeros(n, np.int32))
+
+        def complete() -> Admitted:
+            _join(eng, ev, (logits, fresh))
+            api.splice_cache(eng.cfg, eng.cache, fresh, slots_idx)
+            return eng._sample_host(logits)[:n], np.zeros(n, np.int32)
+
+        return [self._ticket(batch, slots_idx, plen, ev, complete)]
 
     def _prefill(self, toks: torch.Tensor):
         """(last logits, fresh cache of ``toks``' rows)."""
@@ -202,9 +288,7 @@ class ServingFamily:
         logits, cache = self._prefill(eng._toks(batch, eng.slots, plen,
                                                 slots_idx))
         if has_live:
-            idx = torch.as_tensor(slots_idx, device=eng.device)
-            for key, live in eng.cache.items():
-                live[:, idx] = cache[key][:, idx]
+            api.splice_cache(eng.cfg, eng.cache, cache, slots_idx, slots_idx)
         else:
             eng.cache = cache
         return logits
@@ -229,17 +313,18 @@ class ServingFamily:
         pin(eng.cache, self._static)
         cache, fns, params, cfg = eng.cache, self.fns, eng.params, eng.cfg
 
-        def body(tok, pos, stops, n_steps):
-            def step(t, c, ps, live):
-                return fns.decode_step(params, cfg, t, c, ps, live)
+        def body(tok, pos, stops, live, n_steps):
+            def step(t, c, ps, act):
+                return fns.decode_step(params, cfg, t, c, ps, act)
             buf, steps, _, _ = run_decode_block(
-                step, n, tok.long(), cache, pos.long(), n_steps, stops)
+                step, n, tok.long(), cache, pos.long(), n_steps, stops,
+                slot_live=live.bool())
             return buf, steps
 
         key = (type(self).__name__, n, eng.slots, stops.shape[1],
                _shapes(cache))
         feed = {"tok": tok, "pos": eng.pos, "stops": stops,
-                "n_steps": np.int32(n)}
+                "live": _live(eng), "n_steps": np.int32(n)}
         return unpack(eng.graphs.run(key, body, feed,
                                      capture=self._capturable()), eng.slots)
 
@@ -272,6 +357,32 @@ class Mamba2Serving(ServingFamily):
         eng = self.eng
         return self.fns.prefill(eng.params, eng.cfg, toks, eng.max_len,
                                 kernels=self.kernels)
+
+
+@register_family("moe")
+class MoEServing(ServingFamily):
+    """Mixture-of-experts serving on the dense-KV slab ([L, slots,
+    max_len, kvh, d] K/V, as dense).  The FFN routes top-k per token with
+    a capacity buffer; routing is recomputed every step from the hidden
+    states, so admission, fused blocks and async prefill all take the
+    base path.  Neither paged nor ganged into a live cache.
+
+    Capacity (``ceil(tokens · top_k · cf / E)``) makes drops depend on
+    the batch: the whole slot batch routes at decode, dead rows
+    included, so tokens equal another engine's only where the batches
+    are the same (fused vs single-step, async-deterministic vs sync; the
+    fused block keeps dead rows as single steps have them) or where
+    capacity never binds (the reference's conformance pins cf 8)."""
+
+
+@register_family("hybrid")
+class HybridServing(Mamba2Serving):
+    """Zamba2 serving: grouped Mamba2 state slots ([g, mpg, slots, …])
+    plus the shared block's K/V ([g, slots, max_len, kvh, d]) and the
+    tail's state slots, one tree of mixed leaves spliced along each
+    leaf's probed slot axis (``api.cache_batch_axes``).  Prefill runs
+    the SSD through the engine's kernel set (32 ``ssd_chunk_intra``
+    launches a prefill at full width), decode none."""
 
 
 @register_family("transformer-dkv")
@@ -390,33 +501,41 @@ class TransformerDKVServing(ServingFamily):
         return pg.alloc.free_pages >= need_u \
             and pg.talloc.free_pages >= need_t
 
-    def admit(self, batch: List[Any], slots_idx: List[int], plen: int,
-              ctx=None) -> Iterator[Group]:
+    def dispatch(self, batch: List[Any], slots_idx: List[int], plen: int,
+                 ctx=None) -> List[PrefillTicket]:
         if self.eng.pager is not None:
-            yield from self._admit_paged(batch, slots_idx, plen, ctx)
-            return
+            return self._dispatch_paged(batch, slots_idx, plen, ctx)
         eng = self.eng
-        toks = eng._toks(batch, self._batch_rows(len(batch)), plen)
-        logits, fresh = self._prefill(toks)
+        rows = self._batch_rows(len(batch))
+        (logits, fresh), ev = _on_side(
+            eng, lambda: self._prefill(eng._toks(batch, rows, plen)))
         n = len(batch)
-        if eng.cache is None:
-            eng.cache = DK.init_cache(
-                eng.cfg, eng.slots, fresh["k_u"].shape[2],
-                fresh["k_u"].shape[-1], tail=eng.dkv_tail,
-                device=eng.device)
-        eng.cache = DK.splice_dkv(eng.cache, fresh, slots_idx)
-        eng.rank_eff[slots_idx] = fresh["k_u"].shape[-1]
-        yield list(range(n)), (eng._sample_host(logits)[:n],
-                               np.full(n, plen, np.int32))
 
-    def _admit_paged(self, batch: List[Any], slots_idx: List[int],
-                     plen: int, looks: Optional[list]) -> Iterator[Group]:
+        def complete() -> Admitted:
+            _join(eng, ev, (logits, fresh))
+            if eng.cache is None:
+                eng.cache = DK.init_cache(
+                    eng.cfg, eng.slots, fresh["k_u"].shape[2],
+                    fresh["k_u"].shape[-1], tail=eng.dkv_tail,
+                    device=eng.device)
+            eng.cache = DK.splice_dkv(eng.cache, fresh, slots_idx)
+            eng.rank_eff[slots_idx] = fresh["k_u"].shape[-1]
+            return eng._sample_host(logits)[:n], np.full(n, plen, np.int32)
+
+        return [self._ticket(batch, slots_idx, plen, ev, complete)]
+
+    def _dispatch_paged(self, batch: List[Any], slots_idx: List[int],
+                        plen: int, looks) -> List[PrefillTicket]:
         """Paged admission: the prefix lookups of :meth:`reserve` (hit
         page refs already taken) split the batch into HITS (tail-only
         suffix prefill over refcounted shared pages — no prefix forward,
-        no Lanczos), one group per (match length, entry rank), and MISSES
-        (the slab path's prefill at the same pow2 batch padding, so the
-        factors are the slab engine's, then their pages)."""
+        no Lanczos), one ticket per (match length, entry rank), and
+        MISSES (the slab path's prefill at the same pow2 batch padding,
+        so the factors are the slab engine's), one ticket.  Pages are
+        allocated here, at dispatch; the prefills only compute, and the
+        pools, factors and block tables are written at completion
+        (DESIGN.md §12: until then a reserved slot's block-table row is
+        empty, so decode's dead-row writes land in the sink page)."""
         eng = self.eng
         pg = eng.pager
         n = len(batch)
@@ -439,57 +558,79 @@ class TransformerDKVServing(ServingFamily):
             pg.prefix.misses += len(misses)
         # hits first: they only consume tail pages, and their factor
         # pages already carry this batch's refs
-        for (match_len, r_ent), group in sorted(hits.items(),
-                                                key=lambda kv: kv[0]):
-            yield self._admit_hits(slots_idx, plen, padded, match_len,
-                                   r_ent, group)
+        tickets = [self._dispatch_hits(batch, slots_idx, plen, padded,
+                                       match_len, r_ent, group)
+                   for (match_len, r_ent), group in sorted(
+                       hits.items(), key=lambda kv: kv[0])]
         if misses:
-            yield self._admit_misses(batch, slots_idx, plen, padded, misses)
+            tickets.append(self._dispatch_misses(batch, slots_idx, plen,
+                                                 padded, misses))
+        return tickets
 
-    def _admit_hits(self, slots_idx: List[int], plen: int,
-                    padded: np.ndarray, match_len: int, r_ent: int,
-                    group: list) -> Group:
+    def _dispatch_hits(self, batch: List[Any], slots_idx: List[int],
+                       plen: int, padded: np.ndarray, match_len: int,
+                       r_ent: int, group: list) -> PrefillTicket:
         eng = self.eng
         pg = eng.pager
         m = len(group)
+        dev = eng.device
         stoks = np.stack([padded[j][match_len:] for j, _, _ in group])
+        shares = [list(share) for _, _, share in group]
         bt_t = []
         for _ in group:
             tpages = pg.talloc.alloc(pg.ntp)
             assert tpages is not None, "tail pages after _reserve_pages"
             bt_t.append(tpages)
         slots_l = [slots_idx[j] for j, _, _ in group]
-        dev = eng.device
-        logits = pg.write_hits(
-            eng.params, torch.from_numpy(stoks).long().to(dev),
-            pg.bt_tensor([share for _, _, share in group]),
-            torch.stack([ent.k_vt for _, ent, _ in group], dim=1),
-            torch.stack([ent.v_vt for _, ent, _ in group], dim=1),
-            np.full(m, match_len, np.int32),
-            np.full(m, plen - match_len, np.int32),
-            pg.bt_tensor(bt_t), slots_l, match_len, r_ent)
-        # the shared-prefix refs taken at lookup transfer to the slots;
-        # free_slot releases each exactly once
-        for gi, (slot, (_, _, share)) in enumerate(zip(slots_l, group)):
-            pg.bt_u[slot], pg.bt_t[slot] = list(share), bt_t[gi]
-            eng.rank_eff[slot] = r_ent
-        nxt = eng._sample_host(logits)[:m]
-        pg.slab_t = max(pg.slab_t, match_len)
-        pg.slab_r = max(pg.slab_r, r_ent)
-        return [j for j, _, _ in group], (nxt, np.full(m, match_len,
-                                                       np.int32))
+        k_vt = torch.stack([ent.k_vt for _, ent, _ in group], dim=1)
+        v_vt = torch.stack([ent.v_vt for _, ent, _ in group], dim=1)
+        # the gather reads the pools: on the current stream, in order
+        # with the writes before it; the suffix pass reads only its copy
+        prefix = pg.hit_prefix(pg.bt_tensor(shares), k_vt, v_vt,
+                               match_len, r_ent)
+        if eng.prefill_stream is not None:
+            for leaf in api.tree_leaves(prefix):
+                leaf.record_stream(eng.prefill_stream)
+        (logits, tails), ev = _on_side(eng, lambda: DK.prefill_suffix_dkv(
+            eng.params, eng.cfg, host_to_device(stoks, dev),
+            prefix, host_to_device(np.full(m, match_len), dev),
+            host_to_device(np.full(m, plen - match_len), dev),
+            pg.ntp * pg.page))
 
-    def _admit_misses(self, batch: List[Any], slots_idx: List[int],
-                      plen: int, padded: np.ndarray,
-                      misses: List[int]) -> Group:
+        def complete() -> Admitted:
+            _join(eng, ev, (logits, tails))
+            pg.write_hits(slots_l, k_vt, v_vt, tails, pg.bt_tensor(bt_t))
+            # the shared-prefix refs taken at lookup transfer to the
+            # slots; free_slot releases each exactly once
+            for gi, slot in enumerate(slots_l):
+                pg.bt_u[slot], pg.bt_t[slot] = shares[gi], bt_t[gi]
+                eng.rank_eff[slot] = r_ent
+            pg.slab_t = max(pg.slab_t, match_len)
+            pg.slab_r = max(pg.slab_r, r_ent)
+            return (eng._sample_host(logits)[:m],
+                    np.full(m, match_len, np.int32))
+
+        def cancel() -> None:
+            # nothing is installed yet: the lookup's shared refs and the
+            # fresh tail pages go back directly, each exactly once
+            for gi in range(m):
+                pg.alloc.release(shares[gi])
+                pg.talloc.release(bt_t[gi])
+
+        return self._ticket([batch[j] for j, _, _ in group], slots_l, plen,
+                            ev, complete, cancel)
+
+    def _dispatch_misses(self, batch: List[Any], slots_idx: List[int],
+                         plen: int, padded: np.ndarray,
+                         misses: List[int]) -> PrefillTicket:
         eng = self.eng
         pg = eng.pager
         nb = self._batch_rows(len(misses))
         mtoks = np.zeros((nb, plen), np.int32)
         for mi, j in enumerate(misses):
             mtoks[mi] = padded[j]
-        logits, fresh = self._prefill(
-            torch.from_numpy(mtoks).long().to(eng.device))
+        (logits, fresh), ev = _on_side(eng, lambda: self._prefill(
+            host_to_device(mtoks, eng.device)))
         npg = pg.pages_for(plen)
         bt_u, bt_t = [], []
         for _ in misses:
@@ -500,23 +641,34 @@ class TransformerDKVServing(ServingFamily):
             bt_u.append(pages)
             bt_t.append(tpages)
         slots_l = [slots_idx[j] for j in misses]
-        r_eff = fresh["k_u"].shape[-1]
-        src = list(range(len(misses)))
-        pg.write_fresh(fresh, pg.bt_tensor(bt_u), pg.bt_tensor(bt_t),
-                       slots_l, src)
-        for mi, slot in enumerate(slots_l):
-            pg.bt_u[slot], pg.bt_t[slot] = bt_u[mi], bt_t[mi]
-            eng.rank_eff[slot] = r_eff
-        nxt = eng._sample_host(logits)[:len(misses)]
-        pg.slab_t = max(pg.slab_t, plen)
-        pg.slab_r = max(pg.slab_r, r_eff)
-        if pg.prefix is not None:
-            for mi, j in enumerate(misses):
-                pg.prefix.insert(padded[j].copy(), bt_u[mi],
-                                 fresh["k_vt"][:, mi].clone(),
-                                 fresh["v_vt"][:, mi].clone(), r_eff,
-                                 n_pad=plen - len(batch[j].prompt))
-        return misses, (nxt, np.full(len(misses), plen, np.int32))
+        nm = len(misses)
+
+        def complete() -> Admitted:
+            _join(eng, ev, (logits, fresh))
+            r_eff = fresh["k_u"].shape[-1]
+            pg.write_fresh(fresh, pg.bt_tensor(bt_u), pg.bt_tensor(bt_t),
+                           slots_l, list(range(nm)))
+            for mi, slot in enumerate(slots_l):
+                pg.bt_u[slot], pg.bt_t[slot] = bt_u[mi], bt_t[mi]
+                eng.rank_eff[slot] = r_eff
+            pg.slab_t = max(pg.slab_t, plen)
+            pg.slab_r = max(pg.slab_r, r_eff)
+            if pg.prefix is not None:
+                for mi, j in enumerate(misses):
+                    pg.prefix.insert(padded[j].copy(), bt_u[mi],
+                                     fresh["k_vt"][:, mi].clone(),
+                                     fresh["v_vt"][:, mi].clone(), r_eff,
+                                     n_pad=plen - len(batch[j].prompt))
+            return (eng._sample_host(logits)[:nm],
+                    np.full(nm, plen, np.int32))
+
+        def cancel() -> None:
+            for mi in range(nm):
+                pg.alloc.release(bt_u[mi])
+                pg.talloc.release(bt_t[mi])
+
+        return self._ticket([batch[j] for j in misses], slots_l, plen, ev,
+                            complete, cancel)
 
     def gang(self, batch: List[Any], slots_idx: List[int], plen: int,
              has_live: bool) -> torch.Tensor:
@@ -584,15 +736,15 @@ class TransformerDKVServing(ServingFamily):
                  "v_vt": c["v_vt"], "tail": c["tail"]}
         params, cfg, route = eng.params, eng.cfg, self._route()
 
-        def body(tok, pos, frozen, stops, n_steps):
+        def body(tok, pos, frozen, stops, live, n_steps):
             buf, steps, _, _ = DK.decode_block_dkv(
                 params, cfg, tok.long(), cache, pos, frozen, n_steps, stops,
-                max_block=n, attention=route)
+                max_block=n, attention=route, slot_live=live.bool())
             return buf, steps
 
         key = ("slab", route, n, eng.slots, stops.shape[1], _shapes(cache))
         feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
-                "stops": stops, "n_steps": np.int32(n)}
+                "stops": stops, "live": _live(eng), "n_steps": np.int32(n)}
         return unpack(eng.graphs.run(key, body, feed,
                                      capture=self._capturable()), eng.slots)
 
@@ -609,17 +761,17 @@ class TransformerDKVServing(ServingFamily):
         params, cfg, route = eng.params, eng.cfg, self._route()
         t_need, r_need, tl = pg.slab_t, pg.slab_r, eng.dkv_tail
 
-        def body(tok, pos, frozen, stops, bt_u, bt_t, n_steps):
+        def body(tok, pos, frozen, stops, live, bt_u, bt_t, n_steps):
             buf, steps, _, _ = DK.decode_block_dkv_paged(
                 params, cfg, tok.long(), cache, pos, frozen, bt_u, bt_t,
                 n_steps, stops, t_need, r_need, tl, max_block=n,
-                attention=route)
+                attention=route, slot_live=live.bool())
             return buf, steps
 
         key = ("paged", route, n, eng.slots, stops.shape[1], r_need,
                _shapes(cache))
         feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
-                "stops": stops,
+                "stops": stops, "live": _live(eng),
                 "bt_u": pg.bt_array(pg.bt_u, pg.pages_for(eng.max_len)),
                 "bt_t": pg.bt_array(pg.bt_t, pg.ntp),
                 "n_steps": np.int32(n)}

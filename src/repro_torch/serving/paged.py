@@ -286,24 +286,25 @@ class PagedDKV:
         for pool in c["tail"].values():
             pool[:, bt_t.long()] = 0
 
-    def write_hits(self, params, toks, ent_bt, k_vt, v_vt, start, slen,
-                   bt_t, idx, match_len: int, r_ent: int) -> torch.Tensor:
-        """Prefix-cache hit admission: gather the entries' pages
-        ``ent_bt`` [m, match_len/page], run the tail-only suffix prefill,
-        write Vᵀ into slot rows ``idx`` and the suffix K/V into the tail
-        pages ``bt_t``.  Returns the first-token logits [m, V]."""
+    def hit_prefix(self, ent_bt, k_vt, v_vt, match_len: int,
+                   r_ent: int):
+        """The cached factors of a prefix-cache hit: the entries' pages
+        ``ent_bt`` [m, match_len/page] gathered into slab rows, and their
+        Vᵀ, cut to the entries' rank — the ``prefix`` of
+        ``DK.prefill_suffix_dkv``."""
         c = self.cache
-        prefix = {
+        return {
             "k_u": DK.gather_pages(c["k_u_pages"], ent_bt,
                                    match_len)[..., :r_ent],
             "v_u": DK.gather_pages(c["v_u_pages"], ent_bt,
                                    match_len)[..., :r_ent],
             "k_vt": k_vt[:, :, :r_ent], "v_vt": v_vt[:, :, :r_ent],
         }
-        tail_store = bt_t.shape[1] * self.page
-        logits, tails = DK.prefill_suffix_dkv(params, self.cfg, toks, prefix,
-                                              start, slen, tail_store)
+
+    def write_hits(self, idx, k_vt, v_vt, tails, bt_t) -> None:
+        """The write half of a hit: Vᵀ into slot rows ``idx`` and the
+        suffix K/V ``tails`` into the tail pages ``bt_t`` [m, ntp]."""
         self._set_factors(idx, k_vt, v_vt)
         for key in ("k", "v"):
-            DK.scatter_pages(c["tail"][key + "_pages"], tails[key], bt_t)
-        return logits
+            DK.scatter_pages(self.cache["tail"][key + "_pages"], tails[key],
+                             bt_t)

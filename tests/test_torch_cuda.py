@@ -742,3 +742,203 @@ def test_dropped_engine_frees_its_graphs_without_gc(cuda, kind):
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# Async admission on the prefill stream; the MoE and hybrid families
+# ---------------------------------------------------------------------------
+
+ASYNC_ARCH = {"slab": "llama2-7b", "paged": "llama2-7b", "dense": "llama2-7b",
+              "hybrid": "zamba2-1.2b", "moe": "olmoe-1b-7b"}
+ASYNC_ARRIVALS = {0: [0, 1], 3: [2], 6: [3]}     # chip_smoke's phase 4
+
+
+def _async_engine(cuda, kind, dtype, block, params=None, **kw):
+    """Reduced ``ASYNC_ARCH[kind]`` in ``dtype`` on the card, 4 slots,
+    max_len 96 (dkv: rank 16, tail 8, page 4).  Returns (engine,
+    params)."""
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import Engine
+    cfg = get_arch(ASYNC_ARCH[kind]).reduced().replace(dtype=dtype)
+    if params is None:
+        params = model_fns(cfg).init(
+            cfg, torch.Generator(device=cuda).manual_seed(0))
+    kv = kind in ("slab", "paged")
+    ecfg = EngineConfig(kv_rank=16 if kv else 0, kv_tail=8, kv_page=4,
+                        decode_block=block)
+    return Engine(cfg, params, slots=4, max_len=96, device=cuda,
+                  paged=kind == "paged",
+                  decompose_engine=DecomposeEngine(ecfg), **kw), params
+
+
+def _async_drive(eng, arrivals=ASYNC_ARRIVALS, max_new=12):
+    """Prompts of 24/17/30/9 tokens, request i submitted once the engine
+    has run the rounds ``arrivals`` gives it, a fused engine's blocks cut
+    at those rounds (``chip_smoke.drive``)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, eng.cfg.vocab, n, dtype=np.int32)
+               for n in (24, 17, 30, 9)]
+    block, rounds, done = eng.decode_block, sorted(arrivals), []
+    for _ in range(500):
+        while rounds and rounds[0] <= eng._round:
+            for i in arrivals[rounds.pop(0)]:
+                eng.submit(Request(uid=i, prompt=prompts[i],
+                                   max_new_tokens=max_new))
+        eng.decode_block = min(block, rounds[0] - eng._round) if rounds \
+            else block
+        done.extend(eng.step())
+        if len(done) == len(prompts) and not eng._occupied():
+            break
+    torch.cuda.synchronize()
+    assert sorted(r.uid for r in done) == [0, 1, 2, 3]
+    return {r.uid: r.out_tokens for r in done}
+
+
+@pytest.mark.parametrize("kind", ["dense", "hybrid", "moe"])
+def test_ticket_waits_for_its_prefill_stream(cuda, kind):
+    """A ticket is not ready while its prefill, on the prefill stream, is
+    held back by a device sleep, and becomes ready once it ran; the
+    current stream never waited for it (decode could go on).  These
+    families' prefills read nothing back to the host (the decomposed-KV
+    prefill does: its bidiagonal SVD checks cuSOLVER's status, so its
+    dispatch returns only after most of its device work)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    eng, _ = _async_engine(cuda, kind, "float32", 1, prefill_async=True,
+                           ready_order="ready")
+    assert eng.prefill_stream is not None
+    assert eng.prefill_stream != torch.cuda.current_stream(cuda)
+    # a first request loads every kernel the prefill runs (a kernel's
+    # first launch may wait for the device while its module loads)
+    eng.submit(Request(uid=-1, prompt=np.arange(1, 20, dtype=np.int32),
+                       max_new_tokens=2))
+    eng.run()
+    prefill = eng.family._prefill
+
+    def held(toks):
+        torch.cuda._sleep(500_000_000)        # ~0.25 s of device time
+        return prefill(toks)
+
+    eng.family._prefill = held
+    eng.submit(Request(uid=0, prompt=np.arange(1, 20, dtype=np.int32),
+                       max_new_tokens=4))
+    torch.cuda.synchronize()
+    eng._admit()
+    (ticket,) = eng._pool
+    assert not ticket.ready()
+    assert torch.cuda.current_stream(cuda).query()   # decode was free
+    torch.cuda.synchronize()
+    assert ticket.ready()
+    del eng.family._prefill             # back to the method
+    done = eng.run()
+    assert [r.uid for r in done] == [0] and not eng._occupied()
+
+
+@pytest.mark.parametrize("kind", ["slab", "paged", "hybrid", "moe"])
+def test_fused_async_tokens_equal_sync_single_step(cuda, kind):
+    """Fused blocks of 4 (replayed graphs) with async admission on the
+    prefill stream, deterministic and (where rows never interact) ready
+    order, give the sync single-step engine's tokens; every block is a
+    replay; a paged engine gets every page back."""
+    base_eng, p = _async_engine(cuda, kind, "float32", 1)
+    base = _async_drive(base_eng)
+    orders = ("deterministic",) if kind == "moe" else ("deterministic",
+                                                      "ready")
+    for order in orders:
+        eng, _ = _async_engine(cuda, kind, "float32", 4, p,
+                               prefill_async=True, ready_order=order)
+        got = _async_drive(eng)
+        if order == "deterministic" or kind not in ("slab", "paged"):
+            assert got == base, order
+        g = eng.graphs
+        assert g.eager == 0 and g.replays == eng.stats.blocks > 0
+        if kind == "paged":
+            pg = eng.pager
+            assert pg.alloc.free_pages == pg.num_pages - 1
+            assert pg.talloc.free_pages == pg.num_tail_pages - 1
+
+
+@pytest.mark.parametrize("kind", ["hybrid", "moe"])
+def test_new_families_replay_graphs(cuda, kind):
+    """Reduced MoE and hybrid serving in bf16: blocks of 4 replay captured
+    graphs (none eager) with the single-step tokens; the hybrid prefill
+    launches the SSD kernel once per Mamba2 block, decode never."""
+    base_eng, p = _async_engine(cuda, kind, "bfloat16", 1)
+    ops.reset_launch_counts()
+    base = _async_drive(base_eng)
+    launches = ops.launch_counts()
+    eng, _ = _async_engine(cuda, kind, "bfloat16", 4, p)
+    assert _async_drive(eng) == base
+    assert eng.graphs.eager == 0 and eng.graphs.replays == eng.stats.blocks
+    cfg = base_eng.cfg
+    want = cfg.num_layers - cfg.num_layers // cfg.attn_period \
+        if kind == "hybrid" else 0
+    assert launches["ssd_chunk_intra"] == \
+        want * base_eng.stats.prefill_batches
+    assert sum(launches.values()) == launches["ssd_chunk_intra"]
+
+
+def test_dropped_async_engine_frees_its_memory_without_gc(cuda):
+    """An engine dropped with tickets in flight on the prefill stream
+    frees its cache and the tickets' fresh rows at once, with the cyclic
+    collector off."""
+    import gc
+    import numpy as np
+    from repro_torch.serving import Request
+    p = _async_engine(cuda, "slab", "float32", 1)[1]
+
+    def start():
+        eng = _async_engine(cuda, "slab", "float32", 4, p,
+                            prefill_async=True, ready_order="ready")[0]
+        rng = np.random.RandomState(0)
+        for i in range(4):
+            eng.submit(Request(uid=i, prompt=rng.randint(
+                0, 512, 20, dtype=np.int32), max_new_tokens=4))
+        eng._admit()
+        assert eng._pool
+        return eng
+
+    start().run()                  # the process's lasting buffers
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        eng = start()
+        del eng
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    assert after <= before, (before, after)
+
+
+def test_moe_ffn_under_capture_equals_eager(cuda):
+    """One MoE FFN at decode's shape captured into a CUDA graph and
+    replayed gives the eager call's output bit for bit (routing, sorts,
+    the capacity scatter and the expert products all run on the
+    device, with no host read)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.api import model_fns
+    cfg = get_arch("olmoe-1b-7b").reduced()
+    p = model_fns(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0))
+    lp = L.layer_params(p["layers"], 0)["moe"]
+    x = torch.randn(4, 1, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    want, _ = moe.moe_ffn(lp, x, cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_ffn(lp, x, cfg)                     # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = moe.moe_ffn(lp, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
