@@ -143,6 +143,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step against its bound (every weight and the KV cache read
    once, all 64 experts' weights among them).
 
+13. keyed sampling on llama2-7b (after phase 10, the same weights):
+   ``categorical_sampler(1.0)`` with seed 0 on phase 4's traffic
+   (decomposed KV, rank 64, tail 16): tokens at ``decode_block`` 1, 3
+   and 8 equal, every fused block a replay whose launches (the warm-up's
+   apart) are the single-step run's; seed 0 again gives the same tokens,
+   seed 1 other tokens; async deterministic at blocks 1 and 8 gives the
+   sync tokens.
+14. the dense family's other variants at full width and depth, one at a
+   time, each freed before the next (``freed:``): ``starcoder2-7b``
+   (layernorm, biased linears, ungated GELU MLP, 36 query heads over 4
+   KV heads), ``gemma-2b`` (GeGLU, MQA with head_dim 256, tied
+   embeddings) and ``granite-3-2b`` (tied embeddings); random bf16
+   weights from seed 0 with every bias and norm bias redrawn N(0,
+   0.02²).  Phase 4's traffic decomposed-KV (rank 64, tail 16),
+   single-step and fused: every request finished, tails folded, the
+   re-orth pair and the dkv kernel launched, fused tokens equal to
+   single-step's; phase 4's decode route check; the replayed decode
+   step against its bound (weights, a tied head whole, and the cache
+   read once).  ``starcoder2-7b`` also runs phase 6's activation
+   forward at tokens [1, 2048] (10 layers, rank 20; biases as one extra
+   rank, so the Eq. 6 GEMM meets N 4608 / 512 / 18432 and the outlier
+   statistics H 4608): exact launch counts, kernel vs
+   ``backend="reference"`` logits within phase 6's bf16 bar.
+15. the VLM (``llama-3.2-vision-11b``: 8 × (4 self + 1 tanh-gated cross
+   block), 1601 image tokens) and audio (``seamless-m4t-medium``: 12 +
+   12 layers, 4096 encoder frames) families at full width and depth,
+   biases, norm biases and the VLM's gates redrawn N(0, 0.02²), image
+   embeddings and frames the reference's zero placeholders: phase 4's
+   traffic, the admission cost counting the image tokens or frames, no
+   port kernel launched, fused tokens equal to single-step's, each
+   request's staggered tokens equal to its solo run's, the replayed
+   step against its bound, peak memory and ``freed:``.
+
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
@@ -154,7 +187,10 @@ L2 flushed by reading, ``ms_l2_cold_clean``), the paged
 dkv kernel bit for bit against the slab kernel at phase 4's shapes, the
 intra-chunk SSD kernel at phase 8's four prefill shapes and at phase
 11's two (nh 64: G 8 × Q 64 and G 1 × Q 304; reruns bit-identical; warm
-and L2-cold, beside the empty launch and the shape's launches per run), and the four expanded matvec wrappers at
+and L2-cold, beside the empty launch and the shape's launches per run),
+phase 14's shapes (the re-orth pair at gemma-2b's [18, 512, 256] and
+starcoder2-7b's [32, 512, 512], the dkv kernel at starcoder2-7b's G 36
+over 1024 rows), and the four expanded matvec wrappers at
 phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
 bit-identical; times L2-flushed and warm beside the library call's).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
@@ -742,7 +778,27 @@ def phase_kernels(cfg):
                                 launch_floor_ms=floor))
             print(json.dumps(mv_rows[-1]), flush=True)
         torch.cuda.empty_cache()
-    return rows + act + ssd_rows + mv_rows
+    # the dense variants' decomposed-KV shapes (phase 14): one 512-token
+    # prompt's K or V of gemma-2b (kv_width 256) and starcoder2-7b (512)
+    # through the re-orth pair, and starcoder2-7b's 36 query heads (four
+    # groups of 8 and one of 4) over 1024 rows through the dkv kernel
+    var_rows = []
+    for arch in ("gemma-2b", "starcoder2-7b"):
+        vc = get_arch(arch)
+        for side in ("right", "left"):
+            var_rows.append(dict(reorth_case(side, vc.num_layers, 512,
+                                             vc.kv_width, iters, iters // 2,
+                                             expansion, gen),
+                                 launch_floor_ms=floor, arch=arch))
+        torch.cuda.empty_cache()
+    sc = get_arch("starcoder2-7b")
+    var_rows.append(dict(dkv_case(4, sc.num_heads, 1024, rank,
+                                  (1024, 700, 513, 128), torch.bfloat16,
+                                  gen), launch_floor_ms=floor,
+                         arch="starcoder2-7b"))
+    for rec in var_rows:
+        print(json.dumps(rec), flush=True)
+    return rows + act + ssd_rows + mv_rows + var_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1094,10 +1150,11 @@ def measure_dispatch(engine, prompts) -> None:
           f"host dispatch per step {(e - r) * 1e3:.3f} ms", flush=True)
 
 
-def check_decode_routes(cfg, params, prompts, ecfg):
+def check_decode_routes(cfg, params, prompts, ecfg, tag: str = "serve"):
     """One decode step through the kernel route vs the plain oracle route
-    (``_lowrank_attention``) on a full-width prefilled cache (2 prompts of
-    300 tokens, 14 of them already in the dense tail)."""
+    (``_lowrank_attention``, what ``backend="reference"`` decodes with)
+    on a full-width prefilled cache (2 prompts of 300 tokens, 14 of them
+    already in the dense tail)."""
     import numpy as np
     import torch
     from repro_torch.engine import DecomposeEngine
@@ -1138,7 +1195,7 @@ def check_decode_routes(cfg, params, prompts, ecfg):
     if not (torch.isfinite(lg_k).all() and rel <= 1e-3):
         raise AssertionError(f"decode logits, kernel vs plain route: "
                              f"relative L2 error {rel:.3e} > 1e-3")
-    print(f"serve: kernel vs plain decode route: attention rel err "
+    print(f"{tag}: kernel vs plain decode route: attention rel err "
           f"{worst:.3e} over {cfg.num_layers} bf16 layers (tol 1e-4); "
           f"float32 logits rel L2 err {rel:.3e} (tol 1e-3), argmax equal "
           f"{bool((lg_k.argmax(-1) == lg_p.argmax(-1)).all())}", flush=True)
@@ -2079,14 +2136,16 @@ def _n_mamba(cfg) -> int:
 
 
 def _step_bound_ms(params, cache) -> float:
-    """The least time of one decode step: every weight but the embedding
-    table (one row of it is read) and every cache leaf read once, over
-    the card's memory rate."""
+    """The least time of one decode step: every weight and every cache
+    leaf read once, over the card's memory rate; of an untied embedding
+    table only one row is read (a tied one is the head: read whole)."""
     import torch
     from repro_torch.models import transformer as T
     leaves = [t for t in _leaves(cache) if isinstance(t, torch.Tensor)]
-    b = T.param_bytes(params) - T.param_bytes(params["embed"]) \
-        + sum(t.numel() * t.element_size() for t in leaves)
+    b = T.param_bytes(params) + sum(t.numel() * t.element_size()
+                                    for t in leaves)
+    if "lm_head" in params:
+        b -= T.param_bytes(params["embed"])
     return b / HBM_BYTES_S * 1e3
 
 
@@ -2313,8 +2372,289 @@ def serve_moe(cfg, params, profile: bool = False):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: keyed sampling on llama2-7b
+# ---------------------------------------------------------------------------
+
+def sampler_llama(cfg, params):
+    """Phase 13: ``categorical_sampler(1.0)``, seed 0, on phase 4's
+    traffic through decomposed-KV engines (rank 64, tail 16): tokens at
+    decode_block 1, 3 and 8 equal, every fused block a replay whose
+    launches are the single-step run's; seed 0 again gives the same
+    tokens and seed 1 others; async deterministic (blocks 1 and 8) gives
+    sync's tokens."""
+    import numpy as np
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine, categorical_sampler
+
+    ecfg = EngineConfig(kv_rank=64, kv_tail=16)
+
+    def engine(block: int = 1, seed: int = 0, **kw):
+        return Engine(cfg, params, slots=4, max_len=1024,
+                      decompose_engine=DecomposeEngine(ecfg), device="cuda",
+                      decode_block=block, sampler=categorical_sampler(1.0),
+                      sample_seed=seed, **kw)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    single, tokens, launches, _ = serve_once(engine, prompts, 32,
+                                             title="sampler single-step")
+    if single.stats.tail_folds <= 0:
+        raise AssertionError("sampler: no tail fold happened")
+    rates = {1: decode_rates(single.stats)}
+    del single
+    for blk in (3, FUSED_BLOCK):
+        eng, tok, lau, _ = serve_once(lambda: engine(blk), prompts, 32,
+                                      title=f"sampler block {blk}")
+        check_fused(f"sampler block {blk}", eng, tok, lau, tokens,
+                    launches)
+        rates[blk] = (f"{decode_rates(eng.stats, eng.graphs)} in "
+                      f"{eng.stats.blocks} blocks, "
+                      f"{eng.graphs.replays} replays")
+        del eng
+    _, again, _, _ = serve_once(lambda: engine(FUSED_BLOCK), prompts, 32,
+                                title="sampler seed 0 again")
+    _, other, _, _ = serve_once(lambda: engine(FUSED_BLOCK, seed=1),
+                                prompts, 32, title="sampler seed 1")
+    if again != tokens or other == tokens:
+        raise AssertionError("sampler: seed 0 twice gave other tokens, or "
+                             "seed 1 the same")
+    for blk in (1, FUSED_BLOCK):
+        det, dtok, dlau, _ = serve_once(
+            lambda: engine(blk, prefill_async=True,
+                           ready_order="deterministic"), prompts, 32,
+            title=f"sampler async block {blk}")
+        if dtok != tokens:
+            raise AssertionError(f"sampler: async deterministic tokens "
+                                 f"(decode_block={blk}) differ from sync")
+        if blk > 1:
+            check_fused("sampler async", det, dtok, dlau, tokens, launches)
+        del det
+    differ = sum(a != b for u in tokens for a, b in zip(tokens[u],
+                                                       other[u]))
+    print(f"sampler: categorical T=1.0 seed 0 on {cfg.name}: tokens equal "
+          f"at decode_block 1, 3, {FUSED_BLOCK} (every fused block a "
+          f"replay, launches equal to single-step's) and in async "
+          f"deterministic runs (blocks 1, {FUSED_BLOCK}); seed 0 again "
+          f"equal, seed 1 differs in {differ}/128 tokens; decode tok/s "
+          + "; ".join(f"block {k}: {v}" for k, v in rates.items()),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the dense family's other variants at full width and depth
+# ---------------------------------------------------------------------------
+
+VARIANT_ARCHS = ("starcoder2-7b", "gemma-2b", "granite-3-2b")
+BIAS_STD = 0.02          # biases, norm biases and cross gates, N(0, std²)
+VARIANT_ACT_SEQ = 2048   # the activation forward's tokens [1, 2048]
+
+
+def nonzero_biases(params, seed: int = 1) -> int:
+    """Redraw every bias, norm bias and cross gate of ``params`` from
+    N(0, BIAS_STD²) in place (the init zeroes them: a missing bias add or
+    a closed cross block would go unseen).  Returns how many tensors."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+
+    def walk(tree):
+        nonlocal n
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k in ("b", "bias", "gate_attn", "gate_mlp"):
+                v.copy_(torch.randn(v.shape, generator=gen, device=v.device)
+                        * BIAS_STD)
+                n += 1
+    walk(params)
+    return n
+
+
+def serve_variant(cfg, params, profile: bool = False):
+    """Phase 14 for one variant: phase 4's traffic decomposed-KV (rank 64,
+    tail 16) single-step and fused, the decode route check, the replayed
+    step against its bound.  Returns the single-step run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine
+
+    tag = cfg.name
+    ecfg = EngineConfig(kv_rank=64, kv_tail=16)
+
+    def engine(decode_block: int = 1):
+        return Engine(cfg, params, slots=4, max_len=1024,
+                      decompose_engine=DecomposeEngine(ecfg), device="cuda",
+                      decode_block=decode_block)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    eng, done, launches, peak = serve_traffic(
+        engine, prompts, profile, f"{tag}: profile of the serving run")
+    st = eng.stats
+    check_finished(done, cfg.vocab, tag)
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if st.tail_folds <= 0 or missing:
+        raise AssertionError(f"{tag}: folds {st.tail_folds}, kernels never "
+                             f"launched {missing} ({launches})")
+    print(f"{tag}: kv_width {cfg.kv_width}, {cfg.num_heads} query heads; "
+          f"tokens={st.tokens_out} folds={st.tail_folds} prefill_batches="
+          f"{st.prefill_batches} prefill_s={st.prefill_s:.4f} decode_s="
+          f"{st.decode_s:.4f} decode_tok/s={st.decode_tok_s:.2f} "
+          f"mean_ttft_ms={st.mean_ttft_s * 1e3:.2f} peak_mem_gib={peak:.2f}",
+          flush=True)
+    print(f"{tag}: launches " + json.dumps(launches), flush=True)
+    tokens = {r.uid: r.out_tokens for r in done}
+    del eng
+    fused, ftok, flaunch, fpeak = serve_once(
+        lambda: engine(FUSED_BLOCK), prompts, 32, profile,
+        f"{tag}: profile of the fused serving run")
+    check_fused(tag, fused, ftok, flaunch, tokens, launches)
+    fused_line(f"{tag} fused", 32, st, fused, fpeak)
+    del fused
+    check_decode_routes(cfg, params, prompts, ecfg, tag=tag)
+    torch.cuda.empty_cache()
+    ms, bms = replayed_step_ms(engine, prompts)
+    print(f"{tag}: replayed decode step {ms:.3f} ms (4 slots, block of "
+          f"{FUSED_BLOCK}) vs bound {bms:.3f} ms (weights, the tied head "
+          f"whole, and the decomposed cache read once)", flush=True)
+    return launches
+
+
+def activation_variant(cfg, params):
+    """Phase 14's activation forward of ``cfg`` (starcoder2-7b): tokens
+    [1, VARIANT_ACT_SEQ], phase 6's policy (10 layers, rank 20, 3 %
+    outlier channels, threshold 3.0) through the kernels (biases as one
+    extra rank of every projection, an ungated MLP: 4 Eq. 6 GEMMs a
+    decomposed layer) against ``backend="reference"``, within phase 6's
+    bf16 bar."""
+    import numpy as np
+    import torch
+    from repro_torch.core.outlier import ThresholdTable
+    from repro_torch.core.policy import (PAPER_BEST_CONFIG,
+                                         PAPER_LAYER_CONFIGS,
+                                         DecompositionPolicy)
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_decomposed_forward_step
+
+    name, rank = PAPER_BEST_CONFIG
+    policy = DecompositionPolicy.from_layer_list(
+        cfg.num_layers, PAPER_LAYER_CONFIGS[name], rank=rank,
+        outlier_frac=0.03)
+    policy.thresholds = ThresholdTable(default=3.0)
+    fwd = {b: make_decomposed_forward_step(cfg, DecomposeEngine(
+        EngineConfig(policy=policy, attn_mode="dense", backend=b)))
+        for b in ("cuda", "reference")}
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (1, VARIANT_ACT_SEQ))).long().cuda()
+    per_layer = 3 + (2 if cfg.gated_mlp else 1)
+    want = dict(ACT_LAUNCHES, lowrank_matmul=per_layer * len(
+        PAPER_LAYER_CONFIGS[name]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = {}
+    ms = {}
+    for b in ("cuda", "reference"):
+        ms[b], _ = median_ms(lambda: out.__setitem__(
+            b, fwd[b](params, tokens)), runs=1)
+        if b == "cuda" and ops.launch_counts() != want:
+            raise AssertionError(f"{cfg.name} decomposed forward launches "
+                                 f"{ops.launch_counts()} != {want}")
+    lk, lr_ = out["cuda"][..., :cfg.vocab], out["reference"][..., :cfg.vocab]
+    rel = _rel(lk, lr_)
+    argmax = (lk.argmax(-1) == lr_.argmax(-1)).float().mean().item()
+    print(f"{cfg.name} activation: tokens [1, {VARIANT_ACT_SEQ}], layers "
+          f"{PAPER_LAYER_CONFIGS[name]} rank {rank}: launches "
+          f"{json.dumps({k: v for k, v in want.items() if v})}; kernel vs "
+          f"reference route logits rel L2 {rel:.3e} (tol {ACT_LOGITS_TOL}),"
+          f" argmax agreement {argmax:.4f}; forward ms (one run) via "
+          f"kernels {ms['cuda']:.2f}, via plain versions "
+          f"{ms['reference']:.2f}", flush=True)
+    if not (torch.isfinite(lk).all() and rel <= ACT_LOGITS_TOL):
+        raise AssertionError(f"{cfg.name} activation routes disagree: rel "
+                             f"L2 {rel:.3e}")
+    return want
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the VLM and audio families at full width and depth
+# ---------------------------------------------------------------------------
+
+MODAL_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-medium")
+
+
+def serve_modal(cfg, params, profile: bool = False):
+    """Phase 15 for one config: phase 4's traffic through its own family
+    (zero image embeddings / frames, as the reference's engine feeds
+    them; no port kernel on this path): every request finished, the
+    admission cost counts the image tokens / frames, fused tokens equal
+    single-step's (every block a replay), each request's staggered
+    tokens equal its solo run's, the replayed step against its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, Request
+
+    tag = cfg.family
+
+    def engine(decode_block: int = 1):
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                      decode_block=decode_block)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    eng, done, launches, peak = serve_traffic(
+        engine, prompts, profile, f"{tag}: profile of the serving run")
+    st = eng.stats
+    check_finished(done, cfg.vocab, tag)
+    extra = cfg.num_image_tokens or cfg.num_audio_frames
+    costs = [eng.family.prefill_cost(Request(uid=-1, prompt=p))
+             for p in prompts]
+    if any(launches.values()) or st.prefill_batches < 3 or \
+            costs != [len(p) + extra for p in prompts]:
+        raise AssertionError(f"{tag}: launches {launches}, "
+                             f"{st.prefill_batches} prefills, admission "
+                             f"costs {costs}")
+    print(f"{tag}: {cfg.name} ({type(eng.family).__name__}) tokens="
+          f"{st.tokens_out} prefill_batches={st.prefill_batches} "
+          f"prefill_s={st.prefill_s:.4f} decode_s={st.decode_s:.4f} "
+          f"decode_tok/s={st.decode_tok_s:.2f} mean_ttft_ms="
+          f"{st.mean_ttft_s * 1e3:.2f} peak_mem_gib={peak:.2f}; admission "
+          f"costs {costs} (prompt + {extra}); no port kernel launched",
+          flush=True)
+    tokens = {r.uid: r.out_tokens for r in done}
+    del eng
+    fused, ftok, flaunch, fpeak = serve_once(
+        lambda: engine(FUSED_BLOCK), prompts, 32, profile,
+        f"{tag}: profile of the fused serving run")
+    check_fused(tag, fused, ftok, flaunch, tokens, launches)
+    fused_line(f"{tag} fused", 32, st, fused, fpeak)
+    del fused
+    for i in range(len(prompts)):
+        solo = {r.uid: r.out_tokens
+                for r in drive(engine(), prompts, {0: [i]}, 32)}
+        if solo[i] != tokens[i]:
+            raise AssertionError(f"{tag}: request {i} staggered tokens "
+                                 f"differ from its solo run's")
+    print(f"{tag}: each request's staggered tokens equal its solo run's "
+          f"(4 runs)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ms, bms = replayed_step_ms(engine, prompts)
+    print(f"{tag}: replayed decode step {ms:.3f} ms (4 slots, block of "
+          f"{FUSED_BLOCK}) vs bound {bms:.3f} ms (weights but the embedding"
+          f" table, the self and cross K/V read once); weights "
+          f"{T.param_bytes(params) / 2 ** 30:.2f} GiB, peak_mem_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
+
+
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
-          "async", "mamba2", "hybrid", "moe", "fig12")
+          "async", "sampler", "mamba2", "hybrid", "moe", "fig12",
+          "variants", "modal")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -2385,7 +2725,8 @@ def main() -> int:
     if "kernels" in only:
         with phase("kernels"):
             rows = phase_kernels(cfg)
-    if only & {"serve", "conformance", "activation", "paged", "async"}:
+    if only & {"serve", "conformance", "activation", "paged", "async",
+               "sampler"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -2409,6 +2750,9 @@ def main() -> int:
         if "async" in only:
             with phase("async"):
                 phase_async(cfg, params, slot_tokens)
+        if "sampler" in only:
+            with phase("sampler"):
+                sampler_llama(cfg, params)
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params
@@ -2428,6 +2772,25 @@ def main() -> int:
     if "fig12" in only:
         with phase("fig12"):
             fig = phase_fig12()
+    for name, archs, serve in (("variants", VARIANT_ARCHS, serve_variant),
+                               ("modal", MODAL_ARCHS, serve_modal)):
+        if name not in only:
+            continue
+        with phase(name):
+            for arch in archs:
+                t = time.perf_counter()
+                v_cfg = get_arch(arch)
+                v_params = init_weights(v_cfg)
+                print(f"init: {nonzero_biases(v_params)} bias, norm-bias "
+                      f"and gate tensors drawn N(0, {BIAS_STD}^2)",
+                      flush=True)
+                serve(v_cfg, v_params, args.profile)
+                if arch == "starcoder2-7b":
+                    activation_variant(v_cfg, v_params)
+                del v_params
+                check_freed(arch)
+                print(f"{name}: {arch} {time.perf_counter() - t:.1f} s",
+                      flush=True)
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

@@ -1,13 +1,18 @@
 """Architecture configs of the ported families (the port's own copy).
 
 The fields, ``padded_vocab``, ``resolved_head_dim``, ``d_inner``,
-``ssm_heads`` and ``reduced()`` mirror ``repro.configs.base.ArchConfig``
-for the four families ported: the dense decoder-only transformer with a
-gated MLP, no biases and an untied LM head, the attention-free Mamba2
-(``ssm``), the token-choice top-k mixture of experts (``moe``, with the
-kimi-style leading dense layers and shared experts) and the Zamba2-style
-hybrid (``hybrid``: Mamba2 blocks plus one shared attention block every
-``attn_period`` layers); fields other configs vary arrive with them.
+``ssm_heads``, ``dec_layers``, ``is_encdec`` and ``reduced()`` mirror
+``repro.configs.base.ArchConfig`` for every family of the reference: the
+dense decoder-only transformer (llama-style, or with biased linears and
+layernorm, an ungated GELU MLP, GeGLU, tied embeddings), the
+attention-free Mamba2 (``ssm``), the token-choice top-k mixture of
+experts (``moe``, with the kimi-style leading dense layers and shared
+experts), the Zamba2-style hybrid (``hybrid``: Mamba2 blocks plus one
+shared attention block every ``attn_period`` layers), the
+Llama-3.2-Vision-style ``vlm`` (a tanh-gated cross-attention block every
+``cross_attn_period`` layers) and the encoder-decoder ``audio`` family.
+The reference's training and sharding fields (remat, optimizer, mesh
+rules) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Dict, Optional
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # "dense" | "ssm" | "moe" | "hybrid"
+    family: str                      # dense | ssm | moe | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int                   # 0 for attention-free (mamba2)
@@ -26,8 +31,11 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None   # default d_model // num_heads
-    activation: str = "silu"         # gated (SwiGLU) MLP
+    activation: str = "silu"         # silu | geglu | gelu
+    gated_mlp: bool = True
+    use_bias: bool = False           # biased linears and layernorm
     rope_theta: float = 10_000.0
+    tie_embeddings: bool = False     # no lm_head; √d embedding scale
     # --- MoE ---
     num_experts: int = 0
     top_k: int = 0
@@ -42,6 +50,12 @@ class ArchConfig:
     ssm_conv_width: int = 4
     # --- hybrid (zamba2) ---
     attn_period: int = 0             # one shared attention block every N
+    # --- VLM ---
+    cross_attn_period: int = 0       # a cross-attention block every N
+    num_image_tokens: int = 0
+    # --- encoder-decoder (audio) ---
+    enc_layers: int = 0              # decoder layers = num_layers - this
+    num_audio_frames: int = 0        # encoder memory (cross-KV) length
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
 
@@ -66,6 +80,14 @@ class ArchConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def dec_layers(self) -> int:
+        return self.num_layers - self.enc_layers
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
     def kv_width(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
 
@@ -77,7 +99,8 @@ class ArchConfig:
         package, so a reduced config names the same shapes in both)."""
         kw = dict(
             name=self.name + "-smoke",
-            num_layers=min(self.num_layers, 4 if self.attn_period else 2),
+            num_layers=min(self.num_layers, 4 if self.attn_period or
+                           self.cross_attn_period else 2),
             d_model=128,
             num_heads=min(self.num_heads, 4),
             num_kv_heads=min(self.num_kv_heads, 2),
@@ -92,6 +115,10 @@ class ArchConfig:
             kw.update(ssm_state=16, ssm_head_dim=32)
         if self.attn_period:
             kw.update(attn_period=2)
+        if self.cross_attn_period:
+            kw.update(cross_attn_period=2, num_image_tokens=16)
+        if self.enc_layers:
+            kw.update(num_layers=4, enc_layers=2, num_audio_frames=32)
         return self.replace(**kw)
 
 
@@ -157,3 +184,46 @@ register(ArchConfig(
     d_ff=18432, vocab=163840,
     num_experts=384, top_k=8, moe_d_ff=2048,
     n_shared_experts=1, first_k_dense=1))
+
+# GQA kv=4, RoPE, biased linears and layernorm, ungated GELU MLP
+# [arXiv:2402.19173].
+register(ArchConfig(
+    name="starcoder2-7b", family="dense",
+    num_layers=32, d_model=4608, num_heads=36, num_kv_heads=4,
+    d_ff=18432, vocab=49152,
+    activation="gelu", gated_mlp=False, use_bias=True))
+
+# GeGLU, head_dim 256, MQA (kv=1), tied embeddings [arXiv:2403.08295].
+register(ArchConfig(
+    name="gemma-2b", family="dense",
+    num_layers=18, d_model=2048, num_heads=8, num_kv_heads=1,
+    head_dim=256, d_ff=16384, vocab=256000,
+    activation="geglu", gated_mlp=True, tie_embeddings=True))
+
+# GQA kv=8, SwiGLU, tied embeddings [hf:ibm-granite/granite-3.0-2b-base].
+register(ArchConfig(
+    name="granite-3-2b", family="dense",
+    num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,
+    d_ff=8192, vocab=49155,
+    activation="silu", gated_mlp=True, tie_embeddings=True))
+
+# Dense LM with a tanh-gated cross-attention block every 5th layer
+# (8 x (4 self + 1 cross)); the vision frontend is a stub: prefill takes
+# precomputed image embeddings [B, 1601, d_model]
+# [hf:meta-llama/Llama-3.2-11B-Vision].
+register(ArchConfig(
+    name="llama-3.2-vision-11b", family="vlm",
+    num_layers=40, d_model=4096, num_heads=32, num_kv_heads=8,
+    d_ff=14336, vocab=128256,
+    cross_attn_period=5, num_image_tokens=1601,
+    activation="silu", gated_mlp=True))
+
+# Encoder-decoder backbone, 12 + 12 layers; the audio frontend is a
+# stub: prefill takes precomputed frame embeddings [B, 4096, d_model]
+# [arXiv:2308.11596].
+register(ArchConfig(
+    name="seamless-m4t-medium", family="audio",
+    num_layers=24, d_model=1024, num_heads=16, num_kv_heads=16,
+    d_ff=4096, vocab=256206,
+    enc_layers=12, num_audio_frames=4096,
+    activation="gelu", gated_mlp=False, use_bias=True))

@@ -54,6 +54,23 @@ their dispatch round: the sync engine's tokens):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --reduced --device cpu --prefill-async --ready-order deterministic
 
+``--arch`` also takes the dense variants ``starcoder2-7b`` (layernorm,
+biased linears, an ungated GELU MLP), ``gemma-2b`` (GeGLU, MQA with
+head_dim 256, tied embeddings) and ``granite-3-2b`` (tied embeddings),
+served dense or decomposed-KV, and the ``vlm`` family's
+``llama-3.2-vision-11b`` and the ``audio`` family's
+``seamless-m4t-medium``, whose image embeddings and encoder frames are
+zero placeholders (the frontends are stubs, as in the reference; these
+two serve with dense KV only).  ``--sampler categorical`` draws from
+softmax(logits / ``--temperature``) with keys from ``--sample-seed``;
+single-step and fused engines draw the same tokens:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --reduced --device cpu --sampler categorical --temperature 0.8 \
+      --sample-seed 1 --decode-block 4
+
 ``--expansion auto`` resolves the re-orth kernels' f per shape bucket
 through ``repro_torch.tune`` and, during warmup, pre-tunes the shapes
 admission will launch (``--no-pretune`` skips that); point
@@ -76,7 +93,8 @@ from ..kernels import ops
 from ..models.api import model_fns
 from ..platform import device_name, resolve_device
 from ..kernels.ops import BACKENDS
-from ..serving import ADMISSIONS, READY_ORDERS, Engine, Request
+from ..serving import (ADMISSIONS, READY_ORDERS, Engine, Request,
+                       categorical_sampler, greedy_sampler)
 
 #: configs too large for one card: served only ``--reduced``
 REDUCED_ONLY = ("kimi-k2-1t-a32b",)
@@ -176,6 +194,14 @@ def main(argv=None) -> None:
                     help="with --prefill-async: complete tickets as they "
                          "finish (ready) or at their dispatch round "
                          "(deterministic: the sync engine's tokens)")
+    ap.add_argument("--sampler", default="greedy",
+                    choices=("greedy", "categorical"),
+                    help="greedy (argmax) or categorical (keyed draws "
+                         "from softmax(logits / temperature))")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="with --sampler categorical")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="seed of the keyed draws")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -197,13 +223,16 @@ def main(argv=None) -> None:
         sched_admit_every=args.admit_every,
         sched_max_admit=args.max_admit, decode_block=args.decode_block,
         prefill_async=args.prefill_async))
+    sampler = categorical_sampler(args.temperature) \
+        if args.sampler == "categorical" else greedy_sampler
     if args.expansion == "auto" and not args.no_pretune \
             and args.decompose_kv_rank > 0:
         pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                  decompose_engine=dengine, device=device, paged=args.paged,
                  eos_id=args.eos_id, admission=args.admission,
-                 ready_order=args.ready_order)
+                 ready_order=args.ready_order, sampler=sampler,
+                 sample_seed=args.sample_seed)
     rng = np.random.RandomState(0)
     shared = rng.randint(0, cfg.vocab, args.shared_prefix, dtype=np.int32)
     for i in range(args.requests):
@@ -222,7 +251,9 @@ def main(argv=None) -> None:
           f"device={device_name(device)} admission={eng.admission} "
           f"decode_block={eng.decode_block} "
           f"prefill_async={eng.prefill_async} "
-          f"ready_order={eng.ready_order}")
+          f"ready_order={eng.ready_order} sampler={args.sampler}"
+          + (f"(T={args.temperature}, seed={args.sample_seed})"
+             if args.sampler == "categorical" else ""))
     print(f"stats: prefills={s.prefills} batches={s.prefill_batches} "
           f"decode_steps={s.decode_steps} blocks={s.blocks} "
           f"folds={s.tail_folds} tokens={s.tokens_out} "

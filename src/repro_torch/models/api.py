@@ -5,15 +5,18 @@ that maps a config's family to its functions.  Every family's functions
 share one signature:
 
 * ``init(cfg, generator, device=None)`` → params;
-* ``prefill(params, cfg, tokens, max_len=None)`` → (last logits [B, V],
-  cache); the ssm family also takes ``kernels=`` (its scan's kernel set);
+* ``prefill(params, cfg, *inputs, max_len=None)`` → (last logits [B, V],
+  cache), ``inputs`` being ``prefill_inputs(cfg, tokens, make)``: the
+  tokens alone, tokens and image embeddings (vlm), or encoder frames and
+  tokens (audio); the ssm family also takes ``kernels=`` (its scan's
+  kernel set);
 * ``decode_step(params, cfg, token, cache, pos, live=None)`` → (logits
   [B, V], cache), updating the cache in place (a row whose ``live`` is
   False writes nothing);
 * ``init_cache(cfg, batch, max_len, device=None)`` → the zero cache of
   ``batch`` slots; a leaf's slot axis is where :func:`cache_batch_axes`
-  finds it (1 for dense, moe and ssm; the hybrid's grouped Mamba2 state
-  has it at 2).
+  finds it (1 for dense, moe, ssm and audio; the hybrid's grouped Mamba2
+  state and the vlm's self K/V have it at 2).
 
 Admission support (every family): :func:`splice_cache` writes fresh
 prefill rows into a live cache IN PLACE, and :func:`tree_ready` /
@@ -27,20 +30,43 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import hybrid, mamba2, moe, transformer
+from ..sampling import MASK, fold_in, greedy_sampler, takes_key
+from . import encdec, hybrid, mamba2, moe, transformer, vlm
+
+
+def tokens_prefill_inputs(cfg, tokens, make, mem_len=None):
+    """Default ``ModelFns.prefill_inputs``: the token matrix is the whole
+    prefill input (dense, moe, ssm, hybrid)."""
+    return (tokens,)
+
+
+def no_batch_extras(cfg, b, s, make):
+    """Default ``ModelFns.batch_extras``: tokens and labels are the whole
+    training batch."""
+    return {}
 
 
 class ModelFns(NamedTuple):
+    """One family's functions.  ``prefill_inputs(cfg, tokens, make,
+    mem_len=None)`` gives the positional prefill inputs after (params,
+    cfg): the tokens, plus the image embeddings (vlm) or the encoder
+    frames (audio, first) made by ``make(shape, dtype)`` (zeros, for the
+    serving engine's placeholders); ``batch_extras`` names a training
+    batch's extra members the same way (kept for the reference's table:
+    the port has no training path yet)."""
     init: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    prefill_inputs: Callable = tokens_prefill_inputs
+    batch_extras: Callable = no_batch_extras
 
 
 def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
                      cache, pos: torch.Tensor, n_steps, stop_table,
-                     slot_live=None):
-    """Up to ``n_steps`` (≤ ``max_block``) greedy decode steps as ONE
+                     slot_live=None, *, sampler: Callable = greedy_sampler,
+                     key=None, round0=0):
+    """Up to ``n_steps`` (≤ ``max_block``) sampled decode steps as ONE
     fixed-length loop over device tensors, with no host read inside — the
     form a CUDA graph captures (counterpart of
     ``repro.models.api.run_decode_block``, whose ``while_loop`` exits).
@@ -48,7 +74,11 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
     ``step(tok, cache, pos, live)`` → (logits, cache) is one decode step
     that writes nothing for a row whose ``live`` (bool [B]) is False.
     ``n_steps`` is an int or an int tensor; ``stop_table`` is int32
-    [B, W], −1-padded.  Sampling is greedy, on the device.  The block
+    [B, W], −1-padded.  ``sampler(logits, 1)`` picks each step's tokens
+    on the device (greedy by default); a keyed sampler (``takes_key``)
+    gets ``fold_in(key, round0 + i)`` at step i, the key the single-step
+    engine derives for that round (``key`` and ``round0`` may be device
+    tensors, as a captured graph's feed holds them).  The block
     halts after the first step in which any slot samples one of its stop
     tokens, or after ``n_steps``: every later iteration still runs, but
     with ``live`` all False and ``tok``/``pos`` frozen, so it changes no
@@ -68,6 +98,10 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
     """
     b, dev = tok.shape[0], tok.device
     n = torch.as_tensor(n_steps, device=dev)
+    keyed = takes_key(sampler)
+    if keyed:
+        key = torch.as_tensor(key, device=dev).long() & MASK
+        round0 = torch.as_tensor(round0, device=dev).long()
     buf = torch.zeros(max_block, b, dtype=torch.int32, device=dev)
     steps = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -76,7 +110,8 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
         active = ~halted & (n > i)                       # bool []
         logits, cache = step(tok, cache, pos, active.expand(b))
         adv = active if slot_live is None else active & slot_live
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = (sampler(logits, 1, fold_in(key, round0 + i)) if keyed
+               else sampler(logits, 1)).to(torch.int32)
         buf[i] = torch.where(adv, nxt, 0)
         hit = (nxt[:, None] == stop_table).any(dim=1)
         done = torch.where(active, hit, done)
@@ -95,6 +130,11 @@ _FAMILY = {
     "moe": ModelFns(moe.init, moe.prefill, moe.decode_step, moe.init_cache),
     "hybrid": ModelFns(hybrid.init, hybrid.prefill, hybrid.decode_step,
                        hybrid.init_state),
+    "vlm": ModelFns(vlm.init, vlm.prefill, vlm.decode_step, vlm.init_cache,
+                    vlm.prefill_inputs, vlm.batch_extras),
+    "audio": ModelFns(encdec.init, encdec.prefill, encdec.decode_step,
+                      encdec.init_cache, encdec.prefill_inputs,
+                      encdec.batch_extras),
 }
 
 

@@ -17,8 +17,9 @@ decomposition-preserved form (§3.2):
   RoPE and runs chunked dense attention; ``attn_mode="preserved"``
   contracts QKᵀ and P·V through the factors (no RoPE inside decomposed
   layers — a position-independent Vᵀ cannot carry it).
-* MLP: up/gate as preserved matmuls, reconstructed at the nonlinearity,
-  dense down-projection.
+* MLP: up (and gate, when the MLP is gated) as preserved matmuls,
+  reconstructed at the nonlinearity, dense down-projection.  Biases go
+  through the engine's projection as one extra rank (exact).
 
 The residual stream stays dense at block boundaries.
 """
@@ -116,9 +117,13 @@ def decomposed_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
     lr2 = engine.decompose_activation(h2, lp=lp, threshold=threshold)
     wfm = (wfac or {}).get("mlp", {})
     up = engine.project(lr2, p["mlp"]["up"], wfm.get("up")).reconstruct()
-    gate = engine.project(lr2, p["mlp"]["gate"],
-                          wfm.get("gate")).reconstruct()
-    hidden = L._ACT[cfg.activation](gate) * up
+    act = L._ACT[cfg.activation]
+    if "gate" in p["mlp"]:
+        gate = engine.project(lr2, p["mlp"]["gate"],
+                              wfm.get("gate")).reconstruct()
+        hidden = act(gate) * up
+    else:
+        hidden = act(up)
     return x + L.dense(p["mlp"]["down"], hidden.to(x.dtype))
 
 

@@ -39,6 +39,7 @@ from ..kernels.dkv_attention import (NEG, dkv_attention_stats,
                                      dkv_attention_stats_paged,
                                      merge_with_tail)
 from ..platform import torch_dtype
+from ..sampling import greedy_sampler
 from . import layers as L
 from . import transformer as T
 
@@ -210,10 +211,12 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
 def decode_block_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
                      pos: torch.Tensor, frozen_len: torch.Tensor, n_steps,
                      stop_table: torch.Tensor, *, max_block: int,
-                     attention: str = "kernel", slot_live=None):
-    """Up to ``n_steps`` (≤ ``max_block``) greedy decode steps over the
-    slab cache as one fixed-length loop (``api.run_decode_block``, whose
-    ``slot_live`` freezes dead slots), the form a CUDA graph captures.
+                     attention: str = "kernel", slot_live=None,
+                     sampler=greedy_sampler, key=None, round0=0):
+    """Up to ``n_steps`` (≤ ``max_block``) decode steps over the slab
+    cache as one fixed-length loop (``api.run_decode_block``, whose
+    ``slot_live`` freezes dead slots and whose ``sampler``/``key``/
+    ``round0`` draw the tokens), the form a CUDA graph captures.
     ``frozen_len`` is loop-invariant: the
     serving engine caps ``n_steps`` at the fold horizon, so every fold
     still happens between blocks, at the occupancy the single-step engine
@@ -224,7 +227,9 @@ def decode_block_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
         return decode_step_dkv(p, cfg, t, c, ps, frozen_len,
                                attention=attention, live=live)
     return api.run_decode_block(step, max_block, token, cache, pos,
-                                n_steps, stop_table, slot_live)
+                                n_steps, stop_table, slot_live,
+                                sampler=sampler, key=key,
+                                round0=round0)
 
 
 def fold_rank(rank: int, r_in: int, t_frozen: int, tl: int) -> int:
@@ -518,7 +523,8 @@ def decode_block_dkv_paged(p: Params, cfg, token: torch.Tensor,
                            bt_t: torch.Tensor, n_steps,
                            stop_table: torch.Tensor, t_need: int,
                            r_need: int, tail_len: int, *, max_block: int,
-                           attention: str = "kernel", slot_live=None):
+                           attention: str = "kernel", slot_live=None,
+                           sampler=greedy_sampler, key=None, round0=0):
     """The paged twin of :func:`decode_block_dkv`: each step is
     :func:`decode_step_dkv_paged`, so the kernel route reads U through
     the block tables inside the paged kernel at every step (the
@@ -533,7 +539,9 @@ def decode_block_dkv_paged(p: Params, cfg, token: torch.Tensor,
                                      bt_t, t_need, r_need, tail_len,
                                      attention=attention, live=live)
     return api.run_decode_block(step, max_block, token, cache, pos,
-                                n_steps, stop_table, slot_live)
+                                n_steps, stop_table, slot_live,
+                                sampler=sampler, key=key,
+                                round0=round0)
 
 
 def compress_tail_paged(cache: Params, cfg, rank: int, frozen_len, fold,

@@ -1,0 +1,145 @@
+"""Seamless-M4T-medium-style encoder-decoder backbone (the ``audio``
+family).
+
+Counterpart of ``repro.models.encdec``: a bidirectional transformer
+encoder over STUBBED audio frame embeddings [B, M, H] (the conformer
+frontend is replaced by precomputed frames, as in the reference), then
+an autoregressive text decoder whose every block runs self-attention,
+cross-attention over the encoder memory and the MLP.  Both stacks use
+RoPE on self-attention; cross-attention has none.
+
+Cache: ``self`` K/V [dec_layers, B, T, kvh, d] and ``cross`` K/V
+[dec_layers, B, num_audio_frames, kvh, d], the latter written once at
+prefill from the encoder memory and read by every decode step.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..platform import torch_dtype
+from . import layers as L
+from . import transformer as T
+
+Params = L.Params
+
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights as :func:`transformer.init` draws them: ``enc``
+    (``enc_layers`` blocks), ``enc_norm``, ``dec`` (``dec_layers``
+    blocks, each with ``xattn_norm`` and ``xattn`` besides), the final
+    norm and an untied head; biases (``use_bias``) start at zero."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    d, nd = cfg.d_model, cfg.dec_layers
+    normal = T.normal_drawer(generator, dev, dt)
+    dec = T.init_blocks(cfg, nd, normal, dev)
+    dec["xattn_norm"] = T.stacked_norm(nd, d, dev, dt, cfg.use_bias)
+    dec["xattn"] = T.stacked_attention(cfg, nd, normal, dev, cfg.use_bias)
+    return {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
+            "enc": T.init_blocks(cfg, cfg.enc_layers, normal, dev),
+            "enc_norm": T.final_norm(cfg, dev),
+            "dec": dec,
+            "final_norm": T.final_norm(cfg, dev),
+            "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
+
+
+def encode(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, M, H] → encoder memory [B, M, H] (bidirectional
+    self-attention, then the encoder's final norm)."""
+    b, m, _ = frames.shape
+    positions = torch.arange(m, device=frames.device).expand(b, m)
+    x = frames
+    for i in range(cfg.enc_layers):
+        lp = L.layer_params(p["enc"], i)
+        x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+                                  cfg, positions, causal=False)[0]
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    return T.norm(p["enc_norm"], x, cfg)
+
+
+def _decode_stack(p: Params, cfg, tokens, memory, cache):
+    """The decoder over ``tokens`` [B, S] against ``memory``; writes the
+    self and cross K/V into ``cache`` when given → (hidden, cache)."""
+    b, s = tokens.shape
+    x = p["embed"]["w"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for i in range(cfg.dec_layers):
+        lp = L.layer_params(p["dec"], i)
+        a, k, v = T._self_attention(lp["attn"],
+                                    T.norm(lp["attn_norm"], x, cfg), cfg,
+                                    positions)
+        x = x + a
+        kv = L.memory_kv(lp["xattn"], memory, cfg.num_kv_heads)
+        if cache is not None:
+            cache["self"]["k"][i, :, :s] = k
+            cache["self"]["v"][i, :, :s] = v
+            cache["cross"]["k"][i] = kv[0]
+            cache["cross"]["v"][i] = kv[1]
+        x = x + L.cross_attention(lp["xattn"],
+                                  T.norm(lp["xattn_norm"], x, cfg), kv, cfg)
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    return x, cache
+
+
+def forward(p: Params, cfg, frames: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """frames [B, M, H]; decoder tokens [B, S] → logits [B, S, V]."""
+    x, _ = _decode_stack(p, cfg, tokens, encode(p, cfg, frames), None)
+    return T.logits_head(p, x, cfg)
+
+
+def prefill_inputs(cfg, tokens, make, mem_len=None):
+    """``ModelFns.prefill_inputs``: encoder frames FIRST, then tokens.
+    ``mem_len`` None (the serving engine) is ``num_audio_frames``, the
+    cross cache's contract, not the prompt length."""
+    m = cfg.num_audio_frames if mem_len is None else mem_len
+    return (make((tokens.shape[0], m, cfg.d_model), torch_dtype(cfg.dtype)),
+            tokens)
+
+
+def batch_extras(cfg, b, s, make):
+    """``ModelFns.batch_extras``: training batches carry audio frames."""
+    return {"frames": make((b, s, cfg.d_model), torch_dtype(cfg.dtype))}
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    nd, m = cfg.dec_layers, cfg.num_audio_frames
+    dt = torch_dtype(cfg.dtype)
+    z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
+    return {"self": {"k": z(nd, batch, max_len, kvh, hd),
+                     "v": z(nd, batch, max_len, kvh, hd)},
+            "cross": {"k": z(nd, batch, m, kvh, hd),
+                      "v": z(nd, batch, m, kvh, hd)}}
+
+
+def prefill(p: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    """Encode the frames, run the decoder over the prompt, emit both
+    caches → (last-position logits [B, V], cache)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    x, cache = _decode_stack(p, cfg, tokens, encode(p, cfg, frames), cache)
+    return T.logits_head(p, x[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
+    """One token per slot: self K/V written IN PLACE (a slot whose
+    ``live`` is False writes nothing), the cross K/V only read."""
+    x = p["embed"]["w"][token][:, None, :]
+    for i in range(cfg.dec_layers):
+        lp = L.layer_params(p["dec"], i)
+        c = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
+        x = x + L.decode_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+                                   c, pos, cfg, live)
+        x = x + L.cross_attention(
+            lp["xattn"], T.norm(lp["xattn_norm"], x, cfg),
+            (cache["cross"]["k"][i], cache["cross"]["v"][i]), cfg)
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                      cfg.activation)
+    return T.logits_head(p, x, cfg)[:, 0], cache

@@ -26,7 +26,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-_ACT = {"silu": silu}
+def _const(v: float, like: torch.Tensor) -> float:
+    """``v`` rounded to ``like``'s dtype, as JAX rounds a weakly typed
+    Python constant before the op (a torch op would carry it at float32
+    and round once)."""
+    return float(torch.tensor(v, dtype=like.dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, x·½(1 + tanh(√(2/π)(x + 0.044715
+    x³))), op by op in x's dtype with the constants rounded to it: how
+    XLA evaluates ``jax.nn.gelu(approximate=True)``, bit for bit in bf16
+    (``F.gelu(approximate="tanh")`` rounds once)."""
+    inner = _const((2 / 3.141592653589793) ** 0.5, x) * (
+        x + _const(0.044715, x) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+_ACT = {"silu": silu, "gelu": gelu, "geglu": gelu}
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -37,7 +54,10 @@ def layer_params(layers: Params, i: int) -> Params:
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -45,6 +65,18 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = (x32 * x32).mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(x − μ)/√(σ² + eps)·scale (+ bias) in float32, σ² the BIASED
+    variance (``jnp.var``; ``torch.var`` defaults to the unbiased one)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -155,7 +187,31 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params,
     return dense(p["wo"], out)
 
 
+def cross_attention(p: Params, x: torch.Tensor, memory_kv, cfg
+                    ) -> torch.Tensor:
+    """Attention of x [B, S, H] over precomputed memory K/V [B, M, kvh, d]
+    (no RoPE, no mask), through the query-chunked :func:`attend`."""
+    b, s, _ = x.shape
+    q = split_heads(dense(p["wq"], x), cfg.num_heads)
+    k, v = memory_kv
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    out = attend(q, k, v, positions, causal=False, out_dtype=x.dtype)
+    return dense(p["wo"], out)
+
+
+def memory_kv(p: Params, memory: torch.Tensor, kvh: int):
+    """The K/V of ``memory`` [B, M, H] (encoder output or image
+    embeddings) under the block's projections → ([B, M, kvh, d], same)."""
+    return (split_heads(dense(p["wk"], memory), kvh),
+            split_heads(dense(p["wv"], memory), kvh))
+
+
 def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """Gated MLP: down(act(gate(x)) · up(x))."""
-    h = _ACT[activation](dense(p["gate"], x)) * dense(p["up"], x)
+    """down(act(gate(x)) · up(x)) when the MLP is gated, else
+    down(act(up(x)))."""
+    act = _ACT[activation]
+    if "gate" in p:
+        h = act(dense(p["gate"], x)) * dense(p["up"], x)
+    else:
+        h = act(dense(p["up"], x))
     return dense(p["down"], h)

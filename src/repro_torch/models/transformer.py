@@ -1,9 +1,15 @@
-"""Dense decoder-only transformer (llama2 / deepseek family).
+"""Dense decoder-only transformer (llama2 / deepseek / starcoder2 /
+gemma / granite).
 
 Counterpart of ``repro.models.transformer``: the same parameter tree
 (layers stacked on a leading L axis), prefill that also emits the KV
 cache, and one-token decode.  The layer loop is a Python loop over views
-of the stacked weights (the JAX version scans).
+of the stacked weights (the JAX version scans).  The config's variant
+fields act where the reference's do: ``use_bias`` (biased linears,
+layernorm with a bias in place of rmsnorm), ``gated_mlp`` and
+``activation`` (SwiGLU, GeGLU or an ungated GELU MLP), and
+``tie_embeddings`` (no ``lm_head``: the head is the embedding table, and
+embeddings are scaled by √d_model rounded to the config's dtype).
 """
 from __future__ import annotations
 
@@ -30,44 +36,87 @@ def normal_drawer(generator: torch.Generator, device, dtype):
     return normal
 
 
-def init_blocks(cfg, n: int, normal, device) -> Params:
-    """``n`` dense blocks stacked on a leading axis: N(0, 1/in) for the
-    projections, ones for norm scales; one layer's matrix at a time."""
+def stacked_dense(n: int, in_dim: int, out_dim: int, normal, device, dt,
+                  bias: bool = False) -> Params:
+    """``n`` projections [in, out] stacked on a leading axis: N(0, 1/in)
+    one matrix at a time, and zero biases [n, out] when ``bias``."""
+    w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
+    for i in range(n):
+        w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros(n, out_dim, device=device, dtype=dt)
+    return p
+
+
+def stacked_norm(n: int, d: int, device, dt, bias: bool = False) -> Params:
+    """``n`` norms: ones for the scales, zeros for the biases."""
+    p = {"scale": torch.ones(n, d, device=device, dtype=dt)}
+    if bias:
+        p["bias"] = torch.zeros(n, d, device=device, dtype=dt)
+    return p
+
+
+def stacked_attention(cfg, n: int, normal, device, bias: bool) -> Params:
     dt = torch_dtype(cfg.dtype)
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
-    def stacked(in_dim, out_dim):
-        w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
-        for i in range(n):
-            w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
-        return {"w": w}
+    def lin(i, o):
+        return stacked_dense(n, i, o, normal, device, dt, bias)
+    return {"wq": lin(d, nh * hd), "wk": lin(d, kvh * hd),
+            "wv": lin(d, kvh * hd), "wo": lin(nh * hd, d)}
 
-    ones = lambda *shape: torch.ones(shape, device=device, dtype=dt)
+
+def stacked_mlp(cfg, n: int, normal, device, bias: bool) -> Params:
+    dt = torch_dtype(cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def lin(i, o):
+        return stacked_dense(n, i, o, normal, device, dt, bias)
+    p = {"up": lin(d, f), "down": lin(f, d)}
+    if cfg.gated_mlp:
+        p["gate"] = lin(d, f)
+    return p
+
+
+def init_blocks(cfg, n: int, normal, device) -> Params:
+    """``n`` dense blocks stacked on a leading axis: N(0, 1/in) for the
+    projections, ones for norm scales, zeros for biases (``use_bias``);
+    no ``gate`` when the MLP is ungated."""
+    dt, bias = torch_dtype(cfg.dtype), cfg.use_bias
     return {
-        "attn_norm": {"scale": ones(n, d)},
-        "attn": {"wq": stacked(d, nh * hd), "wk": stacked(d, kvh * hd),
-                 "wv": stacked(d, kvh * hd), "wo": stacked(nh * hd, d)},
-        "mlp_norm": {"scale": ones(n, d)},
-        "mlp": {"up": stacked(d, f), "down": stacked(f, d),
-                "gate": stacked(d, f)},
+        "attn_norm": stacked_norm(n, cfg.d_model, device, dt, bias),
+        "attn": stacked_attention(cfg, n, normal, device, bias),
+        "mlp_norm": stacked_norm(n, cfg.d_model, device, dt, bias),
+        "mlp": stacked_mlp(cfg, n, normal, device, bias),
     }
 
 
 def init(cfg, generator: torch.Generator, device=None) -> Params:
     """Random weights on ``device`` from ``generator``: N(0, 1/in) for
-    projections, N(0, 1/d_model) for the embedding, ones for norm scales.
-    Each layer's slice is drawn in float32 and stored in ``cfg.dtype``,
-    so a full-width model never holds more than one float32 matrix."""
+    projections, N(0, 1/d_model) for the embedding, ones for norm scales
+    and zeros for biases (the reference's distributions); no ``lm_head``
+    when the embeddings are tied.  Each layer's slice is drawn in float32
+    and stored in ``cfg.dtype``, so a full-width model never holds more
+    than one float32 matrix."""
     dev = torch.device(device if device is not None else generator.device)
     dt = torch_dtype(cfg.dtype)
     d = cfg.d_model
     normal = normal_drawer(generator, dev, dt)
-    layers = init_blocks(cfg, cfg.num_layers, normal, dev)
-    return {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
-            "layers": layers,
-            "final_norm": {"scale": torch.ones(d, device=dev, dtype=dt)},
-            "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
+    p = {"embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
+         "layers": init_blocks(cfg, cfg.num_layers, normal, dev),
+         "final_norm": final_norm(cfg, dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": normal((d, cfg.padded_vocab), d ** -0.5)}
+    return p
+
+
+def final_norm(cfg, device) -> Params:
+    """The final norm's parameters (a bias with ``use_bias``)."""
+    return L.layer_params(stacked_norm(1, cfg.d_model, device,
+                                       torch_dtype(cfg.dtype),
+                                       cfg.use_bias), 0)
 
 
 def param_bytes(p) -> int:
@@ -81,15 +130,30 @@ def param_bytes(p) -> int:
 # ---------------------------------------------------------------------------
 
 def norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """layernorm with ``use_bias`` (starcoder2, seamless), else rmsnorm."""
+    if cfg.use_bias:
+        return L.layernorm(p, x, cfg.norm_eps)
     return L.rmsnorm(p, x, cfg.norm_eps)
 
 
 def embed(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"]["w"][tokens]
+    """Embedding rows, times √d_model rounded to the config's dtype when
+    the embeddings are tied (the reference multiplies by
+    ``jnp.asarray(√d, dtype)``)."""
+    x = p["embed"]["w"][tokens]
+    if cfg.tie_embeddings:
+        x = x * L._const(cfg.d_model ** 0.5, x)
+    return x
 
 
 def logits_head(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    logits = L.dense(p["lm_head"], norm(p["final_norm"], x, cfg))
+    """Final norm, then the head: ``lm_head``, or the embedding table
+    [V, H] itself when tied (``einsum("...h,vh->...v")``)."""
+    h = norm(p["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        logits = h @ p["embed"]["w"].t()
+    else:
+        logits = L.dense(p["lm_head"], h)
     if cfg.padded_vocab != cfg.vocab:          # mask the padding tail
         iota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(iota < cfg.vocab, logits,
@@ -98,16 +162,17 @@ def logits_head(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _self_attention(lp: Params, h: torch.Tensor, cfg,
-                    positions: torch.Tensor):
-    """Causal self-attention of one block; also returns its RoPE'd K and
-    V [B, S, kvh, d] (the prefill cache rows)."""
+                    positions: torch.Tensor, causal: bool = True):
+    """Self-attention of one block (causal unless asked otherwise, as an
+    encoder's is); also returns its RoPE'd K and V [B, S, kvh, d] (the
+    prefill cache rows)."""
     nh, kvh = cfg.num_heads, cfg.num_kv_heads
     q = L.split_heads(L.dense(lp["wq"], h), nh)
     k = L.split_heads(L.dense(lp["wk"], h), kvh)
     v = L.split_heads(L.dense(lp["wv"], h), kvh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = L.attend(q, k, v, positions, causal=True, out_dtype=h.dtype)
+    out = L.attend(q, k, v, positions, causal=causal, out_dtype=h.dtype)
     return L.dense(lp["wo"], out), k, v
 
 

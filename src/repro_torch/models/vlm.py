@@ -1,0 +1,176 @@
+"""Llama-3.2-Vision-style VLM backbone: a dense decoder with a tanh-gated
+cross-attention block every ``cross_attn_period`` layers.
+
+Counterpart of ``repro.models.vlm``.  The vision frontend is a stub, as
+in the reference: prefill takes precomputed image embeddings [B, n_img,
+H] (already projected to d_model).  Layout: ``groups`` of (period − 1)
+self-attention blocks and one cross block (40 layers at period 5: 8 × (4
+self + 1 cross)); the self blocks are stacked [groups, spg, …], the
+cross blocks [groups, …], each with two float32 gates (scalars per
+group) that scale the cross block's attention and MLP by their tanh.
+
+Cache: ``self`` K/V [groups, spg, B, T, kvh, d] (the slot axis at 2) and
+``cross`` K/V [groups, B, n_img, kvh, d], written once at prefill from
+the image embeddings and read by every decode step.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..platform import torch_dtype
+from . import layers as L
+from . import transformer as T
+
+Params = L.Params
+
+
+def layout(cfg) -> Tuple[int, int]:
+    """(groups, self blocks per group)."""
+    per = cfg.cross_attn_period
+    groups = cfg.num_layers // per
+    if groups * per != cfg.num_layers:
+        raise ValueError(f"vlm layout: {cfg.num_layers} layers do not tile "
+                         f"by cross_attn_period {per}")
+    return groups, per - 1
+
+
+def _regroup(tree, groups: int, spg: int):
+    """Leading axis groups·spg → [groups, spg] on every leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _regroup(v, groups, spg) for k, v in tree.items()}
+    return tree.reshape((groups, spg) + tuple(tree.shape[1:]))
+
+
+def init(cfg, generator: torch.Generator, device=None) -> Params:
+    """Random weights as :func:`transformer.init` draws them; the cross
+    blocks' norms, projections and MLP carry no bias, and their gates
+    start at 0 (tanh(0) = 0: the cross path is closed), as in the
+    reference."""
+    dev = torch.device(device if device is not None else generator.device)
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    groups, spg = layout(cfg)
+    normal = T.normal_drawer(generator, dev, dt)
+    zeros = torch.zeros(groups, device=dev, dtype=torch.float32)
+    return {
+        "embed": {"w": normal((cfg.padded_vocab, d), d ** -0.5)},
+        "self": _regroup(T.init_blocks(cfg, groups * spg, normal, dev),
+                         groups, spg),
+        "cross": {
+            "attn_norm": T.stacked_norm(groups, d, dev, dt),
+            "xattn": T.stacked_attention(cfg, groups, normal, dev, False),
+            "gate_attn": zeros,
+            "mlp_norm": T.stacked_norm(groups, d, dev, dt),
+            "mlp": T.stacked_mlp(cfg, groups, normal, dev, False),
+            "gate_mlp": zeros.clone()},
+        "final_norm": T.final_norm(cfg, dev),
+        "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)},
+    }
+
+
+def cross_block(cp: Params, x: torch.Tensor, kv, cfg) -> torch.Tensor:
+    """x + tanh(g_a)·xattn(rmsnorm(x), kv), then + tanh(g_m)·mlp(·)."""
+    h = L.cross_attention(cp["xattn"], L.rmsnorm(cp["attn_norm"], x,
+                                                 cfg.norm_eps), kv, cfg)
+    x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * h
+    m = L.mlp(cp["mlp"], L.rmsnorm(cp["mlp_norm"], x, cfg.norm_eps),
+              cfg.activation)
+    return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * m
+
+
+def _self_block(lp: Params, x, cfg, positions):
+    """One self block → (x, its RoPE'd K and V)."""
+    a, k, v = T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+                                cfg, positions)
+    x = x + a
+    return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                     cfg.activation), k, v
+
+
+def forward(p: Params, cfg, tokens: torch.Tensor,
+            image_embeds: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S]; image_embeds [B, n_img, H] → logits [B, S, V]."""
+    return T.logits_head(p, _run(p, cfg, tokens, image_embeds, None)[0],
+                         cfg)
+
+
+def prefill_inputs(cfg, tokens, make, mem_len=None):
+    """``ModelFns.prefill_inputs``: tokens plus the image-embedding block
+    (``num_image_tokens`` rows, the cross cache's contract)."""
+    return (tokens, make((tokens.shape[0], cfg.num_image_tokens,
+                          cfg.d_model), torch_dtype(cfg.dtype)))
+
+
+def batch_extras(cfg, b, s, make):
+    """``ModelFns.batch_extras``: training batches carry image
+    embeddings."""
+    return {"image_embeds": make((b, cfg.num_image_tokens, cfg.d_model),
+                                 torch_dtype(cfg.dtype))}
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
+    groups, spg = layout(cfg)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
+    n_img = cfg.num_image_tokens
+    return {"self": {"k": z(groups, spg, batch, max_len, kvh, hd),
+                     "v": z(groups, spg, batch, max_len, kvh, hd)},
+            "cross": {"k": z(groups, batch, n_img, kvh, hd),
+                      "v": z(groups, batch, n_img, kvh, hd)}}
+
+
+def _run(p: Params, cfg, tokens, image_embeds, cache):
+    """The blocks over ``tokens``; writes the self and cross K/V into
+    ``cache`` when given.  Returns (final hidden [B, S, H], cache)."""
+    b, s = tokens.shape
+    groups, spg = layout(cfg)
+    x = p["embed"]["w"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for g in range(groups):
+        sp = L.layer_params(p["self"], g)
+        for j in range(spg):
+            x, k, v = _self_block(L.layer_params(sp, j), x, cfg, positions)
+            if cache is not None:
+                cache["self"]["k"][g, j, :, :s] = k
+                cache["self"]["v"][g, j, :, :s] = v
+        cp = L.layer_params(p["cross"], g)
+        kv = L.memory_kv(cp["xattn"], image_embeds, cfg.num_kv_heads)
+        if cache is not None:
+            cache["cross"]["k"][g] = kv[0]
+            cache["cross"]["v"][g] = kv[1]
+        x = cross_block(cp, x, kv, cfg)
+    return x, cache
+
+
+def prefill(p: Params, cfg, tokens: torch.Tensor, image_embeds: torch.Tensor,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    """→ (last-position logits [B, V], cache with ``max_len`` self rows)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    x, cache = _run(p, cfg, tokens, image_embeds, cache)
+    return T.logits_head(p, x[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
+                pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
+    """One token per slot: the self caches are written IN PLACE (a slot
+    whose ``live`` is False writes nothing), the cross caches only
+    read."""
+    groups, spg = layout(cfg)
+    x = p["embed"]["w"][token][:, None, :]
+    for g in range(groups):
+        sp = L.layer_params(p["self"], g)
+        for j in range(spg):
+            lp = L.layer_params(sp, j)
+            c = {"k": cache["self"]["k"][g, j], "v": cache["self"]["v"][g, j]}
+            x = x + L.decode_attention(lp["attn"],
+                                       T.norm(lp["attn_norm"], x, cfg), c,
+                                       pos, cfg, live)
+            x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                          cfg.activation)
+        x = cross_block(L.layer_params(p["cross"], g), x,
+                        (cache["cross"]["k"][g], cache["cross"]["v"][g]), cfg)
+    return T.logits_head(p, x, cfg)[:, 0], cache

@@ -12,10 +12,9 @@ admission, into an all-free engine except for the dense family.
 Everything family-specific (cache layout, prefill, splice, decode,
 fused blocks, tail folds, the scheduler's admission cost) lives behind
 the ``ServingFamily`` of ``serving.families``: ``dense``, ``moe``,
-``ssm`` (Mamba2 state slots), ``hybrid`` (Zamba2) or ``transformer-dkv``
-(selected when the decompose engine's ``EngineConfig.kv_rank`` is > 0;
-its ``kv_tail`` and ``kv_exact`` set the tail length and the
-factorization).
+``ssm`` (Mamba2 state slots), ``hybrid`` (Zamba2), ``vlm``, ``audio``
+or ``transformer-dkv`` (dense configs only; selected when the resolved
+decomposed-KV rank is > 0, with its tail length and factorization).
 
 Admission dispatches each prefill as a ticket and completes it with a
 splice and the first-token sample (``serving.families.PrefillTicket``).
@@ -44,7 +43,7 @@ at once (``free_slot``).
 A request stops the moment it emits ``eos_id`` (its own, else the
 engine's) or one of its ``stop_tokens``, or when it spends its token
 budget or the cache; ``EngineStats`` counts the two kinds of finish.
-Sampling is greedy, on the device.
+Sampling runs on the device (see below).
 
 ``decode_block=1`` decodes one token per live slot per step, with one
 host readback per step.  ``decode_block > 1`` runs up to that many steps
@@ -56,6 +55,20 @@ round (``_block_len``), and the block halts on device after the first
 step in which a slot samples a stop token, so folds, admissions and
 finishes happen between blocks at the rounds the single-step engine runs
 them.  ``"auto"`` resolves the block through ``repro_torch.tune``.
+
+Sampling is greedy by default; ``sampler=categorical_sampler(T)`` draws
+from softmax(logits / T) with keys ``fold_in(fold_in(prng_key(
+sample_seed), stream), round)`` (``repro_torch.sampling``): stream 0
+for decode, stream 1 for the first tokens sampled at admission, both
+indexed by the engine's round counter, so single-step and fused engines
+draw the same tokens for any block sizes (a fused block's round is part
+of its graph's feed).
+
+``decompose_kv_rank``/``dkv_tail``/``dkv_exact`` override the decompose
+engine's ``kv_rank``/``kv_tail``/``kv_exact`` with the reference's
+precedence: an explicit knob wins (``decompose_kv_rank=0`` disables
+decomposed KV), None inherits the engine config's; without a decompose
+engine the defaults are rank 0 and tail 16.
 """
 from __future__ import annotations
 
@@ -66,24 +79,21 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..engine import DecomposeEngine
+from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import build
 from ..platform import host_to_device, prefill_stream, resolve_device
+from ..sampling import (categorical_sampler, fold_in, greedy_sampler,
+                        prng_key, takes_key)
 from .families import (PrefillTicket, ServingFamily, family_names,
                        serving_family)
 from .graphs import BlockGraphs
 
 __all__ = ["ADMISSIONS", "READY_ORDERS", "Engine", "EngineStats",
            "PrefillTicket", "Request", "Scheduler", "ServingFamily",
-           "family_names", "greedy_sampler"]
+           "categorical_sampler", "family_names", "greedy_sampler"]
 
 ADMISSIONS = ("per_slot", "gang")
 READY_ORDERS = ("ready", "deterministic")
-
-
-def greedy_sampler(logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the vocab axis → int32 [B]."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -225,20 +235,26 @@ class Scheduler:
 
 class Engine:
     """Continuous-batching engine over the config's family (dense, MoE,
-    Mamba2 or hybrid), with the decomposed KV cache when
-    ``decompose_engine.config.kv_rank`` > 0 (dense family only), on page
-    pools when ``paged``.  ``eos_id`` is the stop token of requests that
-    name none; ``decode_block`` (default: the engine config's) is the
-    fused block length, an int or ``"auto"``; ``prefill_async`` (default:
-    the engine config's) and ``ready_order`` select async admission."""
+    Mamba2, hybrid, VLM or audio), with the decomposed KV cache when the
+    resolved rank (``decompose_kv_rank``, else the decompose engine's
+    ``kv_rank``) is > 0 (dense family only), on page pools when
+    ``paged``.  ``eos_id`` is the stop token of requests that name none;
+    ``decode_block`` (default: the engine config's) is the fused block
+    length, an int or ``"auto"``; ``prefill_async`` (default: the engine
+    config's) and ``ready_order`` select async admission; ``sampler``
+    (default greedy) and ``sample_seed`` pick the tokens."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
+                 sampler: Optional[Callable] = None,
+                 decompose_kv_rank: Optional[int] = None,
+                 dkv_tail: Optional[int] = None,
                  decompose_engine: Optional[DecomposeEngine] = None,
+                 dkv_exact: Optional[bool] = None,
                  device=None, paged: bool = False,
                  eos_id: Optional[int] = None, admission: str = "per_slot",
                  decode_block: Optional[Union[int, str]] = None,
                  prefill_async: Optional[bool] = None,
-                 ready_order: str = "ready"):
+                 ready_order: str = "ready", sample_seed: int = 0):
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be one of {ADMISSIONS}, got "
                              f"{admission!r}")
@@ -252,11 +268,26 @@ class Engine:
         self.slots, self.max_len = slots, max_len
         self.admission = admission
         self.eos_id = eos_id
-        self.dengine = decompose_engine or DecomposeEngine()
+        self.sampler = sampler or greedy_sampler
+        self._key = prng_key(sample_seed)
+        # an explicit knob wins (rank 0 disables decomposed KV); None
+        # inherits the decompose engine's config
+        if decompose_engine is not None:
+            self.dengine = decompose_engine
+            if decompose_kv_rank is None:
+                decompose_kv_rank = decompose_engine.config.kv_rank
+            if dkv_tail is None:
+                dkv_tail = decompose_engine.config.kv_tail
+        else:
+            decompose_kv_rank = decompose_kv_rank or 0
+            dkv_tail = 16 if dkv_tail is None else dkv_tail
+            self.dengine = DecomposeEngine(EngineConfig(
+                kv_rank=decompose_kv_rank, kv_tail=dkv_tail))
         ecfg = self.dengine.config
-        self.dkv_rank = ecfg.kv_rank
-        self.dkv_tail = ecfg.kv_tail
-        self.dkv_exact = ecfg.kv_exact
+        self.dkv_rank = int(decompose_kv_rank)
+        self.dkv_tail = int(dkv_tail)
+        self.dkv_exact = ecfg.kv_exact if dkv_exact is None \
+            else bool(dkv_exact)
         # per-slot host state: next write position, low-rank prefix length,
         # effective factor rank (decomposed KV only)
         self.pos = np.zeros((slots,), np.int32)
@@ -355,9 +386,18 @@ class Engine:
         return self._decoding() or bool(self._reserved.any()) \
             or bool(self._pool)
 
-    def _sample_host(self, logits: torch.Tensor) -> np.ndarray:
-        """Sample on the device, read the tokens back (the one sync)."""
-        return greedy_sampler(logits).cpu().numpy()
+    def _stream_key(self, stream: int) -> int:
+        """The key of a sample stream (0 decode, 1 admission)."""
+        return fold_in(self._key, stream)
+
+    def _sample_host(self, logits: torch.Tensor,
+                     stream: int = 0) -> np.ndarray:
+        """Sample on the device, read the tokens back (the one sync).  A
+        keyed sampler draws with ``fold_in(stream key, round)``."""
+        if takes_key(self.sampler):
+            key = fold_in(self._stream_key(stream), self._round)
+            return self.sampler(logits, 1, key).cpu().numpy()
+        return self.sampler(logits, 1).cpu().numpy()
 
     def _stops(self, req: Request) -> frozenset:
         eos = req.eos_id if req.eos_id is not None else self.eos_id
@@ -457,7 +497,7 @@ class Engine:
         self.stats.prefills += len(batch)
         if self.admission == "gang":
             logits = self.family.gang(batch, slots_idx, plen, has_live)
-            nxt = self._sample_host(logits)[slots_idx]
+            nxt = self._sample_host(logits, 1)[slots_idx]
             self.stats.prefill_batches += 1
             self.stats.prefill_s += time.perf_counter() - t0
             return self._activate(batch, slots_idx, plen, nxt,

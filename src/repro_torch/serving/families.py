@@ -13,8 +13,12 @@ admission.  Registered families:
 * ``hybrid`` — Zamba2: grouped Mamba2 state slots plus the shared
   block's K/V, whose slot axes differ by leaf; prefill runs the SSD with
   the engine's kernel set, as ``ssm`` does;
+* ``vlm`` / ``audio`` — dense-KV serving whose prefill takes extra
+  modality inputs (``ModelFns.prefill_inputs``: image embeddings, encoder
+  frames; zeros, as the reference's engine feeds them) and whose
+  admission cost adds the image tokens or frames to the prompt;
 * ``transformer-dkv`` — the decomposed-KV path, selected whenever the
-  engine's ``EngineConfig.kv_rank`` is > 0: prefill factorizes K/V
+  engine's decomposed-KV rank (``Engine.dkv_rank``) is > 0: prefill factorizes K/V
   through the engine's DecomposeEngine, decode attends through the
   factors, and each slot's dense tail folds back (``compress_tail`` with
   a per-slot mask) when THAT slot's tail fills.  ``paged=True`` swaps
@@ -22,12 +26,14 @@ admission.  Registered families:
   (``eng.pager``): admission splits into prefix HITS (tail-only suffix
   prefill over shared pages) and MISSES (the slab path's prefill, then
   the pages), decode reads U through the block tables inside the paged
-  dkv kernel, and folds copy-on-write into fresh pages.
+  dkv kernel, and folds copy-on-write into fresh pages.  Dense family
+  only: any other family with a rank raises.
 
 Admission is split as in the reference: ``dispatch`` launches one
 admission batch's prefill and returns its ``PrefillTicket``s, and each
 ticket's ``complete`` splices the fresh rows (``models.api.splice_cache``
-in place, for every family's cache layout) and samples the first token;
+in place, for every family's cache layout) and samples the first token
+(on the engine's admission stream, 1);
 ``cancel`` unwinds a ticket that never completes.  With an async engine
 on the card the prefill runs on the engine's prefill stream and the
 ticket's probe is an event recorded after it (``_on_side``/``_join``);
@@ -116,6 +122,13 @@ def _noop() -> None:
     pass
 
 
+def _sample_feed(eng) -> Dict[str, np.ndarray]:
+    """The keyed draw's part of a fused block's feed: the decode stream's
+    key (its 32 bits as an int32) and the block's first round."""
+    return {"key": np.array(eng._stream_key(0), np.uint32).view(np.int32),
+            "round0": np.int32(eng._round)}
+
+
 def _live(eng) -> np.ndarray:
     """int32 [slots]: 1 where a slot holds a request (a fused block's
     ``slot_live``; a reserved slot is not live until its ticket
@@ -196,7 +209,7 @@ class ServingFamily:
     def __init__(self, eng, paged: bool = False):
         if paged and not self.paged_capable:
             raise ValueError("paged serving runs on the decomposed KV "
-                             "cache (set EngineConfig.kv_rank > 0)")
+                             "cache (a decomposed-KV rank > 0)")
         self.eng = weakref.proxy(eng)     # no engine <-> family cycle
         self.fns = model_fns(eng.cfg)
         # the cache buffers the fused block's graphs read (graphs.pin)
@@ -268,14 +281,20 @@ class ServingFamily:
         def complete() -> Admitted:
             _join(eng, ev, (logits, fresh))
             api.splice_cache(eng.cfg, eng.cache, fresh, slots_idx)
-            return eng._sample_host(logits)[:n], np.zeros(n, np.int32)
+            return eng._sample_host(logits, 1)[:n], np.zeros(n, np.int32)
 
         return [self._ticket(batch, slots_idx, plen, ev, complete)]
 
     def _prefill(self, toks: torch.Tensor):
-        """(last logits, fresh cache of ``toks``' rows)."""
+        """(last logits, fresh cache of ``toks``' rows); the family's
+        extra prefill inputs (``prefill_inputs``) are zeros."""
         eng = self.eng
-        return self.fns.prefill(eng.params, eng.cfg, toks, eng.max_len)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=toks.device)
+        return self.fns.prefill(
+            eng.params, eng.cfg,
+            *self.fns.prefill_inputs(eng.cfg, toks, zeros), eng.max_len)
 
     def gang(self, batch: List[Any], slots_idx: List[int], plen: int,
              has_live: bool) -> torch.Tensor:
@@ -306,25 +325,29 @@ class ServingFamily:
 
     def decode_block(self, tok: np.ndarray, n: int, stops: np.ndarray
                      ) -> Tuple[np.ndarray, int]:
-        """Up to ``n`` greedy decode steps of every slot in one launch
-        (``api.run_decode_block``, halted by ``stops`` int32 [slots, W]):
-        returns (tokens [steps, slots], steps) on the host."""
+        """Up to ``n`` sampled decode steps of every slot in one launch
+        (``api.run_decode_block`` with the engine's sampler, halted by
+        ``stops`` int32 [slots, W]): returns (tokens [steps, slots],
+        steps) on the host."""
         eng = self.eng
         pin(eng.cache, self._static)
         cache, fns, params, cfg = eng.cache, self.fns, eng.params, eng.cfg
+        sampler = eng.sampler
 
-        def body(tok, pos, stops, live, n_steps):
+        def body(tok, pos, stops, live, key, round0, n_steps):
             def step(t, c, ps, act):
                 return fns.decode_step(params, cfg, t, c, ps, act)
             buf, steps, _, _ = run_decode_block(
                 step, n, tok.long(), cache, pos.long(), n_steps, stops,
-                slot_live=live.bool())
+                slot_live=live.bool(), sampler=sampler, key=key,
+                round0=round0)
             return buf, steps
 
         key = (type(self).__name__, n, eng.slots, stops.shape[1],
                _shapes(cache))
         feed = {"tok": tok, "pos": eng.pos, "stops": stops,
-                "live": _live(eng), "n_steps": np.int32(n)}
+                "live": _live(eng), **_sample_feed(eng),
+                "n_steps": np.int32(n)}
         return unpack(eng.graphs.run(key, body, feed,
                                      capture=self._capturable()), eng.slots)
 
@@ -385,6 +408,31 @@ class HybridServing(Mamba2Serving):
     launches a prefill at full width), decode none."""
 
 
+@register_family("vlm")
+class VLMServing(ServingFamily):
+    """Vision-language serving on the dense-KV slab: prefill also takes
+    the image embeddings (zeros: the frontend is a stub) and writes the
+    static cross K/V [groups, slots, n_img, kvh, d]; every admission
+    pays ``num_image_tokens`` of extra attention work, so the scheduler
+    buckets on tokens + image tokens.  The self K/V's slot axis is 2
+    ([groups, spg, slots, T, kvh, d]); splices find it through
+    ``api.cache_batch_axes``."""
+
+    def prefill_cost(self, req) -> int:
+        return len(req.prompt) + self.eng.cfg.num_image_tokens
+
+
+@register_family("audio")
+class AudioServing(ServingFamily):
+    """Encoder-decoder serving: prefill encodes ``num_audio_frames``
+    frames (zeros: the frontend is a stub) before the decoder reads a
+    token, and writes the static cross K/V; admission cost is tokens +
+    frames."""
+
+    def prefill_cost(self, req) -> int:
+        return len(req.prompt) + self.eng.cfg.num_audio_frames
+
+
 @register_family("transformer-dkv")
 class TransformerDKVServing(ServingFamily):
     """The paper's low-rank decomposed-KV serving path (dense family),
@@ -392,7 +440,10 @@ class TransformerDKVServing(ServingFamily):
     paged_capable = True
 
     def __init__(self, eng, paged: bool = False):
-        assert eng.cfg.family == "dense", "decomposed KV: dense family"
+        if eng.cfg.family != "dense":       # as the reference asserts
+            raise AssertionError(f"decomposed KV: dense family only, not "
+                                 f"{eng.cfg.family!r} ({eng.cfg.name}); "
+                                 f"set decompose_kv_rank=0")
         super().__init__(eng, paged=paged)
         if paged:
             ec = eng.dengine.config
@@ -520,7 +571,8 @@ class TransformerDKVServing(ServingFamily):
                     device=eng.device)
             eng.cache = DK.splice_dkv(eng.cache, fresh, slots_idx)
             eng.rank_eff[slots_idx] = fresh["k_u"].shape[-1]
-            return eng._sample_host(logits)[:n], np.full(n, plen, np.int32)
+            return eng._sample_host(logits, 1)[:n], \
+                np.full(n, plen, np.int32)
 
         return [self._ticket(batch, slots_idx, plen, ev, complete)]
 
@@ -607,7 +659,7 @@ class TransformerDKVServing(ServingFamily):
                 eng.rank_eff[slot] = r_ent
             pg.slab_t = max(pg.slab_t, match_len)
             pg.slab_r = max(pg.slab_r, r_ent)
-            return (eng._sample_host(logits)[:m],
+            return (eng._sample_host(logits, 1)[:m],
                     np.full(m, match_len, np.int32))
 
         def cancel() -> None:
@@ -659,7 +711,7 @@ class TransformerDKVServing(ServingFamily):
                                      fresh["k_vt"][:, mi].clone(),
                                      fresh["v_vt"][:, mi].clone(), r_eff,
                                      n_pad=plen - len(batch[j].prompt))
-            return (eng._sample_host(logits)[:nm],
+            return (eng._sample_host(logits, 1)[:nm],
                     np.full(nm, plen, np.int32))
 
         def cancel() -> None:
@@ -735,16 +787,19 @@ class TransformerDKVServing(ServingFamily):
         cache = {"k_u": st["k_u"], "v_u": st["v_u"], "k_vt": c["k_vt"],
                  "v_vt": c["v_vt"], "tail": c["tail"]}
         params, cfg, route = eng.params, eng.cfg, self._route()
+        sampler = eng.sampler
 
-        def body(tok, pos, frozen, stops, live, n_steps):
+        def body(tok, pos, frozen, stops, live, key, round0, n_steps):
             buf, steps, _, _ = DK.decode_block_dkv(
                 params, cfg, tok.long(), cache, pos, frozen, n_steps, stops,
-                max_block=n, attention=route, slot_live=live.bool())
+                max_block=n, attention=route, slot_live=live.bool(),
+                sampler=sampler, key=key, round0=round0)
             return buf, steps
 
         key = ("slab", route, n, eng.slots, stops.shape[1], _shapes(cache))
         feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
-                "stops": stops, "live": _live(eng), "n_steps": np.int32(n)}
+                "stops": stops, "live": _live(eng), **_sample_feed(eng),
+                "n_steps": np.int32(n)}
         return unpack(eng.graphs.run(key, body, feed,
                                      capture=self._capturable()), eng.slots)
 
@@ -760,12 +815,15 @@ class TransformerDKVServing(ServingFamily):
         cache = pg.cache
         params, cfg, route = eng.params, eng.cfg, self._route()
         t_need, r_need, tl = pg.slab_t, pg.slab_r, eng.dkv_tail
+        sampler = eng.sampler
 
-        def body(tok, pos, frozen, stops, live, bt_u, bt_t, n_steps):
+        def body(tok, pos, frozen, stops, live, bt_u, bt_t, key, round0,
+                 n_steps):
             buf, steps, _, _ = DK.decode_block_dkv_paged(
                 params, cfg, tok.long(), cache, pos, frozen, bt_u, bt_t,
                 n_steps, stops, t_need, r_need, tl, max_block=n,
-                attention=route, slot_live=live.bool())
+                attention=route, slot_live=live.bool(), sampler=sampler,
+                key=key, round0=round0)
             return buf, steps
 
         key = ("paged", route, n, eng.slots, stops.shape[1], r_need,
@@ -773,7 +831,7 @@ class TransformerDKVServing(ServingFamily):
         feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
                 "stops": stops, "live": _live(eng),
                 "bt_u": pg.bt_array(pg.bt_u, pg.pages_for(eng.max_len)),
-                "bt_t": pg.bt_array(pg.bt_t, pg.ntp),
+                "bt_t": pg.bt_array(pg.bt_t, pg.ntp), **_sample_feed(eng),
                 "n_steps": np.int32(n)}
         return unpack(eng.graphs.run(key, body, feed,
                                      capture=self._capturable()), eng.slots)

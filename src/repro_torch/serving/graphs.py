@@ -15,9 +15,11 @@ and replays it, so a block of n steps costs one launch from the host:
   eng`` frees them.
 * **Static inputs.**  Everything that changes from block to block (the
   last tokens, ``pos``, ``frozen_len``, the stop table, block tables, the
-  step count) lives in one int32 device buffer per graph, filled by one
-  host-to-device copy before each replay.  The outputs — the packed
-  ``[steps, buf]`` — are read back by one copy after it: the only sync.
+  sample key and the block's first round, which a keyed sampler folds
+  on the device, and the step count) lives in one int32 device buffer
+  per graph, filled by one host-to-device copy before each replay.  The
+  outputs — the packed ``[steps, buf]`` — are read back by one copy
+  after it: the only sync.
 * **Warm-up.**  Before the first capture into an empty runner (a new
   engine, or new cache buffers after :meth:`BlockGraphs.clear`) the
   block's function runs once eagerly on the capture stream (one side

@@ -59,6 +59,51 @@ def test_port_config_matches_reference():
                 and not cfg_r.tie_embeddings and cfg_r.family == "dense"
 
 
+NEW_ARCHS = ("starcoder2-7b", "gemma-2b", "granite-3-2b",
+             "llama-3.2-vision-11b", "seamless-m4t-medium")
+FIELDS = ("family", "num_layers", "d_model", "num_heads", "num_kv_heads",
+          "d_ff", "vocab", "activation", "gated_mlp", "use_bias",
+          "tie_embeddings", "rope_theta", "dtype", "norm_eps",
+          "cross_attn_period", "num_image_tokens", "enc_layers",
+          "num_audio_frames", "dec_layers", "is_encdec", "padded_vocab",
+          "resolved_head_dim")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_match_reference(arch):
+    """The five configs of the dense variants, the VLM and the audio
+    family carry the reference's fields, full and reduced."""
+    ref, port = all_archs()[arch], get_arch(arch)
+    for cfg_r, cfg_p in ((ref, port), (ref.reduced(), port.reduced())):
+        for f in FIELDS:
+            assert getattr(cfg_r, f) == getattr(cfg_p, f), (arch, f)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_jax_trees_of_new_configs_match_port_init(arch):
+    """The JAX init tree of each reduced config (the VLM's ``self``
+    [groups, spg, …], its ``cross`` with 0-d float32 gates per group;
+    the encoder-decoder's ``enc``, ``enc_norm`` and ``dec``; no
+    ``lm_head`` when tied, no ``gate`` when ungated) crosses the bridge
+    with the port's own ``init`` key set, shapes and dtypes."""
+    from repro_torch.models import api
+    jcfg, tcfg = all_archs()[arch].reduced(), get_arch(arch).reduced()
+    jtree = bridge.to_torch(jax.tree_util.tree_map(
+        np.asarray, model_fns(jcfg).init(jax.random.PRNGKey(0), jcfg)),
+        "cpu")
+    ttree = api.model_fns(tcfg).init(
+        tcfg, torch.Generator().manual_seed(0), device="cpu")
+    want = {p: (tuple(t.shape), t.dtype) for p, t in _leaves(jtree)}
+    got = {p: (tuple(t.shape), t.dtype) for p, t in _leaves(ttree)}
+    assert got == want
+    assert ("/lm_head/w" in got) != tcfg.tie_embeddings
+    if tcfg.family == "vlm":
+        groups = tcfg.num_layers // tcfg.cross_attn_period
+        assert got["/cross/gate_attn"] == ((groups,), torch.float32)
+        assert got["/self/attn/wq/w"][0][:2] == (groups,
+                                                 tcfg.cross_attn_period - 1)
+
+
 def _port_files():
     root = os.path.join(REPO, "src", "repro_torch")
     for d, _, files in os.walk(root):

@@ -942,3 +942,159 @@ def test_moe_ffn_under_capture_equals_eager(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The dense variants' kernel shapes, the VLM and audio families, the keyed
+# draw under capture
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("b,s,h", [(18, 512, 256),     # gemma-2b's kv_width
+                                   (40, 512, 512)])    # granite-3-2b's
+def test_reorth_kernel_at_variant_kv_widths(cuda, side, b, s, h):
+    """The re-orth pair at a variant's decomposed-KV prefill of one
+    512-token prompt (B = layers, H = kv_width; k = 72 half filled, as
+    rank 64 fills it): against the plain version at the default f and at
+    f 32, reruns bit-identical."""
+    a, x, q = _reorth_inputs(cuda, side, b, s, h, 72, 36)
+    kern = getattr(lr, f"reorth_{side}_batched")
+    zp, nzp = getattr(lr, f"reorth_{side}_batched_plain")(a, x, q)
+    for f in (lr.DEFAULT_EXPANSION, 32):
+        z, nz = kern(a, x, q, expansion=f)
+        torch.testing.assert_close(z, zp, **TOL)
+        torch.testing.assert_close(nz, nzp, **TOL)
+        assert torch.equal(z, kern(a, x, q, expansion=f)[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,t_valid", [(36, (1024, 700, 513, 128)),
+                                        (8, (512, 384, 304, 128))])
+def test_dkv_kernel_at_variant_heads(cuda, dtype, nh, t_valid):
+    """dkv_attention_stats at starcoder2-7b's 36 query heads (four groups
+    of 8 and a partial group of 4) and gemma-2b's 8, r 64, four slots:
+    against the plain version, reruns bit-identical."""
+    t, r = max(t_valid), 64
+    g = torch.Generator(device=cuda).manual_seed(nh)
+    dt = getattr(torch, dtype)
+    inner = torch.randn(4, nh, r, generator=g, device=cuda)
+    k_u = torch.randn(4, t, r, generator=g, device=cuda).to(dt)
+    v_u = torch.randn(4, t, r, generator=g, device=cuda).to(dt)
+    tv = torch.tensor(t_valid, dtype=torch.int32, device=cuda)
+    got = dk.dkv_attention_stats(inner, k_u, v_u, tv)
+    for x, y in zip(got, dk.dkv_attention_stats_plain(inner, k_u, v_u, tv)):
+        torch.testing.assert_close(x, y, **TOL)
+    for x, y in zip(got, dk.dkv_attention_stats(inner, k_u, v_u, tv)):
+        assert torch.equal(x, y)
+
+
+def _nonzero_biases(tree, gen):
+    """Every bias, norm bias and cross gate of ``tree`` redrawn N(0, 0.1²)
+    (gates 0.5 ± 0.1) in place."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _nonzero_biases(v, gen)
+        elif k in ("b", "bias", "gate_attn", "gate_mlp"):
+            v.copy_(torch.randn(v.shape, generator=gen, device=v.device) * 0.1
+                    + (0.5 if k.startswith("gate") else 0.0))
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium", "starcoder2-7b",
+                                  "gemma-2b"])
+def test_new_models_on_card_match_host(cuda, arch):
+    """Reduced float32 models with non-zero biases and gates: prefill
+    (random image embeddings / frames) and three decode steps on the card
+    against the same model on the host, and the serving engine's tokens
+    (single-step and fused blocks of 3, replayed) equal to the host's."""
+    import numpy as np
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, Request
+    cfg = get_arch(arch).reduced().replace(dtype="float32")
+    fns = api.model_fns(cfg)
+    host = fns.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _nonzero_biases(host, torch.Generator().manual_seed(1))
+    dev = api.tree_map(lambda t: t.to(cuda), host)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 10))).long()
+
+    def extra(shape, dtype):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    args = fns.prefill_inputs(cfg, toks, extra)
+    lh, ch = fns.prefill(host, cfg, *args, 16)
+    lg, cg = fns.prefill(dev, cfg, *(a.to(cuda) for a in args), 16)
+    torch.testing.assert_close(lg.cpu(), lh, **TOL)
+    pos = torch.tensor([10, 10])
+    for step in range(3):
+        tok = lh.argmax(-1)
+        lh, ch = fns.decode_step(host, cfg, tok, ch, pos + step)
+        lg, cg = fns.decode_step(dev, cfg, tok.to(cuda), cg,
+                                 (pos + step).to(cuda))
+        torch.testing.assert_close(lg.cpu(), lh, **TOL)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (12, 7, 15)]
+
+    def serve(params, device, block):
+        eng = Engine(cfg, params, slots=2, max_len=48, device=device,
+                     decode_block=block)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=10))
+        return {r.uid: r.out_tokens for r in eng.run()}, eng
+    want, _ = serve(host, "cpu", 1)
+    assert serve(dev, cuda, 1)[0] == want
+    got, eng = serve(dev, cuda, 3)
+    assert got == want and eng.graphs.eager == 0 and eng.graphs.replays > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "slab"])
+def test_keyed_draw_replayed_equals_eager(cuda, kind):
+    """Categorical sampling: blocks of 4 replayed as CUDA graphs (the
+    round index in the graph's feed) give the single-step engine's
+    tokens, and the host engine's; the captured draw equals the eager
+    one."""
+    import numpy as np
+    from repro_torch import sampling
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import Engine, Request, categorical_sampler
+    cfg = get_arch("llama2-7b").reduced().replace(dtype="float32")
+    host = model_fns(cfg).init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    from repro_torch.models.api import tree_map
+    dev = tree_map(lambda t: t.to(cuda), host)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (12, 7, 15, 30)]
+
+    def serve(params, device, block):
+        ecfg = EngineConfig(kv_rank=16 if kind == "slab" else 0, kv_tail=8,
+                            decode_block=block)
+        eng = Engine(cfg, params, slots=2, max_len=96, device=device,
+                     decompose_engine=DecomposeEngine(ecfg),
+                     sampler=categorical_sampler(0.8), sample_seed=5)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=12))
+        return {r.uid: r.out_tokens for r in eng.run()}, eng
+    one, _ = serve(dev, cuda, 1)
+    four, eng = serve(dev, cuda, 4)
+    assert four == one and eng.graphs.replays > eng.graphs.captures >= 1
+    assert eng.graphs.eager == 0
+    if kind == "dense":       # no Lanczos: the host draws the same tokens
+        assert serve(host, "cpu", 1)[0] == one
+    # the draw itself, captured with its key in a device buffer
+    logits = torch.randn(4, 1000, device=cuda)
+    key = torch.zeros((), dtype=torch.int64, device=cuda)
+    sample = categorical_sampler(1.0)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        sample(logits, 1, key)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sample(logits, 1, key)
+    for r in (0, 7, 123456):
+        k = sampling.fold_in(sampling.prng_key(2), r)
+        key.fill_(k)
+        graph.replay()
+        assert torch.equal(out, sample(logits, 1, k))

@@ -298,7 +298,7 @@ def test_mamba2_engine_uses_state_slots():
         Engine(tcfg, tp, slots=2, max_len=MAX_LEN, device="cpu",
                decompose_engine=DecomposeEngine(EngineConfig(kv_rank=8)))
     with pytest.raises(ValueError, match="not ported"):
-        model_fns(tcfg.replace(family="vlm"))
+        model_fns(tcfg.replace(family="retnet"))
 
 
 def test_serve_cli_runs_mamba2(capsys):
