@@ -176,6 +176,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    request's staggered tokens equal to its solo run's, the replayed
    step against its bound, peak memory and ``freed:``.
 
+16. observability and ``backend="auto"`` on llama2-7b (after phase 13,
+   the same weights; ``--only obs``): phase 4's traffic fused
+   (``decode_block=8``, rank 64, tail 16) through (a) a slab sync engine
+   and (b) a paged async ``"ready"`` engine, each four times in turns,
+   observability off, on (``Observability(trace=True)``), on, off, each
+   engine dropped before the next: tokens equal ((a)'s also to
+   phase 4's; (b)'s against (a)'s are printed: a ready ticket splices a
+   round later than sync admits), every snapshot counter and every launch
+   count equal, every block a replay, a valid Chrome trace with the four
+   lifecycle spans of each request ((b) also ticket, splice and
+   drain-pool spans); p50/p95/p99 TTFT (queue and prefill split) and ITL
+   and each run's host wall printed (the overhead is reported, not
+   gated); (c) the Prometheus text, the registry's JSON snapshot and the
+   ``repro.obs/v1`` snapshot written through ``ioutil`` and read back
+   (strict parser, schema key); (d) the exported graph counters equal
+   ``BlockGraphs``', and the compile watch holds this phase's captures
+   under ``decode`` and the run's nvcc builds under ``build``; (e)
+   ``tune_backend`` at [32, 512, 4096] float32 (each backend's time and
+   the winner printed), ``resolve_backend()`` gives the winner, and an
+   ``EngineConfig(backend="auto")`` engine serves the tokens of the
+   engine pinned to it.
+
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
 Phase 3 also holds the activation path's kernels (Eq. 6 GEMM, outlier
@@ -890,7 +912,10 @@ def drive(eng, prompts, arrivals, max_new: int, itl=None):
         done.extend(eng.step())
         if itl is not None:
             adm = (st.prefills, len(st.ttft_s)) != mark[:2]
-            itl["admission" if adm else "other"].extend(st.itl_s[mark[2]:])
+            # the step's latencies: the newest of the recent window
+            recent = list(st.itl_s)
+            itl["admission" if adm else "other"].extend(
+                recent[len(recent) - (len(st.itl_s) - mark[2]):])
         if len(done) == n and not eng._occupied():
             break
     return done
@@ -2652,8 +2677,231 @@ def serve_modal(cfg, params, profile: bool = False):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: observability and backend="auto" on llama2-7b
+# ---------------------------------------------------------------------------
+
+def _counts(snap) -> dict:
+    """The counters of a ``repro.obs/v1`` snapshot (wall time and
+    latencies apart, the latencies' counts kept)."""
+    out = {k: v for k, v in snap.items()
+           if isinstance(v, int) and not isinstance(v, bool)}
+    out.update({k: snap[k]["count"] for k in ("ttft", "ttft_queue",
+                                              "ttft_compute", "itl")})
+    return out
+
+
+def _pctl(snap) -> str:
+    """p50/p95/p99 (ms) of the snapshot's TTFT, its split and ITL."""
+    def q(block):
+        return "/".join(f"{snap[block][k] * 1e3:.2f}"
+                        for k in ("p50_s", "p95_s", "p99_s"))
+    return (f"ttft_ms p50/p95/p99={q('ttft')} (queue {q('ttft_queue')}, "
+            f"prefill {q('ttft_compute')}) itl_ms p50/p95/p99={q('itl')} "
+            f"over {snap['blocks']} blocks")
+
+
+def obs_pair(what: str, make, prompts) -> dict:
+    """Phase 4's traffic through ``make(obs)`` four times in turns, with
+    observability off, on (``Observability(trace=True)``), on, off; each
+    engine is dropped before the next run starts, so no run serves beside
+    another's cache and graphs.  Tokens, every counter of the snapshot
+    and the launch counts equal in all four, every block a replay, a
+    valid trace with the four lifecycle spans of each request.  Prints
+    the quantiles and the runs' host wall (and wall without warm-up and
+    capture).  Returns the last obs-on run's tokens, ``obs``, snapshot
+    (with ``prefill_s``/``decode_s`` as extra keys) and graph counts, and
+    the captures of all four runs."""
+    from repro_torch.obs import Observability, engine_snapshot, \
+        validate_trace
+    runs = []
+    for on in (False, True, True, False):
+        obs = Observability(trace=True) if on else None
+        t0 = time.perf_counter()
+        eng, tokens, launches, _ = serve_once(lambda: make(obs), prompts, 32,
+                                              title=f"obs {what}")
+        wall = time.perf_counter() - t0
+        g = eng.graphs
+        if g.eager or not g.replays or g.replays != eng.stats.blocks:
+            raise AssertionError(f"obs {what}: {g.eager} eager blocks, "
+                                 f"{g.replays} replays for "
+                                 f"{eng.stats.blocks} blocks")
+        runs.append(dict(
+            on=on, tokens=tokens, launches=launches, obs=eng.obs,
+            snap=engine_snapshot(eng, prefill_s=eng.stats.prefill_s,
+                                 decode_s=eng.stats.decode_s),
+            graphs={"captures": g.captures, "replays": g.replays,
+                    "eager": g.eager},
+            wall=wall, capture_s=g.capture_s))
+        del eng, g
+    first = runs[0]
+    for r in runs[1:]:
+        if r["tokens"] != first["tokens"]:
+            raise AssertionError(f"obs {what}: tokens differ (obs "
+                                 f"{'on' if r['on'] else 'off'})")
+        if _counts(r["snap"]) != _counts(first["snap"]) \
+                or r["launches"] != first["launches"]:
+            raise AssertionError(f"obs {what}: counters {_counts(r['snap'])}"
+                                 f" vs {_counts(first['snap'])}, launches "
+                                 f"{r['launches']} vs {first['launches']}")
+    last = runs[2]
+    obs = last["obs"]
+    spans = validate_trace(obs.tracer.to_json())
+    ev = obs.tracer.events
+    per_req = [sum(e["name"] in ("request", "queue", "prefill", "decode")
+                   and e["tid"] == obs.tracer._tids[f"req/{i}"] for e in ev)
+               for i in range(len(prompts))]
+    if per_req != [4] * len(prompts) or obs.tracer.dropped:
+        raise AssertionError(f"obs {what}: lifecycle spans per request "
+                             f"{per_req}, {obs.tracer.dropped} dropped")
+    names = {}
+    for e in ev:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+
+    def walls(on):
+        return ", ".join(f"{r['wall']:.3f} ({r['wall'] - r['capture_s']:.3f})"
+                         for r in runs if r["on"] == on)
+    print(f"obs {what}: tokens equal in turns off, on, on, off; counters "
+          f"and launches equal ({json.dumps(first['launches'])}); every "
+          f"block a replay ({last['graphs']['replays']} replays, "
+          f"{last['graphs']['captures']} captures); {_pctl(last['snap'])}; "
+          f"trace {spans} spans, events {json.dumps(names, sort_keys=True)}"
+          f"; host wall s (without warm-up and capture) obs off "
+          f"{walls(False)}, on {walls(True)}", flush=True)
+    return dict(last, captures=sum(r["graphs"]["captures"] for r in runs))
+
+
+def phase_obs(cfg, params, slot_tokens=None, nvcc_built: int = 0):
+    """Phase 16: observability (``repro_torch.obs``) and
+    ``backend="auto"`` on llama2-7b, phase 4's traffic at full width
+    (rank 64, tail 16, ``decode_block=8``): (a) slab, sync and (b) paged,
+    async ``"ready"`` engines with obs off, on, on, off (tokens, snapshot
+    counters and launches equal, every block a replay, a valid trace;
+    (b) with ticket, splice and drain-pool spans; (b)'s tokens against
+    (a)'s are printed, not held: a ready ticket splices a round later, and
+    the co-folds move with it); (c) the
+    Prometheus text and the JSON snapshots written through ``ioutil`` and
+    read back; (d) the graph counters in the exposition equal
+    ``BlockGraphs``', the compile watch counts the phase's captures under
+    ``decode`` and the run's nvcc builds; (e) ``tune_backend`` at phase
+    4's re-orth shape, ``resolve_backend`` gives its winner, and an
+    ``EngineConfig(backend="auto")`` engine serves the pinned winner's
+    tokens."""
+    import numpy as np
+    from repro_torch import tune
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.ioutil import atomic_write_json
+    from repro_torch.obs import (GLOBAL, compile_stats, parse_prometheus,
+                                 write_json_snapshot, write_prometheus)
+    from repro_torch.serving import Engine
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+    graph_base = compile_stats(kind="cuda_graph").get(
+        "decode", {"compiles": 0})["compiles"]
+
+    def engine(obs, paged=False, backend="cuda", **kw):
+        ecfg = EngineConfig(kv_rank=64, kv_tail=16, kv_page=16,
+                            backend=backend)
+        return Engine(cfg, params, slots=4, max_len=1024, device="cuda",
+                      paged=paged, decompose_engine=DecomposeEngine(ecfg),
+                      decode_block=FUSED_BLOCK, obs=obs, **kw)
+
+    a = obs_pair("(a) slab sync", engine, prompts)
+    b = obs_pair("(b) paged async ready", lambda obs: engine(
+        obs, paged=True, prefill_async=True, ready_order="ready"), prompts)
+    captures = a["captures"] + b["captures"]
+    # a ready ticket splices at the next step boundary, a round after a
+    # sync engine admits; with blocks cut at the arrivals the co-folds
+    # then fall at other rounds, so (b)'s tokens need not be (a)'s
+    a_tokens, sa, sb = a["tokens"], a["snap"], b["snap"]
+    same = sum(b["tokens"][i] == a_tokens[i] for i in a_tokens)
+    print(f"obs (b): {same} of {len(a_tokens)} requests' tokens equal to "
+          f"(a)'s; folds {sb['tail_folds']} vs (a) {sa['tail_folds']}, "
+          f"blocks {sb['blocks']} vs {sa['blocks']}, in flight peak "
+          f"{sb['prefill_inflight_peak']}", flush=True)
+    missing = {"ticket", "splice", "drain-pool"} - {
+        e["name"] for e in b["obs"].tracer.events}
+    if missing:
+        raise AssertionError(f"obs (b): no {sorted(missing)} spans")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        prom = os.path.join(d, "metrics.prom")
+        write_prometheus(prom, a["obs"].registry, GLOBAL)
+        write_json_snapshot(os.path.join(d, "metrics.json"),
+                            a["obs"].registry, GLOBAL)
+        atomic_write_json(os.path.join(d, "snapshot.json"), sa)
+        with open(prom) as fh:
+            parsed = parse_prometheus(fh.read())
+        with open(os.path.join(d, "metrics.json")) as fh:
+            reg = json.load(fh)
+        with open(os.path.join(d, "snapshot.json")) as fh:
+            snap = json.load(fh)
+        files = sorted(os.listdir(d))
+    if snap["schema"] != "repro.obs/v1" or "p99" not in \
+            reg["serving_itl_seconds"][0] or files != [
+                "metrics.json", "metrics.prom", "snapshot.json"]:
+        raise AssertionError(f"obs (c): snapshot {snap.get('schema')}, "
+                             f"files {files}")
+    exported = {k: parsed[f"repro_serving_graph_{k}"][0][1]
+                for k in ("captures", "replays", "eager")}
+    if exported != a["graphs"] or snap != json.loads(json.dumps(sa)):
+        raise AssertionError(f"obs (d): exported {exported} != graphs "
+                             f"{a['graphs']}, or the snapshot changed")
+    print(f"obs (c): metrics.prom ({sum(len(v) for v in parsed.values())} "
+          f"samples, strict parse), metrics.json and snapshot.json "
+          f"(schema {snap['schema']}) written through ioutil and read "
+          f"back", flush=True)
+
+    # (e) backend selection at phase 4's re-orth shape
+    res = tune.tune_backend(REORTH_TUNE, "float32", reps=10, device="cuda")
+    winner = res.best["backend"]
+    if tune.resolve_backend() != winner:
+        raise AssertionError(f"obs (e): resolve_backend() "
+                             f"{tune.resolve_backend()} != {winner}")
+    print(f"obs (e): tune_backend {list(REORTH_TUNE)} float32: "
+          + " ".join(f"{best['backend']} {meas * 1e3:.4f} ms "
+                     f"(f={best['expansion']})"
+                     for best, _, meas in res.table)
+          + f"; winner {winner}", flush=True)
+    auto, a_toks, _, _ = serve_once(lambda: engine(None, backend="auto"),
+                                    prompts, 32, title="obs auto")
+    resolved = auto.dengine.resolved_backend
+    captures += auto.graphs.captures
+    del auto
+    pinned, p_toks, _, _ = serve_once(lambda: engine(None, backend=winner),
+                                      prompts, 32, title="obs pinned")
+    captures += pinned.graphs.captures
+    del pinned
+    if resolved != winner or a_toks != p_toks:
+        raise AssertionError(f"obs (e): auto resolved {resolved} (winner "
+                             f"{winner}); tokens equal {a_toks == p_toks}")
+    if winner == "cuda" and p_toks != a_tokens:
+        raise AssertionError("obs (e): the pinned cuda engine's tokens "
+                             "differ from (a)'s")
+    print(f"obs (e): EngineConfig(backend='auto') resolved {resolved}; "
+          f"tokens equal to the engine pinned to {winner}", flush=True)
+
+    graphs = compile_stats(kind="cuda_graph")
+    nvcc = compile_stats(kind="nvcc")
+    got = graphs.get("decode", {"compiles": 0})["compiles"] - graph_base
+    built = sum(v["compiles"] for v in nvcc.values())
+    if got != captures or built != nvcc_built:
+        raise AssertionError(f"obs (d): compile watch: {got} captures "
+                             f"under decode for {captures}; {built} nvcc "
+                             f"builds for {nvcc_built}")
+    print(f"obs (d): graph counters in the exposition equal BlockGraphs' "
+          f"({exported}); compile watch: cuda_graph "
+          f"{json.dumps(graphs, sort_keys=True)}, nvcc "
+          f"{json.dumps(nvcc, sort_keys=True)} (this phase's captures "
+          f"{captures} under decode)", flush=True)
+    if slot_tokens is not None and a_tokens != slot_tokens:
+        raise AssertionError("obs (a): tokens differ from phase 4's")
+
+
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
-          "async", "sampler", "mamba2", "hybrid", "moe", "fig12",
+          "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
           "variants", "modal")
 
 
@@ -2704,8 +2952,14 @@ def main() -> int:
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp.name, "cache.json")
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
+    from repro_torch.obs import phase_scope
     t0 = time.perf_counter()
-    libs = build.build_all(verbose=True)
+    # the sources without a current library: the compile watch must count
+    # exactly these nvcc builds (phase 16)
+    nvcc_built = sum(not build._target(s).exists()
+                     for s in build.CSRC.glob("*.cu"))
+    with phase_scope("build"):
+        libs = build.build_all(verbose=True)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -2726,7 +2980,7 @@ def main() -> int:
         with phase("kernels"):
             rows = phase_kernels(cfg)
     if only & {"serve", "conformance", "activation", "paged", "async",
-               "sampler"}:
+               "sampler", "obs"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -2753,6 +3007,9 @@ def main() -> int:
         if "sampler" in only:
             with phase("sampler"):
                 sampler_llama(cfg, params)
+        if "obs" in only:
+            with phase("obs"):
+                phase_obs(cfg, params, slot_tokens, nvcc_built)
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params

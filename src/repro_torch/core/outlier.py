@@ -18,14 +18,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import tempfile
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ioutil import atomic_write_json
 from ..kernels.outlier_extract import outlier_stats
 from .lowrank import LowRank, gather_channels, zero_channels
 
@@ -110,25 +109,12 @@ class ThresholdTable:
         return t
 
     def save(self, path: str) -> None:
-        """Atomic write (tmp file + ``os.replace``): a crash mid-write
-        leaves the previous table or the new one, never a truncated
-        JSON."""
-        payload = {"default": self.default,
-                   "thresholds": {str(k): v
-                                  for k, v in self.thresholds.items()}}
-        d = os.path.dirname(os.path.abspath(path))
-        fd, tmp = tempfile.mkstemp(dir=d, prefix=".thresholds-",
-                                   suffix=".json.tmp")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump(payload, f, indent=2, sort_keys=True)
-            os.replace(tmp, path)
-        except BaseException:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
-            raise
+        """Atomic write (``ioutil``): a crash mid-write leaves the
+        previous table or the new one, never a truncated JSON."""
+        atomic_write_json(path, {
+            "default": self.default,
+            "thresholds": {str(k): v for k, v in self.thresholds.items()}},
+            indent=2, sort_keys=True)
 
     @classmethod
     def load(cls, path: str) -> "ThresholdTable":

@@ -12,7 +12,10 @@ arrives with the module that reads it):
                     plain versions of every kernel on whatever device the
                     tensors are (JAX's ``"reference"`` backend), chosen
                     explicitly to hold a run through the kernels against
-                    the same run without them.
+                    the same run without them; ``"auto"``: resolved once,
+                    when the DecomposeEngine is built, by
+                    ``repro_torch.tune.resolve_backend``.  Any name of
+                    ``engine.backends.available_backends()`` is accepted.
 * ``expansion``   — the paper's compute-expansion factor f (1..32): in
                     the re-orth kernels, as in the JAX package, the number
                     of blocks along the output axis, each reducing its
@@ -62,7 +65,7 @@ from typing import Optional, Union
 from ..core.outlier import ThresholdTable
 from ..core.policy import DecompositionPolicy, LayerPolicy
 from ..kernels.lanczos_reorth import DEFAULT_EXPANSION
-from ..kernels.ops import BACKENDS
+from .backends import available_backends
 
 ATTN_MODES = ("dense", "preserved")
 
@@ -102,9 +105,11 @@ class EngineConfig:
         if not isinstance(self.prefill_async, bool):
             raise ValueError(f"prefill_async must be a bool, got "
                              f"{self.prefill_async!r}")
-        if self.backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, "
-                             f"got {self.backend!r}")
+        if self.backend != "auto" \
+                and self.backend not in available_backends():
+            raise ValueError(f"backend must be 'auto' or one of "
+                             f"{available_backends()}, got "
+                             f"{self.backend!r}")
         if self.attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode must be one of {ATTN_MODES}, "
                              f"got {self.attn_mode!r}")

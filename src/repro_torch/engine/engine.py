@@ -3,11 +3,13 @@
 Counterpart of ``repro.engine.DecomposeEngine``.  It owns, end to end:
 
 1. **Backend** — ``EngineConfig.backend`` picks the kernel set once, at
-   construction (``kernels.ops.make_kernels``): ``"cuda"`` dispatches
-   each kernel on its tensors' device, ``"reference"`` runs every
-   kernel's plain version.  With ``expansion="auto"`` the re-orth
-   kernels' f resolves per shape bucket (``resolve_expansion``), and the
-   decomposition takes the (cached) kernel set at that f.
+   construction (``engine.backends``): ``"cuda"`` dispatches each kernel
+   on its tensors' device, ``"reference"`` runs every kernel's plain
+   version, ``"auto"`` resolves to one of them through
+   ``repro_torch.tune.resolve_backend`` (:attr:`resolved_backend`).
+   With ``expansion="auto"`` the re-orth kernels' f resolves per shape
+   bucket (``resolve_expansion``), and the decomposition takes the
+   (cached) kernel set at that f.
 2. **Batched Lanczos** — ``decompose`` runs the fused re-orth kernels,
    one launch per Lanczos pass for the whole [B, S, H] batch.  The
    kernels mask ragged shapes themselves, so nothing is padded.
@@ -18,6 +20,12 @@ Counterpart of ``repro.engine.DecomposeEngine``.  It owns, end to end:
    attention contractions (§3.2): ``project``, ``qk_scores``, ``pv``.
 5. **KV-cache factorization** — ``decompose_kv`` (serving).
 
+Telemetry (host-side, in ``obs.GLOBAL``, names and labels as in the
+reference): ``decompose_total{bucket, backend, f, path}`` counts every
+batched Lanczos run (``path`` is ``"local"``: the port has no sharded
+path yet) and ``decompose_kv_total{mode, bucket}`` every KV-cache
+factorization.
+
 The Lanczos start vector comes from ``z0(width)``: by default a seeded
 numpy draw (:func:`default_z0`); parity tests hand in the JAX package's
 ``jax.random.normal(PRNGKey(0))`` value, which torch cannot replay.
@@ -25,6 +33,7 @@ numpy draw (:func:`default_z0`); parity tests hand in the JAX package's
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,7 +45,8 @@ from ..core.policy import LayerPolicy
 from ..core.preserved import (decompose_weight, lowrank_matmul,
                               lowrank_x_lowrank_weight, preserved_pv,
                               preserved_qk_scores)
-from ..kernels import ops
+from ..obs import GLOBAL as _OBS, bucket_label
+from .backends import Backend, get_backend
 from .config import EngineConfig
 
 Z0Fn = Callable[[int], np.ndarray]
@@ -54,11 +64,15 @@ class DecomposeEngine:
         self.config = config or EngineConfig()
         self._z0_fn = z0 or default_z0
         self._z0: Dict[Tuple[int, str], torch.Tensor] = {}
+        name = self.config.backend
+        if name == "auto":
+            from .. import tune
+            name = tune.resolve_backend()
+        self.backend: Backend = get_backend(name)
         self._auto_expansion = self.config.expansion == "auto"
         # with "auto", the set for the f-independent kernels; the Lanczos
-        # hooks come from kernels_for() at the resolved f
-        self.kernels = ops.make_kernels(
-            self.config.backend,
+        # hooks come from decompose() at the resolved f
+        self.kernels = self.backend.make_kernels(
             EngineConfig().expansion if self._auto_expansion
             else self.config.expansion)
 
@@ -73,6 +87,11 @@ class DecomposeEngine:
     def attn_mode(self) -> str:
         return self.config.attn_mode
 
+    @property
+    def resolved_backend(self) -> str:
+        """The registry key in use (``"auto"`` resolved)."""
+        return self.backend.name
+
     def resolve_expansion(self, s_dim: int, h_dim: int, batch: int = 1,
                           dtype: object = "float32",
                           device: object = "cuda") -> int:
@@ -86,20 +105,8 @@ class DecomposeEngine:
         from .. import tune
         return tune.tuned_expansion((int(batch), int(s_dim), int(h_dim)),
                                     dtype=str(dtype),
-                                    backend=self.config.backend,
+                                    backend=self.backend.name,
                                     device=device)
-
-    def kernels_for(self, x: torch.Tensor) -> ops.KernelSet:
-        """The kernel set a decomposition of x [..., S, H] runs: the
-        engine's own, or with ``"auto"`` the set at the resolved f."""
-        if not self._auto_expansion:
-            return self.kernels
-        batch = 1
-        for d in x.shape[:-2]:
-            batch *= int(d)
-        f = self.resolve_expansion(x.shape[-2], x.shape[-1], max(1, batch),
-                                   x.dtype, x.device)
-        return ops.make_kernels(self.config.backend, f)
 
     # -- stage 1: batched Lanczos ------------------------------------------
     def start_vector(self, width: int, device: torch.device) -> torch.Tensor:
@@ -112,9 +119,16 @@ class DecomposeEngine:
     def decompose(self, x: torch.Tensor, rank: int,
                   iters: Optional[int] = None) -> LowRank:
         """x [..., S, H] → LowRank by one batched Lanczos run."""
+        batch = max(1, math.prod(int(d) for d in x.shape[:-2]))
+        f = self.resolve_expansion(x.shape[-2], x.shape[-1], batch, x.dtype,
+                                   x.device)
+        _OBS.counter(
+            "decompose_total", "batched Lanczos decompositions",
+            bucket=bucket_label(batch, *x.shape[-2:]),
+            backend=self.backend.name, f=str(f), path="local").inc()
         z0 = self.start_vector(x.shape[-1], x.device)
         return lz.decompose(x, rank, iters, z0=z0,
-                            hooks=self.kernels_for(x).hooks)
+                            hooks=self.backend.make_kernels(f).hooks)
 
     # -- stage 2: policy-driven multi-track activation decomposition -------
     def decompose_activation(self, x: torch.Tensor,
@@ -162,6 +176,9 @@ class DecomposeEngine:
         near-full-rank regime where floating-point Lanczos loses trailing
         directions, §2.3)."""
         rank = min(rank, *x.shape[-2:])
+        _OBS.counter("decompose_kv_total", "KV-cache factorizations",
+                     mode="exact" if exact else "lanczos",
+                     bucket=bucket_label(*x.shape[-2:])).inc()
         x32 = x.to(torch.float32)
         if exact:
             lr = from_dense_svd(x32, rank)
@@ -198,7 +215,7 @@ class DecomposeEngine:
         return decompose_weight(w, rank)
 
     def __repr__(self) -> str:
-        return (f"DecomposeEngine(backend={self.config.backend!r}, "
+        return (f"DecomposeEngine(backend={self.backend.name!r}, "
                 f"expansion={self.config.expansion}, "
                 f"attn_mode={self.config.attn_mode!r}, "
                 f"kv_rank={self.config.kv_rank})")

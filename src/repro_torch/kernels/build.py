@@ -13,6 +13,10 @@ The file name carries a digest of the source, headers and flags, so a stale
 library is never loaded and an unchanged one is not rebuilt.  Only the
 sources in the repository are compiled; nothing is fetched.
 
+Each build is counted in the compile watch
+(``obs.record_compile("nvcc", …)``: the sources built, and the wall
+seconds of the whole parallel build) under the caller's phase.
+
 :func:`tickets` hands out the counters of the kernels whose last CTA to
 arrive combines the partials of a launch.
 """
@@ -25,8 +29,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+from ..obs import record_compile
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
@@ -71,6 +78,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     if not todo:
         return out
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     extra = ("-Xptxas", "-v") if verbose else ()
     procs = []
     for s in todo:
@@ -88,6 +96,9 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
         if verbose and log:
             print(f"[nvcc {s.name}]\n{log}", flush=True)
         os.replace(tmp, out[s.stem])        # atomic: never a half library
+    if len(todo) > len(errors):
+        record_compile("nvcc", time.perf_counter() - t0,
+                       n=len(todo) - len(errors))
     if errors:
         raise RuntimeError("\n".join(errors))
     return out

@@ -30,11 +30,9 @@ and without ``--device cpu`` it raises.  The JSON goes only to an
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import tempfile
 from typing import Dict, List, Sequence
 
+from ..ioutil import atomic_write_json
 from ..platform import device_name, resolve_device
 
 # --- D-com hardware model (paper §5; benchmarks/fig12_expansion.py) -------
@@ -193,14 +191,9 @@ def main(argv=None) -> None:
     data = run_ab(args.op, shape, args.dtype, reps=reps, device=dev)
     for line in ab_lines(data):
         print(line)
-    if args.out:                       # tmp + rename: never a torn file
-        out = os.path.abspath(args.out)
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(out), suffix=".tmp")
-        with os.fdopen(fd, "w") as fh:
-            json.dump({"model": model, "ab": data}, fh, indent=1,
-                      sort_keys=True)
-        os.replace(tmp, out)
+    if args.out:                       # atomic: never a torn file
+        atomic_write_json(args.out, {"model": model, "ab": data}, indent=1,
+                          sort_keys=True)
     check_gate(data)
 
 

@@ -79,6 +79,22 @@ admission will launch (``--no-pretune`` skips that); point
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
       --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4 \\
       --expansion auto
+
+``--backend auto`` picks the kernel route through
+``repro_torch.tune.resolve_backend`` (the winner ``tune_backend`` stored
+for this card, else ``cuda`` on a card and ``reference`` on the host).
+``--metrics-out PATH`` writes every metric at exit (the engine's
+registry and the process-wide ``obs.GLOBAL``: decomposition, tuner and
+compile-watch counters) as Prometheus text, or as the JSON snapshot
+when PATH ends in ``.json``; ``--trace-out PATH`` records
+request-lifecycle spans as Chrome trace-event JSON (Perfetto-loadable);
+``--stats-every N`` prints a p50/p95/p99 TTFT and ITL line every N
+steps:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
+      --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4 \\
+      --backend auto --metrics-out m.prom --trace-out t.json \\
+      --stats-every 2
 """
 from __future__ import annotations
 
@@ -89,10 +105,12 @@ import torch
 
 from ..configs import get_arch
 from ..engine import DecomposeEngine, EngineConfig
+from ..engine.backends import available_backends
 from ..kernels import ops
 from ..models.api import model_fns
+from ..obs import (GLOBAL, Observability, compile_stats, write_json_snapshot,
+                   write_prometheus)
 from ..platform import device_name, resolve_device
-from ..kernels.ops import BACKENDS
 from ..serving import (ADMISSIONS, READY_ORDERS, Engine, Request,
                        categorical_sampler, greedy_sampler)
 
@@ -124,7 +142,7 @@ def pretune_admission(cfg, dengine, slots: int, prompt_len: int,
     pre = tune.pretune(
         {"lanczos_reorth": [(cfg.num_layers * n, plen, cfg.kv_width)
                             for n in sorted(nbs)]},
-        fix={"backend": dengine.config.backend}, device=device)
+        fix={"backend": dengine.resolved_backend}, device=device)
     for key, res in pre.items():
         print(f"pretune[{res.kernel}]: f={res.best['expansion']} "
               f"({res.source}, {key})")
@@ -162,10 +180,12 @@ def main(argv=None) -> None:
                     help="compute-expansion factor f = blocks along the "
                          "output axis of the re-orth kernels (1..32), or "
                          "auto (tuned per shape bucket)")
-    ap.add_argument("--backend", default=dflt.backend, choices=BACKENDS,
+    ap.add_argument("--backend", default=dflt.backend,
+                    choices=available_backends() + ["auto"],
                     help="cuda: the CUDA kernels on the card (plain "
                          "versions on the host); reference: the plain "
-                         "versions everywhere (the route check)")
+                         "versions everywhere (the route check); auto: "
+                         "the tuned winner of this machine")
     ap.add_argument("--decode-block", type=_expansion,
                     default=dflt.decode_block,
                     help="fused decode steps per launch (1 = one per "
@@ -204,6 +224,17 @@ def main(argv=None) -> None:
                     help="seed of the keyed draws")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write every metric (engine stats + decomposition"
+                         "/tuner/compile telemetry) here at exit: "
+                         "Prometheus text, or the JSON snapshot when PATH "
+                         "ends in .json")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record request-lifecycle spans and write Chrome "
+                         "trace-event JSON (Perfetto-loadable) here at exit")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="N",
+                    help="print a p50/p95/p99 stats line every N engine "
+                         "steps (0 = only the final summary)")
     args = ap.parse_args(argv)
     if args.arch in REDUCED_ONLY and not args.reduced:
         ap.error(f"{args.arch} does not fit one card: add --reduced")
@@ -228,11 +259,12 @@ def main(argv=None) -> None:
     if args.expansion == "auto" and not args.no_pretune \
             and args.decompose_kv_rank > 0:
         pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
+    obs = Observability(trace=args.trace_out is not None)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                  decompose_engine=dengine, device=device, paged=args.paged,
                  eos_id=args.eos_id, admission=args.admission,
                  ready_order=args.ready_order, sampler=sampler,
-                 sample_seed=args.sample_seed)
+                 sample_seed=args.sample_seed, obs=obs)
     rng = np.random.RandomState(0)
     shared = rng.randint(0, cfg.vocab, args.shared_prefix, dtype=np.int32)
     for i in range(args.requests):
@@ -241,7 +273,18 @@ def main(argv=None) -> None:
         eng.submit(Request(uid=i, prompt=np.concatenate([shared, own]),
                            max_new_tokens=args.max_new))
     ops.reset_launch_counts()
-    done = eng.run()
+    if args.stats_every > 0:
+        # drive step() directly so the periodic lines land on step edges
+        done, steps = [], 0
+        while steps < 10_000:
+            done.extend(eng.step())
+            steps += 1
+            if steps % args.stats_every == 0:
+                print(pctl_line(eng.stats, prefix=f"step {steps}: "))
+            if not eng._occupied() and not len(eng.sched):
+                break
+    else:
+        done = eng.run()
     for r in sorted(done, key=lambda r: r.uid):
         print(f"req {r.uid}: {r.out_tokens}")
     s = eng.stats
@@ -265,6 +308,7 @@ def main(argv=None) -> None:
           f"{s.mean_ttft_compute_s * 1e3:.1f}ms) "
           f"itl={s.mean_itl_s * 1e3:.1f}ms "
           f"inflight_peak={s.prefill_inflight_peak}")
+    print(pctl_line(s))
     print(f"graphs: captures={g.captures} replays={g.replays} "
           f"eager={g.eager} capture_s={g.capture_s:.3f}")
     if eng.pager is not None:
@@ -273,6 +317,33 @@ def main(argv=None) -> None:
               f"prefix_misses={s.prefix_misses} stalls={s.stalls}")
     print("kernel launches: " + " ".join(
         f"{k}={v}" for k, v in ops.launch_counts().items()))
+    cw = compile_stats()
+    if cw:
+        print("compiles: " + " ".join(
+            f"{ph}={d['compiles']}({d['seconds']:.2f}s)"
+            for ph, d in sorted(cw.items())))
+    if args.metrics_out:
+        # the engine's registry (serving_*) and the process-wide one
+        # (decomposition, tuner and compile telemetry) in one file
+        if args.metrics_out.endswith(".json"):
+            write_json_snapshot(args.metrics_out, obs.registry, GLOBAL)
+        else:
+            write_prometheus(args.metrics_out, obs.registry, GLOBAL)
+        print(f"metrics: wrote {args.metrics_out}")
+    if args.trace_out:
+        obs.tracer.export(args.trace_out)
+        print(f"trace: wrote {args.trace_out} "
+              f"({len(obs.tracer.events)} events, "
+              f"{obs.tracer.dropped} dropped)")
+
+
+def pctl_line(s, prefix: str = "") -> str:
+    """p50/p95/p99 TTFT and ITL (ms) from the streaming histograms."""
+    def pct(series):
+        return "/".join(f"{series.quantile(q) * 1e3:.1f}"
+                        for q in (0.5, 0.95, 0.99))
+    return (f"{prefix}pctl: ttft_ms p50/p95/p99={pct(s.ttft_s)} "
+            f"itl_ms p50/p95/p99={pct(s.itl_s)} tokens={s.tokens_out}")
 
 
 if __name__ == "__main__":

@@ -64,6 +64,13 @@ indexed by the engine's round counter, so single-step and fused engines
 draw the same tokens for any block sizes (a fused block's round is part
 of its graph's feed).
 
+``obs=Observability(...)`` (``repro_torch.obs``) mounts the engine's
+stats and graph counters on its registry and, with ``trace=True``,
+records request-lifecycle spans, as the reference's engine does.  It is
+host-side only: tokens, launches and the host's reads of the device are
+the same with it on or off, and spans end only at readbacks the engine
+already does (a span that ends elsewhere covers host enqueue time).
+
 ``decompose_kv_rank``/``dkv_tail``/``dkv_exact`` override the decompose
 engine's ``kv_rank``/``kv_tail``/``kv_exact`` with the reference's
 precedence: an explicit knob wins (``decompose_kv_rank=0`` disables
@@ -81,6 +88,8 @@ import torch
 
 from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import build
+from ..obs import (NULL_SPAN, LatencySeries, MetricsRegistry, Observability,
+                   phase_scope, stats_snapshot)
 from ..platform import host_to_device, prefill_stream, resolve_device
 from ..sampling import (categorical_sampler, fold_in, greedy_sampler,
                         prng_key, takes_key)
@@ -113,14 +122,21 @@ class Request:
     seq: int = -1                    # arrival stamp (Scheduler.submit)
 
 
-@dataclasses.dataclass
 class EngineStats:
-    """Serving counters and latencies (host clock, seconds).
+    """Serving counters and latencies (host clock, seconds), mounted on a
+    ``repro_torch.obs`` :class:`MetricsRegistry` under the reference's
+    names (``serving_<name>``, ``serving_wall_seconds``,
+    ``serving_ttft_seconds``, …), as ``repro.serving.EngineStats`` is.
 
-    ``prefill_s`` sums admissions (forward prefill, KV factorization,
-    splice and the first-token readback); ``decode_s`` sums decode rounds
-    (tail folds included).  Both end in a host readback of sampled
-    tokens, so on the card they cover the device work they launched.
+    Counters read and write as plain numbers (``stats.prefills += 1``).
+    The latency members (``ttft_s``/``ttft_queue_s``/``ttft_compute_s``/
+    ``itl_s``) ``append``/``extend`` and iterate like lists, but are
+    O(1)-memory streaming histograms with a capped recent-sample
+    reservoir (``obs.registry.RESERVOIR_CAP``): ``len()`` is the total
+    observation count, so ``len(itl_s) == tokens_out`` holds, and
+    iteration yields the recent window only.  ``mean_*`` come from the
+    exact streaming sum and count, p50/p95/p99 from ``.quantile(q)``.
+
     ``prefix_hits``/``prefix_misses`` count admitted requests by prefix
     lookup outcome, ``stalls`` admissions deferred on page capacity
     (paged serving).  ``decode_steps`` counts decode rounds and
@@ -130,48 +146,101 @@ class EngineStats:
     wait (submit → dispatch, ``ttft_queue_s``) and its prefill
     (dispatch → first token, ``ttft_compute_s``);
     ``prefill_inflight_peak`` is the most tickets an async ``"ready"``
-    engine held in flight at once."""
-    prefills: int = 0
-    prefill_batches: int = 0
-    decode_steps: int = 0
-    blocks: int = 0
-    tokens_out: int = 0
-    tail_folds: int = 0
-    stopped_eos: int = 0
-    stopped_budget: int = 0
-    prefix_hits: int = 0
-    prefix_misses: int = 0
-    stalls: int = 0
-    prefill_inflight_peak: int = 0
-    wall_s: float = 0.0
-    prefill_s: float = 0.0
-    decode_s: float = 0.0
-    ttft_s: List[float] = dataclasses.field(default_factory=list)
-    ttft_queue_s: List[float] = dataclasses.field(default_factory=list)
-    ttft_compute_s: List[float] = dataclasses.field(default_factory=list)
-    itl_s: List[float] = dataclasses.field(default_factory=list)
+    engine held in flight at once.
+
+    The port also keeps two host-clock sums outside the registry (so its
+    metric set stays the reference's): ``prefill_s`` sums admissions
+    (forward prefill, KV factorization, splice and the first-token
+    readback) and ``decode_s`` decode rounds (tail folds included).  Both
+    end in a host readback of sampled tokens, so on the card they cover
+    the device work they launched."""
+
+    _COUNTERS = (
+        ("prefills", "admitted requests (one per request)"),
+        ("prefill_batches", "admission batches (prefill launches)"),
+        ("decode_steps", "decode rounds (one token per live slot)"),
+        ("blocks", "decode launches (== steps unless the fused loop "
+                   "batches rounds per dispatch)"),
+        ("tokens_out", "decode tokens emitted"),
+        ("tail_folds", "per-slot compress_tail events"),
+        ("stopped_eos", "requests finished on a stop token"),
+        ("stopped_budget", "requests finished on max_new_tokens/max_len"),
+        ("prefix_hits", "admissions served from the prefix cache"),
+        ("prefix_misses", "prefix lookups that fell through to prefill"),
+        ("stalls", "admissions deferred on page capacity"),
+        ("wall_s", "wall seconds accrued per step()"),
+    )
+    _GAUGES = (
+        ("prefill_inflight_peak",
+         "max concurrently in-flight prefill tickets (async mode)"),
+    )
+    _HISTS = (
+        ("ttft_s", "ttft_seconds", "submit to first token"),
+        ("ttft_queue_s", "ttft_queue_seconds",
+         "queue wait: submit to prefill dispatch"),
+        ("ttft_compute_s", "ttft_compute_seconds",
+         "prefill compute: dispatch to first token"),
+        ("itl_s", "itl_seconds", "inter-token latency"),
+    )
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._m = {}
+        for name, help_ in self._COUNTERS:
+            metric = "serving_wall_seconds" if name == "wall_s" \
+                else f"serving_{name}"
+            self._m[name] = self.registry.counter(metric, help_)
+        for name, help_ in self._GAUGES:
+            self._m[name] = self.registry.gauge(f"serving_{name}", help_)
+        for name, metric, help_ in self._HISTS:
+            self._m[name] = LatencySeries(
+                self.registry.histogram(f"serving_{metric}", help_))
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+
+    def __repr__(self) -> str:
+        return (f"EngineStats(prefills={self.prefills}, "
+                f"tokens_out={self.tokens_out}, "
+                f"decode_steps={self.decode_steps})")
 
     @property
     def mean_ttft_s(self) -> float:
-        return float(np.mean(self.ttft_s)) if self.ttft_s else 0.0
+        return self.ttft_s.mean
 
     @property
     def mean_ttft_queue_s(self) -> float:
-        return float(np.mean(self.ttft_queue_s)) if self.ttft_queue_s \
-            else 0.0
+        return self.ttft_queue_s.mean
 
     @property
     def mean_ttft_compute_s(self) -> float:
-        return float(np.mean(self.ttft_compute_s)) if self.ttft_compute_s \
-            else 0.0
+        return self.ttft_compute_s.mean
 
     @property
     def mean_itl_s(self) -> float:
-        return float(np.mean(self.itl_s)) if self.itl_s else 0.0
+        return self.itl_s.mean
 
     @property
     def decode_tok_s(self) -> float:
         return self.tokens_out / self.decode_s if self.decode_s else 0.0
+
+    def snapshot(self, wall_s: Optional[float] = None) -> dict:
+        """The uniform ``repro.obs/v1`` metrics snapshot
+        (``obs.stats_snapshot``)."""
+        return stats_snapshot(self, wall_s=wall_s)
+
+
+def _stat_counter(name: str) -> property:
+    return property(lambda self: self._m[name].value,
+                    lambda self, v: self._m[name].set(v))
+
+
+for _name, _ in EngineStats._COUNTERS + EngineStats._GAUGES:
+    setattr(EngineStats, _name, _stat_counter(_name))
+for _name, _metric, _ in EngineStats._HISTS:
+    setattr(EngineStats, _name,
+            property(lambda self, _n=_name: self._m[_n]))
+del _name, _metric
 
 
 class Scheduler:
@@ -242,7 +311,15 @@ class Engine:
     ``decode_block`` (default: the engine config's) is the fused block
     length, an int or ``"auto"``; ``prefill_async`` (default: the engine
     config's) and ``ready_order`` select async admission; ``sampler``
-    (default greedy) and ``sample_seed`` pick the tokens."""
+    (default greedy) and ``sample_seed`` pick the tokens.  ``obs`` (an
+    ``obs.Observability``; default: a private registry, tracing off)
+    holds the engine's stats and graph counters and, with tracing on,
+    its spans: per request a ``request`` span holding ``queue``,
+    ``prefill`` and ``decode`` on track ``req/<uid>``, the step loop's
+    ``step``/``admit``/``decode-step``/``decode-block``/``fold``/
+    ``splice``/``drain-pool`` on ``engine``, and async tickets on
+    ``tickets``.  Observability is host-side only: tokens and the host's
+    reads of the device are the same with it on or off."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  sampler: Optional[Callable] = None,
@@ -254,7 +331,8 @@ class Engine:
                  eos_id: Optional[int] = None, admission: str = "per_slot",
                  decode_block: Optional[Union[int, str]] = None,
                  prefill_async: Optional[bool] = None,
-                 ready_order: str = "ready", sample_seed: int = 0):
+                 ready_order: str = "ready", sample_seed: int = 0,
+                 obs: Optional[Observability] = None):
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be one of {ADMISSIONS}, got "
                              f"{admission!r}")
@@ -264,6 +342,8 @@ class Engine:
         if paged and admission == "gang":
             raise ValueError("paged serving admits per slot")
         self.device = resolve_device(device)
+        self.obs = obs if obs is not None else Observability()
+        self.trace = self.obs.tracer
         self.cfg, self.params = cfg, params
         self.slots, self.max_len = slots, max_len
         self.admission = admission
@@ -327,8 +407,11 @@ class Engine:
         if cap is not None:
             self.decode_block = min(self.decode_block, cap)
         # the fused blocks' CUDA graphs: owned here, freed with the engine
-        self.graphs = BlockGraphs(self.device)
-        self.stats = EngineStats()
+        self.graphs = BlockGraphs(self.device, self.obs.registry)
+        self.stats = EngineStats(registry=self.obs.registry)
+        # open request-lifecycle spans: uid -> {"request"/"queue"/
+        # "prefill"/"decode": Span} (only while tracing)
+        self._req_spans: dict = {}
         # completed decode rounds (a fused block advances it by its
         # steps): admission due-ness reads it
         self._round = 0
@@ -345,6 +428,14 @@ class Engine:
                 f"in a max_len={self.max_len} cache")
         if not req.t_submit:
             req.t_submit = time.perf_counter()
+        if self.trace.enabled:
+            track = f"req/{req.uid}"
+            self._req_spans[req.uid] = {
+                "request": self.trace.begin(
+                    "request", track,
+                    {"uid": req.uid, "prompt_tokens": len(req.prompt)}),
+                "queue": self.trace.begin("queue", track),
+            }
         self.sched.submit(req)
 
     def step(self) -> List[Request]:
@@ -352,19 +443,28 @@ class Engine:
         block of up to ``decode_block`` tokens.  Returns the requests that
         finished in this step."""
         t0 = time.perf_counter()
+        step_span = self.trace.begin("step", "engine",
+                                     {"round": self._round})
         finished: List[Request] = []
-        if self._pool:
-            # splice the tickets whose prefills have finished; with
-            # nothing live to decode, complete the pool's head at once
-            finished.extend(self._drain_pool(block=not self._decoding()))
-        if self._round % self.admit_every == 0 or not self._occupied():
-            finished.extend(self._admit())
-        if self._decoding():
-            finished.extend(self._decode_rounds())
-        else:
-            self._round += 1         # an idle step still advances the clock
-        self.stats.wall_s += time.perf_counter() - t0
-        return finished
+        try:
+            if self._pool:
+                # splice the tickets whose prefills have finished; with
+                # nothing live to decode, complete the pool's head at once
+                finished.extend(self._drain_pool(
+                    block=not self._decoding()))
+            if self._round % self.admit_every == 0 or not self._occupied():
+                # a "ready" engine only dispatches here: the span then
+                # covers the host's enqueue alone
+                with self.trace.span("admit", "engine"):
+                    finished.extend(self._admit())
+            if self._decoding():
+                finished.extend(self._decode_rounds())
+            else:
+                self._round += 1     # an idle step still advances the clock
+            return finished
+        finally:
+            step_span.end(finished=len(finished))
+            self.stats.wall_s += time.perf_counter() - t0
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Step until no slot is live or reserved and the queue is
@@ -417,6 +517,14 @@ class Engine:
             self.stats.stopped_eos += 1
         else:
             self.stats.stopped_budget += 1
+        spans = self._req_spans.pop(req.uid, None)
+        if spans:
+            # Span.end is idempotent: queue/prefill already ended at their
+            # own boundaries; this closes whatever is still open
+            for name in ("queue", "prefill", "decode"):
+                if name in spans:
+                    spans[name].end()
+            spans["request"].end(tokens=len(req.out_tokens), eos=eos)
 
     def _check_stop(self, slot: int, req: Request, now: float) -> bool:
         """Stop-token, then budget / cache-end check after a token."""
@@ -493,19 +601,33 @@ class Engine:
         t0 = time.perf_counter()
         for req in batch:
             req.t_dispatch = t0
+            spans = self._req_spans.get(req.uid)
+            if spans:
+                spans["queue"].end()
+                spans["prefill"] = self.trace.begin(
+                    "prefill", f"req/{req.uid}", {"plen": plen})
         self.admit_log.extend(r.uid for r in batch)
         self.stats.prefills += len(batch)
         if self.admission == "gang":
-            logits = self.family.gang(batch, slots_idx, plen, has_live)
-            nxt = self._sample_host(logits, 1)[slots_idx]
+            with phase_scope("prefill"):
+                logits = self.family.gang(batch, slots_idx, plen, has_live)
+                nxt = self._sample_host(logits, 1)[slots_idx]
             self.stats.prefill_batches += 1
             self.stats.prefill_s += time.perf_counter() - t0
             return self._activate(batch, slots_idx, plen, nxt,
                                   self.family.frozen_after_prefill(
                                       len(batch), plen))
         self._reserved[slots_idx] = True
-        tickets = self.family.dispatch(batch, slots_idx, plen, ctx)
+        with phase_scope("prefill"):
+            tickets = self.family.dispatch(batch, slots_idx, plen, ctx)
         self.stats.prefill_s += time.perf_counter() - t0
+        if self.trace.enabled:
+            # dispatch to completion (its splice and first-token readback)
+            for t in tickets:
+                t.span = self.trace.begin(
+                    "ticket", "tickets",
+                    {"requests": len(t.requests), "plen": t.plen,
+                     "uids": [r.uid for r in t.requests]})
         if self.prefill_async and self.ready_order == "ready":
             self._pool.extend(tickets)
             self.stats.prefill_inflight_peak = max(
@@ -518,8 +640,13 @@ class Engine:
 
     def _finish_ticket(self, t: PrefillTicket) -> List[Request]:
         t0 = time.perf_counter()
-        nxt, fls = t.complete()
+        with self.trace.span("splice", "engine",
+                             {"requests": len(t.requests)}), \
+                phase_scope("splice"):
+            nxt, fls = t.complete()
         self.stats.prefill_s += time.perf_counter() - t0
+        if t.span is not None:
+            t.span.end()
         return self._activate(t.requests, t.slots, t.plen, nxt, fls)
 
     def _drain_pool(self, *, block: bool) -> List[Request]:
@@ -530,11 +657,14 @@ class Engine:
         would)."""
         finished: List[Request] = []
         rest: List[PrefillTicket] = []
-        for i, t in enumerate(self._pool):
-            if (block and i == 0) or t.ready():
-                finished.extend(self._finish_ticket(t))
-            else:
-                rest.append(t)
+        with self.trace.span("drain-pool", "engine",
+                             {"pool": len(self._pool)}) as dspan:
+            for i, t in enumerate(self._pool):
+                if (block and i == 0) or t.ready():
+                    finished.extend(self._finish_ticket(t))
+                else:
+                    rest.append(t)
+            dspan.annotate(spliced=len(self._pool) - len(rest))
         self._pool = rest
         return finished
 
@@ -549,10 +679,21 @@ class Engine:
         n = 0
         for t in self._pool:
             t.cancel()
+            if t.span is not None:
+                t.span.end(cancelled=True)
             self._reserved[t.slots] = False
             self.stats.prefills -= len(t.requests)
             for req in t.requests:
                 req.t_dispatch = 0.0
+                spans = self._req_spans.get(req.uid)
+                if spans:
+                    spans.pop("prefill", NULL_SPAN).end(cancelled=True)
+                    if requeue:      # back in the queue: reopen its wait
+                        spans["queue"] = self.trace.begin(
+                            "queue", f"req/{req.uid}", {"requeued": True})
+                    else:
+                        spans["request"].end(dropped=True)
+                        del self._req_spans[req.uid]
                 n += 1
                 for k in range(len(self.admit_log) - 1, -1, -1):
                     if self.admit_log[k] == req.uid:
@@ -578,6 +719,11 @@ class Engine:
             self.frozen_len[slot] = fls[j]
             req.out_tokens.append(int(nxt[j]))
             req.t_first = req.t_last = now
+            spans = self._req_spans.get(req.uid)
+            if spans:
+                spans["prefill"].end(slot=slot)
+                spans["decode"] = self.trace.begin("decode",
+                                                   f"req/{req.uid}")
             self.stats.ttft_s.append(now - req.t_submit)
             self.stats.ttft_queue_s.append(req.t_dispatch - req.t_submit)
             self.stats.ttft_compute_s.append(now - req.t_dispatch)
@@ -607,7 +753,9 @@ class Engine:
 
     def _decode_round(self) -> List[Request]:
         tok = torch.from_numpy(self._last_tokens()).long().to(self.device)
-        nxt = self._sample_host(self.family.decode(tok))
+        with self.trace.span("decode-step", "engine"), \
+                phase_scope("decode"):
+            nxt = self._sample_host(self.family.decode(tok))
         now = time.perf_counter()
         self.stats.decode_steps += 1
         self.stats.blocks += 1
@@ -667,8 +815,14 @@ class Engine:
     def _decode_block_round(self) -> List[Request]:
         blk = self._block_len()
         t0 = time.perf_counter()
-        toks, steps = self.family.decode_block(self._last_tokens(), blk,
-                                               self._stop_table())
+        # the span wraps the runner's call, never the captured body (a
+        # graph replays no Python); it ends at the block's one readback
+        bspan = self.trace.begin("decode-block", "engine",
+                                 {"max_steps": blk})
+        with phase_scope("decode"):
+            toks, steps = self.family.decode_block(
+                self._last_tokens(), blk, self._stop_table())
+        bspan.end(steps=steps)
         now = time.perf_counter()
         # one wall time per launch, attributed wall/steps to each token
         per_tok = (now - t0) / max(steps, 1)

@@ -6,7 +6,7 @@ admission.  Registered families:
 * ``dense`` — plain dense-KV transformer serving (the base class);
 * ``ssm`` — Mamba2: the cache is an O(1) state slot per sequence (conv
   window + SSM state, no time axis); prefill runs the chunked scan with
-  the kernel set of the engine's ``EngineConfig.backend``; no folds and
+  the kernel set of the engine's resolved backend; no folds and
   no pager (``pos`` still advances for the budget);
 * ``moe`` — mixture of experts on the dense-KV slab (the router's state
   is recomputed every step, so nothing beyond K/V is spliced);
@@ -61,10 +61,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.ops import make_kernels
 from ..models import decomposed_kv as DK
 from ..models import api
 from ..models.api import model_fns, run_decode_block
+from ..obs import phase_scope
 from ..platform import host_to_device
 from .graphs import pin, unpack
 from .paged import PagedDKV
@@ -105,7 +105,9 @@ class PrefillTicket:
     current stream (sync engines, the host), which makes the ticket
     ready at dispatch.  ``complete()`` → (first tokens, frozen lengths)
     splices and samples, the one point that waits on the device;
-    ``cancel()`` releases pages and refs without waiting on it."""
+    ``cancel()`` releases pages and refs without waiting on it.  ``span``
+    is the ticket's ``obs.Span`` on the ``tickets`` track (tracing on),
+    from dispatch to the end of ``complete()``."""
     requests: List[Any]
     slots: List[int]
     plen: int
@@ -113,6 +115,7 @@ class PrefillTicket:
     complete: Callable[[], Admitted]
     cancel: Callable[[], None]
     t_dispatch: float = 0.0
+    span: Any = None
 
     def ready(self) -> bool:
         return api.tree_ready(self.probe)
@@ -369,12 +372,12 @@ class Mamba2Serving(ServingFamily):
     with no time axis.  ``pos`` still advances (budget bookkeeping) but
     never indexes device state; there is nothing to fold; admission
     splices whole state rows.  Prefill runs the chunked scan through the
-    kernel set of ``eng.dengine.config.backend`` (``"cuda"``: the SSD
-    kernel on the card; ``"reference"``: its plain version)."""
+    decompose engine's kernel set (its resolved backend: ``"cuda"``, the
+    SSD kernel on the card; ``"reference"``, its plain version)."""
 
     def __init__(self, eng, paged: bool = False):
         super().__init__(eng, paged=paged)
-        self.kernels = make_kernels(eng.dengine.config.backend)
+        self.kernels = eng.dengine.kernels
 
     def _prefill(self, toks: torch.Tensor):
         eng = self.eng
@@ -477,7 +480,7 @@ class TransformerDKVServing(ServingFamily):
         return eng.dkv_tail - occ
 
     def _route(self) -> str:
-        return "kernel" if self.eng.dengine.config.backend == "cuda" \
+        return "kernel" if self.eng.dengine.resolved_backend == "cuda" \
             else "plain"
 
     def _prefill(self, toks: torch.Tensor):
@@ -847,10 +850,16 @@ class TransformerDKVServing(ServingFamily):
         must = live_m & (occ >= eng.dkv_tail)
         if must.any():
             fold = must | (live_m & (occ >= max(1, eng.dkv_tail // 2)))
-            if eng.pager is not None:
-                self._fold_slots_paged(live_m, must, fold)
-            else:
-                self._fold_slots(live_m, fold)
+            # the span ends with the fold's own host reads (its QR/SVD):
+            # it covers the device work up to them, and enqueue after
+            with eng.trace.span("fold", "engine",
+                                {"slots": int(fold.sum())}), \
+                    phase_scope("fold"):
+                if eng.pager is not None:
+                    self._fold_slots_paged(live_m, must, fold)
+                else:
+                    self._fold_slots(live_m, fold)
+
     def _fold_slots(self, live_m: np.ndarray, fold: np.ndarray) -> None:
         eng = self.eng
         r_in = int(eng.cache["k_u"].shape[-1])

@@ -35,6 +35,13 @@ and replays it, so a block of n steps costs one launch from the host:
   and its per-kernel delta is added on every replay; the warm-up's
   launches did run and stay counted, and are kept apart in
   :attr:`BlockGraphs.warmup_launches`.
+* **Counters.**  ``captures``, ``replays`` and ``eager`` are counters of
+  the engine's metrics registry (``serving_graph_captures``,
+  ``serving_graph_replays``, ``serving_graph_eager``), and each capture
+  (its warm-up included) is counted with its host seconds in the compile
+  watch (``obs.record_compile("cuda_graph", …)``) under the caller's
+  phase.  All of it is counted outside the captured body, which runs
+  Python once, at capture.
 * **Eager blocks.**  On the host, or where a family's route cannot be
   captured (the plain dkv statistics read ``t_valid`` on the host), the
   same function runs eagerly on the same buffers.  With the kernel route
@@ -51,6 +58,7 @@ import numpy as np
 import torch
 
 from ..kernels import build, ops
+from ..obs import MetricsRegistry, record_compile
 from ..platform import capture_stream
 
 Feed = Mapping[str, np.ndarray]
@@ -114,15 +122,34 @@ class BlockGraphs:
     """The captured fused decode blocks of one engine (an LRU of at most
     :data:`CAPACITY` graphs in one memory pool), with the counts a run
     reports: ``captures``, ``replays``, ``eager`` (blocks run without a
-    graph), ``capture_s`` (host seconds spent in warm-up and capture)."""
+    graph) — counters of ``registry`` (the engine's) — and ``capture_s``
+    (host seconds spent in warm-up and capture)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, registry: MetricsRegistry):
         self.device = torch.device(device)
         self._lru: "OrderedDict[Hashable, _Entry]" = OrderedDict()
         self._pool = None
-        self.captures = self.replays = self.eager = 0
+        self._captures = registry.counter(
+            "serving_graph_captures",
+            "fused decode blocks captured as CUDA graphs")
+        self._replays = registry.counter("serving_graph_replays",
+                                         "fused decode blocks replayed")
+        self._eager = registry.counter(
+            "serving_graph_eager", "fused decode blocks run without a graph")
         self.capture_s = 0.0
         self.warmup_launches: Dict[str, int] = {}
+
+    @property
+    def captures(self) -> int:
+        return self._captures.value
+
+    @property
+    def replays(self) -> int:
+        return self._replays.value
+
+    @property
+    def eager(self) -> int:
+        return self._eager.value
 
     def _index(self) -> int:
         return self.device.index if self.device.index is not None \
@@ -148,7 +175,7 @@ class BlockGraphs:
         if not capture:
             flat = torch.from_numpy(_pack(feed)).to(self.device)
             buf, steps = body(**_views(flat, _layout(feed)))
-            self.eager += 1
+            self._eager.inc()
             return _packed(buf, steps).cpu().numpy()
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not "
@@ -163,7 +190,7 @@ class BlockGraphs:
             self._lru.move_to_end(key)
         ent.flat.copy_(torch.from_numpy(_pack(feed)))
         ent.graph.replay()
-        self.replays += 1
+        self._replays.inc()
         for name, d in ent.delta.items():
             ops.KERNELS[name].launches += d
         return ent.out.cpu().numpy()
@@ -188,8 +215,10 @@ class BlockGraphs:
         delta = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
         for name, v in warm.items():     # the capture launched nothing
             ops.KERNELS[name].launches = v
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        self._captures.inc()
+        self.capture_s += secs
+        record_compile("cuda_graph", secs)
         return _Entry(graph, flat, out, delta, build.ticket_buffers())
 
     def _warm_up(self, body: Body, inputs: Dict[str, torch.Tensor]) -> None:

@@ -9,8 +9,10 @@ compute-expansion kernels (counterpart of ``repro.tune``).
 * ``measure``    — warmup + median of per-call CUDA-event times;
 * ``cache``      — persistent JSON keyed device kind × kernel ×
                    shape bucket × dtype (the JAX package's format);
-* ``tuner``      — orchestration and ``tuned_expansion``, which answers
-                   ``EngineConfig(expansion="auto")``.
+* ``tuner``      — orchestration; ``tuned_expansion``, which answers
+                   ``EngineConfig(expansion="auto")``, and
+                   ``resolve_backend``/``tune_backend``, which answer
+                   ``EngineConfig(backend="auto")``.
 """
 from .cache import (TuningCache, default_cache, default_path, entry_key,
                     shape_bucket)
@@ -21,8 +23,8 @@ from .space import (BLOCK_GRID, DECODE_BLOCK_GRID, EXPANSION_GRID,
                     TunableParam, TunableSpace, available_spaces, get_space,
                     register_space, space_revision)
 from .tuner import (DEFAULT_PRUNE, TuneResult, candidates_for, pretune,
-                    reset_stats, stats, tune, tuned_decode_block,
-                    tuned_expansion)
+                    reset_stats, resolve_backend, stats, tune, tune_backend,
+                    tuned_decode_block, tuned_expansion)
 
 __all__ = [
     "BLOCK_GRID", "CPU", "DECODE_BLOCK_GRID", "DEFAULT_PRUNE",
@@ -30,6 +32,7 @@ __all__ = [
     "available_spaces", "candidates_for", "default_cache", "default_path",
     "detect_device", "device_kind", "entry_key", "get_space",
     "measure_candidate", "predict", "predict_curve", "pretune",
-    "register_space", "reset_stats", "shape_bucket", "space_revision",
-    "stats", "timeit", "tune", "tuned_decode_block", "tuned_expansion",
+    "register_space", "reset_stats", "resolve_backend", "shape_bucket",
+    "space_revision", "stats", "timeit", "tune", "tune_backend",
+    "tuned_decode_block", "tuned_expansion",
 ]

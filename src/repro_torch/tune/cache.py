@@ -13,7 +13,7 @@ whose prompt lengths wander within a bucket reuses one entry.
   tuner's ``tuned_expansion`` adds an ``lru_cache`` on top, so the
   engine's per-decompose resolution is a hash lookup;
 * **on disk**: ``REPRO_TUNE_CACHE`` (env) or ``~/.cache/repro-tune/
-  cache.json``.  Writes are atomic (tmp + rename) and merge on save, so
+  cache.json``.  Writes are atomic (``ioutil``) and merge on save, so
   concurrent processes at worst re-measure, never corrupt.  A missing or
   unreadable file is an empty cache, never an error.
 """
@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import json
 import os
-import tempfile
 from typing import Any, Dict, Optional, Sequence
+
+from ..ioutil import atomic_write_json
 
 _SCHEMA = 1
 
@@ -75,20 +76,8 @@ class TuningCache:
         two processes tuning different kernels both land."""
         entries = dict(self._read_file())
         entries.update(self._load())
-        payload = {"schema": _SCHEMA, "entries": entries}
-        d = os.path.dirname(self.path) or "."
-        os.makedirs(d, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as fh:
-                json.dump(payload, fh, indent=1, sort_keys=True)
-            os.replace(tmp, self.path)
-        except OSError:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
-            raise
+        atomic_write_json(self.path, {"schema": _SCHEMA, "entries": entries},
+                          indent=1, sort_keys=True)
 
     # -- dict-ish API ------------------------------------------------------
     def get(self, key: str) -> Optional[Dict[str, Any]]:

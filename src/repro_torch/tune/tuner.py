@@ -17,7 +17,14 @@ Counterpart of ``repro.tune.tuner``.  ``tune`` is the one entry point:
 the engines resolve ``expansion="auto"`` and ``decode_block="auto"``
 through.  The engine always pins its own backend
 through ``fix``, so the tuner never swaps a backend under an engine.
-:data:`stats` counts lookups, lru misses and answers by source.
+``resolve_backend`` answers ``backend="auto"`` (a measured per-machine
+winner of ``tune_backend``, else the platform's), once, when a
+DecomposeEngine is built.
+
+The tuner counts in ``obs.GLOBAL`` under the reference's names:
+``tune_resolutions_total{kernel, source}``,
+``tune_lru_lookups_total{kernel}``, ``tune_lru_misses_total{kernel}``;
+:data:`stats` reads them since :func:`reset_stats`.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import dataclasses
 import functools
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
+from ..obs import GLOBAL as _OBS
 from ..platform import resolve_device
 from . import cost_model, measure
 from .cache import TuningCache, default_cache, entry_key, shape_bucket
@@ -36,13 +44,44 @@ from .space import TunableSpace, get_space, space_revision
 DEFAULT_PRUNE = 4
 
 
-@dataclasses.dataclass
+_SOURCES = ("cache", "model", "measured")
+
+
+def _totals() -> Dict[str, int]:
+    """The tuner's ``obs.GLOBAL`` counters, summed over their labels."""
+    out = dict.fromkeys(("lru_lookups", "lru_misses") + _SOURCES, 0)
+    for m in _OBS.metrics():
+        if m.name == "tune_resolutions_total":
+            out[m.labels["source"]] += m.value
+        elif m.name in ("tune_lru_lookups_total", "tune_lru_misses_total"):
+            out[m.name[len("tune_"):-len("_total")]] += m.value
+    return out
+
+
 class TunerStats:
-    """Plain counters of the tuner in this process."""
-    lru_lookups: int = 0
-    lru_misses: int = 0
-    answers: Dict[str, int] = dataclasses.field(default_factory=lambda: {
-        "cache": 0, "model": 0, "measured": 0})
+    """The tuner's counts in this process since :func:`reset_stats`: a view
+    of its ``obs.GLOBAL`` counters (``lru_lookups``, ``lru_misses``,
+    ``answers`` by source)."""
+
+    def __init__(self):
+        self._base = _totals()
+
+    def _since(self) -> Dict[str, int]:
+        now = _totals()
+        return {k: now[k] - self._base[k] for k in now}
+
+    @property
+    def lru_lookups(self) -> int:
+        return self._since()["lru_lookups"]
+
+    @property
+    def lru_misses(self) -> int:
+        return self._since()["lru_misses"]
+
+    @property
+    def answers(self) -> Dict[str, int]:
+        since = self._since()
+        return {k: since[k] for k in _SOURCES}
 
 
 stats = TunerStats()
@@ -71,6 +110,17 @@ class TuneResult:
         where no measurement exists)."""
         rows = [(c, m if m is not None else p) for c, p, m in self.table]
         return min(rows, key=lambda r: r[1])
+
+
+def _answered(kernel: str, source: str) -> None:
+    _OBS.counter("tune_resolutions_total", "tuner queries by answer source",
+                 kernel=kernel, source=source).inc()
+
+
+def _lru(kernel: str, event: str) -> None:
+    """Count an lru ``event`` ("lookups" or "misses") of ``kernel``."""
+    _OBS.counter(f"tune_lru_{event}_total", f"in-process tuner lru {event}",
+                 kernel=kernel).inc()
 
 
 def _variant(fix: Optional[Mapping[str, Any]]) -> str:
@@ -167,7 +217,7 @@ def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
         if entry is not None and (entry.get("measured_s") is not None
                                   or not measure_candidates) \
                 and _in_space(kernel, entry, fix):
-            stats.answers["cache"] += 1
+            _answered(kernel, "cache")
             return _from_entry(key, entry)
 
     cands = candidates_for(kernel, fix)
@@ -190,7 +240,7 @@ def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
         res = TuneResult(kernel, bucket, dt, key, dict(best), "model",
                          pred, None, table)
 
-    stats.answers[res.source] += 1
+    _answered(kernel, res.source)
     cache.put(key, _to_entry(res))
     if persist if persist is not None else measure_candidates:
         cache.save()
@@ -206,7 +256,7 @@ def _tuned_expansion(kernel: str, bucket: Tuple[int, ...], dtype: str,
                      backend: Optional[str], device: str,
                      cache_path: str) -> int:
     # device: a resolved torch device string ("cuda", "cpu")
-    stats.lru_misses += 1
+    _lru(kernel, "misses")
     fix = {"backend": backend} if backend is not None else None
     res = tune(kernel, bucket, dtype, fix=fix, device=device)
     return int(res.best["expansion"])
@@ -220,7 +270,7 @@ def tuned_expansion(shape: Sequence[int], dtype: Any = "float32",
     shape bucket on ``device`` — cache or model resolution behind an
     in-process lru (keyed on the cache path, so tests that point
     ``REPRO_TUNE_CACHE`` elsewhere see no stale answers)."""
-    stats.lru_lookups += 1
+    _lru(kernel, "lookups")
     return _tuned_expansion(kernel, shape_bucket(shape), _dtype_name(dtype),
                             backend, str(resolve_device(device)),
                             default_cache().path)
@@ -229,7 +279,7 @@ def tuned_expansion(shape: Sequence[int], dtype: Any = "float32",
 @functools.lru_cache(maxsize=None)
 def _tuned_decode_block(bucket: Tuple[int, ...], dtype: str, device: str,
                         cache_path: str) -> int:
-    stats.lru_misses += 1
+    _lru("decode_block", "misses")
     res = tune("decode_block", bucket, dtype, device=device)
     return int(res.best["block"])
 
@@ -240,10 +290,66 @@ def tuned_decode_block(shape: Sequence[int], dtype: Any = "float32",
     this (slots, decode horizon, kv width) bucket on ``device`` — answers
     ``Engine(decode_block="auto")`` as :func:`tuned_expansion` answers
     ``expansion="auto"``."""
-    stats.lru_lookups += 1
+    _lru("decode_block", "lookups")
     return _tuned_decode_block(shape_bucket(shape), _dtype_name(dtype),
                                str(resolve_device(device)),
                                default_cache().path)
+
+
+_BACKEND_KEY_SUFFIX = "engine_backend"
+
+
+def _backend_key(device: Any) -> str:
+    return f"{cost_model.device_kind(device)}/{_BACKEND_KEY_SUFFIX}"
+
+
+def _default_device() -> str:
+    import torch
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def resolve_backend(cache: Optional[TuningCache] = None,
+                    device: Any = None) -> str:
+    """Answer ``backend="auto"`` on ``device`` (default: the card if
+    there is one, else the host): the winner :func:`tune_backend`
+    persisted for this device kind when it names a registered backend,
+    else ``"cuda"`` on a CUDA device and ``"reference"`` on the host,
+    where the kernels cannot run."""
+    from ..engine.backends import available_backends
+    device = _default_device() if device is None else device
+    cache = cache if cache is not None else default_cache()
+    entry = cache.get(_backend_key(device))
+    if entry:
+        name = entry.get("best", {}).get("backend")
+        if name in available_backends():
+            return name
+    return "cuda" if resolve_device(device).type == "cuda" else "reference"
+
+
+def tune_backend(shape: Sequence[int] = (4, 256, 512),
+                 dtype: Any = "float32", *, reps: int = 5,
+                 cache: Optional[TuningCache] = None,
+                 device: Any = "cuda") -> TuneResult:
+    """Measure the re-orth step on ``device`` across every registered
+    backend, each at its two model-best f (``prune=2``), and persist the
+    winner as this device kind's ``backend="auto"`` answer.  The
+    result's ``table`` holds one (best candidate, predicted s, measured
+    s) row per backend."""
+    from ..engine.backends import available_backends
+    cache = cache if cache is not None else default_cache()
+    rows = []
+    for name in available_backends():
+        res = tune("lanczos_reorth", shape, dtype, fix={"backend": name},
+                   measure_candidates=True, prune=2, reps=reps, cache=cache,
+                   force=True, persist=False, device=device)
+        rows.append((res.best, res.predicted_s, res.measured_s))
+    best, pred, meas = min(rows, key=lambda r: r[2])
+    res = TuneResult("lanczos_reorth", shape_bucket(shape),
+                     _dtype_name(dtype), _backend_key(device), dict(best),
+                     "measured", pred, meas, tuple(rows))
+    cache.put(res.key, _to_entry(res))
+    cache.save()
+    return res
 
 
 def pretune(shapes: Mapping[str, Sequence[Sequence[int]]],

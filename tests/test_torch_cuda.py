@@ -1098,3 +1098,68 @@ def test_keyed_draw_replayed_equals_eager(cuda, kind):
         key.fill_(k)
         graph.replay()
         assert torch.equal(out, sample(logits, 1, k))
+
+
+# ---------------------------------------------------------------------------
+# Observability and backend="auto" on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["slab", "paged"])
+def test_obs_token_neutral_with_graphs_replaying(cuda, kind):
+    """``Observability(trace=True)`` on an async engine (prefills on the
+    prefill stream, deterministic order) whose blocks of 4 replay CUDA
+    graphs: the tokens, launch counts, captures and blocks of the
+    obs-off engine, nothing eager; a valid trace with ticket, splice and
+    decode-block spans; the compile watch holds both engines' captures
+    under ``decode``, and the exported graph counters are the runner's."""
+    from repro_torch.obs import (Observability, compile_stats,
+                                 parse_prometheus, to_prometheus,
+                                 validate_trace)
+
+    def captures():
+        return compile_stats(kind="cuda_graph").get(
+            "decode", {"compiles": 0})["compiles"]
+
+    base = captures()
+    runs, params = [], None
+    for obs in (None, Observability(trace=True)):
+        eng, params = _async_engine(cuda, kind, "float32", 4, params,
+                                    prefill_async=True,
+                                    ready_order="deterministic", obs=obs)
+        ops.reset_launch_counts()
+        runs.append((eng, _async_drive(eng), ops.launch_counts()))
+    (e0, t0, l0), (e1, t1, l1) = runs
+    assert t1 == t0 and l1 == l0
+    for e in (e0, e1):
+        assert e.graphs.eager == 0 and e.graphs.replays == e.stats.blocks > 0
+    assert (e1.graphs.captures, e1.stats.blocks) == \
+        (e0.graphs.captures, e0.stats.blocks)
+    obs = e1.obs
+    assert validate_trace(obs.tracer.to_json()) >= 16
+    assert {"ticket", "splice", "decode-block", "fold"} <= {
+        ev["name"] for ev in obs.tracer.events}
+    assert captures() - base == e0.graphs.captures + e1.graphs.captures
+    parsed = parse_prometheus(to_prometheus(obs.registry))
+    assert parsed["repro_serving_graph_replays"][0][1] == e1.graphs.replays
+    assert parsed["repro_serving_graph_captures"][0][1] == e1.graphs.captures
+
+
+def test_tune_backend_on_card(cuda, tmp_path, monkeypatch):
+    """``tune_backend`` measures both backends on the card and stores the
+    winner under the card's device kind; ``resolve_backend`` and an
+    ``EngineConfig(backend="auto")`` engine take it; without a stored
+    winner the card resolves to ``"cuda"``."""
+    from repro_torch import tune
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "empty.json"))
+    assert tune.resolve_backend() == "cuda"
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "cache.json"))
+    res = tune.tune_backend((4, 256, 512), reps=3, device=cuda)
+    assert res.key.startswith("torch-cuda:")
+    assert res.key.endswith("/engine_backend")
+    assert sorted(r[0]["backend"] for r in res.table) == ["cuda",
+                                                          "reference"]
+    assert all(r[2] > 0 for r in res.table)
+    assert tune.resolve_backend() == res.best["backend"]
+    assert DecomposeEngine(EngineConfig(backend="auto")).resolved_backend \
+        == res.best["backend"]

@@ -5,8 +5,10 @@ rules and file format (each package reads the other's file), the H100
 and host cost models' unimodality as a hypothesis property, the tuner on
 ``device="cpu"`` (model mode, measured mode, the in-process lru,
 pretune), ``EngineConfig(expansion="auto")`` bit-identical to the
-pinned-f engine, the serve CLI's ``--expansion auto`` and the Fig. 12
-entry point end to end on the plain versions.  The cache is a temporary
+pinned-f engine, ``backend="auto"`` (``resolve_backend``/
+``tune_backend``) and the tuner's ``obs.GLOBAL`` counters, the serve
+CLI's ``--expansion auto`` and the Fig. 12 entry point end to end on the
+plain versions.  The cache is a temporary
 file in every test (``REPRO_TUNE_CACHE``).
 """
 import dataclasses
@@ -449,6 +451,106 @@ def test_auto_engine_bit_identical_to_pinned_f(tmp_cache, backend):
     key = tune.entry_key("torch-cpu", "lanczos_reorth", (2, 33, 48),
                          "float32") + f"/backend={backend}"
     assert tune.default_cache().get(key)["best"]["expansion"] == f
+
+
+# ---------------------------------------------------------------------------
+# Engine: backend="auto", and the tuner's counters in obs.GLOBAL
+# ---------------------------------------------------------------------------
+
+def _global(name, **labels):
+    from repro_torch.obs import GLOBAL
+    return GLOBAL.counter(name, **labels).value
+
+
+def test_tuner_counts_land_in_the_global_registry(tmp_cache):
+    """``tune_resolutions_total{kernel, source}`` and the lru's
+    ``tune_lru_lookups_total``/``tune_lru_misses_total`` move with
+    :data:`tune.stats`."""
+    base = (_global("tune_lru_lookups_total", kernel="lanczos_reorth"),
+            _global("tune_lru_misses_total", kernel="lanczos_reorth"),
+            _global("tune_resolutions_total", kernel="lanczos_reorth",
+                    source="model"))
+    for _ in range(3):
+        tune.tuned_expansion((2, 40, 48), device="cpu")
+    got = (_global("tune_lru_lookups_total", kernel="lanczos_reorth"),
+           _global("tune_lru_misses_total", kernel="lanczos_reorth"),
+           _global("tune_resolutions_total", kernel="lanczos_reorth",
+                   source="model"))
+    assert [g - b for g, b in zip(got, base)] == [3, 1, 1]
+    assert (tune.stats.lru_lookups, tune.stats.lru_misses,
+            tune.stats.answers["model"]) == (3, 1, 1)
+
+
+def test_resolve_backend_on_the_host(tmp_cache):
+    """No override: ``"reference"`` on the host, where the kernels cannot
+    run; the registry names the two backends and ``"auto"``."""
+    from repro_torch.engine import available_backends
+    assert tune.resolve_backend(device="cpu") == "reference"
+    assert tune.resolve_backend() == (
+        "cuda" if torch.cuda.is_available() else "reference")
+    assert available_backends() == ["cuda", "reference"]
+    assert EngineConfig(backend="auto").backend == "auto"
+    for bad in ("pallas", "triton", ""):
+        with pytest.raises(ValueError):
+            EngineConfig(backend=bad)
+
+
+@pytest.mark.parametrize("stored,want", [("cuda", "cuda"),
+                                         ("reference", "reference"),
+                                         ("pallas", "reference")])
+def test_resolve_backend_reads_the_cache_override(tmp_cache, stored, want):
+    """A stored winner that names a registered backend is the answer; one
+    that does not (here the JAX package's ``"pallas"``) is ignored."""
+    c = tune.default_cache()
+    c.put("torch-cpu/engine_backend", {"best": {"backend": stored}})
+    assert tune.resolve_backend(device="cpu") == want
+    engine = DecomposeEngine(EngineConfig(backend="auto"))
+    if not torch.cuda.is_available():
+        assert engine.resolved_backend == want
+
+
+def test_tune_backend_measures_both_and_persists_the_winner(tmp_cache):
+    res = tune.tune_backend((2, 32, 64), reps=2, device="cpu")
+    assert res.key == "torch-cpu/engine_backend" and res.source == "measured"
+    assert sorted(r[0]["backend"] for r in res.table) == ["cuda",
+                                                          "reference"]
+    assert res.measured_s == min(r[2] for r in res.table)
+    assert tune.resolve_backend(device="cpu") == res.best["backend"]
+    with open(tmp_cache) as fh:
+        stored = json.load(fh)["entries"]["torch-cpu/engine_backend"]
+    assert stored["best"] == res.best
+
+
+def test_auto_backend_engine_bit_identical_to_reference(tmp_cache):
+    """On the host ``backend="auto"`` is ``"reference"``: the same
+    factors, and a serving engine on it gives the pinned engine's tokens
+    (Lanczos factorization)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import Engine, Request
+    auto = DecomposeEngine(EngineConfig(backend="auto"))
+    ref = DecomposeEngine(EngineConfig(backend="reference"))
+    assert auto.resolved_backend == "reference"
+    assert "backend='reference'" in repr(auto)
+    x = _x((2, 33, 48), seed=4)
+    la, lr = auto.decompose(x, 5), ref.decompose(x, 5)
+    for a, b in ((la.u, lr.u), (la.core, lr.core), (la.vt, lr.vt)):
+        assert torch.equal(a, b)
+    cfg = get_arch("llama2-7b").reduced().replace(dtype="float32")
+    p = model_fns(cfg).init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (12, 7, 15)]
+
+    def serve(backend):
+        eng = Engine(cfg, p, slots=2, max_len=64, device="cpu",
+                     decompose_engine=DecomposeEngine(EngineConfig(
+                         backend=backend, kv_rank=8, kv_tail=4)))
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=pr, max_new_tokens=6))
+        return {r.uid: r.out_tokens for r in eng.run()}
+
+    assert serve("auto") == serve("reference")
 
 
 def test_serve_cli_expansion_auto_prints_pretune(tmp_cache, capsys):
