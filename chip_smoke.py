@@ -197,6 +197,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the winner printed), ``resolve_backend()`` gives the winner, and an
    ``EngineConfig(backend="auto")`` engine serves the tokens of the
    engine pinned to it.
+17. training (``--only train``; random weights from seed 0,
+   ``SyntheticLM(seed=0)`` at batch 4 × 512, ``make_optimizer(cfg,
+   warmup=1)``): (a) ``granite-3-2b`` at full width and depth (2.53 B
+   parameters), 5 AdamW steps of ``make_train_step`` with remat "full":
+   each step's loss and gradient norm, the median step of steps 2-5
+   beside its bound (8·N·T / 989 TFLOP/s + 22 B·N / 3.35 TB/s), peak
+   memory gated under 70 GiB, then one PowerSGD (rank 4) round trip of
+   the last gradient, its ratio equal to ``compression_ratio``; (b)
+   ``mamba2-780m`` at full width and depth through the CUDA kernels and
+   through ``backend="reference"`` from the same weights, step by step
+   in turns: losses within 1e-3 relative at every step, the step-0
+   gradient norm within 1e-3, the SSD forward and backward kernels'
+   launches printed (the backward's gated non-zero); (c) the driver
+   (``train_loop``) on ``mamba2-780m`` at depth 2: 6 steps, a checkpoint
+   every 2, a failure at step 3, the losses after the restart equal to
+   an uninterrupted run's within 1e-6 relative (bit equality printed),
+   the bytes written printed, in a temporary directory.  The card then
+   holds < 0.5 GiB.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -214,7 +232,11 @@ phase 14's shapes (the re-orth pair at gemma-2b's [18, 512, 256] and
 starcoder2-7b's [32, 512, 512], the dkv kernel at starcoder2-7b's G 36
 over 1024 rows), and the four expanded matvec wrappers at
 phase 9's shapes (f = 8, 512 rows or columns per CTA; reruns must be
-bit-identical; times L2-flushed and warm beside the library call's).  Phase 5 also serves reduced float32
+bit-identical; times L2-flushed and warm beside the library call's),
+and the SSD term's backward kernel (``ssd_chunk_intra_bwd``) against its
+plain version at phase 17's training shape (G 32 × Q 64) and at phase
+8's four (each of dcb, dl, ddt, dx within 1e-4 of its largest entry;
+reruns bit-identical; warm and L2-cold).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
 request's solo tokens and the ``backend="reference"`` route's tokens.
 The line before the last is
@@ -227,6 +249,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -667,7 +690,63 @@ def ssd_case(g: int, q: int, nh: int, hd: int, gen, per_run=None):
                           "bit-identical")
 
 
+def ssd_bwd_case(g: int, q: int, nh: int, hd: int, gen, per_step=None):
+    """The backward kernel of the intra-chunk SSD term against its plain
+    version (``ssd_chunk_intra_bwd_plain``) at one shape: the forward's
+    inputs as :func:`ssd_case` draws them and dy N(0, 1), float32; each
+    of dcb, dl, ddt, dx within 1e-4 of its largest plain entry, reruns
+    bit-identical.  Times warm and L2-cold.  ``per_step``: the shape's
+    launches in one train step of phase 17's mamba2 leg."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as sc
+    dev = "cuda"
+    cb = torch.randn(g, q, q, generator=gen, device=dev) * 0.3
+    l = torch.cumsum(-torch.randn(g, q, nh, generator=gen,
+                                  device=dev).abs() * 0.05, dim=1)
+    dt = torch.randn(g, q, nh, generator=gen, device=dev).abs()
+    x = torch.randn(g, q, nh, hd, generator=gen, device=dev)
+    dy = torch.randn(g, q, nh, hd, generator=gen, device=dev)
+    kern = lambda: sc.ssd_chunk_intra_bwd(cb, l, dt, x, dy)  # noqa: E731
+    got, again = kern(), kern()
+    want = sc.ssd_chunk_intra_bwd_plain(cb, l, dt, x, dy)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, c in zip(("dcb", "dl", "ddt", "dx"), got, want, again):
+        err = (a - b).abs().max().item()
+        tol = 1e-4 * b.abs().max().item()
+        if not (torch.isfinite(a).all() and err <= tol and torch.equal(a, c)):
+            raise AssertionError(f"ssd_chunk_intra_bwd G={g} Q={q} {name}: "
+                                 f"max abs err {err:.3e} > {tol:.3e} or "
+                                 f"reruns differ")
+        errs[name] = err
+    ms, ms_cold = time_ms(kern), time_ms_cold(kern)
+    plain_ms = time_ms(lambda: sc.ssd_chunk_intra_bwd_plain(cb, l, dt, x,
+                                                            dy))
+    # inputs cb, l, dt, x, dy read once; dcb, dl, ddt, dx written once;
+    # per (q, s <= q, head): the G dot and the dx update (2·hd FMA
+    # operations each) and ~12 for the masked terms
+    bytes_ = 4 * (2 * g * q * q + 4 * g * q * nh + 3 * g * q * nh * hd)
+    flops = nh * g * q * (q + 1) // 2 * (4 * hd + 12)
+    bms, by = bound(bytes_, flops, "float32")
+    return dict(name="ssd_chunk_intra_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                replaces="src/repro/kernels/ssd_chunk.py:70",
+                max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, ms_l2_cold=ms_cold,
+                shape=dict(G=g, Q=q, nh=nh, hd=hd),
+                heads_per_cta=sc.heads_per_cta(g, nh, torch.cuda
+                                               .get_device_properties(0)
+                                               .multi_processor_count),
+                launches_per_step=per_step,
+                tolerance="max|grad_kernel - grad_plain| <= 1e-4 "
+                          "max|grad_plain| for each of dcb, dl, ddt, dx "
+                          "(float32 sums in another order); reruns "
+                          "bit-identical")
+
+
 SSD_SHAPES = ((8, 64), (6, 64), (2, 64), (1, 304))   # phase 8's (G, Q)
+SSD_TRAIN_SHAPE = (32, 64)         # phase 17: batch 4 x 512 tokens
 HYBRID_SSD_SHAPES = ((8, 64), (1, 304))              # phase 11's, nh 64
 
 MATVEC_LINES = {"matvec": 65, "rmatvec": 174, "matvec_batched": 122,
@@ -787,6 +866,15 @@ def phase_kernels(cfg):
                                per_run=n_mamba), launch_floor_ms=floor,
                       arch=HYBRID_ARCH)
                  for g, q in HYBRID_SSD_SHAPES]
+    # its backward (phase 17's mamba2 leg: 4 prompts of 512 tokens, G 32
+    # chunks of Q 64, once per layer of a train step; the training shape
+    # first, as the kernels line takes a name's first row), then at phase
+    # 8's prefill shapes
+    ssd_rows += [dict(ssd_bwd_case(g, q, m2.ssm_heads, m2.ssm_head_dim, gen,
+                                   per_step=m2.num_layers if (g, q) ==
+                                   SSD_TRAIN_SHAPE else None),
+                      launch_floor_ms=floor)
+                 for g, q in (SSD_TRAIN_SHAPE,) + SSD_SHAPES]
     for rec in ssd_rows:
         print(json.dumps(rec), flush=True)
     # the expanded matvec pair (phase 9's Fig. 12 operating points): A
@@ -830,7 +918,8 @@ def phase_kernels(cfg):
 #: the device functions of src/repro_torch/kernels/csrc/*.cu
 PORT_KERNELS = ("reorth_right_kernel", "reorth_left_kernel",
                 "dkv_stats_kernel", "lrmm_kernel", "outlier_stats_kernel",
-                "ssd_chunk_intra_kernel", "matvec_kernel", "rmatvec_kernel")
+                "ssd_chunk_intra_kernel", "ssd_chunk_intra_bwd_kernel",
+                "ssd_dcb_reduce_kernel", "matvec_kernel", "rmatvec_kernel")
 
 
 def print_profile(prof) -> None:
@@ -1320,8 +1409,9 @@ def conformance_mamba2():
 ACT_LAUNCHES = {"lowrank_matmul": 50, "outlier_stats": 20,
                 "reorth_left_batched": 400, "reorth_right_batched": 380,
                 "dkv_attention_stats": 0, "dkv_attention_stats_paged": 0,
-                "ssd_chunk_intra": 0, "matvec": 0, "rmatvec": 0,
-                "matvec_batched": 0, "rmatvec_batched": 0}
+                "ssd_chunk_intra": 0, "ssd_chunk_intra_bwd": 0,
+                "matvec": 0, "rmatvec": 0, "matvec_batched": 0,
+                "rmatvec_batched": 0}
 ACT_LOGITS_TOL = 2e-2    # relative L2, bf16 kernel route vs plain route
 ACT_F32_TOL = 1e-3       # the same, float32 weights and forward
 ACT_SEQ = 4096           # the paper's 4K setting: tokens [1, ACT_SEQ]
@@ -2900,9 +2990,241 @@ def phase_obs(cfg, params, slot_tokens=None, nvcc_built: int = 0):
         raise AssertionError("obs (a): tokens differ from phase 4's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+TRAIN_LOSS_TOL = 1e-3    # relative, kernel route vs reference route
+TRAIN_PEAK_GIB = 70.0
+RESTART_TOL = 1e-6       # relative, restarted vs uninterrupted losses
+
+
+def _train_batches(cfg, n: int):
+    """Batches 0..n-1 of ``SyntheticLM(seed=0)`` at 4 × 512, on the card."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime.driver import to_device
+    src = SyntheticLM(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                     "train"), DataConfig(seed=0))
+    return [to_device(src.batch_at(i), "cuda") for i in range(n)]
+
+
+def _n_params(params) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() for t in leaves(params))
+
+
+def train_granite() -> None:
+    """(a) granite-3-2b at full width and depth: 5 AdamW steps of
+    make_train_step (remat full), then one PowerSGD round trip of the
+    last gradient."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import compression as comp
+    from repro_torch.runtime import steps
+    from repro_torch.tree import named_leaves
+    cfg = get_arch(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_weights(cfg)
+    n = _n_params(params)
+    opt = optim.make_optimizer(cfg, warmup=1)
+    kept = {}
+
+    def keep_last(grads):
+        if kept.get("on"):
+            kept["grads"] = grads
+        return grads
+    step = steps.make_train_step(cfg, opt, grad_transform=keep_last)
+    state = opt.init(params)
+    batches = _train_batches(cfg, TRAIN_STEPS)
+    losses, norms, ms = [], [], []
+    for i, batch in enumerate(batches):
+        kept["on"] = i == TRAIN_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        norms.append(gn)
+        print(f"train (a): {cfg.name} step {i} loss {loss:.6f} grad_norm "
+              f"{gn:.6f} {ms[-1]:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops_ms = 8 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = 22 * n / HBM_BYTES_S * 1e3
+    med = statistics.median(ms[1:])
+    print(f"train (a): {cfg.name} {cfg.num_layers} layers, {n / 1e9:.3f} B "
+          f"parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, remat "
+          f"{cfg.remat_policy}: median step {med:.1f} ms (steps 2-5: "
+          f"{', '.join(f'{x:.1f}' for x in ms[1:])}); bound 8*N*T / 989 "
+          f"TFLOP/s + 22 B*N / 3.35 TB/s = {flops_ms:.1f} + {bytes_ms:.1f} = "
+          f"{flops_ms + bytes_ms:.1f} ms ({(flops_ms + bytes_ms) / med:.3f} "
+          f"of the step); peak {peak:.2f} GiB", flush=True)
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"train (a): non-finite loss or norm {losses} "
+                             f"{norms}")
+    if peak >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"train (a): peak {peak:.2f} GiB >= "
+                             f"{TRAIN_PEAK_GIB}")
+    grads = kept.pop("grads")
+    del state, batches
+    pc = comp.PowerSGDConfig(rank=4)
+    pstate = comp.init_state(grads, pc)
+    out, pstate = comp.compress_decompress(grads, pstate, pc)    # warm
+    del out
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out, pstate = comp.compress_decompress(grads, pstate, pc)
+    end.record()
+    torch.cuda.synchronize()
+    sent = dense = 0
+    for name, g in named_leaves(grads):
+        dense += g.numel()
+        st = pstate
+        for k in name.split("/"):
+            st = st[k]
+        sent += g.numel() if st["q"] is None else \
+            pc.rank * (st["q"].shape[0] + g.numel() // st["q"].shape[0])
+    ratio, want = dense / sent, comp.compression_ratio(params, pc)
+    finite = all(torch.isfinite(t).all() for _, t in named_leaves(out))
+    print(f"train (a): PowerSGD rank {pc.rank} of the last gradient: "
+          f"{start.elapsed_time(end):.3f} ms, ratio {ratio:.3f} "
+          f"(compression_ratio {want:.3f})", flush=True)
+    if ratio != want or not finite:
+        raise AssertionError(f"train (a): PowerSGD ratio {ratio} != {want} "
+                             f"or a non-finite round trip")
+
+
+def train_mamba2() -> dict:
+    """(b) mamba2-780m at full width and depth: the same traffic through
+    the CUDA kernels and through backend="reference" from the same
+    weights, step by step in turns.  Returns the kernel route's launch
+    counts over its 5 steps."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import steps
+    from repro_torch.tree import tree_map
+    cfg = get_arch(MAMBA_ARCH)
+    params = init_weights(cfg)
+    runs = {}
+    for backend in ("cuda", "reference"):
+        p = params if backend == "cuda" else tree_map(torch.clone, params)
+        opt = optim.make_optimizer(cfg, warmup=1)
+        runs[backend] = dict(p=p, opt=opt, st=opt.init(p), losses=[],
+                             norms=[], ms=[],
+                             step=steps.make_train_step(cfg, opt,
+                                                        backend=backend))
+    del params, p
+    total = {}
+    for i, batch in enumerate(_train_batches(cfg, TRAIN_STEPS)):
+        for backend, r in runs.items():
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["p"], r["st"], m = r["step"](r["p"], r["st"], batch)
+            r["losses"].append(m["loss"].item())
+            r["norms"].append(m["grad_norm"].item())
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            counts = ops.launch_counts()
+            if backend == "cuda":
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                print(f"train (b): step {i} kernel route: SSD forward "
+                      f"{counts['ssd_chunk_intra']}, backward "
+                      f"{counts['ssd_chunk_intra_bwd']} launches", flush=True)
+            elif any(counts.values()):
+                raise AssertionError(f"train (b): the reference route "
+                                     f"launched {counts}")
+        k, ref = runs["cuda"], runs["reference"]
+        rel = abs(k["losses"][-1] - ref["losses"][-1]) / abs(
+            ref["losses"][-1])
+        print(f"train (b): step {i} loss kernel {k['losses'][-1]:.6f} "
+              f"reference {ref['losses'][-1]:.6f} (rel {rel:.2e}); grad_norm "
+              f"{k['norms'][-1]:.6f} / {ref['norms'][-1]:.6f}; "
+              f"{k['ms'][-1]:.1f} / {ref['ms'][-1]:.1f} ms", flush=True)
+        if not rel <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"train (b): step {i} losses differ by "
+                                 f"{rel:.2e} > {TRAIN_LOSS_TOL}")
+    k, ref = runs["cuda"], runs["reference"]
+    rel_n = abs(k["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    print(f"train (b): {cfg.name} step-0 grad_norm rel {rel_n:.2e}; median "
+          f"step {statistics.median(k['ms'][1:]):.1f} ms kernel route, "
+          f"{statistics.median(ref['ms'][1:]):.1f} ms reference route; "
+          f"launches over {TRAIN_STEPS} steps: SSD forward "
+          f"{total['ssd_chunk_intra']}, backward "
+          f"{total['ssd_chunk_intra_bwd']}", flush=True)
+    if not rel_n <= TRAIN_LOSS_TOL or total["ssd_chunk_intra_bwd"] <= 0:
+        raise AssertionError(f"train (b): step-0 grad_norm rel {rel_n:.2e} "
+                             f"or no backward launch ({total})")
+    return total
+
+
+def train_restart() -> None:
+    """(c) the driver on mamba2-780m at depth 2, full width: 6 steps, a
+    checkpoint every 2 (keep 1), a failure at step 3; the losses after
+    the restart against an uninterrupted run's."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.runtime.driver import SimulatedFailure, train_loop
+    cfg = get_arch(MAMBA_ARCH).replace(num_layers=2)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    crashed = {"done": False}
+
+    def fail_at_3(step):
+        if step == 3 and not crashed["done"]:
+            crashed["done"] = True
+            raise SimulatedFailure("injected at step 3")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for name, hook in (("plain", None), ("crash", fail_at_3)):
+            t0 = time.perf_counter()
+            res[name] = train_loop(
+                cfg, shape, total_steps=6, ckpt_dir=os.path.join(tmp, name),
+                ckpt_every=2, keep=1, seed=0, failure_hook=hook,
+                print_fn=lambda line: None, device="cuda",
+                optimizer=optim.make_optimizer(cfg, warmup=1))
+            torch.cuda.synchronize()
+            r = res[name]
+            print(f"train (c): {name}: {len(r.losses)} losses, restarts "
+                  f"{r.restarts}, {r.ckpt_bytes} checkpoint bytes written, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    plain, crash = res["plain"].losses, res["crash"].losses
+    after = crash[3:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(after, plain[2:]))
+    print(f"train (c): losses after the restart {after} vs uninterrupted "
+          f"{plain[2:]}: max rel {rel:.2e}, bit-equal {after == plain[2:]}",
+          flush=True)
+    if res["crash"].restarts != 1 or len(after) != 4 or not rel <= \
+            RESTART_TOL:
+        raise AssertionError(f"train (c): restart losses {after} != "
+                             f"{plain[2:]} (rel {rel:.2e})")
+
+
+def phase_train() -> dict:
+    """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts."""
+    train_granite()
+    check_freed(TRAIN_ARCH)
+    counts = train_mamba2()
+    check_freed(MAMBA_ARCH)
+    train_restart()
+    check_freed("train")
+    return counts
+
+
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal")
+          "variants", "modal", "train")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -3048,6 +3370,9 @@ def main() -> int:
                 check_freed(arch)
                 print(f"{name}: {arch} {time.perf_counter() - t:.1f} s",
                       flush=True)
+    if "train" in only:
+        with phase("train"):
+            train = phase_train()
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)
@@ -3064,6 +3389,7 @@ def main() -> int:
                     dkv_attention_stats_paged=paged[
                         "dkv_attention_stats_paged"],
                     ssd_chunk_intra=mamba["ssd_chunk_intra"],
+                    ssd_chunk_intra_bwd=train["ssd_chunk_intra_bwd"],
                     **{k: fig[k] for k in MATVEC_LINES})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -19,11 +19,14 @@ import torch
 
 
 def array_to_tensor(arr, device: torch.device) -> torch.Tensor:
+    """``arr`` as a tensor on ``device`` of its shape (a 0-d array stays
+    0-d, which ``np.ascontiguousarray`` would make 1-d)."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+        t = torch.from_numpy(np.require(arr.astype(np.float32),
+                                        requirements="C"))
         return t.to(device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.require(arr, requirements="C")).to(device)
 
 
 def to_torch(tree: Any, device) -> Any:

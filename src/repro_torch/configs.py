@@ -11,8 +11,12 @@ experts), the Zamba2-style hybrid (``hybrid``: Mamba2 blocks plus one
 shared attention block every ``attn_period`` layers), the
 Llama-3.2-Vision-style ``vlm`` (a tanh-gated cross-attention block every
 ``cross_attn_period`` layers) and the encoder-decoder ``audio`` family.
-The reference's training and sharding fields (remat, optimizer, mesh
-rules) have no counterpart here.
+The training fields mirror the reference's too: ``optimizer`` ("adamw";
+"adafactor" for ``kimi-k2-1t-a32b``), ``remat`` (activation checkpointing
+per block, on by default; ``reduced()`` turns it off, as the reference
+does) and ``remat_policy`` ("full", or "dots": keep the matmul outputs
+and recompute only the cheap elementwise ops).  :class:`ShapeSpec` names
+a workload shape.  The sharding fields wait for the port's mesh.
 """
 from __future__ import annotations
 
@@ -58,6 +62,10 @@ class ArchConfig:
     num_audio_frames: int = 0        # encoder memory (cross-KV) length
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
+    # --- training ---
+    optimizer: str = "adamw"         # adamw | adafactor (the 1T MoE)
+    remat: bool = True               # activation checkpointing per block
+    remat_policy: str = "full"       # full | dots (save matmul outputs)
 
     @property
     def padded_vocab(self) -> int:
@@ -106,7 +114,8 @@ class ArchConfig:
             num_kv_heads=min(self.num_kv_heads, 2),
             head_dim=32 if self.num_heads else None,
             d_ff=256,
-            vocab=512)
+            vocab=512,
+            remat=False)
         if self.num_experts:
             kw.update(num_experts=8, top_k=2, moe_d_ff=64,
                       n_shared_experts=min(self.n_shared_experts, 1),
@@ -120,6 +129,16 @@ class ArchConfig:
         if self.enc_layers:
             kw.update(num_layers=4, enc_layers=2, num_audio_frames=32)
         return self.replace(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One workload shape: ``global_batch`` sequences of ``seq_len``
+    tokens, for ``kind`` train | prefill | decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}
@@ -183,7 +202,7 @@ register(ArchConfig(
     num_layers=61, d_model=7168, num_heads=64, num_kv_heads=8,
     d_ff=18432, vocab=163840,
     num_experts=384, top_k=8, moe_d_ff=2048,
-    n_shared_experts=1, first_k_dense=1))
+    n_shared_experts=1, first_k_dense=1, optimizer="adafactor"))
 
 # GQA kv=4, RoPE, biased linears and layernorm, ungated GELU MLP
 # [arXiv:2402.19173].

@@ -38,6 +38,7 @@ KERNELS = {
     "lowrank_matmul": _lrmm.lowrank_matmul,
     "outlier_stats": _ol.outlier_stats,
     "ssd_chunk_intra": _ssd.ssd_chunk_intra,
+    "ssd_chunk_intra_bwd": _ssd.ssd_chunk_intra_bwd,
     "matvec": _mv.matvec,
     "rmatvec": _mv.rmatvec,
     "matvec_batched": _mv.matvec_batched,
@@ -58,7 +59,8 @@ class KernelSet(NamedTuple):
     hooks: BatchedLanczosHooks
     lowrank_matmul: Callable      # (vt [..., k, H], w [H, N]) -> [..., k, N]
     outlier_stats: Callable       # (x [..., S, H], T) -> (counts, maxabs)
-    ssd_chunk_intra: Callable     # (cb, l, dt, x [G,Q,nh,hd]) -> y
+    ssd_chunk_intra: Callable     # (cb, l, dt, x [G,Q,nh,hd]) -> y,
+                                  # differentiable
 
 
 def _check_backend(backend: str) -> None:
@@ -94,11 +96,13 @@ def make_batched_hooks(expansion: int = _lr.DEFAULT_EXPANSION,
 def make_kernels(backend: str = "cuda",
                  expansion: int = _lr.DEFAULT_EXPANSION) -> KernelSet:
     """Every kernel of the activation path and of the Mamba2 scan for
-    ``backend``."""
+    ``backend``.  The ``"cuda"`` set's SSD term is the differentiable
+    ``SSDChunkIntra`` (forward and backward kernels on the card); the
+    ``"reference"`` set's is the plain version under autograd."""
     _check_backend(backend)
     hooks = make_batched_hooks(expansion, backend)
     if backend == "reference":
         return KernelSet(hooks, _lrmm.lowrank_matmul_plain,
                          _ol.outlier_stats_plain, _ssd.ssd_chunk_intra_plain)
     return KernelSet(hooks, _lrmm.lowrank_matmul, _ol.outlier_stats,
-                     _ssd.ssd_chunk_intra)
+                     _ssd.ssd_chunk_intra_diff)

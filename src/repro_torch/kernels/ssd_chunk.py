@@ -15,6 +15,12 @@ The wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain PyTorch version beside it; a CUDA tensor launches the kernel in
 ``csrc/ssd_chunk.cu`` or raises — there is no fallback.
 ``ssd_chunk_intra.launches`` counts its kernel launches.  The kernel's
+output has no autograd history, so a bare launch whose inputs require a
+gradient (under grad mode) raises: training goes through
+:class:`SSDChunkIntra`, whose backward is the hand-written kernel of
+``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_intra_bwd`, counted in
+``ssd_chunk_intra_bwd.launches``; its plain version
+:func:`ssd_chunk_intra_bwd_plain` beside it).  The kernel's
 work items are (chunk, pair of 64-row query tiles, block of heads, 64
 columns of hd); :func:`heads_per_item` picks the block of heads that
 shares one staging of cb.
@@ -44,6 +50,34 @@ def ssd_chunk_intra_plain(cb: torch.Tensor, l: torch.Tensor,
     return torch.einsum("gqsn,gsnd->gqnd", m, x.float())
 
 
+def ssd_chunk_intra_bwd_plain(cb: torch.Tensor, l: torch.Tensor,
+                              dt: torch.Tensor, x: torch.Tensor,
+                              dy: torch.Tensor):
+    """Plain backward of :func:`ssd_chunk_intra_plain` → (dcb, dl, ddt,
+    dx).  With E = exp(l_q − l_s) masked to s ≤ q (the exponent masked
+    to −inf, so it never overflows above the diagonal), M = cb·E·dt and
+    G[q, s, n] = Σ_d dy[q, n, d]·x[s, n, d]:
+
+    dx[s] = Σ_q M[q, s]·dy[q];   dcb[q, s] = Σ_n G·E·dt;
+    ddt[s] = Σ_q G·cb·E;         dl[q] = Σ_s (G∘M)[q, s] − Σ_q' (G∘M)[q', q].
+    """
+    q = cb.shape[-1]
+    tril = torch.tril(torch.ones(q, q, dtype=torch.bool,
+                                 device=cb.device))[None, :, :, None]
+    diff = l[:, :, None, :] - l[:, None, :, :]                 # [G,Q,Q,nh]
+    e = torch.exp(torch.where(tril, diff, torch.full_like(diff,
+                                                          float("-inf"))))
+    dtk = dt[:, None, :, :]                                    # keys' dt
+    m = cb[..., None] * e * dtk
+    g = torch.einsum("gqnd,gsnd->gqsn", dy.float(), x.float())
+    gm = g * m
+    dx = torch.einsum("gqsn,gqnd->gsnd", m, dy.float())
+    dcb = (g * e * dtk).sum(dim=-1)
+    ddt = (g * cb[..., None] * e).sum(dim=1)
+    dl = gm.sum(dim=2) - gm.sum(dim=1)
+    return dcb, dl, ddt, dx
+
+
 _BOUND = False
 
 
@@ -57,6 +91,22 @@ def _lib() -> ctypes.CDLL:
         lib.dcom_ssd_chunk_intra_f32.restype = i
         lib.dcom_ssd_cb_slots.restype = i
         _BOUND = True
+    return lib
+
+
+_BOUND_BWD = False
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    global _BOUND_BWD
+    lib = library("ssd_chunk_bwd")
+    if not _BOUND_BWD:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dcom_ssd_chunk_intra_bwd_f32.argtypes = [vp] * 10 + [i] * 5 \
+            + [vp]
+        lib.dcom_ssd_chunk_intra_bwd_f32.restype = i
+        lib.dcom_ssd_bwd_max_hd.restype = i
+        _BOUND_BWD = True
     return lib
 
 
@@ -99,6 +149,16 @@ def heads_for(g: int, q: int, nh: int, hd: int,
                           _lib().dcom_ssd_cb_slots())
 
 
+def heads_per_cta(g: int, nh: int, ctas: int) -> int:
+    """Heads one CTA of the backward takes: the largest of 8, 4, 2 that
+    still gives the grid (G × ⌈nh / heads⌉ CTAs) two CTAs an SM, else 1
+    (fewer heads a CTA: more CTAs, a larger dcb workspace)."""
+    for hb in (8, 4, 2):
+        if g * -(-nh // hb) >= 2 * ctas:
+            return hb
+    return 1
+
+
 def _check(cb, l, dt, x) -> None:
     ok = x.dim() == 4 and cb.dim() == 3 and l.dim() == 3
     if ok:
@@ -129,11 +189,20 @@ def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
 def ssd_chunk_intra(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """y [G, Q, nh, hd] = Σ_{s ≤ q} cb·exp(l_q − l_s)·dt_s·x_s per head,
-    float32."""
+    float32.  On the card the output has no gradient: with grad mode on
+    and an input that requires one, this raises (use
+    :func:`ssd_chunk_intra_diff`)."""
     if x.device.type == "cpu":
         return ssd_chunk_intra_plain(cb, l, dt, x)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_intra: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (cb, l, dt, x)):
+        raise RuntimeError(
+            "ssd_chunk_intra: the kernel's output carries no gradient, and "
+            "an input requires one; call ssd_chunk_intra_diff (the "
+            "SSDChunkIntra autograd Function, make_kernels('cuda')"
+            ".ssd_chunk_intra) instead")
     _check(cb, l, dt, x)
     g, q, nh, hd = x.shape
     if x.numel() == 0:
@@ -159,3 +228,74 @@ def ssd_chunk_intra(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
 
 
 ssd_chunk_intra.launches = 0
+
+
+def ssd_chunk_intra_bwd(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
+                        x: torch.Tensor, dy: torch.Tensor):
+    """Gradients (dcb [G, Q, Q], dl [G, Q, nh], ddt [G, Q, nh], dx [G, Q,
+    nh, hd]) of the intra-chunk term given dy [G, Q, nh, hd], float32: the
+    plain version for CPU tensors, the kernel of ``csrc/ssd_chunk_bwd.cu``
+    for CUDA tensors (or a raise).  dcb sums over the heads in a fixed
+    order (no atomics): reruns are bit-identical."""
+    if x.device.type == "cpu":
+        return ssd_chunk_intra_bwd_plain(cb, l, dt, x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_intra_bwd: unsupported device "
+                         f"{x.device}")
+    _check(cb, l, dt, x)
+    if dy.shape != x.shape or dy.dtype != torch.float32 \
+            or not dy.is_contiguous() or dy.device != x.device:
+        raise ValueError(f"ssd_chunk_intra_bwd: dy must be a contiguous "
+                         f"float32 tensor shaped like x {tuple(x.shape)}, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    g, q, nh, hd = x.shape
+    lib = _lib_bwd()
+    if hd > lib.dcom_ssd_bwd_max_hd():
+        raise ValueError(f"ssd_chunk_intra_bwd: hd {hd} > "
+                         f"{lib.dcom_ssd_bwd_max_hd()}")
+    dcb = torch.empty(g, q, q, device=x.device, dtype=torch.float32)
+    dl, ddt, dx = torch.empty_like(l), torch.empty_like(dt), \
+        torch.empty_like(x)
+    if x.numel() == 0:
+        return dcb.zero_(), dl.zero_(), ddt.zero_(), dx
+    hb = heads_per_cta(g, nh, sm_count(x.device.index))
+    work = torch.empty(g * -(-nh // hb) * q * q, device=x.device,
+                       dtype=torch.float32)
+    err = lib.dcom_ssd_chunk_intra_bwd_f32(
+        cb.data_ptr(), l.data_ptr(), dt.data_ptr(), x.data_ptr(),
+        dy.data_ptr(), dcb.data_ptr(), dl.data_ptr(), ddt.data_ptr(),
+        dx.data_ptr(), work.data_ptr(), g, q, nh, hd, hb,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_chunk_intra_bwd kernel launch failed "
+                           f"(error {err})")
+    ssd_chunk_intra_bwd.launches += 1
+    return dcb, dl, ddt, dx
+
+
+ssd_chunk_intra_bwd.launches = 0
+
+
+class SSDChunkIntra(torch.autograd.Function):
+    """The intra-chunk term with a gradient: the forward is
+    :func:`ssd_chunk_intra` (the CUDA kernel on the card), the backward
+    :func:`ssd_chunk_intra_bwd` (the backward kernel on the card; the
+    plain formulas on the host).  Saves cb, l, dt and x."""
+
+    @staticmethod
+    def forward(ctx, cb, l, dt, x):
+        ctx.save_for_backward(cb, l, dt, x)
+        return ssd_chunk_intra(cb, l, dt, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        cb, l, dt, x = ctx.saved_tensors
+        return ssd_chunk_intra_bwd(cb, l, dt, x, dy.contiguous())
+
+
+def ssd_chunk_intra_diff(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """:func:`ssd_chunk_intra` through :class:`SSDChunkIntra`: the
+    ``"cuda"`` kernel set's entry, differentiable on every device."""
+    return SSDChunkIntra.apply(cb, l, dt, x)

@@ -1,4 +1,4 @@
-"""Family-agnostic model entry points (the serving slice of them).
+"""Family-agnostic model entry points (serving and training).
 
 Counterpart of ``repro.models.api.ModelFns``/``model_fns``: the one place
 that maps a config's family to its functions.  Every family's functions
@@ -13,6 +13,11 @@ share one signature:
 * ``decode_step(params, cfg, token, cache, pos, live=None)`` → (logits
   [B, V], cache), updating the cache in place (a row whose ``live`` is
   False writes nothing);
+* ``loss_fn(params, cfg, batch, kernels=None)`` → the scalar training
+  loss of a batch dict (``tokens``, ``labels``, and the family's
+  ``batch_extras``), each block under ``layers.ckpt``; ``kernels`` is
+  the kernel set (``kernels.ops.make_kernels(backend)``) of the families
+  whose training path runs a port kernel (ssm, hybrid);
 * ``init_cache(cfg, batch, max_len, device=None)`` → the zero cache of
   ``batch`` slots; a leaf's slot axis is where :func:`cache_batch_axes`
   finds it (1 for dense, moe, ssm and audio; the hybrid's grouped Mamba2
@@ -31,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..sampling import MASK, fold_in, greedy_sampler, takes_key
+from ..tree import tree_map
 from . import encdec, hybrid, mamba2, moe, transformer, vlm
 
 
@@ -52,12 +58,13 @@ class ModelFns(NamedTuple):
     cfg): the tokens, plus the image embeddings (vlm) or the encoder
     frames (audio, first) made by ``make(shape, dtype)`` (zeros, for the
     serving engine's placeholders); ``batch_extras`` names a training
-    batch's extra members the same way (kept for the reference's table:
-    the port has no training path yet)."""
+    batch's extra members the same way (the image embeddings or frames
+    that ``loss_fn`` reads besides tokens and labels)."""
     init: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    loss_fn: Callable
     prefill_inputs: Callable = tokens_prefill_inputs
     batch_extras: Callable = no_batch_extras
 
@@ -124,17 +131,19 @@ def run_decode_block(step: Callable, max_block: int, tok: torch.Tensor,
 
 _FAMILY = {
     "dense": ModelFns(transformer.init, transformer.prefill,
-                      transformer.decode_step, transformer.init_cache),
+                      transformer.decode_step, transformer.init_cache,
+                      transformer.loss_fn),
     "ssm": ModelFns(mamba2.init, mamba2.prefill, mamba2.decode_step,
-                    mamba2.init_state),
-    "moe": ModelFns(moe.init, moe.prefill, moe.decode_step, moe.init_cache),
+                    mamba2.init_state, mamba2.loss_fn),
+    "moe": ModelFns(moe.init, moe.prefill, moe.decode_step, moe.init_cache,
+                    moe.loss_fn),
     "hybrid": ModelFns(hybrid.init, hybrid.prefill, hybrid.decode_step,
-                       hybrid.init_state),
+                       hybrid.init_state, hybrid.loss_fn),
     "vlm": ModelFns(vlm.init, vlm.prefill, vlm.decode_step, vlm.init_cache,
-                    vlm.prefill_inputs, vlm.batch_extras),
+                    vlm.loss_fn, vlm.prefill_inputs, vlm.batch_extras),
     "audio": ModelFns(encdec.init, encdec.prefill, encdec.decode_step,
-                      encdec.init_cache, encdec.prefill_inputs,
-                      encdec.batch_extras),
+                      encdec.init_cache, encdec.loss_fn,
+                      encdec.prefill_inputs, encdec.batch_extras),
 }
 
 
@@ -149,13 +158,6 @@ def model_fns(cfg) -> ModelFns:
 # ---------------------------------------------------------------------------
 # Cache splicing and the done-probe (admission support, every family)
 # ---------------------------------------------------------------------------
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same keys."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
 
 @functools.lru_cache(maxsize=None)
 def cache_batch_axes(cfg):

@@ -45,19 +45,62 @@ def init(cfg, generator: torch.Generator, device=None) -> Params:
             "lm_head": {"w": normal((d, cfg.padded_vocab), d ** -0.5)}}
 
 
-def encode(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+def enc_block(lp: Params, x: torch.Tensor, positions: torch.Tensor,
+              cfg) -> torch.Tensor:
+    """One encoder block: bidirectional self-attention, then the MLP."""
+    x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+                              cfg, positions, causal=False)[0]
+    return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                     cfg.activation)
+
+
+def encode(p: Params, cfg, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
     """frames [B, M, H] → encoder memory [B, M, H] (bidirectional
-    self-attention, then the encoder's final norm)."""
+    self-attention, then the encoder's final norm).  ``train``: each
+    block under :func:`layers.ckpt`, over one unbind of the stack."""
     b, m, _ = frames.shape
     positions = torch.arange(m, device=frames.device).expand(b, m)
     x = frames
-    for i in range(cfg.enc_layers):
-        lp = L.layer_params(p["enc"], i)
-        x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
-                                  cfg, positions, causal=False)[0]
-        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+    if train:
+        body = L.ckpt(enc_block, cfg)
+        for lp in L.unstack(p["enc"], cfg.enc_layers):
+            x = body(lp, x, positions, cfg)
+    else:
+        for i in range(cfg.enc_layers):
+            x = enc_block(L.layer_params(p["enc"], i), x, positions, cfg)
     return T.norm(p["enc_norm"], x, cfg)
+
+
+def dec_block(lp: Params, x: torch.Tensor, memory: torch.Tensor,
+              positions: torch.Tensor, cfg) -> torch.Tensor:
+    """One decoder block (the training form): causal self-attention,
+    cross-attention over K/V it projects from ``memory``, the MLP."""
+    x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
+                              cfg, positions)[0]
+    kv = L.memory_kv(lp["xattn"], memory, cfg.num_kv_heads)
+    x = x + L.cross_attention(lp["xattn"], T.norm(lp["xattn_norm"], x, cfg),
+                              kv, cfg)
+    return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
+                     cfg.activation)
+
+
+def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
+    """Cross-entropy of ``batch`` (``frames`` [B, M, H], ``tokens``,
+    ``labels``); every encoder and decoder block under
+    :func:`layers.ckpt`.  The frames are cast to the weights' dtype (see
+    ``vlm.loss_fn``).  ``kernels`` is unused."""
+    del kernels
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    memory = encode(p, cfg, batch["frames"].to(p["embed"]["w"].dtype),
+                    train=True)
+    x = p["embed"]["w"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = L.ckpt(dec_block, cfg)
+    for lp in L.unstack(p["dec"], cfg.dec_layers):
+        x = body(lp, x, memory, positions, cfg)
+    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
 
 
 def _decode_stack(p: Params, cfg, tokens, memory, cache):

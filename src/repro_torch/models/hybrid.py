@@ -89,6 +89,29 @@ def forward(p: Params, cfg, tokens: torch.Tensor,
     return T.logits_head(p, x, cfg)
 
 
+def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch``; every Mamba2 block and
+    every invocation of the shared block under :func:`layers.ckpt`, the
+    SSD term through ``kernels`` (see ``mamba2.loss_fn``)."""
+    kernels = kernels or make_kernels()
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    groups, mpg, tail = _layout(cfg)
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    mblock = L.ckpt(M.block, cfg)
+    ablock = L.ckpt(T.block, cfg)
+    for group in L.unstack2(p["mamba"], groups, mpg):
+        for lp in group:
+            x = mblock(lp, x, cfg, kernels)
+        x = ablock(p["shared"], x, positions, cfg)
+    if tail:
+        for lp in L.unstack(p["mamba_tail"], tail):
+            x = mblock(lp, x, cfg, kernels)
+    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------

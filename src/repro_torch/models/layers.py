@@ -9,9 +9,13 @@ the JAX code asks with ``preferred_element_type``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+import threading
+from typing import Any, Dict, List
 
 import torch
+
+from ..tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -51,6 +55,124 @@ def layer_params(layers: Params, i: int) -> Params:
     if isinstance(layers, dict):
         return {k: layer_params(v, i) for k, v in layers.items()}
     return layers[i]
+
+
+def unstack(layers: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a tree stacked on a leading axis, through ONE
+    ``torch.unbind`` per leaf.  For training: the backward of an unbind
+    stacks every layer's gradient into one tensor, where ``n`` separate
+    :func:`layer_params` views would each add a zero-filled copy of the
+    whole stacked leaf."""
+    if isinstance(layers, dict):
+        per = {k: unstack(v, n) for k, v in layers.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(layers, 0))
+
+
+def unstack2(layers: Params, groups: int, per: int) -> List[List[Params]]:
+    """:func:`unstack` of a tree stacked on two leading axes [groups,
+    per, …]: ``groups`` lists of ``per`` layers."""
+    flat = unstack(tree_map(
+        lambda t: t.reshape((groups * per,) + tuple(t.shape[2:])), layers),
+        groups * per)
+    return [flat[g * per:(g + 1) * per] for g in range(groups)]
+
+
+_SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.bmm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's "dots" policy: keep the outputs of the
+    matrix products (``mm``, ``bmm``, ``addmm``), recompute the rest —
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``'s
+    counterpart."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_WARMED: set = set()
+
+
+def _warm_checkpoint(device) -> None:
+    """Run ``torch.utils.checkpoint`` ("full" and "dots") once on a tiny
+    tensor of ``device`` in a thread of its own.  Its first call imports
+    and registers lazily (``torch._dynamo`` among others), and that
+    leaves garbage cycles holding the frames on the stack: on the
+    training thread they would keep the caller's tensors (a train step's
+    parameters and optimizer state) alive until the next garbage
+    collection.  On a fresh thread they hold nothing but this warm-up."""
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    failed = []
+
+    def run():
+        try:
+            a = torch.ones(2, 2, device=device, requires_grad=True)
+            dots = functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy)
+            for kw in ({}, {"context_fn": dots}):
+                out = checkpoint(lambda t: torch.relu(t @ t), a,
+                                 use_reentrant=False, **kw)
+                out.sum().backward()
+        except BaseException as e:           # raised on the caller's thread
+            failed.append(e)
+    t = threading.Thread(target=run, name="repro-ckpt-warmup")
+    t.start()
+    t.join()
+    if failed:
+        raise failed[0]
+
+
+def ckpt(fn, cfg):
+    """``fn`` under activation checkpointing as ``cfg.remat`` and
+    ``cfg.remat_policy`` ask (counterpart of the reference's ``ckpt``):
+    ``fn`` itself when remat is off; else each call goes through
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which
+    keeps the block's inputs and recomputes its forward in the backward
+    ("full"), or keeps the matmul outputs too ("dots": selective
+    checkpointing).  Non-tensor arguments (the config) pass through."""
+    if not cfg.remat:
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    if cfg.remat_policy == "full":
+        context_fn = None
+    elif cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"one of ('full', 'dots')")
+
+    @functools.wraps(fn)
+    def body(*args):
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None)
+        if dev not in _WARMED:
+            _warm_checkpoint(dev)
+            _WARMED.add(dev)
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return body
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 (counterpart of the
+    reference's ``cross_entropy``): logsumexp over the vocab, the label
+    logit picked by a masked sum (not a gather), positions whose label is
+    ``ignore_id`` masked out, the mean over the rest."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    iota = torch.arange(lg.shape[-1], device=lg.device)
+    ll = torch.where(iota == labels[..., None], lg,
+                     torch.zeros((), device=lg.device)).sum(dim=-1)
+    nll = lse - ll
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -240,6 +240,21 @@ def forward(p: Params, cfg, tokens: torch.Tensor,
     return T.logits_head(p, x, cfg)
 
 
+def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch``, each block under
+    :func:`layers.ckpt`; the intra-chunk term through ``kernels`` (the
+    ``"cuda"`` set: the differentiable ``SSDChunkIntra``, whose backward
+    is a kernel too; ``"reference"``: the plain version under
+    autograd)."""
+    kernels = kernels or make_kernels()
+    x = T.embed(p, cfg, batch["tokens"])
+    body = L.ckpt(block, cfg)
+    for lp in L.unstack(p["layers"], cfg.num_layers):
+        x = body(lp, x, cfg, kernels)
+    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+
+
 def init_state(cfg, batch: int, max_len: Optional[int] = None,
                device=None) -> Params:
     """Zero decode state of ``batch`` slots (no time axis: ``max_len`` is

@@ -210,6 +210,28 @@ def forward(p: Params, cfg, tokens: torch.Tensor
     return T.logits_head(p, x, cfg), aux
 
 
+def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
+    """Cross-entropy of ``batch`` plus the summed load-balancing aux loss
+    of the MoE blocks; every block under :func:`layers.ckpt`.
+    ``kernels`` is unused (no port kernel on this path)."""
+    del kernels
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
+    x = T.embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    if nd:
+        dense_body = L.ckpt(T.block, cfg)
+        for lp in L.unstack(p["dense_layers"], nd):
+            x = dense_body(lp, x, positions, cfg)
+    body = L.ckpt(moe_block, cfg)
+    aux = torch.zeros((), device=tokens.device)
+    for lp in L.unstack(p["layers"], nm):
+        x, a = body(lp, x, positions, cfg)
+        aux = aux + a
+    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"]) + aux
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------

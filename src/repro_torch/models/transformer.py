@@ -194,6 +194,22 @@ def forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return logits_head(p, x, cfg)
 
 
+def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` [B, S],
+    ``labels`` [B, S], −1 ignored), each block under :func:`layers.ckpt`
+    (the reference's ``loss_fn``).  ``kernels`` is unused: no kernel of
+    the port is on the dense training path."""
+    del kernels
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed(p, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = L.ckpt(block, cfg)
+    for lp in L.unstack(p["layers"], cfg.num_layers):
+        x = body(lp, x, positions, cfg)
+    return L.cross_entropy(logits_head(p, x, cfg), batch["labels"])
+
+
 def forward_layers(p: Params, cfg, tokens: torch.Tensor):
     """Run every block over ``tokens`` [B, S] → (final hidden [B, S, H],
     per-layer K list, per-layer V list)."""

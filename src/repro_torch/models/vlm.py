@@ -96,6 +96,37 @@ def forward(p: Params, cfg, tokens: torch.Tensor,
                          cfg)
 
 
+def _cross_from_embeds(cp: Params, x, image_embeds, cfg):
+    """A cross block that projects its own K/V from the image embeddings
+    (the reference's ``cross_block``: the training form)."""
+    kv = L.memory_kv(cp["xattn"], image_embeds, cfg.num_kv_heads)
+    return cross_block(cp, x, kv, cfg)
+
+
+def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
+    """Cross-entropy of ``batch`` (``tokens``, ``labels``,
+    ``image_embeds`` [B, n_img, H]); every self and cross block under
+    :func:`layers.ckpt`.  The embeddings are cast to the weights' dtype:
+    the reference promotes bf16 weights against float32 embeddings to
+    float32, and the port's matmuls take one dtype (the same values in
+    float32).  ``kernels`` is unused."""
+    del kernels
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    groups, spg = layout(cfg)
+    img = batch["image_embeds"].to(p["embed"]["w"].dtype)
+    x = p["embed"]["w"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    sblock = L.ckpt(T.block, cfg)
+    xblock = L.ckpt(_cross_from_embeds, cfg)
+    crosses = L.unstack(p["cross"], groups)
+    for g, group in enumerate(L.unstack2(p["self"], groups, spg)):
+        for lp in group:
+            x = sblock(lp, x, positions, cfg)
+        x = xblock(crosses[g], x, img, cfg)
+    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+
+
 def prefill_inputs(cfg, tokens, make, mem_len=None):
     """``ModelFns.prefill_inputs``: tokens plus the image-embedding block
     (``num_image_tokens`` rows, the cross cache's contract)."""

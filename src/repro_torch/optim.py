@@ -1,0 +1,219 @@
+"""Optimizers of the training path: AdamW, Adafactor, the cosine
+schedule and global-norm clipping.
+
+Counterpart of ``repro.optim``.  They work as functions on the nested
+dict trees of the port (the parameters, the gradients, the state), in
+the reference's arithmetic order, and keep the reference's state names
+and layout, so a checkpoint of either package restores in the other:
+AdamW ``{"m", "v", "step"}`` (float32 moments shaped like each
+parameter, an int32 step), Adafactor ``{"fac", "step"}`` with
+``fac/<param path>/vr|vc`` (factored row and column second moments) or
+``/v``.  The step and the learning rate stay on the parameters' device,
+so an update reads nothing back to the host.
+
+Unlike the reference's (JAX arrays are immutable), ``AdamW.update``
+updates the parameters, m and v IN PLACE, one slice of at most
+``CHUNK`` elements of a leaf at a time: the float32 temporaries of the
+update then stay small (a whole float32 copy of granite-3-2b's stacked
+``w_up`` [40, 2048, 8192] would be 2.7 GB, and the update makes several).
+Elementwise arithmetic is the same in slices as whole.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from .tree import leaves, named_leaves, rebuild, tree_map, unflatten_like
+
+Tree = Any
+
+#: elements of a leaf one slice of the in-place AdamW update takes
+CHUNK = 1 << 24
+
+
+# ---------------------------------------------------------------------------
+# Schedules
+# ---------------------------------------------------------------------------
+
+def cosine_schedule(base_lr: float, warmup: int, total: int
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """lr(step): linear warmup to ``base_lr`` over ``warmup`` steps, then a
+    cosine decay to 0 at ``total``; float32 on the step's device."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = 0.5 * base_lr * (1.0 + torch.cos(math.pi * t))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """Scale every gradient by min(1, max_norm / ‖g‖) in float32 and cast
+    back to the gradient's dtype → (clipped tree, ‖g‖); ‖g‖ sums the
+    leaves' Σ g² in sorted-key order, as the reference does."""
+    gn = torch.sqrt(sum((g.float() ** 2).sum() for g in leaves(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+def _row_slices(t: torch.Tensor):
+    """Slices along ``t``'s first axis of at most :data:`CHUNK` elements
+    (at least one row); the whole of a 0-d tensor."""
+    if t.dim() == 0:
+        yield ...
+        return
+    per_row = max(1, t[0].numel())
+    rows = max(1, CHUNK // per_row)
+    for r0 in range(0, t.shape[0], rows):
+        yield slice(r0, r0 + rows)
+
+
+def _check_tree(grads: Tree, params: Tree) -> None:
+    pn = [n for n, _ in named_leaves(params)]
+    gn = [n for n, _ in named_leaves(grads)]
+    if pn != gn:
+        raise ValueError(f"gradient tree does not match the parameters: "
+                         f"{sorted(set(pn) ^ set(gn))[:5]}")
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[torch.Tensor], torch.Tensor]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params: Tree) -> Dict[str, Tree]:
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa
+                                      device=p.device)
+        dev = leaves(params)[0].device
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(self, grads: Tree, state: Dict[str, Tree], params: Tree
+               ) -> Tuple[Tree, Dict[str, Tree]]:
+        """One step: the reference's arithmetic, leaf by leaf; params, m
+        and v are updated IN PLACE and returned with the new step."""
+        _check_tree(grads, params)
+        step = state["step"] + 1
+        lr = self.lr(step)
+        stepf = step.float()
+        b1c = 1.0 - self.b1 ** stepf
+        b2c = 1.0 - self.b2 ** stepf
+        b1, b2 = self.b1, self.b2
+        for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
+                              leaves(state["v"]), leaves(params)):
+            for sl in _row_slices(p):
+                g32 = g[sl].float()
+                ms, vs, ps = m[sl], v[sl], p[sl]
+                ms.mul_(b1).add_(g32 * (1 - b1))
+                vs.mul_(b2).add_((g32 * (1 - b2)) * g32)
+                u = (ms / b1c) / (torch.sqrt(vs / b2c) + self.eps)
+                p32 = ps.float()
+                u = u + self.weight_decay * p32
+                ps.copy_(p32 - lr * u)
+        return params, {"m": state["m"], "v": state["v"], "step": step}
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments; the 1T MoE's optimizer)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor:
+    lr: Callable[[torch.Tensor], torch.Tensor]
+    decay: float = 0.8          # beta2_t = 1 - step**-decay
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+
+    @staticmethod
+    def _factored(shape) -> bool:
+        return len(shape) >= 2
+
+    def init(self, params: Tree) -> Dict[str, Tree]:
+        def st(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,  # noqa
+                                          device=p.device)
+            if self._factored(p.shape):
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        dev = leaves(params)[0].device
+        return {"fac": tree_map(st, params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(self, grads: Tree, state: Dict[str, Tree], params: Tree
+               ) -> Tuple[Tree, Dict[str, Tree]]:
+        """One step in the reference's arithmetic → (new params, new
+        state); each leaf's update is whole (its RMS clip reads the whole
+        leaf)."""
+        _check_tree(grads, params)
+        step = state["step"] + 1
+        lr = self.lr(step)
+        beta2 = 1.0 - step.float() ** (-self.decay)
+
+        def upd(g, st, p):
+            g32 = g.float()
+            g2 = g32 * g32 + self.eps
+            if self._factored(p.shape):
+                vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(dim=-1)
+                vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
+                                        min=self.eps)
+                u = g32 / (torch.sqrt(rfac)[..., None]
+                           * torch.sqrt(vc)[..., None, :] + 1e-12)
+                new_st = {"vr": vr, "vc": vc}
+            else:
+                v = beta2 * st["v"] + (1 - beta2) * g2
+                u = g32 / (torch.sqrt(v) + 1e-12)
+                new_st = {"v": v}
+            rms_u = torch.sqrt((u * u).mean() + 1e-12)
+            u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
+            if self.weight_decay:
+                u = u + self.weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype), new_st
+
+        # the state's leaves per parameter: its {"vr", "vc"} or {"v"} dict
+        fac_of = dict(_param_states(state["fac"], params))
+        out = [upd(g, fac_of[name], p) for (name, p), g in
+               zip(named_leaves(params), leaves(grads))]
+        new_p = unflatten_like(params, [o[0] for o in out])
+        new_fac = _restack(params, [o[1] for o in out])
+        return new_p, {"fac": new_fac, "step": step}
+
+
+def _param_states(fac: Tree, params: Tree):
+    """(parameter name, its Adafactor state dict) for every parameter."""
+    for name, _ in named_leaves(params):
+        node = fac
+        for k in name.split("/"):
+            node = node[k]
+        yield name, node
+
+
+def _restack(params: Tree, per_param: list) -> Tree:
+    """The ``fac`` tree: ``params``' structure with each leaf replaced by
+    its state dict, in sorted-key order."""
+    names = [name for name, _ in named_leaves(params)]
+    return rebuild(params, dict(zip(names, per_param)))
+
+
+def make_optimizer(cfg, base_lr: float = 3e-4, warmup: int = 100,
+                   total: int = 10_000):
+    """``cfg.optimizer``'s optimizer (AdamW, or Adafactor for "adafactor")
+    on the cosine schedule."""
+    sched = cosine_schedule(base_lr, warmup, total)
+    if cfg.optimizer == "adafactor":
+        return Adafactor(lr=sched)
+    return AdamW(lr=sched)

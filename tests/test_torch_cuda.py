@@ -386,7 +386,8 @@ def test_decomposed_forward_routes_agree_on_card(cuda):
                               "dkv_attention_stats_paged": 0,
                               "lowrank_matmul": 2 * 5,
                               "outlier_stats": 4,
-                              "ssd_chunk_intra": 0, "matvec": 0,
+                              "ssd_chunk_intra": 0,
+                              "ssd_chunk_intra_bwd": 0, "matvec": 0,
                               "rmatvec": 0, "matvec_batched": 0,
                               "rmatvec_batched": 0}, counts
         else:
@@ -446,6 +447,132 @@ def test_ssd_chunk_call_is_one_launch(cuda):
     x = torch.randn(8, 64, 48, 64, generator=gen, device=cuda)
     names = _device_kernels(lambda: ssd.ssd_chunk_intra(cb, l, dt, x))
     assert len(names) == 1 and "ssd_chunk_intra_kernel" in names[0], names
+
+
+def _ssd_bwd_inputs(cuda, g, q, nh, hd, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cb = torch.randn(g, q, q, generator=gen, device=cuda) * 0.3
+    l = torch.cumsum(-torch.randn(g, q, nh, generator=gen,
+                                  device=cuda).abs() * 0.05, dim=1)
+    dt = torch.randn(g, q, nh, generator=gen, device=cuda).abs()
+    x = torch.randn(g, q, nh, hd, generator=gen, device=cuda)
+    dy = torch.randn(g, q, nh, hd, generator=gen, device=cuda)
+    return cb, l, dt, x, dy
+
+
+@pytest.mark.parametrize("g,q,nh,hd", [(8, 64, 48, 64), (6, 64, 48, 64),
+                                       (2, 64, 48, 64), (1, 304, 48, 64),
+                                       (32, 64, 48, 64), (3, 70, 5, 30),
+                                       (2, 128, 8, 32), (1, 200, 3, 128)])
+def test_ssd_chunk_bwd_kernel_matches_plain(cuda, g, q, nh, hd):
+    """The backward kernel of the intra-chunk term against its plain
+    version: chip_smoke.py phase 3's shapes (phase 8's four prefill
+    shapes and the training shape G 32 × Q 64, nh 48, hd 64), a ragged
+    Q 70 / hd 30 with nh 5, the reduced config's hd 32 over two query
+    tiles, hd 128 over four.  Tolerance: 1e-4 · max|grad| per output
+    (float32 sums in another order; chip_smoke.py's bound); reruns
+    bit-identical (dcb sums the heads without atomics); a steep decay,
+    whose exp overflows above the diagonal, stays finite."""
+    cb, l, dt, x, dy = _ssd_bwd_inputs(cuda, g, q, nh, hd, q + hd)
+    before = ssd.ssd_chunk_intra_bwd.launches
+    got = ssd.ssd_chunk_intra_bwd(cb, l, dt, x, dy)
+    assert ssd.ssd_chunk_intra_bwd.launches == before + 1
+    want = ssd.ssd_chunk_intra_bwd_plain(cb, l, dt, x, dy)
+    for name, a, b in zip(("dcb", "dl", "ddt", "dx"), got, want):
+        assert a.shape == b.shape, name
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
+    again = ssd.ssd_chunk_intra_bwd(cb, l, dt, x, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    steep = l * 800
+    got = ssd.ssd_chunk_intra_bwd(cb, steep, dt, x, dy)
+    want = ssd.ssd_chunk_intra_bwd_plain(cb, steep, dt, x, dy)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-30
+
+
+def test_ssd_bare_launch_with_grad_raises(cuda):
+    """A bare launch of the forward kernel whose inputs require a gradient
+    raises under grad mode (its output would carry none); under
+    ``no_grad`` it runs, and the differentiable entry gives the plain
+    version's gradients through the backward kernel."""
+    cb, l, dt, x, dy = _ssd_bwd_inputs(cuda, 4, 64, 6, 64, 0)
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="ssd_chunk_intra_diff"):
+        ssd.ssd_chunk_intra(cb, l, dt, xg)
+    with torch.no_grad():
+        ssd.ssd_chunk_intra(cb, l, dt, xg)
+    ins = [t.clone().requires_grad_() for t in (cb, l, dt, x)]
+    before = ssd.ssd_chunk_intra_bwd.launches
+    y = ops.make_kernels("cuda").ssd_chunk_intra(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    assert ssd.ssd_chunk_intra_bwd.launches == before + 1
+    ref = [t.clone().requires_grad_() for t in (cb, l, dt, x)]
+    want = torch.autograd.grad(ssd.ssd_chunk_intra_plain(*ref), ref, dy)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_mamba2_train_step_routes_agree_on_card(cuda):
+    """Three train steps of reduced float32 mamba2-780m (batch 2 × 128,
+    two chunks; AdamW at base_lr 1e-2, warmup 1) through the kernel route
+    and through ``backend="reference"`` from the same weights: each
+    step's loss within 1e-5 relative and the gradient norm within 1e-4
+    (the backward kernel sums in another order than autograd), each
+    step launching the forward kernel twice a layer (remat "full":
+    forward and recompute) and the backward once a layer; the reference
+    route launches nothing."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import to_device
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.tree import tree_map
+    cfg = get_arch("mamba2-780m").reduced().replace(
+        dtype="float32", remat=True, remat_policy="full")
+    p0 = steps.init_train_state(cfg, torch.Generator(device=cuda)
+                                .manual_seed(0), device=cuda)[0]
+    src = SyntheticLM(cfg, ShapeSpec("t", 128, 2, "train"), DataConfig())
+    runs = {}
+    for backend in ("cuda", "reference"):
+        p = tree_map(lambda t: t.clone(), p0)
+        opt = optim.make_optimizer(cfg, base_lr=1e-2, warmup=1)
+        step = steps.make_train_step(cfg, opt, backend=backend)
+        st = opt.init(p)
+        out = []
+        for i in range(3):
+            ops.reset_launch_counts()
+            p, st, m = step(p, st, to_device(src.batch_at(i), cuda))
+            out.append((m["loss"].item(), m["grad_norm"].item(),
+                        ops.launch_counts()))
+        runs[backend] = out
+    for (lk, gk, ck), (lr_, gr, cr) in zip(runs["cuda"], runs["reference"]):
+        assert abs(lk - lr_) <= 1e-5 * abs(lr_)
+        assert abs(gk - gr) <= 1e-4 * gr
+        assert ck["ssd_chunk_intra"] == 2 * cfg.num_layers
+        assert ck["ssd_chunk_intra_bwd"] == cfg.num_layers
+        assert sum(cr.values()) == 0
+
+
+def test_async_checkpoint_snapshots_cuda_tensors(cuda, tmp_path):
+    """An async save of CUDA tensors, then an in-place update of them:
+    the checkpoint holds the values from before the update (bf16 bits
+    too)."""
+    from repro_torch import checkpoint as ckpt
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(256, 512, generator=gen, device=cuda),
+            "b": torch.randn(64, generator=gen, device=cuda).bfloat16(),
+            "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    before = {k: v.clone() for k, v in tree.items()}
+    saver = ckpt.AsyncCheckpointer(str(tmp_path), keep=1)
+    saver.save(tree, 0)
+    for v in tree.values():
+        v.add_(1)
+    saver.wait()
+    back = ckpt.restore(before, str(tmp_path))
+    for k, v in before.items():
+        assert back[k].device == v.device and torch.equal(back[k], v), k
 
 
 def test_mamba2_engine_on_card(cuda):

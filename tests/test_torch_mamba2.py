@@ -156,10 +156,14 @@ def test_ssd_kernel_takes_blocks_of_heads_where_they_pay(g, q, want):
 
 
 def test_kernel_sets_route_the_ssd_term():
-    """``KernelSet.ssd_chunk_intra``: the counted wrapper under "cuda",
-    the plain version under "reference"."""
+    """``KernelSet.ssd_chunk_intra``: under "cuda" the differentiable
+    entry (``SSDChunkIntra``, whose forward is the counted wrapper and
+    whose backward is the counted backward wrapper), the plain version
+    under "reference"."""
     assert ops.make_kernels("cuda").ssd_chunk_intra is \
-        ops.KERNELS["ssd_chunk_intra"]
+        ssd.ssd_chunk_intra_diff
+    assert ops.KERNELS["ssd_chunk_intra"] is ssd.ssd_chunk_intra
+    assert ops.KERNELS["ssd_chunk_intra_bwd"] is ssd.ssd_chunk_intra_bwd
     assert ops.make_kernels("reference").ssd_chunk_intra is \
         ssd.ssd_chunk_intra_plain
 
