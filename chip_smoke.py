@@ -4,9 +4,9 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --profile    # also profile serving (single-
                                        # step and fused), one decomposed
-                                       # forward, the shared-prefix run
-                                       # and Mamba2, hybrid and MoE
-                                       # serving
+                                       # forward, the shared-prefix run,
+                                       # Mamba2, hybrid and MoE serving
+                                       # and one mamba2-780m train step
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -214,7 +214,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every 2, a failure at step 3, the losses after the restart equal to
    an uninterrupted run's within 1e-6 relative (bit equality printed),
    the bytes written printed, in a temporary directory.  The card then
-   holds < 0.5 GiB.
+   holds < 0.5 GiB.  With ``--profile``, (b) then runs one more
+   kernel-route step under the profiler (``profile:`` lines: busy share,
+   the port's kernels, the top device kernels).
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -236,7 +238,7 @@ bit-identical; times L2-flushed and warm beside the library call's),
 and the SSD term's backward kernel (``ssd_chunk_intra_bwd``) against its
 plain version at phase 17's training shape (G 32 × Q 64) and at phase
 8's four (each of dcb, dl, ddt, dx within 1e-4 of its largest entry;
-reruns bit-identical; warm and L2-cold).  Phase 5 also serves reduced float32
+reruns bit-identical; warm and L2-cold; the heads a work item takes).  Phase 5 also serves reduced float32
 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
 request's solo tokens and the ``backend="reference"`` route's tokens.
 The line before the last is
@@ -690,6 +692,16 @@ def ssd_case(g: int, q: int, nh: int, hd: int, gen, per_run=None):
                           "bit-identical")
 
 
+def bwd_heads(sc, g: int, q: int, nh: int, hd: int) -> int:
+    """Heads one work item of the backward kernel takes at this shape
+    (a checkout before the plan: its heads per CTA)."""
+    import torch
+    if hasattr(sc, "bwd_plan"):
+        return sc.bwd_plan(g, q, nh, sc.bwd_ctas(0, hd)).hb
+    return sc.heads_per_cta(g, nh, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+
+
 def ssd_bwd_case(g: int, q: int, nh: int, hd: int, gen, per_step=None):
     """The backward kernel of the intra-chunk SSD term against its plain
     version (``ssd_chunk_intra_bwd_plain``) at one shape: the forward's
@@ -735,9 +747,7 @@ def ssd_bwd_case(g: int, q: int, nh: int, hd: int, gen, per_step=None):
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, ms_l2_cold=ms_cold,
                 shape=dict(G=g, Q=q, nh=nh, hd=hd),
-                heads_per_cta=sc.heads_per_cta(g, nh, torch.cuda
-                                               .get_device_properties(0)
-                                               .multi_processor_count),
+                heads_per_item=bwd_heads(sc, g, q, nh, hd),
                 launches_per_step=per_step,
                 tolerance="max|grad_kernel - grad_plain| <= 1e-4 "
                           "max|grad_plain| for each of dcb, dl, ddt, dx "
@@ -915,7 +925,9 @@ def phase_kernels(cfg):
 # Phase 4: serving llama2-7b at full width
 # ---------------------------------------------------------------------------
 
-#: the device functions of src/repro_torch/kernels/csrc/*.cu
+#: the device functions of src/repro_torch/kernels/csrc/*.cu, and the
+#: second backward kernel of checkouts before the SSD backward's redesign
+#: (a profile of such a checkout counts it)
 PORT_KERNELS = ("reorth_right_kernel", "reorth_left_kernel",
                 "dkv_stats_kernel", "lrmm_kernel", "outlier_stats_kernel",
                 "ssd_chunk_intra_kernel", "ssd_chunk_intra_bwd_kernel",
@@ -3102,11 +3114,12 @@ def train_granite() -> None:
                              f"or a non-finite round trip")
 
 
-def train_mamba2() -> dict:
+def train_mamba2(profile: bool = False) -> dict:
     """(b) mamba2-780m at full width and depth: the same traffic through
     the CUDA kernels and through backend="reference" from the same
     weights, step by step in turns.  Returns the kernel route's launch
-    counts over its 5 steps."""
+    counts over its 5 steps.  ``profile``: afterwards, one more
+    kernel-route step (batch 0 again) under the profiler."""
     import torch
     from repro_torch import optim
     from repro_torch.configs import get_arch
@@ -3166,6 +3179,16 @@ def train_mamba2() -> dict:
     if not rel_n <= TRAIN_LOSS_TOL or total["ssd_chunk_intra_bwd"] <= 0:
         raise AssertionError(f"train (b): step-0 grad_norm rel {rel_n:.2e} "
                              f"or no backward launch ({total})")
+    if profile:
+        k = runs["cuda"]
+        batch = _train_batches(cfg, 1)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiled(True, f"profile: {cfg.name} train step (kernel "
+                            f"route, after {TRAIN_STEPS} steps)"):
+            k["p"], k["st"], _ = k["step"](k["p"], k["st"], batch)
+        print(f"profile: the profiled step took "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
     return total
 
 
@@ -3211,11 +3234,12 @@ def train_restart() -> None:
                              f"{plain[2:]} (rel {rel:.2e})")
 
 
-def phase_train() -> dict:
-    """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts."""
+def phase_train(profile: bool = False) -> dict:
+    """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts.
+    ``profile``: also profile one kernel-route step of (b)."""
     train_granite()
     check_freed(TRAIN_ARCH)
-    counts = train_mamba2()
+    counts = train_mamba2(profile)
     check_freed(MAMBA_ARCH)
     train_restart()
     check_freed("train")
@@ -3245,10 +3269,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="profile the serving run, one decomposed "
-                         "forward, the shared-prefix paged run and the "
-                         "Mamba2, hybrid and MoE serving runs, and print "
-                         "each one's device busy share and kernel time "
-                         "table")
+                         "forward, the shared-prefix paged run, the "
+                         "Mamba2, hybrid and MoE serving runs and one "
+                         "mamba2-780m train step, and print each one's "
+                         "device busy share and kernel time table")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (a partial run, "
                          f"for development; prints no result): {PHASES}")
@@ -3372,7 +3396,7 @@ def main() -> int:
                       flush=True)
     if "train" in only:
         with phase("train"):
-            train = phase_train()
+            train = phase_train(args.profile)
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

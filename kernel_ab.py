@@ -6,6 +6,7 @@
     python3 kernel_ab.py .ab/base . --out ab.json
     python3 kernel_ab.py .ab/base . --only ssd_chunk_intra,outlier_stats \
         --repeat 3                                 # base, new, new, base x3
+    python3 kernel_ab.py .ab/base . --only ssd_chunk_intra_bwd --repeat 3
 
 Each checkout is measured in its own process, in turns (base, new, new,
 base), so both run on the same card within one run.  A process puts
@@ -25,7 +26,9 @@ t_valid 512/384/304/128; 16-row pages), and ``matvec_case`` for
 ``matvec`` and ``rmatvec`` at A [4096, 4096] float32 (L2 flushed per
 call) and ``matvec_batched`` and ``rmatvec_batched`` at [64, 4096,
 4096] bf16, all at f = 8, ``ssd_case`` at phase 8's four prefill shapes
-(G 8, 6, 2 at Q 64 and G 1 at Q 304; nh 48, hd 64) and
+(G 8, 6, 2 at Q 64 and G 1 at Q 304; nh 48, hd 64), ``ssd_bwd_case``
+for its backward at phase 17's training shape (G 32 × Q 64) and the
+same four, and
 ``outlier_stats_case`` at phase 6's X [1, 4096, 4096] in bf16 and float32
 (a checkout whose kernel refuses bf16 reports the refusal instead; its
 path fed the kernel the float32 copy).  Each case holds the kernel
@@ -63,6 +66,11 @@ CASES = (("reorth_right", REORTH["scalar"]),
          ("ssd_chunk_intra", (6, 64, 48, 64)),
          ("ssd_chunk_intra", (2, 64, 48, 64)),
          ("ssd_chunk_intra", (1, 304, 48, 64)),
+         ("ssd_chunk_intra_bwd", (32, 64, 48, 64)),
+         ("ssd_chunk_intra_bwd", (8, 64, 48, 64)),
+         ("ssd_chunk_intra_bwd", (6, 64, 48, 64)),
+         ("ssd_chunk_intra_bwd", (2, 64, 48, 64)),
+         ("ssd_chunk_intra_bwd", (1, 304, 48, 64)),
          ("outlier_stats", (4096, 4096, "bfloat16")),
          ("outlier_stats", (4096, 4096, "float32")))
 
@@ -116,6 +124,8 @@ def child(root: Path, cases: Path, only=None) -> dict:
                                        gen)
         elif name == "ssd_chunk_intra":
             rec = smoke.ssd_case(*shape, gen)
+        elif name == "ssd_chunk_intra_bwd":
+            rec = smoke.ssd_bwd_case(*shape, gen)
         elif name == "outlier_stats":
             s, h, dt = shape
             try:
@@ -128,7 +138,7 @@ def child(root: Path, cases: Path, only=None) -> dict:
         rows.append({k: v for k, v in rec.items()
                      if k in ("name", "max_abs_err", "bound_ms", "expansion",
                               "cluster", "resident_clusters", "refused",
-                              "heads_per_item")
+                              "heads_per_item", "max_abs_err_by_output")
                      or k.endswith("ms") or "ms_" in k})
         rows[-1]["shape"] = list(shape)
         torch.cuda.empty_cache()

@@ -20,16 +20,19 @@ gradient (under grad mode) raises: training goes through
 :class:`SSDChunkIntra`, whose backward is the hand-written kernel of
 ``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_intra_bwd`, counted in
 ``ssd_chunk_intra_bwd.launches``; its plain version
-:func:`ssd_chunk_intra_bwd_plain` beside it).  The kernel's
+:func:`ssd_chunk_intra_bwd_plain` beside it).  The forward kernel's
 work items are (chunk, pair of 64-row query tiles, block of heads, 64
 columns of hd); :func:`heads_per_item` picks the block of heads that
-shares one staging of cb.
+shares one staging of cb.  The backward kernel's items are (key tile,
+chunk, block of heads) in the order of :func:`bwd_items`;
+:func:`bwd_plan` picks the block and sizes the scratch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import heapq
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -102,10 +105,12 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = library("ssd_chunk_bwd")
     if not _BOUND_BWD:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcom_ssd_chunk_intra_bwd_f32.argtypes = [vp] * 10 + [i] * 5 \
-            + [vp]
+        lib.dcom_ssd_chunk_intra_bwd_f32.argtypes = [vp] * 11 + [i] * 7 \
+            + [vp, i, vp]
         lib.dcom_ssd_chunk_intra_bwd_f32.restype = i
         lib.dcom_ssd_bwd_max_hd.restype = i
+        lib.dcom_ssd_bwd_ctas_per_sm.argtypes = [i]
+        lib.dcom_ssd_bwd_ctas_per_sm.restype = i
         _BOUND_BWD = True
     return lib
 
@@ -149,14 +154,86 @@ def heads_for(g: int, q: int, nh: int, hd: int,
                           _lib().dcom_ssd_cb_slots())
 
 
-def heads_per_cta(g: int, nh: int, ctas: int) -> int:
-    """Heads one CTA of the backward takes: the largest of 8, 4, 2 that
-    still gives the grid (G × ⌈nh / heads⌉ CTAs) two CTAs an SM, else 1
-    (fewer heads a CTA: more CTAs, a larger dcb workspace)."""
-    for hb in (8, 4, 2):
-        if g * -(-nh // hb) >= 2 * ctas:
-            return hb
-    return 1
+def bwd_items(g: int, q: int, nh: int,
+              hb: int) -> List[Tuple[int, int, int, int]]:
+    """The backward kernel's items in the order its CTAs take them (the
+    first by CTA index, the rest from a ticket): (key tile j, chunk, first
+    head, heads) with key tile 0 first (it meets every query tile: the
+    heaviest), then per key tile each chunk's full blocks of ``hb`` heads
+    and then every chunk's remainder block.  An item walks query tiles j
+    .. ⌈q / 64⌉ − 1 for each of its heads."""
+    nt = -(-q // TILE)
+    full, rem = divmod(nh, hb)
+    out = []
+    for j in range(nt):
+        out += [(j, c, b * hb, hb) for c in range(g) for b in range(full)]
+        out += [(j, c, full * hb, rem) for c in range(g) if rem]
+    return out
+
+
+def _span(weights, ctas: int) -> int:
+    """When the last of ``weights`` (in ticket order) ends on ``ctas``
+    CTAs, each taking the next item as it frees up."""
+    free = [0] * min(ctas, len(weights))
+    heapq.heapify(free)
+    for w in weights:
+        heapq.heappush(free, heapq.heappop(free) + w)
+    return max(free)
+
+
+class BwdPlan(NamedTuple):
+    hb: int           # heads an item takes
+    items: int
+    dcb_work: int     # floats of per-block dcb partials
+    dl_work: int      # floats of per-item dl partials (0: one query tile)
+    tickets: int      # counters: item ticket, exits, tiles, chunks
+
+
+#: the time one CTA takes to add one block's dcb partial of a tile, in
+#: units of one (head, tile pair) stage (ssd_timeline.py's backward
+#: lines on the H100: ~0.46 µs a partial, ~4 µs a stage)
+BWD_PARTIAL_COST = 0.12
+
+
+def bwd_cost(g: int, q: int, nh: int, hb: int, ctas: int) -> float:
+    """The backward's modelled time with blocks of ``hb`` heads, in
+    stages: the greedy schedule of :func:`bwd_items` (tile pairs × heads)
+    plus the combines of the blocks' dcb partials that can fall on the
+    heaviest items' CTAs (one a query tile: the last CTA to finish a
+    tile adds its partials, and a CTA late for one tile is late for the
+    next)."""
+    nt = -(-q // TILE)
+    span = _span([(nt - j) * h for j, _, _, h in bwd_items(g, q, nh, hb)],
+                 ctas)
+    return span + BWD_PARTIAL_COST * -(-nh // hb) * nt
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(g: int, q: int, nh: int, ctas: int) -> BwdPlan:
+    """The backward kernel's launch on ``ctas`` resident CTAs: the block
+    of heads of least :func:`bwd_cost` (the larger block on a tie), its
+    items, scratch and ticket counters."""
+    best, hb = None, 1
+    for cand in range(1, min(nh, 16) + 1):
+        cost = bwd_cost(g, q, nh, cand, ctas)
+        if best is None or cost <= best:
+            best, hb = cost, cand
+    nt, nhb = -(-q // TILE), -(-nh // hb)
+    return BwdPlan(hb=hb, items=nt * g * nhb,
+                   dcb_work=g * nt * nt * nhb * TILE * TILE,
+                   dl_work=g * nh * nt * q if nt > 1 else 0,
+                   tickets=2 + g * nt * nt + g)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_ctas(device_index: int, hd: int) -> int:
+    """Resident CTAs of the backward kernel on the device (SMs × CTAs an
+    SM holds at head width ``hd``)."""
+    per_sm = _lib_bwd().dcom_ssd_bwd_ctas_per_sm(hd)
+    if per_sm < 1:
+        raise RuntimeError(f"ssd_chunk_intra_bwd: the kernel does not fit "
+                           f"an SM at hd {hd}")
+    return per_sm * sm_count(device_index)
 
 
 def _check(cb, l, dt, x) -> None:
@@ -235,8 +312,8 @@ def ssd_chunk_intra_bwd(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
     """Gradients (dcb [G, Q, Q], dl [G, Q, nh], ddt [G, Q, nh], dx [G, Q,
     nh, hd]) of the intra-chunk term given dy [G, Q, nh, hd], float32: the
     plain version for CPU tensors, the kernel of ``csrc/ssd_chunk_bwd.cu``
-    for CUDA tensors (or a raise).  dcb sums over the heads in a fixed
-    order (no atomics): reruns are bit-identical."""
+    for CUDA tensors (or a raise), one launch.  dcb sums over the heads in
+    a fixed order (no float atomics): reruns are bit-identical."""
     if x.device.type == "cpu":
         return ssd_chunk_intra_bwd_plain(cb, l, dt, x, dy)
     if x.device.type != "cuda":
@@ -258,14 +335,24 @@ def ssd_chunk_intra_bwd(cb: torch.Tensor, l: torch.Tensor, dt: torch.Tensor,
         torch.empty_like(x)
     if x.numel() == 0:
         return dcb.zero_(), dl.zero_(), ddt.zero_(), dx
-    hb = heads_per_cta(g, nh, sm_count(x.device.index))
-    work = torch.empty(g * -(-nh // hb) * q * q, device=x.device,
-                       dtype=torch.float32)
+    # TMA rows must be whole 16-byte units at 16-byte aligned addresses:
+    # odd widths and unaligned views (dy from autograd may be one) are
+    # padded or copied here; dx is written at its own width
+    qp, hdp = -(-q // 4) * 4, -(-hd // 4) * 4
+    cbk = cb if qp == q and cb.data_ptr() % 16 == 0 else _pad_last(cb, qp)
+    xk, dyk = (t if hdp == hd and t.data_ptr() % 16 == 0
+               else _pad_last(t, hdp) for t in (x, dy))
+    ctas = bwd_ctas(x.device.index, hd)
+    plan = bwd_plan(g, q, nh, ctas)
+    dcbw = torch.empty(plan.dcb_work, device=x.device, dtype=torch.float32)
+    dlw = torch.empty(max(plan.dl_work, 1), device=x.device,
+                      dtype=torch.float32)
     err = lib.dcom_ssd_chunk_intra_bwd_f32(
-        cb.data_ptr(), l.data_ptr(), dt.data_ptr(), x.data_ptr(),
-        dy.data_ptr(), dcb.data_ptr(), dl.data_ptr(), ddt.data_ptr(),
-        dx.data_ptr(), work.data_ptr(), g, q, nh, hd, hb,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cbk.data_ptr(), l.data_ptr(), dt.data_ptr(), xk.data_ptr(),
+        dyk.data_ptr(), dcb.data_ptr(), dl.data_ptr(), ddt.data_ptr(),
+        dx.data_ptr(), dcbw.data_ptr(), dlw.data_ptr(), g, q, nh, hdp, hd,
+        qp, plan.hb, tickets(x.device, plan.tickets, "ssd_bwd").data_ptr(),
+        ctas, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_chunk_intra_bwd kernel launch failed "
                            f"(error {err})")

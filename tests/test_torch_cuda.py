@@ -492,6 +492,103 @@ def test_ssd_chunk_bwd_kernel_matches_plain(cuda, g, q, nh, hd):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-30
 
 
+def _assert_bwd_matches(got, cb, l, dt, x, dy):
+    want = ssd.ssd_chunk_intra_bwd_plain(cb, l, dt, x, dy)
+    for name, a, b in zip(("dcb", "dl", "ddt", "dx"), got, want):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
+
+
+def _bwd_g_with_remainder(cuda, q, nh):
+    """A G whose plan on this card, at Q ``q``, takes blocks of heads that
+    do not divide ``nh`` (a remainder block per chunk)."""
+    ctas = ssd.bwd_ctas(cuda.index or 0, 64)
+    for g in (64, 48, 40, 96, 128, 1, 2):
+        if nh % ssd.bwd_plan(g, q, nh, ctas).hb:
+            return g
+    raise AssertionError(f"no G gives a remainder block at Q {q}, nh {nh} "
+                         f"on {ctas} CTAs")
+
+
+@pytest.mark.parametrize("case", ["nh7_remainder", "nh1", "g1_q64",
+                                  "g1_q128_nh1", "q304_nh47_remainder"])
+def test_ssd_chunk_bwd_schedule_edges(cuda, case):
+    """The backward's schedule at its edges against the plain version
+    (1e-4 · max|grad| per output), reruns bit-identical: nh 7 at a G
+    whose plan takes blocks of heads with a remainder block, nh 1 (one
+    item per chunk), G 1 × Q 64 (a grid far smaller than the SM count),
+    nh 1 over two query tiles (one CTA's items hold every dl and dcb
+    partial of the chunk), and nh 47 over five query tiles, whose plan
+    takes blocks of heads with a remainder."""
+    g, q, nh = {"nh7_remainder": (None, 64, 7), "nh1": (16, 64, 1),
+                "g1_q64": (1, 64, 48), "g1_q128_nh1": (1, 128, 1),
+                "q304_nh47_remainder": (None, 304, 47)}[case]
+    if g is None:
+        g = _bwd_g_with_remainder(cuda, q, nh)
+    ins = _ssd_bwd_inputs(cuda, g, q, nh, 64, g + nh)
+    before = ssd.ssd_chunk_intra_bwd.launches
+    got = ssd.ssd_chunk_intra_bwd(*ins)
+    assert ssd.ssd_chunk_intra_bwd.launches == before + 1
+    _assert_bwd_matches(got, *ins)
+    again = ssd.ssd_chunk_intra_bwd(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_chunk_bwd_unaligned_dy(cuda):
+    """dy as autograd may hand it over: a contiguous view whose address is
+    not 16-byte aligned (copied to an aligned buffer for TMA)."""
+    cb, l, dt, x, dy = _ssd_bwd_inputs(cuda, 8, 64, 48, 64, 3)
+    flat = torch.empty(dy.numel() + 1, device=cuda)
+    dyu = flat[1:].view_as(dy)
+    dyu.copy_(dy)
+    assert dyu.is_contiguous() and dyu.data_ptr() % 16 != 0
+    got = ssd.ssd_chunk_intra_bwd(cb, l, dt, x, dyu)
+    _assert_bwd_matches(got, cb, l, dt, x, dy)
+    want = ssd.ssd_chunk_intra_bwd(cb, l, dt, x, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ssd_chunk_bwd_tickets_reset_between_shapes(cuda):
+    """Two shapes back to back and then the first again, bit-equal to its
+    first call: every ticket (items, CTA exits, tiles, chunks) is reset
+    by the launch that used it."""
+    a = _ssd_bwd_inputs(cuda, 32, 64, 48, 64, 1)
+    b = _ssd_bwd_inputs(cuda, 1, 304, 48, 64, 2)
+    first = ssd.ssd_chunk_intra_bwd(*a)
+    other = ssd.ssd_chunk_intra_bwd(*b)
+    again = ssd.ssd_chunk_intra_bwd(*a)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _assert_bwd_matches(other, *b)
+
+
+def test_ssd_chunk_bwd_on_second_stream(cuda):
+    """A call on a second CUDA stream (its own ticket counters) gives the
+    default stream's result bit for bit."""
+    ins = _ssd_bwd_inputs(cuda, 8, 64, 48, 64, 4)
+    want = ssd.ssd_chunk_intra_bwd(*ins)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = ssd.ssd_chunk_intra_bwd(*ins)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ssd_chunk_bwd_call_is_one_launch(cuda):
+    """One call at the training shape (G 32 × Q 64, nh 48, hd 64) and at
+    G 1 × Q 304 is one device kernel: dcb and dl are combined in the same
+    launch."""
+    for g, q in ((32, 64), (1, 304)):
+        ins = _ssd_bwd_inputs(cuda, g, q, 48, 64, 5)
+        names = _device_kernels(lambda: ssd.ssd_chunk_intra_bwd(*ins))
+        assert len(names) == 1 and "ssd_chunk_intra_bwd_kernel" in names[0], \
+            names
+
+
 def test_ssd_bare_launch_with_grad_raises(cuda):
     """A bare launch of the forward kernel whose inputs require a gradient
     raises under grad mode (its output would carry none); under

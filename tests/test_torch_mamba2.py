@@ -155,6 +155,52 @@ def test_ssd_kernel_takes_blocks_of_heads_where_they_pay(g, q, want):
     assert ssd.heads_per_item(8, 128, 48, 64, 132, cb_slots=4) >= 1
 
 
+@pytest.mark.parametrize("g,q,nh,ctas", [
+    (32, 64, 48, 132), (8, 64, 48, 132), (2, 64, 48, 132),
+    (1, 304, 48, 132), (64, 64, 7, 132), (16, 64, 1, 132), (1, 64, 48, 132),
+    (3, 70, 5, 132), (1, 200, 3, 264), (32, 64, 48, 264)])
+def test_ssd_bwd_plan_covers_each_tile_once_heaviest_first(g, q, nh, ctas):
+    """The backward kernel's host plan: its items (in the order the CTAs
+    take them) cover every (chunk, head, query tile i, key tile j ≤ i)
+    exactly once, the heaviest (tile pairs × heads) first; the chosen block costs
+    no more than any other (greedy schedule plus the last tile's
+    combine); the scratch and ticket counts follow from it."""
+    plan = ssd.bwd_plan(g, q, nh, ctas)
+    nt = -(-q // 64)
+    items = ssd.bwd_items(g, q, nh, plan.hb)
+    assert len(items) == plan.items
+    seen = {}
+    for j, c, n0, hc in items:
+        assert 1 <= hc <= plan.hb and n0 + hc <= nh
+        for n in range(n0, n0 + hc):
+            for i in range(j, nt):
+                seen[(c, n, i, j)] = seen.get((c, n, i, j), 0) + 1
+    want = {(c, n, i, j) for c in range(g) for n in range(nh)
+            for i in range(nt) for j in range(i + 1)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    weights = [(nt - j) * hc for j, _, _, hc in items]
+    assert weights == sorted(weights, reverse=True)
+    costs = {hb: ssd.bwd_cost(g, q, nh, hb, ctas)
+             for hb in range(1, min(nh, 16) + 1)}
+    assert costs[plan.hb] == min(costs.values())
+    nhb = -(-nh // plan.hb)
+    assert plan.dcb_work == g * nt * nt * nhb * 64 * 64
+    assert plan.dl_work == (g * nh * nt * q if nt > 1 else 0)
+    assert plan.tickets == 2 + g * nt * nt + g
+
+
+def test_ssd_bwd_plan_at_the_training_shape():
+    """mamba2-780m's train step (G 32 × Q 64, nh 48) on the H100's 132
+    SMs, one CTA each: blocks of 12 heads, 128 items in one wave (12
+    heads a CTA, the least any split gives), 4 dcb partials a chunk; a
+    long chunk (G 1 × Q 304) takes blocks of 2 heads, halving the
+    partials each of its 25 tiles adds."""
+    plan = ssd.bwd_plan(32, 64, 48, 132)
+    assert (plan.hb, plan.items) == (12, 128)
+    assert plan.dcb_work == 32 * 4 * 64 * 64
+    assert ssd.bwd_plan(1, 304, 48, 132).hb == 2
+
+
 def test_kernel_sets_route_the_ssd_term():
     """``KernelSet.ssd_chunk_intra``: under "cuda" the differentiable
     entry (``SSDChunkIntra``, whose forward is the counted wrapper and
