@@ -217,6 +217,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    holds < 0.5 GiB.  With ``--profile``, (b) then runs one more
    kernel-route step under the profiler (``profile:`` lines: busy share,
    the port's kernels, the top device kernels).
+18. the "data" axis of distribution (``--only mesh``), at world 1 on a
+   real one-rank NCCL group (``launch.mesh.make_host_mesh(1, 1)``): (a)
+   after phase 16, on the llama2-7b weights already loaded, phase 4's
+   traffic (32 new tokens) through ``EngineConfig(mesh=...)`` beside the
+   same engine without a mesh, in turns (no mesh, mesh, mesh, no mesh
+   for single-step; no mesh, mesh for the fused block of 8 and for
+   paged serving): the mesh run's tokens equal the no-mesh run's, its
+   launch counts (re-orth pair and dkv) equal, every page back, the
+   per-step token all-gather counted, decode tok/s of both printed; (b)
+   ``decompose_kv`` at [32, 512, 4096] float32 (rank 64) on the mesh
+   bit-equal to the no-mesh call, both timed; (c) after phase 17,
+   ``mamba2-780m`` at depth 2 and full width: 3 data-parallel train
+   steps (``make_train_step(mesh=)``) with PowerSGD (rank 4) through its
+   NCCL all-reduces against the same 3 steps without a mesh (PowerSGD
+   on in both): losses within 1e-6 relative (bit equality printed),
+   the SSD forward and backward launches equal and non-zero;
+   then the mesh run's state saved and ``restore_for_mesh``'d, every
+   leaf equal.  The process group is destroyed at its end.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -3234,6 +3252,241 @@ def train_restart() -> None:
                              f"{plain[2:]} (rel {rel:.2e})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the "data" axis at world 1
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_TOL = 1e-6        # relative, DP steps vs the same steps unmeshed
+MESH_GATED = REORTH + ("dkv_attention_stats", "dkv_attention_stats_paged")
+
+
+def _mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(1, 1, "cuda")
+
+
+def check_collectives(what: str, counts: dict, blocks) -> None:
+    """A serving run's counted collectives: none without a mesh
+    (``blocks`` None); on the mesh one all-gather of the sampled tokens
+    per decode launch, all-gathers of the admissions' factors (u, core,
+    vt a decomposition), and nothing else."""
+    if blocks is None:
+        bad = bool(counts)
+    else:
+        tok = counts.get("all_gather/tokens", (0, 0))[0]
+        fac = counts.get("all_gather/factors", (0, 0))[0]
+        bad = tok != blocks or not fac or fac % 3 or set(counts) - {
+            "all_gather/tokens", "all_gather/factors"}
+    if bad:
+        raise AssertionError(f"{what}: collectives {counts} (decode "
+                             f"launches {blocks})")
+
+
+def mesh_serving(cfg, params) -> None:
+    """Phase 18 (a) and (b) on the loaded llama2-7b weights."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine, Request
+    mesh = _mesh()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+
+    def engine(on: bool, block: int = 1, paged: bool = False):
+        ecfg = EngineConfig(kv_rank=64, kv_tail=16, kv_page=16,
+                            mesh=mesh if on else None)
+        return lambda: Engine(cfg, params, slots=4, max_len=1024,
+                              decompose_engine=DecomposeEngine(ecfg),
+                              device="cuda", decode_block=block, paged=paged)
+    # a throwaway fused mesh engine: library handles, the allocator and
+    # the capture stream, so neither side of an A/B pays for them
+    warm = engine(True, FUSED_BLOCK)()
+    warm.submit(Request(uid=-1, prompt=prompts[3][:64], max_new_tokens=20))
+    warm.run()
+    del warm
+    for what, block, paged, order in (
+            ("slab", 1, False, (False, True, True, False)),
+            ("slab fused", FUSED_BLOCK, False, (False, True)),
+            ("paged", 1, True, (False, True))):
+        runs = {False: [], True: []}
+        for on in order:
+            sh.reset_collective_counts()
+            eng, toks, launches, peak = serve_once(
+                engine(on, block, paged), prompts, 32,
+                title=f"mesh (a) {what}")
+            st = eng.stats
+            runs[on].append((toks, launches, st.decode_tok_s,
+                             st.decode_steps, st.blocks, peak,
+                             sh.collective_counts()))
+            check_collectives(f"mesh (a) {what}", runs[on][-1][6],
+                              st.blocks if on else None)
+            if paged:
+                check_pages_back(eng, f"mesh (a) {what}")
+            if on and not (eng.shard.sharded and eng.shard.n == 4):
+                raise AssertionError(f"mesh (a) {what}: the slots are not "
+                                     f"held as a sharded block "
+                                     f"({eng.shard})")
+            del eng
+        base, meshed = runs[False][0], runs[True][0]
+        for r in runs[True] + runs[False]:
+            if r[0] != base[0]:
+                raise AssertionError(f"mesh (a) {what}: tokens differ from "
+                                     f"the no-mesh run's")
+            got = {k: r[1][k] for k in MESH_GATED}
+            want = {k: base[1][k] for k in MESH_GATED}
+            if got != want:
+                raise AssertionError(f"mesh (a) {what}: launches {got} != "
+                                     f"no-mesh {want}")
+        print(f"mesh (a) {what}: tokens and launches ("
+              f"{json.dumps({k: meshed[1][k] for k in MESH_GATED})}) equal "
+              f"to no mesh; decode_tok/s mesh "
+              f"{', '.join(f'{r[2]:.2f}' for r in runs[True])} vs no mesh "
+              f"{', '.join(f'{r[2]:.2f}' for r in runs[False])}; "
+              f"collectives issued (op/payload: [calls, bytes sent]) "
+              f"{json.dumps(meshed[6])} for {meshed[4]} decode launches of "
+              f"{meshed[3]} steps; peak_mem_gib {meshed[5]:.2f} vs "
+              f"{base[5]:.2f}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(*REORTH_TUNE, device="cuda", generator=gen)
+    outs, ms = {}, {}
+    sh.reset_collective_counts()
+    for on in (False, True, True, False):
+        de = DecomposeEngine(EngineConfig(mesh=mesh if on else None))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = de.decompose_kv(x, 64)
+        torch.cuda.synchronize()
+        ms.setdefault(on, []).append((time.perf_counter() - t0) * 1e3)
+        outs.setdefault(on, got)
+    same = all(torch.equal(a, b) for a, b in zip(outs[False], outs[True]))
+    counts = sh.collective_counts()
+    if set(counts) != {"all_gather/factors"} or \
+            counts["all_gather/factors"][0] != 2 * 3:
+        raise AssertionError(f"mesh (b): collectives {counts} != three "
+                             f"all-gathers a sharded decomposition")
+    print(f"mesh (b): decompose_kv {list(REORTH_TUNE)} float32 rank 64 on "
+          f"the mesh bit-equal to no mesh: {same}; collectives of the two "
+          f"mesh calls {json.dumps(counts)}; ms mesh "
+          f"{', '.join(f'{v:.1f}' for v in ms[True])} vs no mesh "
+          f"{', '.join(f'{v:.1f}' for v in ms[False])}", flush=True)
+    if not same:
+        raise AssertionError("mesh (b): the sharded decomposition is not "
+                             "bit-equal to the unsharded one")
+
+
+def mesh_training() -> None:
+    """Phase 18 (c): DP train steps with PowerSGD's all-reduces against
+    the same steps without a mesh; then plain DP steps resumed from the
+    elastic restore of their checkpoint against the uninterrupted ones;
+    destroys the process group."""
+    import torch
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import shutdown_distributed
+    from repro_torch.runtime import driver, steps
+    from repro_torch.tree import named_leaves
+    mesh = _mesh()
+    cfg = get_arch(MAMBA_ARCH).replace(num_layers=2)
+    pc = comp.PowerSGDConfig(rank=4)
+    batches = _train_batches(cfg, MESH_TRAIN_STEPS)
+
+    def train(params, state, opt, on, tr, batches):
+        step = steps.make_train_step(cfg, opt, grad_transform=tr,
+                                     mesh=mesh if on else None)
+        losses, ms = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms, params, state
+
+    runs = {}
+    for on in (False, True):
+        params = init_weights(cfg)
+        opt = optim.make_optimizer(cfg, warmup=1)
+        tr = comp.PowerSGD(params, pc,
+                           group=sh.dp_group(mesh) if on else None)
+        ops.reset_launch_counts()
+        sh.reset_collective_counts()
+        losses, ms, _, _ = train(params, opt.init(params), opt, on, tr,
+                                 batches)
+        counts = ops.launch_counts()
+        runs[on] = (losses, ms, sh.collective_counts(),
+                    {k: counts[k] for k in ("ssd_chunk_intra",
+                                            "ssd_chunk_intra_bwd")})
+        del params, tr
+    a, b = runs[False][0], runs[True][0]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    print(f"mesh (c): {cfg.name} depth 2, {MESH_TRAIN_STEPS} steps with "
+          f"PowerSGD rank {pc.rank}: losses mesh {b} vs no mesh {a}, max rel "
+          f"{rel:.2e}, bit-equal {a == b}; step ms mesh "
+          f"{', '.join(f'{v:.1f}' for v in runs[True][1])} vs no mesh "
+          f"{', '.join(f'{v:.1f}' for v in runs[False][1])}; SSD launches "
+          f"mesh {json.dumps(runs[True][3])} vs no mesh "
+          f"{json.dumps(runs[False][3])}; collectives of the mesh steps "
+          f"{json.dumps(runs[True][2])}", flush=True)
+    per_step = {k: n // MESH_TRAIN_STEPS for k, (n, _) in
+                runs[True][2].items()}
+    if not rel <= MESH_TRAIN_TOL or runs[True][3] != runs[False][3] \
+            or not runs[True][3]["ssd_chunk_intra_bwd"] or runs[False][2] \
+            or per_step.get("all_reduce/loss") != 1 \
+            or not per_step.get("all_reduce/powersgd_q"):
+        raise AssertionError(f"mesh (c): DP losses differ by {rel:.2e}, "
+                             f"or SSD launches {runs[True][3]} != "
+                             f"{runs[False][3]}, or collectives "
+                             f"{runs[True][2]} / {runs[False][2]}")
+    del runs
+
+    # one plain DP step, its checkpoint, restore_for_mesh, unshard, the
+    # other steps: the uninterrupted steps' losses and parameters
+    opt = optim.make_optimizer(cfg, warmup=1)
+
+    def fresh():
+        params = init_weights(cfg)
+        return params, opt.init(params)
+    whole = train(*fresh(), opt, True, None, batches)
+    first = train(*fresh(), opt, True, None, batches[:1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        state = {"params": first[2], "opt": first[3]}
+        checkpoint.save(state, tmp, 1)
+        saved = dict(named_leaves(state))
+        back = driver.restore_for_mesh(cfg, tmp, mesh, optimizer=opt)
+    n, equal, n_saved = 0, True, len(saved)
+    for name, leaf in named_leaves(back):
+        n += 1
+        equal &= torch.equal(leaf.full_tensor(), saved[name])
+    del first, state, saved
+    st = driver.unshard(back)
+    del back
+    rest = train(st["params"], st["opt"], opt, True, None, batches[1:])
+    got = whole[0][:1] + rest[0]
+    lrel = max(abs(x - y) / abs(x) for x, y in zip(whole[0], got))
+    want = dict(named_leaves(whole[2]))
+    prel = max(float((t.float() - want[k].float()).abs().max() /
+                     want[k].float().abs().max().clamp(min=1e-30))
+               for k, t in named_leaves(rest[2]))
+    print(f"mesh (c): restore_for_mesh of the DP run's step-1 checkpoint: "
+          f"{n} leaves (DTensors on the 1x1 mesh), every leaf equal: "
+          f"{equal}; resumed through driver.unshard, steps 2-"
+          f"{MESH_TRAIN_STEPS} losses {rest[0]} vs uninterrupted "
+          f"{whole[0][1:]}: max rel {lrel:.2e}, params max rel {prel:.2e}, "
+          f"bit-equal {got == whole[0] and prel == 0}", flush=True)
+    if not equal or n != n_saved or not lrel <= MESH_TRAIN_TOL \
+            or not prel <= MESH_TRAIN_TOL:
+        raise AssertionError("mesh (c): the restored state differs, or the "
+                             "resumed steps differ from the uninterrupted")
+    del whole, rest, st, want
+    shutdown_distributed()
+
+
 def phase_train(profile: bool = False) -> dict:
     """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts.
     ``profile``: also profile one kernel-route step of (b)."""
@@ -3248,7 +3501,7 @@ def phase_train(profile: bool = False) -> dict:
 
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal", "train")
+          "variants", "modal", "train", "mesh")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -3326,7 +3579,7 @@ def main() -> int:
         with phase("kernels"):
             rows = phase_kernels(cfg)
     if only & {"serve", "conformance", "activation", "paged", "async",
-               "sampler", "obs"}:
+               "sampler", "obs", "mesh"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -3356,6 +3609,9 @@ def main() -> int:
         if "obs" in only:
             with phase("obs"):
                 phase_obs(cfg, params, slot_tokens, nvcc_built)
+        if "mesh" in only:
+            with phase("mesh (a, b)"):
+                mesh_serving(cfg, params)
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params
@@ -3397,6 +3653,10 @@ def main() -> int:
     if "train" in only:
         with phase("train"):
             train = phase_train(args.profile)
+    if "mesh" in only:
+        with phase("mesh (c)"):
+            mesh_training()
+            check_freed("mesh")
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

@@ -19,6 +19,13 @@ ways, with no ``ml_dtypes`` (the GPU machine has none).
   and the port's optimizer updates parameters in place).
 * ``gc_old`` keeps the newest ``keep`` steps and sweeps staging
   directories abandoned by dead writers.
+* Elastic restore: ``restore(..., mesh=, placements=)`` returns DTensors
+  laid out on the CURRENT mesh (``distribute_tensor`` of each host leaf,
+  every rank keeping its own shard of the copy it read, no collective),
+  so a checkpoint saved on one mesh, or on none, restores onto any
+  other, value for value (``runtime.driver.restore_for_mesh``).  A save
+  of DTensor leaves writes each leaf's full tensor (``full_tensor()``,
+  a collective: every rank saves, and the first rename wins).
 """
 from __future__ import annotations
 
@@ -69,10 +76,18 @@ def _from_saved(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def whole(t):
+    """A DTensor's full tensor (an all-gather); any other tensor as it
+    is."""
+    full = getattr(t, "full_tensor", None)
+    return full() if full is not None else t
+
+
 def host_copy(tree: Tree) -> Tree:
     """A host copy of every tensor of ``tree``, sharing no memory with
     it."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+    return tree_map(lambda t: whole(t).detach().to("cpu", copy=True),
+                    tree)
 
 
 def save(tree: Tree, directory: str, step: int) -> str:
@@ -96,7 +111,7 @@ def _save_into(tree: Tree, tmp: str, final: str, step: int) -> str:
     manifest: Dict[str, Any] = {"step": step, "leaves": {}}
     n = 0
     for name, leaf in named_leaves(tree):
-        t = leaf.detach().cpu()
+        t = whole(leaf).detach().cpu()
         arr, dtype_name = _to_savable(t.contiguous())
         fname = name.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -126,10 +141,17 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(template: Tree, directory: str, step: Optional[int] = None,
-            device=None) -> Tree:
+            device=None, *, mesh=None, placements: Optional[Tree] = None
+            ) -> Tree:
     """Restore into the structure of ``template`` (shapes checked; each
     leaf cast to the template's dtype).  A leaf lands on ``device``, or
-    on its template leaf's device (the host for a ``meta`` template)."""
+    on its template leaf's device (the host for a ``meta`` template).
+    With ``mesh`` and ``placements`` (a tree of DTensor placement tuples
+    of ``template``'s structure, e.g. from
+    ``distributed.sharding.placements``), each leaf is a DTensor on
+    ``mesh`` instead."""
+    if (mesh is None) != (placements is None):
+        raise ValueError("restore: mesh and placements go together")
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -147,7 +169,19 @@ def restore(template: Tree, directory: str, step: Optional[int] = None,
         dev = device if device is not None else (
             "cpu" if leaf.device.type == "meta" else leaf.device)
         restored.append(t.to(device=dev, dtype=leaf.dtype))
-    return unflatten_like(template, restored)
+    out = unflatten_like(template, restored)
+    if mesh is None:
+        return out
+    return tree_map(lambda t, pl: _distribute(t, mesh, pl), out,
+                    placements)
+
+
+def _distribute(t: torch.Tensor, mesh, placements) -> Any:
+    """``t`` (every rank's same host copy) as a DTensor on ``mesh``: each
+    rank keeps its own shard, with no collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t.to(mesh.device_type), mesh, list(placements),
+                             src_data_rank=None)
 
 
 def gc_old(directory: str, keep: int = 3) -> None:

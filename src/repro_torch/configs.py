@@ -15,8 +15,11 @@ The training fields mirror the reference's too: ``optimizer`` ("adamw";
 "adafactor" for ``kimi-k2-1t-a32b``), ``remat`` (activation checkpointing
 per block, on by default; ``reduced()`` turns it off, as the reference
 does) and ``remat_policy`` ("full", or "dots": keep the matmul outputs
-and recompute only the cheap elementwise ops).  :class:`ShapeSpec` names
-a workload shape.  The sharding fields wait for the port's mesh.
+and recompute only the cheap elementwise ops).  The sharding field
+``expert_sharding`` ("1d": experts over "model"; "2d" for
+``kimi-k2-1t-a32b``: also the expert FFN dim over "data") is read by
+``distributed.sharding``'s rules.  :class:`ShapeSpec` names a workload
+shape.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ class ArchConfig:
     n_shared_experts: int = 0
     first_k_dense: int = 0           # leading dense layers (kimi-style)
     capacity_factor: float = 1.25
+    expert_sharding: str = "1d"      # "1d" = EP only; "2d" = EP x data
     # --- SSM (mamba2) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -202,7 +206,8 @@ register(ArchConfig(
     num_layers=61, d_model=7168, num_heads=64, num_kv_heads=8,
     d_ff=18432, vocab=163840,
     num_experts=384, top_k=8, moe_d_ff=2048,
-    n_shared_experts=1, first_k_dense=1, optimizer="adafactor"))
+    n_shared_experts=1, first_k_dense=1, expert_sharding="2d",
+    optimizer="adafactor"))
 
 # GQA kv=4, RoPE, biased linears and layernorm, ungated GELU MLP
 # [arXiv:2402.19173].

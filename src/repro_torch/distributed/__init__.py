@@ -1,3 +1,10 @@
-"""Distribution of the port: so far the low-rank gradient compression
-(PowerSGD) that the training step takes as its ``grad_transform``.  The
-sharding rules wait for the port's device mesh."""
+"""Distribution of the port: the sharding rule tables on a torch
+``DeviceMesh`` (``sharding``), the collective helpers of the DP
+super-axis, and the low-rank gradient compression (PowerSGD) with its
+data-parallel all-reduces (``compression``), which the training step
+takes as its ``grad_transform``."""
+from .sharding import (MeshShape, Spec, batch_sharding, cache_pspec,
+                       cache_sharding, dp_axes, dp_group, dp_name, dp_rank,
+                       dp_size, opt_state_sharding, param_spec,
+                       params_sharding, placements, replicated,
+                       require_data_only, token_sharding)

@@ -13,6 +13,19 @@ This module holds the round trip a receiver would see and the state; the
 training step wires it in as ``grad_transform``.  Compression ratio of a
 matrix: m·n / (r·(m + n)).
 
+Data parallelism.  Given the process group of the DP super-axis
+(``group=``), ``compress_decompress`` runs the protocol's all-reduces:
+P = G Q is all-reduced (mean) before it is orthonormalized, Q' = Gᵀ P is
+all-reduced (mean), and a leaf that stays dense is all-reduced (mean);
+the error-feedback memory stays per rank.  P and Q' are linear in G, so
+the round trip every rank sees is the single-process round trip of the
+ranks' mean gradient (with the mean error memory), up to the order of
+the float sums.  The all-reduces sum and then divide by the group size
+(gloo has no mean), which at one rank is exact.  :class:`PowerSGD` and
+:func:`dp_mean` are the two ``grad_transform``s of a data-parallel train
+step (``runtime.steps.make_train_step(mesh=)``); both carry
+``dp_sync = True``, the mark such a step checks for.
+
 The initial Q of a leaf is drawn from a ``torch.Generator`` seeded with
 the config's seed and a digest of the leaf's path (``zlib.crc32``: every
 process draws the same Q, where Python's ``hash`` is salted per
@@ -27,8 +40,10 @@ import zlib
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..tree import named_leaves, rebuild
+from . import sharding as sh
 
 Tree = Any
 
@@ -93,21 +108,32 @@ def _state_of(state: Tree, name: str):
     return node
 
 
-def compress_decompress(grads: Tree, state: Tree, cfg: PowerSGDConfig
-                        ) -> Tuple[Tree, Tree]:
+def _mean(t: torch.Tensor, group, what: str) -> torch.Tensor:
+    """``t`` all-reduced to its mean over ``group``, in place (None: the
+    tensor itself)."""
+    if group is None:
+        return t
+    sh.all_reduce(t, group, what)
+    return t.div_(dist.get_world_size(group))
+
+
+def compress_decompress(grads: Tree, state: Tree, cfg: PowerSGDConfig,
+                        group=None) -> Tuple[Tree, Tree]:
     """The PowerSGD round trip of every gradient (what the receiver sees)
-    and the new state (error memory, Q)."""
+    and the new state (error memory, Q); with a DP ``group``, P, Q' and
+    the dense leaves are all-reduced (mean) over it, in leaf order."""
     new_state = {}
 
     def one(name, g):
         st = _state_of(state, name)
         if st["e"] is None:
             new_state[name] = st
-            return g
+            return _mean(g, group, "grads")
         g32 = g.float() + st["e"]
         g2 = g32.reshape(_shape2d(g32.shape))
-        p, _ = torch.linalg.qr(g2 @ st["q"])        # [m, r]
-        q_new = g2.T @ p                             # [n, r]
+        p, _ = torch.linalg.qr(_mean(g2 @ st["q"], group,
+                                     "powersgd_p"))          # [m, r]
+        q_new = _mean(g2.T @ p, group, "powersgd_q")         # [n, r]
         approx = (p @ q_new.T).reshape(g32.shape)
         new_state[name] = {"e": g32 - approx, "q": q_new}
         return approx.to(g.dtype)
@@ -128,3 +154,34 @@ def compression_ratio(params: Tree, cfg: PowerSGDConfig) -> float:
             m, k = _shape2d(tuple(p.shape))
             comp += cfg.rank * (m + k)
     return dense / comp
+
+
+class PowerSGD:
+    """PowerSGD as a train step's ``grad_transform``: holds the state
+    (``init_state`` of ``params``, or the given ``q``) and replaces it
+    with every call.  With a DP ``group`` the round trip runs the
+    protocol's all-reduces (``dp_sync`` is then True)."""
+
+    def __init__(self, params: Tree, cfg: PowerSGDConfig, group=None,
+                 q: Optional[Tree] = None):
+        self.cfg, self.group = cfg, group
+        self.state = init_state(params, cfg, q)
+
+    @property
+    def dp_sync(self) -> bool:
+        return self.group is not None
+
+    def __call__(self, grads: Tree) -> Tree:
+        out, self.state = compress_decompress(grads, self.state, self.cfg,
+                                              self.group)
+        return out
+
+
+def dp_mean(group):
+    """The plain DP gradient sync: every leaf all-reduced to its mean
+    over ``group``, in leaf order (a ``grad_transform``)."""
+    def sync(grads: Tree) -> Tree:
+        return rebuild(grads, {name: _mean(g, group, "grads")
+                               for name, g in named_leaves(grads)})
+    sync.dp_sync = True
+    return sync

@@ -1,7 +1,6 @@
 """EngineConfig — the knobs of the decomposition pipeline the port runs.
 
-Counterpart of ``repro.engine.config.EngineConfig`` (the mesh field
-arrives with the module that reads it):
+Counterpart of ``repro.engine.config.EngineConfig``:
 
 * ``policy``      — per-layer decomposition directives
                     (``core.policy.DecompositionPolicy``, paper §6.2);
@@ -56,11 +55,19 @@ arrives with the module that reads it):
                     as its done-probe) and splices it at a decode
                     boundary (``serving.Engine(prefill_async=,
                     ready_order=)``; the engine's argument wins).
+* ``mesh``        — optional ``torch.distributed.device_mesh.DeviceMesh``
+                    with axes ("data", "model") or ("pod", "data",
+                    "model") (``launch.mesh``): the decomposition shards
+                    its flat batch over the DP super-axis
+                    (``DecomposeEngine.decompose``) and a serving engine
+                    shards its slots over it (``serving.Engine``).
+                    None (default) is the single-device path, unchanged;
+                    a mesh changes no value and no token.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 from ..core.outlier import ThresholdTable
 from ..core.policy import DecompositionPolicy, LayerPolicy
@@ -88,6 +95,7 @@ class EngineConfig:
     sched_max_admit: int = 0
     decode_block: Union[int, str] = 1   # fused decode steps, or "auto"
     prefill_async: bool = False         # ticketed admission (serving)
+    mesh: Optional[Any] = None          # torch DeviceMesh (hashable)
 
     def __post_init__(self):
         if self.expansion != "auto" and (
@@ -110,6 +118,10 @@ class EngineConfig:
             raise ValueError(f"backend must be 'auto' or one of "
                              f"{available_backends()}, got "
                              f"{self.backend!r}")
+        if self.mesh is not None and "data" not in (
+                getattr(self.mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(f"mesh must be a DeviceMesh with a 'data' "
+                             f"axis (launch.mesh), got {self.mesh!r}")
         if self.attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode must be one of {ATTN_MODES}, "
                              f"got {self.attn_mode!r}")

@@ -22,9 +22,21 @@ Counterpart of ``repro.engine.DecomposeEngine``.  It owns, end to end:
 
 Telemetry (host-side, in ``obs.GLOBAL``, names and labels as in the
 reference): ``decompose_total{bucket, backend, f, path}`` counts every
-batched Lanczos run (``path`` is ``"local"``: the port has no sharded
-path yet) and ``decompose_kv_total{mode, bucket}`` every KV-cache
+batched Lanczos run (``path`` ``"sharded"`` under a mesh, else
+``"local"``) and ``decompose_kv_total{mode, bucket}`` every KV-cache
 factorization.
+
+With ``EngineConfig.mesh`` set, ``decompose`` runs
+:meth:`DecomposeEngine._decompose_sharded`, the counterpart of the
+reference's shard_map lowering: every rank holds the whole input, the
+flat batch splits into contiguous blocks over the DP super-axis when it
+divides (else every rank decomposes all of it: replication, as the
+reference falls back), each rank runs its block through its own kernels
+with the same start vector, and one all-gather per factor rebuilds the
+result on every rank.  The all-gathers run on the current stream's
+order (``torch.distributed`` makes NCCL's stream wait for the current
+stream and the current stream for the result), so a decomposition on an
+async engine's prefill stream stays ordered on that stream.
 
 The Lanczos start vector comes from ``z0(width)``: by default a seeded
 numpy draw (:func:`default_z0`); parity tests hand in the JAX package's
@@ -119,16 +131,53 @@ class DecomposeEngine:
     def decompose(self, x: torch.Tensor, rank: int,
                   iters: Optional[int] = None) -> LowRank:
         """x [..., S, H] → LowRank by one batched Lanczos run."""
+        from ..distributed import sharding as sh
         batch = max(1, math.prod(int(d) for d in x.shape[:-2]))
+        mesh = self.config.mesh
         f = self.resolve_expansion(x.shape[-2], x.shape[-1], batch, x.dtype,
                                    x.device)
+        if mesh is not None and self._auto_expansion:
+            f = sh.broadcast_int(f, sh.dp_group(mesh), x.device,
+                                 "expansion")
         _OBS.counter(
             "decompose_total", "batched Lanczos decompositions",
             bucket=bucket_label(batch, *x.shape[-2:]),
-            backend=self.backend.name, f=str(f), path="local").inc()
+            backend=self.backend.name, f=str(f),
+            path="local" if mesh is None else "sharded").inc()
         z0 = self.start_vector(x.shape[-1], x.device)
-        return lz.decompose(x, rank, iters, z0=z0,
-                            hooks=self.backend.make_kernels(f).hooks)
+        hooks = self.backend.make_kernels(f).hooks
+        if mesh is not None:
+            return self._decompose_sharded(x, rank, iters, z0, hooks)
+        return lz.decompose(x, rank, iters, z0=z0, hooks=hooks)
+
+    def _decompose_sharded(self, x: torch.Tensor, rank: int,
+                           iters: Optional[int], z0: torch.Tensor,
+                           hooks) -> LowRank:
+        """The batched Lanczos run DP-sharded over ``config.mesh``: the
+        flat [B, S, H] batch splits into B / dp contiguous blocks when dp
+        divides B (the divisibility guard of every rule in
+        ``distributed.sharding``), rank i decomposing block i, and the
+        factors are all-gathered over the DP group; otherwise every rank
+        decomposes the whole batch.  Per element the arithmetic is the
+        unsharded call's: at one rank the factors are bit-identical."""
+        from ..distributed import sharding as sh
+        mesh = self.config.mesh
+        batch_shape = x.shape[:-2]
+        flat = x.reshape((-1,) + tuple(x.shape[-2:]))
+        b, dp = flat.shape[0], sh.dp_size(mesh)
+        if b % dp or b == 0:
+            return lz.decompose(x, rank, iters, z0=z0, hooks=hooks)
+        n = b // dp
+        i = sh.dp_rank(mesh)
+        part = lz.decompose(flat[i * n:(i + 1) * n], rank, iters, z0=z0,
+                            hooks=hooks)
+        group = sh.dp_group(mesh)
+
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            out = t.new_empty((b,) + tuple(t.shape[1:]))
+            sh.all_gather_into(out, t.contiguous(), group, "factors")
+            return out.reshape(batch_shape + tuple(t.shape[1:]))
+        return LowRank(gather(part.u), gather(part.core), gather(part.vt))
 
     # -- stage 2: policy-driven multi-track activation decomposition -------
     def decompose_activation(self, x: torch.Tensor,

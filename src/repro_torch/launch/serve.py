@@ -12,15 +12,35 @@ PyTorch versions of the kernels), e.g. for a smoke run without a GPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
       --reduced --device cpu --decompose-kv-rank 8 --dkv-tail 4
 
-``--paged`` serves the decomposed cache from page pools (``--kv-page``
-rows per page), ``--kv-prefix-cache N`` keeps up to N decomposed prompts
-for prefix reuse, and ``--shared-prefix L`` gives every request the same
-first L prompt tokens, so later requests admit as prefix hits:
+``--paged`` serves the decomposed cache from page pools (``--page-size``
+rows per page, ``--pages`` pages, 0 = sized from the slots),
+``--prefix-cache N`` keeps up to N decomposed prompts for prefix reuse
+(``--kv-page`` and ``--kv-prefix-cache`` are the same flags under
+their older names), and ``--shared-prefix L`` gives every request the
+same first L prompt tokens, so later requests admit as prefix hits:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
       --requests 8 --prompt-len 512 --shared-prefix 496 --max-new 32 \\
       --max-len 1024 --decompose-kv-rank 64 --dkv-tail 16 --paged \\
-      --kv-prefix-cache 8
+      --prefix-cache 8
+
+The command lines of the reference's serve CLI parse to the reference's
+engine settings: ``--family dense|ssm|moe|hybrid`` serves that family's
+default arch (``--arch`` overrides it, and must be of that family), and
+the flag defaults are the reference's (``--dkv-tail 16``; the backend
+and ``--expansion`` keep the port's defaults, ``cuda`` and 16, by
+design).  The reference always serves a reduced config; here
+``--reduced`` asks for it.
+
+``--mesh`` serves data-parallel over slots (``serving.Engine`` on a
+``DeviceMesh``): ``none`` (default), ``host`` (every rank on "data") or
+``DxM`` (the model axis must be 1).  One process per card, launched by
+torchrun; only rank 0 prints:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh host \\
+      --arch llama2-7b --decompose-kv-rank 64 --dkv-tail 16 --slots 8
+
+``--mesh 1x1`` runs a one-rank mesh on one card (a real NCCL group).
 
 ``--arch mamba2-780m`` serves the Mamba2 (ssm) family: O(1) state slots,
 prefill through the chunked SSD scan whose intra-chunk term is the CUDA
@@ -113,9 +133,18 @@ from ..obs import (GLOBAL, Observability, compile_stats, write_json_snapshot,
 from ..platform import device_name, resolve_device
 from ..serving import (ADMISSIONS, READY_ORDERS, Engine, Request,
                        categorical_sampler, greedy_sampler)
+from .mesh import parse_mesh
 
 #: configs too large for one card: served only ``--reduced``
 REDUCED_ONLY = ("kimi-k2-1t-a32b",)
+
+#: ``--family NAME`` without ``--arch`` serves this arch (the reference's)
+_FAMILY_DEFAULT_ARCH = {
+    "dense": "llama2-7b",
+    "ssm": "mamba2-780m",
+    "moe": "olmoe-1b-7b",
+    "hybrid": "zamba2-1.2b",
+}
 
 
 def _expansion(text: str):
@@ -125,7 +154,7 @@ def _expansion(text: str):
 
 
 def pretune_admission(cfg, dengine, slots: int, prompt_len: int,
-                      device) -> None:
+                      device, say=print) -> None:
     """Serving warmup for ``expansion="auto"``: resolve the re-orth f of
     every shape admission will launch — the prefill decomposition
     ``decompose_kv`` runs on [num_layers · n, plen_bucket, kvw] for each
@@ -144,14 +173,22 @@ def pretune_admission(cfg, dengine, slots: int, prompt_len: int,
                             for n in sorted(nbs)]},
         fix={"backend": dengine.resolved_backend}, device=device)
     for key, res in pre.items():
-        print(f"pretune[{res.kernel}]: f={res.best['expansion']} "
-              f"({res.source}, {key})")
+        say(f"pretune[{res.kernel}]: f={res.best['expansion']} "
+            f"({res.source}, {key})")
 
 
 def main(argv=None) -> None:
     dflt = EngineConfig()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default=None,
+                    help="architecture name (default: the --family's "
+                         "default arch, else llama2-7b)")
+    ap.add_argument("--family", default=None,
+                    choices=sorted(_FAMILY_DEFAULT_ARCH),
+                    help="serve this family's default arch (ssm = "
+                         "mamba2-780m, moe = olmoe-1b-7b, hybrid = "
+                         "zamba2-1.2b, dense = llama2-7b); --arch "
+                         "overrides it and must be of that family")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny same-family config")
     ap.add_argument("--requests", type=int, default=4)
@@ -161,16 +198,21 @@ def main(argv=None) -> None:
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--decompose-kv-rank", type=int, default=dflt.kv_rank,
                     help="serve the low-rank KV cache at this rank (0=off)")
-    ap.add_argument("--dkv-tail", type=int, default=dflt.kv_tail,
+    ap.add_argument("--dkv-tail", type=int, default=16,
                     help="dense recent-token tail length")
     ap.add_argument("--dkv-exact", action="store_true",
                     help="direct-SVD KV factorization (near-full rank)")
     ap.add_argument("--paged", action="store_true",
                     help="page-pool decomposed KV cache (needs "
                          "--decompose-kv-rank > 0)")
-    ap.add_argument("--kv-page", type=int, default=dflt.kv_page,
+    ap.add_argument("--pages", type=int, default=dflt.kv_pool_pages,
+                    help="page-pool size in pages (0 = sized from slots x "
+                         "max-len with fold headroom)")
+    ap.add_argument("--page-size", "--kv-page", dest="page_size", type=int,
+                    default=dflt.kv_page,
                     help="rows per page of the paged cache")
-    ap.add_argument("--kv-prefix-cache", type=int,
+    ap.add_argument("--prefix-cache", "--kv-prefix-cache",
+                    dest="prefix_cache", type=int,
                     default=dflt.kv_prefix_cache,
                     help="prefix-cache entries of the paged cache (0=off)")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -224,6 +266,10 @@ def main(argv=None) -> None:
                     help="seed of the keyed draws")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--mesh", default="none",
+                    help="serving mesh: none (default), host (every rank "
+                         "on the data axis) or DxM (data x model, model "
+                         "1); launch one process per card with torchrun")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write every metric (engine stats + decomposition"
                          "/tuner/compile telemetry) here at exit: "
@@ -236,33 +282,51 @@ def main(argv=None) -> None:
                     help="print a p50/p95/p99 stats line every N engine "
                          "steps (0 = only the final summary)")
     args = ap.parse_args(argv)
+    if args.arch is None:
+        args.arch = _FAMILY_DEFAULT_ARCH.get(args.family, "llama2-7b")
     if args.arch in REDUCED_ONLY and not args.reduced:
         ap.error(f"{args.arch} does not fit one card: add --reduced")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    if args.family is not None and cfg.family != args.family:
+        ap.error(f"--arch {args.arch} is family {cfg.family!r}, "
+                 f"not {args.family!r}")
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = parse_mesh(args.mesh, device)
+    if mesh is not None:
+        import torch.distributed as dist
+        lead = dist.get_rank() == 0
+    else:
+        lead = True
+
+    def say(*a, **kw):                   # only rank 0 prints
+        if lead:
+            print(*a, **kw)
+
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_fns(cfg).init(cfg, gen, device=device)
     dengine = DecomposeEngine(EngineConfig(
         backend=args.backend, expansion=args.expansion,
         kv_rank=args.decompose_kv_rank, kv_tail=args.dkv_tail,
-        kv_exact=args.dkv_exact, kv_page=args.kv_page,
-        kv_prefix_cache=args.kv_prefix_cache,
+        kv_exact=args.dkv_exact, kv_page=args.page_size,
+        kv_pool_pages=args.pages, kv_prefix_cache=args.prefix_cache,
         sched_bucket=args.sched_bucket,
         sched_admit_every=args.admit_every,
         sched_max_admit=args.max_admit, decode_block=args.decode_block,
-        prefill_async=args.prefill_async))
+        mesh=mesh))
     sampler = categorical_sampler(args.temperature) \
         if args.sampler == "categorical" else greedy_sampler
     if args.expansion == "auto" and not args.no_pretune \
             and args.decompose_kv_rank > 0:
-        pretune_admission(cfg, dengine, args.slots, args.prompt_len, device)
+        pretune_admission(cfg, dengine, args.slots, args.prompt_len, device,
+                          say)
     obs = Observability(trace=args.trace_out is not None)
     eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
                  decompose_engine=dengine, device=device, paged=args.paged,
                  eos_id=args.eos_id, admission=args.admission,
+                 prefill_async=args.prefill_async,
                  ready_order=args.ready_order, sampler=sampler,
                  sample_seed=args.sample_seed, obs=obs)
     rng = np.random.RandomState(0)
@@ -280,61 +344,63 @@ def main(argv=None) -> None:
             done.extend(eng.step())
             steps += 1
             if steps % args.stats_every == 0:
-                print(pctl_line(eng.stats, prefix=f"step {steps}: "))
+                say(pctl_line(eng.stats, prefix=f"step {steps}: "))
             if not eng._occupied() and not len(eng.sched):
                 break
     else:
         done = eng.run()
     for r in sorted(done, key=lambda r: r.uid):
-        print(f"req {r.uid}: {r.out_tokens}")
+        say(f"req {r.uid}: {r.out_tokens}")
     s = eng.stats
     g = eng.graphs
-    print(f"engine: {dengine} family={type(eng.family).__name__} "
-          f"arch={cfg.name} layers={cfg.num_layers} "
-          f"device={device_name(device)} admission={eng.admission} "
-          f"decode_block={eng.decode_block} "
-          f"prefill_async={eng.prefill_async} "
-          f"ready_order={eng.ready_order} sampler={args.sampler}"
-          + (f"(T={args.temperature}, seed={args.sample_seed})"
-             if args.sampler == "categorical" else ""))
-    print(f"stats: prefills={s.prefills} batches={s.prefill_batches} "
-          f"decode_steps={s.decode_steps} blocks={s.blocks} "
-          f"folds={s.tail_folds} tokens={s.tokens_out} "
-          f"stopped_eos={s.stopped_eos} stopped_budget={s.stopped_budget} "
-          f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
-          f"decode_tok/s={s.decode_tok_s:.1f} "
-          f"ttft={s.mean_ttft_s * 1e3:.1f}ms "
-          f"(queue {s.mean_ttft_queue_s * 1e3:.1f}ms + prefill "
-          f"{s.mean_ttft_compute_s * 1e3:.1f}ms) "
-          f"itl={s.mean_itl_s * 1e3:.1f}ms "
-          f"inflight_peak={s.prefill_inflight_peak}")
-    print(pctl_line(s))
-    print(f"graphs: captures={g.captures} replays={g.replays} "
-          f"eager={g.eager} capture_s={g.capture_s:.3f}")
+    mesh_desc = "none" if mesh is None else "x".join(
+        str(n) for n in mesh.mesh.shape)
+    say(f"engine: {dengine} family={type(eng.family).__name__} "
+        f"arch={cfg.name} layers={cfg.num_layers} mesh={mesh_desc} "
+        f"device={device_name(device)} admission={eng.admission} "
+        f"decode_block={eng.decode_block} "
+        f"prefill_async={eng.prefill_async} "
+        f"ready_order={eng.ready_order} sampler={args.sampler}"
+        + (f"(T={args.temperature}, seed={args.sample_seed})"
+           if args.sampler == "categorical" else ""))
+    say(f"stats: prefills={s.prefills} batches={s.prefill_batches} "
+        f"decode_steps={s.decode_steps} blocks={s.blocks} "
+        f"folds={s.tail_folds} tokens={s.tokens_out} "
+        f"stopped_eos={s.stopped_eos} stopped_budget={s.stopped_budget} "
+        f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
+        f"decode_tok/s={s.decode_tok_s:.1f} "
+        f"ttft={s.mean_ttft_s * 1e3:.1f}ms "
+        f"(queue {s.mean_ttft_queue_s * 1e3:.1f}ms + prefill "
+        f"{s.mean_ttft_compute_s * 1e3:.1f}ms) "
+        f"itl={s.mean_itl_s * 1e3:.1f}ms "
+        f"inflight_peak={s.prefill_inflight_peak}")
+    say(pctl_line(s))
+    say(f"graphs: captures={g.captures} replays={g.replays} "
+        f"eager={g.eager} capture_s={g.capture_s:.3f}")
     if eng.pager is not None:
-        print(f"paged: page={eng.pager.page} pool_pages="
-              f"{eng.pager.num_pages} prefix_hits={s.prefix_hits} "
-              f"prefix_misses={s.prefix_misses} stalls={s.stalls}")
-    print("kernel launches: " + " ".join(
+        say(f"paged: page={eng.pager.page} pool_pages="
+            f"{eng.pager.num_pages} prefix_hits={s.prefix_hits} "
+            f"prefix_misses={s.prefix_misses} stalls={s.stalls}")
+    say("kernel launches: " + " ".join(
         f"{k}={v}" for k, v in ops.launch_counts().items()))
     cw = compile_stats()
     if cw:
-        print("compiles: " + " ".join(
+        say("compiles: " + " ".join(
             f"{ph}={d['compiles']}({d['seconds']:.2f}s)"
             for ph, d in sorted(cw.items())))
-    if args.metrics_out:
+    if args.metrics_out and lead:
         # the engine's registry (serving_*) and the process-wide one
         # (decomposition, tuner and compile telemetry) in one file
         if args.metrics_out.endswith(".json"):
             write_json_snapshot(args.metrics_out, obs.registry, GLOBAL)
         else:
             write_prometheus(args.metrics_out, obs.registry, GLOBAL)
-        print(f"metrics: wrote {args.metrics_out}")
-    if args.trace_out:
+        say(f"metrics: wrote {args.metrics_out}")
+    if args.trace_out and lead:
         obs.tracer.export(args.trace_out)
-        print(f"trace: wrote {args.trace_out} "
-              f"({len(obs.tracer.events)} events, "
-              f"{obs.tracer.dropped} dropped)")
+        say(f"trace: wrote {args.trace_out} "
+            f"({len(obs.tracer.events)} events, "
+            f"{obs.tracer.dropped} dropped)")
 
 
 def pctl_line(s, prefix: str = "") -> str:

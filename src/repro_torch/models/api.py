@@ -27,11 +27,18 @@ Admission support (every family): :func:`splice_cache` writes fresh
 prefill rows into a live cache IN PLACE, and :func:`tree_ready` /
 :func:`splice_on_ready` are the non-blocking done-probe and
 splice-if-done of the async engine's tickets, over ``torch.cuda.Event``s.
+
+Meshes: :func:`cache_shardings` gives the specs of a cache tree
+(``distributed.sharding.cache_pspec``), and :class:`SlotShard` is the
+slot arithmetic of a slot-sharded serving engine: which of the engine's
+slots this rank holds under the rules' batch rule (a contiguous block
+of slots / dp when dp divides the slot count, else every slot), the
+local index of a global slot, and the all-gather of per-slot results.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -194,6 +201,87 @@ def splice_cache(cfg, old, new, slot_indices, src_indices=None):
 
     tree_map(one, old, new, axes)
     return old
+
+
+def cache_shardings(cfg, cache, mesh, seq_shard: bool = True):
+    """The :class:`~repro_torch.distributed.sharding.Spec` of every leaf
+    of a decode cache on ``mesh`` (a serving engine's caches use
+    ``seq_shard=False``: slot-axis DP only)."""
+    from ..distributed import sharding as sh
+    return sh.cache_sharding(cache, mesh, cfg, seq_shard=seq_shard)
+
+
+class SlotShard:
+    """The slots of an engine of ``slots`` that this rank holds on
+    ``mesh``.  The rules shard a cache's slot axis over the DP super-axis
+    when dp divides it and it is > 1 (``cache_pspec``): rank i of the DP
+    group then holds the contiguous block ``[i·n, (i+1)·n)``, n =
+    slots / dp; otherwise (or with no mesh) every rank holds every slot.
+    ``sharded`` says whether per-slot results must be gathered: True on
+    a mesh whose rule shards the slots, even at one rank (a one-rank
+    all-gather is a copy)."""
+
+    def __init__(self, slots: int, mesh=None):
+        self.slots = slots
+        self.dp = 1
+        self.sharded = False
+        self.first, self.n = 0, slots
+        self.group = None                # the DP group, when sharded
+        if mesh is not None:
+            import torch.distributed as dist
+            from ..distributed import sharding as sh
+            self.dp = sh.dp_size(mesh)
+            self.sharded = slots % self.dp == 0 and slots > 1
+            if self.sharded:
+                self.group = sh.dp_group(mesh)
+                self.n = slots // self.dp
+                self.first = dist.get_rank(self.group) * self.n
+
+    def __repr__(self) -> str:
+        return (f"SlotShard(slots={self.slots}, first={self.first}, "
+                f"n={self.n}, dp={self.dp}, sharded={self.sharded})")
+
+    def owns(self, slot: int) -> bool:
+        return self.first <= slot < self.first + self.n
+
+    def take(self, arr):
+        """The rows of the held slots of a per-slot host array or list
+        (the array itself when every slot is held)."""
+        if self.n == self.slots:
+            return arr
+        return arr[self.first:self.first + self.n]
+
+    def pairs(self, slots_idx) -> Tuple[List[int], List[int]]:
+        """(local slot indices, positions j in ``slots_idx``) of the held
+        slots among ``slots_idx``."""
+        loc, src = [], []
+        for j, s in enumerate(slots_idx):
+            if self.owns(int(s)):
+                loc.append(int(s) - self.first)
+                src.append(j)
+        return loc, src
+
+    def take_cache(self, cfg, cache, axis=None):
+        """The held slots' rows of a whole-slot cache: every leaf along
+        its slot axis (the family's ``cache_batch_axes``, or ``axis``
+        for every leaf)."""
+        if self.n == self.slots:
+            return cache
+        axes = cache_batch_axes(cfg) if axis is None \
+            else tree_map(lambda _: axis, cache)
+        return tree_map(lambda x, ax: x.narrow(ax, self.first, self.n)
+                        .contiguous(), cache, axes)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along dim 0 in rank (slot)
+        order, by one all-gather over the DP group; ``t`` itself when the
+        slots are not sharded."""
+        if not self.sharded:
+            return t
+        from ..distributed import sharding as sh
+        out = t.new_empty((t.shape[0] * self.dp,) + tuple(t.shape[1:]))
+        sh.all_gather_into(out, t.contiguous(), self.group, "tokens")
+        return out
 
 
 def tree_leaves(tree):

@@ -302,16 +302,19 @@ def compress_tail(cache: Params, cfg, rank: int, frozen_len, fold,
             "tail": new_tail}
 
 
-def splice_dkv(live: Params, fresh: Params, slot_indices) -> Params:
-    """Scatter the first n batch rows of a freshly prefilled cache into
-    ``live`` at the n ``slot_indices`` — admission into a
-    live cache without re-prefilling occupied slots.  Time and rank axes
-    are zero-padded to the pairwise max first (zero U rows/columns and
-    zero Vᵀ rows are inert).  Writes into ``live``'s tensors in place
-    where no padding was needed."""
+def splice_dkv(live: Params, fresh: Params, slot_indices,
+               src_indices=None) -> Params:
+    """Scatter batch rows ``src_indices`` (default the first n) of a
+    freshly prefilled cache into ``live`` at the n ``slot_indices`` —
+    admission into a live cache without re-prefilling occupied slots.
+    Time and rank axes are zero-padded to the pairwise max first (zero U
+    rows/columns and zero Vᵀ rows are inert), also when no row is
+    spliced.  Writes into ``live``'s tensors in place where no padding
+    was needed."""
     dev = live["k_u"].device
     idx = torch.as_tensor(slot_indices, device=dev).long()
-    src = torch.arange(idx.shape[0], device=dev)
+    src = torch.arange(idx.shape[0], device=dev) if src_indices is None \
+        else torch.as_tensor(src_indices, device=dev).long()
     t = max(live["k_u"].shape[2], fresh["k_u"].shape[2])
     r = max(live["k_u"].shape[-1], fresh["k_u"].shape[-1])
     out: Params = {}

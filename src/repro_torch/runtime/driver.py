@@ -1,7 +1,6 @@
 """Fault-tolerant training driver.
 
-Counterpart of ``repro.runtime.driver`` (its elastic ``restore_for_mesh``
-waits for the port's device mesh):
+Counterpart of ``repro.runtime.driver``:
 
 * checkpoint/restart: atomic saves every ``ckpt_every`` steps through the
   async checkpointer; on (re)start the driver restores the LATEST
@@ -10,7 +9,10 @@ waits for the port's device mesh):
 * failure injection: ``failure_hook(step)`` raising
   :class:`SimulatedFailure` exercises the restart path in-process;
 * straggler watchdog: an EWMA of step wall times; a step slower than
-  ``threshold × ewma`` is flagged and counted.
+  ``threshold × ewma`` is flagged and counted;
+* elastic re-mesh: :func:`restore_for_mesh` re-shards any checkpoint onto
+  a new mesh (``checkpoint.restore(mesh=, placements=)``); a data-parallel
+  train step resumes from :func:`unshard` of its result.
 
 A step's wall time ends at the loss's read-back (one host read a step,
 as in the reference).
@@ -28,6 +30,7 @@ from ..configs import ArchConfig, ShapeSpec
 from ..data import DataConfig, Prefetcher, SyntheticLM
 from ..optim import make_optimizer
 from ..platform import resolve_device
+from ..tree import tree_map
 from . import steps as steps_mod
 
 Tree = Any
@@ -172,3 +175,32 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
             if restarts > max_restarts:
                 raise
             continue
+
+
+def restore_for_mesh(cfg: ArchConfig, ckpt_dir: str, mesh, *,
+                     optimizer=None) -> Tree:
+    """Elastic restore: the latest checkpoint of ``ckpt_dir`` RE-SHARDED
+    for ``mesh`` — ``{"params", "opt"}`` of DTensors placed by
+    ``params_sharding`` / ``opt_state_sharding`` (ZeRO-1 on).  The mesh
+    it was saved on (or none) does not matter: every leaf is rebuilt
+    from its host copy (the reference's ``restore_for_mesh``).  The
+    port's data-parallel step holds whole state on every rank (ZeRO-1 is
+    not ported): resume it from :func:`unshard` of this."""
+    from ..distributed import sharding as sh
+    opt = optimizer or make_optimizer(cfg)
+    params_abs, opt_abs = steps_mod.abstract_train_state(cfg, opt)
+    template = {"params": params_abs, "opt": opt_abs}
+    specs = {"params": sh.params_sharding(params_abs, mesh, cfg),
+             "opt": sh.opt_state_sharding(opt_abs, mesh, cfg)}
+    # mapped over the template: a Spec is a tuple, not a subtree
+    placements = tree_map(lambda _, sp: sh.placements(sp, mesh), template,
+                          specs)
+    return ckpt.restore(template, ckpt_dir, mesh=mesh, placements=placements)
+
+
+def unshard(tree: Tree) -> Tree:
+    """Every DTensor leaf of ``tree`` as its full tensor on this rank (an
+    all-gather where the leaf is sharded, as a ZeRO-1 moment is), any
+    other leaf as it is: the state ``steps.make_train_step(mesh=)``
+    takes, whole parameters and optimizer state on every rank."""
+    return tree_map(ckpt.whole, tree)

@@ -13,6 +13,33 @@ ONE :class:`~repro_torch.engine.DecomposeEngine` (from an engine or an
 ``EngineConfig`` that carries a policy) and threads it through every
 block.  The returned functions take tensors on the device the caller
 chose (the card by default; the CPU tests pass host tensors).
+
+A train step made with ``mesh=`` (a ``DeviceMesh`` whose "model" axis is
+1) is data-parallel, one process per device, every rank holding the
+whole parameters and optimizer state: it takes the GLOBAL batch, keeps
+the rank's block of each leaf's leading dim (``distributed.sharding.
+batch_spec``'s rule: rank i of the DP group takes rows [i·b/dp,
+(i+1)·b/dp); a leading dim that dp does not divide stays whole on every
+rank; a batch-1 batch that the rule shards along its sequence raises),
+and syncs the gradients over the DP group before the global clip, so
+the clip and the optimizer see the global gradient as the reference's
+GSPMD step does.  Each family's loss is a mean over its counted tokens
+(labels other than −1), so a rank's gradient is scaled by n_i·dp / N (n_i
+its counted tokens, N the sum) before the sync averages it: the result
+is the gradient of the global mean whatever the shards' counts, and the
+scale is exactly 1 when they are equal.  The logged loss is the same
+weighted mean, all-reduced.  A config with experts (``num_experts`` > 0)
+keeps the whole batch on every rank instead, as its serving keeps every
+slot (``serving.families.MoEServing.slot_sharded``): ``moe_ffn`` sizes
+each expert's capacity from the tokens of the call, and the auxiliary
+balance loss is a statistic of the whole batch, so a split batch would
+drop other tokens and balance other counts than the reference's global
+step; every rank then computes the whole-batch gradient, and the sync
+averages identical gradients.  The sync is ``grad_transform``: by
+default ``distributed.compression.dp_mean`` over the DP group; a given
+transform must carry ``dp_sync`` (``compression.PowerSGD`` built with
+the group does).  Such a step resumes from a checkpoint through
+``runtime.driver.unshard(restore_for_mesh(...))``.
 """
 from __future__ import annotations
 
@@ -21,6 +48,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 
 from ..configs import ArchConfig
+from ..distributed import compression as comp, sharding as sh
 from ..engine import DecomposeEngine, EngineConfig
 from ..kernels.ops import make_kernels
 from ..models import api
@@ -89,22 +117,34 @@ def value_and_grad(loss_of: Callable, params: Tree, batch
 def make_train_step(cfg: ArchConfig, optimizer=None,
                     max_grad_norm: float = 1.0, microbatches: int = 1,
                     grad_transform: Optional[Callable] = None,
-                    backend: str = "cuda") -> Callable:
+                    backend: str = "cuda", mesh=None) -> Callable:
     """train_step(params, opt_state, batch) → (params, opt_state,
     {"loss", "grad_norm"}), the reference's step: the gradient of the
     family's ``loss_fn``, ``grad_transform`` (e.g. PowerSGD), the global
     clip, the optimizer.  ``microbatches`` > 1 splits the batch on its
     first axis and accumulates float32 gradients in a loop (the
     reference scans); the loss and gradients are then the microbatch
-    means.  The parameters are updated in place and returned."""
+    means.  The parameters are updated in place and returned.  With
+    ``mesh`` the step is data-parallel (module docstring)."""
     fns = api.model_fns(cfg)
     opt = optimizer or make_optimizer(cfg)
     kernels = make_kernels(backend)
+    if mesh is not None:
+        sh.require_data_only(mesh, "a train step")
+        if grad_transform is None:
+            grad_transform = comp.dp_mean(sh.dp_group(mesh))
+        elif not getattr(grad_transform, "dp_sync", False):
+            raise ValueError(
+                "a data-parallel train step needs a grad_transform that "
+                "syncs over the DP group (dp_sync): compression.dp_mean "
+                "or compression.PowerSGD(..., group=)")
 
     def loss_of(params, batch):
         return fns.loss_fn(params, cfg, batch, kernels)
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            batch, weight = _dp_shard(batch, mesh, cfg.num_experts == 0)
         if microbatches == 1:
             loss, grads = value_and_grad(loss_of, params, batch)
         else:
@@ -120,6 +160,8 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
                 loss = loss + l_i
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
+        if mesh is not None:
+            grads, loss = _dp_weigh(grads, loss, weight, mesh)
         if grad_transform is not None:
             grads = grad_transform(grads)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
@@ -127,6 +169,39 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _dp_shard(batch, mesh, split: bool):
+    """(this rank's block of ``batch``, or all of it unless ``split``, and
+    its gradient weight n_i·dp / N)."""
+    dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
+    local = dict(batch)
+    for k, v in (batch.items() if split else ()):
+        spec = sh.batch_spec(tuple(v.shape), mesh)
+        if len(spec) > 1 and spec[1] is not None:
+            raise NotImplementedError(
+                f"batch leaf {k!r} {tuple(v.shape)}: a batch-1 batch "
+                f"shards its sequence over the DP axis, which the port's "
+                f"train step does not run yet (the model-axis slice of "
+                f"ROADMAP.md's distribution work)")
+        if spec and spec[0] is not None:
+            n = v.shape[0] // dp
+            local[k] = v[i * n:(i + 1) * n]
+    n_i = torch.clamp((local["labels"] != -1).sum(), min=1).to(
+        torch.float64)
+    total = n_i.clone()
+    sh.all_reduce(total, sh.dp_group(mesh), "token_count")
+    return local, (n_i * dp / total).to(torch.float32)
+
+
+def _dp_weigh(grads, loss, weight, mesh):
+    """Scale this rank's gradient by its weight (skipped when it is 1),
+    and all-reduce the weighted loss to the global mean."""
+    if bool(weight != 1.0):
+        grads = tree_map(lambda g: g * weight.to(g.dtype), grads)
+    wl = (loss.float() * weight).reshape(1)
+    sh.all_reduce(wl, sh.dp_group(mesh), "loss")
+    return grads, (wl / sh.dp_size(mesh)).reshape(()).to(loss.dtype)
 
 
 def make_eval_step(cfg: ArchConfig, backend: str = "cuda") -> Callable:

@@ -18,6 +18,11 @@ The draws cannot equal JAX's (``jax.random`` is not replayable here);
 what holds is the property: same seed, same tokens, for every
 interleaving of block sizes.
 
+A keyed sampler may take ``row0``, the batch row of its first logits row
+(default 0): a slot-sharded serving engine's rank samples only its own
+slots' rows and passes their first global index, so it draws what the
+whole-batch engine draws for them.
+
 The hash works on Python ints and on int64 tensors alike (its multipliers
 are below 2³¹, so a product of a 32-bit value never leaves int64), which
 lets the host and the device derive the same keys.
@@ -60,12 +65,15 @@ def uniform(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
 
 
-def gumbel(key, shape, device) -> torch.Tensor:
+def gumbel(key, shape, device, row0: int = 0) -> torch.Tensor:
     """float32 Gumbel noise [B, V] of ``key`` (an int or an int64 tensor
     on ``device``): entry (b, v) is −log(−log(u)) with u the
-    :func:`uniform` of the hash of (key, b, v)."""
+    :func:`uniform` of the hash of (key, row0 + b, v).  ``row0`` places
+    the rows in a larger batch (a slot-sharded engine's rank draws the
+    rows of its own slots)."""
     b, v = shape
-    rows = torch.arange(b, device=device, dtype=torch.int64)[:, None]
+    rows = torch.arange(row0, row0 + b, device=device,
+                        dtype=torch.int64)[:, None]
     cols = torch.arange(v, device=device, dtype=torch.int64)[None, :]
     return -torch.log(-torch.log(uniform(_mix(_mix(fold_in(key, rows)
                                                     ^ cols)))))
@@ -82,9 +90,10 @@ def categorical_sampler(temperature: float = 1.0) -> Callable:
     :func:`gumbel`'s noise, float32, on the logits' device."""
     t = max(float(temperature), 1e-6)
 
-    def sample(logits: torch.Tensor, k: int, key) -> torch.Tensor:
+    def sample(logits: torch.Tensor, k: int, key,
+               row0: int = 0) -> torch.Tensor:
         lg = logits.float() / t
-        return torch.argmax(lg + gumbel(key, lg.shape, lg.device),
+        return torch.argmax(lg + gumbel(key, lg.shape, lg.device, row0),
                             dim=-1).to(torch.int32)
     sample.takes_key = True
     return sample

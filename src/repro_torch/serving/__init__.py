@@ -71,6 +71,39 @@ host-side only: tokens, launches and the host's reads of the device are
 the same with it on or off, and spans end only at readbacks the engine
 already does (a span that ends elsewhere covers host enqueue time).
 
+Mesh-parallel serving (DP over slots).  With a mesh on the decompose
+engine's config (``EngineConfig.mesh``, axes ("data", "model") or
+("pod", "data", "model"); ``launch.mesh``) the engine runs SPMD, one
+process per device: every rank runs the same host logic on the same
+requests (scheduler, admission, folds, stops: their state is global and
+identical on every rank), while each rank holds only its block of the
+slots (``models.api.SlotShard``: slots / dp rows of every per-slot
+cache leaf, or every slot where dp does not divide the slot count, as
+the rules' fallback says).  An admission's prefill runs on every rank
+(its decomposition DP-sharded by the decompose engine) and each rank
+splices only the slots it holds; cache geometry (time and rank axes)
+changes on every rank alike, so a rank's slots see the arithmetic of
+the single-device engine.  Each decode step, or fused block, runs on the
+rank's slots, and the sampled tokens are all-gathered over the DP group
+before the one host readback (after a graph's replay, never inside
+it), so every rank's host sees every slot's token.  A keyed sampler
+draws a slot's row by its global index (``row0``).  Collectives must be
+issued in the same order on every rank, so what could differ is agreed:
+``decode_block="auto"`` resolves on DP rank 0 and is broadcast; an
+async ``"ready"`` pool splices a ticket only when it is ready on every
+rank (an all-reduce MIN of the done flags).  A fused block halts on a
+stop token only on the rank that holds the slot, so the block takes the
+fewest steps any rank took (they travel with the gathered tokens) and a
+rank that ran on undoes its extra steps (``ServingFamily.
+undo_overrun``: nothing for a K/V cache, whose rows past a slot's
+position are rewritten alike before they are read; the dense tail rows
+for decomposed KV); a family whose state advances in place (Mamba2,
+hybrid) runs one-step blocks instead while a live slot has stop tokens
+on a sharded mesh of more than one rank.  The MoE family keeps every slot on
+every rank: its expert capacity couples the slots of a decode batch,
+so the batch must stay whole.  A "model" axis larger than 1 raises
+(``distributed.sharding.require_data_only``).
+
 ``decompose_kv_rank``/``dkv_tail``/``dkv_exact`` override the decompose
 engine's ``kv_rank``/``kv_tail``/``kv_exact`` with the reference's
 precedence: an explicit knob wins (``decompose_kv_rank=0`` disables
@@ -86,15 +119,17 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..distributed import sharding as sh
 from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import build
+from ..models.api import SlotShard
 from ..obs import (NULL_SPAN, LatencySeries, MetricsRegistry, Observability,
                    phase_scope, stats_snapshot)
 from ..platform import host_to_device, prefill_stream, resolve_device
 from ..sampling import (categorical_sampler, fold_in, greedy_sampler,
                         prng_key, takes_key)
-from .families import (PrefillTicket, ServingFamily, family_names,
-                       serving_family)
+from .families import (PrefillTicket, ServingFamily, family_class,
+                       family_names)
 from .graphs import BlockGraphs
 
 __all__ = ["ADMISSIONS", "READY_ORDERS", "Engine", "EngineStats",
@@ -364,6 +399,10 @@ class Engine:
             self.dengine = DecomposeEngine(EngineConfig(
                 kv_rank=decompose_kv_rank, kv_tail=dkv_tail))
         ecfg = self.dengine.config
+        self.mesh = ecfg.mesh
+        sh.require_data_only(self.mesh, "serving")
+        # the DP group, which agrees host choices between ranks
+        self._dp = sh.dp_group(self.mesh) if self.mesh is not None else None
         self.dkv_rank = int(decompose_kv_rank)
         self.dkv_tail = int(dkv_tail)
         self.dkv_exact = ecfg.kv_exact if dkv_exact is None \
@@ -390,7 +429,12 @@ class Engine:
         self._pool: List[PrefillTicket] = []       # in-flight admissions
         self._reserved = np.zeros(slots, bool)     # dispatched, not spliced
         self.admit_log: List[int] = []             # uids in dispatch order
-        self.family = serving_family(self, paged=paged)
+        cls = family_class(self)
+        # the slots this rank holds (all of them without a mesh)
+        self.shard = SlotShard(slots, self.mesh if cls.slot_sharded
+                               else None)
+        self.decode_sampler = _rows_from(self.sampler, self.shard.first)
+        self.family = cls(self, paged=paged)
         self.cache = self.family.alloc()
         self.sched = Scheduler(bucket=ecfg.sched_bucket,
                                max_admit=ecfg.sched_max_admit,
@@ -402,6 +446,9 @@ class Engine:
             blk = tune.tuned_decode_block(
                 (slots, self.family.tune_horizon(), cfg.kv_width),
                 device=self.device)
+            if self._dp is not None:         # DP rank 0's resolution
+                blk = sh.broadcast_int(blk, self._dp, self.device,
+                                       "decode_block")
         self.decode_block = max(1, int(blk))
         cap = self.family.block_cap()
         if cap is not None:
@@ -493,11 +540,19 @@ class Engine:
     def _sample_host(self, logits: torch.Tensor,
                      stream: int = 0) -> np.ndarray:
         """Sample on the device, read the tokens back (the one sync).  A
-        keyed sampler draws with ``fold_in(stream key, round)``."""
-        if takes_key(self.sampler):
+        keyed sampler draws with ``fold_in(stream key, round)``.  Stream 0
+        samples decode logits, the rows of this rank's slots, whose
+        tokens are gathered over the DP group first; stream 1 samples an
+        admission's logits, which every rank holds whole."""
+        sampler = self.decode_sampler if stream == 0 else self.sampler
+        if takes_key(sampler):
             key = fold_in(self._stream_key(stream), self._round)
-            return self.sampler(logits, 1, key).cpu().numpy()
-        return self.sampler(logits, 1).cpu().numpy()
+            toks = sampler(logits, 1, key)
+        else:
+            toks = sampler(logits, 1)
+        if stream == 0:
+            toks = self.shard.gather(toks)
+        return toks.cpu().numpy()
 
     def _stops(self, req: Request) -> frozenset:
         eos = req.eos_id if req.eos_id is not None else self.eos_id
@@ -659,8 +714,14 @@ class Engine:
         rest: List[PrefillTicket] = []
         with self.trace.span("drain-pool", "engine",
                              {"pool": len(self._pool)}) as dspan:
-            for i, t in enumerate(self._pool):
-                if (block and i == 0) or t.ready():
+            ready = [(block and i == 0) or t.ready()
+                     for i, t in enumerate(self._pool)]
+            if self._dp is not None:
+                # a ticket completes on every rank or on none: its
+                # splice may gather, and collectives must pair up
+                ready = sh.all_true(ready, self._dp, self.device, "ready")
+            for t, ok in zip(self._pool, ready):
+                if ok:
                     finished.extend(self._finish_ticket(t))
                 else:
                     rest.append(t)
@@ -752,7 +813,8 @@ class Engine:
         return done
 
     def _decode_round(self) -> List[Request]:
-        tok = torch.from_numpy(self._last_tokens()).long().to(self.device)
+        tok = torch.from_numpy(self.shard.take(self._last_tokens())).long() \
+            .to(self.device)
         with self.trace.span("decode-step", "engine"), \
                 phase_scope("decode"):
             nxt = self._sample_host(self.family.decode(tok))
@@ -785,9 +847,18 @@ class Engine:
           fills), None for families whose state never grows;
         * admission: with ``admit_every > 1`` and a queue, the next due
           round (with ``admit_every == 1`` a deferred request waits for
-          a slot to free or a fold, both block boundaries already).
+          a slot to free or a fold, both block boundaries already);
+        * stops on a sharded mesh, for a family whose state advances in
+          place (Mamba2, hybrid): one step when a live slot has stop
+          tokens and the slots are split over more than one rank (a rank
+          sees only its own slots' stops and would run past the others'
+          halt, which such state cannot undo).
         """
         blk = self.decode_block
+        if self.shard.sharded and self.shard.dp > 1 \
+                and not self.family.undoes_overrun and any(
+                    r is not None and self._stops(r) for r in self.live):
+            return 1
         for i, req in enumerate(self.live):
             if req is None:
                 continue
@@ -844,6 +915,20 @@ class Engine:
             if self._check_stop(i, req, now):
                 done.append(req)
         return done
+
+
+def _rows_from(sampler: Callable, row0: int) -> Callable:
+    """``sampler`` drawing its rows as rows ``row0``, ``row0 + 1``, … of
+    the whole slot batch (a keyed sampler's ``row0``): a rank's decode
+    logits are the rows of its slots.  Unkeyed samplers, and row 0, are
+    returned as they are."""
+    if not row0 or not takes_key(sampler):
+        return sampler
+
+    def sample(logits, k, key):
+        return sampler(logits, k, key, row0=row0)
+    sample.takes_key = True
+    return sample
 
 
 def _prefill_stream(device: torch.device) -> "torch.cuda.Stream":

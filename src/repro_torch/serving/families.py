@@ -46,7 +46,12 @@ CUDA graph on the card); ``prefill_cost``, ``tune_horizon``, ``block_cap`` and
 and the engine's block horizon.  All mutable serving state
 (``cache``, ``pos``, ``frozen_len``, ``rank_eff``, ``live``, ``pager``)
 stays on the Engine; a family holds only the static buffers its fused
-blocks' graphs read (``_static``).  A family reaches its
+blocks' graphs read (``_static``).  On a mesh the device-side state
+is the rank's (``eng.shard``: its slots' rows of every per-slot array)
+while the host state stays global; a family hands its kernels the
+held slots' rows (``eng.shard.take``), splices only held slots, and
+applies geometry changes (the dkv slab's time and rank axes) on every
+rank alike.  A family reaches its
 engine through a ``weakref.proxy``: the engine owns the family, so a
 dropped engine frees its cache and weights at once, without waiting for
 the cyclic garbage collector (the reference keeps the cycle).
@@ -133,10 +138,11 @@ def _sample_feed(eng) -> Dict[str, np.ndarray]:
 
 
 def _live(eng) -> np.ndarray:
-    """int32 [slots]: 1 where a slot holds a request (a fused block's
-    ``slot_live``; a reserved slot is not live until its ticket
+    """int32 [held slots]: 1 where a slot holds a request (a fused
+    block's ``slot_live``; a reserved slot is not live until its ticket
     completes)."""
-    return np.array([r is not None for r in eng.live], np.int32)
+    return np.array([r is not None for r in eng.shard.take(eng.live)],
+                    np.int32)
 
 
 def _on_side(eng, fn):
@@ -188,7 +194,7 @@ def family_names() -> List[str]:
     return sorted(_REGISTRY)
 
 
-def serving_family(eng, paged: bool = False) -> "ServingFamily":
+def family_class(eng) -> type:
     """A decomposed-KV rank > 0 selects transformer-dkv, otherwise the
     model config's family key."""
     key = "transformer-dkv" if eng.dkv_rank else eng.cfg.family
@@ -196,7 +202,7 @@ def serving_family(eng, paged: bool = False) -> "ServingFamily":
     if cls is None:
         raise ValueError(f"no ServingFamily registered for {key!r} "
                          f"(have {family_names()})")
-    return cls(eng, paged=paged)
+    return cls
 
 
 class ServingFamily:
@@ -208,6 +214,14 @@ class ServingFamily:
     #: gang admission may splice into a cache with live slots (dense
     #: alone); every other family gangs only on an all-free engine
     gang_live_splice = False
+    #: on a mesh, each rank holds its block of the slots (the rules'
+    #: batch rule); False keeps every slot on every rank
+    slot_sharded = True
+    #: a fused block that ran past the global halt on this rank (its
+    #: slots sampled no stop token where another rank's did) can be put
+    #: back (:meth:`undo_overrun`); False: the engine runs one-step
+    #: blocks on a sharded mesh whenever a live slot has stop tokens
+    undoes_overrun = True
 
     def __init__(self, eng, paged: bool = False):
         if paged and not self.paged_capable:
@@ -220,7 +234,7 @@ class ServingFamily:
 
     def alloc(self):
         eng = self.eng
-        return self.fns.init_cache(eng.cfg, eng.slots, eng.max_len,
+        return self.fns.init_cache(eng.cfg, eng.shard.n, eng.max_len,
                                    device=eng.device)
 
     def free_slot(self, slot: int) -> None:
@@ -283,7 +297,9 @@ class ServingFamily:
 
         def complete() -> Admitted:
             _join(eng, ev, (logits, fresh))
-            api.splice_cache(eng.cfg, eng.cache, fresh, slots_idx)
+            loc, src = eng.shard.pairs(slots_idx)
+            if loc:
+                api.splice_cache(eng.cfg, eng.cache, fresh, loc, src)
             return eng._sample_host(logits, 1)[:n], np.zeros(n, np.int32)
 
         return [self._ticket(batch, slots_idx, plen, ev, complete)]
@@ -310,14 +326,20 @@ class ServingFamily:
         logits, cache = self._prefill(eng._toks(batch, eng.slots, plen,
                                                 slots_idx))
         if has_live:
-            api.splice_cache(eng.cfg, eng.cache, cache, slots_idx, slots_idx)
+            loc, src = eng.shard.pairs(slots_idx)
+            if loc:
+                api.splice_cache(eng.cfg, eng.cache, cache, loc,
+                                 [slots_idx[j] for j in src])
         else:
-            eng.cache = cache
+            eng.cache = eng.shard.take_cache(eng.cfg, cache)
         return logits
 
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
+        """One decode step of the held slots (``tok`` their tokens) →
+        their logits."""
         eng = self.eng
-        pos = torch.from_numpy(eng.pos).long().to(eng.device)
+        pos = torch.from_numpy(eng.shard.take(eng.pos)).long() \
+            .to(eng.device)
         logits, eng.cache = self.fns.decode_step(eng.params, eng.cfg, tok,
                                                  eng.cache, pos)
         return logits
@@ -333,9 +355,10 @@ class ServingFamily:
         ``stops`` int32 [slots, W]): returns (tokens [steps, slots],
         steps) on the host."""
         eng = self.eng
+        sd = eng.shard
         pin(eng.cache, self._static)
         cache, fns, params, cfg = eng.cache, self.fns, eng.params, eng.cfg
-        sampler = eng.sampler
+        sampler = eng.decode_sampler
 
         def body(tok, pos, stops, live, key, round0, n_steps):
             def step(t, c, ps, act):
@@ -346,13 +369,34 @@ class ServingFamily:
                 round0=round0)
             return buf, steps
 
-        key = (type(self).__name__, n, eng.slots, stops.shape[1],
+        key = (type(self).__name__, n, sd.n, stops.shape[1],
                _shapes(cache))
-        feed = {"tok": tok, "pos": eng.pos, "stops": stops,
-                "live": _live(eng), **_sample_feed(eng),
-                "n_steps": np.int32(n)}
-        return unpack(eng.graphs.run(key, body, feed,
-                                     capture=self._capturable()), eng.slots)
+        feed = {"tok": sd.take(tok), "pos": sd.take(eng.pos),
+                "stops": sd.take(stops), "live": _live(eng),
+                **_sample_feed(eng), "n_steps": np.int32(n)}
+        return self._run_block(key, body, feed, self._capturable())
+
+    def _run_block(self, key, body, feed, capture: bool):
+        """A fused block through the engine's graphs, its tokens gathered
+        over the DP group (on a slot-sharded mesh) before the readback,
+        and this rank's steps past the block's end undone → (tokens
+        [steps, slots], steps)."""
+        eng = self.eng
+        sd = eng.shard
+        out = eng.graphs.run(key, body, feed, capture=capture,
+                             gather=sd.gather if sd.sharded else None)
+        toks, steps, ran = unpack(out, eng.slots, sd.dp if sd.sharded else 1)
+        mine = ran[sd.first // sd.n if sd.sharded else 0]
+        if mine > steps:
+            self.undo_overrun(steps, mine)
+        return toks, steps
+
+    def undo_overrun(self, steps: int, ran: int) -> None:
+        """This rank's block ran ``ran`` steps where the block took
+        ``steps``: put its held live slots back as after ``steps``.  A
+        K/V cache needs nothing: the rows past a slot's position are
+        masked until the next block writes them again, with the same
+        values."""
 
     def maybe_fold(self) -> None:
         """Tail-fold check at a decode boundary (no-op without a tail)."""
@@ -374,6 +418,10 @@ class Mamba2Serving(ServingFamily):
     splices whole state rows.  Prefill runs the chunked scan through the
     decompose engine's kernel set (its resolved backend: ``"cuda"``, the
     SSD kernel on the card; ``"reference"``, its plain version)."""
+
+    #: the state slots advance in place: steps past a block's end
+    #: cannot be undone
+    undoes_overrun = False
 
     def __init__(self, eng, paged: bool = False):
         super().__init__(eng, paged=paged)
@@ -398,7 +446,11 @@ class MoEServing(ServingFamily):
     included, so tokens equal another engine's only where the batches
     are the same (fused vs single-step, async-deterministic vs sync; the
     fused block keeps dead rows as single steps have them) or where
-    capacity never binds (the reference's conformance pins cf 8)."""
+    capacity never binds (the reference's conformance pins cf 8).  For
+    the same reason a mesh does not split the slots (``slot_sharded``
+    False): every rank decodes the whole slot batch, as the reference's
+    global computation routes it."""
+    slot_sharded = False
 
 
 @register_family("hybrid")
@@ -454,7 +506,8 @@ class TransformerDKVServing(ServingFamily):
                 eng.cfg, slots=eng.slots, max_len=eng.max_len,
                 rank=eng.dkv_rank, tail=eng.dkv_tail, page=ec.kv_page,
                 pool_pages=ec.kv_pool_pages,
-                prefix_capacity=ec.kv_prefix_cache, device=eng.device)
+                prefix_capacity=ec.kv_prefix_cache, device=eng.device,
+                shard=eng.shard)
 
     def alloc(self):
         return None                  # built at the first prefill
@@ -569,10 +622,13 @@ class TransformerDKVServing(ServingFamily):
             _join(eng, ev, (logits, fresh))
             if eng.cache is None:
                 eng.cache = DK.init_cache(
-                    eng.cfg, eng.slots, fresh["k_u"].shape[2],
+                    eng.cfg, eng.shard.n, fresh["k_u"].shape[2],
                     fresh["k_u"].shape[-1], tail=eng.dkv_tail,
                     device=eng.device)
-            eng.cache = DK.splice_dkv(eng.cache, fresh, slots_idx)
+            # every rank pads its cache to the fresh geometry; the rows
+            # land on the rank that holds their slot
+            loc, src = eng.shard.pairs(slots_idx)
+            eng.cache = DK.splice_dkv(eng.cache, fresh, loc, src)
             eng.rank_eff[slots_idx] = fresh["k_u"].shape[-1]
             return eng._sample_host(logits, 1)[:n], \
                 np.full(n, plen, np.int32)
@@ -731,21 +787,24 @@ class TransformerDKVServing(ServingFamily):
         is False): prefill every slot row, the fresh cache replaces the
         old one."""
         eng = self.eng
-        logits, eng.cache = self._prefill(eng._toks(batch, eng.slots, plen,
-                                                    slots_idx))
+        logits, cache = self._prefill(eng._toks(batch, eng.slots, plen,
+                                                slots_idx))
+        eng.cache = eng.shard.take_cache(eng.cfg, cache, axis=1)
         eng.rank_eff[slots_idx] = eng.cache["k_u"].shape[-1]
         return logits
 
     # -- decode ----------------------------------------------------------
     def decode(self, tok: torch.Tensor) -> torch.Tensor:
         eng = self.eng
-        pos = torch.from_numpy(eng.pos).to(eng.device)
-        frozen = torch.from_numpy(eng.frozen_len).to(eng.device)
+        sd = eng.shard
+        pos = torch.from_numpy(sd.take(eng.pos)).to(eng.device)
+        frozen = torch.from_numpy(sd.take(eng.frozen_len)).to(eng.device)
         pg = eng.pager
         if pg is not None:
             logits, pg.cache = DK.decode_step_dkv_paged(
                 eng.params, eng.cfg, tok, pg.cache, pos, frozen,
-                pg.bt_tensor(pg.bt_u), pg.bt_tensor(pg.bt_t, pg.ntp),
+                pg.bt_tensor(sd.take(pg.bt_u)),
+                pg.bt_tensor(sd.take(pg.bt_t), pg.ntp),
                 pg.slab_t, pg.slab_r, eng.dkv_tail, attention=self._route())
             return logits
         logits, eng.cache = DK.decode_step_dkv(eng.params, eng.cfg, tok,
@@ -790,7 +849,8 @@ class TransformerDKVServing(ServingFamily):
         cache = {"k_u": st["k_u"], "v_u": st["v_u"], "k_vt": c["k_vt"],
                  "v_vt": c["v_vt"], "tail": c["tail"]}
         params, cfg, route = eng.params, eng.cfg, self._route()
-        sampler = eng.sampler
+        sampler = eng.decode_sampler
+        sd = eng.shard
 
         def body(tok, pos, frozen, stops, live, key, round0, n_steps):
             buf, steps, _, _ = DK.decode_block_dkv(
@@ -799,12 +859,12 @@ class TransformerDKVServing(ServingFamily):
                 sampler=sampler, key=key, round0=round0)
             return buf, steps
 
-        key = ("slab", route, n, eng.slots, stops.shape[1], _shapes(cache))
-        feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
-                "stops": stops, "live": _live(eng), **_sample_feed(eng),
+        key = ("slab", route, n, sd.n, stops.shape[1], _shapes(cache))
+        feed = {"tok": sd.take(tok), "pos": sd.take(eng.pos),
+                "frozen": sd.take(eng.frozen_len), "stops": sd.take(stops),
+                "live": _live(eng), **_sample_feed(eng),
                 "n_steps": np.int32(n)}
-        return unpack(eng.graphs.run(key, body, feed,
-                                     capture=self._capturable()), eng.slots)
+        return self._run_block(key, body, feed, self._capturable())
 
     def _decode_block_paged(self, tok: np.ndarray, n: int,
                             stops: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -818,7 +878,8 @@ class TransformerDKVServing(ServingFamily):
         cache = pg.cache
         params, cfg, route = eng.params, eng.cfg, self._route()
         t_need, r_need, tl = pg.slab_t, pg.slab_r, eng.dkv_tail
-        sampler = eng.sampler
+        sampler = eng.decode_sampler
+        sd = eng.shard
 
         def body(tok, pos, frozen, stops, live, bt_u, bt_t, key, round0,
                  n_steps):
@@ -829,15 +890,39 @@ class TransformerDKVServing(ServingFamily):
                 key=key, round0=round0)
             return buf, steps
 
-        key = ("paged", route, n, eng.slots, stops.shape[1], r_need,
+        key = ("paged", route, n, sd.n, stops.shape[1], r_need,
                _shapes(cache))
-        feed = {"tok": tok, "pos": eng.pos, "frozen": eng.frozen_len,
-                "stops": stops, "live": _live(eng),
-                "bt_u": pg.bt_array(pg.bt_u, pg.pages_for(eng.max_len)),
-                "bt_t": pg.bt_array(pg.bt_t, pg.ntp), **_sample_feed(eng),
-                "n_steps": np.int32(n)}
-        return unpack(eng.graphs.run(key, body, feed,
-                                     capture=self._capturable()), eng.slots)
+        feed = {"tok": sd.take(tok), "pos": sd.take(eng.pos),
+                "frozen": sd.take(eng.frozen_len), "stops": sd.take(stops),
+                "live": _live(eng),
+                "bt_u": pg.bt_array(sd.take(pg.bt_u),
+                                    pg.pages_for(eng.max_len)),
+                "bt_t": pg.bt_array(sd.take(pg.bt_t), pg.ntp),
+                **_sample_feed(eng), "n_steps": np.int32(n)}
+        return self._run_block(key, body, feed, self._capturable())
+
+    def undo_overrun(self, steps: int, ran: int) -> None:
+        """Zero the tail rows this rank's live slots wrote past the
+        block's end: a fold folds the whole tail, whose rows past a
+        slot's occupancy are zero in an engine that stopped there."""
+        eng = self.eng
+        sd, pg = eng.shard, eng.pager
+        for j in range(sd.n):
+            g = sd.first + j
+            if eng.live[g] is None:
+                continue
+            occ = int(eng.pos[g] - eng.frozen_len[g])
+            rows = range(occ + steps, min(occ + ran, eng.dkv_tail))
+            if not len(rows):
+                continue
+            if pg is None:
+                for t in eng.cache["tail"].values():
+                    t[:, j, rows.start:rows.stop] = 0
+                continue
+            for r in rows:
+                page = pg.bt_t[g][r // pg.page]
+                for t in pg.cache["tail"].values():
+                    t[:, page, r % pg.page] = 0
 
     # -- folds -----------------------------------------------------------
     def maybe_fold(self) -> None:
@@ -865,12 +950,14 @@ class TransformerDKVServing(ServingFamily):
         r_in = int(eng.cache["k_u"].shape[-1])
         t_frozen = int(eng.cache["k_u"].shape[2])
         new_frozen = np.where(fold, eng.pos, eng.frozen_len).astype(np.int32)
-        dev = eng.device
+        dev, sd = eng.device, eng.shard
+        # every rank folds (its slots' rows): the slab's geometry moves
+        # alike on every rank
         eng.cache = DK.compress_tail(
             eng.cache, eng.cfg, eng.dkv_rank,
-            frozen_len=torch.from_numpy(eng.frozen_len).to(dev),
-            fold=torch.from_numpy(fold).to(dev),
-            new_frozen=torch.from_numpy(new_frozen).to(dev))
+            frozen_len=torch.from_numpy(sd.take(eng.frozen_len)).to(dev),
+            fold=torch.from_numpy(sd.take(fold)).to(dev),
+            new_frozen=torch.from_numpy(sd.take(new_frozen)).to(dev))
         eng.frozen_len = new_frozen
         eng.rank_eff = np.where(
             fold, DK.fold_rank(eng.dkv_rank, r_in, t_frozen, eng.dkv_tail),
@@ -916,16 +1003,18 @@ class TransformerDKVServing(ServingFamily):
         npn = max(len(v) for v in newp.values())
         new_frozen = np.where(fold, eng.pos,
                               eng.frozen_len).astype(np.int32)
-        dev = eng.device
+        dev, sd = eng.device, eng.shard
+        # the fresh pages of a folded slot are written on the rank that
+        # holds it, and read only there (serving.paged)
         pg.cache = DK.compress_tail_paged(
             pg.cache, eng.cfg, eng.dkv_rank,
-            frozen_len=torch.from_numpy(eng.frozen_len).to(dev),
-            fold=torch.from_numpy(fold).to(dev),
-            new_frozen=torch.from_numpy(new_frozen).to(dev),
-            bt_u=pg.bt_tensor(pg.bt_u),
-            bt_u_new=pg.bt_tensor([newp.get(i, [])
-                                   for i in range(eng.slots)], npn),
-            bt_t=pg.bt_tensor(pg.bt_t, pg.ntp), t_need=pg.slab_t,
+            frozen_len=torch.from_numpy(sd.take(eng.frozen_len)).to(dev),
+            fold=torch.from_numpy(sd.take(fold)).to(dev),
+            new_frozen=torch.from_numpy(sd.take(new_frozen)).to(dev),
+            bt_u=pg.bt_tensor(sd.take(pg.bt_u)),
+            bt_u_new=pg.bt_tensor(sd.take([newp.get(i, [])
+                                           for i in range(eng.slots)]), npn),
+            bt_t=pg.bt_tensor(sd.take(pg.bt_t), pg.ntp), t_need=pg.slab_t,
             r_need=pg.slab_r, tail_len=eng.dkv_tail)
         r_fold = DK.fold_rank(eng.dkv_rank, pg.slab_r, pg.slab_t,
                               eng.dkv_tail)

@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Mapping, Tuple
+from typing import Callable, Dict, Hashable, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -166,17 +166,25 @@ class BlockGraphs:
         return len(self._lru)
 
     def run(self, key: Hashable, body: Body, feed: Feed, *,
-            capture: bool) -> np.ndarray:
+            capture: bool, gather=None) -> np.ndarray:
         """One fused block: ``body(**inputs)`` → (buf int32 [n, B], steps
         int32 []), where ``inputs`` are ``feed``'s int32 arrays on the
         device (its ``"n_steps"`` the step count).  With ``capture`` (the card
         only) the block replays the graph of ``key``, captured at first
-        use.  Returns ``[steps, *buf.flatten()]`` on the host."""
+        use.  Returns ``[steps, *buf.flatten()]`` on the host; with
+        ``gather`` (a slot-sharded engine's all-gather over its DP
+        group, run after the replay, never inside a graph) the ranks'
+        packed outputs one after another."""
+        def readback(out: torch.Tensor) -> np.ndarray:
+            if gather is not None:
+                out = gather(out)
+            return out.cpu().numpy()
+
         if not capture:
             flat = torch.from_numpy(_pack(feed)).to(self.device)
             buf, steps = body(**_views(flat, _layout(feed)))
             self._eager.inc()
-            return _packed(buf, steps).cpu().numpy()
+            return readback(_packed(buf, steps))
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not "
                              f"{self.device}")
@@ -193,7 +201,7 @@ class BlockGraphs:
         self._replays.inc()
         for name, d in ent.delta.items():
             ops.KERNELS[name].launches += d
-        return ent.out.cpu().numpy()
+        return readback(ent.out)
 
     def _capture(self, body: Body, feed: Feed) -> _Entry:
         t0 = time.perf_counter()
@@ -243,7 +251,16 @@ def _packed(buf: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
                       buf.reshape(-1).to(torch.int32)])
 
 
-def unpack(host: np.ndarray, slots: int) -> Tuple[np.ndarray, int]:
-    """:meth:`BlockGraphs.run`'s result → (tokens [steps, slots], steps)."""
-    steps = int(host[0])
-    return host[1:].reshape(-1, slots)[:steps], steps
+def unpack(host: np.ndarray, slots: int, parts: int = 1
+           ) -> Tuple[np.ndarray, int, List[int]]:
+    """:meth:`BlockGraphs.run`'s result → (tokens [steps, slots], steps,
+    each part's steps).  ``parts`` > 1: a gathered result, the packed
+    outputs of ``parts`` ranks that hold ``slots // parts`` slots each,
+    in slot order; the block took the fewest steps any rank took (a rank
+    halts on its own slots' stop tokens), and a rank that ran on is the
+    caller's to repair."""
+    per = host.reshape(parts, -1)
+    ran = [int(k) for k in per[:, 0]]
+    steps = min(ran)
+    toks = per[:, 1:].reshape(parts, -1, slots // parts)
+    return toks.transpose(1, 0, 2).reshape(-1, slots)[:steps], steps, ran

@@ -19,6 +19,25 @@ module imports JAX).  On top of ``models.decomposed_kv``'s page pools:
   and the two admission writes (a fresh prefill's pages; a prefix hit's
   tail-only suffix prefill).
 
+On a mesh (``serving.Engine``'s slot-sharded mode) the pools are
+REPLICATED, as the rules keep them (``cache_pspec``: any slot may read
+any shared page), and each rank holds only its slots' factor rows
+(``k_vt``/``v_vt``).  Every rank runs the same host page logic, so the
+allocators, block tables and prefix cache are the same on every rank,
+and the admission writes (a fresh prefill's U pages, a hit's tail
+pages, the zeroing of a slot's tail pages) are made by every rank from
+the admission's replicated factors, so those pages hold the same values
+everywhere.  The decode-time writes are not all-gathered: a slot's tail
+row written at decode and the fresh U pages written by its fold land
+only on the rank that holds the slot, and are read only there.  A page
+is read through the block table of the slot that holds it; the prefix
+cache holds only admission pages; folds copy-on-write into fresh pages
+and never rewrite a shared one; and a page freed and reused is written
+again (by an admission on every rank, or by the fold or decode of its
+new slot's rank) before any of its rows is read.  So no rank reads a
+page row another rank wrote alone, and after the queue drains every
+page is back in the pool on every rank.
+
 A prefix-cache hit admits with TAIL-ONLY work: the matched pages are
 shared by reference (refcount bump), the per-slot Vᵀ factors are copied
 from the entry, and only the suffix tokens run a forward pass
@@ -208,8 +227,12 @@ class PagedDKV:
 
     def __init__(self, cfg, *, slots: int, max_len: int, rank: int,
                  tail: int, page: int, pool_pages: int = 0,
-                 prefix_capacity: int = 0, device=None):
+                 prefix_capacity: int = 0, device=None, shard=None):
+        from ..models.api import SlotShard
         self.cfg, self.device = cfg, device
+        # the slots whose factor rows this rank holds (every one without
+        # a mesh)
+        self.shard = shard if shard is not None else SlotShard(slots)
         self.page = max(1, page)
         self.rank = min(rank, cfg.kv_width)
         self.tail = tail
@@ -219,7 +242,7 @@ class PagedDKV:
         self.num_tail_pages = slots * self.ntp + 1
         self.alloc = PageAllocator(self.num_pages)
         self.talloc = PageAllocator(self.num_tail_pages)
-        self.cache = DK.init_paged_cache(cfg, slots, self.num_pages,
+        self.cache = DK.init_paged_cache(cfg, self.shard.n, self.num_pages,
                                          self.page, self.rank,
                                          self.num_tail_pages, device=device)
         self.bt_u: List[List[int]] = [[] for _ in range(slots)]
@@ -266,11 +289,17 @@ class PagedDKV:
     # -- admission writes ------------------------------------------------
     def _set_factors(self, idx, k_vt, v_vt) -> None:
         """Slot rows ``idx`` of the Vᵀ factors ← k_vt/v_vt [nl, m, r, kvw]
-        (rank zero-padded to the pool width)."""
-        idx = torch.as_tensor(idx, device=self.device).long()
+        (rank zero-padded to the pool width); only the held slots' rows
+        are written."""
+        loc, src = self.shard.pairs(idx)
+        if not loc:
+            return
+        loc_t = torch.as_tensor(loc, device=self.device).long()
+        src_t = torch.as_tensor(src, device=self.device).long()
         for key, vt in (("k_vt", k_vt), ("v_vt", v_vt)):
             buf = self.cache[key]
-            buf[:, idx] = DK._pad_axis(vt, 2, buf.shape[2]).to(buf.dtype)
+            buf[:, loc_t] = DK._pad_axis(vt[:, src_t], 2,
+                                         buf.shape[2]).to(buf.dtype)
 
     def write_fresh(self, fresh, bt_u, bt_t, idx, src) -> None:
         """A fresh prefill into the pools: U rows of batch rows ``src``

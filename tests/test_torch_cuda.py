@@ -1387,3 +1387,86 @@ def test_tune_backend_on_card(cuda, tmp_path, monkeypatch):
     assert tune.resolve_backend() == res.best["backend"]
     assert DecomposeEngine(EngineConfig(backend="auto")).resolved_backend \
         == res.best["backend"]
+
+
+# ---------------------------------------------------------------------------
+# Slot-sharded serving across two cards (NCCL)
+# ---------------------------------------------------------------------------
+
+_NCCL_WORKER = '''
+import os, pickle, sys
+import numpy as np
+import torch
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+from repro_torch.configs import get_arch
+from repro_torch.engine import DecomposeEngine, EngineConfig
+from repro_torch.launch import mesh as M
+from repro_torch.models.api import model_fns
+from repro_torch.serving import Engine, Request
+M.init_distributed("cuda", rank=rank, world_size=world, store_path=store)
+mesh = M.make_host_mesh(world, 1, "cuda")
+cfg = get_arch("llama2-7b").reduced().replace(dtype="float32")
+params = model_fns(cfg).init(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+rng = np.random.RandomState(0)
+prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+           for n in (12, 7, 15, 9, 14)]
+
+def serve(m, block, paged, eos=None):
+    ec = EngineConfig(kv_rank=8, kv_tail=4, kv_page=4, mesh=m)
+    eng = Engine(cfg, params, slots=8, max_len=64, device="cuda",
+                 decompose_engine=DecomposeEngine(ec), decode_block=block,
+                 paged=paged, eos_id=eos)
+    done = []
+    for step in range(300):
+        if step % 3 == 0 and step // 3 < len(prompts):
+            i = step // 3
+            eng.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=12))
+        done.extend(eng.step())
+        if len(done) == len(prompts) and not eng._occupied():
+            break
+    return ({r.uid: r.out_tokens for r in done}, eng.stats.tail_folds,
+            eng.shard.n)
+
+res = {(b, p): (serve(mesh, b, p), serve(None, b, p))
+       for b in (1, 4) for p in (False, True)}
+eos = res[(1, False)][1][0][0][5]     # request 0's 6th token stops it
+res["eos"] = (serve(mesh, 4, False, eos), serve(None, 4, False, eos))
+pickle.dump(res, open(os.path.join(out, f"r{rank}.pkl"), "wb"))
+M.shutdown_distributed()
+'''
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more: the NCCL serving "
+                    "test runs one rank a card")
+    return min(torch.cuda.device_count(), 4)
+
+
+def test_nccl_slot_sharded_serving_tokens(cards, tmp_path):
+    """One rank a card (2 to 4), a (ranks, 1) mesh: float32
+    decomposed-KV serving of 8 slots (staggered admissions, tail folds;
+    slab and paged; single-step and fused blocks of 4; a stop token
+    under fused blocks) gives every rank the tokens of the no-mesh
+    engine, each rank holding 8 / ranks slots."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_WORKER, str(r),
+                               str(cards), store, str(tmp_path)], env=env)
+             for r in range(cards)]
+    assert [p.wait(timeout=900) for p in procs] == [0] * cards
+    for r in range(cards):
+        with open(tmp_path / f"r{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        for case, ((meshed, folds, n), (plain, _, _)) in res.items():
+            assert meshed == plain, (r, case)
+            assert folds > 0 or case == "eos", (r, case)
+            assert n == (8 // cards if 8 % cards == 0 else 8), (r, case)
