@@ -235,6 +235,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the SSD forward and backward launches equal and non-zero;
    then the mesh run's state saved and ``restore_for_mesh``'d, every
    leaf equal.  The process group is destroyed at its end.
+19. the "model" axis of distribution (``--only model``), at (1, 1) on a
+   one-rank NCCL group.  The model code has one body for one device and
+   for tensor parallelism (``distributed.tp``'s helpers are the identity
+   on a "model" axis of 1), so this phase runs that body on a mesh: (a)
+   after phase 18 (a, b), on the loaded llama2-7b weights, phase 4's
+   traffic through the dkv engine with and without the mesh, in turns:
+   tokens and the re-orth and dkv launch counts equal, no model-axis
+   collective issued, decode tok/s of both, the run's collectives and
+   one decode step's printed; (b) after phase 18 (c), ``granite-3-2b``
+   at full width (depth cut to 4) for 3 AdamW steps with ZeRO-1 on the
+   mesh against the same steps without a mesh: losses bit-equal;
+   (c) the mesh run's state after step 1 saved whole
+   (``driver.save_for_mesh``), ``restore_for_mesh``'d and fed to the
+   step as DTensors (no ``unshard``), 2 more steps: the uninterrupted
+   losses within 1e-6 relative.  One card cannot show M > 1 (NCCL takes
+   a card a rank): that is ``tests/test_torch_cuda.py -k nccl`` on four.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -3487,6 +3503,164 @@ def mesh_training() -> None:
     shutdown_distributed()
 
 
+MODEL_TRAIN_LAYERS = 4          # phase 19 (b, c): granite-3-2b's depth cut
+MODEL_TRAIN_STEPS = 3
+
+
+def _one_decode_step_collectives(eng, prompt) -> dict:
+    """The collectives of one decode step of a finished ``eng`` with one
+    live request (admitted and decoding first), counted where issued."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serving import Request
+    eng.submit(Request(uid=-2, prompt=prompt, max_new_tokens=4))
+    while not eng._decoding():
+        eng.step()
+    eng.step()                          # the admission round's decode
+    sh.reset_collective_counts()
+    before = eng.stats.decode_steps
+    eng.step()
+    if eng.stats.decode_steps != before + 1:
+        raise AssertionError("model (a): the counted step was not one "
+                             "decode step")
+    return sh.collective_counts()
+
+
+def model_axis_serving(cfg, params) -> None:
+    """Phase 19 (a): phase 4's traffic on full-width llama2-7b decomposed
+    KV, with no mesh and with a (1, 1) mesh (the model's one body under
+    ``distributed.tp.use``, whose helpers are the identity on a "model"
+    axis of 1); tokens and launch counts must be equal, and no
+    model-axis collective issued."""
+    import numpy as np
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine
+    mesh = _mesh()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+
+    def engine(on: bool):
+        ecfg = EngineConfig(kv_rank=64, kv_tail=16,
+                            mesh=mesh if on else None)
+        return lambda: Engine(cfg, params, slots=4, max_len=1024,
+                              decompose_engine=DecomposeEngine(ecfg),
+                              device="cuda")
+    runs = {False: [], True: []}
+    step_counts = None
+    for on in (False, True, True, False):
+        sh.reset_collective_counts()
+        eng, toks, launches, peak = serve_once(engine(on), prompts, 32,
+                                               title="model (a)")
+        st = eng.stats
+        runs[on].append((toks, launches, st.decode_tok_s, st.decode_steps,
+                         sh.collective_counts(), peak))
+        if on and step_counts is None:
+            step_counts = _one_decode_step_collectives(eng, prompts[3][:64])
+        del eng
+    base = runs[False][0]
+    for r in runs[True] + runs[False]:
+        got = {k: r[1][k] for k in MESH_GATED}
+        want = {k: base[1][k] for k in MESH_GATED}
+        if r[0] != base[0] or got != want:
+            raise AssertionError(f"model (a): tokens or launches {got} "
+                                 f"differ from no mesh's {want}")
+    meshed = runs[True][0]
+    model_axis = {"all_reduce/tp_out", "all_gather/logits", "all_reduce/"
+                  "embed", "all_gather/prefill_kv", "all_gather/k_vt"}
+    if runs[False][0][4] or model_axis & set(meshed[4]):
+        raise AssertionError(f"model (a): collectives {meshed[4]} (no "
+                             f"mesh: {runs[False][0][4]})")
+    print(f"model (a): llama2-7b dkv on a (1, 1) mesh, the model's one "
+          f"body with no model-axis collective: tokens and launches "
+          f"({json.dumps({k: meshed[1][k] for k in MESH_GATED})}) equal to "
+          f"no mesh; decode_tok/s (1, 1) "
+          f"{', '.join(f'{r[2]:.2f}' for r in runs[True])} vs no mesh "
+          f"{', '.join(f'{r[2]:.2f}' for r in runs[False])}; collectives "
+          f"of the run (op/payload: [calls, bytes sent]) "
+          f"{json.dumps(meshed[4])} for {meshed[3]} decode steps; one "
+          f"decode step of 4 slots: {json.dumps(step_counts)}; peak_mem_gib "
+          f"{meshed[5]:.2f} vs {base[5]:.2f}", flush=True)
+
+
+def model_axis_training() -> None:
+    """Phase 19 (b, c): granite-3-2b at full width (depth cut to
+    ``MODEL_TRAIN_LAYERS``), three AdamW steps with no mesh and with
+    ZeRO-1 on a (1, 1) mesh (losses bit-equal);
+    the mesh run's state after its first step saved whole
+    (``driver.save_for_mesh``), ``restore_for_mesh``'d and fed to the
+    step as it is, two more steps: the uninterrupted losses.  Destroys
+    the process group."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import shutdown_distributed
+    from repro_torch.runtime import driver, steps
+    mesh = _mesh()
+    cfg = get_arch(TRAIN_ARCH).replace(num_layers=MODEL_TRAIN_LAYERS)
+    batches = _train_batches(cfg, MODEL_TRAIN_STEPS)
+    on = dict(zero1=True)
+    runs, step_counts = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_") as tmp:
+        for tp in (False, True):
+            params = init_weights(cfg)
+            opt = optim.make_optimizer(cfg, warmup=1)
+            state = opt.init(params)
+            kw = dict(on, optimizer=opt) if tp else {}
+            if tp:
+                params, state = steps.shard_train_state(
+                    cfg, params, state, mesh, **kw)
+            fn = steps.make_train_step(cfg, opt, mesh=mesh if tp else None,
+                                       **({} if not tp else on))
+            losses, ms = [], []
+            for i, batch in enumerate(batches):
+                sh.reset_collective_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = fn(params, state, batch)
+                losses.append(m["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if tp and i == len(batches) - 1:
+                    step_counts = sh.collective_counts()
+                if tp and i == 0:
+                    driver.save_for_mesh(cfg, {"params": params,
+                                               "opt": state}, tmp, 1, mesh,
+                                         **kw)
+            runs[tp] = (losses, ms)
+            del params, state
+        a, b = runs[False][0], runs[True][0]
+        print(f"model (b): {cfg.name} full width, depth "
+              f"{MODEL_TRAIN_LAYERS}, {MODEL_TRAIN_STEPS} AdamW steps with "
+              f"ZeRO-1 on a (1, 1) mesh: losses {b} vs no mesh {a}, "
+              f"bit-equal {a == b}; step ms ZeRO-1 "
+              f"{', '.join(f'{v:.1f}' for v in runs[True][1])} vs no mesh "
+              f"{', '.join(f'{v:.1f}' for v in runs[False][1])}; "
+              f"collectives of one step {json.dumps(step_counts)}",
+              flush=True)
+        if a != b:
+            raise AssertionError(f"model (b): ZeRO-1 losses {b} are "
+                                 f"not bit-equal to no mesh's {a}")
+        opt = optim.make_optimizer(cfg, warmup=1)
+        back = driver.restore_for_mesh(cfg, tmp, mesh, optimizer=opt)
+        fn = steps.make_train_step(cfg, opt, mesh=mesh, **on)
+        resumed = []
+        params, state = back["params"], back["opt"]
+        for batch in batches[1:]:
+            params, state, m = fn(params, state, batch)
+            resumed.append(m["loss"].item())
+        del params, state, back
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, b[1:]))
+    print(f"model (c): restore_for_mesh of the ZeRO-1 step-1 "
+          f"checkpoint fed to the step as DTensors (no unshard): losses "
+          f"{resumed} vs uninterrupted {b[1:]}, max rel {rel:.2e}; phase 19 "
+          f"ran at (1, 1) only (one card: M > 1 is the four-card NCCL "
+          f"test)", flush=True)
+    if not rel <= MESH_TRAIN_TOL:
+        raise AssertionError(f"model (c): resumed losses differ by {rel}")
+    shutdown_distributed()
+
+
 def phase_train(profile: bool = False) -> dict:
     """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts.
     ``profile``: also profile one kernel-route step of (b)."""
@@ -3501,7 +3675,7 @@ def phase_train(profile: bool = False) -> dict:
 
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal", "train", "mesh")
+          "variants", "modal", "train", "mesh", "model")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -3579,7 +3753,7 @@ def main() -> int:
         with phase("kernels"):
             rows = phase_kernels(cfg)
     if only & {"serve", "conformance", "activation", "paged", "async",
-               "sampler", "obs", "mesh"}:
+               "sampler", "obs", "mesh", "model"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -3612,6 +3786,9 @@ def main() -> int:
         if "mesh" in only:
             with phase("mesh (a, b)"):
                 mesh_serving(cfg, params)
+        if "model" in only:
+            with phase("model (a)"):
+                model_axis_serving(cfg, params)
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params
@@ -3657,6 +3834,10 @@ def main() -> int:
         with phase("mesh (c)"):
             mesh_training()
             check_freed("mesh")
+    if "model" in only:
+        with phase("model (b, c)"):
+            model_axis_training()
+            check_freed("model")
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

@@ -177,11 +177,26 @@ class PowerSGD:
         return out
 
 
-def dp_mean(group):
+def dp_mean(group, skip=(), block=None):
     """The plain DP gradient sync: every leaf all-reduced to its mean
-    over ``group``, in leaf order (a ``grad_transform``)."""
+    over ``group``, in leaf order (a ``grad_transform``).  A leaf named
+    in ``skip`` was summed over the group in the backward already (its
+    all-gather's reduce-scatter) and is only divided; with ``block``
+    ({name: dim or None}, ZeRO-1) a leaf with a dim is reduce-scattered
+    along it instead, leaving this rank its block of the mean."""
+    n = 1 if group is None else dist.get_world_size(group)
+
+    def one(name, g):
+        if name in skip:
+            return g / n
+        d = None if block is None else block[name]
+        if d is None:
+            return _mean(g, group, "grads")
+        return sh.reduce_scatter(g, group, "grads", d).div_(n)
+
     def sync(grads: Tree) -> Tree:
-        return rebuild(grads, {name: _mean(g, group, "grads")
+        return rebuild(grads, {name: one(name, g)
                                for name, g in named_leaves(grads)})
     sync.dp_sync = True
+    sync.whole = block is None
     return sync

@@ -35,15 +35,21 @@ layout inside a jitted function.  The port runs SPMD, one process per
 device, and its serving engine holds each rank's local slots outright
 (``serving.Engine``), so there is no global layout to constrain.
 
-The collective side of the DP super-axis is here too (``DeviceMesh``
-only): :func:`dp_group` (the process group of the ranks that share this
-rank's "model" coordinate; one flattened group for ("pod", "data")),
-:func:`dp_size`, :func:`dp_rank`, the collectives :func:`all_gather_into`,
-:func:`all_reduce`, :func:`broadcast_int` and :func:`all_true`, which
-every collective of the port's serving, decomposition and train steps
-goes through and which count what they issue (:func:`collective_counts`),
-and :func:`require_data_only`, which refuses a mesh whose "model" axis
-is larger than 1 (the model axis is not ported).
+The collective side is here too (``DeviceMesh`` only): :func:`dp_group`
+(the process group of the ranks that share this rank's "model"
+coordinate; one flattened group for ("pod", "data")), :func:`dp_size`,
+:func:`dp_rank`, and the "model" group beside it (:func:`model_group`,
+:func:`model_size`, :func:`model_rank`); the collectives
+:func:`all_gather_into` / :func:`gather_dim` (any dim),
+:func:`all_reduce`, :func:`reduce_scatter` (any dim),
+:func:`broadcast_int` and :func:`all_true`, which every collective of
+the port's serving, decomposition and train steps goes through and which
+count what they issue (:func:`collective_counts`).  :func:`local_block`
+cuts a rank's block of a whole tensor under a spec, :func:`gather_block`
+puts the whole back together, and :func:`shard_params` applies the first
+leaf by leaf by :func:`params_sharding`.  :func:`require_data_only`
+refuses a "model" axis larger than 1 for the families whose model axis
+is not ported (ssm, hybrid, vlm, audio).
 """
 from __future__ import annotations
 
@@ -372,9 +378,37 @@ def reset_collective_counts() -> None:
     _COLLECTIVES.clear()
 
 
+def take_collective_delta(before: Dict[Tuple[str, str], list]
+                          ) -> Dict[Tuple[str, str], Tuple[int, int]]:
+    """The collectives counted since ``before`` (a :func:`snapshot`),
+    taken back out of the counts: what a CUDA graph's capture issued,
+    which :func:`add_collectives` adds again on each replay."""
+    delta = {}
+    for k, (n, b) in _COLLECTIVES.items():
+        n0, b0 = before.get(k, (0, 0))
+        if n != n0:
+            delta[k] = (n - n0, b - b0)
+    _COLLECTIVES.clear()
+    _COLLECTIVES.update({k: list(v) for k, v in before.items()})
+    return delta
+
+
+def snapshot() -> Dict[Tuple[str, str], list]:
+    """A copy of the collective counts (:func:`take_collective_delta`)."""
+    return {k: list(v) for k, v in _COLLECTIVES.items()}
+
+
+def add_collectives(delta) -> None:
+    """Count ``delta`` (a :func:`take_collective_delta`) once more."""
+    for k, (n, b) in delta.items():
+        c = _COLLECTIVES.setdefault(k, [0, 0])
+        c[0] += n
+        c[1] += b
+
+
 def all_gather_into(out, t, group, what: str) -> None:
     """``out`` ← the group's ``t`` concatenated along dim 0, in rank
-    order."""
+    order (:func:`gather_dim` for any other dim)."""
     import torch.distributed as dist
     _count("all_gather", what, t)
     # torch 2.13 renames all_gather_into_tensor all_gather_single and
@@ -385,11 +419,13 @@ def all_gather_into(out, t, group, what: str) -> None:
 
 
 def all_reduce(t, group, what: str, op: str = "sum") -> None:
-    """``t`` ← its sum (or ``op``: "min") over ``group``, in place."""
+    """``t`` ← its sum (or ``op``: "min", "max") over ``group``, in
+    place."""
     import torch.distributed as dist
     _count("all_reduce", what, t)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else
-                    dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(t, op={"min": dist.ReduceOp.MIN,
+                           "max": dist.ReduceOp.MAX}.get(
+                               op, dist.ReduceOp.SUM), group=group)
 
 
 def broadcast_int(v: int, group, device, what: str) -> int:
@@ -414,14 +450,128 @@ def all_true(flags, group, device, what: str) -> list:
     return [bool(v) for v in t.tolist()]
 
 
-def require_data_only(mesh, what: str) -> None:
-    """Refuse a mesh whose "model" axis is larger than 1: tensor and
-    expert parallelism (the model axis) are not ported yet (ROADMAP.md,
-    distribution: the model axis)."""
-    if mesh is not None and mesh_axes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh with a 'model' axis of "
-            f"{mesh_axes(mesh)['model']}: the port runs the 'data' axis "
-            f"only; the model axis (tensor-parallel parameters, expert "
-            f"parallelism, ZeRO-1, sequence-sharded caches) is the next "
-            f"item of ROADMAP.md's distribution work")
+def model_size(mesh) -> int:
+    """The size of the "model" axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh_axes(mesh).get("model", 1)
+
+
+def model_group(mesh):
+    """The process group of the "model" axis through this rank."""
+    return mesh.get_group("model")
+
+
+def model_rank(mesh) -> int:
+    """This rank's index along the "model" axis."""
+    return mesh.get_local_rank("model")
+
+
+def coords(mesh) -> Dict[str, int]:
+    """{axis name: this rank's index along it} of a ``DeviceMesh``."""
+    return {n: mesh.get_local_rank(n) for n in _names(mesh)}
+
+
+def _entry_index(entry, mesh, where: Dict[str, int]) -> Tuple[int, int]:
+    """(number of blocks, this rank's block) of a spec entry: a name, or
+    a tuple of names whose blocks nest major to minor."""
+    names = entry if isinstance(entry, tuple) else (entry,)
+    n, i = 1, 0
+    for name in names:
+        size = axis_size(mesh, name)
+        n, i = n * size, i * size + where[name]
+    return n, i
+
+
+def local_block(t, spec: Spec, mesh, where: Dict[str, int] = None):
+    """This rank's block of the whole tensor ``t`` under ``spec`` (a
+    view): along each named dim, block i of n equal blocks, i the rank's
+    coordinate (``where``: {axis: index}, by default the mesh's own
+    coordinates of this rank; a tuple entry nests its axes major to
+    minor, as :func:`placements` does)."""
+    where = coords(mesh) if where is None else where
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, i = _entry_index(entry, mesh, where)
+        size = t.shape[d] // n
+        t = t.narrow(d, i * size, size)
+    return t
+
+
+def shard_params(params: Tree, mesh, cfg, where: Dict[str, int] = None
+                 ) -> Tree:
+    """Every leaf of the whole parameter tree ``params`` as this rank's
+    block under :func:`params_sharding`: a copy of its own where the
+    block is part of the leaf (so the whole tensors can be freed), the
+    leaf itself where the block is all of it."""
+    def one(name, leaf):
+        blk = local_block(leaf, param_spec(name, tuple(leaf.shape), mesh,
+                                           cfg), mesh, where)
+        return leaf if blk.shape == leaf.shape else blk.clone()
+    return _map_named(one, params)
+
+
+def gather_dim(t, group, what: str, dim: int = 0):
+    """The group's ``t`` concatenated along ``dim``, in rank order (one
+    counted all-gather)."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    all_gather_into(out, src, group, what)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t, group, what: str, dim: int = 0):
+    """The group's sum of ``t``, this rank's block of it along ``dim``
+    (one counted reduce-scatter)."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _count("reduce_scatter", what, src)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def axis_group(mesh, entry):
+    """The process group of a spec entry: "model", "data" (the DP group
+    on a single-pod mesh) or the DP super-axis."""
+    if entry == "model":
+        return model_group(mesh)
+    if entry == "data" and "pod" in _names(mesh):
+        return mesh.get_group("data")
+    return dp_group(mesh)
+
+
+def gather_block(t, spec: Spec, mesh, what: str):
+    """The whole tensor of which ``t`` is this rank's :func:`local_block`
+    under ``spec``: one all-gather per sharded dim."""
+    for d, entry in enumerate(spec):
+        if entry is not None and axis_size(mesh, entry) > 1:
+            t = gather_dim(t, axis_group(mesh, entry), what, d)
+    return t
+
+
+#: the families whose "model" axis the port runs
+MODEL_AXIS_FAMILIES = ("dense", "moe", "transformer-dkv")
+
+
+def require_data_only(mesh, what: str, family: str = None) -> None:
+    """Refuse a mesh whose "model" axis is larger than 1 for a family
+    whose model axis is not ported: ssm, hybrid, vlm and audio
+    (ROADMAP.md, distribution: the model axis of the remaining
+    families).  Dense, moe and decomposed-KV transformers run on any
+    (D, M)."""
+    if mesh is None or family in MODEL_AXIS_FAMILIES or \
+            mesh_axes(mesh).get("model", 1) == 1:
+        return
+    raise NotImplementedError(
+        f"{what} of the {family} family on a mesh with a 'model' axis of "
+        f"{mesh_axes(mesh)['model']}: the port runs the model axis for "
+        f"the dense, moe and decomposed-KV transformer families only; "
+        f"ssm, hybrid, vlm and audio on 'model' (and batch-1 sequence "
+        f"sharding) are the next items of ROADMAP.md's distribution work")

@@ -1,0 +1,360 @@
+"""Megatron tensor parallelism over the "model" axis (SPMD, one process
+per device).
+
+The reference leaves the model axis to GSPMD: its parameters carry
+``params_sharding``'s specs and XLA inserts the collectives.  The port
+runs each rank's local blocks (``sharding.shard_params``) through the
+same model functions, which ask :func:`current` whether they run under
+tensor parallelism and, if so, issue the collectives here.  Every
+placement changes no value beyond the order of float sums.
+
+:func:`use` makes a mesh's "model" group current for the calls inside it
+(process-wide, not per thread: autograd's backward and the recomputed
+forward of activation checkpointing run on other threads).  The model
+functions have one body: without a mesh, or on a "model" axis of 1,
+:func:`current` is None, :func:`head_layout` is the whole layout, and
+every helper here is the identity, so that body is the single-device
+computation, op for op.
+
+The operators are ``torch.autograd.Function``s with their own backward:
+
+* :func:`copy` — identity forward, all-reduce backward (the input of a
+  column-parallel product: each rank's gradient of a replicated
+  activation is a partial sum);
+* :func:`reduce` — all-reduce forward, identity backward (the output of
+  a row-parallel product);
+* :func:`gather` / :func:`gather_rs` — all-gather along a dim forward
+  (over "model", or any group: the 2-D expert weights' F dim over
+  "data"), reduce-scatter backward;
+* :func:`embed` — the vocab-parallel lookup over the rank's rows [V/M, H]
+  (other rows masked, then :func:`reduce`);
+* :func:`vocab_lse` — logsumexp over vocab-parallel logits [.., V/M]
+  (max and sum of exps all-reduced), whose backward is torch's
+  ``logsumexp`` backward, so one rank reproduces ``torch.logsumexp``
+  bit for bit.
+
+Each collective goes through ``sharding``'s counted helpers.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import sharding as sh
+
+
+class TP(NamedTuple):
+    """The "model" axis a model function runs under."""
+    mesh: object
+    group: object
+    size: int
+    rank: int
+
+
+_CURRENT: list = [None]
+
+
+def current() -> Optional[TP]:
+    """The tensor-parallel state of the calls in flight (None: no mesh)."""
+    return _CURRENT[0]
+
+
+@contextlib.contextmanager
+def use(mesh):
+    """Run the body under ``mesh``'s "model" axis: tensor-parallel when
+    the axis is larger than 1; with no mesh or an axis of 1, with no
+    tensor-parallel state (:func:`current` None)."""
+    prev = _CURRENT[0]
+    _CURRENT[0] = TP(mesh, sh.model_group(mesh), sh.model_size(mesh),
+                     sh.model_rank(mesh)) if sh.model_size(mesh) > 1 \
+        else None
+    try:
+        yield _CURRENT[0]
+    finally:
+        _CURRENT[0] = prev
+
+
+def _all_reduce(x: torch.Tensor, group, what: str) -> torch.Tensor:
+    out = x.contiguous().clone()
+    sh.all_reduce(out, group, what)
+    return out
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, what):
+        ctx.group, ctx.what = group, what
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, ctx.what + "_grad"), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, what):
+        return _all_reduce(x, group, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherRS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, what, dim):
+        ctx.group, ctx.what, ctx.dim = group, what, dim
+        return sh.gather_dim(x, group, what, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (sh.reduce_scatter(g, ctx.group, ctx.what + "_grad",
+                                  ctx.dim), None, None, None)
+
+
+class _MeanValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, what):
+        return _all_reduce(x, group, what) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def mean_value(x: torch.Tensor, group, n: int, what: str) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (``n`` ranks) whose backward is
+    the identity: a data-parallel step that averages its ranks'
+    gradients then gets the gradient of the mean."""
+    return _MeanValue.apply(x, group, n, what)
+
+
+def copy(x: torch.Tensor, what: str = "tp_in") -> torch.Tensor:
+    tp = current()
+    if tp is None or not torch.is_grad_enabled():
+        return x
+    return _Copy.apply(x, tp.group, what)
+
+
+def reduce(x: torch.Tensor, what: str = "tp_out") -> torch.Tensor:
+    tp = current()
+    return x if tp is None else _Reduce.apply(x, tp.group, what)
+
+
+def gather(x: torch.Tensor, dim: int = -1, what: str = "tp_gather"
+           ) -> torch.Tensor:
+    """The "model" group's ``x`` concatenated along ``dim``; the backward
+    reduce-scatters (each rank reads other parts of the whole)."""
+    tp = current()
+    if tp is None:
+        return x
+    return gather_rs(x, tp.group, dim, what)
+
+
+def gather_rs(x: torch.Tensor, group, dim: int, what: str) -> torch.Tensor:
+    """``group``'s ``x`` concatenated along ``dim``; the backward
+    reduce-scatters the gradient, so it has ``x``'s shape."""
+    return _GatherRS.apply(x, group, what, dim % x.dim())
+
+
+def block_of(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's block of the whole ``t`` along ``dim``."""
+    tp = current()
+    if tp is None:
+        return t
+    n = t.shape[dim] // tp.size
+    return t.narrow(dim, tp.rank * n, n)
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel embedding and loss
+# ---------------------------------------------------------------------------
+
+def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``W[tokens]`` where ``w`` is this rank's rows [V/M, H] of W: rows of
+    other ranks read as zeros, then the group's sum."""
+    tp = current()
+    lo = tp.rank * w.shape[0]
+    idx = tokens - lo
+    mine = (idx >= 0) & (idx < w.shape[0])
+    rows = w[torch.where(mine, idx, torch.zeros_like(idx))]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=w.dtype,
+                                                          device=w.device))
+    return reduce(rows, "embed")
+
+
+class _VocabLSE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        m = torch.amax(x, dim=-1)
+        sh.all_reduce(m, group, "lse_max", op="max")
+        s = (x - m[..., None]).exp().sum(-1)
+        sh.all_reduce(s, group, "lse_sum")
+        out = s.log() + m
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * (x - out[..., None]).exp(), None
+
+
+def vocab_lse(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the whole vocab of the rank's logits [.., V/M]."""
+    return _VocabLSE.apply(x, current().group)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """``layers.cross_entropy`` over vocab-parallel logits [.., V/M]: the
+    logsumexp through :func:`vocab_lse`, the label logit picked by a
+    masked sum over the rank's columns and all-reduced."""
+    tp = current()
+    lg = logits.float()
+    v_l = lg.shape[-1]
+    lse = vocab_lse(lg)
+    iota = torch.arange(v_l, device=lg.device) + tp.rank * v_l
+    ll = reduce(torch.where(iota == labels[..., None], lg,
+                            torch.zeros((), device=lg.device)).sum(dim=-1),
+                "label_logit")
+    nll = lse - ll
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Attention layout under the model axis
+# ---------------------------------------------------------------------------
+
+class HeadLayout(NamedTuple):
+    """How one rank's attention sees the heads.
+
+    * ``nh_l``, ``q0``: the rank's query heads [q0, q0 + nh_l);
+    * ``aligned``: the K/V projections hold whole kv heads, the ones the
+      rank's query heads read ([k0, k0 + kvh_l)); else the rank computes
+      the whole K/V (all-gathering the projection's columns when they
+      are sharded) and picks heads [k0, k0 + kvh_l) for its queries;
+    * ``kv_sharded``: the K/V projection's columns are sharded;
+    * ``cache``: the dim of a K/V cache leaf [.., kvh, hd] sharded over
+      "model" (``cache_pspec``'s rule: -2 kv heads, -1 head_dim, None).
+    """
+    nh_l: int
+    q0: int
+    kvh_l: int
+    k0: int
+    aligned: bool
+    kv_sharded: bool
+    cache: Optional[int]
+
+
+def head_layout(cfg, tp: Optional[TP]) -> HeadLayout:
+    """The rank's layout under ``tp`` (None: every head, the whole K/V,
+    nothing gathered)."""
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if tp is None:
+        return HeadLayout(nh, 0, kvh, 0, True, False, None)
+    m, r = tp.size, tp.rank
+    if (nh * hd) % m:
+        nh_l, q0 = nh, 0                     # wq/wo replicated
+    elif nh % m:
+        raise NotImplementedError(
+            f"{nh} query heads on a 'model' axis of {m}: the rule splits "
+            f"a head's dims, which the port's attention does not run")
+    else:
+        nh_l, q0 = nh // m, r * (nh // m)
+    kv_sharded = (kvh * hd) % m == 0
+    aligned = kv_sharded and kvh % m == 0 and nh_l == nh // m
+    g = nh // kvh
+    k0 = q0 // g
+    kvh_l = (q0 + nh_l - 1) // g + 1 - k0
+    if nh_l % kvh_l:
+        raise NotImplementedError(
+            f"query heads [{q0}, {q0 + nh_l}) of a group of {g} map to "
+            f"{kvh_l} kv heads unevenly")
+    if kvh % m == 0 and (kvh > 1 or m == 1):
+        cache = -2
+    elif hd % m == 0:
+        cache = -1
+    else:
+        cache = None
+    return HeadLayout(nh_l, q0, kvh_l, k0, aligned, kv_sharded, cache)
+
+
+def layout(cfg) -> HeadLayout:
+    """:func:`head_layout` under the current "model" axis."""
+    return head_layout(cfg, current())
+
+
+def full_kv(x: torch.Tensor, lay: HeadLayout, what: str) -> torch.Tensor:
+    """The whole K/V projection [.., kvh·hd] from the rank's columns."""
+    return gather(x, -1, what) if lay.kv_sharded and not lay.aligned else x
+
+
+def cache_block(kv: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The rank's block, under the cache rule, of a K/V [.., kv heads, hd]
+    from :func:`full_kv` (``aligned``: it holds the rank's heads, which
+    are its block)."""
+    if lay.aligned or lay.cache is None:
+        return kv
+    return block_of(kv, lay.cache)
+
+
+def kv_whole(block: torch.Tensor, lay: HeadLayout, what: str
+             ) -> torch.Tensor:
+    """The whole K/V [.., kvh, hd] from the rank's cache block."""
+    return block if lay.cache is None else gather(block, lay.cache, what)
+
+
+def kv_local(whole: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The rank's cache block of a whole K/V [.., kvh, hd]."""
+    return whole if lay.cache is None else block_of(whole, lay.cache)
+
+
+def compute_heads(block: torch.Tensor, lay: HeadLayout, what: str
+                  ) -> torch.Tensor:
+    """The kv heads the rank's queries read [.., kvh_l, hd], from its
+    cache block (``aligned``: the block itself)."""
+    if lay.aligned:
+        return block
+    return kv_whole(block, lay, what).narrow(-2, lay.k0, lay.kvh_l)
+
+
+def my_heads(kv: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The kv heads the rank's queries read, from :func:`full_kv`'s K/V
+    (``aligned``: ``kv`` holds them already)."""
+    if lay.aligned:
+        return kv
+    return kv.narrow(-2, lay.k0, lay.kvh_l)
+
+
+def width_sharded(width: int) -> bool:
+    """Whether a dim of ``width`` is sharded over "model" (the rules'
+    condition, for a factor's kv width, the MLP's hidden width, the
+    heads' dims, the padded vocab: M > 1 divides it)."""
+    tp = current()
+    return tp is not None and width % tp.size == 0
+
+
+def vt_heads(vt: torch.Tensor, lay: HeadLayout, width: int, hd: int,
+             what: str) -> torch.Tensor:
+    """The columns [.., r, kvh_l·hd] of a Vᵀ factor that the rank's queries
+    read, from its block of the kv width (``aligned``: the block)."""
+    if lay.aligned:
+        return vt
+    if width_sharded(width):
+        vt = gather(vt, -1, what)
+    return vt.narrow(-1, lay.k0 * hd, lay.kvh_l * hd)
+
+
+def vt_local(vt: torch.Tensor, width: int) -> torch.Tensor:
+    """The rank's block of a whole Vᵀ factor's kv width."""
+    return block_of(vt, -1) if width_sharded(width) else vt
+
+
+def vt_whole(vt: torch.Tensor, width: int, what: str) -> torch.Tensor:
+    """The whole kv width of a Vᵀ factor from the rank's block."""
+    return gather(vt, -1, what) if width_sharded(width) else vt

@@ -60,7 +60,9 @@ Counterpart of ``repro.engine.config.EngineConfig``:
                     "model") (``launch.mesh``): the decomposition shards
                     its flat batch over the DP super-axis
                     (``DecomposeEngine.decompose``) and a serving engine
-                    shards its slots over it (``serving.Engine``).
+                    shards its slots over it (``serving.Engine``); a
+                    "model" axis larger than 1 runs the model
+                    tensor-parallel on it (:func:`tp_mesh`).
                     None (default) is the single-device path, unchanged;
                     a mesh changes no value and no token.
 """
@@ -126,6 +128,11 @@ class EngineConfig:
             raise ValueError(f"attn_mode must be one of {ATTN_MODES}, "
                              f"got {self.attn_mode!r}")
 
+    @property
+    def tp_mesh(self):
+        """The mesh whose "model" axis the model runs on, or None."""
+        return tp_mesh(self.mesh)
+
     def layer(self, idx: int) -> LayerPolicy:
         if self.policy is None:
             return LayerPolicy(decompose=False)
@@ -138,3 +145,14 @@ class EngineConfig:
 
     def with_policy(self, policy: DecompositionPolicy) -> "EngineConfig":
         return dataclasses.replace(self, policy=policy)
+
+
+def tp_mesh(mesh):
+    """``mesh`` when the model runs tensor-parallel on it (Megatron TP,
+    each rank its ``params_sharding`` blocks: a "model" axis larger
+    than 1), else None."""
+    if mesh is None:
+        return None
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    size = mesh.mesh.shape[names.index("model")] if "model" in names else 1
+    return mesh if size > 1 else None

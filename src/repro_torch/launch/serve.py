@@ -32,15 +32,20 @@ and ``--expansion`` keep the port's defaults, ``cuda`` and 16, by
 design).  The reference always serves a reduced config; here
 ``--reduced`` asks for it.
 
-``--mesh`` serves data-parallel over slots (``serving.Engine`` on a
-``DeviceMesh``): ``none`` (default), ``host`` (every rank on "data") or
-``DxM`` (the model axis must be 1).  One process per card, launched by
-torchrun; only rank 0 prints:
+``--mesh`` serves on a ``DeviceMesh`` (``serving.Engine``): ``none``
+(default), ``host`` (every rank on "data": slots data-parallel) or
+``DxM`` (data x model): a "model" axis M > 1 runs the dense, moe and
+decomposed-KV families tensor-parallel (each rank its weight blocks and
+kv heads).  One process per card, launched by torchrun; only rank 0
+prints:
 
-  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh host \\
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 1x4 \\
       --arch llama2-7b --decompose-kv-rank 64 --dkv-tail 16 --slots 8
 
-``--mesh 1x1`` runs a one-rank mesh on one card (a real NCCL group).
+``--mesh 1x1`` runs a one-rank mesh on one card (a real NCCL group).  On
+the host a gloo world of 4 serves the same way with ``--device cpu``
+(``torchrun --nproc-per-node 4 ... --mesh 2x2 --reduced --device
+cpu``).
 
 ``--arch mamba2-780m`` serves the Mamba2 (ssm) family: O(1) state slots,
 prefill through the chunked SSD scan whose intra-chunk term is the CUDA
@@ -268,8 +273,8 @@ def main(argv=None) -> None:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--mesh", default="none",
                     help="serving mesh: none (default), host (every rank "
-                         "on the data axis) or DxM (data x model, model "
-                         "1); launch one process per card with torchrun")
+                         "on the data axis) or DxM (data x model); launch "
+                         "one process per card with torchrun")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write every metric (engine stats + decomposition"
                          "/tuner/compile telemetry) here at exit: "

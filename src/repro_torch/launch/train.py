@@ -17,6 +17,20 @@ moments: ~28 GiB), and a run resumes from the latest one under
       --smoke --device cpu --steps 3
 
 Without ``--device cpu`` it raises when there is no GPU.
+
+``--mesh DxM`` (the port's extension of the reference's CLI, as the
+serve CLI's ``--mesh``) trains SPMD on a (data, model) mesh, one process
+per card under torchrun: the batch over "data", the dense and moe
+families tensor-parallel over "model" when M > 1, and with ``--zero1``
+AdamW's moments sharded over the DP axis.  The saved state is whole, so
+a run restarts on any other mesh:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch granite-3-2b --mesh 2x2 --zero1 --steps 5 --seq-len 512 \\
+      --batch 4 --ckpt-dir /tmp/ck
+
+and on the host through a gloo world (``--smoke --device cpu``).  Only
+rank 0 prints.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ import tempfile
 from ..configs import ShapeSpec, get_arch
 from ..kernels.ops import BACKENDS
 from ..runtime.driver import train_loop
+from .mesh import parse_mesh
 
 
 def main(argv=None) -> None:
@@ -48,7 +63,18 @@ def main(argv=None) -> None:
                     help="the kernel set: the CUDA kernels (their plain "
                          "versions on the host), or 'reference' (plain "
                          "versions everywhere)")
+    ap.add_argument("--mesh", default="none",
+                    help="none (default), host (every rank on 'data') or "
+                         "DxM (data x model); one process per card under "
+                         "torchrun")
+    ap.add_argument("--zero1", action="store_true",
+                    help="shard AdamW's moments over the DP axis (ZeRO-1)")
     args = ap.parse_args(argv)
+    mesh = parse_mesh(args.mesh, args.device)
+    lead = True
+    if mesh is not None:
+        import torch.distributed as dist
+        lead = dist.get_rank() == 0
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -58,8 +84,11 @@ def main(argv=None) -> None:
     res = train_loop(cfg, shape, total_steps=args.steps,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      seed=args.seed, device=args.device,
-                     backend=args.backend)
+                     backend=args.backend, mesh=mesh, zero1=args.zero1,
+                     print_fn=print if lead else (lambda *a: None))
     final = f"{res.losses[-1]:.4f}" if res.losses else "none"
+    if not lead:
+        return
     print(f"done: step={res.step} final_loss={final} "
           f"restarts={res.restarts} stragglers={res.straggler_flags} "
           f"ckpt_bytes={res.ckpt_bytes}")

@@ -203,6 +203,17 @@ def splice_cache(cfg, old, new, slot_indices, src_indices=None):
     return old
 
 
+def shard_params(cfg, params, mesh):
+    """This rank's ``params_sharding`` blocks of a whole parameter tree of
+    ``cfg``'s family, for tensor parallelism on ``mesh``'s "model" axis
+    (the families that run it: dense and moe; the others raise when the
+    axis is larger than 1).  Under ``distributed.tp.use(mesh)`` the
+    family's ``init_cache`` then builds the rank's cache blocks."""
+    from ..distributed import sharding as sh
+    sh.require_data_only(mesh, "tensor parallelism", cfg.family)
+    return sh.shard_params(params, mesh, cfg)
+
+
 def cache_shardings(cfg, cache, mesh, seq_shard: bool = True):
     """The :class:`~repro_torch.distributed.sharding.Spec` of every leaf
     of a decode cache on ``mesh`` (a serving engine's caches use

@@ -25,6 +25,16 @@ The paged half (below :func:`splice_dkv`) keeps the prefix U rows and
 the dense tail in page pools indexed by per-slot block tables; its decode
 reads U through the block table inside the kernel
 (``dkv_attention_stats_paged``) instead of gathering a slab every step.
+
+Under tensor parallelism (``distributed.tp.use(mesh)``) a rank holds
+``cache_pspec``'s blocks: U (and its page pools) whole, the kv width of
+``k_vt``/``v_vt`` sharded over "model", the tail's kv heads (else
+head_dim) sharded.  Prefill and folds all-gather K/V (or the Vᵀ factor
+and the tail) to the whole kv width, so every model rank decomposes the
+same matrix and keeps its columns; decode runs the dkv kernel on the
+rank's query heads, [slots, nh/M, r] against the whole U, and the
+layout's ``aligned`` flag says whether the rank's block holds its kv
+heads or it gathers them (kvh % M ≠ 0).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.lowrank import LowRank, retruncate
+from ..distributed import tp as TP
 from ..engine import DecomposeEngine
 from ..kernels.dkv_attention import (NEG, dkv_attention_stats,
                                      dkv_attention_stats_paged,
@@ -50,16 +61,51 @@ def init_cache(cfg, batch: int, frozen_len: int, rank: int, *, tail: int,
                device=None) -> Params:
     """Zeroed cache; ``tail`` is the dense recent-token buffer length
     (``EngineConfig.kv_tail`` when serving)."""
-    kvw = cfg.kv_width
+    kvw = _local_width(cfg)
     nl, dt = cfg.num_layers, torch_dtype(cfg.dtype)
     z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kvh, hd = T.kv_dims(cfg)
     return {"k_u": z(nl, batch, frozen_len, rank),
             "k_vt": z(nl, batch, rank, kvw),
             "v_u": z(nl, batch, frozen_len, rank),
             "v_vt": z(nl, batch, rank, kvw),
             "tail": {"k": z(nl, batch, tail, kvh, hd),
                      "v": z(nl, batch, tail, kvh, hd)}}
+
+
+def _local_width(cfg) -> int:
+    """The kv width of a rank's ``k_vt``/``v_vt`` block."""
+    kvw = cfg.kv_width
+    return kvw // TP.current().size if TP.width_sharded(kvw) else kvw
+
+
+def _vt(vt: torch.Tensor, lay, cfg, what: str) -> torch.Tensor:
+    """The Vᵀ columns the rank's queries read, from its block."""
+    return TP.vt_heads(vt, lay, cfg.kv_width, cfg.resolved_head_dim, what)
+
+
+def _whole_cache(cache: Params, cfg) -> Params:
+    """A slab cache with every kv column and tail head (all-gathered over
+    "model" under tensor parallelism; the cache's own tensors without)."""
+    lay = TP.layout(cfg)
+    out = {k: cache[k] for k in ("k_u", "v_u")}
+    for k in ("k_vt", "v_vt"):
+        out[k] = TP.vt_whole(cache[k], cfg.kv_width, k)
+    out["tail"] = {k: TP.kv_whole(v, lay, "tail_" + k)
+                   for k, v in cache["tail"].items()}
+    return out
+
+
+def _local_cache(cache: Params, cfg) -> Params:
+    """The rank's blocks of a whole slab cache (:func:`_whole_cache`'s
+    inverse)."""
+    lay = TP.layout(cfg)
+    out = {k: cache[k] for k in ("k_u", "v_u")}
+    for k in ("k_vt", "v_vt"):
+        out[k] = TP.vt_local(cache[k], cfg.kv_width).contiguous()
+    out["tail"] = {k: TP.kv_local(v, lay).contiguous()
+                   for k, v in cache["tail"].items()}
+    return out
 
 
 def prefill_dkv(p: Params, cfg, tokens: torch.Tensor, rank: int, *,
@@ -76,17 +122,20 @@ def prefill_dkv(p: Params, cfg, tokens: torch.Tensor, rank: int, *,
     nl, kvw = cfg.num_layers, cfg.kv_width
     x, ks, vs = T.forward_layers(p, cfg, tokens)
     logits = T.logits_head(p, x[:, -1:, :], cfg)[:, 0]
+    lay = TP.layout(cfg)
 
     def one(rows):
-        flat = torch.stack(rows).reshape(nl * b, s, kvw)
+        # every model rank decomposes the whole kv width, keeps its block
+        rows = TP.kv_whole(torch.stack(rows), lay, "prefill_kv")
+        flat = rows.reshape(nl * b, s, kvw)
         u, vt = engine.decompose_kv(flat, rank, exact=exact)
         r_eff = u.shape[-1]         # rank caps at min(s, kvw)
-        return (u.reshape(nl, b, s, r_eff).contiguous(),
-                vt.reshape(nl, b, r_eff, kvw).contiguous())
+        vt = TP.vt_local(vt.reshape(nl, b, r_eff, kvw), kvw)
+        return (u.reshape(nl, b, s, r_eff).contiguous(), vt.contiguous())
 
     k_u, k_vt = one(ks)
     v_u, v_vt = one(vs)
-    zt = torch.zeros(nl, b, tail, cfg.num_kv_heads, cfg.resolved_head_dim,
+    zt = torch.zeros((nl, b, tail) + T.kv_dims(cfg),
                      device=tokens.device, dtype=torch_dtype(cfg.dtype))
     return logits, {"k_u": k_u, "k_vt": k_vt, "v_u": v_u, "v_vt": v_vt,
                     "tail": {"k": zt, "v": zt.clone()}}
@@ -95,8 +144,10 @@ def prefill_dkv(p: Params, cfg, tokens: torch.Tensor, rank: int, *,
 def _lowrank_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
                        cfg) -> torch.Tensor:
     """q [B, 1, nh, d]; low-rank prefix + dense tail → out [B, 1, nh·d]
-    through one joint softmax (the JAX package's contraction)."""
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    through one joint softmax (the JAX package's contraction).  The head
+    counts are ``q``'s and the tail's (a rank's, under tensor
+    parallelism)."""
+    nh, kvh, hd = q.shape[2], tail_kv["k"].shape[2], q.shape[-1]
     g = nh // kvh
     b = q.shape[0]
     scale = hd ** -0.5
@@ -134,8 +185,9 @@ def _merge_attention(q, k_vt, v_vt, tail_kv: Params, pos, frozen_len,
                      cfg, prefix_stats) -> torch.Tensor:
     """Rank-space flash statistics of the prefix (``prefix_stats(inner)``
     → (a, m, l), a dkv kernel) merged with the exact tail
-    (``merge_with_tail``); k_vt, v_vt [B, r, kvw] are the slot factors."""
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    (``merge_with_tail``); k_vt, v_vt [B, r, kvw] are the slot factors
+    (the head counts: ``q``'s and the tail's)."""
+    nh, kvh, hd = q.shape[2], tail_kv["k"].shape[2], q.shape[-1]
     g = nh // kvh
     b = q.shape[0]
     r = k_vt.shape[1]
@@ -183,7 +235,6 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
     ``dynamic_update_slice`` clamps), unless its ``live`` (bool [B]) is
     False.  Returns (logits [B, V], cache)."""
     attend = _ATTENTION[attention]
-    kvh, nh = cfg.num_kv_heads, cfg.num_heads
     tl = cache["tail"]["k"].shape[2]
     rows = torch.arange(token.shape[0], device=token.device)
     slot = torch.clamp(pos - frozen_len, 0, tl - 1).long()
@@ -191,20 +242,21 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         h = T.norm(lp["attn_norm"], x, cfg)
-        q = L.split_heads(L.dense(lp["attn"]["wq"], h), nh)
-        k_new = L.split_heads(L.dense(lp["attn"]["wk"], h), kvh)
-        v_new = L.split_heads(L.dense(lp["attn"]["wv"], h), kvh)
-        q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = L.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        q, k_new, v_new, lay = L.qkv(lp["attn"], h, cfg, pos[:, None])
         tail = {"k": cache["tail"]["k"][i], "v": cache["tail"]["v"][i]}
-        L.write_rows(tail["k"], (rows, slot), k_new[:, 0], live)
-        L.write_rows(tail["v"], (rows, slot), v_new[:, 0], live)
-        layer_c = {key: cache[key][i]
-                   for key in ("k_u", "k_vt", "v_u", "v_vt")}
+        L.write_rows(tail["k"], (rows, slot),
+                     TP.cache_block(k_new, lay)[:, 0], live)
+        L.write_rows(tail["v"], (rows, slot),
+                     TP.cache_block(v_new, lay)[:, 0], live)
+        tail = {k: TP.compute_heads(v, lay, "tail_" + k)
+                for k, v in tail.items()}
+        layer_c = {key: cache[key][i] for key in ("k_u", "v_u")}
+        for key in ("k_vt", "v_vt"):
+            layer_c[key] = _vt(cache[key][i], lay, cfg, key)
         a = attend(q, layer_c, tail, pos, frozen_len, cfg)
-        x = x + L.dense(lp["attn"]["wo"], a.to(x.dtype))
+        x = x + L.o_proj(lp["attn"], a.to(x.dtype), cfg)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     return T.logits_head(p, x, cfg)[:, 0], cache
 
 
@@ -254,7 +306,16 @@ def compress_tail(cache: Params, cfg, rank: int, frozen_len, fold,
     space; non-folding slots keep prefix, factors and tail (the time axis
     still grows by ``tl``).  ``new_frozen`` int32 [B] zeroes retruncated U
     rows at or past each slot's new prefix length (they reconstruct to ~0
-    anyway; the zero keeps "rows past frozen_len are zero" exact)."""
+    anyway; the zero keeps "rows past frozen_len are zero" exact).  Under
+    tensor parallelism the fold runs on the whole kv width (Vᵀ and the
+    tail all-gathered over "model"), on every model rank alike, and the
+    rank keeps its blocks."""
+    return _local_cache(_compress_tail(_whole_cache(cache, cfg), rank,
+                                       frozen_len, fold, new_frozen), cfg)
+
+
+def _compress_tail(cache: Params, rank: int, frozen_len, fold,
+                   new_frozen) -> Params:
     nl, b, tl, kvh, hd = cache["tail"]["k"].shape
     kvw = kvh * hd
     r_in = cache["k_u"].shape[-1]
@@ -362,12 +423,12 @@ def init_paged_cache(cfg, batch: int, num_pages: int, page: int, rank: int,
                      num_tail_pages: int, device=None) -> Params:
     """Zeroed page pools + per-slot factor rows of the paged cache."""
     nl, dt = cfg.num_layers, torch_dtype(cfg.dtype)
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kvh, hd = T.kv_dims(cfg)
     z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
     return {"k_u_pages": z(nl, num_pages, page, rank),
             "v_u_pages": z(nl, num_pages, page, rank),
-            "k_vt": z(nl, batch, rank, cfg.kv_width),
-            "v_vt": z(nl, batch, rank, cfg.kv_width),
+            "k_vt": z(nl, batch, rank, _local_width(cfg)),
+            "v_vt": z(nl, batch, rank, _local_width(cfg)),
             "tail": {"k_pages": z(nl, num_tail_pages, page, kvh, hd),
                      "v_pages": z(nl, num_tail_pages, page, kvh, hd)}}
 
@@ -445,6 +506,14 @@ def _paged_views(cache: Params, r_need: int) -> Params:
             "tail_v": t["v_pages"].flatten(1, 2)}
 
 
+def _paged_tail(c: Params, tail_rows, cfg) -> Params:
+    """The tail rows ``tail_rows`` of one layer's pools, on the kv heads
+    the rank's queries read."""
+    lay = TP.layout(cfg)
+    return {k: TP.compute_heads(c["tail_" + k][tail_rows], lay, "tail_" + k)
+            for k in ("k", "v")}
+
+
 def _paged_attention(q, c: Params, pos, frozen_len, bt_u, tail_rows,
                      t_need: int, cfg) -> torch.Tensor:
     """Attention of one layer (``c``: :func:`_paged_views` at one layer)
@@ -453,8 +522,7 @@ def _paged_attention(q, c: Params, pos, frozen_len, bt_u, tail_rows,
     merged with the exact tail rows ``tail_rows`` (:func:`_tail_rows`)."""
     ku, vu, r = c["k_u_pages"], c["v_u_pages"], c["k_vt"].shape[1]
     return _merge_attention(
-        q, c["k_vt"], c["v_vt"],
-        {"k": c["tail_k"][tail_rows], "v": c["tail_v"][tail_rows]}, pos,
+        q, c["k_vt"], c["v_vt"], _paged_tail(c, tail_rows, cfg), pos,
         frozen_len, cfg,
         lambda inner: dkv_attention_stats_paged(inner, ku, vu, bt_u,
                                                 frozen_len, r))
@@ -469,8 +537,7 @@ def _paged_lowrank_attention(q, c: Params, pos, frozen_len, bt_u,
                          t_need)[0][..., :r] for k in ("k_u", "v_u")}
     return _lowrank_attention(
         q, dict(u, k_vt=c["k_vt"], v_vt=c["v_vt"]),
-        {"k": c["tail_k"][tail_rows], "v": c["tail_v"][tail_rows]}, pos,
-        frozen_len, cfg)
+        _paged_tail(c, tail_rows, cfg), pos, frozen_len, cfg)
 
 
 _PAGED_ATTENTION = {"kernel": _paged_attention,
@@ -494,7 +561,6 @@ def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
     no ``t_need``).  A slot whose ``live`` (bool [B]) is False writes
     nothing.  Returns (logits [B, V], cache)."""
     attend = _PAGED_ATTENTION[attention]
-    kvh, nh = cfg.num_kv_heads, cfg.num_heads
     page = cache["tail"]["k_pages"].shape[2]
     views = _paged_views(cache, r_need)
     tail_rows = _tail_rows(bt_t, page, tail_len)
@@ -505,18 +571,18 @@ def decode_step_dkv_paged(p: Params, cfg, token: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         h = T.norm(lp["attn_norm"], x, cfg)
-        q = L.split_heads(L.dense(lp["attn"]["wq"], h), nh)
-        k_new = L.split_heads(L.dense(lp["attn"]["wk"], h), kvh)
-        v_new = L.split_heads(L.dense(lp["attn"]["wv"], h), kvh)
-        q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = L.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        q, k_new, v_new, lay = L.qkv(lp["attn"], h, cfg, pos[:, None])
         c = {k: v[i] for k, v in views.items()}
-        L.write_rows(c["tail_k"], wrow, k_new[:, 0], live)
-        L.write_rows(c["tail_v"], wrow, v_new[:, 0], live)
+        L.write_rows(c["tail_k"], wrow, TP.cache_block(k_new, lay)[:, 0],
+                     live)
+        L.write_rows(c["tail_v"], wrow, TP.cache_block(v_new, lay)[:, 0],
+                     live)
+        for key in ("k_vt", "v_vt"):
+            c[key] = _vt(c[key], lay, cfg, key)
         a = attend(q, c, pos, frozen_len, bt_u, tail_rows, t_need, cfg)
-        x = x + L.dense(lp["attn"]["wo"], a.to(x.dtype))
+        x = x + L.o_proj(lp["attn"], a.to(x.dtype), cfg)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     return T.logits_head(p, x, cfg)[:, 0], cache
 
 
@@ -590,8 +656,7 @@ def prefill_suffix_dkv(p: Params, cfg, tokens: torch.Tensor,
     [nl, B, tail_len, kvh, hd] with rows ≥ slen zeroed).  Its products
     are plain einsums, as in the reference."""
     b, s = tokens.shape
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    g = nh // kvh
+    hd = cfg.resolved_head_dim
     scale = hd ** -0.5
     dev, dt = tokens.device, torch_dtype(cfg.dtype)
     start = torch.as_tensor(start, device=dev).long().reshape(b)
@@ -607,34 +672,36 @@ def prefill_suffix_dkv(p: Params, cfg, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         h = T.norm(lp["attn_norm"], x, cfg)
-        q = L.split_heads(L.dense(lp["attn"]["wq"], h), nh)
-        k = L.split_heads(L.dense(lp["attn"]["wk"], h), kvh)
-        v = L.split_heads(L.dense(lp["attn"]["wv"], h), kvh)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q, k, v, lay = L.qkv(lp["attn"], h, cfg, positions)
+        k, v = TP.cache_block(k, lay), TP.cache_block(v, lay)
+        kc, vc = TP.compute_heads(k, lay, "k"), TP.compute_heads(v, lay, "v")
+        nh, kvh = q.shape[2], kc.shape[2]
+        g = nh // kvh
         qg = q.reshape(b, s, kvh, g, hd).float()
         # prefix scores through the cached factors
-        kvt4 = prefix["k_vt"][i].float().reshape(b, -1, kvh, hd)
+        kvt4 = _vt(prefix["k_vt"][i], lay, cfg, "k_vt").float().reshape(
+            b, -1, kvh, hd)
         inner = torch.einsum("bskgd,brkd->bskgr", qg, kvt4)
         sc_pre = torch.einsum("bskgr,btr->bskgt", inner,
                               prefix["k_u"][i].float()) * scale
         sc_pre = torch.where(pre_valid[:, None, None, None, :], sc_pre,
                              torch.full_like(sc_pre, NEG))
         # within-suffix causal scores (exact)
-        sc_suf = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
+        sc_suf = torch.einsum("bskgd,btkd->bskgt", qg, kc.float()) * scale
         sc_suf = torch.where(causal[None, :, None, None, :], sc_suf,
                              torch.full_like(sc_suf, NEG))
         pr = torch.softmax(torch.cat([sc_pre, sc_suf], dim=-1), dim=-1)
         p_pre, p_suf = pr[..., :t_pre], pr[..., t_pre:]
         tmp = torch.einsum("bskgt,btr->bskgr", p_pre,
                            prefix["v_u"][i].float())
-        vvt4 = prefix["v_vt"][i].float().reshape(b, -1, kvh, hd)
+        vvt4 = _vt(prefix["v_vt"][i], lay, cfg, "v_vt").float().reshape(
+            b, -1, kvh, hd)
         out = torch.einsum("bskgr,brkd->bskgd", tmp, vvt4)
-        out = out + torch.einsum("bskgt,btkd->bskgd", p_suf, v.float())
-        x = x + L.dense(lp["attn"]["wo"],
-                        out.reshape(b, s, nh * hd).to(x.dtype))
+        out = out + torch.einsum("bskgt,btkd->bskgd", p_suf, vc.float())
+        x = x + L.o_proj(lp["attn"],
+                         out.reshape(b, s, nh * hd).to(x.dtype), cfg)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
         # suffix K/V become the slot's dense tail; pad rows zeroed so
         # later folds see what a full prefill would have left
         zmask = live_row[:, :, None, None]

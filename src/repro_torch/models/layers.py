@@ -6,6 +6,16 @@ leading L axis); activations are [B, S, H], attention internals
 [B, S, n, d].  Matmuls take the storage dtype (bf16) and accumulate in
 float32; attention scores, softmax and normalization run in float32, as
 the JAX code asks with ``preferred_element_type``.
+
+:func:`mlp`, :func:`decode_attention` and :func:`qkv` have one body for
+one device and for tensor parallelism (``distributed.tp.use(mesh)``,
+where the parameters are the rank's blocks of ``params_sharding``):
+Megatron's layout, column-parallel Q/K/V, up and gate, their input
+through ``tp.copy``; row-parallel O and down, their output through
+``tp.reduce`` before the (replicated) bias.  Head counts come from the
+rank's layout (``tp.layout``: every head on one device).  Without a
+"model" axis the ``tp`` helpers are the identity, so the body is the
+single-device computation.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..distributed import tp as TP
 from ..tree import tree_map
 
 Params = Dict[str, Any]
@@ -182,6 +193,17 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_dense(p: Params, x: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """A row-parallel product: the rank's partial sum all-reduced over
+    "model" when the weight's rows are sharded, then the bias."""
+    y = x @ p["w"]
+    if sharded:
+        y = TP.reduce(y)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
@@ -286,27 +308,64 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params,
     """One-token attention: x [B, 1, H], cache k/v [B, T, kvh, d], pos [B].
     Writes the new K/V row of each slot into ``cache`` IN PLACE, at row
     ``pos`` clamped into the cache (as JAX's ``dynamic_update_slice``
-    clamps); a slot whose ``live`` (bool [B]) is False writes nothing."""
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    b = x.shape[0]
-    t = cache["k"].shape[1]
-    q = split_heads(dense(p["wq"], x), nh)                   # [B,1,nh,d]
-    k_new = split_heads(dense(p["wk"], x), kvh)
-    v_new = split_heads(dense(p["wv"], x), kvh)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    clamps); a slot whose ``live`` (bool [B]) is False writes nothing.
+    Under tensor parallelism: the rank's heads, and ``cache`` holds the
+    rank's block of k/v (``cache_pspec``: kv heads, else head_dim)."""
+    b, t = x.shape[0], cache["k"].shape[1]
+    hd = cfg.resolved_head_dim
+    q, k_new, v_new, lay = qkv(p, x, cfg, pos[:, None])       # [B,1,nh,d]
     rows = torch.arange(b, device=x.device)
     wpos = torch.clamp(pos, max=t - 1)
-    write_rows(cache["k"], (rows, wpos), k_new[:, 0], live)
-    write_rows(cache["v"], (rows, wpos), v_new[:, 0], live)
-    k, v = cache["k"], cache["v"]
-
+    write_rows(cache["k"], (rows, wpos), TP.cache_block(k_new, lay)[:, 0],
+               live)
+    write_rows(cache["v"], (rows, wpos), TP.cache_block(v_new, lay)[:, 0],
+               live)
+    k = TP.compute_heads(cache["k"], lay, "k_cache")
+    v = TP.compute_heads(cache["v"], lay, "v_cache")
     sc = _gqa_scores(q, k) * (hd ** -0.5)                     # [B,nh,1,T]
     valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
     sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, -1e30))
     pr = torch.softmax(sc, dim=-1).to(v.dtype)
-    out = _gqa_pv(pr, v).to(x.dtype).reshape(b, 1, nh * hd)
-    return dense(p["wo"], out)
+    out = _gqa_pv(pr, v).to(x.dtype).reshape(b, 1, lay.nh_l * hd)
+    return o_proj(p, out, cfg)
+
+
+def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor):
+    """Q/K/V of one block → (q [B, S, nh_l, d] on the rank's query heads,
+    k and v [B, S, kvh_c, d] RoPE'd, the rank's ``tp.layout``):
+    ``kvh_c`` is the rank's kv heads when the layout is ``aligned`` (on
+    one device: every head), else every kv head (the projection's
+    columns all-gathered over "model", or computed whole where the rule
+    replicates them)."""
+    lay = TP.layout(cfg)
+    hd = cfg.resolved_head_dim
+    sharded = o_sharded(cfg)
+    hc = TP.copy(h) if sharded else h
+    q = split_heads(dense(p["wq"], hc), lay.nh_l)
+    if sharded and not lay.kv_sharded:
+        # wk/wv replicated, read by the rank's heads only: each rank's
+        # gradient of K/V is a partial sum, summed over "model" here (the
+        # input is h, not hc: K/V's share of h's gradient is then whole)
+        k = TP.copy(dense(p["wk"], h), "kv_in")
+        v = TP.copy(dense(p["wv"], h), "kv_in")
+    else:
+        k = TP.full_kv(dense(p["wk"], hc), lay, "k_cols")
+        v = TP.full_kv(dense(p["wv"], hc), lay, "v_cols")
+    k, v = split_heads(k, k.shape[-1] // hd), split_heads(v, v.shape[-1] // hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v, lay
+
+
+def o_sharded(cfg) -> bool:
+    """Whether O's rows (the heads' dims) are sharded over "model"."""
+    return TP.width_sharded(cfg.num_heads * cfg.resolved_head_dim)
+
+
+def o_proj(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The attention's output projection ``p["wo"]``: row-parallel under
+    tensor parallelism."""
+    return row_dense(p["wo"], x, o_sharded(cfg))
 
 
 def cross_attention(p: Params, x: torch.Tensor, memory_kv, cfg
@@ -328,12 +387,17 @@ def memory_kv(p: Params, memory: torch.Tensor, kvh: int):
             split_heads(dense(p["wv"], memory), kvh))
 
 
-def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, activation: str,
+        d_ff: int = None) -> torch.Tensor:
     """down(act(gate(x)) · up(x)) when the MLP is gated, else
-    down(act(up(x)))."""
+    down(act(up(x))).  Under tensor parallelism ``d_ff`` is the whole
+    hidden width: the rule shards it over "model" when M divides it."""
     act = _ACT[activation]
+    sharded = d_ff is not None and TP.width_sharded(d_ff)
+    if sharded:
+        x = TP.copy(x)
     if "gate" in p:
         h = act(dense(p["gate"], x)) * dense(p["up"], x)
     else:
         h = act(dense(p["up"], x))
-    return dense(p["down"], h)
+    return row_dense(p["down"], h, sharded)

@@ -1,8 +1,10 @@
 """Token-choice top-k mixture of experts (olmoe-1b-7b, kimi-k2-1t-a32b).
 
-Counterpart of ``repro.models.moe`` (its GSPMD formulation; the
-expert-parallel ``moe_ffn_shard_map`` waits for the port's mesh).
-Dispatch is sort-based with static capacity buffers:
+Counterpart of ``repro.models.moe``: its GSPMD formulation
+(:func:`moe_ffn`) and the expert-parallel :func:`moe_ffn_shard_map`,
+which every MoE block runs under tensor parallelism
+(``distributed.tp.use``).  Dispatch is sort-based with static capacity
+buffers:
 
   1. router top-k → (expert id, gate) per token slot,
   2. rank in expert from sorted runs,
@@ -33,6 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as sh
+from ..distributed import tp as TP
 from ..platform import torch_dtype
 from . import layers as L
 from . import transformer as T
@@ -147,40 +151,97 @@ def route(p: Params, xf: torch.Tensor, cfg):
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
-    """x [B, S, H] → (y [B, S, H], aux loss []).  Capacity is per call:
-    ceil(B·S · top_k · capacity_factor / E) slots an expert."""
+    """x [B, S, H] → (y [B, S, H], aux loss []) on one device: every
+    expert, capacity per call, ceil(B·S · top_k · capacity_factor / E)
+    slots an expert (:func:`moe_ffn_shard_map` with no mesh)."""
+    return moe_ffn_shard_map(p, x, cfg, None)
+
+
+def shared_width(cfg) -> int:
+    """The shared experts' MLP width (one gated MLP)."""
+    return cfg.moe_d_ff * cfg.n_shared_experts
+
+
+def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg, mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE FFN (the reference's ``moe_ffn_shard_map``,
+    with the mesh an argument instead of a module global): ``p`` holds the
+    rank's E/M experts (``params_sharding``), ``x`` [B, S, H] is the
+    rank's tokens, model-replicated.  Every model rank routes all of
+    ``x``, dispatches locally into buffers of its own experts only, and
+    the gate-weighted combine is all-reduced over "model" in ``x``'s
+    dtype; the aux loss is averaged over the DP super-axis.  Capacity is
+    per call, from the rank's tokens: on each data shard this is
+    :func:`moe_ffn` of that shard (the reference's documented semantics),
+    and with the batch whole on every rank it is :func:`moe_ffn` itself.
+    ``expert_sharding="2d"`` all-gathers the F dim of the expert
+    weights over "data" first (its backward reduce-scatters the
+    gradient, which then has the rank's F block's shape)."""
+    with TP.use(mesh) as tp:
+        return _experts(p, x, cfg, mesh, tp)
+
+
+def _experts(p: Params, x: torch.Tensor, cfg, mesh, tp):
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
+    m, m_idx = (1, 0) if tp is None else (tp.size, tp.rank)
+    if e % m:
+        raise ValueError(f"{e} experts do not divide over a 'model' axis "
+                         f"of {m}")
+    e_loc = e // m
     t = b * s
     cap = capacity(cfg, t)
     dev = x.device
     xf = x.reshape(t, h)
     gate_vals, eidx, rank, aux = route(p, xf, cfg)
+    dp = 1 if mesh is None else sh.dp_size(mesh)
+    if dp > 1:
+        aux = TP.mean_value(aux.reshape(1), sh.dp_group(mesh), dp,
+                            "aux").reshape(())
     slots_e = eidx.reshape(t * k)
     slot_tok = torch.arange(t * k, device=dev) // k
 
-    # dispatch: the slot table, with a spare column that takes the drops
-    table = torch.full((e, cap + 1), t, dtype=torch.long, device=dev)
-    table[slots_e, torch.clamp(rank, max=cap)] = slot_tok
-    x_pad = torch.cat([xf, xf.new_zeros(1, h)], dim=0)
-    buf = x_pad[table[:, :cap]]                                 # [E, C, H]
+    # this model rank's experts; the others' slots go to the spare row
+    local_e = slots_e - m_idx * e_loc
+    owned = (local_e >= 0) & (local_e < e_loc) & (rank < cap)
+    le = torch.where(owned, local_e, torch.full_like(local_e, e_loc))
+    rk = torch.where(owned, rank, torch.full_like(rank, cap))
+    table = torch.full((e_loc + 1, cap + 1), t, dtype=torch.long,
+                       device=dev)
+    table[le, rk] = slot_tok
+    xd = TP.copy(xf, "moe_in")            # each rank: its experts' share
+    x_pad = torch.cat([xd, xd.new_zeros(1, h)], dim=0)
+    buf = x_pad[table[:e_loc, :cap]]                        # [E_loc, C, H]
 
-    # expert FFN: plain batched products (the reference's einsums)
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if mesh is not None and getattr(cfg, "expert_sharding", "1d") == "2d" \
+            and sh.axis_size(mesh, "data") > 1 \
+            and cfg.moe_d_ff % sh.axis_size(mesh, "data") == 0:
+        grp = sh.axis_group(mesh, "data")
+        wg = TP.gather_rs(wg, grp, 2, "w_gate_f")
+        wu = TP.gather_rs(wu, grp, 2, "w_up_f")
+        wd = TP.gather_rs(wd, grp, 1, "w_down_f")
     act = L._ACT[cfg.activation]
-    hidden = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(hidden, p["w_down"])                    # [E, C, H]
+    hidden = act(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out_buf = torch.bmm(hidden, wd)                         # [E_loc, C, H]
 
-    # combine
-    in_cap = rank < cap
-    y_slots = out_buf[slots_e, torch.clamp(rank, max=cap - 1)]  # [T·k, H]
-    y_slots = torch.where(in_cap[:, None], y_slots,
+    y_slots = out_buf[torch.clamp(le, max=e_loc - 1),
+                      torch.clamp(rk, max=cap - 1)]         # [T·k, H]
+    y_slots = torch.where(owned[:, None], y_slots,
                           torch.zeros_like(y_slots))
-    y = (y_slots.reshape(t, k, h)
-         * gate_vals.to(y_slots.dtype)[..., None]).sum(dim=1)
-    y = y.reshape(b, s, h).to(x.dtype)
+    gv = TP.copy(gate_vals, "moe_gates")
+    y = (y_slots.reshape(t, k, h) * gv.to(y_slots.dtype)[..., None]).sum(
+        dim=1)
+    y = TP.reduce(y.to(x.dtype), "moe_combine").reshape(b, s, h)
     if "shared" in p:
-        y = y + L.mlp(p["shared"], x, cfg.activation)
+        y = y + L.mlp(p["shared"], x, cfg.activation, shared_width(cfg))
     return y, aux
+
+
+def _ffn(p: Params, x: torch.Tensor, cfg):
+    """The block's MoE FFN: expert-parallel under tensor parallelism."""
+    tp = TP.current()
+    return moe_ffn_shard_map(p, x, cfg, None if tp is None else tp.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +252,7 @@ def moe_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
               cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     x = x + T._self_attention(p["attn"], T.norm(p["attn_norm"], x, cfg),
                               cfg, positions)[0]
-    y, aux = moe_ffn(p["moe"], T.norm(p["mlp_norm"], x, cfg), cfg)
+    y, aux = _ffn(p["moe"], T.norm(p["mlp_norm"], x, cfg), cfg)
     return x + y, aux
 
 
@@ -229,7 +290,7 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     for lp in L.unstack(p["layers"], nm):
         x, a = body(lp, x, positions, cfg)
         aux = aux + a
-    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"]) + aux
+    return T.loss_head(p, x, cfg, batch["labels"]) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +300,7 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
     """Zero KV cache: ``moe`` (and, with leading dense layers, ``dense``)
     K/V [L, batch, max_len, kvh, d]."""
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kvh, hd = T.kv_dims(cfg)
     nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
     dt = torch_dtype(cfg.dtype)
 
@@ -274,11 +335,11 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
         lp = L.layer_params(p["dense_layers"], i)
         x = attn(lp, x, cache["dense"], i)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     for i in range(cfg.num_layers - cfg.first_k_dense):
         lp = L.layer_params(p["layers"], i)
         x = attn(lp, x, cache["moe"], i)
-        x = x + moe_ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
+        x = x + _ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
     return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], cache
 
 
@@ -298,9 +359,9 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
         lp = L.layer_params(p["dense_layers"], i)
         x = attn(lp, x, cache["dense"], i)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     for i in range(cfg.num_layers - cfg.first_k_dense):
         lp = L.layer_params(p["layers"], i)
         x = attn(lp, x, cache["moe"], i)
-        x = x + moe_ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
+        x = x + _ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
     return T.logits_head(p, x, cfg)[:, 0], cache

@@ -10,6 +10,14 @@ layernorm with a bias in place of rmsnorm), ``gated_mlp`` and
 ``activation`` (SwiGLU, GeGLU or an ungated GELU MLP), and
 ``tie_embeddings`` (no ``lm_head``: the head is the embedding table, and
 embeddings are scaled by √d_model rounded to the config's dtype).
+
+Under tensor parallelism (``distributed.tp.use(mesh)``; parameters are
+the rank's ``params_sharding`` blocks) the embedding and the head are
+vocab-parallel when M divides the padded vocab (a lookup over the
+rank's rows, all-reduced; the rank's logit columns, all-gathered for
+serving and reduced by ``tp.cross_entropy`` for the loss), the blocks
+run ``layers``' Megatron layout, and a decode cache holds the rank's
+block of k/v (``cache_pspec``: kv heads over "model", else head_dim).
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import tp as TP
 from ..platform import torch_dtype
 from . import layers as L
 
@@ -140,40 +149,54 @@ def embed(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows, times √d_model rounded to the config's dtype when
     the embeddings are tied (the reference multiplies by
     ``jnp.asarray(√d, dtype)``)."""
-    x = p["embed"]["w"][tokens]
+    if vocab_sharded(cfg):
+        x = TP.embed(p["embed"]["w"], tokens)
+    else:
+        x = p["embed"]["w"][tokens]
     if cfg.tie_embeddings:
         x = x * L._const(cfg.d_model ** 0.5, x)
     return x
 
 
-def logits_head(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def vocab_sharded(cfg) -> bool:
+    """Whether the embedding and head run vocab-parallel (under tensor
+    parallelism, when M divides the padded vocab: the rule's condition)."""
+    return TP.width_sharded(cfg.padded_vocab)
+
+
+def logits_head(p: Params, x: torch.Tensor, cfg,
+                whole: bool = True) -> torch.Tensor:
     """Final norm, then the head: ``lm_head``, or the embedding table
-    [V, H] itself when tied (``einsum("...h,vh->...v")``)."""
+    [V, H] itself when tied (``einsum("...h,vh->...v")``).  Vocab-parallel,
+    the rank's columns, all-gathered unless ``whole`` is False."""
     h = norm(p["final_norm"], x, cfg)
+    sharded = vocab_sharded(cfg)
+    if sharded:
+        h = TP.copy(h)
     if cfg.tie_embeddings:
         logits = h @ p["embed"]["w"].t()
     else:
         logits = L.dense(p["lm_head"], h)
     if cfg.padded_vocab != cfg.vocab:          # mask the padding tail
-        iota = torch.arange(logits.shape[-1], device=logits.device)
+        v_l = logits.shape[-1]
+        lo = TP.current().rank * v_l if sharded else 0
+        iota = torch.arange(lo, lo + v_l, device=logits.device)
         logits = torch.where(iota < cfg.vocab, logits,
                              torch.full_like(logits, -1e30))
-    return logits
+    return TP.gather(logits, -1, "logits") if sharded and whole else logits
 
 
 def _self_attention(lp: Params, h: torch.Tensor, cfg,
                     positions: torch.Tensor, causal: bool = True):
     """Self-attention of one block (causal unless asked otherwise, as an
     encoder's is); also returns its RoPE'd K and V [B, S, kvh, d] (the
-    prefill cache rows)."""
-    nh, kvh = cfg.num_heads, cfg.num_kv_heads
-    q = L.split_heads(L.dense(lp["wq"], h), nh)
-    k = L.split_heads(L.dense(lp["wk"], h), kvh)
-    v = L.split_heads(L.dense(lp["wv"], h), kvh)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = L.attend(q, k, v, positions, causal=causal, out_dtype=h.dtype)
-    return L.dense(lp["wo"], out), k, v
+    prefill cache rows; under tensor parallelism the rank's cache block
+    of them)."""
+    q, k, v, lay = L.qkv(lp, h, cfg, positions)
+    out = L.attend(q, TP.my_heads(k, lay), TP.my_heads(v, lay), positions,
+                   causal=causal, out_dtype=h.dtype)
+    return (L.o_proj(lp, out, cfg), TP.cache_block(k, lay),
+            TP.cache_block(v, lay))
 
 
 def block(p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -181,7 +204,8 @@ def block(p: Params, x: torch.Tensor, positions: torch.Tensor,
     """One dense block: x [B, S, H] → x + attn(norm(x)) + mlp(norm(·))."""
     x = x + _self_attention(p["attn"], norm(p["attn_norm"], x, cfg), cfg,
                             positions)[0]
-    return x + L.mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.activation)
+    return x + L.mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.activation,
+                     cfg.d_ff)
 
 
 def forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -207,7 +231,16 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     body = L.ckpt(block, cfg)
     for lp in L.unstack(p["layers"], cfg.num_layers):
         x = body(lp, x, positions, cfg)
-    return L.cross_entropy(logits_head(p, x, cfg), batch["labels"])
+    return loss_head(p, x, cfg, batch["labels"])
+
+
+def loss_head(p: Params, x: torch.Tensor, cfg, labels: torch.Tensor
+              ) -> torch.Tensor:
+    """The head and the mean cross-entropy of the final hidden ``x``
+    (vocab-parallel: over the rank's logit columns)."""
+    if vocab_sharded(cfg):
+        return TP.cross_entropy(logits_head(p, x, cfg, whole=False), labels)
+    return L.cross_entropy(logits_head(p, x, cfg), labels)
 
 
 def forward_layers(p: Params, cfg, tokens: torch.Tensor):
@@ -223,7 +256,7 @@ def forward_layers(p: Params, cfg, tokens: torch.Tensor):
                                   cfg, positions)
         x = x + a
         x = x + L.mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
         ks.append(k)
         vs.append(v)
     return x, ks, vs
@@ -233,9 +266,20 @@ def forward_layers(p: Params, cfg, tokens: torch.Tensor):
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+def kv_dims(cfg) -> Tuple[int, int]:
+    """(kv heads, head_dim) of a K/V cache leaf on this rank: the whole
+    without tensor parallelism, else the rank's block (``cache_pspec``)."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dim = TP.layout(cfg).cache
+    if dim == -2:
+        return kvh // TP.current().size, hd
+    if dim == -1:
+        return kvh, hd // TP.current().size
+    return kvh, hd
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.num_layers, batch, max_len) + kv_dims(cfg)
     dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, device=device, dtype=dt),
             "v": torch.zeros(shape, device=device, dtype=dt)}
@@ -267,5 +311,5 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
                                    norm(lp["attn_norm"], x, cfg),
                                    layer_cache, pos, cfg, live)
         x = x + L.mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     return logits_head(p, x, cfg)[:, 0], cache

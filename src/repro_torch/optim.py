@@ -17,6 +17,12 @@ updates the parameters, m and v IN PLACE, one slice of at most
 update then stay small (a whole float32 copy of granite-3-2b's stacked
 ``w_up`` [40, 2048, 8192] would be 2.7 GB, and the update makes several).
 Elementwise arithmetic is the same in slices as whole.
+
+On a mesh (``runtime.steps.make_train_step(mesh=, zero1=True)``)
+:meth:`AdamW.update_zero1` is ZeRO-1: each DP rank holds and updates its
+block of m, v and the parameter, and the updated blocks are all-gathered
+back; :func:`clip_sharded` is the global clip over sharded gradients.
+Adafactor has no ZeRO-1 form here (a train step refuses it at D > 1).
 """
 from __future__ import annotations
 
@@ -57,6 +63,24 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     back to the gradient's dtype → (clipped tree, ‖g‖); ‖g‖ sums the
     leaves' Σ g² in sorted-key order, as the reference does."""
     gn = torch.sqrt(sum((g.float() ** 2).sum() for g in leaves(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+def clip_sharded(grads: Tree, max_norm: float, weights: Dict[str, float],
+                 reduce) -> Tuple[Tree, torch.Tensor]:
+    """:func:`clip_by_global_norm` over sharded gradients: each leaf's Σ g²
+    (in sorted-key order, as whole) times ``weights[name]`` (1 / the
+    number of ranks that hold the same block, so a replicated block
+    counts once), summed, then ``reduce(total)`` (its sum over the mesh)
+    before the square root.  Where every weight is 1 and ``reduce`` is a
+    one-rank sum, this is :func:`clip_by_global_norm` bit for bit."""
+    def term(name, g):
+        t = (g.float() ** 2).sum()
+        w = weights[name]
+        return t if w == 1 else t * w
+    total = sum(term(name, g) for name, g in named_leaves(grads))
+    gn = torch.sqrt(reduce(total))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
@@ -110,18 +134,50 @@ class AdamW:
         stepf = step.float()
         b1c = 1.0 - self.b1 ** stepf
         b2c = 1.0 - self.b2 ** stepf
-        b1, b2 = self.b1, self.b2
         for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
                               leaves(state["v"]), leaves(params)):
-            for sl in _row_slices(p):
-                g32 = g[sl].float()
-                ms, vs, ps = m[sl], v[sl], p[sl]
-                ms.mul_(b1).add_(g32 * (1 - b1))
-                vs.mul_(b2).add_((g32 * (1 - b2)) * g32)
-                u = (ms / b1c) / (torch.sqrt(vs / b2c) + self.eps)
-                p32 = ps.float()
-                u = u + self.weight_decay * p32
-                ps.copy_(p32 - lr * u)
+            self._leaf(g, m, v, p, lr, b1c, b2c)
+        return params, {"m": state["m"], "v": state["v"], "step": step}
+
+    def _leaf(self, g, m, v, p, lr, b1c, b2c) -> None:
+        b1, b2 = self.b1, self.b2
+        for sl in _row_slices(p):
+            g32 = g[sl].float()
+            ms, vs, ps = m[sl], v[sl], p[sl]
+            ms.mul_(b1).add_(g32 * (1 - b1))
+            vs.mul_(b2).add_((g32 * (1 - b2)) * g32)
+            u = (ms / b1c) / (torch.sqrt(vs / b2c) + self.eps)
+            p32 = ps.float()
+            u = u + self.weight_decay * p32
+            ps.copy_(p32 - lr * u)
+
+    def update_zero1(self, grads: Tree, state: Dict[str, Tree],
+                     params: Tree, blocks: Dict[str, Any], gather
+                     ) -> Tuple[Tree, Dict[str, Tree]]:
+        """ZeRO-1: one step where ``state``'s m and v hold this DP rank's
+        block of each leaf (``opt_state_sharding``), ``grads`` is the same
+        block of the synced gradient, and ``blocks`` maps each leaf's name
+        to the dim of its block (None: the leaf is whole on every rank).
+        The reference's arithmetic runs on the rank's block of the
+        parameter (in place), then ``gather(block, dim, name)`` gives the
+        whole leaf back, which is copied into the parameter."""
+        _check_tree(grads, params)
+        step = state["step"] + 1
+        lr = self.lr(step)
+        stepf = step.float()
+        b1c = 1.0 - self.b1 ** stepf
+        b2c = 1.0 - self.b2 ** stepf
+        for (name, p), g, m, v in zip(named_leaves(params), leaves(grads),
+                                      leaves(state["m"]), leaves(state["v"])):
+            dim = blocks[name]
+            if dim is None:
+                self._leaf(g, m, v, p, lr, b1c, b2c)
+                continue
+            n = m.shape[dim]
+            i = gather.rank
+            blk = p.narrow(dim, i * n, n)
+            self._leaf(g, m, v, blk, lr, b1c, b2c)
+            p.copy_(gather(blk, dim, name))
         return params, {"m": state["m"], "v": state["v"], "step": step}
 
 

@@ -11,8 +11,14 @@ Counterpart of ``repro.runtime.driver``:
 * straggler watchdog: an EWMA of step wall times; a step slower than
   ``threshold × ewma`` is flagged and counted;
 * elastic re-mesh: :func:`restore_for_mesh` re-shards any checkpoint onto
-  a new mesh (``checkpoint.restore(mesh=, placements=)``); a data-parallel
-  train step resumes from :func:`unshard` of its result.
+  a new mesh (``checkpoint.restore(mesh=, placements=)``); a step on a
+  "model" axis larger than 1 or with ``zero1`` takes its result as it
+  is (the
+  DTensors' local blocks: ``params_sharding``'s and ZeRO-1's), a plain
+  data-parallel step resumes from :func:`unshard` of it.  With ``mesh=``
+  :func:`train_loop` trains on the mesh and saves the whole state
+  (gathered from the blocks, written by rank 0), so a run saved on one
+  mesh restarts on any other.
 
 A step's wall time ends at the loss's read-back (one host read a step,
 as in the reference).
@@ -88,8 +94,8 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
                max_restarts: int = 3,
                print_fn: Callable[[str], None] = print,
                device=None, backend: str = "cuda", optimizer=None,
-               init_params: Optional[Callable[[], Tree]] = None
-               ) -> TrainLoopResult:
+               init_params: Optional[Callable[[], Tree]] = None,
+               mesh=None, zero1: bool = False) -> TrainLoopResult:
     """Run (or resume) training with checkpoint/restart until
     ``total_steps``.  The state starts from the latest checkpoint under
     ``ckpt_dir``, else from ``init_params()`` (default: the family's
@@ -97,10 +103,23 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
     passes the reference's weights) and ``optimizer.init`` (default:
     ``make_optimizer(cfg)``).  Every step's loss is appended, a replayed
     step's again; the final state is saved as the last step's
-    checkpoint."""
+    checkpoint.  With ``mesh`` every rank runs the loop on its blocks
+    (``steps.make_train_step(mesh=, zero1=)``), restores
+    through :func:`restore_for_mesh` and saves synchronously
+    (:func:`save_for_mesh`)."""
     dev = resolve_device(device)
     opt = optimizer or make_optimizer(cfg)
-    train_step = steps_mod.make_train_step(cfg, opt, backend=backend)
+    train_step = steps_mod.make_train_step(
+        cfg, opt, backend=backend, mesh=mesh, zero1=zero1)
+    on = dict(zero1=zero1, optimizer=opt)
+    sharded = mesh is not None and (
+        zero1 or steps_mod._tp_mesh(mesh) is not None)
+
+    def save_now(state, step):
+        if mesh is None:
+            ckpt.save(state, ckpt_dir, step)
+            return ckpt.tree_bytes(state)
+        return save_for_mesh(cfg, state, ckpt_dir, step, mesh, **on)
     restarts = 0
     losses: List[float] = []
     watchdog = StragglerWatchdog()
@@ -111,7 +130,14 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
         try:
             # ---- (re)start: restore the latest checkpoint or init --------
             start = ckpt.latest_step(ckpt_dir)
-            if start is not None:
+            if start is not None and mesh is not None:
+                state = restore_for_mesh(cfg, ckpt_dir, mesh, optimizer=opt)
+                state = steps_mod.local_blocks(state) if sharded \
+                    else unshard(state)
+                params, opt_state = state["params"], state["opt"]
+                start += 1
+                print_fn(f"[driver] restored step {start - 1}; resuming")
+            elif start is not None:
                 t_params, t_opt = steps_mod.abstract_train_state(cfg, opt)
                 state = ckpt.restore({"params": t_params, "opt": t_opt},
                                      ckpt_dir, device=dev)
@@ -127,6 +153,9 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
                 params, opt_state = steps_mod.init_train_state(cfg, gen, opt,
                                                                dev)
                 start = 0
+            if start == 0 and sharded:
+                params, opt_state = steps_mod.shard_train_state(
+                    cfg, params, opt_state, mesh, **on)
 
             source = SyntheticLM(cfg, shape, DataConfig(seed=seed))
             prefetch = Prefetcher(source, start_step=start)
@@ -137,9 +166,8 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
                     prefetch.stop()
                     saver.wait()
                     written += saver.bytes_written
-                    final = {"params": params, "opt": opt_state}
-                    ckpt.save(final, ckpt_dir, step - 1)
-                    written += ckpt.tree_bytes(final)
+                    written += save_now({"params": params, "opt": opt_state},
+                                        step - 1)
                     return TrainLoopResult(step, losses, restarts,
                                            watchdog.flagged, written)
                 if failure_hook is not None:
@@ -156,7 +184,10 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
                 if step % log_every == 0:
                     print_fn(f"[train] step {step} loss {loss:.4f} "
                              f"({dt * 1e3:.0f} ms)")
-                if step % ckpt_every == ckpt_every - 1:
+                if step % ckpt_every == ckpt_every - 1 and mesh is not None:
+                    written += save_now({"params": params, "opt": opt_state},
+                                        step)
+                elif step % ckpt_every == ckpt_every - 1:
                     saver.save({"params": params, "opt": opt_state}, step)
 
         except SimulatedFailure as e:
@@ -177,15 +208,38 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
             continue
 
 
+def save_for_mesh(cfg: ArchConfig, state: Tree, ckpt_dir: str, step: int,
+                  mesh, **on) -> int:
+    """Save a train state held as blocks on ``mesh`` (``on``: the step's
+    ``zero1`` and ``optimizer``) as whole leaves: every
+    rank gathers, rank 0 writes, all wait for it.  Returns the bytes
+    written (0 on the other ranks)."""
+    import torch.distributed as dist
+    if on.get("zero1") or steps_mod._tp_mesh(mesh) is not None:
+        params, opt_state = steps_mod.whole_train_state(
+            cfg, state["params"], state["opt"], mesh, **on)
+    else:
+        params, opt_state = state["params"], state["opt"]
+    whole = {"params": params, "opt": opt_state}
+    n = 0
+    if dist.get_rank() == 0:
+        ckpt.save(whole, ckpt_dir, step)
+        n = ckpt.tree_bytes(whole)
+    dist.barrier()
+    return n
+
+
 def restore_for_mesh(cfg: ArchConfig, ckpt_dir: str, mesh, *,
                      optimizer=None) -> Tree:
     """Elastic restore: the latest checkpoint of ``ckpt_dir`` RE-SHARDED
     for ``mesh`` — ``{"params", "opt"}`` of DTensors placed by
     ``params_sharding`` / ``opt_state_sharding`` (ZeRO-1 on).  The mesh
     it was saved on (or none) does not matter: every leaf is rebuilt
-    from its host copy (the reference's ``restore_for_mesh``).  The
-    port's data-parallel step holds whole state on every rank (ZeRO-1 is
-    not ported): resume it from :func:`unshard` of this."""
+    from its host copy (the reference's ``restore_for_mesh``).  A step
+    on a "model" axis larger than 1 or with ``zero1`` takes this as it
+    is (its leaves' local blocks); a plain data-parallel step, which
+    holds whole state on every rank, resumes from :func:`unshard` of
+    this."""
     from ..distributed import sharding as sh
     opt = optimizer or make_optimizer(cfg)
     params_abs, opt_abs = steps_mod.abstract_train_state(cfg, opt)

@@ -40,6 +40,21 @@ default ``distributed.compression.dp_mean`` over the DP group; a given
 transform must carry ``dp_sync`` (``compression.PowerSGD`` built with
 the group does).  Such a step resumes from a checkpoint through
 ``runtime.driver.unshard(restore_for_mesh(...))``.
+
+On a "model" axis larger than 1 (tensor parallelism) the parameters
+are the rank's ``params_sharding`` blocks (:func:`shard_train_state`), the loss
+runs under ``distributed.tp.use`` (Megatron layers, vocab-parallel
+cross-entropy, expert-parallel ``moe_ffn_shard_map``), and each rank's
+gradients are of its blocks.  With ``zero1=True`` the optimizer is
+ZeRO-1 (``opt_state_sharding``): each DP rank holds its block of AdamW's
+m and v, the gradient of a leaf with a ZeRO-1 dim is reduce-scattered
+over the DP group instead of all-reduced (PowerSGD, when given, syncs
+the whole gradient and the rank keeps its block), the rank updates its
+block of the parameter and the updated blocks are all-gathered.  Either
+way the global clip sums each leaf's squares once over the mesh
+(``optim.clip_sharded``: a block that M ranks hold alike counts 1/M on
+each).  Such a step takes ``driver.restore_for_mesh``'s DTensors as they
+are (their local blocks), with no ``unshard``.
 """
 from __future__ import annotations
 
@@ -49,12 +64,14 @@ import torch
 
 from ..configs import ArchConfig
 from ..distributed import compression as comp, sharding as sh
+from ..distributed import tp as TP
 from ..engine import DecomposeEngine, EngineConfig
+from ..engine.config import tp_mesh as _tp_mesh
 from ..kernels.ops import make_kernels
 from ..models import api
 from ..models import decomposed as D
-from ..optim import clip_by_global_norm, make_optimizer
-from ..tree import leaves, tree_map, unflatten_like
+from ..optim import AdamW, clip_by_global_norm, clip_sharded, make_optimizer
+from ..tree import leaves, named_leaves, rebuild, tree_map, unflatten_like
 
 Tree = Any
 
@@ -114,10 +131,127 @@ def value_and_grad(loss_of: Callable, params: Tree, batch
     return loss.detach(), unflatten_like(params, out)
 
 
+class _Layout:
+    """Where each leaf of a sharded train state lives: its param spec,
+    its ZeRO-1 dim (the dim ``opt_state_sharding`` adds the DP axis to,
+    None for none), whether its gradient is already reduced over "data"
+    (2-D expert weights), and the clip weight of its local block."""
+
+    def __init__(self, cfg, opt, mesh, tp: bool, zero1: bool):
+        p_abs, o_abs = abstract_train_state(cfg, opt)
+        m_size = sh.model_size(mesh)
+        dp = sh.dp_size(mesh)
+        self.spec, self.block, self.data_reduced, self.weight = {}, {}, {}, {}
+        for name, leaf in named_leaves(p_abs):
+            shape = tuple(leaf.shape)
+            rule = sh.param_spec(name, shape, mesh, cfg)
+            spec = rule if tp else sh.Spec(*([None] * len(shape)))
+            self.spec[name] = spec
+            flat = [a for e in spec for a in
+                    (e if isinstance(e, tuple) else (e,)) if e is not None]
+            self.data_reduced[name] = "data" in flat and dp > 1
+            dim = None
+            if zero1 and len(shape) >= 1:     # opt_state_sharding's dim
+                z = sh._zero1(rule, shape, mesh)
+                dim = next((d for d, (a, b) in enumerate(zip(rule, z))
+                            if a != b), None)
+                if dim is not None and self.data_reduced[name]:
+                    raise NotImplementedError(
+                        f"{name}: ZeRO-1 of a leaf already sharded over "
+                        f"'data' (expert_sharding='2d') is not ported")
+            self.block[name] = dim
+            rep = 1
+            if "model" not in flat:
+                rep *= m_size
+            if dim is None and not self.data_reduced[name]:
+                rep *= dp
+            self.weight[name] = 1.0 / rep
+
+
+class _DPGather:
+    """``gather(block, dim, name)``: the DP group's blocks of a leaf
+    concatenated along ``dim`` (ZeRO-1's parameter all-gather)."""
+
+    def __init__(self, mesh):
+        self.group = sh.dp_group(mesh)
+        self.rank = sh.dp_rank(mesh)
+
+    def __call__(self, blk, dim, name):
+        return sh.gather_dim(blk, self.group, "params", dim)
+
+
+def local_blocks(tree):
+    """Each DTensor leaf of ``tree`` as its local block (its shard on this
+    rank), any other leaf as it is."""
+    def one(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+    return tree_map(one, tree)
+
+
+def shard_train_state(cfg: ArchConfig, params: Tree, opt_state: Tree,
+                      mesh, *, zero1: bool = False, optimizer=None):
+    """(params, opt_state) of whole trees as the blocks a train step made
+    with the same ``mesh``/``zero1`` takes: the parameters'
+    ``params_sharding`` blocks under tensor parallelism, and with ZeRO-1
+    the DP rank's block of m and v (``opt_state_sharding``)."""
+    tp = _tp_mesh(mesh) is not None
+    lay = _Layout(cfg, optimizer or make_optimizer(cfg), mesh, tp, zero1)
+    if tp:
+        params = sh.shard_params(params, mesh, cfg)
+    if not zero1:
+        if tp:
+            opt_state = dict(opt_state, **{
+                k: sh.shard_params(opt_state[k], mesh, cfg)
+                for k in ("m", "v")})
+        return params, opt_state
+    i = sh.dp_rank(mesh)
+    where = sh.coords(mesh)
+
+    def block(name, t):
+        full = t.shape
+        t = sh.local_block(t, lay.spec[name], mesh, where) if tp else t
+        d = lay.block[name]
+        if d is not None:
+            n = t.shape[d] // sh.dp_size(mesh)
+            t = t.narrow(d, i * n, n)
+        return t if t.shape == full else t.clone()
+    out = dict(opt_state)
+    for k in ("m", "v"):
+        out[k] = rebuild(opt_state[k], {n: block(n, t) for n, t in
+                                        named_leaves(opt_state[k])})
+    return params, out
+
+
+def whole_train_state(cfg: ArchConfig, params: Tree, opt_state: Tree,
+                      mesh, *, zero1: bool = False, optimizer=None):
+    """:func:`shard_train_state`'s inverse: the whole trees on every rank
+    (all-gathers of the blocks; every rank calls it), so a checkpoint
+    does not depend on the mesh it was saved on."""
+    tp = _tp_mesh(mesh) is not None
+    lay = _Layout(cfg, optimizer or make_optimizer(cfg), mesh, tp, zero1)
+    params, opt_state = local_blocks(params), local_blocks(opt_state)
+
+    def whole(name, t, moment):
+        d = lay.block[name]
+        if moment and zero1 and d is not None:
+            t = sh.gather_dim(t, sh.dp_group(mesh), "checkpoint", d)
+        if tp:
+            t = sh.gather_block(t, lay.spec[name], mesh, "checkpoint")
+        return t
+    params = rebuild(params, {n: whole(n, t, False)
+                              for n, t in named_leaves(params)})
+    out = dict(opt_state)
+    for k in ("m", "v"):
+        out[k] = rebuild(opt_state[k], {n: whole(n, t, True) for n, t in
+                                        named_leaves(opt_state[k])})
+    return params, out
+
+
 def make_train_step(cfg: ArchConfig, optimizer=None,
                     max_grad_norm: float = 1.0, microbatches: int = 1,
                     grad_transform: Optional[Callable] = None,
-                    backend: str = "cuda", mesh=None) -> Callable:
+                    backend: str = "cuda", mesh=None,
+                    zero1: bool = False) -> Callable:
     """train_step(params, opt_state, batch) → (params, opt_state,
     {"loss", "grad_norm"}), the reference's step: the gradient of the
     family's ``loss_fn``, ``grad_transform`` (e.g. PowerSGD), the global
@@ -125,14 +259,29 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
     first axis and accumulates float32 gradients in a loop (the
     reference scans); the loss and gradients are then the microbatch
     means.  The parameters are updated in place and returned.  With
-    ``mesh`` the step is data-parallel (module docstring)."""
+    ``mesh`` the step is data-parallel, tensor-parallel on a "model"
+    axis larger than 1, and ZeRO-1 as ``zero1`` asks (module
+    docstring)."""
     fns = api.model_fns(cfg)
     opt = optimizer or make_optimizer(cfg)
     kernels = make_kernels(backend)
+    tpm = _tp_mesh(mesh)
+    lay = None
     if mesh is not None:
-        sh.require_data_only(mesh, "a train step")
+        sh.require_data_only(mesh, "a train step", cfg.family)
+        if zero1 and not isinstance(opt, AdamW):
+            raise NotImplementedError(
+                f"ZeRO-1 of {type(opt).__name__}: the port's ZeRO-1 step "
+                f"is AdamW's; Adafactor's factored state on a DP mesh is "
+                f"an item of ROADMAP.md's distribution work")
+        if tpm is not None or zero1:
+            lay = _Layout(cfg, opt, mesh, tpm is not None, zero1)
         if grad_transform is None:
-            grad_transform = comp.dp_mean(sh.dp_group(mesh))
+            skip = {n for n, r in (lay.data_reduced.items() if lay else ())
+                    if r}
+            grad_transform = comp.dp_mean(sh.dp_group(mesh), skip=skip,
+                                          block=None if not zero1 else
+                                          lay.block)
         elif not getattr(grad_transform, "dp_sync", False):
             raise ValueError(
                 "a data-parallel train step needs a grad_transform that "
@@ -142,33 +291,71 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
     def loss_of(params, batch):
         return fns.loss_fn(params, cfg, batch, kernels)
 
+    def grads_of(params, batch):
+        if microbatches == 1:
+            return value_and_grad(loss_of, params, batch)
+        loss = torch.zeros((), device=leaves(params)[0].device)
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        for i in range(microbatches):
+            mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                               + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            l_i, g_i = value_and_grad(loss_of, params, mb)
+            tree_map(lambda a, b: a.add_(b.float()), grads, g_i)
+            loss = loss + l_i
+        loss = loss / microbatches
+        grads = tree_map(lambda g: g / microbatches, grads)
+        return loss, grads
+
     def train_step(params, opt_state, batch):
         if mesh is not None:
+            params, opt_state = local_blocks(params), local_blocks(opt_state)
             batch, weight = _dp_shard(batch, mesh, cfg.num_experts == 0)
-        if microbatches == 1:
-            loss, grads = value_and_grad(loss_of, params, batch)
-        else:
-            loss = torch.zeros((), device=leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l_i, g_i = value_and_grad(loss_of, params, mb)
-                tree_map(lambda a, b: a.add_(b.float()), grads, g_i)
-                loss = loss + l_i
-            loss = loss / microbatches
-            grads = tree_map(lambda g: g / microbatches, grads)
+        with TP.use(tpm):
+            loss, grads = grads_of(params, batch)
         if mesh is not None:
             grads, loss = _dp_weigh(grads, loss, weight, mesh)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        params, opt_state = opt.update(grads, opt_state, params)
+            if zero1 and getattr(grad_transform, "whole", True):
+                grads = _dp_blocks(grads, lay, mesh)
+        if lay is None:
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        else:
+            grads, gnorm = clip_sharded(grads, max_grad_norm, lay.weight,
+                                        lambda t: _mesh_sum(t, mesh))
+        if zero1:
+            params, opt_state = opt.update_zero1(grads, opt_state, params,
+                                                 lay.block, _DPGather(mesh))
+        else:
+            params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _dp_blocks(grads, lay, mesh):
+    """The DP rank's ZeRO-1 block of each whole (synced) gradient."""
+    i, dp = sh.dp_rank(mesh), sh.dp_size(mesh)
+
+    def one(name, g):
+        d = lay.block[name]
+        if d is None:
+            return g
+        n = g.shape[d] // dp
+        return g.narrow(d, i * n, n)
+    return rebuild(grads, {n: one(n, g) for n, g in named_leaves(grads)})
+
+
+def _mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``'s sum over the whole mesh: over "model", then over the DP
+    super-axis."""
+    t = t.reshape(1).clone()
+    if sh.model_size(mesh) > 1:
+        sh.all_reduce(t, sh.model_group(mesh), "grad_norm")
+    sh.all_reduce(t, sh.dp_group(mesh), "grad_norm")
+    return t.reshape(())
 
 
 def _dp_shard(batch, mesh, split: bool):

@@ -101,7 +101,18 @@ for decomposed KV); a family whose state advances in place (Mamba2,
 hybrid) runs one-step blocks instead while a live slot has stop tokens
 on a sharded mesh of more than one rank.  The MoE family keeps every slot on
 every rank: its expert capacity couples the slots of a decode batch,
-so the batch must stay whole.  A "model" axis larger than 1 raises
+so the batch must stay whole.
+
+Tensor parallelism (a "model" axis larger than 1).  The dense,
+decomposed-KV (slab and paged, sync and async, fused blocks) and moe
+families keep each rank's ``params_sharding`` blocks
+(``sharding.shard_params``) and ``cache_pspec``'s blocks of the caches
+(kv heads over "model", else head_dim; decomposed KV: U and the page
+pools whole, the factors' kv width sharded), and every model call of a
+step runs under ``distributed.tp.use``: the rank's heads and columns,
+the row-parallel all-reduces, the logits all-gathered over "model"
+before sampling, so every model rank draws the same token.  The other
+families refuse a "model" axis larger than 1
 (``distributed.sharding.require_data_only``).
 
 ``decompose_kv_rank``/``dkv_tail``/``dkv_exact`` override the decompose
@@ -120,9 +131,10 @@ import numpy as np
 import torch
 
 from ..distributed import sharding as sh
+from ..distributed import tp as TP
 from ..engine import DecomposeEngine, EngineConfig
 from ..kernels import build
-from ..models.api import SlotShard
+from ..models.api import SlotShard, shard_params
 from ..obs import (NULL_SPAN, LatencySeries, MetricsRegistry, Observability,
                    phase_scope, stats_snapshot)
 from ..platform import host_to_device, prefill_stream, resolve_device
@@ -400,10 +412,17 @@ class Engine:
                 kv_rank=decompose_kv_rank, kv_tail=dkv_tail))
         ecfg = self.dengine.config
         self.mesh = ecfg.mesh
-        sh.require_data_only(self.mesh, "serving")
+        self.dkv_rank = int(decompose_kv_rank)
+        sh.require_data_only(self.mesh, "serving", "transformer-dkv"
+                             if self.dkv_rank and cfg.family == "dense"
+                             else cfg.family)
         # the DP group, which agrees host choices between ranks
         self._dp = sh.dp_group(self.mesh) if self.mesh is not None else None
-        self.dkv_rank = int(decompose_kv_rank)
+        # the mesh whose "model" axis the model runs on: each rank keeps
+        # its params_sharding blocks
+        self.tp_mesh = ecfg.tp_mesh
+        if self.tp_mesh is not None:
+            self.params = shard_params(cfg, params, self.mesh)
         self.dkv_tail = int(dkv_tail)
         self.dkv_exact = ecfg.kv_exact if dkv_exact is None \
             else bool(dkv_exact)
@@ -434,8 +453,9 @@ class Engine:
         self.shard = SlotShard(slots, self.mesh if cls.slot_sharded
                                else None)
         self.decode_sampler = _rows_from(self.sampler, self.shard.first)
-        self.family = cls(self, paged=paged)
-        self.cache = self.family.alloc()
+        with TP.use(self.tp_mesh):
+            self.family = cls(self, paged=paged)
+            self.cache = self.family.alloc()
         self.sched = Scheduler(bucket=ecfg.sched_bucket,
                                max_admit=ecfg.sched_max_admit,
                                cost=self.family.prefill_cost)
@@ -494,24 +514,27 @@ class Engine:
                                      {"round": self._round})
         finished: List[Request] = []
         try:
-            if self._pool:
-                # splice the tickets whose prefills have finished; with
-                # nothing live to decode, complete the pool's head at once
-                finished.extend(self._drain_pool(
-                    block=not self._decoding()))
-            if self._round % self.admit_every == 0 or not self._occupied():
-                # a "ready" engine only dispatches here: the span then
-                # covers the host's enqueue alone
-                with self.trace.span("admit", "engine"):
-                    finished.extend(self._admit())
-            if self._decoding():
-                finished.extend(self._decode_rounds())
-            else:
-                self._round += 1     # an idle step still advances the clock
+            with TP.use(self.tp_mesh):
+                self._step(finished)
             return finished
         finally:
             step_span.end(finished=len(finished))
             self.stats.wall_s += time.perf_counter() - t0
+
+    def _step(self, finished: List[Request]) -> None:
+        if self._pool:
+            # splice the tickets whose prefills have finished; with
+            # nothing live to decode, complete the pool's head at once
+            finished.extend(self._drain_pool(block=not self._decoding()))
+        if self._round % self.admit_every == 0 or not self._occupied():
+            # a "ready" engine only dispatches here: the span then
+            # covers the host's enqueue alone
+            with self.trace.span("admit", "engine"):
+                finished.extend(self._admit())
+        if self._decoding():
+            finished.extend(self._decode_rounds())
+        else:
+            self._round += 1     # an idle step still advances the clock
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Step until no slot is live or reserved and the queue is

@@ -35,6 +35,12 @@ and replays it, so a block of n steps costs one launch from the host:
   and its per-kernel delta is added on every replay; the warm-up's
   launches did run and stay counted, and are kept apart in
   :attr:`BlockGraphs.warmup_launches`.
+* **Collectives.**  Under tensor parallelism a block holds the model
+  axis's all-reduces; they are captured with it, counted at capture,
+  taken back and counted again per replay, as the launches are
+  (``distributed.sharding.take_collective_delta``).  A capture that
+  fails while it issues collectives raises, naming the cause; it never
+  falls back to eager blocks.
 * **Counters.**  ``captures``, ``replays`` and ``eager`` are counters of
   the engine's metrics registry (``serving_graph_captures``,
   ``serving_graph_replays``, ``serving_graph_eager``), and each capture
@@ -59,6 +65,7 @@ import torch
 
 from ..kernels import build, ops
 from ..obs import MetricsRegistry, record_compile
+from ..distributed import sharding as sh
 from ..platform import capture_stream
 
 Feed = Mapping[str, np.ndarray]
@@ -71,11 +78,12 @@ CAPACITY = 16
 
 class _Entry:
     """One captured block: its graph, static input buffer, packed output,
-    launch delta, and the ticket buffers it uses."""
+    launch delta, collective delta, and the ticket buffers it uses."""
 
-    def __init__(self, graph, flat, out, delta, keep):
+    def __init__(self, graph, flat, out, delta, keep, coll=None):
         self.graph, self.flat, self.out = graph, flat, out
         self.delta, self.keep = delta, keep
+        self.coll = coll or {}
 
 
 def _layout(feed: Feed) -> Tuple[Tuple[str, Tuple[int, ...], int], ...]:
@@ -201,6 +209,7 @@ class BlockGraphs:
         self._replays.inc()
         for name, d in ent.delta.items():
             ops.KERNELS[name].launches += d
+        sh.add_collectives(ent.coll)
         return readback(ent.out)
 
     def _capture(self, body: Body, feed: Feed) -> _Entry:
@@ -213,21 +222,33 @@ class BlockGraphs:
         if not self._lru:
             self._warm_up(body, inputs)
         warm = ops.launch_counts()
+        coll = sh.snapshot()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              stream=capture_stream(self._index())):
-            out = _packed(*body(**inputs))
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=capture_stream(self._index())):
+                out = _packed(*body(**inputs))
+        except Exception as e:
+            if sh.snapshot() == coll:
+                raise
+            raise RuntimeError(
+                f"a fused decode block that issues collectives (tensor "
+                f"parallelism's all-reduces over 'model') could not be "
+                f"captured as a CUDA graph on this torch ({e!r}); serve "
+                f"this mesh with decode_block=1 (ROADMAP.md, distribution)"
+            ) from e
         after = ops.launch_counts()
         delta = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
         for name, v in warm.items():     # the capture launched nothing
             ops.KERNELS[name].launches = v
+        coll = sh.take_collective_delta(coll)
         secs = time.perf_counter() - t0
         self._captures.inc()
         self.capture_s += secs
         record_compile("cuda_graph", secs)
-        return _Entry(graph, flat, out, delta, build.ticket_buffers())
+        return _Entry(graph, flat, out, delta, build.ticket_buffers(), coll)
 
     def _warm_up(self, body: Body, inputs: Dict[str, torch.Tensor]) -> None:
         """Run ``body`` once on the capture stream (its step count is 0);

@@ -1401,6 +1401,7 @@ rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                            sys.argv[4])
 from repro_torch.configs import get_arch
 from repro_torch.engine import DecomposeEngine, EngineConfig
+from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 from repro_torch.launch import mesh as M
 from repro_torch.models.api import model_fns
 from repro_torch.serving import Engine, Request
@@ -1470,3 +1471,158 @@ def test_nccl_slot_sharded_serving_tokens(cards, tmp_path):
             assert meshed == plain, (r, case)
             assert folds > 0 or case == "eos", (r, case)
             assert n == (8 // cards if 8 % cards == 0 else 8), (r, case)
+
+
+_NCCL_TP_WORKER = '''
+import os, pickle, sys
+import numpy as np
+import torch
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+from repro_torch import optim
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as sh
+from repro_torch.engine import DecomposeEngine, EngineConfig
+from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+from repro_torch.launch import mesh as M
+from repro_torch.models.api import model_fns
+from repro_torch.runtime import steps
+from repro_torch.runtime.driver import to_device
+from repro_torch.serving import Engine, Request
+M.init_distributed("cuda", rank=rank, world_size=world, store_path=store)
+m14 = M.make_host_mesh(1, 4, "cuda")
+m22 = M.make_host_mesh(2, 2, "cuda")
+res = {}
+
+# (1, 4): full-width llama2-7b decomposed KV, float32, tensor-parallel
+cfg = get_arch("llama2-7b").replace(dtype="float32")
+params = model_fns(cfg).init(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+rng = np.random.RandomState(0)
+prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+           for n in (128, 96, 64, 48)]
+
+def serve(mesh, block, paged=False):
+    ec = EngineConfig(kv_rank=32, kv_tail=8, kv_page=16, mesh=mesh)
+    eng = Engine(cfg, params, slots=4, max_len=256, device="cuda",
+                 decompose_engine=DecomposeEngine(ec), decode_block=block,
+                 paged=paged)
+    reset_launch_counts()
+    done = []
+    for step in range(400):
+        if step % 3 == 0 and step // 3 < len(prompts):
+            i = step // 3
+            eng.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=16))
+        done.extend(eng.step())
+        if len(done) == len(prompts) and not eng._occupied():
+            break
+    return ({r.uid: r.out_tokens for r in done}, eng.stats.tail_folds,
+            tuple(eng.params["layers"]["attn"]["wq"]["w"].shape),
+            eng.stats.decode_tok_s, eng.graphs.replays, launch_counts())
+
+sh.reset_collective_counts()
+res["serve"] = (serve(m14, 1), sh.collective_counts())
+try:
+    res["fused"] = serve(m14, 4)
+except RuntimeError as e:
+    res["fused"] = str(e)
+res["paged"] = serve(m14, 1, paged=True)
+res["serve_plain"] = serve(None, 1)
+res["fused_plain"] = serve(None, 4)
+res["paged_plain"] = serve(None, 1, paged=True)
+del params
+torch.cuda.empty_cache()
+
+# (2, 2): two TP + ZeRO-1 steps of full-width granite-3-2b, float32
+gcfg = get_arch("granite-3-2b").replace(dtype="float32")
+src = SyntheticLM(gcfg, ShapeSpec("t", 128, 4, "train"), DataConfig(seed=0))
+batches = [to_device(src.batch_at(i), "cuda") for i in range(2)]
+for tag, mesh in (("plain", None), ("zero1", m22)):
+    p = model_fns(gcfg).init(gcfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    opt = optim.make_optimizer(gcfg, warmup=1)
+    st = opt.init(p)
+    kw = {}
+    if mesh is not None:
+        kw = dict(zero1=True)
+        p, st = steps.shard_train_state(gcfg, p, st, mesh, optimizer=opt,
+                                        **kw)
+    fn = steps.make_train_step(gcfg, opt, mesh=mesh, **kw)
+    losses = []
+    for b in batches:
+        p, st, m = fn(p, st, b)
+        losses.append(m["loss"].item())
+    res["train_" + tag] = (losses, tuple(st["m"]["embed"]["w"].shape),
+                           torch.cuda.max_memory_allocated() / 2 ** 30)
+    torch.cuda.reset_peak_memory_stats()
+    del p, st
+    torch.cuda.empty_cache()
+pickle.dump(res, open(os.path.join(out, f"tp{rank}.pkl"), "wb"))
+M.shutdown_distributed()
+'''
+
+
+def test_nccl_tensor_parallel_serving_and_zero1_steps(cards, tmp_path):
+    """Four ranks, one a card.  (1, 4): full-width llama2-7b (float32)
+    decomposed-KV serving on the model axis, each rank a quarter of the
+    weights: tokens equal the no-mesh engine's, slab and paged
+    single-step (the paged run's launches of the paged dkv kernel equal
+    no mesh's, the slab's of the slab kernel too); fused blocks of 4
+    either equal too or raise naming the capture of the collectives.
+    (2, 2): two TP + ZeRO-1 steps of full-width granite-3-2b (float32):
+    losses within 1e-5 of the no-mesh steps, each rank holding a
+    [V / 2, H / 2] block of the embedding's first moment."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    if cards < 4:
+        pytest.skip("needs four CUDA devices: a (1, 4) and a (2, 2) mesh")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_TP_WORKER,
+                               str(r), "4", store, str(tmp_path)], env=env)
+             for r in range(4)]
+    assert [p.wait(timeout=1500) for p in procs] == [0] * 4
+    from repro_torch.configs import get_arch
+    cfg = get_arch("llama2-7b")
+    gcfg = get_arch("granite-3-2b")
+    for r in range(4):
+        with open(tmp_path / f"tp{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        (toks, folds, wq, tok_s, _, launches), counts = res["serve"]
+        assert toks == res["serve_plain"][0], r
+        paged, plain_paged = res["paged"], res["paged_plain"]
+        assert paged[0] == plain_paged[0] and paged[1] > 0, r
+        for got, want, k in ((launches, res["serve_plain"][5],
+                              "dkv_attention_stats"),
+                             (paged[5], plain_paged[5],
+                              "dkv_attention_stats_paged")):
+            assert got[k] == want[k] > 0, (r, k, got[k], want[k])
+        assert folds > 0 and wq == (cfg.num_layers, cfg.d_model,
+                                    cfg.d_model // 4)
+        assert counts["all_reduce/tp_out"][0] > 0
+        fused = res["fused"]
+        if isinstance(fused, str):
+            assert "captured as a CUDA graph" in fused, fused
+        else:
+            assert fused[0] == res["fused_plain"][0], r
+        plain, _, peak_plain = res["train_plain"]
+        got, m_embed, peak = res["train_zero1"]
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, plain))
+        assert m_embed == (gcfg.padded_vocab // 2, gcfg.d_model // 2)
+        if r == 0:
+            fused = res["fused"]
+            print(f"\nnccl tp: (1, 4) decode tok/s {tok_s:.2f} vs no mesh "
+                  f"{res['serve_plain'][3]:.2f}; fused blocks of 4: "
+                  + (fused if isinstance(fused, str) else
+                     f"captured, {fused[4]} replays, tok/s {fused[3]:.2f} "
+                     f"vs no mesh {res['fused_plain'][3]:.2f}")
+                  + f"; paged decode tok/s {paged[3]:.2f} vs no mesh "
+                  f"{plain_paged[3]:.2f}, paged dkv launches "
+                  f"{paged[5]['dkv_attention_stats_paged']}"
+                  + f"; collectives of the run {counts}; (2, 2) ZeRO-1 "
+                  f"losses {got} vs no mesh {plain}, peak GiB {peak:.2f} "
+                  f"vs {peak_plain:.2f}")

@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: test workers share the host's cores, and an
+# oversubscribed OpenMP pool turns each tiny op into a wait on its
+# barrier (a [8, 128] @ [128, 128] product: ~17 ms against ~5 us)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
