@@ -249,8 +249,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (c) the mesh run's state after step 1 saved whole
    (``driver.save_for_mesh``), ``restore_for_mesh``'d and fed to the
    step as DTensors (no ``unshard``), 2 more steps: the uninterrupted
-   losses within 1e-6 relative.  One card cannot show M > 1 (NCCL takes
-   a card a rank): that is ``tests/test_torch_cuda.py -k nccl`` on four.
+   losses within 1e-6 relative; (d) the ssm, hybrid, vlm and audio
+   families (``mamba2-780m`` depth 4, ``zamba2-1.2b`` depth 6: one group
+   and its shared attention block, ``llama-3.2-vision-11b`` depth 5: one
+   self group and a cross block, ``seamless-m4t-medium`` 2 + 2 layers;
+   full width, bf16 weights from seed 0), phase 4's traffic at 16 new
+   tokens with and without the mesh: tokens and SSD launches equal, no
+   model-axis collective; (e) (b) and (c) on ``mamba2-780m`` (depth 4),
+   whose steps run both SSD kernels: losses and launches equal, the
+   resumed losses too.  The process group is destroyed at the end.  One
+   card cannot show M > 1 (NCCL takes a card a rank): that is
+   ``tests/test_torch_cuda.py -k nccl`` on four.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -272,8 +281,11 @@ bit-identical; times L2-flushed and warm beside the library call's),
 and the SSD term's backward kernel (``ssd_chunk_intra_bwd``) against its
 plain version at phase 17's training shape (G 32 × Q 64) and at phase
 8's four (each of dcb, dl, ddt, dx within 1e-4 of its largest entry;
-reruns bit-identical; warm and L2-cold; the heads a work item takes).  Phase 5 also serves reduced float32
-``mamba2-780m`` through the SSD kernel: staggered tokens equal each
+reruns bit-identical; warm and L2-cold; the heads a work item takes),
+and both SSD kernels at one rank's heads on a "model" axis of 4 (nh 12
+of mamba2-780m's 48, nh 16 of zamba2-1.2b's 64; G 32 × Q 64 and
+G 1 × Q 304; ``model_axis`` 4 in the row).  Phase 5 also serves reduced
+float32 ``mamba2-780m`` through the SSD kernel: staggered tokens equal each
 request's solo tokens and the ``backend="reference"`` route's tokens.
 The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
@@ -792,6 +804,10 @@ def ssd_bwd_case(g: int, q: int, nh: int, hd: int, gen, per_step=None):
 SSD_SHAPES = ((8, 64), (6, 64), (2, 64), (1, 304))   # phase 8's (G, Q)
 SSD_TRAIN_SHAPE = (32, 64)         # phase 17: batch 4 x 512 tokens
 HYBRID_SSD_SHAPES = ((8, 64), (1, 304))              # phase 11's, nh 64
+# one rank's heads on a "model" axis of 4 (tensor parallelism): the
+# training shape and the 300-token prompt's chunk, forward and backward
+TP_RANKS = 4
+TP_SSD_SHAPES = ((32, 64), (1, 304))
 
 MATVEC_LINES = {"matvec": 65, "rmatvec": 174, "matvec_batched": 122,
                 "rmatvec_batched": 148}   # src/repro/kernels/matvec_expand.py
@@ -919,6 +935,15 @@ def phase_kernels(cfg):
                                    SSD_TRAIN_SHAPE else None),
                       launch_floor_ms=floor)
                  for g, q in (SSD_TRAIN_SHAPE,) + SSD_SHAPES]
+    # one rank's block of heads at M = 4 (mamba2-780m: 12 of 48;
+    # zamba2-1.2b: 16 of 64), which phase 19 and the four-card test run
+    for arch, c in ((MAMBA_ARCH, m2), (HYBRID_ARCH, zb)):
+        nh = c.ssm_heads // TP_RANKS
+        for case in (ssd_case, ssd_bwd_case):
+            ssd_rows += [dict(case(g, q, nh, c.ssm_head_dim, gen),
+                              launch_floor_ms=floor, arch=arch,
+                              model_axis=TP_RANKS)
+                         for g, q in TP_SSD_SHAPES]
     for rec in ssd_rows:
         print(json.dumps(rec), flush=True)
     # the expanded matvec pair (phase 9's Fig. 12 operating points): A
@@ -3583,25 +3608,28 @@ def model_axis_serving(cfg, params) -> None:
           f"{meshed[5]:.2f} vs {base[5]:.2f}", flush=True)
 
 
-def model_axis_training() -> None:
+def model_axis_training(arch: str = TRAIN_ARCH, tags=("b", "c")) -> None:
     """Phase 19 (b, c): granite-3-2b at full width (depth cut to
     ``MODEL_TRAIN_LAYERS``), three AdamW steps with no mesh and with
-    ZeRO-1 on a (1, 1) mesh (losses bit-equal);
+    ZeRO-1 on a (1, 1) mesh (losses bit-equal, and the kernels' launch
+    counts equal);
     the mesh run's state after its first step saved whole
     (``driver.save_for_mesh``), ``restore_for_mesh``'d and fed to the
-    step as it is, two more steps: the uninterrupted losses.  Destroys
-    the process group."""
+    step as it is, two more steps: the uninterrupted losses.  Phase 19
+    (e) is the same on ``mamba2-780m`` (``arch``, ``tags``), whose steps
+    run the SSD kernels forward and backward."""
     import torch
     from repro_torch import optim
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as sh
-    from repro_torch.launch.mesh import shutdown_distributed
+    from repro_torch.kernels import ops
     from repro_torch.runtime import driver, steps
     mesh = _mesh()
-    cfg = get_arch(TRAIN_ARCH).replace(num_layers=MODEL_TRAIN_LAYERS)
+    t1, t2 = tags
+    cfg = get_arch(arch).replace(num_layers=MODEL_TRAIN_LAYERS)
     batches = _train_batches(cfg, MODEL_TRAIN_STEPS)
     on = dict(zero1=True)
-    runs, step_counts = {}, None
+    runs, step_counts, launches = {}, None, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_model_") as tmp:
         for tp in (False, True):
             params = init_weights(cfg)
@@ -3614,6 +3642,7 @@ def model_axis_training() -> None:
             fn = steps.make_train_step(cfg, opt, mesh=mesh if tp else None,
                                        **({} if not tp else on))
             losses, ms = [], []
+            ops.reset_launch_counts()
             for i, batch in enumerate(batches):
                 sh.reset_collective_counts()
                 torch.cuda.synchronize()
@@ -3628,19 +3657,23 @@ def model_axis_training() -> None:
                                                "opt": state}, tmp, 1, mesh,
                                          **kw)
             runs[tp] = (losses, ms)
+            launches[tp] = {k: v for k, v in ops.launch_counts().items()
+                            if v}
             del params, state
         a, b = runs[False][0], runs[True][0]
-        print(f"model (b): {cfg.name} full width, depth "
+        print(f"model ({t1}): {cfg.name} full width, depth "
               f"{MODEL_TRAIN_LAYERS}, {MODEL_TRAIN_STEPS} AdamW steps with "
               f"ZeRO-1 on a (1, 1) mesh: losses {b} vs no mesh {a}, "
-              f"bit-equal {a == b}; step ms ZeRO-1 "
+              f"bit-equal {a == b}; kernel launches {launches[True]} vs "
+              f"no mesh {launches[False]}; step ms ZeRO-1 "
               f"{', '.join(f'{v:.1f}' for v in runs[True][1])} vs no mesh "
               f"{', '.join(f'{v:.1f}' for v in runs[False][1])}; "
               f"collectives of one step {json.dumps(step_counts)}",
               flush=True)
-        if a != b:
-            raise AssertionError(f"model (b): ZeRO-1 losses {b} are "
-                                 f"not bit-equal to no mesh's {a}")
+        if a != b or launches[True] != launches[False]:
+            raise AssertionError(f"model ({t1}): ZeRO-1 losses {b} or "
+                                 f"launches {launches[True]} are not those "
+                                 f"of no mesh ({a}, {launches[False]})")
         opt = optim.make_optimizer(cfg, warmup=1)
         back = driver.restore_for_mesh(cfg, tmp, mesh, optimizer=opt)
         fn = steps.make_train_step(cfg, opt, mesh=mesh, **on)
@@ -3651,14 +3684,79 @@ def model_axis_training() -> None:
             resumed.append(m["loss"].item())
         del params, state, back
     rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, b[1:]))
-    print(f"model (c): restore_for_mesh of the ZeRO-1 step-1 "
-          f"checkpoint fed to the step as DTensors (no unshard): losses "
-          f"{resumed} vs uninterrupted {b[1:]}, max rel {rel:.2e}; phase 19 "
-          f"ran at (1, 1) only (one card: M > 1 is the four-card NCCL "
-          f"test)", flush=True)
+    print(f"model ({t2}): {cfg.name} restore_for_mesh of the ZeRO-1 "
+          f"step-1 checkpoint fed to the step as DTensors (no unshard): "
+          f"losses {resumed} vs uninterrupted {b[1:]}, max rel {rel:.2e}, "
+          f"bit-equal {resumed == b[1:]}; phase 19 ran at (1, 1) only (one "
+          f"card: M > 1 is the four-card NCCL tests)", flush=True)
     if not rel <= MESH_TRAIN_TOL:
-        raise AssertionError(f"model (c): resumed losses differ by {rel}")
-    shutdown_distributed()
+        raise AssertionError(f"model ({t2}): resumed losses differ by "
+                             f"{rel}")
+
+
+#: phase 19 (d): each family's depth cut at full width (zamba2-1.2b keeps
+#: one group of 5 Mamba2 blocks and its shared attention block; the VLM
+#: one group of 4 self blocks and a cross block)
+MODEL_FAMILY_CUTS = {
+    MAMBA_ARCH: dict(num_layers=4),
+    HYBRID_ARCH: dict(num_layers=6),
+    "llama-3.2-vision-11b": dict(num_layers=5),
+    "seamless-m4t-medium": dict(num_layers=4, enc_layers=2),
+}
+MODEL_FAMILY_NEW = 16               # phase 19 (d)'s new tokens a request
+
+
+def model_axis_families() -> None:
+    """Phase 19 (d): the ssm, hybrid, vlm and audio families at full
+    width (depth cut by ``MODEL_FAMILY_CUTS``), bf16 weights from seed
+    0, phase 4's traffic with no mesh and on a (1, 1) mesh (the models'
+    one body under ``distributed.tp.use``): tokens and the SSD kernel's
+    launches equal, no "model"-axis collective issued."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.serving import Engine
+    mesh = _mesh()
+    for arch, cut in MODEL_FAMILY_CUTS.items():
+        t = time.perf_counter()
+        cfg = get_arch(arch).replace(**cut)
+        params = init_weights(cfg)
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+                   for n in SERVE_LENS]
+        runs = {}
+        for on in (False, True):
+            ecfg = EngineConfig(mesh=mesh if on else None)
+            sh.reset_collective_counts()
+            eng, toks, launches, peak = serve_once(
+                lambda: Engine(cfg, params, slots=4, max_len=1024,
+                               decompose_engine=DecomposeEngine(ecfg),
+                               device="cuda"),
+                prompts, MODEL_FAMILY_NEW, title=f"model (d) {arch}")
+            runs[on] = (toks, launches["ssd_chunk_intra"],
+                        sh.collective_counts(), eng.stats.decode_tok_s, peak)
+            del eng
+        (a_tok, a_ssd, a_coll, a_rate, _), (b_tok, b_ssd, b_coll, b_rate,
+                                            peak) = runs[False], runs[True]
+        # at M = 1 only the data axis's token all-gather runs
+        model = sorted(set(b_coll) - {"all_gather/tokens"})
+        print(f"model (d): {cfg.name} ({cfg.family}) full width, depth "
+              f"{cfg.num_layers}, on a (1, 1) mesh: tokens equal to no "
+              f"mesh {a_tok == b_tok}; ssd_chunk_intra launches {b_ssd} vs "
+              f"{a_ssd}; collectives {json.dumps(b_coll)} (no mesh "
+              f"{json.dumps(a_coll)}); decode_tok/s {b_rate:.2f} vs no "
+              f"mesh {a_rate:.2f}; peak_mem_gib {peak:.2f}; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if a_tok != b_tok or a_ssd != b_ssd or a_coll or model or (
+                cfg.family in ("ssm", "hybrid") and not b_ssd):
+            raise AssertionError(
+                f"model (d) {arch}: tokens, SSD launches ({b_ssd} vs "
+                f"{a_ssd}) or collectives ({model}; no mesh {a_coll}) "
+                f"differ from no mesh's")
+        del params
+        check_freed(f"model (d) {arch}")
 
 
 def phase_train(profile: bool = False) -> dict:
@@ -3835,9 +3933,18 @@ def main() -> int:
             mesh_training()
             check_freed("mesh")
     if "model" in only:
-        with phase("model (b, c)"):
-            model_axis_training()
-            check_freed("model")
+        from repro_torch.launch.mesh import shutdown_distributed
+        try:            # a failure still raises, with the group torn down
+            with phase("model (b, c)"):
+                model_axis_training()
+                check_freed("model")
+            with phase("model (d)"):
+                model_axis_families()
+            with phase("model (e)"):
+                model_axis_training(MAMBA_ARCH, ("e", "e"))
+                check_freed("model (e)")
+        finally:
+            shutdown_distributed()
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

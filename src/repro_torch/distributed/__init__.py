@@ -9,4 +9,4 @@ from .sharding import (MeshShape, Spec, batch_sharding, cache_pspec,
                        dp_size, local_block, model_group, model_rank,
                        model_size, opt_state_sharding, param_spec,
                        params_sharding, placements, replicated,
-                       require_data_only, shard_params, token_sharding)
+                       require_groups, shard_params, token_sharding)

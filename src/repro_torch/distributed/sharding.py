@@ -47,9 +47,8 @@ the port's serving, decomposition and train steps goes through and which
 count what they issue (:func:`collective_counts`).  :func:`local_block`
 cuts a rank's block of a whole tensor under a spec, :func:`gather_block`
 puts the whole back together, and :func:`shard_params` applies the first
-leaf by leaf by :func:`params_sharding`.  :func:`require_data_only`
-refuses a "model" axis larger than 1 for the families whose model axis
-is not ported (ssm, hybrid, vlm, audio).
+leaf by leaf by :func:`params_sharding`.  :func:`require_groups` refuses
+a mesh that carries names and sizes only where collectives must run.
 """
 from __future__ import annotations
 
@@ -556,22 +555,13 @@ def gather_block(t, spec: Spec, mesh, what: str):
     return t
 
 
-#: the families whose "model" axis the port runs
-MODEL_AXIS_FAMILIES = ("dense", "moe", "transformer-dkv")
-
-
-def require_data_only(mesh, what: str, family: str = None) -> None:
-    """Refuse a mesh whose "model" axis is larger than 1 for a family
-    whose model axis is not ported: ssm, hybrid, vlm and audio
-    (ROADMAP.md, distribution: the model axis of the remaining
-    families).  Dense, moe and decomposed-KV transformers run on any
-    (D, M)."""
-    if mesh is None or family in MODEL_AXIS_FAMILIES or \
-            mesh_axes(mesh).get("model", 1) == 1:
-        return
-    raise NotImplementedError(
-        f"{what} of the {family} family on a mesh with a 'model' axis of "
-        f"{mesh_axes(mesh)['model']}: the port runs the model axis for "
-        f"the dense, moe and decomposed-KV transformer families only; "
-        f"ssm, hybrid, vlm and audio on 'model' (and batch-1 sequence "
-        f"sharding) are the next items of ROADMAP.md's distribution work")
+def require_groups(mesh, what: str) -> None:
+    """Refuse a mesh without process groups (a :class:`MeshShape`, or any
+    object with axis names and sizes only) for ``what``, whose
+    collectives run over the mesh's groups: it needs a ``DeviceMesh``
+    (``launch.mesh``)."""
+    if not hasattr(mesh, "get_group"):
+        raise ValueError(
+            f"{what} on {mesh!r}: a mesh of axis names and sizes has no "
+            f"process group to run its collectives; pass a DeviceMesh "
+            f"(launch.mesh.make_host_mesh)")

@@ -31,7 +31,26 @@ The operators are ``torch.autograd.Function``s with their own backward:
 * :func:`vocab_lse` — logsumexp over vocab-parallel logits [.., V/M]
   (max and sum of exps all-reduced), whose backward is torch's
   ``logsumexp`` backward, so one rank reproduces ``torch.logsumexp``
-  bit for bit.
+  bit for bit;
+* :func:`sum_all` — all-reduce forward AND backward: a statistic that
+  every rank's output reads whole (the sum of squares of Mamba2's gated
+  RMSNorm over d_inner, each rank holding its heads' d_inner / M), so
+  the gradient of each rank's partial is the group's sum of the
+  gradients (:func:`reduce`'s identity backward would drop the other
+  ranks' terms).
+
+Attention runs Megatron's layout (:class:`HeadLayout`): the rank's query
+heads, its kv heads or the whole K/V gathered, the cache in the rule's
+block; self-attention and the cross-attention of the vlm and audio
+families alike.  Mamba2 (:class:`SSMLayout`, the ssm and hybrid
+families) runs the rank's block of heads: in_proj's column block does
+not fall on head boundaries, so the rank all-gathers the projection
+once per layer (:func:`gather`, whose reduce-scatter backward sums the
+B/C gradient partials of the ranks' heads) and narrows it to its heads'
+z, x and dt and the whole B and C; the replicated leaves it reads in
+part (conv taps and bias, A, D, dt bias, the gated norm's scale) pass
+:func:`copy` before the rank slices them, so every model rank holds the
+same whole gradient of each.
 
 Each collective goes through ``sharding``'s counted helpers.
 """
@@ -123,6 +142,24 @@ class _MeanValue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None, None
+
+
+class _SumAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, what):
+        ctx.group, ctx.what = group, what
+        return _all_reduce(x, group, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, ctx.what + "_grad"), None, None
+
+
+def sum_all(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The "model" group's sum of ``x``, all-reduced in the backward too
+    (every rank's output depends on every rank's ``x``)."""
+    tp = current()
+    return x if tp is None else _SumAll.apply(x, tp.group, what)
 
 
 def mean_value(x: torch.Tensor, group, n: int, what: str) -> torch.Tensor:
@@ -358,3 +395,92 @@ def vt_local(vt: torch.Tensor, width: int) -> torch.Tensor:
 def vt_whole(vt: torch.Tensor, width: int, what: str) -> torch.Tensor:
     """The whole kv width of a Vᵀ factor from the rank's block."""
     return gather(vt, -1, what) if width_sharded(width) else vt
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 layout under the model axis
+# ---------------------------------------------------------------------------
+
+class SSMLayout(NamedTuple):
+    """How one rank's Mamba2 block sees the heads.
+
+    * ``nh_l``, ``h0``: the rank's SSD heads [h0, h0 + nh_l);
+    * ``x0``, ``di_l``: their x channels [x0, x0 + di_l) of d_inner (and
+      their rows of ``out_proj``, the rule's row block);
+    * ``proj_sharded``: in_proj's columns are sharded (the rank
+      all-gathers the projection), else the rank computes it whole;
+    * ``conv``: the ``conv`` cache's channels are sharded over "model"
+      (the rule's contiguous block of d_inner + 2·d_state, which is not
+      head-aligned), else the rank holds the whole window.
+    """
+    nh_l: int
+    h0: int
+    x0: int
+    di_l: int
+    proj_sharded: bool
+    conv: bool
+
+
+def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
+    """The rank's Mamba2 layout under ``tp`` (None: every head, nothing
+    gathered)."""
+    nh, hd, di, ds = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_inner,
+                      cfg.ssm_state)
+    if tp is None:
+        return SSMLayout(nh, 0, 0, di, False, False)
+    m = tp.size
+    if nh % m:
+        raise NotImplementedError(
+            f"{nh} SSD heads on a 'model' axis of {m}: the port's Mamba2 "
+            f"runs a whole block of heads per rank")
+    nh_l = nh // m
+    h0 = tp.rank * nh_l
+    return SSMLayout(nh_l, h0, h0 * hd, nh_l * hd, (2 * di + 2 * ds + nh) % m
+                     == 0, (di + 2 * ds) % m == 0)
+
+
+def ssm(cfg) -> SSMLayout:
+    """:func:`ssm_layout` under the current "model" axis."""
+    return ssm_layout(cfg, current())
+
+
+def ssm_heads(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The rank's heads [h0, h0 + nh_l) of a per-head last dim (the
+    whole tensor without tensor parallelism)."""
+    if current() is None:
+        return t
+    return t.narrow(-1, lay.h0, lay.nh_l)
+
+
+def ssm_rows(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The rank's heads' x channels [x0, x0 + di_l) of a d_inner-wide
+    last dim."""
+    if current() is None:
+        return t
+    return t.narrow(-1, lay.x0, lay.di_l)
+
+
+def ssm_channels(t: torch.Tensor, lay: SSMLayout, di: int) -> torch.Tensor:
+    """The channels the rank's conv runs, from the whole conv channels
+    [.., d_inner + 2·d_state]: its heads' x channels, then the whole B
+    and C."""
+    if current() is None:
+        return t
+    return torch.cat([t.narrow(-1, lay.x0, lay.di_l),
+                      t.narrow(-1, di, t.shape[-1] - di)], dim=-1)
+
+
+def conv_whole(block: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The whole conv window [.., W−1, ch] from the rank's cache block."""
+    return gather(block, -1, "conv_cache") if lay.conv else block
+
+
+def conv_local(whole: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The rank's cache block of a whole conv window [.., ch]."""
+    return block_of(whole, -1) if lay.conv else whole
+
+
+def conv_width(cfg) -> int:
+    """Channels of a ``conv`` cache leaf on this rank."""
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    return ch // current().size if ssm(cfg).conv else ch

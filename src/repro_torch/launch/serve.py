@@ -34,10 +34,10 @@ design).  The reference always serves a reduced config; here
 
 ``--mesh`` serves on a ``DeviceMesh`` (``serving.Engine``): ``none``
 (default), ``host`` (every rank on "data": slots data-parallel) or
-``DxM`` (data x model): a "model" axis M > 1 runs the dense, moe and
-decomposed-KV families tensor-parallel (each rank its weight blocks and
-kv heads).  One process per card, launched by torchrun; only rank 0
-prints:
+``DxM`` (data x model): a "model" axis M > 1 runs every family
+tensor-parallel (each rank its weight blocks and kv heads; Mamba2, the
+ssm family and the hybrid's backbone: its block of SSD heads).  One
+process per card, launched by torchrun; only rank 0 prints:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 1x4 \\
       --arch llama2-7b --decompose-kv-rank 64 --dkv-tail 16 --slots 8
@@ -138,7 +138,7 @@ from ..obs import (GLOBAL, Observability, compile_stats, write_json_snapshot,
 from ..platform import device_name, resolve_device
 from ..serving import (ADMISSIONS, READY_ORDERS, Engine, Request,
                        categorical_sampler, greedy_sampler)
-from .mesh import parse_mesh
+from .mesh import parse_mesh, shutdown_distributed
 
 #: configs too large for one card: served only ``--reduced``
 REDUCED_ONLY = ("kimi-k2-1t-a32b",)
@@ -406,6 +406,11 @@ def main(argv=None) -> None:
         say(f"trace: wrote {args.trace_out} "
             f"({len(obs.tracer.events)} events, "
             f"{obs.tracer.dropped} dropped)")
+    if mesh is not None:
+        # the group's threads must not outlive the interpreter (gloo
+        # aborts the process at exit otherwise)
+        del eng
+        shutdown_distributed()
 
 
 def pctl_line(s, prefix: str = "") -> str:

@@ -20,8 +20,8 @@ Without ``--device cpu`` it raises when there is no GPU.
 
 ``--mesh DxM`` (the port's extension of the reference's CLI, as the
 serve CLI's ``--mesh``) trains SPMD on a (data, model) mesh, one process
-per card under torchrun: the batch over "data", the dense and moe
-families tensor-parallel over "model" when M > 1, and with ``--zero1``
+per card under torchrun: the batch over "data", every family
+tensor-parallel over "model" when M > 1, and with ``--zero1``
 AdamW's moments sharded over the DP axis.  The saved state is whole, so
 a run restarts on any other mesh:
 
@@ -41,7 +41,7 @@ import tempfile
 from ..configs import ShapeSpec, get_arch
 from ..kernels.ops import BACKENDS
 from ..runtime.driver import train_loop
-from .mesh import parse_mesh
+from .mesh import parse_mesh, shutdown_distributed
 
 
 def main(argv=None) -> None:
@@ -87,11 +87,12 @@ def main(argv=None) -> None:
                      backend=args.backend, mesh=mesh, zero1=args.zero1,
                      print_fn=print if lead else (lambda *a: None))
     final = f"{res.losses[-1]:.4f}" if res.losses else "none"
-    if not lead:
-        return
-    print(f"done: step={res.step} final_loss={final} "
-          f"restarts={res.restarts} stragglers={res.straggler_flags} "
-          f"ckpt_bytes={res.ckpt_bytes}")
+    if lead:
+        print(f"done: step={res.step} final_loss={final} "
+              f"restarts={res.restarts} stragglers={res.straggler_flags} "
+              f"ckpt_bytes={res.ckpt_bytes}")
+    if mesh is not None:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

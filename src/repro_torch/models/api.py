@@ -206,11 +206,11 @@ def splice_cache(cfg, old, new, slot_indices, src_indices=None):
 def shard_params(cfg, params, mesh):
     """This rank's ``params_sharding`` blocks of a whole parameter tree of
     ``cfg``'s family, for tensor parallelism on ``mesh``'s "model" axis
-    (the families that run it: dense and moe; the others raise when the
-    axis is larger than 1).  Under ``distributed.tp.use(mesh)`` the
-    family's ``init_cache`` then builds the rank's cache blocks."""
+    (every family runs it: dense, decomposed KV, moe, ssm, hybrid, vlm
+    and audio).  Under ``distributed.tp.use(mesh)`` the family's
+    ``init_cache`` then builds the rank's cache blocks
+    (:func:`cache_shardings`' blocks)."""
     from ..distributed import sharding as sh
-    sh.require_data_only(mesh, "tensor parallelism", cfg.family)
     return sh.shard_params(params, mesh, cfg)
 
 

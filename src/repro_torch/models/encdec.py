@@ -11,6 +11,12 @@ RoPE on self-attention; cross-attention has none.
 Cache: ``self`` K/V [dec_layers, B, T, kvh, d] and ``cross`` K/V
 [dec_layers, B, num_audio_frames, kvh, d], the latter written once at
 prefill from the encoder memory and read by every decode step.
+
+Under tensor parallelism (``distributed.tp.use(mesh)``) the encoder and
+decoder self-attention run ``transformer``'s Megatron path, the
+cross-attention ``layers.cross_attention``, every MLP is split over its
+hidden width, and both caches hold the rank's block of kv heads (else
+head_dim); the frames and the encoder memory are replicated.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ def enc_block(lp: Params, x: torch.Tensor, positions: torch.Tensor,
     x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
                               cfg, positions, causal=False)[0]
     return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                     cfg.activation)
+                     cfg.activation, cfg.d_ff)
 
 
 def encode(p: Params, cfg, frames: torch.Tensor,
@@ -78,11 +84,11 @@ def dec_block(lp: Params, x: torch.Tensor, memory: torch.Tensor,
     cross-attention over K/V it projects from ``memory``, the MLP."""
     x = x + T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg),
                               cfg, positions)[0]
-    kv = L.memory_kv(lp["xattn"], memory, cfg.num_kv_heads)
+    kv = L.memory_kv(lp["xattn"], memory, cfg)
     x = x + L.cross_attention(lp["xattn"], T.norm(lp["xattn_norm"], x, cfg),
                               kv, cfg)
     return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                     cfg.activation)
+                     cfg.activation, cfg.d_ff)
 
 
 def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
@@ -95,19 +101,19 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     b, s = tokens.shape
     memory = encode(p, cfg, batch["frames"].to(p["embed"]["w"].dtype),
                     train=True)
-    x = p["embed"]["w"][tokens]
+    x = T.embed(p, cfg, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     body = L.ckpt(dec_block, cfg)
     for lp in L.unstack(p["dec"], cfg.dec_layers):
         x = body(lp, x, memory, positions, cfg)
-    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+    return T.loss_head(p, x, cfg, batch["labels"])
 
 
 def _decode_stack(p: Params, cfg, tokens, memory, cache):
     """The decoder over ``tokens`` [B, S] against ``memory``; writes the
     self and cross K/V into ``cache`` when given → (hidden, cache)."""
     b, s = tokens.shape
-    x = p["embed"]["w"][tokens]
+    x = T.embed(p, cfg, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     for i in range(cfg.dec_layers):
         lp = L.layer_params(p["dec"], i)
@@ -115,16 +121,16 @@ def _decode_stack(p: Params, cfg, tokens, memory, cache):
                                     T.norm(lp["attn_norm"], x, cfg), cfg,
                                     positions)
         x = x + a
-        kv = L.memory_kv(lp["xattn"], memory, cfg.num_kv_heads)
+        kv = L.memory_kv(lp["xattn"], memory, cfg)
         if cache is not None:
             cache["self"]["k"][i, :, :s] = k
             cache["self"]["v"][i, :, :s] = v
-            cache["cross"]["k"][i] = kv[0]
-            cache["cross"]["v"][i] = kv[1]
+            cache["cross"]["k"][i], cache["cross"]["v"][i] = \
+                L.cross_cache(kv, cfg)
         x = x + L.cross_attention(lp["xattn"],
                                   T.norm(lp["xattn_norm"], x, cfg), kv, cfg)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     return x, cache
 
 
@@ -150,7 +156,8 @@ def batch_extras(cfg, b, s, make):
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    """Zero caches (under tensor parallelism, the rank's blocks)."""
+    kvh, hd = T.kv_dims(cfg)
     nd, m = cfg.dec_layers, cfg.num_audio_frames
     dt = torch_dtype(cfg.dtype)
     z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
@@ -174,7 +181,7 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
                 pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
     """One token per slot: self K/V written IN PLACE (a slot whose
     ``live`` is False writes nothing), the cross K/V only read."""
-    x = p["embed"]["w"][token][:, None, :]
+    x = T.embed(p, cfg, token)[:, None, :]
     for i in range(cfg.dec_layers):
         lp = L.layer_params(p["dec"], i)
         c = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
@@ -182,7 +189,8 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
                                    c, pos, cfg, live)
         x = x + L.cross_attention(
             lp["xattn"], T.norm(lp["xattn_norm"], x, cfg),
-            (cache["cross"]["k"][i], cache["cross"]["v"][i]), cfg)
+            (cache["cross"]["k"][i], cache["cross"]["v"][i]), cfg,
+            cached=True)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation)
+                      cfg.activation, cfg.d_ff)
     return T.logits_head(p, x, cfg)[:, 0], cache

@@ -13,6 +13,12 @@ The decode state keeps the reference's layout: mamba conv/ssm
 [g, mpg, B, …], attention K/V [g, B, T, kvh, d], tail conv/ssm
 [tail, B, …]; its slot axis is not at the same place in every leaf,
 which ``models.api.cache_batch_axes`` finds by probing.
+
+Under tensor parallelism (``distributed.tp.use(mesh)``) the Mamba2
+blocks run ``mamba2``'s block of heads, the shared block
+``transformer``'s Megatron path (its MLP split over the hidden width),
+and the state holds the rank's blocks (``cache_pspec``: conv channels,
+ssm heads, K/V kv heads else head_dim).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import tp as TP
 from ..kernels.ops import KernelSet, make_kernels
 from ..platform import torch_dtype
 from . import layers as L
@@ -109,7 +116,7 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
     if tail:
         for lp in L.unstack(p["mamba_tail"], tail):
             x = mblock(lp, x, cfg, kernels)
-    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+    return T.loss_head(p, x, cfg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -118,12 +125,13 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
 
 def init_state(cfg, batch: int, max_len: int, device=None) -> Params:
     """Zero decode state in the reference's layout (conv and K/V in
-    ``cfg.dtype``, ssm float32)."""
+    ``cfg.dtype``, ssm float32; under tensor parallelism the rank's
+    blocks)."""
     groups, mpg, tail = _layout(cfg)
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    conv_ch = TP.conv_width(cfg)
+    kvh, hd = T.kv_dims(cfg)
     dt = torch_dtype(cfg.dtype)
-    w1, nh, shd, ds = (cfg.ssm_conv_width - 1, cfg.ssm_heads,
+    w1, nh, shd, ds = (cfg.ssm_conv_width - 1, TP.ssm(cfg).nh_l,
                        cfg.ssm_head_dim, cfg.ssm_state)
 
     def z(shape, dtype=dt):
@@ -156,14 +164,15 @@ def _mamba_state_of(lp: Params, inputs, cfg) -> Params:
     over the full-sequence cumsum of the decay, in float32."""
     _, xbc_raw, xh, bm, _, dtv = inputs
     w1 = cfg.ssm_conv_width - 1
-    da = dtv * -torch.exp(lp["ssd"]["a_log"])
+    lay = TP.ssm(cfg)
+    da = dtv * -torch.exp(M._heads(lp["ssd"]["a_log"], lay))
     l = torch.cumsum(da, dim=1)
     decay_to_end = torch.exp(l[:, -1:, :] - l)                 # [B, S, nh]
     # the path jnp.einsum's optimizer takes: the elementwise pair first,
     # then one contraction over s
     w = (dtv * decay_to_end)[..., None] * xh                   # [B,S,nh,hd]
     ssm = torch.einsum("bsd,bsnp->bnpd", bm, w)
-    return {"conv": xbc_raw[:, -w1:, :], "ssm": ssm}
+    return {"conv": TP.conv_local(xbc_raw[:, -w1:, :], lay), "ssm": ssm}
 
 
 def prefill(p: Params, cfg, tokens: torch.Tensor,
@@ -196,7 +205,7 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
             st["attn"]["v"][g, :, :s] = v
             x = x + a
             x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
-                          cfg.activation)
+                          cfg.activation, cfg.d_ff)
     return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], st
 
 
@@ -222,5 +231,5 @@ def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
                                        T.norm(sh["attn_norm"], x, cfg),
                                        kv, pos, cfg, live)
             x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
-                          cfg.activation)
+                          cfg.activation, cfg.d_ff)
     return T.logits_head(p, x, cfg)[:, 0], state

@@ -7,8 +7,9 @@ leading L axis); activations are [B, S, H], attention internals
 float32; attention scores, softmax and normalization run in float32, as
 the JAX code asks with ``preferred_element_type``.
 
-:func:`mlp`, :func:`decode_attention` and :func:`qkv` have one body for
-one device and for tensor parallelism (``distributed.tp.use(mesh)``,
+:func:`mlp`, :func:`decode_attention`, :func:`qkv`, :func:`cross_attention`
+and :func:`memory_kv` have one body for one device and for tensor
+parallelism (``distributed.tp.use(mesh)``,
 where the parameters are the rank's blocks of ``params_sharding``):
 Megatron's layout, column-parallel Q/K/V, up and gate, their input
 through ``tp.copy``; row-parallel O and down, their output through
@@ -368,23 +369,54 @@ def o_proj(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return row_dense(p["wo"], x, o_sharded(cfg))
 
 
-def cross_attention(p: Params, x: torch.Tensor, memory_kv, cfg
-                    ) -> torch.Tensor:
-    """Attention of x [B, S, H] over precomputed memory K/V [B, M, kvh, d]
-    (no RoPE, no mask), through the query-chunked :func:`attend`."""
+def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
+                    cached: bool = False) -> torch.Tensor:
+    """Attention of x [B, S, H] over memory K/V (no RoPE, no mask),
+    through the query-chunked :func:`attend`.  ``kv`` is
+    :func:`memory_kv`'s (k, v), or with ``cached`` the cross cache's
+    (its rule block under tensor parallelism).  Megatron's layout as in
+    :func:`qkv`: the rank's query heads, the kv heads they read, ``wo``
+    row-parallel."""
     b, s, _ = x.shape
-    q = split_heads(dense(p["wq"], x), cfg.num_heads)
-    k, v = memory_kv
+    lay = TP.layout(cfg)
+    xc = TP.copy(x) if o_sharded(cfg) else x
+    q = split_heads(dense(p["wq"], xc), lay.nh_l)
+    if cached:
+        k, v = (TP.compute_heads(kv[0], lay, "xk_cache"),
+                TP.compute_heads(kv[1], lay, "xv_cache"))
+    else:
+        k, v = TP.my_heads(kv[0], lay), TP.my_heads(kv[1], lay)
     positions = torch.arange(s, device=x.device).expand(b, s)
     out = attend(q, k, v, positions, causal=False, out_dtype=x.dtype)
-    return dense(p["wo"], out)
+    return o_proj(p, out, cfg)
 
 
-def memory_kv(p: Params, memory: torch.Tensor, kvh: int):
+def memory_kv(p: Params, memory: torch.Tensor, cfg):
     """The K/V of ``memory`` [B, M, H] (encoder output or image
-    embeddings) under the block's projections → ([B, M, kvh, d], same)."""
-    return (split_heads(dense(p["wk"], memory), kvh),
-            split_heads(dense(p["wv"], memory), kvh))
+    embeddings) under the block's projections → ([B, M, kvh_c, d], same):
+    as :func:`qkv`'s K/V, the rank's kv heads when the layout is
+    ``aligned`` (on one device: every head), else every kv head.
+    :func:`cross_cache` cuts the cache's block from them."""
+    lay = TP.layout(cfg)
+    hd = cfg.resolved_head_dim
+    sharded = o_sharded(cfg)
+    if sharded and not lay.kv_sharded:
+        # replicated projections read by the rank's heads only: their
+        # gradient is summed over "model" (see qkv)
+        k = TP.copy(dense(p["wk"], memory), "kv_in")
+        v = TP.copy(dense(p["wv"], memory), "kv_in")
+    else:
+        mc = TP.copy(memory) if sharded else memory
+        k = TP.full_kv(dense(p["wk"], mc), lay, "xk_cols")
+        v = TP.full_kv(dense(p["wv"], mc), lay, "xv_cols")
+    return split_heads(k, k.shape[-1] // hd), split_heads(v, v.shape[-1] // hd)
+
+
+def cross_cache(kv, cfg):
+    """The cross cache's rows (the rule's block under tensor
+    parallelism) of :func:`memory_kv`'s (k, v)."""
+    lay = TP.layout(cfg)
+    return TP.cache_block(kv[0], lay), TP.cache_block(kv[1], lay)
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str,

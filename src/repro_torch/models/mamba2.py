@@ -19,6 +19,18 @@ is one chunk of 304.
 Decode carries (conv [B, w−1, ch] in ``cfg.dtype``, ssm [B, nh, hd, ds]
 float32) per layer, O(1) in sequence length; ``decode_step`` updates the
 state tree IN PLACE, one layer slice at a time.
+
+Under tensor parallelism (``distributed.tp.use(mesh)``; parameters are
+the rank's ``params_sharding`` blocks) each rank runs its block of heads
+(``tp.ssm``): the in_proj projection gathered whole once per layer and
+narrowed to the rank's z, x and dt and the whole B and C, the conv on
+the rank's channels, the SSD kernel at the rank's heads, the gated
+RMSNorm's sum of squares over the whole d_inner (``tp.sum_all``) and
+``out_proj`` row-parallel.  The ``ssm`` state holds the rank's heads;
+the ``conv`` state the rule's channel block, gathered whole by a decode
+step and written back as the block.  Without a "model" axis every
+``tp`` helper is the identity and the body is the single-device
+computation.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import tp as TP
 from ..kernels.ops import KernelSet, make_kernels
 from ..platform import torch_dtype
 from . import layers as L
@@ -108,28 +121,81 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor,
     return L.silu(out + b.float()).to(x.dtype)
 
 
-def _split_proj(proj: torch.Tensor, cfg):
+def _in_proj(p: Params, x_in: torch.Tensor, lay) -> torch.Tensor:
+    """The whole in_proj projection [.., 2·di + 2·ds + nh]: under tensor
+    parallelism the rank's column block all-gathered (its input through
+    ``tp.copy``), or, where the rule replicates in_proj, the whole
+    product whose gradient is summed over "model" (each rank's heads
+    read part of it)."""
+    if lay.proj_sharded:
+        return TP.gather(L.dense(p["in_proj"], TP.copy(x_in)), -1,
+                         "in_proj")
+    return TP.copy(L.dense(p["in_proj"], x_in), "in_proj_rep")
+
+
+def _split_proj(proj: torch.Tensor, cfg, lay):
+    """(z, xbc, dt_raw) of a whole projection: the rank's heads' z and dt
+    (every head without tensor parallelism) and every conv channel."""
     di, ds = cfg.d_inner, cfg.ssm_state
-    z = proj[..., :di]
+    z = TP.ssm_rows(proj[..., :di], lay)
     xbc = proj[..., di:2 * di + 2 * ds]
-    dt_raw = proj[..., 2 * di + 2 * ds:]
+    dt_raw = TP.ssm_heads(proj[..., 2 * di + 2 * ds:], lay)
     return z, xbc, dt_raw
+
+
+def _heads(t: torch.Tensor, lay) -> torch.Tensor:
+    """The rank's heads of a replicated per-head leaf (A, D, dt bias),
+    through ``tp.copy``: every model rank reads a part of the leaf, so
+    its gradient is summed over "model" and every rank holds the whole
+    of it (as for the conv taps and bias and the gated norm's scale)."""
+    return TP.ssm_heads(TP.copy(t, "ssm_rep"), lay)
+
+
+def _conv_params(p: Params, lay, cfg):
+    """The conv taps and bias of the rank's channels (through
+    ``tp.copy``, as :func:`_heads`)."""
+    return tuple(TP.ssm_channels(TP.copy(p[k], "ssm_rep"), lay, cfg.d_inner)
+                 for k in ("conv_w", "conv_b"))
 
 
 def _ssd_inputs(p: Params, x_in: torch.Tensor, cfg):
     """in_proj and the causal conv of one layer: (z, raw xbc, x heads
     [B,S,nh,hd], B [B,S,ds], C [B,S,ds], dt [B,S,nh]), float32 but z and
-    the raw xbc."""
+    the raw xbc; the rank's heads under tensor parallelism (the raw xbc:
+    every channel)."""
     b, s, _ = x_in.shape
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    z, xbc_raw, dt_raw = _split_proj(L.dense(p["in_proj"], x_in), cfg)
-    xbc = _conv_causal(xbc_raw, p["conv_w"], p["conv_b"])
-    xh = xbc[..., :di].reshape(b, s, nh, hd).float()
-    bm = xbc[..., di:di + ds].float()
-    cm = xbc[..., di + ds:].float()
-    dt = softplus(dt_raw.float() + p["dt_bias"])
+    lay = TP.ssm(cfg)
+    ds, hd, di_l = cfg.ssm_state, cfg.ssm_head_dim, lay.di_l
+    z, xbc_raw, dt_raw = _split_proj(_in_proj(p, x_in, lay), cfg, lay)
+    xbc = _conv_causal(TP.ssm_channels(xbc_raw, lay, cfg.d_inner),
+                       *_conv_params(p, lay, cfg))
+    xh = xbc[..., :di_l].reshape(b, s, lay.nh_l, hd).float()
+    bm = xbc[..., di_l:di_l + ds].float()
+    cm = xbc[..., di_l + ds:].float()
+    dt = softplus(dt_raw.float() + _heads(p["dt_bias"], lay))
     return z, xbc_raw, xh, bm, cm, dt
+
+
+def _gated_norm(p: Params, y: torch.Tensor, cfg, lay) -> torch.Tensor:
+    """The gated RMSNorm over the whole d_inner of y [.., di_l]: under
+    tensor parallelism the sum of squares over the rank's channels,
+    summed over "model" forward and backward (``tp.sum_all``)."""
+    if TP.current() is None:
+        return L.rmsnorm(p, y, cfg.norm_eps)
+    y32 = y.float()
+    var = TP.sum_all((y32 * y32).sum(-1, keepdim=True),
+                     "gated_norm") / cfg.d_inner
+    scale = TP.ssm_rows(TP.copy(p["scale"], "ssm_rep"), lay)
+    return (y32 * torch.rsqrt(var + cfg.norm_eps)
+            * scale.float()).to(y.dtype)
+
+
+def _out(p: Params, y: torch.Tensor, cfg, lay, dtype) -> torch.Tensor:
+    """The gated norm of the z-gated SSD output y [.., di_l] (float32)
+    cast to ``dtype``, then out_proj (row-parallel under tensor
+    parallelism)."""
+    y = _gated_norm(p["norm"], y.to(dtype), cfg, lay)
+    return L.row_dense(p["out_proj"], y, TP.width_sharded(cfg.d_inner))
 
 
 def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
@@ -137,8 +203,9 @@ def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
     """The chunked SSD of one layer on its ``_ssd_inputs``; [B, S, H]."""
     z, _, xh, bm, cm, dt = inputs
     b, s, _ = x_in.shape
-    di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    da = dt * -torch.exp(p["a_log"])                       # [B, S, nh] < 0
+    lay = TP.ssm(cfg)
+    nh, hd = lay.nh_l, cfg.ssm_head_dim
+    da = dt * -torch.exp(_heads(p["a_log"], lay))          # [B, S, nh] < 0
 
     q = min(CHUNK, s)
     if s % q != 0:
@@ -174,10 +241,9 @@ def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
         * torch.exp(l)[..., None]
 
     y = (y_intra + y_inter).reshape(b, s, nh, hd) \
-        + p["d"][None, None, :, None] * xh
-    y = y.reshape(b, s, di) * L.silu(z.float())
-    y = L.rmsnorm(p["norm"], y.to(x_in.dtype), cfg.norm_eps)
-    return L.dense(p["out_proj"], y)
+        + _heads(p["d"], lay)[None, None, :, None] * xh
+    return _out(p, y.reshape(b, s, lay.di_l) * L.silu(z.float()), cfg, lay,
+                x_in.dtype)
 
 
 def ssd_apply(p: Params, x_in: torch.Tensor, cfg,
@@ -192,33 +258,40 @@ def ssd_apply(p: Params, x_in: torch.Tensor, cfg,
 def ssd_decode(p: Params, x_in: torch.Tensor, state: Params,
                cfg) -> Tuple[torch.Tensor, Params]:
     """One-token SSD step: x_in [B, 1, H]; state = {conv [B, W−1, ch],
-    ssm [B, nh, hd, ds]} → (out [B, 1, H], new state)."""
+    ssm [B, nh, hd, ds]} → (out [B, 1, H], new state).  Under tensor
+    parallelism the state is the rank's (conv: the rule's channel block,
+    gathered whole here; ssm: its heads) and so is the new state."""
     b = x_in.shape[0]
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    z, xbc, dt_raw = _split_proj(L.dense(p["in_proj"], x_in), cfg)
+    lay = TP.ssm(cfg)
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, lay.nh_l, cfg.ssm_head_dim
+    di_l = lay.di_l
+    z, xbc, dt_raw = _split_proj(_in_proj(p, x_in, lay), cfg, lay)
 
-    conv_in = torch.cat([state["conv"], xbc.to(state["conv"].dtype)],
-                        dim=1)                              # [B, W, ch]
-    xbc_c = torch.einsum("bwc,wc->bc", conv_in.float(), p["conv_w"].float())
-    xbc_c = L.silu(xbc_c + p["conv_b"].float())
-    new_conv = conv_in[:, 1:, :]
+    conv_in = torch.cat([TP.conv_whole(state["conv"], lay),
+                         xbc.to(state["conv"].dtype)], dim=1)  # [B, W, ch]
+    conv_w, conv_b = _conv_params(p, lay, cfg)
+    xbc_c = torch.einsum("bwc,wc->bc",
+                         TP.ssm_channels(conv_in, lay, di).float(),
+                         conv_w.float())
+    xbc_c = L.silu(xbc_c + conv_b.float())
+    new_conv = TP.conv_local(conv_in[:, 1:, :], lay)
 
-    xh = xbc_c[:, :di].reshape(b, nh, hd)
-    bm = xbc_c[:, di:di + ds]                               # [B, ds]
-    cm = xbc_c[:, di + ds:]
+    xh = xbc_c[:, :di_l].reshape(b, nh, hd)
+    bm = xbc_c[:, di_l:di_l + ds]                           # [B, ds]
+    cm = xbc_c[:, di_l + ds:]
 
-    dt = softplus(dt_raw[:, 0].float() + p["dt_bias"])
-    g = torch.exp(dt * -torch.exp(p["a_log"]))              # [B, nh]
+    dt = softplus(dt_raw[:, 0].float() + _heads(p["dt_bias"], lay))
+    g = torch.exp(dt * -torch.exp(_heads(p["a_log"], lay)))  # [B, nh]
 
     h = state["ssm"].float()
     h = g[:, :, None, None] * h \
         + (dt[:, :, None] * xh)[..., None] * bm[:, None, None, :]
-    y = torch.einsum("bd,bnpd->bnp", cm, h) + p["d"][None, :, None] * xh
-    y = y.reshape(b, 1, di) * L.silu(z.float())
-    y = L.rmsnorm(p["norm"], y.to(x_in.dtype), cfg.norm_eps)
-    return L.dense(p["out_proj"], y), {"conv": new_conv,
-                                       "ssm": h.to(state["ssm"].dtype)}
+    y = torch.einsum("bd,bnpd->bnp", cm, h) \
+        + _heads(p["d"], lay)[None, :, None] * xh
+    y = y.reshape(b, 1, di_l) * L.silu(z.float())
+    return _out(p, y, cfg, lay, x_in.dtype), {"conv": new_conv,
+                                              "ssm": h.to(
+                                                  state["ssm"].dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -252,19 +325,21 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
     body = L.ckpt(block, cfg)
     for lp in L.unstack(p["layers"], cfg.num_layers):
         x = body(lp, x, cfg, kernels)
-    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+    return T.loss_head(p, x, cfg, batch["labels"])
 
 
 def init_state(cfg, batch: int, max_len: Optional[int] = None,
                device=None) -> Params:
     """Zero decode state of ``batch`` slots (no time axis: ``max_len`` is
-    unused); conv in ``cfg.dtype``, ssm float32."""
+    unused); conv in ``cfg.dtype``, ssm float32; under tensor
+    parallelism the rank's blocks (``cache_pspec``)."""
     del max_len
-    nl, conv_ch = cfg.num_layers, cfg.d_inner + 2 * cfg.ssm_state
+    nl = cfg.num_layers
     return {
-        "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1, conv_ch),
+        "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1,
+                             TP.conv_width(cfg)),
                             device=device, dtype=torch_dtype(cfg.dtype)),
-        "ssm": torch.zeros((nl, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+        "ssm": torch.zeros((nl, batch, TP.ssm(cfg).nh_l, cfg.ssm_head_dim,
                             cfg.ssm_state), device=device,
                            dtype=torch.float32),
     }
@@ -284,14 +359,16 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
     x = T.embed(p, cfg, tokens)
     state = init_state(cfg, b, device=tokens.device)
     w1 = cfg.ssm_conv_width - 1
+    lay = TP.ssm(cfg)
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         h_in = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
         inputs = _ssd_inputs(lp["ssd"], h_in, cfg)
         x = x + _ssd_core(lp["ssd"], h_in, cfg, kernels, inputs)
         _, xbc_raw, xh, bm, _, dt = inputs
-        state["conv"][i] = xbc_raw[:, -w1:, :]
-        l = torch.cumsum(dt * -torch.exp(lp["ssd"]["a_log"]), dim=1)
+        state["conv"][i] = TP.conv_local(xbc_raw[:, -w1:, :], lay)
+        l = torch.cumsum(dt * -torch.exp(_heads(lp["ssd"]["a_log"], lay)),
+                         dim=1)
         decay_to_end = torch.exp(l[:, -1:, :] - l)          # [B, S, nh]
         w = (dt * decay_to_end)[..., None] * xh             # [B,S,nh,hd]
         state["ssm"][i] = torch.einsum("bsd,bsnp->bnpd", bm, w)

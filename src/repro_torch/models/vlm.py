@@ -12,6 +12,13 @@ group) that scale the cross block's attention and MLP by their tanh.
 Cache: ``self`` K/V [groups, spg, B, T, kvh, d] (the slot axis at 2) and
 ``cross`` K/V [groups, B, n_img, kvh, d], written once at prefill from
 the image embeddings and read by every decode step.
+
+Under tensor parallelism (``distributed.tp.use(mesh)``) the self blocks
+run ``transformer``'s Megatron path, the cross blocks
+``layers.cross_attention`` (the rank's query heads, ``wo``
+row-parallel), every MLP is split over its hidden width, and both
+caches hold the rank's block of kv heads (else head_dim); the image
+embeddings and the gates are replicated.
 """
 from __future__ import annotations
 
@@ -70,13 +77,17 @@ def init(cfg, generator: torch.Generator, device=None) -> Params:
     }
 
 
-def cross_block(cp: Params, x: torch.Tensor, kv, cfg) -> torch.Tensor:
-    """x + tanh(g_a)·xattn(rmsnorm(x), kv), then + tanh(g_m)·mlp(·)."""
+def cross_block(cp: Params, x: torch.Tensor, kv, cfg,
+                cached: bool = False) -> torch.Tensor:
+    """x + tanh(g_a)·xattn(rmsnorm(x), kv), then + tanh(g_m)·mlp(·);
+    ``kv`` is ``layers.memory_kv``'s, or with ``cached`` the cross
+    cache's."""
     h = L.cross_attention(cp["xattn"], L.rmsnorm(cp["attn_norm"], x,
-                                                 cfg.norm_eps), kv, cfg)
+                                                 cfg.norm_eps), kv, cfg,
+                          cached)
     x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * h
     m = L.mlp(cp["mlp"], L.rmsnorm(cp["mlp_norm"], x, cfg.norm_eps),
-              cfg.activation)
+              cfg.activation, cfg.d_ff)
     return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * m
 
 
@@ -86,7 +97,7 @@ def _self_block(lp: Params, x, cfg, positions):
                                 cfg, positions)
     x = x + a
     return x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                     cfg.activation), k, v
+                     cfg.activation, cfg.d_ff), k, v
 
 
 def forward(p: Params, cfg, tokens: torch.Tensor,
@@ -99,7 +110,7 @@ def forward(p: Params, cfg, tokens: torch.Tensor,
 def _cross_from_embeds(cp: Params, x, image_embeds, cfg):
     """A cross block that projects its own K/V from the image embeddings
     (the reference's ``cross_block``: the training form)."""
-    kv = L.memory_kv(cp["xattn"], image_embeds, cfg.num_kv_heads)
+    kv = L.memory_kv(cp["xattn"], image_embeds, cfg)
     return cross_block(cp, x, kv, cfg)
 
 
@@ -115,7 +126,7 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     b, s = tokens.shape
     groups, spg = layout(cfg)
     img = batch["image_embeds"].to(p["embed"]["w"].dtype)
-    x = p["embed"]["w"][tokens]
+    x = T.embed(p, cfg, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     sblock = L.ckpt(T.block, cfg)
     xblock = L.ckpt(_cross_from_embeds, cfg)
@@ -124,7 +135,7 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
         for lp in group:
             x = sblock(lp, x, positions, cfg)
         x = xblock(crosses[g], x, img, cfg)
-    return L.cross_entropy(T.logits_head(p, x, cfg), batch["labels"])
+    return T.loss_head(p, x, cfg, batch["labels"])
 
 
 def prefill_inputs(cfg, tokens, make, mem_len=None):
@@ -142,8 +153,9 @@ def batch_extras(cfg, b, s, make):
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
+    """Zero caches (under tensor parallelism, the rank's blocks)."""
     groups, spg = layout(cfg)
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kvh, hd = T.kv_dims(cfg)
     dt = torch_dtype(cfg.dtype)
     z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
     n_img = cfg.num_image_tokens
@@ -158,7 +170,7 @@ def _run(p: Params, cfg, tokens, image_embeds, cache):
     ``cache`` when given.  Returns (final hidden [B, S, H], cache)."""
     b, s = tokens.shape
     groups, spg = layout(cfg)
-    x = p["embed"]["w"][tokens]
+    x = T.embed(p, cfg, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     for g in range(groups):
         sp = L.layer_params(p["self"], g)
@@ -168,10 +180,10 @@ def _run(p: Params, cfg, tokens, image_embeds, cache):
                 cache["self"]["k"][g, j, :, :s] = k
                 cache["self"]["v"][g, j, :, :s] = v
         cp = L.layer_params(p["cross"], g)
-        kv = L.memory_kv(cp["xattn"], image_embeds, cfg.num_kv_heads)
+        kv = L.memory_kv(cp["xattn"], image_embeds, cfg)
         if cache is not None:
-            cache["cross"]["k"][g] = kv[0]
-            cache["cross"]["v"][g] = kv[1]
+            cache["cross"]["k"][g], cache["cross"]["v"][g] = \
+                L.cross_cache(kv, cfg)
         x = cross_block(cp, x, kv, cfg)
     return x, cache
 
@@ -191,7 +203,7 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
     whose ``live`` is False writes nothing), the cross caches only
     read."""
     groups, spg = layout(cfg)
-    x = p["embed"]["w"][token][:, None, :]
+    x = T.embed(p, cfg, token)[:, None, :]
     for g in range(groups):
         sp = L.layer_params(p["self"], g)
         for j in range(spg):
@@ -201,7 +213,8 @@ def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,
                                        T.norm(lp["attn_norm"], x, cfg), c,
                                        pos, cfg, live)
             x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                          cfg.activation)
+                          cfg.activation, cfg.d_ff)
         x = cross_block(L.layer_params(p["cross"], g), x,
-                        (cache["cross"]["k"][g], cache["cross"]["v"][g]), cfg)
+                        (cache["cross"]["k"][g], cache["cross"]["v"][g]), cfg,
+                        cached=True)
     return T.logits_head(p, x, cfg)[:, 0], cache

@@ -44,11 +44,16 @@ the group does).  Such a step resumes from a checkpoint through
 On a "model" axis larger than 1 (tensor parallelism) the parameters
 are the rank's ``params_sharding`` blocks (:func:`shard_train_state`), the loss
 runs under ``distributed.tp.use`` (Megatron layers, vocab-parallel
-cross-entropy, expert-parallel ``moe_ffn_shard_map``), and each rank's
-gradients are of its blocks.  With ``zero1=True`` the optimizer is
-ZeRO-1 (``opt_state_sharding``): each DP rank holds its block of AdamW's
-m and v, the gradient of a leaf with a ZeRO-1 dim is reduce-scattered
-over the DP group instead of all-reduced (PowerSGD, when given, syncs
+cross-entropy, expert-parallel ``moe_ffn_shard_map``, Mamba2's block of
+heads; every family), and each rank's gradients are of its blocks (a
+replicated leaf that ranks read in part, as Mamba2's conv taps, A, D,
+dt bias and gated-norm scale, carries the whole gradient on every model
+rank).  The extra batch leaves (``image_embeds``, ``frames``) are
+split over DP with the tokens and replicated over "model".  With
+``zero1=True`` the optimizer is ZeRO-1 (``opt_state_sharding``): each
+DP rank holds its block of AdamW's m and v, the gradient of a leaf with
+a ZeRO-1 dim is reduce-scattered over the DP group instead of
+all-reduced (PowerSGD, when given, syncs
 the whole gradient and the rank keeps its block), the rank updates its
 block of the parameter and the updated blocks are all-gathered.  Either
 way the global clip sums each leaf's squares once over the mesh
@@ -268,7 +273,7 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
     tpm = _tp_mesh(mesh)
     lay = None
     if mesh is not None:
-        sh.require_data_only(mesh, "a train step", cfg.family)
+        sh.require_groups(mesh, "a train step")
         if zero1 and not isinstance(opt, AdamW):
             raise NotImplementedError(
                 f"ZeRO-1 of {type(opt).__name__}: the port's ZeRO-1 step "

@@ -103,17 +103,17 @@ on a sharded mesh of more than one rank.  The MoE family keeps every slot on
 every rank: its expert capacity couples the slots of a decode batch,
 so the batch must stay whole.
 
-Tensor parallelism (a "model" axis larger than 1).  The dense,
-decomposed-KV (slab and paged, sync and async, fused blocks) and moe
-families keep each rank's ``params_sharding`` blocks
-(``sharding.shard_params``) and ``cache_pspec``'s blocks of the caches
-(kv heads over "model", else head_dim; decomposed KV: U and the page
-pools whole, the factors' kv width sharded), and every model call of a
-step runs under ``distributed.tp.use``: the rank's heads and columns,
-the row-parallel all-reduces, the logits all-gathered over "model"
-before sampling, so every model rank draws the same token.  The other
-families refuse a "model" axis larger than 1
-(``distributed.sharding.require_data_only``).
+Tensor parallelism (a "model" axis larger than 1).  Every family
+(dense, decomposed-KV slab and paged, moe, ssm, hybrid, vlm and audio;
+sync and async, fused blocks) keeps each rank's ``params_sharding``
+blocks (``sharding.shard_params``) and ``cache_pspec``'s blocks of the
+caches (kv heads over "model", else head_dim; decomposed KV: U and the
+page pools whole, the factors' kv width sharded; Mamba2: the conv
+window's channel block and the ssm state's heads; the vlm and audio
+cross K/V as the self K/V), and every model call of a step runs under
+``distributed.tp.use``: the rank's heads and columns, the row-parallel
+all-reduces, the logits all-gathered over "model" before sampling, so
+every model rank draws the same token.
 
 ``decompose_kv_rank``/``dkv_tail``/``dkv_exact`` override the decompose
 engine's ``kv_rank``/``kv_tail``/``kv_exact`` with the reference's
@@ -413,9 +413,8 @@ class Engine:
         ecfg = self.dengine.config
         self.mesh = ecfg.mesh
         self.dkv_rank = int(decompose_kv_rank)
-        sh.require_data_only(self.mesh, "serving", "transformer-dkv"
-                             if self.dkv_rank and cfg.family == "dense"
-                             else cfg.family)
+        if self.mesh is not None:
+            sh.require_groups(self.mesh, "serving")
         # the DP group, which agrees host choices between ranks
         self._dp = sh.dp_group(self.mesh) if self.mesh is not None else None
         # the mesh whose "model" axis the model runs on: each rank keeps

@@ -1626,3 +1626,174 @@ def test_nccl_tensor_parallel_serving_and_zero1_steps(cards, tmp_path):
                   + f"; collectives of the run {counts}; (2, 2) ZeRO-1 "
                   f"losses {got} vs no mesh {plain}, peak GiB {peak:.2f} "
                   f"vs {peak_plain:.2f}")
+
+
+# ---------------------------------------------------------------------------
+# The "model" axis of the ssm, hybrid, vlm and audio families (four cards)
+# ---------------------------------------------------------------------------
+
+#: full width, depth cut: zamba2-1.2b keeps one group of 5 Mamba2 blocks
+#: and its shared attention block, the VLM one self group and a cross block
+TP_FAMILY_CUTS = {
+    "mamba2-780m": dict(num_layers=4),
+    "zamba2-1.2b": dict(num_layers=6),
+    "llama-3.2-vision-11b": dict(num_layers=5),
+    "seamless-m4t-medium": dict(num_layers=4, enc_layers=2),
+}
+
+_NCCL_TP_FAMILIES_WORKER = '''
+import os, pickle, sys
+import numpy as np
+import torch
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+from repro_torch import optim
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as sh
+from repro_torch.engine import DecomposeEngine, EngineConfig
+from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+from repro_torch.launch import mesh as M
+from repro_torch.models.api import model_fns
+from repro_torch.runtime import steps
+from repro_torch.runtime.driver import to_device
+from repro_torch.serving import Engine, Request
+M.init_distributed("cuda", rank=rank, world_size=world, store_path=store)
+m14 = M.make_host_mesh(1, 4, "cuda")
+res = {}
+
+def init(cfg):
+    return model_fns(cfg).init(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda")
+
+# (1, 4): each family at full width (depth cut), float32, tensor-parallel
+for arch, cut in CUTS.items():
+    cfg = get_arch(arch).replace(dtype="float32", **cut)
+    params = init(cfg)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in (128, 96, 64, 48)]
+
+    def serve(mesh, block):
+        eng = Engine(cfg, params, slots=4, max_len=256, device="cuda",
+                     decompose_engine=DecomposeEngine(EngineConfig(
+                         mesh=mesh)), decode_block=block)
+        reset_launch_counts()
+        sh.reset_collective_counts()
+        done = []
+        for step in range(400):
+            if step % 3 == 0 and step // 3 < len(prompts):
+                i = step // 3
+                eng.submit(Request(uid=i, prompt=prompts[i],
+                                   max_new_tokens=16))
+            done.extend(eng.step())
+            if len(done) == len(prompts) and not eng._occupied():
+                break
+        return ({r.uid: r.out_tokens for r in done},
+                launch_counts()["ssd_chunk_intra"], eng.stats.decode_tok_s,
+                eng.graphs.replays, sh.collective_counts())
+
+    res[arch] = {}
+    for tag, mesh, block in (("tp", m14, 1), ("plain", None, 1),
+                             ("tp_fused", m14, 4), ("plain_fused", None, 4)):
+        try:
+            res[arch][tag] = serve(mesh, block)
+        except RuntimeError as e:
+            if tag != "tp_fused":
+                raise
+            res[arch][tag] = str(e)
+    del params
+    torch.cuda.empty_cache()
+
+# (1, 4): two TP + ZeRO-1 steps of mamba2-780m (depth 4, float32): both
+# SSD kernels at 12 heads a rank
+cfg = get_arch("mamba2-780m").replace(dtype="float32", num_layers=4)
+src = SyntheticLM(cfg, ShapeSpec("t", 256, 4, "train"), DataConfig(seed=0))
+batches = [to_device(src.batch_at(i), "cuda") for i in range(2)]
+for tag, mesh in (("plain", None), ("zero1", m14)):
+    p = init(cfg)
+    opt = optim.make_optimizer(cfg, warmup=1)
+    st = opt.init(p)
+    kw = {}
+    if mesh is not None:
+        kw = dict(zero1=True)
+        p, st = steps.shard_train_state(cfg, p, st, mesh, optimizer=opt,
+                                        **kw)
+    fn = steps.make_train_step(cfg, opt, mesh=mesh, **kw)
+    losses = []
+    reset_launch_counts()
+    for b in batches:
+        p, st, m = fn(p, st, b)
+        losses.append(m["loss"].item())
+    res["train_" + tag] = (losses, launch_counts()["ssd_chunk_intra_bwd"],
+                           tuple(p["layers"]["ssd"]["in_proj"]["w"].shape))
+    del p, st
+    torch.cuda.empty_cache()
+pickle.dump(res, open(os.path.join(out, f"fam{rank}.pkl"), "wb"))
+M.shutdown_distributed()
+'''
+
+
+def test_nccl_tensor_parallel_families(cards, tmp_path):
+    """Four ranks, one a card, on a (1, 4) mesh.  mamba2-780m,
+    zamba2-1.2b, llama-3.2-vision-11b and seamless-m4t-medium at full
+    width (depth cut by ``TP_FAMILY_CUTS``), float32, served
+    tensor-parallel (a rank: 12 or 16 SSD heads, a quarter of the
+    attention heads): tokens and the SSD kernel's launches equal the
+    no-mesh engine's, model-axis collectives issued; fused blocks of 4
+    either equal the no-mesh fused tokens or raise naming the capture of
+    the collectives.  Two TP + ZeRO-1 steps of mamba2-780m (depth 4):
+    losses within 1e-5 of the no-mesh steps, the SSD backward launched as
+    often, each rank a quarter of in_proj's columns."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    if cards < 4:
+        pytest.skip("needs four CUDA devices: a (1, 4) mesh")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    src = f"CUTS = {TP_FAMILY_CUTS!r}\n" + _NCCL_TP_FAMILIES_WORKER
+    procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "4",
+                               store, str(tmp_path)], env=env)
+             for r in range(4)]
+    assert [p.wait(timeout=1500) for p in procs] == [0] * 4
+    from repro_torch.configs import get_arch
+    mcfg = get_arch("mamba2-780m")
+    cols = 2 * mcfg.d_inner + 2 * mcfg.ssm_state + mcfg.ssm_heads
+    lines = []
+    for r in range(4):
+        with open(tmp_path / f"fam{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        for arch in TP_FAMILY_CUTS:
+            got, want = res[arch]["tp"], res[arch]["plain"]
+            assert got[0] == want[0], (r, arch)
+            assert got[1] == want[1], (r, arch, got[1], want[1])
+            if get_arch(arch).family in ("ssm", "hybrid"):
+                assert got[1] > 0, (r, arch)
+            assert got[4].get("all_gather/logits", (0, 0))[0] > 0, got[4]
+            fused = res[arch]["tp_fused"]
+            if isinstance(fused, str):
+                assert "captured as a CUDA graph" in fused, fused
+            else:
+                assert fused[0] == res[arch]["plain_fused"][0], (r, arch)
+            if r == 0:
+                lines.append(
+                    f"{arch}: (1, 4) decode tok/s {got[2]:.2f} vs no mesh "
+                    f"{want[2]:.2f}, ssd launches {got[1]}; fused 4: "
+                    + (fused if isinstance(fused, str) else
+                       f"{fused[3]} replays, tok/s {fused[2]:.2f} vs "
+                       f"{res[arch]['plain_fused'][2]:.2f}"))
+        plain, bwd_plain, _ = res["train_plain"]
+        got, bwd, w = res["train_zero1"]
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, plain))
+        assert bwd == bwd_plain > 0
+        assert w == (4, mcfg.d_model, cols // 4)
+        if r == 0:
+            lines.append(f"mamba2-780m (1, 4) ZeRO-1 losses {got} vs no "
+                         f"mesh {plain}; SSD backward launches {bwd}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().replace("\n", " | ")
+    print(f"\nnccl tp families ({smi}): " + "; ".join(lines))

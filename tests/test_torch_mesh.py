@@ -29,8 +29,11 @@
   ``compress_decompress`` of the whole-batch gradient; DP steps resumed
   from ``restore_for_mesh`` through ``driver.unshard``; an expert
   config's DP steps on the whole batch; every rank's counted
-  collectives equal; and a "model" axis > 1 refused in serving and
-  training of the ssm family (its model axis is not ported).
+  collectives equal; and the ssm family on a "model" axis > 1: its
+  (2, 2) engine and train step build and give the no-mesh tokens and
+  loss (tensor parallelism; ``tests/test_torch_tp_families.py`` holds
+  it against the reference).  A "model" axis without a process group is
+  refused before any collective.
 """
 import os
 import pickle
@@ -261,17 +264,19 @@ class _FakeMesh:
 
 
 def test_model_axis_refused_without_a_group():
-    """A "model" axis > 1 raises in serving and in the train step before
-    any collective for a family whose model axis is not ported (ssm;
-    the dense, moe and decomposed-KV families run it)."""
+    """Every family runs a "model" axis > 1, over the mesh's process
+    groups: a mesh of names and sizes without them (here the ssm
+    family's, M = 2) is refused by serving and by the train step before
+    any collective, naming the missing process group; a mesh without a
+    "data" axis is refused by ``EngineConfig``."""
     cfg = get_arch("mamba2-780m").reduced().replace(dtype="float32")
     params = model_fns(cfg).init(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
     mesh = _FakeMesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="model"):
+    with pytest.raises(ValueError, match="no process group"):
         Engine(cfg, params, slots=2, max_len=32, device="cpu",
                decompose_engine=DecomposeEngine(EngineConfig(mesh=mesh)))
-    with pytest.raises(NotImplementedError, match="model"):
+    with pytest.raises(ValueError, match="no process group"):
         steps.make_train_step(cfg, mesh=mesh, backend="reference")
     with pytest.raises(ValueError, match="data"):
         EngineConfig(mesh=_FakeMesh(("x", "y"), (1, 1)))
@@ -299,6 +304,7 @@ _WORKER = textwrap.dedent('''
     from repro_torch.distributed import compression as comp, sharding as sh
     from repro_torch.engine import DecomposeEngine, EngineConfig
     from repro_torch.models.api import model_fns
+    from repro_torch.optim import make_optimizer
     from repro_torch.runtime import driver, steps
     from repro_torch.serving import Engine, Request
     from repro_torch.tree import named_leaves, rebuild
@@ -409,17 +415,24 @@ _WORKER = textwrap.dedent('''
     out["meos"] = meos
     del eng
 
-    for what, make in (
-            ("serve", lambda: Engine(mcfg, mp, slots=IN["slots"], max_len=64,
-                                     device="cpu", decompose_engine=
-                                     DecomposeEngine(EngineConfig(
-                                         mesh=m22)))),
-            ("train", lambda: steps.make_train_step(
-                mcfg, mesh=m22, backend="reference"))):
-        try:
-            make()
-        except NotImplementedError as e:
-            out["refused_" + what] = str(e)
+    # the ssm family on the model axis: a (2, 2) engine and train step
+    eng = Engine(mcfg, mp, slots=IN["slots"], max_len=64, device="cpu",
+                 decompose_engine=DecomposeEngine(EngineConfig(mesh=m22)))
+    out["model_serve"] = run(eng, stag)
+    out["model_serve_ssm"] = tuple(eng.cache["ssm"].shape)
+    del eng
+    mopt = make_optimizer(mcfg, warmup=1)
+    mp22 = rebuild(IN["mamba_template"], {n: torch.from_numpy(v.copy())
+                                          for n, v in IN["mamba"].items()})
+    mp22, mo22 = steps.shard_train_state(mcfg, mp22, mopt.init(mp22), m22,
+                                         optimizer=mopt)
+    fn = steps.make_train_step(mcfg, mopt, mesh=m22, backend="reference")
+    msrc = SyntheticLM(mcfg, ShapeSpec("t", 16, 4, "train"), DataConfig())
+    _, _, met = fn(mp22, mo22, {k: torch.from_numpy(v).long()
+                                for k, v in msrc.batch_at(0).items()})
+    out["model_train"] = (float(met["loss"]),
+                          tuple(mp22["layers"]["ssd"]["in_proj"]["w"].shape))
+    del mp22, mo22
 
     for tag, mesh in (("41", m41), ("22", m22)):
         st = driver.restore_for_mesh(IN["ckpt_cfg"], IN["ckpt_dir"], mesh)
@@ -754,11 +767,30 @@ def test_sharded_mamba2_tokens_equal_no_mesh(world, mamba):
         assert res["mamba2_local"][1] == SLOTS // WORLD
 
 
-def test_model_axis_refused_in_the_world(world):
-    _, out, _, _ = world
+def test_model_axis_refused_in_the_world(world, mamba):
+    """The ssm family on (2, 2), tensor-parallel: the engine gives the
+    no-mesh engine's tokens with each rank holding its heads of the ssm
+    state, and a train step the no-mesh step's loss (1e-5 relative) with
+    each rank holding its column block of in_proj."""
+    from repro_torch.tree import tree_map
+    IN, out, _, _ = world
+    _, _, mcfg, mp = mamba
+    want = _run(Engine(mcfg, mp, slots=SLOTS, max_len=MAX_LEN,
+                       device="cpu"), Request, IN["staggered"])
+    p = tree_map(lambda v: v.clone(), mp)        # AdamW updates in place
+    opt = make_optimizer(mcfg, warmup=1)
+    src = SyntheticLM(mcfg, ShapeSpec("t", 16, 4, "train"), DataConfig())
+    _, _, met = steps.make_train_step(mcfg, opt, backend="reference")(
+        p, opt.init(p), {k: torch.from_numpy(v).long()
+                         for k, v in src.batch_at(0).items()})
+    cols = 2 * mcfg.d_inner + 2 * mcfg.ssm_state + mcfg.ssm_heads
     for res in out:
-        for what in ("serve", "train"):
-            assert "model" in res["refused_" + what]
+        assert res["model_serve"] == want
+        assert res["model_serve_ssm"][1:3] == (SLOTS // 2,
+                                               mcfg.ssm_heads // 2)
+        loss, w_shape = res["model_train"]
+        np.testing.assert_allclose(loss, float(met["loss"]), rtol=1e-5)
+        assert w_shape == (mcfg.num_layers, mcfg.d_model, cols // 2)
 
 
 @pytest.mark.parametrize("mesh", ["41", "22"])

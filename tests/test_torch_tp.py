@@ -1,11 +1,11 @@
 """The "model" axis of distribution: the port against the reference.
 
 * The rules: ``sharding.shard_params`` gives every rank, on (2, 2) and
-  (1, 4), the block of each leaf of every dense and moe reduced tree that
-  ``repro.distributed.sharding.param_spec`` names on an ``AbstractMesh``
-  of the same shape.  No process group.
-* A (D, M) mesh with M > 1 still refuses ssm, hybrid, vlm and audio, in
-  serving and training, before any collective.
+  (1, 4), the block of each leaf of every dense, moe, ssm, hybrid, vlm
+  and audio reduced tree that ``repro.distributed.sharding.param_spec``
+  names on an ``AbstractMesh`` of the same shape.  No process group.
+  (The ssm, hybrid, vlm and audio families on the model axis run in
+  ``tests/test_torch_tp_families.py``.)
 * One gloo world of 4 processes, spawned once for the module (the
   workers import torch and the port only, ``torch.set_num_threads(1)``),
   on (1, 4), (2, 2), (4, 1) and the pod mesh (2, 2, 1):
@@ -78,7 +78,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # ---------------------------------------------------------------------------
 
 RULE_ARCHS = ("llama2-7b", "gemma-2b", "granite-3-2b", "starcoder2-7b",
-              "olmoe-1b-7b", "kimi-k2-1t-a32b")
+              "olmoe-1b-7b", "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b",
+              "llama-3.2-vision-11b", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
@@ -118,30 +119,6 @@ def test_shard_params_blocks_match_reference_specs(arch, shape):
                     np.testing.assert_array_equal(got[name].numpy(), want,
                                                   err_msg=name)
         assert sharded_any
-
-
-class _FakeMesh:
-    """Names and sizes of a mesh, without a process group."""
-
-    def __init__(self, names, sizes):
-        self.mesh_dim_names = names
-        self.mesh = np.zeros(sizes)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b",
-                                  "llama-3.2-vision-11b",
-                                  "seamless-m4t-medium"])
-def test_model_axis_still_refused_for_the_other_families(arch):
-    cfg = get_arch(arch).reduced().replace(dtype="float32")
-    params = model_fns(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                 "meta")
-    mesh = _FakeMesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="ssm, hybrid, vlm and "
-                                                  "audio on 'model'"):
-        Engine(cfg, params, slots=2, max_len=32, device="cpu",
-               decompose_engine=DecomposeEngine(EngineConfig(mesh=mesh)))
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        steps.make_train_step(cfg, mesh=mesh, backend="reference")
 
 
 @pytest.mark.parametrize("geom, m, want", [
