@@ -260,6 +260,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    resumed losses too.  The process group is destroyed at the end.  One
    card cannot show M > 1 (NCCL takes a card a rank): that is
    ``tests/test_torch_cuda.py -k nccl`` on four.
+20. the rest of the "model" axis (``--only seq``), at world 1 on
+   one-rank NCCL groups: (a) zamba2-1.2b's long_500k decode (a seeded
+   batch-1 cache of 524,288 bf16 rows) with and without a (1, 1) mesh,
+   whose decode merges the ranks' flash statistics; (b) llama2-7b
+   decomposed-KV decode at B = 1 over a frozen prefix of 32,768 rows;
+   (c) mamba2-780m (depth 4) batch-1 prefill and AdamW steps sharded
+   along the sequence; (d) granite-3-2b (depth 4, float32) Adafactor
+   ZeRO-1 with Megatron-SP on one-rank groups, (e) its resume; (f)
+   zamba2-1.2b's float32 batch-1 prefill of 16,384 tokens with its peak
+   memory — each against the same work without a mesh.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -3759,6 +3769,436 @@ def model_axis_families() -> None:
         check_freed(f"model (d) {arch}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the rest of the "model" axis on one card (a one-rank group)
+# ---------------------------------------------------------------------------
+
+SEQ_T = 524_288                 # long_500k: tokens of the batch-1 cache
+SEQ_DECODE_STEPS = 4            # (a)
+SEQ_F32_T = 65_536              # (a)'s float32 token check
+SEQ_DKV_T, SEQ_DKV_RANK, SEQ_DKV_TAIL = 32_768, 64, 16   # (b)
+SEQ_DKV_STEPS = 8
+SEQ_TRAIN_S = 8192              # (c): one sequence of 8192 tokens
+SEQ_TRAIN_LAYERS = 4            # (c), (d), (e): depth cut, full width
+SEQ_LOGIT_TOL = 1e-2            # bf16 logits, relative to the largest
+SEQ_LOSS_TOL = 1e-5             # relative, (c), (d), (e)
+SEQ_RESUME_TOL = 1e-6           # relative, (e)'s resumed steps
+SEQ_RANKS = 4                   # the four-card cells' DP ranks
+SEQ_PREFILL_S = 16_384          # (f): a batch-1 prompt's tokens
+SEQ_PREFILL_EXTRA = 1024        # (f): cache rows past the prompt
+# (f): a prefill's final Mamba2 states, relative to the largest entry:
+# without a mesh they take the reference's formula (the decay to the end
+# from a float32 cumsum over all 16,384 steps), sequence-sharded the
+# chunked scan's end state, another float32 sum (3.04e-4 apart on the
+# card)
+SEQ_STATE_TOL = 1e-3
+
+
+def _rel_max(a, b) -> float:
+    """max |a − b| over max |b| (float32)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _one_step_collectives(before) -> dict:
+    from repro_torch.distributed import sharding as sh
+    now = sh.collective_counts()
+    return {k: [v[0] - before.get(k, (0, 0))[0],
+                v[1] - before.get(k, (0, 0))[1]] for k, v in now.items()
+            if v != tuple(before.get(k, (0, 0)))}
+
+
+def _ms_list(ms) -> str:
+    return "[" + ", ".join(f"{v:.1f}" for v in ms) + "]"
+
+
+def _greedy_decode(step, params, cache, tok, pos0: int, n: int, *extra):
+    """``n`` greedy steps of ``step`` from token ``tok`` at ``pos0``:
+    (each step's logits, tokens, the collectives of the last step, each
+    step's ms)."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    logits, toks, last, ms = [], [], {}, []
+    for i in range(n):
+        before = {k: tuple(v) for k, v in sh.collective_counts().items()}
+        pos = torch.full((1,), pos0 + i, dtype=torch.long, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, tok, cache, pos, *extra)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        last = _one_step_collectives(before)
+        logits.append(lg.float())
+        tok = lg.argmax(-1)
+        toks.append(int(tok.item()))
+    return logits, toks, last, ms
+
+
+def seq_long_decode() -> None:
+    """Phase 20 (a): zamba2-1.2b at full width and depth, ``long_500k``
+    decode: a batch-1 cache of SEQ_T rows (each of the 6 shared-attention
+    applications' K and V, bf16, N(0, 1) from a seeded generator; the
+    Mamba2 states N(0, 0.1²)), SEQ_DECODE_STEPS greedy steps with no mesh
+    and on a (1, 1) mesh, whose decode holds every time axis as the
+    rank's block over "data" (the whole, at one rank) and merges the
+    ranks' flash statistics: logits within SEQ_LOGIT_TOL; then float32
+    weights over SEQ_F32_T rows: tokens equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import hybrid
+    from repro_torch.runtime import steps
+    from repro_torch.tree import named_leaves
+    mesh = _mesh()
+    cfg = get_arch(HYBRID_ARCH)
+    params = init_weights(cfg)
+    for dtype, t in (("bfloat16", SEQ_T), ("float32", SEQ_F32_T)):
+        t0 = time.perf_counter()
+        if dtype == "float32":
+            params = to_float32(params)
+        c = cfg.replace(dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cache = hybrid.init_state(c, 1, t, device="cuda")
+        for name, leaf in named_leaves(cache):
+            leaf.normal_(generator=gen)
+            if not name.startswith("attn"):
+                leaf.mul_(0.1)
+        attn_gb = sum(v.numel() * v.element_size()
+                      for v in cache["attn"].values()) / 1e9
+        pos0 = t - SEQ_DECODE_STEPS
+        keep = {n: v.clone() for n, v in named_leaves(cache)
+                if not n.startswith("attn")}
+        rows = {k: v[:, :, pos0:].clone() for k, v in cache["attn"].items()}
+        tok = torch.ones(1, dtype=torch.long, device="cuda")
+        runs = {}
+        for on in (False, True):
+            for n, v in named_leaves(cache):
+                if n in keep:
+                    v.copy_(keep[n])
+            for k, v in rows.items():
+                cache["attn"][k][:, :, pos0:] = v
+            step = steps.make_decode_step(c, mesh if on else None)
+            sh.reset_collective_counts()
+            runs[on] = _greedy_decode(step, params, cache, tok, pos0,
+                                      SEQ_DECODE_STEPS)
+        (lg_a, tok_a, coll_a, s_a), (lg_b, tok_b, coll_b, s_b) = \
+            runs[False], runs[True]
+        rel = _rel_max(lg_b[0], lg_a[0])
+        print(f"seq (a): {cfg.name} {dtype} long_500k-style decode at B = "
+              f"1, T = {t} ({attn_gb:.1f} GB of K/V, 6 applications), "
+              f"{SEQ_DECODE_STEPS} steps: (1, 1) mesh step-0 logits rel "
+              f"{rel:.2e} vs no mesh; tokens {tok_b} vs {tok_a}; step ms "
+              f"{_ms_list(s_b)} vs {_ms_list(s_a)}; collectives of one mesh "
+              f"step (op/payload: [calls, bytes sent]) "
+              f"{json.dumps(coll_b)}; no mesh {json.dumps(coll_a)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if coll_a or coll_b.get("all_gather/attn_stats", [0])[0] != 6 \
+                or coll_b.get("all_reduce/attn_out", [0])[0] != 6:
+            raise AssertionError(f"seq (a): collectives {coll_b} (no mesh "
+                                 f"{coll_a})")
+        if dtype == "bfloat16" and not rel <= SEQ_LOGIT_TOL:
+            raise AssertionError(f"seq (a): logits rel {rel}")
+        if dtype == "float32" and tok_a != tok_b:
+            raise AssertionError(f"seq (a): float32 tokens {tok_b} vs "
+                                 f"{tok_a}")
+        del cache, keep, rows
+    del params
+    check_freed("seq (a)")
+
+
+def seq_dkv_decode(cfg, params) -> None:
+    """Phase 20 (b), on the loaded llama2-7b weights: decomposed-KV decode
+    at B = 1 over a frozen prefix of SEQ_DKV_T rows (seeded rank-64
+    factors: U N(0, 1), Vᵀ N(0, 1/r), bf16; tail SEQ_DKV_TAIL),
+    SEQ_DKV_STEPS greedy steps with no mesh and on a (1, 1) mesh (the
+    rank's block of the prefix rows and of the tail, the statistics
+    merged over "data"): logits within SEQ_LOGIT_TOL, the dkv kernel
+    launched as often.  Also times ``dkv_attention_stats`` at the four-card
+    cell's rows a rank."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.models import decomposed_kv as DK
+    from repro_torch.runtime import steps
+    mesh = _mesh()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    r, t = SEQ_DKV_RANK, SEQ_DKV_T
+    cache = DK.init_cache(cfg, 1, t, r, tail=SEQ_DKV_TAIL, device="cuda")
+    for k in ("k_u", "v_u"):
+        cache[k].normal_(generator=gen)
+    for k in ("k_vt", "v_vt"):
+        cache[k].normal_(generator=gen).mul_(r ** -0.5)
+    frozen = torch.tensor([t], dtype=torch.int32, device="cuda")
+    tok = torch.ones(1, dtype=torch.long, device="cuda")
+    runs = {}
+    for on in (False, True):
+        for v in cache["tail"].values():
+            v.zero_()
+        step = steps.make_dkv_decode_step(cfg, mesh if on else None)
+        sh.reset_collective_counts()
+        ops.reset_launch_counts()
+        out = _greedy_decode(step, params, cache, tok, t, SEQ_DKV_STEPS,
+                             frozen)
+        runs[on] = out + (ops.launch_counts()["dkv_attention_stats"],)
+    (lg_a, tok_a, coll_a, s_a, n_a), (lg_b, tok_b, coll_b, s_b, n_b) = \
+        runs[False], runs[True]
+    rel = max(_rel_max(x, y) for x, y in zip(lg_b, lg_a))
+    row = dkv_case(1, cfg.num_heads, t // SEQ_RANKS, r, [t // SEQ_RANKS],
+                   torch.bfloat16, torch.Generator(device="cuda")
+                   .manual_seed(3))
+    print(f"seq (b): {cfg.name} decomposed KV at B = 1, frozen T = {t} "
+          f"(rank {r}, tail {SEQ_DKV_TAIL}), {SEQ_DKV_STEPS} steps: (1, 1) "
+          f"mesh logits rel {rel:.2e} vs no mesh; tokens {tok_b} vs {tok_a}; "
+          f"dkv_attention_stats launches {n_b} vs {n_a}; step ms "
+          f"{_ms_list(s_b)} vs {_ms_list(s_a)}; collectives of one mesh step "
+          f"{json.dumps(coll_b)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print("seq (b) row: " + json.dumps({k: row[k] for k in (
+        "name", "shape", "max_abs_err", "ms", "ms_l2_cold", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}), flush=True)
+    if coll_a or not rel <= SEQ_LOGIT_TOL or n_a != n_b \
+            or n_b != SEQ_DKV_STEPS * cfg.num_layers \
+            or coll_b.get("all_gather/dkv_stats", [0])[0] != cfg.num_layers:
+        raise AssertionError(f"seq (b): logits rel {rel}, launches {n_b} vs "
+                             f"{n_a}, collectives {coll_b} / {coll_a}")
+    del cache
+
+
+def seq_mamba2() -> None:
+    """Phase 20 (c): mamba2-780m at full width, depth SEQ_TRAIN_LAYERS,
+    one sequence of SEQ_TRAIN_S tokens: prefill and three AdamW steps
+    with no mesh and sequence-sharded on a (1, 1) mesh (a batch-1 batch
+    on a mesh: the conv halo, the SSD kernels on the rank's chunks, the
+    state scan over the group): logits within SEQ_LOGIT_TOL, losses
+    within SEQ_LOSS_TOL, both SSD kernels launched as often.  Then both
+    SSD kernels timed at one rank's chunks of the four-card cell."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import to_device
+    mesh = _mesh()
+    t0 = time.perf_counter()
+    cfg = get_arch(MAMBA_ARCH).replace(num_layers=SEQ_TRAIN_LAYERS)
+    src = SyntheticLM(cfg, ShapeSpec("t", SEQ_TRAIN_S, 1, "train"),
+                      DataConfig(seed=0))
+    batches = [to_device(src.batch_at(i), "cuda") for i in range(3)]
+    runs = {}
+    for on in (False, True):
+        params = init_weights(cfg)
+        m = mesh if on else None
+        ops.reset_launch_counts()
+        sh.reset_collective_counts()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        lg, _ = steps.make_prefill_step(cfg, m)(params, batches[0]["tokens"])
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - ts
+        pre_n = ops.launch_counts()["ssd_chunk_intra"]
+        opt = optim.make_optimizer(cfg, warmup=1)
+        state = opt.init(params)
+        fn = steps.make_train_step(cfg, opt, mesh=m)
+        losses, ms = [], []
+        ops.reset_launch_counts()
+        for b in batches:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, state, met = fn(params, state, b)
+            losses.append(met["loss"].item())
+            ms.append((time.perf_counter() - ts) * 1e3)
+        counts = ops.launch_counts()
+        runs[on] = (lg.float(), pre_s, pre_n, losses, ms,
+                    counts["ssd_chunk_intra"], counts["ssd_chunk_intra_bwd"],
+                    sh.collective_counts())
+        del params, state, lg
+    a, b = runs[False], runs[True]
+    rel = _rel_max(b[0], a[0])
+    lrel = max(abs(x - y) / abs(y) for x, y in zip(b[3], a[3]))
+    print(f"seq (c): {cfg.name} full width, depth {cfg.num_layers}, B = 1 "
+          f"x S = {SEQ_TRAIN_S}, sequence-sharded on a (1, 1) mesh: prefill "
+          f"logits rel {rel:.2e} vs no mesh, ssd_chunk_intra launches "
+          f"{b[2]} vs {a[2]}, prefill s {b[1]:.3f} vs {a[1]:.3f}; 3 AdamW "
+          f"steps losses {b[3]} vs {a[3]} (max rel {lrel:.2e}), step ms "
+          f"{', '.join(f'{v:.1f}' for v in b[4])} vs "
+          f"{', '.join(f'{v:.1f}' for v in a[4])}; train launches fwd "
+          f"{b[5]} vs {a[5]}, bwd {b[6]} vs {a[6]}; collectives "
+          f"{json.dumps(b[7])}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (rel <= SEQ_LOGIT_TOL and lrel <= SEQ_LOSS_TOL and a[2] == b[2]
+            and a[5:7] == b[5:7] and b[6] > 0 and not a[7]):
+        raise AssertionError(f"seq (c): logits rel {rel}, losses rel "
+                             f"{lrel}, launches {b[2]}/{b[5:7]} vs "
+                             f"{a[2]}/{a[5:7]}, no-mesh collectives {a[7]}")
+    g = SEQ_TRAIN_S // SEQ_RANKS // 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for case in (ssd_case(g, 64, cfg.ssm_heads, cfg.ssm_head_dim, gen,
+                          per_run=cfg.num_layers),
+                 ssd_bwd_case(g, 64, cfg.ssm_heads, cfg.ssm_head_dim, gen,
+                              per_step=cfg.num_layers)):
+        print("seq (c) row: " + json.dumps({k: case[k] for k in (
+            "name", "shape", "max_abs_err", "ms", "ms_l2_cold", "plain_ms",
+            "bound_ms", "bound_by")}), flush=True)
+    check_freed("seq (c)")
+
+
+def seq_prefill_memory() -> None:
+    """Phase 20 (f): zamba2-1.2b at full width and depth, float32, one
+    prompt of SEQ_PREFILL_S tokens prefilled with no mesh and
+    sequence-sharded on a (1, 1) mesh, into a cache of the prompt's
+    length (the rank keeps its own K/V rows, no collective) and of
+    SEQ_PREFILL_S + SEQ_PREFILL_EXTRA rows (each layer's rows moved to
+    the blocks that hold them: one all-to-all a leaf and layer): logits
+    and K/V within SEQ_LOSS_TOL, the Mamba2 states within SEQ_STATE_TOL,
+    and each run's peak device memory above what was allocated before
+    it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.runtime import steps
+    from repro_torch.tree import named_leaves
+    mesh = _mesh()
+    t0 = time.perf_counter()
+    cfg = get_arch(HYBRID_ARCH).replace(dtype="float32")
+    params = to_float32(init_weights(cfg))
+    tok = torch.randint(0, cfg.vocab, (1, SEQ_PREFILL_S),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    lines = []
+    for max_len in (None, SEQ_PREFILL_S + SEQ_PREFILL_EXTRA):
+        runs = {}
+        for on in (False, True):
+            sh.reset_collective_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ts = time.perf_counter()
+            lg, cache = steps.make_prefill_step(cfg, mesh if on else None)(
+                params, tok, max_len=max_len)
+            torch.cuda.synchronize()
+            runs[on] = (lg.float(), cache, time.perf_counter() - ts,
+                        (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                        sh.collective_counts())
+            del lg, cache
+        (lg_a, c_a, s_a, m_a, _), (lg_b, c_b, s_b, m_b, coll) = \
+            runs[False], runs[True]
+        del runs
+        rel = _rel_max(lg_b, lg_a)
+        whole = dict(named_leaves(c_a))
+        crel = max(_rel_max(c_b["attn"][k], c_a["attn"][k])
+                   for k in ("k", "v"))
+        srel = max(_rel_max(v, whole[n]) for n, v in named_leaves(c_b)
+                   if not n.startswith("attn"))
+        t = c_b["attn"]["k"].shape[2]
+        del lg_a, lg_b, c_a, c_b, whole
+        lines.append((max_len, rel, crel, srel, coll))
+        print(f"seq (f): {cfg.name} float32 batch-1 prefill of "
+              f"{SEQ_PREFILL_S} tokens into T = {t} rows, (1, 1) mesh vs no "
+              f"mesh: logits rel {rel:.2e}, K/V rel {crel:.2e}, Mamba2 "
+              f"states rel {srel:.2e}; peak GiB above the weights "
+              f"{m_b:.2f} vs {m_a:.2f}; s {s_b:.3f} vs {s_a:.3f}; "
+              f"collectives {json.dumps(coll)}", flush=True)
+    print(f"seq (f): {time.perf_counter() - t0:.1f} s", flush=True)
+    for max_len, rel, crel, srel, coll in lines:
+        moved = any(k.startswith("all_to_all/prefill_") for k in coll)
+        if not (rel <= SEQ_LOSS_TOL and crel <= SEQ_LOSS_TOL
+                and srel <= SEQ_STATE_TOL) or moved != (max_len is not None):
+            raise AssertionError(f"seq (f): max_len {max_len}: logits rel "
+                                 f"{rel}, K/V rel {crel}, states rel {srel}, "
+                                 f"collectives {coll}")
+    del params
+    check_freed("seq (f)")
+
+
+def seq_train_adafactor() -> None:
+    """Phase 20 (d, e): granite-3-2b at full width, depth
+    SEQ_TRAIN_LAYERS, float32, ``optimizer="adafactor"``, three steps of
+    4 x 512: no mesh, and ZeRO-1 with ``seq_parallel=True`` on a (1, 1)
+    mesh — Megatron-SP on a one-rank "model" group (its all-gathers and
+    reduce-scatters along S in place of the TP all-reduces, each a copy)
+    and Adafactor's split statistics (the sums over the ZeRO-1 dim
+    all-reduced over a one-rank "data" group): losses within
+    SEQ_LOSS_TOL, the SP and Adafactor collectives counted, no TP
+    all-reduce of the activations.  (e): the mesh run's state after its
+    first step saved whole, ``restore_for_mesh``'d and fed as it is, two
+    more steps within SEQ_RESUME_TOL of the uninterrupted ones."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.runtime import driver, steps
+    mesh = _mesh()
+    t0 = time.perf_counter()
+    base = get_arch(TRAIN_ARCH).replace(num_layers=SEQ_TRAIN_LAYERS,
+                                        optimizer="adafactor",
+                                        dtype="float32")
+    batches = _train_batches(base, MODEL_TRAIN_STEPS)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+        for on in (False, True):
+            cfg = base.replace(seq_parallel=on)
+            params = to_float32(init_weights(cfg))
+            opt = optim.make_optimizer(cfg, warmup=1)
+            state = opt.init(params)
+            kw = dict(zero1=True, optimizer=opt) if on else {}
+            if on:
+                params, state = steps.shard_train_state(cfg, params, state,
+                                                        mesh, **kw)
+            fn = steps.make_train_step(cfg, opt, mesh=mesh if on else None,
+                                       zero1=on)
+            losses, ms = [], []
+            sh.reset_collective_counts()
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                params, state, met = fn(params, state, b)
+                losses.append(met["loss"].item())
+                ms.append((time.perf_counter() - ts) * 1e3)
+                if on and i == 0:
+                    driver.save_for_mesh(cfg, {"params": params,
+                                               "opt": state}, tmp, 1, mesh,
+                                         **kw)
+            runs[on] = (losses, ms, sh.collective_counts())
+            del params, state
+        a, b = runs[False], runs[True]
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(b[0], a[0]))
+        print(f"seq (d): {base.name} full width, depth {base.num_layers}, "
+              f"float32, Adafactor, {len(batches)} steps, ZeRO-1 + "
+              f"seq_parallel on a (1, 1) mesh (Megatron-SP on a one-rank "
+              f"model group): losses {b[0]} vs no mesh {a[0]} (max rel "
+              f"{lrel:.2e}); step ms {', '.join(f'{v:.1f}' for v in b[1])} "
+              f"vs {', '.join(f'{v:.1f}' for v in a[1])}; collectives "
+              f"{json.dumps(b[2])}", flush=True)
+        need = ("all_gather/sp_tp_in", "reduce_scatter/sp_tp_out",
+                "reduce_scatter/sp_embed", "all_reduce/adafactor_vr",
+                "all_reduce/adafactor_vc", "all_reduce/adafactor_rms")
+        if not lrel <= SEQ_LOSS_TOL or a[2] \
+                or any(k not in b[2] for k in need) \
+                or {"all_reduce/tp_out", "all_reduce/tp_in_grad"} & set(b[2]):
+            raise AssertionError(f"seq (d): losses rel {lrel}, collectives "
+                                 f"{b[2]}, no-mesh collectives {a[2]}")
+        cfg = base.replace(seq_parallel=True)
+        opt = optim.make_optimizer(cfg, warmup=1)
+        back = driver.restore_for_mesh(cfg, tmp, mesh, optimizer=opt)
+        fn = steps.make_train_step(cfg, opt, mesh=mesh, zero1=True)
+        resumed = []
+        params, state = back["params"], back["opt"]
+        for batch in batches[1:]:
+            params, state, met = fn(params, state, batch)
+            resumed.append(met["loss"].item())
+        del params, state, back
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, b[0][1:]))
+    print(f"seq (e): restore_for_mesh of the Adafactor ZeRO-1 step-1 "
+          f"checkpoint fed as DTensors: losses {resumed} vs uninterrupted "
+          f"{b[0][1:]}, max rel {rel:.2e}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not rel <= SEQ_RESUME_TOL:
+        raise AssertionError(f"seq (e): resumed losses differ by {rel}")
+    check_freed("seq (d, e)")
+
+
 def phase_train(profile: bool = False) -> dict:
     """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts.
     ``profile``: also profile one kernel-route step of (b)."""
@@ -3773,7 +4213,7 @@ def phase_train(profile: bool = False) -> dict:
 
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal", "train", "mesh", "model")
+          "variants", "modal", "train", "mesh", "model", "seq")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -3851,7 +4291,7 @@ def main() -> int:
         with phase("kernels"):
             rows = phase_kernels(cfg)
     if only & {"serve", "conformance", "activation", "paged", "async",
-               "sampler", "obs", "mesh", "model"}:
+               "sampler", "obs", "mesh", "model", "seq"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -3887,6 +4327,9 @@ def main() -> int:
         if "model" in only:
             with phase("model (a)"):
                 model_axis_serving(cfg, params)
+        if "seq" in only:
+            with phase("seq (b)"):
+                seq_dkv_decode(cfg, params)
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params
@@ -3943,6 +4386,19 @@ def main() -> int:
             with phase("model (e)"):
                 model_axis_training(MAMBA_ARCH, ("e", "e"))
                 check_freed("model (e)")
+        finally:
+            shutdown_distributed()
+    if "seq" in only:
+        from repro_torch.launch.mesh import shutdown_distributed
+        try:
+            with phase("seq (a)"):
+                seq_long_decode()
+            with phase("seq (c)"):
+                seq_mamba2()
+            with phase("seq (d, e)"):
+                seq_train_adafactor()
+            with phase("seq (f)"):
+                seq_prefill_memory()
         finally:
             shutdown_distributed()
     if only != set(PHASES):

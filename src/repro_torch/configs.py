@@ -18,8 +18,8 @@ does) and ``remat_policy`` ("full", or "dots": keep the matmul outputs
 and recompute only the cheap elementwise ops).  The sharding field
 ``expert_sharding`` ("1d": experts over "model"; "2d" for
 ``kimi-k2-1t-a32b``: also the expert FFN dim over "data") is read by
-``distributed.sharding``'s rules.  :class:`ShapeSpec` names a workload
-shape.
+``distributed.sharding``'s rules; ``seq_parallel`` turns on Megatron-SP
+(``distributed.tp.sp_on``).  :class:`ShapeSpec` names a workload shape.
 """
 from __future__ import annotations
 
@@ -70,6 +70,8 @@ class ArchConfig:
     optimizer: str = "adamw"         # adamw | adafactor (the 1T MoE)
     remat: bool = True               # activation checkpointing per block
     remat_policy: str = "full"       # full | dots (save matmul outputs)
+    seq_parallel: bool = False       # Megatron-SP: residual stream sharded
+                                     # along S over "model" (dense family)
 
     @property
     def padded_vocab(self) -> int:

@@ -41,7 +41,7 @@ coordinate; one flattened group for ("pod", "data")), :func:`dp_size`,
 :func:`dp_rank`, and the "model" group beside it (:func:`model_group`,
 :func:`model_size`, :func:`model_rank`); the collectives
 :func:`all_gather_into` / :func:`gather_dim` (any dim),
-:func:`all_reduce`, :func:`reduce_scatter` (any dim),
+:func:`all_reduce`, :func:`reduce_scatter` (any dim), :func:`broadcast`,
 :func:`broadcast_int` and :func:`all_true`, which every collective of
 the port's serving, decomposition and train steps goes through and which
 count what they issue (:func:`collective_counts`).  :func:`local_block`
@@ -198,6 +198,27 @@ def opt_state_sharding(opt_shapes: Tree, mesh, cfg,
             spec = _zero1(spec, shape, mesh)
         return spec
     return _map_named(f, opt_shapes)
+
+
+def names_twice(spec: Spec) -> bool:
+    """Whether ``spec`` names a mesh axis more than once (the reference's
+    ``_zero1`` of a leaf already sharded over "data"; JAX refuses it)."""
+    names = [a for e in spec for a in (e if isinstance(e, tuple) else (e,))
+             if a is not None]
+    return len(names) != len(set(names))
+
+
+def zero1_block_spec(path_str: str, shape: Tuple[int, ...], mesh,
+                     cfg) -> Spec:
+    """The block of an optimizer-state leaf that the port's ZeRO-1 train
+    step keeps: ``opt_state_sharding``'s spec, except where that spec
+    names "data" twice (a 2-D expert leaf, ROADMAP.md caveat C10): the
+    step reads it as already split over DP and keeps the parameter's
+    own block (its param spec)."""
+    spec = param_spec(path_str, shape, mesh, cfg)
+    z = _zero1(spec, shape, mesh) if len(shape) >= 1 \
+        and "step" not in path_str else spec
+    return spec if names_twice(z) else z
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +438,17 @@ def all_gather_into(out, t, group, what: str) -> None:
     fn(out, t, group=group)
 
 
+def all_to_all(out, t, out_rows, in_rows, group, what: str) -> None:
+    """``out`` ← the rows (dim 0) the group's ranks send this rank, in
+    rank order: each rank cuts its ``t`` into blocks of ``in_rows[k]``
+    rows, block k for rank k, and this rank's ``out`` takes
+    ``out_rows[j]`` rows from rank j (one counted all-to-all)."""
+    import torch.distributed as dist
+    _count("all_to_all", what, t)
+    dist.all_to_all_single(out, t, list(out_rows), list(in_rows),
+                           group=group)
+
+
 def all_reduce(t, group, what: str, op: str = "sum") -> None:
     """``t`` ← its sum (or ``op``: "min", "max") over ``group``, in
     place."""
@@ -437,6 +469,14 @@ def broadcast_int(v: int, group, device, what: str) -> int:
     _count("broadcast", what, t)
     dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return int(t.item())
+
+
+def broadcast(t, group, src: int, what: str) -> None:
+    """``t`` ← the ``t`` of the group's rank ``src`` (its index in the
+    group), in place, on every rank of ``group``."""
+    import torch.distributed as dist
+    _count("broadcast", what, t)
+    dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
 
 
 def all_true(flags, group, device, what: str) -> list:

@@ -32,6 +32,8 @@ The operators are ``torch.autograd.Function``s with their own backward:
   (max and sum of exps all-reduced), whose backward is torch's
   ``logsumexp`` backward, so one rank reproduces ``torch.logsumexp``
   bit for bit;
+* :func:`reduce_scatter_ag` — reduce-scatter along a dim forward,
+  all-gather backward (Megatron-SP's row-parallel output);
 * :func:`sum_all` — all-reduce forward AND backward: a statistic that
   every rank's output reads whole (the sum of squares of Mamba2's gated
   RMSNorm over d_inner, each rank holding its heads' d_inner / M), so
@@ -51,6 +53,19 @@ z, x and dt and the whole B and C; the replicated leaves it reads in
 part (conv taps and bias, A, D, dt bias, the gated norm's scale) pass
 :func:`copy` before the rank slices them, so every model rank holds the
 same whole gradient of each.
+
+Megatron-SP (``cfg.seq_parallel``, the dense family's training and
+prefill; the reference's ``_sp``): between the TP products the residual
+stream is the rank's block of the sequence [B, S/M, H].  Each
+column-parallel input is all-gathered along S (:func:`sp_in`, whose
+backward reduce-scatters) in place of :func:`copy`; each row-parallel
+output is reduce-scattered along S (:func:`sp_out`, whose backward
+all-gathers) in place of :func:`reduce`'s all-reduce; the vocab-parallel
+embedding reduce-scatters too.  The replicated parameters that act on
+the rank's rows (norm scales and biases, the row-parallel biases) pass
+:func:`sp_rep`, so each rank's partial gradient is summed over "model".
+:func:`sp_on` says whether a full-sequence call runs it, and is passed
+down explicitly (a checkpointed block recomputes with the same flag).
 
 Each collective goes through ``sharding``'s counted helpers.
 """
@@ -81,14 +96,15 @@ def current() -> Optional[TP]:
 
 
 @contextlib.contextmanager
-def use(mesh):
+def use(mesh, one_rank: bool = False):
     """Run the body under ``mesh``'s "model" axis: tensor-parallel when
-    the axis is larger than 1; with no mesh or an axis of 1, with no
-    tensor-parallel state (:func:`current` None)."""
+    the axis is larger than 1 (or, with ``one_rank``, of any size: a
+    one-rank group whose collectives are copies); with no mesh or an
+    axis of 1, with no tensor-parallel state (:func:`current` None)."""
     prev = _CURRENT[0]
+    on = mesh is not None and (sh.model_size(mesh) > 1 or one_rank)
     _CURRENT[0] = TP(mesh, sh.model_group(mesh), sh.model_size(mesh),
-                     sh.model_rank(mesh)) if sh.model_size(mesh) > 1 \
-        else None
+                     sh.model_rank(mesh)) if on else None
     try:
         yield _CURRENT[0]
     finally:
@@ -132,6 +148,18 @@ class _GatherRS(torch.autograd.Function):
     def backward(ctx, g):
         return (sh.reduce_scatter(g, ctx.group, ctx.what + "_grad",
                                   ctx.dim), None, None, None)
+
+
+class _ReduceScatterAG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, what, dim):
+        ctx.group, ctx.what, ctx.dim = group, what, dim
+        return sh.reduce_scatter(x, group, what, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (sh.gather_dim(g, ctx.group, ctx.what + "_grad", ctx.dim),
+                None, None, None)
 
 
 class _MeanValue(torch.autograd.Function):
@@ -197,6 +225,65 @@ def gather_rs(x: torch.Tensor, group, dim: int, what: str) -> torch.Tensor:
     return _GatherRS.apply(x, group, what, dim % x.dim())
 
 
+def reduce_scatter_ag(x: torch.Tensor, group, dim: int, what: str
+                      ) -> torch.Tensor:
+    """``group``'s sum of ``x``, this rank's block of it along ``dim``;
+    the backward all-gathers the gradient, so it has ``x``'s shape."""
+    return _ReduceScatterAG.apply(x, group, what, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# Megatron-SP: the residual stream sharded along S over "model"
+# ---------------------------------------------------------------------------
+
+def sp_on(cfg, seq_len: int) -> bool:
+    """Whether a full-sequence call of ``seq_len`` tokens runs Megatron-SP:
+    ``cfg.seq_parallel`` under a tensor-parallel state (a "model" axis
+    larger than 1, or a one-rank one: ``runtime.steps`` runs a
+    seq_parallel config on any mesh's "model" axis): a dense config
+    whose Q/O, K/V, MLP and vocab the rule shards, and whose sequence M
+    divides; else it raises."""
+    tp = current()
+    if not cfg.seq_parallel or tp is None:
+        return False
+    m = tp.size
+    need = {"the sequence": seq_len,
+            "the query heads' dims": cfg.num_heads * cfg.resolved_head_dim,
+            "the kv heads' dims": cfg.num_kv_heads * cfg.resolved_head_dim,
+            "the MLP's hidden width": cfg.d_ff,
+            "the padded vocab": cfg.padded_vocab}
+    bad = [k for k, n in need.items() if n % m]
+    if cfg.family != "dense" or bad:
+        raise NotImplementedError(
+            f"seq_parallel on {cfg.name} ({cfg.family}) over a 'model' axis "
+            f"of {m}: the port's Megatron-SP runs the dense family with "
+            f"every TP dim sharded; {bad or 'family'} not divisible")
+    return True
+
+
+def sp_in(x: torch.Tensor, sp: bool, what: str = "tp_in") -> torch.Tensor:
+    """A column-parallel product's input: under SP the whole sequence
+    gathered over "model" (reduce-scatter backward), else :func:`copy`."""
+    if not sp:
+        return copy(x, what)
+    return gather_rs(x, current().group, 1, "sp_" + what)
+
+
+def sp_out(y: torch.Tensor, sp: bool, what: str = "tp_out") -> torch.Tensor:
+    """A row-parallel product's output: under SP the rank's block of the
+    sequence of the group's sum (all-gather backward), else
+    :func:`reduce`."""
+    if not sp:
+        return reduce(y, what)
+    return reduce_scatter_ag(y, current().group, 1, "sp_" + what)
+
+
+def sp_rep(t: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A replicated parameter read on the rank's rows under SP (its
+    gradient is summed over "model"); itself otherwise."""
+    return copy(t, "sp_rep") if sp else t
+
+
 def block_of(t: torch.Tensor, dim: int) -> torch.Tensor:
     """This model rank's block of the whole ``t`` along ``dim``."""
     tp = current()
@@ -210,9 +297,11 @@ def block_of(t: torch.Tensor, dim: int) -> torch.Tensor:
 # Vocab-parallel embedding and loss
 # ---------------------------------------------------------------------------
 
-def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(w: torch.Tensor, tokens: torch.Tensor, sp: bool = False
+          ) -> torch.Tensor:
     """``W[tokens]`` where ``w`` is this rank's rows [V/M, H] of W: rows of
-    other ranks read as zeros, then the group's sum."""
+    other ranks read as zeros, then the group's sum (under SP its
+    reduce-scatter along the sequence: the rank's rows)."""
     tp = current()
     lo = tp.rank * w.shape[0]
     idx = tokens - lo
@@ -220,7 +309,7 @@ def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rows = w[torch.where(mine, idx, torch.zeros_like(idx))]
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=w.dtype,
                                                           device=w.device))
-    return reduce(rows, "embed")
+    return sp_out(rows, sp, "embed")
 
 
 class _VocabLSE(torch.autograd.Function):

@@ -203,6 +203,75 @@ def splice_cache(cfg, old, new, slot_indices, src_indices=None):
     return old
 
 
+# ---------------------------------------------------------------------------
+# Input specs: shape stand-ins per workload kind (the dry-run's pattern)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` with no memory behind it."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(cfg, shape) -> dict:
+    """The training batch of a ``ShapeSpec`` (``global_batch`` sequences of
+    ``seq_len`` tokens) as ``meta`` tensors: int32 ``tokens`` and
+    ``labels``, and the family's ``batch_extras``."""
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((b, s), torch.int32),
+             "labels": _meta((b, s), torch.int32)}
+    specs.update(model_fns(cfg).batch_extras(cfg, b, s, _meta))
+    return specs
+
+
+def prefill_input_specs(cfg, shape) -> tuple:
+    """The positional inputs of the family's ``prefill`` after (params,
+    cfg), as ``meta`` tensors (an audio prefill's memory is ``seq_len``
+    frames, as the reference's dry-run sizes it)."""
+    b, s = shape.global_batch, shape.seq_len
+    return model_fns(cfg).prefill_inputs(cfg, _meta((b, s), torch.int32),
+                                         _meta, mem_len=s)
+
+
+def decode_input_specs(cfg, shape) -> tuple:
+    """(token, cache, pos) of the family's ``decode_step`` as ``meta``
+    tensors: int32 [B] tokens and positions, the cache of ``seq_len``
+    rows."""
+    b, s = shape.global_batch, shape.seq_len
+    cache = model_fns(cfg).init_cache(cfg, b, s, device="meta")
+    return _meta((b,), torch.int32), cache, _meta((b,), torch.int32)
+
+
+def make_fake_batch(cfg, shape, generator=None, device=None) -> dict:
+    """A concrete synthetic batch of :func:`train_batch_specs`' shapes and
+    dtypes: token ids uniform in [0, vocab), floats N(0, 1) in their
+    dtype, drawn from ``generator`` (default: seeded 0) in sorted name
+    order."""
+    gen = generator or torch.Generator().manual_seed(0)
+    out = {}
+    for name, sp in sorted(train_batch_specs(cfg, shape).items()):
+        if sp.dtype.is_floating_point:
+            t = torch.randn(tuple(sp.shape), generator=gen).to(sp.dtype)
+        else:
+            t = torch.randint(0, cfg.vocab, tuple(sp.shape), generator=gen,
+                              dtype=sp.dtype)
+        out[name] = t.to(device) if device is not None else t
+    return out
+
+
+def shard_cache(cfg, cache, mesh, seq_shard: bool = True):
+    """This rank's blocks of a whole decode cache under the rules'
+    :func:`cache_shardings` (``seq_shard``: a batch-1 cache's time axes
+    over "data"), each a copy of its own where it is part of the leaf."""
+    from ..distributed import sharding as sh
+    from ..tree import named_leaves, rebuild
+
+    def one(name, t):
+        b = sh.local_block(t, sh.cache_pspec(name, tuple(t.shape), mesh,
+                                             seq_shard), mesh)
+        return t if b.shape == t.shape else b.clone()
+    return rebuild(cache, {n: one(n, t) for n, t in named_leaves(cache)})
+
+
 def shard_params(cfg, params, mesh):
     """This rank's ``params_sharding`` blocks of a whole parameter tree of
     ``cfg``'s family, for tensor parallelism on ``mesh``'s "model" axis

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.lowrank import LowRank, retruncate
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..engine import DecomposeEngine
 from ..kernels.dkv_attention import (NEG, dkv_attention_stats,
@@ -117,6 +118,10 @@ def prefill_dkv(p: Params, cfg, tokens: torch.Tensor, rank: int, *,
     each ([L·B, S, kvw] — the re-orth kernels see B = L·prompts)."""
     if rank < 1:
         raise ValueError(f"prefill_dkv needs rank >= 1, got {rank}")
+    if SEQ.current() is not None:
+        raise NotImplementedError(
+            "prefill_dkv of a prompt sharded over the DP group: the "
+            "decomposition runs on the whole K/V (ROADMAP.md A1)")
     engine = engine or DecomposeEngine()
     b, s = tokens.shape
     nl, kvw = cfg.num_layers, cfg.kv_width
@@ -217,9 +222,20 @@ def _factored_attention(q, c: Params, tail_kv: Params, pos, frozen_len,
     flash statistics of the prefix (the dkv kernel) merged with the exact
     tail (``merge_with_tail``)."""
     k_u, v_u = c["k_u"].contiguous(), c["v_u"].contiguous()
-    return _merge_attention(
-        q, c["k_vt"], c["v_vt"], tail_kv, pos, frozen_len, cfg,
-        lambda inner: dkv_attention_stats(inner, k_u, v_u, frozen_len))
+    # under batch-1 sequence sharding: the rank's block of prefix rows,
+    # its valid count relative to the block, the ranks' statistics merged
+    # (without a group the whole prefix, and the merge the identity)
+    t_l = k_u.shape[1]
+    t_valid = torch.clamp(frozen_len - SEQ.offset(t_l), 0, t_l).to(
+        torch.int32)
+
+    def stats(inner):
+        a, m, l_ = dkv_attention_stats(inner, k_u, v_u, t_valid)
+        a, m, l_ = SEQ.merge_stats(a, m[..., None], l_[..., None],
+                                   "dkv_stats")
+        return a, m[..., 0], l_[..., 0]
+    return _merge_attention(q, c["k_vt"], c["v_vt"], tail_kv, pos,
+                            frozen_len, cfg, stats)
 
 
 _ATTENTION = {"kernel": _factored_attention, "plain": _lowrank_attention}
@@ -233,11 +249,20 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
     ``frozen_len`` are int32 [B]; each slot writes its new K/V row at tail
     row ``pos − frozen_len`` (clamped into the tail, as JAX's
     ``dynamic_update_slice`` clamps), unless its ``live`` (bool [B]) is
-    False.  Returns (logits [B, V], cache)."""
+    False.  Returns (logits [B, V], cache).  Under batch-1 sequence
+    sharding (``distributed.seq``) the cache holds the rank's block of
+    the prefix rows and of the tail's: ``dkv_attention_stats`` runs on
+    the block, the ranks' statistics merge across the group, and the
+    tail, gathered whole, merges once (``merge_with_tail``)."""
     attend = _ATTENTION[attention]
     tl = cache["tail"]["k"].shape[2]
     rows = torch.arange(token.shape[0], device=token.device)
-    slot = torch.clamp(pos - frozen_len, 0, tl - 1).long()
+    if SEQ.current() is not None and attention != "kernel":
+        raise ValueError("a decomposed cache sharded over the DP group "
+                         "decodes through the flash statistics "
+                         "(attention='kernel')")
+    # sequence-sharded, the tail's rows are too: the row's owner writes it
+    slot, live = SEQ.owner_rows(pos - frozen_len, tl, live)
     x = T.embed(p, cfg, token)[:, None, :]
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
@@ -248,7 +273,8 @@ def decode_step_dkv(p: Params, cfg, token: torch.Tensor, cache: Params,
                      TP.cache_block(k_new, lay)[:, 0], live)
         L.write_rows(tail["v"], (rows, slot),
                      TP.cache_block(v_new, lay)[:, 0], live)
-        tail = {k: TP.compute_heads(v, lay, "tail_" + k)
+        tail = {k: TP.compute_heads(SEQ.gather_rows(v, 1, "tail_" + k),
+                                    lay, "tail_" + k)
                 for k, v in tail.items()}
         layer_c = {key: cache[key][i] for key in ("k_u", "v_u")}
         for key in ("k_vt", "v_vt"):

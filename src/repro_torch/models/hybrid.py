@@ -18,7 +18,10 @@ Under tensor parallelism (``distributed.tp.use(mesh)``) the Mamba2
 blocks run ``mamba2``'s block of heads, the shared block
 ``transformer``'s Megatron path (its MLP split over the hidden width),
 and the state holds the rank's blocks (``cache_pspec``: conv channels,
-ssm heads, K/V kv heads else head_dim).
+ssm heads, K/V kv heads else head_dim).  A batch-1 sequence sharded
+over the DP group (``distributed.seq``) runs both: the Mamba2 blocks'
+halo and state scan, the shared block's gathered keys; its prefill
+keeps the rank's block of each K/V cache's time axis.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..kernels.ops import KernelSet, make_kernels
 from ..platform import torch_dtype
@@ -85,10 +89,9 @@ def _mamba_blocks(p: Params, cfg):
 def forward(p: Params, cfg, tokens: torch.Tensor,
             kernels: Optional[KernelSet] = None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
-    b, s = tokens.shape
     _, mpg, _ = _layout(cfg)
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = T.positions_of(tokens)
     for g, j, lp in _mamba_blocks(p, cfg):
         x = M.block(lp, x, cfg, kernels)
         if g is not None and j == mpg - 1:
@@ -103,10 +106,9 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
     SSD term through ``kernels`` (see ``mamba2.loss_fn``)."""
     kernels = kernels or make_kernels()
     tokens = batch["tokens"]
-    b, s = tokens.shape
     groups, mpg, tail = _layout(cfg)
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = T.positions_of(tokens)
     mblock = L.ckpt(M.block, cfg)
     ablock = L.ckpt(T.block, cfg)
     for group in L.unstack2(p["mamba"], groups, mpg):
@@ -156,25 +158,6 @@ def _mamba_state(st: Params, g, j):
             "ssm": st["mamba"]["ssm"][g, j]}
 
 
-def _mamba_state_of(lp: Params, inputs, cfg) -> Params:
-    """Final (conv, ssm) state of a Mamba2 block from its ``_ssd_inputs``:
-    the reference's own formula (``repro.models.hybrid._mamba_state_of``):
-    the conv tail is the last w−1 rows of the PRE-conv xbc, and the ssm
-    state the einsum ``bsd,bsn,bsnp->bnpd`` of B, dt·decay_to_end and x
-    over the full-sequence cumsum of the decay, in float32."""
-    _, xbc_raw, xh, bm, _, dtv = inputs
-    w1 = cfg.ssm_conv_width - 1
-    lay = TP.ssm(cfg)
-    da = dtv * -torch.exp(M._heads(lp["ssd"]["a_log"], lay))
-    l = torch.cumsum(da, dim=1)
-    decay_to_end = torch.exp(l[:, -1:, :] - l)                 # [B, S, nh]
-    # the path jnp.einsum's optimizer takes: the elementwise pair first,
-    # then one contraction over s
-    w = (dtv * decay_to_end)[..., None] * xh                   # [B,S,nh,hd]
-    ssm = torch.einsum("bsd,bsnp->bnpd", bm, w)
-    return {"conv": TP.conv_local(xbc_raw[:, -w1:, :], lay), "ssm": ssm}
-
-
 def prefill(p: Params, cfg, tokens: torch.Tensor,
             max_len: Optional[int] = None,
             kernels: Optional[KernelSet] = None
@@ -188,24 +171,37 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
     b, s = tokens.shape
     _, mpg, _ = _layout(cfg)
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    st = init_state(cfg, b, max_len or s, device=tokens.device)
+    positions = T.positions_of(tokens)
+    seq = SEQ.current() is not None
+    # sequence-sharded, the K/V leaves are replaced by their blocks below
+    st = init_state(cfg, b, 1 if seq else max_len or s,
+                    device=tokens.device)
     sh = p["shared"]
+    lay = TP.ssm(cfg)
+    ks, vs = [], []
     for g, j, lp in _mamba_blocks(p, cfg):
         h_in = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
         inputs = M._ssd_inputs(lp["ssd"], h_in, cfg)
-        for key, v in _mamba_state_of(lp, inputs, cfg).items():
+        final = {}
+        x = x + M._ssd_core(lp["ssd"], h_in, cfg, kernels, inputs, final)
+        for key, v in M.final_state(lp, inputs, cfg, lay, final).items():
             _mamba_state(st, g, j)[key].copy_(v)
-        x = x + M._ssd_core(lp["ssd"], h_in, cfg, kernels, inputs)
         if g is not None and j == mpg - 1:
             a, k, v = T._self_attention(sh["attn"],
                                         T.norm(sh["attn_norm"], x, cfg),
                                         cfg, positions)
-            st["attn"]["k"][g, :, :s] = k
-            st["attn"]["v"][g, :, :s] = v
+            ks.append(k)
+            vs.append(v)
             x = x + a
             x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
                           cfg.activation, cfg.d_ff)
+    for name, rows in (("k", ks), ("v", vs)):
+        if seq and rows:
+            st["attn"][name] = T.seq_cache_rows(rows, cfg, max_len, name)
+        elif rows:
+            st["attn"][name][:, :, :s] = torch.stack(rows)
+    if seq:
+        x = SEQ.from_last(x[:, -1:, :], "last_hidden")
     return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], st
 
 

@@ -13,7 +13,11 @@ parallelism (``distributed.tp.use(mesh)``,
 where the parameters are the rank's blocks of ``params_sharding``):
 Megatron's layout, column-parallel Q/K/V, up and gate, their input
 through ``tp.copy``; row-parallel O and down, their output through
-``tp.reduce`` before the (replicated) bias.  Head counts come from the
+``tp.reduce`` before the (replicated) bias (with ``sp``, Megatron-SP:
+``tp.sp_in``'s all-gather and ``tp.sp_out``'s reduce-scatter along the
+sequence).  :func:`decode_attention` over a batch-1 cache whose time
+axis is sharded over the DP group (``distributed.seq``) merges the
+ranks' flash statistics.  Head counts come from the
 rank's layout (``tp.layout``: every head on one device).  Without a
 "model" axis the ``tp`` helpers are the identity, so the body is the
 single-device computation.
@@ -26,6 +30,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..tree import tree_map
 
@@ -194,14 +199,16 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def row_dense(p: Params, x: torch.Tensor, sharded: bool) -> torch.Tensor:
+def row_dense(p: Params, x: torch.Tensor, sharded: bool,
+              sp: bool = False) -> torch.Tensor:
     """A row-parallel product: the rank's partial sum all-reduced over
-    "model" when the weight's rows are sharded, then the bias."""
+    "model" when the weight's rows are sharded (with ``sp``
+    reduce-scattered along the sequence), then the bias."""
     y = x @ p["w"]
     if sharded:
-        y = TP.reduce(y)
+        y = TP.sp_out(y, sp)
     if "b" in p:
-        y = y + p["b"]
+        y = y + TP.sp_rep(p["b"], sp)
     return y
 
 
@@ -271,12 +278,15 @@ def _gqa_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            positions: torch.Tensor, *, causal: bool = True,
-           out_dtype=None) -> torch.Tensor:
+           out_dtype=None, k_positions=None) -> torch.Tensor:
     """Softmax attention q [B,S,nh,d] over k/v [B,T,kvh,d] in query chunks
-    of ``ATTN_CHUNK``; plain matmul + softmax.  Returns [B, S, nh·d]."""
+    of ``ATTN_CHUNK``; plain matmul + softmax.  Returns [B, S, nh·d].
+    The causal mask compares ``positions`` (the queries') with
+    ``k_positions`` (the keys', by default the same)."""
     b, s, nh, hd = q.shape
     out_dtype = out_dtype or q.dtype
     scale = hd ** -0.5
+    kpos = positions if k_positions is None else k_positions
     qc = min(ATTN_CHUNK, s)
     if s % qc != 0:
         qc = s
@@ -284,7 +294,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, s, qc):
         sc = _gqa_scores(q[:, q0:q0 + qc], k) * scale        # [B,nh,qc,T]
         if causal:
-            mask = positions[:, q0:q0 + qc, None] >= positions[:, None, :]
+            mask = positions[:, q0:q0 + qc, None] >= kpos[:, None, :]
             sc = torch.where(mask[:, None], sc, torch.full_like(sc, -1e30))
         pr = torch.softmax(sc, dim=-1).to(v.dtype)
         outs.append(_gqa_pv(pr, v).to(out_dtype))
@@ -311,37 +321,45 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params,
     ``pos`` clamped into the cache (as JAX's ``dynamic_update_slice``
     clamps); a slot whose ``live`` (bool [B]) is False writes nothing.
     Under tensor parallelism: the rank's heads, and ``cache`` holds the
-    rank's block of k/v (``cache_pspec``: kv heads, else head_dim)."""
-    b, t = x.shape[0], cache["k"].shape[1]
+    rank's block of k/v (``cache_pspec``: kv heads, else head_dim).  Over
+    a batch-1 cache whose time axis is sharded over the DP group
+    (``distributed.seq``): ``cache`` holds the rank's block of rows, the
+    rank that owns row ``pos`` writes it, and the softmax merges the
+    ranks' flash statistics (``seq.merge_softmax``, the row's own
+    softmax without a group)."""
+    b, t_l = x.shape[0], cache["k"].shape[1]
     hd = cfg.resolved_head_dim
     q, k_new, v_new, lay = qkv(p, x, cfg, pos[:, None])       # [B,1,nh,d]
     rows = torch.arange(b, device=x.device)
-    wpos = torch.clamp(pos, max=t - 1)
-    write_rows(cache["k"], (rows, wpos), TP.cache_block(k_new, lay)[:, 0],
-               live)
-    write_rows(cache["v"], (rows, wpos), TP.cache_block(v_new, lay)[:, 0],
-               live)
+    local, keep = SEQ.owner_rows(pos, t_l, live)
+    write_rows(cache["k"], (rows, local), TP.cache_block(k_new, lay)[:, 0],
+               keep)
+    write_rows(cache["v"], (rows, local), TP.cache_block(v_new, lay)[:, 0],
+               keep)
     k = TP.compute_heads(cache["k"], lay, "k_cache")
     v = TP.compute_heads(cache["v"], lay, "v_cache")
-    sc = _gqa_scores(q, k) * (hd ** -0.5)                     # [B,nh,1,T]
-    valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
-    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, -1e30))
-    pr = torch.softmax(sc, dim=-1).to(v.dtype)
-    out = _gqa_pv(pr, v).to(x.dtype).reshape(b, 1, lay.nh_l * hd)
-    return o_proj(p, out, cfg)
+    kvh = k.shape[2]
+    g = q.shape[2] // kvh
+    qg = q[:, 0].reshape(b, kvh, g, hd).float()
+    sc = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (hd ** -0.5)
+    t_glob = SEQ.offset(t_l) + torch.arange(t_l, device=x.device)
+    out = SEQ.merge_softmax(sc, t_glob[None, :] <= pos[:, None], v)
+    return o_proj(p, out.to(x.dtype).reshape(b, 1, q.shape[2] * hd), cfg)
 
 
-def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor):
+def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor,
+        sp: bool = False):
     """Q/K/V of one block → (q [B, S, nh_l, d] on the rank's query heads,
     k and v [B, S, kvh_c, d] RoPE'd, the rank's ``tp.layout``):
     ``kvh_c`` is the rank's kv heads when the layout is ``aligned`` (on
     one device: every head), else every kv head (the projection's
     columns all-gathered over "model", or computed whole where the rule
-    replicates them)."""
+    replicates them).  With ``sp`` (Megatron-SP) ``h`` is the rank's
+    block of the sequence, gathered whole here."""
     lay = TP.layout(cfg)
     hd = cfg.resolved_head_dim
     sharded = o_sharded(cfg)
-    hc = TP.copy(h) if sharded else h
+    hc = TP.sp_in(h, sp) if sharded else h
     q = split_heads(dense(p["wq"], hc), lay.nh_l)
     if sharded and not lay.kv_sharded:
         # wk/wv replicated, read by the rank's heads only: each rank's
@@ -363,10 +381,11 @@ def o_sharded(cfg) -> bool:
     return TP.width_sharded(cfg.num_heads * cfg.resolved_head_dim)
 
 
-def o_proj(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def o_proj(p: Params, x: torch.Tensor, cfg, sp: bool = False
+           ) -> torch.Tensor:
     """The attention's output projection ``p["wo"]``: row-parallel under
     tensor parallelism."""
-    return row_dense(p["wo"], x, o_sharded(cfg))
+    return row_dense(p["wo"], x, o_sharded(cfg), sp)
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
@@ -420,16 +439,18 @@ def cross_cache(kv, cfg):
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str,
-        d_ff: int = None) -> torch.Tensor:
+        d_ff: int = None, sp: bool = False) -> torch.Tensor:
     """down(act(gate(x)) · up(x)) when the MLP is gated, else
     down(act(up(x))).  Under tensor parallelism ``d_ff`` is the whole
-    hidden width: the rule shards it over "model" when M divides it."""
+    hidden width: the rule shards it over "model" when M divides it.
+    With ``sp`` (Megatron-SP) ``x`` and the output are the rank's block
+    of the sequence."""
     act = _ACT[activation]
     sharded = d_ff is not None and TP.width_sharded(d_ff)
     if sharded:
-        x = TP.copy(x)
+        x = TP.sp_in(x, sp)
     if "gate" in p:
         h = act(dense(p["gate"], x)) * dense(p["up"], x)
     else:
         h = act(dense(p["up"], x))
-    return row_dense(p["down"], h, sharded)
+    return row_dense(p["down"], h, sharded, sp)

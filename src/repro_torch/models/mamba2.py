@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..kernels.ops import KernelSet, make_kernels
 from ..platform import torch_dtype
@@ -112,9 +113,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _conv_causal(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv: x [B, S, C], w [W, C].  The taps sum in
-    float32 in the reference's order, then silu, then the cast."""
+    float32 in the reference's order, then silu, then the cast.  Under
+    batch-1 sequence sharding the rows before the rank's block are the
+    previous rank's last W − 1 (``seq.halo``), zeros on rank 0."""
     width, s = w.shape[0], x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    if SEQ.current() is not None:
+        xp = torch.cat([SEQ.halo(x[:, s - (width - 1):, :]), x], dim=1)
+    else:
+        xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(width):            # width is 4: unrolled taps
         out = out + xp[:, i:i + s, :].float() * w[i].float()
@@ -199,8 +205,12 @@ def _out(p: Params, y: torch.Tensor, cfg, lay, dtype) -> torch.Tensor:
 
 
 def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
-              inputs) -> torch.Tensor:
-    """The chunked SSD of one layer on its ``_ssd_inputs``; [B, S, H]."""
+              inputs, final: Optional[dict] = None) -> torch.Tensor:
+    """The chunked SSD of one layer on its ``_ssd_inputs``; [B, S, H].
+    Under batch-1 sequence sharding the rank runs its own chunks, and
+    the state entering its first chunk is ``seq.carry``'s scan of the
+    ranks' end states; ``final`` (a dict) then receives the state at the
+    end of the whole sequence as ``"ssm"``."""
     z, _, xh, bm, cm, dt = inputs
     b, s, _ = x_in.shape
     lay = TP.ssm(cfg)
@@ -237,6 +247,15 @@ def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
         h_prevs.append(h)
         h = gc[:, c, :, None, None] * h + states[:, c]
     h_prevs = torch.stack(h_prevs, dim=1)                  # [B,nc,nh,hd,ds]
+    if SEQ.current() is not None:
+        # the state carried in from the ranks before, decayed to each
+        # chunk's start: exp of the exclusive cumsum of chunk decays
+        ends = l[:, :, -1, :]                              # [B,nc,nh]
+        h_in, h_fin = SEQ.carry(h, ends.sum(1))
+        before = torch.exp(torch.cumsum(ends, dim=1) - ends)
+        h_prevs = h_prevs + before[..., None, None] * h_in[:, None]
+        if final is not None:
+            final["ssm"] = h_fin
     y_inter = torch.einsum("bcqd,bcnpd->bcqnp", cm_c, h_prevs) \
         * torch.exp(l)[..., None]
 
@@ -358,22 +377,41 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
     b, s = tokens.shape
     x = T.embed(p, cfg, tokens)
     state = init_state(cfg, b, device=tokens.device)
-    w1 = cfg.ssm_conv_width - 1
     lay = TP.ssm(cfg)
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         h_in = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
         inputs = _ssd_inputs(lp["ssd"], h_in, cfg)
-        x = x + _ssd_core(lp["ssd"], h_in, cfg, kernels, inputs)
-        _, xbc_raw, xh, bm, _, dt = inputs
-        state["conv"][i] = TP.conv_local(xbc_raw[:, -w1:, :], lay)
-        l = torch.cumsum(dt * -torch.exp(_heads(lp["ssd"]["a_log"], lay)),
-                         dim=1)
-        decay_to_end = torch.exp(l[:, -1:, :] - l)          # [B, S, nh]
-        w = (dt * decay_to_end)[..., None] * xh             # [B,S,nh,hd]
-        state["ssm"][i] = torch.einsum("bsd,bsnp->bnpd", bm, w)
+        final = {}
+        x = x + _ssd_core(lp["ssd"], h_in, cfg, kernels, inputs, final)
+        for k, v in final_state(lp, inputs, cfg, lay, final).items():
+            state[k][i] = v
+    if SEQ.current() is not None:
+        x = SEQ.from_last(x[:, -1:, :], "last_hidden")
     logits = T.logits_head(p, x[:, -1:, :], cfg)[:, 0]
     return logits, state
+
+
+def final_state(lp: Params, inputs, cfg, lay, final: dict) -> Params:
+    """A Mamba2 block's decode state after a prefill, from its
+    ``_ssd_inputs``: the conv window is the last w−1 rows of the PRE-conv
+    xbc (the rule's channel block), the ssm state the reference's own
+    formula, the einsum ``bsd,bsn,bsnp->bnpd`` of B, dt·decay_to_end and
+    x over the full-sequence cumsum of the decay, in float32.  Under
+    batch-1 sequence sharding the window is the last rank's and the ssm
+    state ``_ssd_core``'s scan over the ranks (``final``)."""
+    _, xbc_raw, xh, bm, _, dt = inputs
+    w1 = cfg.ssm_conv_width - 1
+    conv = TP.conv_local(xbc_raw[:, -w1:, :], lay)
+    if SEQ.current() is not None:
+        return {"conv": SEQ.from_last(conv, "conv_state"),
+                "ssm": final["ssm"]}
+    l = torch.cumsum(dt * -torch.exp(_heads(lp["ssd"]["a_log"], lay)), dim=1)
+    decay_to_end = torch.exp(l[:, -1:, :] - l)              # [B, S, nh]
+    # the path jnp.einsum's optimizer takes: the elementwise pair first,
+    # then one contraction over s
+    w = (dt * decay_to_end)[..., None] * xh                 # [B,S,nh,hd]
+    return {"conv": conv, "ssm": torch.einsum("bsd,bsnp->bnpd", bm, w)}
 
 
 def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,

@@ -11,6 +11,13 @@ layernorm with a bias in place of rmsnorm), ``gated_mlp`` and
 ``tie_embeddings`` (no ``lm_head``: the head is the embedding table, and
 embeddings are scaled by √d_model rounded to the config's dtype).
 
+Megatron-SP (``cfg.seq_parallel`` on a "model" axis larger than 1):
+training, the forward and prefill keep the residual stream sequence
+sharded between the TP products (``distributed.tp.sp_on``).  A batch-1
+sequence sharded over the DP group (``distributed.seq``) attends to the
+keys gathered from every rank at global positions; its prefill emits
+the rank's block of the cache's time axis.
+
 Under tensor parallelism (``distributed.tp.use(mesh)``; parameters are
 the rank's ``params_sharding`` blocks) the embedding and the head are
 vocab-parallel when M divides the padded vocab (a lookup over the
@@ -25,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..platform import torch_dtype
 from . import layers as L
@@ -138,19 +146,25 @@ def param_bytes(p) -> int:
 # Forward pieces
 # ---------------------------------------------------------------------------
 
-def norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """layernorm with ``use_bias`` (starcoder2, seamless), else rmsnorm."""
+def norm(p: Params, x: torch.Tensor, cfg, sp: bool = False) -> torch.Tensor:
+    """layernorm with ``use_bias`` (starcoder2, seamless), else rmsnorm
+    (under Megatron-SP on the rank's rows: its parameters pass
+    ``tp.sp_rep``)."""
+    if sp:
+        p = {k: TP.sp_rep(v, sp) for k, v in p.items()}
     if cfg.use_bias:
         return L.layernorm(p, x, cfg.norm_eps)
     return L.rmsnorm(p, x, cfg.norm_eps)
 
 
-def embed(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p: Params, cfg, tokens: torch.Tensor, sp: bool = False
+          ) -> torch.Tensor:
     """Embedding rows, times √d_model rounded to the config's dtype when
     the embeddings are tied (the reference multiplies by
-    ``jnp.asarray(√d, dtype)``)."""
+    ``jnp.asarray(√d, dtype)``); under Megatron-SP the rank's block of
+    the sequence."""
     if vocab_sharded(cfg):
-        x = TP.embed(p["embed"]["w"], tokens)
+        x = TP.embed(p["embed"]["w"], tokens, sp)
     else:
         x = p["embed"]["w"][tokens]
     if cfg.tie_embeddings:
@@ -165,14 +179,16 @@ def vocab_sharded(cfg) -> bool:
 
 
 def logits_head(p: Params, x: torch.Tensor, cfg,
-                whole: bool = True) -> torch.Tensor:
+                whole: bool = True, sp: bool = False) -> torch.Tensor:
     """Final norm, then the head: ``lm_head``, or the embedding table
     [V, H] itself when tied (``einsum("...h,vh->...v")``).  Vocab-parallel,
-    the rank's columns, all-gathered unless ``whole`` is False."""
-    h = norm(p["final_norm"], x, cfg)
+    the rank's columns, all-gathered unless ``whole`` is False; under
+    Megatron-SP ``x`` is the rank's block of the sequence, the logits
+    every position's."""
+    h = norm(p["final_norm"], x, cfg, sp)
     sharded = vocab_sharded(cfg)
     if sharded:
-        h = TP.copy(h)
+        h = TP.sp_in(h, sp)
     if cfg.tie_embeddings:
         logits = h @ p["embed"]["w"].t()
     else:
@@ -187,35 +203,55 @@ def logits_head(p: Params, x: torch.Tensor, cfg,
 
 
 def _self_attention(lp: Params, h: torch.Tensor, cfg,
-                    positions: torch.Tensor, causal: bool = True):
+                    positions: torch.Tensor, causal: bool = True,
+                    sp: bool = False):
     """Self-attention of one block (causal unless asked otherwise, as an
     encoder's is); also returns its RoPE'd K and V [B, S, kvh, d] (the
     prefill cache rows; under tensor parallelism the rank's cache block
-    of them)."""
-    q, k, v, lay = L.qkv(lp, h, cfg, positions)
-    out = L.attend(q, TP.my_heads(k, lay), TP.my_heads(v, lay), positions,
-                   causal=causal, out_dtype=h.dtype)
-    return (L.o_proj(lp, out, cfg), TP.cache_block(k, lay),
+    of them).  ``positions`` are the queries' (global: a batch-1
+    sequence sharded over the DP group, ``distributed.seq``, attends to
+    the keys gathered from every rank)."""
+    q, k, v, lay = L.qkv(lp, h, cfg, positions, sp)
+    kk, vv = TP.my_heads(k, lay), TP.my_heads(v, lay)
+    kpos = None
+    if SEQ.current() is not None:
+        kk, vv = (SEQ.gather_time(kk, 1, "k_rows"),
+                  SEQ.gather_time(vv, 1, "v_rows"))
+        kpos = torch.arange(kk.shape[1], device=h.device).expand(
+            h.shape[0], -1)
+    out = L.attend(q, kk, vv, positions, causal=causal, out_dtype=h.dtype,
+                   k_positions=kpos)
+    return (L.o_proj(lp, out, cfg, sp), TP.cache_block(k, lay),
             TP.cache_block(v, lay))
 
 
 def block(p: Params, x: torch.Tensor, positions: torch.Tensor,
-          cfg) -> torch.Tensor:
-    """One dense block: x [B, S, H] → x + attn(norm(x)) + mlp(norm(·))."""
-    x = x + _self_attention(p["attn"], norm(p["attn_norm"], x, cfg), cfg,
-                            positions)[0]
-    return x + L.mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.activation,
-                     cfg.d_ff)
+          cfg, sp: bool = False) -> torch.Tensor:
+    """One dense block: x [B, S, H] → x + attn(norm(x)) + mlp(norm(·));
+    under Megatron-SP (``sp``) x is the rank's block of the sequence and
+    ``positions`` the whole sequence's."""
+    x = x + _self_attention(p["attn"], norm(p["attn_norm"], x, cfg, sp),
+                            cfg, positions, sp=sp)[0]
+    return x + L.mlp(p["mlp"], norm(p["mlp_norm"], x, cfg, sp),
+                     cfg.activation, cfg.d_ff, sp)
+
+
+def positions_of(tokens: torch.Tensor) -> torch.Tensor:
+    """The global positions [B, S] of ``tokens`` (offset by the rank's
+    block under batch-1 sequence sharding)."""
+    b, s = tokens.shape
+    return (SEQ.offset(s) + torch.arange(s, device=tokens.device)).expand(
+        b, s)
 
 
 def forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
-    b, s = tokens.shape
-    x = embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    sp = TP.sp_on(cfg, tokens.shape[1])
+    x = embed(p, cfg, tokens, sp)
+    positions = positions_of(tokens)
     for i in range(cfg.num_layers):
-        x = block(L.layer_params(p["layers"], i), x, positions, cfg)
-    return logits_head(p, x, cfg)
+        x = block(L.layer_params(p["layers"], i), x, positions, cfg, sp)
+    return logits_head(p, x, cfg, sp=sp)
 
 
 def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
@@ -225,40 +261,46 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     the port is on the dense training path."""
     del kernels
     tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    sp = TP.sp_on(cfg, tokens.shape[1])
+    x = embed(p, cfg, tokens, sp)
+    positions = positions_of(tokens)
     body = L.ckpt(block, cfg)
     for lp in L.unstack(p["layers"], cfg.num_layers):
-        x = body(lp, x, positions, cfg)
-    return loss_head(p, x, cfg, batch["labels"])
+        x = body(lp, x, positions, cfg, sp)
+    return loss_head(p, x, cfg, batch["labels"], sp)
 
 
-def loss_head(p: Params, x: torch.Tensor, cfg, labels: torch.Tensor
-              ) -> torch.Tensor:
+def loss_head(p: Params, x: torch.Tensor, cfg, labels: torch.Tensor,
+              sp: bool = False) -> torch.Tensor:
     """The head and the mean cross-entropy of the final hidden ``x``
-    (vocab-parallel: over the rank's logit columns)."""
+    (vocab-parallel: over the rank's logit columns; under Megatron-SP
+    ``x`` is the rank's rows, ``labels`` every position's)."""
     if vocab_sharded(cfg):
-        return TP.cross_entropy(logits_head(p, x, cfg, whole=False), labels)
+        return TP.cross_entropy(logits_head(p, x, cfg, whole=False, sp=sp),
+                                labels)
     return L.cross_entropy(logits_head(p, x, cfg), labels)
 
 
 def forward_layers(p: Params, cfg, tokens: torch.Tensor):
     """Run every block over ``tokens`` [B, S] → (final hidden [B, S, H],
-    per-layer K list, per-layer V list)."""
-    b, s = tokens.shape
-    x = embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    per-layer K list, per-layer V list).  Under Megatron-SP the final
+    hidden is gathered whole (the K/V rows are every position's)."""
+    sp = TP.sp_on(cfg, tokens.shape[1])
+    x = embed(p, cfg, tokens, sp)
+    positions = positions_of(tokens)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
-        a, k, v = _self_attention(lp["attn"], norm(lp["attn_norm"], x, cfg),
-                                  cfg, positions)
+        a, k, v = _self_attention(lp["attn"],
+                                  norm(lp["attn_norm"], x, cfg, sp), cfg,
+                                  positions, sp=sp)
         x = x + a
-        x = x + L.mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation, cfg.d_ff)
+        x = x + L.mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg, sp),
+                      cfg.activation, cfg.d_ff, sp)
         ks.append(k)
         vs.append(v)
+    if sp:
+        x = TP.gather(x, 1, "sp_hidden")
     return x, ks, vs
 
 
@@ -288,14 +330,38 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
 def prefill(p: Params, cfg, tokens: torch.Tensor,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward that also emits the KV cache.
-    Returns (last-position logits [B, V], cache [L, B, T, kvh, d])."""
+    Returns (last-position logits [B, V], cache [L, B, T, kvh, d]).
+    Under batch-1 sequence sharding ``tokens`` is the rank's block of
+    the prompt, the cache the rank's block of T = ``max_len`` (default:
+    the whole prompt) rows, and the logits the last rank's."""
     b, s = tokens.shape
-    t = max_len or s
     x, ks, vs = forward_layers(p, cfg, tokens)
+    if SEQ.current() is not None:
+        cache = {n: seq_cache_rows(rows, cfg, max_len, n)
+                 for n, rows in (("k", ks), ("v", vs))}
+        return logits_head(p, SEQ.from_last(x[:, -1:, :], "last_hidden"),
+                           cfg)[:, 0], cache
+    t = max_len or s
     cache = init_cache(cfg, b, t, device=tokens.device)
     cache["k"][:, :, :s] = torch.stack(ks)
     cache["v"][:, :, :s] = torch.stack(vs)
     return logits_head(p, x[:, -1:, :], cfg)[:, 0], cache
+
+
+def seq_cache_rows(rows, cfg, max_len: Optional[int], what: str
+                   ) -> torch.Tensor:
+    """A prefill cache leaf [n, B, T/D, kvh, d] from the rank's K or V
+    rows (a list of n layers' blocks [B, S/D, kvh, d]) under batch-1
+    sequence sharding: with T = ``max_len`` the prompt's length (or
+    None) the rank's block of T is its own rows, with no collective;
+    a longer T moves each layer's rows to the ranks whose blocks hold
+    them (``seq.to_blocks``), zeros past the prompt."""
+    dt = torch_dtype(cfg.dtype)
+    s = rows[0].shape[1] * SEQ.current().size
+    if max_len is None or max_len == s:
+        return torch.stack(rows).to(dt)
+    return torch.stack([SEQ.to_blocks(r.to(dt), max_len, "prefill_" + what)
+                        for r in rows])
 
 
 def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,

@@ -22,17 +22,21 @@ On a mesh (``runtime.steps.make_train_step(mesh=, zero1=True)``)
 :meth:`AdamW.update_zero1` is ZeRO-1: each DP rank holds and updates its
 block of m, v and the parameter, and the updated blocks are all-gathered
 back; :func:`clip_sharded` is the global clip over sharded gradients.
-Adafactor has no ZeRO-1 form here (a train step refuses it at D > 1).
+:meth:`Adafactor.update` with a layout is Adafactor's: each rank holds
+the blocks of vr, vc and v that ``opt_state_sharding`` gives them and
+updates its block of the parameter; the row and column statistics that
+other ranks' blocks hold come from counted all-reduces.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .tree import leaves, named_leaves, rebuild, tree_map, unflatten_like
+from .tree import leaves, named_leaves, tree_map
 
 Tree = Any
 
@@ -209,44 +213,125 @@ class Adafactor:
         return {"fac": tree_map(st, params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(self, grads: Tree, state: Dict[str, Tree], params: Tree
-               ) -> Tuple[Tree, Dict[str, Tree]]:
-        """One step in the reference's arithmetic → (new params, new
-        state); each leaf's update is whole (its RMS clip reads the whole
-        leaf)."""
+    def update(self, grads: Tree, state: Dict[str, Tree], params: Tree,
+               lay=None) -> Tuple[Tree, Dict[str, Tree]]:
+        """One step in the reference's arithmetic → (params, state), both
+        updated IN PLACE; each leaf's update reads the whole leaf (its
+        statistics and RMS clip).  On a mesh (tensor parallelism and/or
+        ZeRO-1) the parameters, gradients and state are blocks, and
+        ``lay`` (the train step's layout) says where each lies: the
+        gradient ``g`` of a leaf is the rank's update block of it
+        (``lay.region``), its state leaves the blocks ``lay.state`` names.
+        Per leaf:
+
+        * the row and column means of g² + eps over the rank's block: a
+          mean over a dim no rank splits is the reference's own (bit for
+          bit); over a split dim (``lay.split``: the spec names an axis,
+          a one-rank one included) the ranks' sums, all-reduced over the
+          axis that splits it (``lay.reduce``), divided;
+        * the rank's state block takes the reference's moving average of
+          them, IN PLACE (``lay.move``: the statistic's rows gathered
+          over the axes that split them, where the state's block is
+          another), and is all-gathered whole (``lay.gather``);
+        * u over the rank's block; its RMS clip sums u² over the axes
+          that split the block;
+        * the rank updates its block of the parameter (ZeRO-1: then the
+          DP group's blocks are all-gathered, ``lay.param_back``).
+
+        Unfactored leaves (v) do the same with g² itself.  Without
+        ``lay`` every leaf is whole (:class:`_Whole`)."""
         _check_tree(grads, params)
+        lay = lay or _Whole(params)
         step = state["step"] + 1
         lr = self.lr(step)
         beta2 = 1.0 - step.float() ** (-self.decay)
-
-        def upd(g, st, p):
-            g32 = g.float()
+        fac_of = dict(_param_states(state["fac"], params))
+        for (name, p), g in zip(named_leaves(params), leaves(grads)):
+            st, reg = fac_of[name], lay.region[name]
+            whole = lay.whole[name]
+            # contiguous: a reduce-scatter leaves a dim-moved view, and a
+            # mean over a view may sum in another order than the
+            # reference's over the whole gradient
+            g32 = g.float().contiguous()
             g2 = g32 * g32 + self.eps
-            if self._factored(p.shape):
-                vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(dim=-1)
-                vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(dim=-2)
+
+            def moment(key, dim, rows):
+                if dim is None:
+                    part = g2
+                elif lay.split(reg[dim]):
+                    part = lay.reduce(g2.sum(dim), (reg[dim],),
+                                      "adafactor_" + key) / whole[dim]
+                else:
+                    part = g2.mean(dim)
+                blk = lay.state[f"fac/{name}/{key}"]
+                st[key].copy_(beta2 * st[key] + (1 - beta2) * lay.move(
+                    part, rows, blk, "adafactor_" + key + "_rows"))
+                return lay.gather(st[key], blk, "adafactor_" + key)
+
+            if self._factored(whole):
+                row, col = reg[:-1], reg[:-2] + reg[-1:]
+                vr = moment("vr", -1, row)
+                vc = moment("vc", -2, col)
                 rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
                                         min=self.eps)
-                u = g32 / (torch.sqrt(rfac)[..., None]
-                           * torch.sqrt(vc)[..., None, :] + 1e-12)
-                new_st = {"vr": vr, "vc": vc}
+                u = g32 / (torch.sqrt(lay.cut(rfac, row))[..., None]
+                           * torch.sqrt(lay.cut(vc, col))[..., None, :]
+                           + 1e-12)
             else:
-                v = beta2 * st["v"] + (1 - beta2) * g2
-                u = g32 / (torch.sqrt(v) + 1e-12)
-                new_st = {"v": v}
-            rms_u = torch.sqrt((u * u).mean() + 1e-12)
+                v = moment("v", None, reg)
+                u = g32 / (torch.sqrt(lay.cut(v, reg)) + 1e-12)
+            if any(lay.split(e) for e in reg):
+                ss = lay.reduce((u * u).sum().reshape(1), reg,
+                                "adafactor_rms").reshape(())
+                rms_u = torch.sqrt(ss / math.prod(whole) + 1e-12)
+            else:
+                rms_u = torch.sqrt((u * u).mean() + 1e-12)
             u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
+            blk = lay.param_block(name, p)
             if self.weight_decay:
-                u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), new_st
+                u = u + self.weight_decay * blk.float()
+            blk.copy_((blk.float() - lr * u).to(p.dtype))
+            lay.param_back(name, p, blk)
+        return params, {"fac": state["fac"], "step": step}
 
-        # the state's leaves per parameter: its {"vr", "vc"} or {"v"} dict
-        fac_of = dict(_param_states(state["fac"], params))
-        out = [upd(g, fac_of[name], p) for (name, p), g in
-               zip(named_leaves(params), leaves(grads))]
-        new_p = unflatten_like(params, [o[0] for o in out])
-        new_fac = _restack(params, [o[1] for o in out])
-        return new_p, {"fac": new_fac, "step": step}
+
+class _Whole:
+    """The layout of a tree held whole on one device (:meth:`Adafactor.
+    update` without a mesh): every block the whole leaf, no dim split, no
+    collective."""
+
+    def __init__(self, params: Tree):
+        self.whole = {n: tuple(p.shape) for n, p in named_leaves(params)}
+        self.region = {n: (None,) * len(s) for n, s in self.whole.items()}
+        self.state = collections.defaultdict(lambda: None)
+
+    @staticmethod
+    def split(entry) -> bool:
+        return False
+
+    @staticmethod
+    def reduce(t, spec, what):
+        return t
+
+    @staticmethod
+    def move(t, src, dst, what):
+        return t
+
+    @staticmethod
+    def gather(t, spec, what):
+        return t
+
+    @staticmethod
+    def cut(t, spec):
+        return t
+
+    @staticmethod
+    def param_block(name, p):
+        return p
+
+    @staticmethod
+    def param_back(name, p, blk):
+        pass
 
 
 def _param_states(fac: Tree, params: Tree):
@@ -256,13 +341,6 @@ def _param_states(fac: Tree, params: Tree):
         for k in name.split("/"):
             node = node[k]
         yield name, node
-
-
-def _restack(params: Tree, per_param: list) -> Tree:
-    """The ``fac`` tree: ``params``' structure with each leaf replaced by
-    its state dict, in sorted-key order."""
-    names = [name for name, _ in named_leaves(params)]
-    return rebuild(params, dict(zip(names, per_param)))
 
 
 def make_optimizer(cfg, base_lr: float = 3e-4, warmup: int = 100,

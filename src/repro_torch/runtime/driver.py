@@ -113,7 +113,7 @@ def train_loop(cfg: ArchConfig, shape: ShapeSpec, *, total_steps: int,
         cfg, opt, backend=backend, mesh=mesh, zero1=zero1)
     on = dict(zero1=zero1, optimizer=opt)
     sharded = mesh is not None and (
-        zero1 or steps_mod._tp_mesh(mesh) is not None)
+        zero1 or steps_mod._tp_mesh(mesh, cfg) is not None)
 
     def save_now(state, step):
         if mesh is None:
@@ -215,7 +215,7 @@ def save_for_mesh(cfg: ArchConfig, state: Tree, ckpt_dir: str, step: int,
     rank gathers, rank 0 writes, all wait for it.  Returns the bytes
     written (0 on the other ranks)."""
     import torch.distributed as dist
-    if on.get("zero1") or steps_mod._tp_mesh(mesh) is not None:
+    if on.get("zero1") or steps_mod._tp_mesh(mesh, cfg) is not None:
         params, opt_state = steps_mod.whole_train_state(
             cfg, state["params"], state["opt"], mesh, **on)
     else:
@@ -233,8 +233,10 @@ def restore_for_mesh(cfg: ArchConfig, ckpt_dir: str, mesh, *,
                      optimizer=None) -> Tree:
     """Elastic restore: the latest checkpoint of ``ckpt_dir`` RE-SHARDED
     for ``mesh`` — ``{"params", "opt"}`` of DTensors placed by
-    ``params_sharding`` / ``opt_state_sharding`` (ZeRO-1 on).  The mesh
-    it was saved on (or none) does not matter: every leaf is rebuilt
+    ``params_sharding`` / ``opt_state_sharding`` (ZeRO-1 on; a leaf whose
+    ZeRO-1 spec names "data" twice keeps its parameter's block,
+    ``sharding.zero1_block_spec``; Adafactor's vr, vc and v their own).
+    The mesh it was saved on (or none) does not matter: every leaf is rebuilt
     from its host copy (the reference's ``restore_for_mesh``).  A step
     on a "model" axis larger than 1 or with ``zero1`` takes this as it
     is (its leaves' local blocks); a plain data-parallel step, which
@@ -244,8 +246,11 @@ def restore_for_mesh(cfg: ArchConfig, ckpt_dir: str, mesh, *,
     opt = optimizer or make_optimizer(cfg)
     params_abs, opt_abs = steps_mod.abstract_train_state(cfg, opt)
     template = {"params": params_abs, "opt": opt_abs}
+    # the ZeRO-1 step's blocks: opt_state_sharding's, but a leaf whose
+    # spec names "data" twice keeps the parameter's block (caveat C10)
     specs = {"params": sh.params_sharding(params_abs, mesh, cfg),
-             "opt": sh.opt_state_sharding(opt_abs, mesh, cfg)}
+             "opt": sh._map_named(lambda n, t: sh.zero1_block_spec(
+                 n, tuple(t.shape), mesh, cfg), opt_abs)}
     # mapped over the template: a Spec is a tuple, not a subtree
     placements = tree_map(lambda _, sp: sh.placements(sp, mesh), template,
                           specs)

@@ -1,6 +1,7 @@
 """Step functions: the train step (gradient, optional compression,
-clip, optimizer), the eval step, the train state, and the decomposed
-forward and quality steps.
+clip, optimizer), the eval step, the train state, the prefill and decode
+steps (the reference's dry-run cells), and the decomposed forward and
+quality steps.
 
 Counterpart of ``repro.runtime.steps``.  The train and eval steps run
 each family's ``loss_fn`` through the kernel set of ``backend``
@@ -20,7 +21,8 @@ whole parameters and optimizer state: it takes the GLOBAL batch, keeps
 the rank's block of each leaf's leading dim (``distributed.sharding.
 batch_spec``'s rule: rank i of the DP group takes rows [i·b/dp,
 (i+1)·b/dp); a leading dim that dp does not divide stays whole on every
-rank; a batch-1 batch that the rule shards along its sequence raises),
+rank; a batch-1 batch that the rule shards along its sequence trains
+sequence sharded, below),
 and syncs the gradients over the DP group before the global clip, so
 the clip and the optimizer see the global gradient as the reference's
 GSPMD step does.  Each family's loss is a mean over its counted tokens
@@ -59,7 +61,22 @@ block of the parameter and the updated blocks are all-gathered.  Either
 way the global clip sums each leaf's squares once over the mesh
 (``optim.clip_sharded``: a block that M ranks hold alike counts 1/M on
 each).  Such a step takes ``driver.restore_for_mesh``'s DTensors as they
-are (their local blocks), with no ``unshard``.
+are (their local blocks), with no ``unshard``.  Adafactor's ZeRO-1 (and
+its tensor-parallel step) keeps vr, vc and v in ``opt_state_sharding``'s
+blocks and updates through ``optim.Adafactor.update``'s layout; a leaf
+already sharded over "data" (2-D experts) keeps its parameter's blocks
+for AdamW's moments (:class:`_Layout`, ROADMAP.md caveat C10).
+
+On a mesh a batch-1 batch (``seq_batch``; the dense, ssm and hybrid
+families) runs each rank on its block of the sequence under
+``distributed.seq.use`` (a one-rank DP group included): the attention's
+keys gathered, Mamba2's conv halo and state scan.  Every rank's loss
+then reads every rank's keys and states, so the weight n_i·dp / N
+scales the loss before the backward, and the DP sync sums the ranks'
+contributions to the gradient of the global mean.  Megatron-SP
+(``cfg.seq_parallel``) runs inside the dense family's functions on the
+mesh's "model" axis, a one-rank one included (:func:`_tp_mesh`,
+``distributed.tp.sp_on``).
 """
 from __future__ import annotations
 
@@ -69,9 +86,10 @@ import torch
 
 from ..configs import ArchConfig
 from ..distributed import compression as comp, sharding as sh
+from ..distributed import seq as SEQ
 from ..distributed import tp as TP
 from ..engine import DecomposeEngine, EngineConfig
-from ..engine.config import tp_mesh as _tp_mesh
+from ..engine.config import tp_mesh
 from ..kernels.ops import make_kernels
 from ..models import api
 from ..models import decomposed as D
@@ -136,41 +154,126 @@ def value_and_grad(loss_of: Callable, params: Tree, batch
     return loss.detach(), unflatten_like(params, out)
 
 
+def _tp_mesh(mesh, cfg):
+    """The mesh a step runs tensor-parallel on: ``engine.config.tp_mesh``'s
+    (a "model" axis larger than 1), or for a config that asks for
+    Megatron-SP any mesh with a "model" axis (at 1, a one-rank group whose
+    collectives are copies)."""
+    if mesh is not None and cfg.seq_parallel \
+            and "model" in sh.mesh_axes(mesh):
+        return mesh
+    return tp_mesh(mesh)
+
+
+def _axes(spec) -> list:
+    """The mesh axis names a spec's entries name."""
+    return [a for e in spec for a in (e if isinstance(e, tuple) else (e,))
+            if a is not None]
+
+
 class _Layout:
     """Where each leaf of a sharded train state lives: its param spec,
     its ZeRO-1 dim (the dim ``opt_state_sharding`` adds the DP axis to,
     None for none), whether its gradient is already reduced over "data"
-    (2-D expert weights), and the clip weight of its local block."""
+    (2-D expert weights), the clip weight of its local block, the spec
+    of the rank's update block (``region``: the param spec plus the DP
+    axis on the ZeRO-1 dim) and of each optimizer-state leaf's block
+    (``state``).
+
+    A leaf already sharded over "data" (``expert_sharding="2d"``) gets a
+    ZeRO-1 spec from the rules that names "data" twice (the reference's
+    ``_zero1``; JAX refuses such a spec, ROADMAP.md caveat C10): the step
+    reads it as already split over DP, so its AdamW moments keep the
+    parameter's own blocks, with no second split.  Adafactor's vr, vc and
+    v keep the rules' blocks (their paths match no parameter rule, so
+    their specs name the DP axis once).  ``reduce``, ``move``, ``cut``,
+    ``gather``, ``param_block``, ``param_back`` and ``split`` are the
+    block arithmetic ``optim.Adafactor.update`` runs on a mesh."""
 
     def __init__(self, cfg, opt, mesh, tp: bool, zero1: bool):
         p_abs, o_abs = abstract_train_state(cfg, opt)
         m_size = sh.model_size(mesh)
         dp = sh.dp_size(mesh)
+        self.mesh = mesh
         self.spec, self.block, self.data_reduced, self.weight = {}, {}, {}, {}
+        self.region, self.whole, self.state = {}, {}, {}
         for name, leaf in named_leaves(p_abs):
             shape = tuple(leaf.shape)
             rule = sh.param_spec(name, shape, mesh, cfg)
             spec = rule if tp else sh.Spec(*([None] * len(shape)))
             self.spec[name] = spec
-            flat = [a for e in spec for a in
-                    (e if isinstance(e, tuple) else (e,)) if e is not None]
+            self.whole[name] = shape
+            flat = _axes(spec)
             self.data_reduced[name] = "data" in flat and dp > 1
             dim = None
-            if zero1 and len(shape) >= 1:     # opt_state_sharding's dim
-                z = sh._zero1(rule, shape, mesh)
+            if zero1 and len(shape) >= 1 and not self.data_reduced[name]:
+                z = sh._zero1(rule, shape, mesh)  # opt_state_sharding's dim
                 dim = next((d for d, (a, b) in enumerate(zip(rule, z))
                             if a != b), None)
-                if dim is not None and self.data_reduced[name]:
-                    raise NotImplementedError(
-                        f"{name}: ZeRO-1 of a leaf already sharded over "
-                        f"'data' (expert_sharding='2d') is not ported")
             self.block[name] = dim
+            region = list(spec)
+            if dim is not None:
+                region[dim] = sh.dp_name(mesh)
+            self.region[name] = sh.Spec(*region)
             rep = 1
             if "model" not in flat:
                 rep *= m_size
             if dim is None and not self.data_reduced[name]:
                 rep *= dp
             self.weight[name] = 1.0 / rep
+        for name, leaf in named_leaves(o_abs):
+            if name == "step":
+                continue
+            if name.startswith("fac/"):          # Adafactor: the rules'
+                shape = tuple(leaf.shape)
+                spec = sh.param_spec(name, shape, mesh, cfg)
+                self.state[name] = sh._zero1(spec, shape, mesh) \
+                    if zero1 and shape else spec
+            else:                                # AdamW m/v: the region
+                self.state[name] = self.region[name.split("/", 1)[1]]
+
+    def split(self, entry) -> bool:
+        """Whether a spec entry splits its dim (names an axis: a one-rank
+        axis too, whose collectives are copies)."""
+        return entry is not None
+
+    def reduce(self, t: torch.Tensor, spec, what: str) -> torch.Tensor:
+        """``t`` summed over every axis ``spec`` names."""
+        for entry in dict.fromkeys(e for e in spec if e is not None):
+            t = t.contiguous()
+            sh.all_reduce(t, sh.axis_group(self.mesh, entry), what)
+        return t
+
+    def move(self, t: torch.Tensor, src, dst, what: str) -> torch.Tensor:
+        """This rank's block under ``dst`` of the tensor whose block under
+        ``src`` is ``t`` (gathered over ``src``'s axes where they differ)."""
+        if tuple(src) == tuple(dst):
+            return t
+        return self.cut(self.gather(t, src, what), dst)
+
+    def cut(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of the whole ``t`` under ``spec``."""
+        return sh.local_block(t, spec, self.mesh)
+
+    def gather(self, t: torch.Tensor, spec, what: str) -> torch.Tensor:
+        """The whole tensor of this rank's block ``t`` under ``spec``."""
+        return sh.gather_block(t, spec, self.mesh, what)
+
+    def param_block(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """The rank's update block of its parameter block ``p`` (a view:
+        the ZeRO-1 dim's DP block, or ``p`` itself)."""
+        d = self.block[name]
+        if d is None:
+            return p
+        n = p.shape[d] // sh.dp_size(self.mesh)
+        return p.narrow(d, sh.dp_rank(self.mesh) * n, n)
+
+    def param_back(self, name: str, p: torch.Tensor, blk: torch.Tensor
+                   ) -> None:
+        """ZeRO-1: the DP group's updated blocks all-gathered into ``p``."""
+        d = self.block[name]
+        if d is not None:
+            p.copy_(sh.gather_dim(blk, sh.dp_group(self.mesh), "params", d))
 
 
 class _DPGather:
@@ -199,32 +302,18 @@ def shard_train_state(cfg: ArchConfig, params: Tree, opt_state: Tree,
     with the same ``mesh``/``zero1`` takes: the parameters'
     ``params_sharding`` blocks under tensor parallelism, and with ZeRO-1
     the DP rank's block of m and v (``opt_state_sharding``)."""
-    tp = _tp_mesh(mesh) is not None
+    tp = _tp_mesh(mesh, cfg) is not None
     lay = _Layout(cfg, optimizer or make_optimizer(cfg), mesh, tp, zero1)
     if tp:
         params = sh.shard_params(params, mesh, cfg)
-    if not zero1:
-        if tp:
-            opt_state = dict(opt_state, **{
-                k: sh.shard_params(opt_state[k], mesh, cfg)
-                for k in ("m", "v")})
-        return params, opt_state
-    i = sh.dp_rank(mesh)
-    where = sh.coords(mesh)
 
     def block(name, t):
-        full = t.shape
-        t = sh.local_block(t, lay.spec[name], mesh, where) if tp else t
-        d = lay.block[name]
-        if d is not None:
-            n = t.shape[d] // sh.dp_size(mesh)
-            t = t.narrow(d, i * n, n)
-        return t if t.shape == full else t.clone()
-    out = dict(opt_state)
-    for k in ("m", "v"):
-        out[k] = rebuild(opt_state[k], {n: block(n, t) for n, t in
-                                        named_leaves(opt_state[k])})
-    return params, out
+        if name not in lay.state:
+            return t
+        b = sh.local_block(t, lay.state[name], mesh)
+        return t if b.shape == t.shape else b.clone()
+    return params, rebuild(opt_state, {n: block(n, t) for n, t in
+                                       named_leaves(opt_state)})
 
 
 def whole_train_state(cfg: ArchConfig, params: Tree, opt_state: Tree,
@@ -232,24 +321,15 @@ def whole_train_state(cfg: ArchConfig, params: Tree, opt_state: Tree,
     """:func:`shard_train_state`'s inverse: the whole trees on every rank
     (all-gathers of the blocks; every rank calls it), so a checkpoint
     does not depend on the mesh it was saved on."""
-    tp = _tp_mesh(mesh) is not None
+    tp = _tp_mesh(mesh, cfg) is not None
     lay = _Layout(cfg, optimizer or make_optimizer(cfg), mesh, tp, zero1)
     params, opt_state = local_blocks(params), local_blocks(opt_state)
-
-    def whole(name, t, moment):
-        d = lay.block[name]
-        if moment and zero1 and d is not None:
-            t = sh.gather_dim(t, sh.dp_group(mesh), "checkpoint", d)
-        if tp:
-            t = sh.gather_block(t, lay.spec[name], mesh, "checkpoint")
-        return t
-    params = rebuild(params, {n: whole(n, t, False)
-                              for n, t in named_leaves(params)})
-    out = dict(opt_state)
-    for k in ("m", "v"):
-        out[k] = rebuild(opt_state[k], {n: whole(n, t, True) for n, t in
-                                        named_leaves(opt_state[k])})
-    return params, out
+    params = rebuild(params, {
+        n: sh.gather_block(t, lay.spec[n], mesh, "checkpoint")
+        for n, t in named_leaves(params)})
+    return params, rebuild(opt_state, {
+        n: sh.gather_block(t, lay.state[n], mesh, "checkpoint")
+        if n in lay.state else t for n, t in named_leaves(opt_state)})
 
 
 def make_train_step(cfg: ArchConfig, optimizer=None,
@@ -266,19 +346,15 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
     means.  The parameters are updated in place and returned.  With
     ``mesh`` the step is data-parallel, tensor-parallel on a "model"
     axis larger than 1, and ZeRO-1 as ``zero1`` asks (module
-    docstring)."""
+    docstring).  On a mesh a batch-1 batch trains sequence sharded over
+    the DP group (:func:`seq_batch`; module docstring)."""
     fns = api.model_fns(cfg)
     opt = optimizer or make_optimizer(cfg)
     kernels = make_kernels(backend)
-    tpm = _tp_mesh(mesh)
+    tpm = _tp_mesh(mesh, cfg)
     lay = None
     if mesh is not None:
         sh.require_groups(mesh, "a train step")
-        if zero1 and not isinstance(opt, AdamW):
-            raise NotImplementedError(
-                f"ZeRO-1 of {type(opt).__name__}: the port's ZeRO-1 step "
-                f"is AdamW's; Adafactor's factored state on a DP mesh is "
-                f"an item of ROADMAP.md's distribution work")
         if tpm is not None or zero1:
             lay = _Layout(cfg, opt, mesh, tpm is not None, zero1)
         if grad_transform is None:
@@ -314,13 +390,26 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
         return loss, grads
 
     def train_step(params, opt_state, batch):
+        seq = False
         if mesh is not None:
             params, opt_state = local_blocks(params), local_blocks(opt_state)
-            batch, weight = _dp_shard(batch, mesh, cfg.num_experts == 0)
-        with TP.use(tpm):
-            loss, grads = grads_of(params, batch)
+            seq = seq_batch(cfg, batch["tokens"].shape, mesh)
+            batch, weight = _dp_shard(batch, mesh, cfg.num_experts == 0,
+                                      seq)
+        if seq and microbatches != 1:
+            raise ValueError("a batch-1 sequence-sharded step takes no "
+                             "microbatches")
+        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None):
+            if seq:
+                # the weight enters before the backward: every rank's loss
+                # reads every rank's keys and states
+                loss, grads = value_and_grad(
+                    lambda p_, b_: loss_of(p_, b_) * weight, params, batch)
+            else:
+                loss, grads = grads_of(params, batch)
         if mesh is not None:
-            grads, loss = _dp_weigh(grads, loss, weight, mesh)
+            grads, loss = _dp_weigh(grads, loss, 1.0 if seq else weight,
+                                    mesh)
         if grad_transform is not None:
             grads = grad_transform(grads)
             if zero1 and getattr(grad_transform, "whole", True):
@@ -330,7 +419,9 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
         else:
             grads, gnorm = clip_sharded(grads, max_grad_norm, lay.weight,
                                         lambda t: _mesh_sum(t, mesh))
-        if zero1:
+        if lay is not None and not isinstance(opt, AdamW):
+            params, opt_state = opt.update(grads, opt_state, params, lay)
+        elif zero1:
             params, opt_state = opt.update_zero1(grads, opt_state, params,
                                                  lay.block, _DPGather(mesh))
         else:
@@ -363,19 +454,44 @@ def _mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.reshape(())
 
 
-def _dp_shard(batch, mesh, split: bool):
+SEQ_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def seq_batch(cfg, shape, mesh) -> bool:
+    """Whether a batch whose tokens are ``shape`` [B, S] runs sequence
+    sharded over the DP group on ``mesh``: at B = 1 always, as a batch-1
+    decode cache's time axis is (``cache_pspec``), on a one-rank group
+    included; a length the group does not divide raises.  The moe, vlm
+    and audio families raise where the rules shard S (D > 1), and run
+    the batch path where they keep it."""
+    if mesh is None or shape[0] != 1:
+        return False
+    if cfg.family not in SEQ_FAMILIES:
+        spec = sh.batch_spec(tuple(shape), mesh)
+        if len(spec) < 2 or spec[1] is None:
+            return False
+        raise NotImplementedError(
+            f"batch-1 sequence sharding of the {cfg.family} family "
+            f"({cfg.name}): the port runs {SEQ_FAMILIES} (ROADMAP.md A1's "
+            f"remaining item)")
+    if cfg.seq_parallel and _tp_mesh(mesh, cfg) is not None:
+        raise NotImplementedError(
+            "batch-1 sequence sharding with Megatron-SP on the same step "
+            "(ROADMAP.md A1's remaining item)")
+    return True
+
+
+def _dp_shard(batch, mesh, split: bool, seq: bool = False):
     """(this rank's block of ``batch``, or all of it unless ``split``, and
-    its gradient weight n_i·dp / N)."""
+    its gradient weight n_i·dp / N); with ``seq`` the block is the
+    rank's rows of each leaf's sequence (dim 1)."""
     dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
     local = dict(batch)
     for k, v in (batch.items() if split else ()):
+        if seq:
+            local[k] = _seq_block(v, dp, i)
+            continue
         spec = sh.batch_spec(tuple(v.shape), mesh)
-        if len(spec) > 1 and spec[1] is not None:
-            raise NotImplementedError(
-                f"batch leaf {k!r} {tuple(v.shape)}: a batch-1 batch "
-                f"shards its sequence over the DP axis, which the port's "
-                f"train step does not run yet (the model-axis slice of "
-                f"ROADMAP.md's distribution work)")
         if spec and spec[0] is not None:
             n = v.shape[0] // dp
             local[k] = v[i * n:(i + 1) * n]
@@ -405,6 +521,128 @@ def make_eval_step(cfg: ArchConfig, backend: str = "cuda") -> Callable:
         with torch.no_grad():
             return {"loss": fns.loss_fn(params, cfg, batch, kernels)}
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps: prefill and decode (the dry-run's cells)
+# ---------------------------------------------------------------------------
+
+def _token_input(cfg) -> int:
+    """The index of the token matrix among a family's prefill inputs (the
+    audio family's come after its frames)."""
+    return 1 if cfg.family == "audio" else 0
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None, backend: str = "cuda"
+                      ) -> Callable:
+    """prefill(params, *inputs, max_len=None) → (last logits [B, V],
+    cache): the family's prefill on ``inputs`` (``api.prefill_input_specs``'
+    order), the ssm and hybrid families' SSD term through ``backend``'s
+    kernels.  With ``mesh``: under tensor parallelism on its "model"
+    axis, the parameters being the rank's blocks; the inputs are GLOBAL
+    and the rank runs its block of them by the rules' ``batch_spec`` —
+    its rows of the batch (logits and cache of those rows), or, for a
+    batch-1 batch (:func:`seq_batch`), its block of the sequence: the
+    logits are then the whole prompt's last and the cache the rank's
+    block of its time axis (``cache_pspec``)."""
+    fns = api.model_fns(cfg)
+    kw = {"kernels": make_kernels(backend)} \
+        if cfg.family in ("ssm", "hybrid") else {}
+    tpm = _tp_mesh(mesh, cfg)
+    if mesh is not None:
+        sh.require_groups(mesh, "a prefill step")
+
+    def prefill_step(params, *inputs, max_len=None):
+        if mesh is None:
+            return fns.prefill(params, cfg, *inputs, max_len=max_len, **kw)
+        params = local_blocks(params)
+        tok = inputs[_token_input(cfg)]
+        seq = seq_batch(cfg, tok.shape, mesh)
+        dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
+        if seq:
+            inputs = tuple(_seq_block(x, dp, i) for x in inputs)
+        else:
+            inputs = tuple(x if x.shape[0] % dp else
+                           x[i * (x.shape[0] // dp):
+                             (i + 1) * (x.shape[0] // dp)] for x in inputs)
+        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None):
+            return fns.prefill(params, cfg, *inputs, max_len=max_len, **kw)
+    return prefill_step
+
+
+def _seq_block(x: torch.Tensor, dp: int, i: int) -> torch.Tensor:
+    """Rank ``i``'s block of ``dp`` along a batch-1 input's sequence."""
+    if x.shape[1] % dp:
+        raise NotImplementedError(
+            f"a sequence of {x.shape[1]} over {dp} DP ranks: batch-1 "
+            f"sequence sharding needs a length they divide")
+    n = x.shape[1] // dp
+    return x[:, i * n:(i + 1) * n]
+
+
+def make_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
+    """decode(params, token [B], cache, pos [B]) → (logits [B, V], cache):
+    one decode step, the cache updated in place.  With ``mesh``: under
+    tensor parallelism on its "model" axis, ``cache`` being the rank's
+    blocks (``api.shard_cache``): its slots (B over DP, the rank's
+    ``token``/``pos`` rows), or at B = 1 its block of every time axis
+    over "data" (``cache_pspec``'s B = 1 branch: the long-context
+    decode, each rank's rows reduced to flash statistics and merged)."""
+    fns = api.model_fns(cfg)
+    tpm = _tp_mesh(mesh, cfg)
+    if mesh is not None:
+        sh.require_groups(mesh, "a decode step")
+
+    def decode_step(params, token, cache, pos):
+        if mesh is None:
+            return fns.decode_step(params, cfg, token, cache, pos)
+        seq = token.shape[0] == 1 and cfg.family != "ssm"
+        if seq and cfg.family not in SEQ_FAMILIES:
+            if sh.axis_size(mesh, "data") > 1:
+                raise NotImplementedError(
+                    f"a batch-1 decode cache of the {cfg.family} family "
+                    f"sharded over 'data' (ROADMAP.md A1's remaining item)")
+            seq = False
+        with TP.use(tpm, one_rank=True), \
+                SEQ.use(mesh if seq else None, "data"):
+            return fns.decode_step(local_blocks(params), cfg, token, cache,
+                                   pos)
+    return decode_step
+
+
+def make_dkv_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
+    """decode(params, token, cache, pos, frozen_len) → (logits, cache):
+    one step over a decomposed KV cache (``decomposed_kv.decode_step_dkv``,
+    the kernel route), on ``mesh`` as :func:`make_decode_step` (at B = 1
+    the rank's block of the prefix rows and of the tail)."""
+    from ..models import decomposed_kv as DK
+    tpm = _tp_mesh(mesh, cfg)
+    if mesh is not None:
+        sh.require_groups(mesh, "a decode step")
+
+    def decode_step(params, token, cache, pos, frozen_len):
+        seq = mesh is not None and token.shape[0] == 1
+        with TP.use(tpm, one_rank=True), \
+                SEQ.use(mesh if seq else None, "data"):
+            return DK.decode_step_dkv(local_blocks(params), cfg, token,
+                                      cache, pos, frozen_len)
+    return decode_step
+
+
+def make_dkv_prefill_step(cfg: ArchConfig, rank: int, tail: int = 128,
+                          engine=None, exact: bool = False) -> Callable:
+    """prefill(params, tokens) → (logits, decomposed KV cache) through the
+    engine's backend (the reference's ``make_dkv_prefill_step``: a thin
+    wrapper of ``decomposed_kv.prefill_dkv``)."""
+    from ..models import decomposed_kv as DK
+    if isinstance(engine, EngineConfig):
+        engine = DecomposeEngine(engine)
+    engine = engine or DecomposeEngine()
+
+    def prefill_step(params, tokens):
+        return DK.prefill_dkv(params, cfg, tokens, rank, tail=tail,
+                              exact=exact, engine=engine)
+    return prefill_step
 
 
 def init_train_state(cfg: ArchConfig, generator: torch.Generator,

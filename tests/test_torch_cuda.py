@@ -1797,3 +1797,473 @@ def test_nccl_tensor_parallel_families(cards, tmp_path):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().replace("\n", " | ")
     print(f"\nnccl tp families ({smi}): " + "; ".join(lines))
+
+
+# ---------------------------------------------------------------------------
+# The rest of the "model" axis on four cards: batch-1 sequence sharding,
+# Megatron-SP, ZeRO-1 of Adafactor and of kimi-k2's 2-D experts
+# ---------------------------------------------------------------------------
+
+#: the four-card cells (the worker reads them; ``reduced`` cuts widths for
+#: a rehearsal on the host, the card runs them as they are)
+SEQ_CELLS = dict(
+    reduced=False, dev="cuda",
+    long_t=524_288, long_t_f32=131_072, long_steps=4,  # (a) zamba2-1.2b
+    dkv_t=32_768, dkv_rank=64, dkv_tail=16, dkv_steps=8,   # (b) llama2-7b
+    seq_s=8192, layers=4, train_steps=3,               # (c)
+    prefill_s=32_768, prefill_extra=4096,              # (c) zamba2-1.2b
+    sp_batch=4, sp_seq=512,                            # (d)
+    kimi_layers=2, kimi_steps=2, kimi_batch=2, kimi_seq=256)   # (e)
+
+_NCCL_SEQ_WORKER = '''
+import os, pickle, sys, time
+import numpy as np
+import torch
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+from repro_torch import optim
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as sh
+from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+from repro_torch.launch import mesh as M
+from repro_torch.models import api, decomposed_kv as DK, hybrid
+from repro_torch.models.api import model_fns
+from repro_torch.runtime import steps
+from repro_torch.runtime.driver import to_device
+from repro_torch.tree import named_leaves
+C = CELLS
+dev = C["dev"]
+M.init_distributed(dev, rank=rank, world_size=world, store_path=store)
+m41 = M.make_host_mesh(4, 1, dev)
+m14 = M.make_host_mesh(1, 4, dev)
+m22 = M.make_host_mesh(2, 2, dev)
+res = {}
+
+def arch(name, **over):
+    cfg = get_arch(name)
+    if C["reduced"]:
+        cfg = cfg.reduced()
+    return cfg.replace(**over)
+
+def init(cfg, seed=0):
+    return model_fns(cfg).init(cfg, torch.Generator(device=dev)
+                               .manual_seed(seed), device=dev)
+
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+def greedy(step, params, cache, pos0, n, *extra, feed=None):
+    """n greedy steps from token 1, or fed ``feed``'s tokens (another
+    run's greedy choices: the logits of both then read the same inputs
+    at every step, whatever near-tie a bf16 argmax breaks otherwise)."""
+    tok = torch.ones(1, dtype=torch.long, device=dev)
+    logits, toks, colls, ms = [], [], None, []
+    for i in range(n):
+        sh.reset_collective_counts()
+        pos = torch.full((1,), pos0 + i, dtype=torch.long, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        lg, cache = step(params, tok, cache, pos, *extra)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        colls = sh.collective_counts()
+        toks.append(int(lg.argmax(-1).item()))
+        tok = torch.tensor([toks[-1] if feed is None else feed[i]],
+                           device=dev)
+        logits.append(lg.float().cpu().numpy())
+    return logits, toks, colls, ms
+
+def roll_rows(kv, n):
+    """Roll rows [0, n) of every K/V leaf [A, 1, T, kvh, d] in place, one
+    application at a time (a function: no view of a cache outlives it)."""
+    for leaf in kv.values():
+        for j in range(leaf.shape[0]):
+            rows = leaf[j, :, :n]
+            rows.copy_(torch.roll(rows, n // 3, dims=1))
+
+# (a) zamba2-1.2b, long_500k decode: (4, 1) against the same decode whole,
+# bf16 at long_t rows, then float32 at long_t_f32
+res["a"] = {}
+for dtype, t in (("bfloat16", C["long_t"]), ("float32", C["long_t_f32"])):
+    cfg = arch("zamba2-1.2b", dtype=dtype)
+    params = init(cfg)
+    cache = hybrid.init_state(cfg, 1, t, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, leaf in named_leaves(cache):
+        leaf.normal_(generator=gen)
+        if not name.startswith("attn"):
+            leaf.mul_(0.1)
+    block = api.shard_cache(cfg, cache, m41)
+    # the Mamba2 states have no time axis: the block is the leaf itself,
+    # which the one-card run updates in place; the mesh run takes a copy
+    block = {k: {n: v.clone() if v is cache[k][n] else v
+                 for n, v in d.items()} for k, d in block.items()}
+    keep = {k: {n: v.clone() for n, v in d.items()}
+            for k, d in cache.items() if k != "attn"}
+    pos0 = t - C["long_steps"]
+    want = greedy(steps.make_decode_step(cfg), params, cache, pos0,
+                  C["long_steps"])
+    got = greedy(steps.make_decode_step(cfg, m41), params, block, pos0,
+                 C["long_steps"], feed=want[1])
+    # the one-card run again over the cache's rows [0, pos0) rolled (every
+    # one valid at every step: the same softmax in another float32 sum
+    # order), fed the same tokens: how far a sum order moves the logits
+    kshape = tuple(block["attn"]["k"].shape)
+    del block
+    for k, d in keep.items():
+        for n, v in d.items():
+            cache[k][n].copy_(v)
+    roll_rows(cache["attn"], pos0)
+    plain = greedy(steps.make_decode_step(cfg), params, cache, pos0,
+                   C["long_steps"], feed=want[1])
+    res["a"][dtype] = (got, want, kshape, hybrid._layout(cfg)[0], t, plain)
+    del cache, params, keep
+
+# (b) llama2-7b decomposed KV at B = 1: (4, 1) against one card, bf16
+# and float32
+res["b"] = {}
+for dtype in ("bfloat16", "float32"):
+    cfg = arch("llama2-7b", dtype=dtype)
+    params = init(cfg)
+    r, t = C["dkv_rank"], C["dkv_t"]
+    cache = DK.init_cache(cfg, 1, t, r, tail=C["dkv_tail"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for k in ("k_u", "v_u"):
+        cache[k].normal_(generator=gen)
+    for k in ("k_vt", "v_vt"):
+        cache[k].normal_(generator=gen).mul_(r ** -0.5)
+    frozen = torch.tensor([t], dtype=torch.int32, device=dev)
+    block = api.shard_cache(cfg, cache, m41)
+    tail0 = {k: v.clone() for k, v in cache["tail"].items()}
+    out_b = {}
+    for tag, mesh, c in (("one", None, cache), ("mesh", m41, block)):
+        reset_launch_counts()
+        g = greedy(steps.make_dkv_decode_step(cfg, mesh), params, c, t,
+                   C["dkv_steps"], frozen,
+                   feed=out_b["one"][1] if out_b else None)
+        out_b[tag] = g + (launch_counts()["dkv_attention_stats"],)
+    # the one-card plain route (the reference's joint softmax) on the same
+    # cache and tokens: how far another float32 sum order moves the logits
+    cache["tail"] = tail0
+    plain = lambda p_, t_, c_, ps, fr: DK.decode_step_dkv(  # noqa: E731
+        p_, cfg, t_, c_, ps, fr, attention="plain")
+    out_b["plain"] = greedy(plain, params, cache, t, C["dkv_steps"], frozen,
+                            feed=out_b["one"][1])
+    res["b"][dtype] = (out_b, tuple(block["k_u"].shape),
+                       tuple(block["tail"]["k"].shape))
+    del cache, block, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+# (c) batch-1 prefill and three AdamW steps at S = seq_s, float32, on
+# (4, 1) against one card
+def batches(cfg, shape, n):
+    src = SyntheticLM(cfg, shape, DataConfig(seed=0))
+    return [to_device(src.batch_at(i), dev) for i in range(n)]
+
+def train(cfg, mesh, bs, zero1=False, tp=False, **kw):
+    p = init(cfg)
+    opt = optim.make_optimizer(cfg, warmup=1)
+    st = opt.init(p)
+    if tp or zero1:
+        p, st = steps.shard_train_state(cfg, p, st, mesh, zero1=zero1,
+                                        optimizer=opt)
+    fn = steps.make_train_step(cfg, opt, mesh=mesh, zero1=zero1, **kw)
+    losses, ms = [], []
+    reset_launch_counts()
+    sh.reset_collective_counts()
+    for b in bs:
+        sync()
+        t0 = time.perf_counter()
+        p, st, m = fn(p, st, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, {k: v for k, v in launch_counts().items() if v}, \\
+        sh.collective_counts()
+
+res["c"] = {}
+for name in ("mamba2-780m", "granite-3-2b"):
+    cfg = arch(name, num_layers=C["layers"], dtype="float32")
+    bs = batches(cfg, ShapeSpec("t", C["seq_s"], 1, "train"),
+                 C["train_steps"])
+    params = init(cfg)
+    pre = {}
+    for tag, mesh in (("mesh", m41), ("one", None)):
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        lg, _ = steps.make_prefill_step(cfg, mesh)(params, bs[0]["tokens"])
+        sync()
+        pre[tag] = (lg.cpu().numpy(), time.perf_counter() - t0,
+                    {k: v for k, v in launch_counts().items() if v})
+    del params
+    res["c"][name] = (pre, train(cfg, m41, bs), train(cfg, None, bs))
+
+# (d) Megatron-SP on (1, 4): granite-3-2b depth cut, float32, with SP
+# against the same TP steps without it
+cfg = arch("granite-3-2b", num_layers=C["layers"], dtype="float32")
+bs = batches(cfg, ShapeSpec("t", C["sp_seq"], C["sp_batch"], "train"),
+             C["train_steps"])
+res["d"] = (train(cfg.replace(seq_parallel=True), m14, bs, zero1=True),
+            train(cfg, m14, bs, zero1=True))
+
+# (e) kimi-k2 at full width, depth kimi_layers, on (2, 2): Adafactor steps
+# with ZeRO-1 against the same steps without it, in float32 (the tree is
+# drawn whole in bf16 and the rank's blocks cast: the float32 tree does not
+# fit a card whole; a bf16 step's last bits reach the routing of the next)
+from repro_torch.tree import tree_map
+cfg = arch("kimi-k2-1t-a32b", num_layers=C["kimi_layers"])
+f32 = cfg.replace(dtype="float32")
+bs = batches(f32, ShapeSpec("t", C["kimi_seq"], C["kimi_batch"], "train"),
+             C["kimi_steps"])
+
+def kimi(zero1):
+    opt = optim.make_optimizer(f32, warmup=1)
+    whole = init(cfg)
+    p, st = steps.shard_train_state(f32, whole, opt.init(whole), m22,
+                                    zero1=zero1, optimizer=opt)
+    del whole
+    p = tree_map(lambda t: t.float(), p)
+    fn = steps.make_train_step(f32, opt, mesh=m22, zero1=zero1)
+    losses, ms = [], []
+    for b in bs:
+        sync()
+        t0 = time.perf_counter()
+        p, st, m = fn(p, st, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, {k: tuple(v.shape) for k, v in named_leaves(st)}
+
+if dev == "cuda":
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+z = kimi(True)
+mem = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else 0
+if dev == "cuda":
+    torch.cuda.empty_cache()
+res["e"] = (z, kimi(False), mem)
+
+# (c), run last (its allocations would leave (e) too little room):
+# zamba2-1.2b at full depth, float32, a batch-1 prefill of prefill_s
+# tokens on (4, 1) against one card, into a cache of the prompt's length
+# (each rank keeps its rows) and of prefill_extra rows more (the rows
+# moved to their blocks by one all-to-all a leaf and layer); each run's
+# peak device memory above what was allocated before it
+if dev == "cuda":
+    torch.cuda.empty_cache()
+cfg = arch("zamba2-1.2b", dtype="float32")
+params = init(cfg)
+tok = torch.randint(0, cfg.vocab, (1, C["prefill_s"]),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+res["c_prefill"] = {}
+for max_len in (None, C["prefill_s"] + C["prefill_extra"]):
+    pre = {}
+    for tag, mesh in (("mesh", m41), ("one", None)):
+        sh.reset_collective_counts()
+        sync()
+        base = torch.cuda.memory_allocated() if dev == "cuda" else 0
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lg, cache = steps.make_prefill_step(cfg, mesh)(params, tok,
+                                                       max_len=max_len)
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 \
+            if dev == "cuda" else 0.0
+        pre[tag] = (lg, cache, time.perf_counter() - t0, peak,
+                    sh.collective_counts())
+    lg_m, c_m = pre["mesh"][:2]
+    lg_o, c_o = pre["one"][:2]
+    n = c_m["attn"]["k"].shape[2]
+    crel = max(float((c_m["attn"][k] - c_o["attn"][k][:, :, rank * n:
+                                                      (rank + 1) * n])
+                     .abs().max() / c_o["attn"][k].abs().max())
+               for k in ("k", "v"))
+    res["c_prefill"][max_len] = (
+        float((lg_m - lg_o).abs().max() / lg_o.abs().max()), crel,
+        {k: v[2:] for k, v in pre.items()}, tuple(c_m["attn"]["k"].shape))
+    del pre, lg_m, c_m, lg_o, c_o, cache, lg
+del params
+if dev == "cuda":
+    torch.cuda.empty_cache()
+pickle.dump(res, open(os.path.join(out, f"seq{rank}.pkl"), "wb"))
+M.shutdown_distributed()
+'''
+
+
+def _seq_worker_results(cells, tmp_path, timeout):
+    """Run the four-rank worker of the sequence-sharding cells; every
+    rank's results."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    src = f"CELLS = {cells!r}\n" + _NCCL_SEQ_WORKER
+    procs = [subprocess.Popen([sys.executable, "-c", src, str(r), "4",
+                               store, str(tmp_path)], env=env)
+             for r in range(4)]
+    assert [p.wait(timeout=timeout) for p in procs] == [0] * 4
+    out = []
+    for r in range(4):
+        with open(tmp_path / f"seq{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _logit_rel(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _held_in_bf16(mesh, one, plain, tag):
+    """A bf16 decode on the mesh against the same decode on one card,
+    both fed the one-card run's tokens: at every step its logits lie
+    within 1.5x the largest distance that another float32 sum order on
+    one card (``plain``) moved them in the same run, and where its
+    greedy token differs, the one-card logits rate the two tokens within
+    that bound (a near-tie).  A wrong merge moves the logits by O(1)."""
+    import numpy as np
+    bound = 1.5 * max(_logit_rel(a, b) for a, b in zip(plain[0], one[0]))
+    for i, (a, b) in enumerate(zip(mesh[0], one[0])):
+        assert _logit_rel(a, b) <= bound, (tag, i, _logit_rel(a, b), bound)
+        tm, to = mesh[1][i], one[1][i]
+        gap = float(np.take(b, to, -1).max() - np.take(b, tm, -1).max())
+        assert tm == to or gap <= bound * float(np.abs(b).max()), \
+            (tag, i, tm, to, gap)
+
+
+def check_seq_cells(out, cells):
+    """The four-card cells' checks on every rank.  Tolerances (logits
+    relative to the largest, the mesh run fed the one-card run's greedy
+    tokens): decode in float32, tokens equal and logits within 1e-4 at
+    every step; in bf16, :func:`_held_in_bf16` (within 1.5x of another
+    sum order's distance on one card, a differing token only at a
+    near-tie).  Prefill logits and caches, and losses, within 1e-5."""
+    for rank, res in enumerate(out):
+        for dtype, (got, want, kshape, n_attn, t, plain) in res["a"].items():
+            assert kshape[2] == t // 4
+            rels = [_logit_rel(a, b) for a, b in zip(got[0], want[0])]
+            if dtype == "float32":
+                assert got[1] == want[1] and max(rels) <= 1e-4, rels
+            else:
+                _held_in_bf16(got, want, plain, ("a", rank))
+            assert got[2].get("all_gather/attn_stats", (0, 0))[0] == n_attn
+            assert got[2].get("all_reduce/attn_out", (0, 0))[0] == n_attn
+        for dtype, (runs, ushape, tshape) in res["b"].items():
+            assert ushape[2] == cells["dkv_t"] // 4
+            assert tshape[2] == cells["dkv_tail"] // 4
+            rels = [_logit_rel(a, b) for a, b in zip(runs["mesh"][0],
+                                                     runs["one"][0])]
+            if dtype == "float32":
+                assert runs["mesh"][1] == runs["one"][1], runs
+                assert max(rels) <= 1e-4, rels
+            else:
+                _held_in_bf16(runs["mesh"], runs["one"], runs["plain"],
+                              ("b", rank))
+            assert runs["mesh"][4] == runs["one"][4]
+            assert runs["one"][4] > 0 or cells["dev"] != "cuda"
+        for name, (pre, meshed, one) in res["c"].items():
+            assert _logit_rel(pre["mesh"][0], pre["one"][0]) <= 1e-5, name
+            assert pre["mesh"][2] == pre["one"][2], (name, pre)
+            assert all(abs(a - b) <= 1e-5 * abs(b)
+                       for a, b in zip(meshed[0], one[0])), (name, meshed,
+                                                             one)
+            assert meshed[2] == one[2], (name, meshed[2], one[2])
+        for max_len, (rel, crel, runs, kshape) in res["c_prefill"].items():
+            t = max_len or cells["prefill_s"]
+            assert kshape[2] == t // 4 and rel <= 1e-5 and crel <= 1e-5, (
+                max_len, rel, crel)
+            moved = [k for k in runs["mesh"][2] if k.startswith("all_to_all")]
+            assert bool(moved) == (max_len is not None), runs["mesh"][2]
+        sp, plain = res["d"]
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(sp[0],
+                                                                plain[0]))
+        assert "reduce_scatter/sp_tp_out" in sp[3]
+        assert not {"all_reduce/tp_out", "all_reduce/tp_in_grad"} & set(
+            sp[3])
+        z, nz = res["e"][0][0], res["e"][1][0]
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(z, nz))
+
+
+def seq_summary(out, cells):
+    """One line per four-card cell, rank 0's numbers."""
+    res, lines = out[0], []
+    for dtype, (got, want, _, _, t, plain) in res["a"].items():
+        rels = [_logit_rel(a, b) for a, b in zip(got[0], want[0])]
+        prel = [_logit_rel(a, b) for a, b in zip(plain[0], want[0])]
+        mb = sum(v[1] for k, v in got[2].items()) / 1e6
+        lines.append(
+            f"(a) zamba2-1.2b {dtype} T {t} B 1 (4, 1): logits rel by "
+            f"step {[f'{x:.2e}' for x in rels]} (one card over its rows "
+            f"rolled: {[f'{x:.2e}' for x in prel]}), greedy tokens "
+            f"{got[1]} vs one card {want[1]}, step ms "
+            f"{[round(v, 1) for v in got[3]]} vs "
+            f"{[round(v, 1) for v in want[3]]}; one step's collectives "
+            f"{got[2]} "
+            f"({mb:.3f} MB sent a rank)")
+    for dtype, (runs, _, _) in res["b"].items():
+        rels = [_logit_rel(a, b) for a, b in zip(runs["mesh"][0],
+                                                 runs["one"][0])]
+        plain = [_logit_rel(a, b) for a, b in zip(runs["plain"][0],
+                                                  runs["one"][0])]
+        lines.append(
+            f"(b) llama2-7b dkv {dtype} T {cells['dkv_t']} (4, 1): "
+            f"logits rel by step {[f'{x:.2e}' for x in rels]} (one card's "
+            f"plain route: {[f'{x:.2e}' for x in plain]}), greedy "
+            f"tokens {runs['mesh'][1]} vs {runs['one'][1]}, dkv "
+            f"launches {runs['mesh'][4]} vs {runs['one'][4]}, step ms "
+            f"{[round(v, 1) for v in runs['mesh'][3]]} vs "
+            f"{[round(v, 1) for v in runs['one'][3]]}")
+    for name, (pre, meshed, one) in res["c"].items():
+        lines.append(
+            f"(c) {name} S {cells['seq_s']} B 1 (4, 1): prefill s "
+            f"{pre['mesh'][1]:.3f} vs {pre['one'][1]:.3f}, launches "
+            f"{pre['mesh'][2]}; losses {meshed[0]} vs {one[0]}, step "
+            f"ms {[round(v, 1) for v in meshed[1]]} vs "
+            f"{[round(v, 1) for v in one[1]]}, launches {meshed[2]}")
+    for max_len, (rel, crel, runs, kshape) in res["c_prefill"].items():
+        lines.append(
+            f"(c) zamba2-1.2b float32 prefill S {cells['prefill_s']} into "
+            f"T {max_len or cells['prefill_s']} (4, 1): logits rel "
+            f"{rel:.2e}, cache rel {crel:.2e}, K block {kshape}; s "
+            f"{runs['mesh'][0]:.3f} vs {runs['one'][0]:.3f}; peak GiB "
+            f"above the weights {runs['mesh'][1]:.2f} a rank vs "
+            f"{runs['one'][1]:.2f} on one card; mesh collectives "
+            f"{runs['mesh'][2]}")
+    sp, plain = res["d"]
+    lines.append(f"(d) granite-3-2b SP (1, 4): losses {sp[0]} vs no SP "
+                 f"{plain[0]}, step ms {[round(v, 1) for v in sp[1]]} "
+                 f"vs {[round(v, 1) for v in plain[1]]}")
+    (z, zl), nz = res["e"][0][:2], res["e"][1][0]
+    lines.append(f"(e) kimi-k2 depth {cells['kimi_layers']} (2, 2) "
+                 f"Adafactor: ZeRO-1 losses {z} vs {nz}, step ms "
+                 f"{[round(v, 1) for v in zl]}, peak "
+                 f"{res['e'][2]:.1f} GiB")
+    return lines
+
+
+def test_nccl_seq_sharding_sp_and_adafactor_zero1(cards, tmp_path):
+    """Four ranks, one a card: (a) zamba2-1.2b long_500k decode on (4, 1)
+    (each rank a quarter of every K/V time axis), (b) llama2-7b
+    decomposed-KV decode at B = 1 (8,192 prefix rows a rank), (c)
+    mamba2-780m and granite-3-2b (depth 4, float32) batch-1 prefill and
+    three AdamW steps at S = 8192, (d) Megatron-SP on (1, 4), (e)
+    kimi-k2-1t-a32b at full width, depth 2, Adafactor with and without
+    ZeRO-1 on (2, 2) — each against the same work on one card or without
+    the feature (``check_seq_cells``'s tolerances)."""
+    if cards < 4:
+        pytest.skip("needs four CUDA devices")
+    import subprocess
+    from repro_torch.kernels import build
+    build.build_all()
+    out = _seq_worker_results(SEQ_CELLS, tmp_path, timeout=2400)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().replace("\n", " | ")
+    print(f"\nnccl seq ({smi}): " + "; ".join(seq_summary(out, SEQ_CELLS)))
+    check_seq_cells(out, SEQ_CELLS)
