@@ -270,6 +270,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ZeRO-1 with Megatron-SP on one-rank groups, (e) its resume; (f)
    zamba2-1.2b's float32 batch-1 prefill of 16,384 tokens with its peak
    memory — each against the same work without a mesh.
+21. the tools (``--only tools``): (a) Fig. 2's contenders on the card
+   at [4096, 468] and [4096, 4096] float32 (the Fig. 2 benchmark's
+   spectrum exp(-0.07 i) around orthonormal factors drawn from numpy's
+   ``RandomState(0)``), ranks 1, 10, 20, 50: the scalar ``lanczos_svd``
+   (iters min(r + 6, H)) through the B = 1 re-orth kernels and through
+   ``backend="reference"``, ``qr_iteration_svd`` (8 iterations) and
+   ``randomized_svd``, each one's reconstruction error beside the
+   oracle's (full SVD) and its median of 5 CUDA-event times; the kernel
+   route's singular values within 1e-4 of the reference route's; the
+   fewest iterations (from r + 6, step 2, at most r + 20) at which the
+   kernel route's error is within 2 % of the oracle's, and its time;
+   the re-orth launches exactly k left and k - 1 right a run of k
+   iterations; (b) ``launch.dryrun``'s shape-only record of phase 17
+   (a)'s configuration on a (1, 1) mesh against phase 17 (a)'s run:
+   parameter and AdamW state bytes within 1 % of ``memory_allocated``,
+   the predicted peak beside the measured one (the gap printed, not
+   gated), and a ``roofline:`` line (compute_s, memory_s, the measured
+   step, model FLOPs over step time x 989 TFLOP/s).
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -319,8 +337,14 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
+
+
+def rates():
+    """``repro_torch.launch.roofline``, the one home of the H100 SXM's
+    data-sheet rates (``HBM_BW``, ``PEAK_FLOPS`` by dtype); src/ is on
+    the path by the time a phase runs."""
+    from repro_torch.launch import roofline
+    return roofline
 
 
 def fail(msg: str) -> int:
@@ -402,8 +426,8 @@ def to_float32(tree):
 
 
 def bound(bytes_: float, flops: float, dtype: str):
-    t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = bytes_ / rates().HBM_BW * 1e3
+    t_ops = flops / rates().PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2342,7 +2366,7 @@ def _step_bound_ms(params, cache) -> float:
                                     for t in leaves)
     if "lm_head" in params:
         b -= T.param_bytes(params["embed"])
-    return b / HBM_BYTES_S * 1e3
+    return b / rates().HBM_BW * 1e3
 
 
 def _leaves(tree):
@@ -2563,7 +2587,7 @@ def serve_moe(cfg, params, profile: bool = False):
           f"factor {cfg.capacity_factor}, block of {FUSED_BLOCK}) vs bound "
           f"{bms:.3f} ms (every weight and the KV cache read once; all "
           f"{e} experts' weights alone {experts / 2 ** 30:.2f} GiB = "
-          f"{experts / HBM_BYTES_S * 1e3:.3f} ms); weights "
+          f"{experts / rates().HBM_BW * 1e3:.3f} ms); weights "
           f"{T.param_bytes(params) / 2 ** 30:.2f} GiB, peak_mem_gib="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}", flush=True)
 
@@ -3097,10 +3121,13 @@ def _n_params(params) -> int:
     return sum(t.numel() for t in leaves(params))
 
 
-def train_granite() -> None:
+def train_granite() -> dict:
     """(a) granite-3-2b at full width and depth: 5 AdamW steps of
     make_train_step (remat full), then one PowerSGD round trip of the
-    last gradient."""
+    last gradient.  Returns what phase 21 (b) holds the dry-run against:
+    the bytes the parameters and AdamW's state took on the card
+    (``state_bytes``), the median step (``step_ms``) and the peak above
+    what the card held before (``peak_bytes``)."""
     import torch
     from repro_torch import optim
     from repro_torch.configs import get_arch
@@ -3109,6 +3136,7 @@ def train_granite() -> None:
     from repro_torch.tree import named_leaves
     cfg = get_arch(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     params = init_weights(cfg)
     n = _n_params(params)
     opt = optim.make_optimizer(cfg, warmup=1)
@@ -3120,6 +3148,7 @@ def train_granite() -> None:
         return grads
     step = steps.make_train_step(cfg, opt, grad_transform=keep_last)
     state = opt.init(params)
+    state_bytes = torch.cuda.memory_allocated() - held
     batches = _train_batches(cfg, TRAIN_STEPS)
     losses, norms, ms = [], [], []
     for i, batch in enumerate(batches):
@@ -3136,8 +3165,8 @@ def train_granite() -> None:
               f"{gn:.6f} {ms[-1]:.1f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops_ms = 8 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3
-    bytes_ms = 22 * n / HBM_BYTES_S * 1e3
+    flops_ms = 8 * n * tokens / rates().PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = 22 * n / rates().HBM_BW * 1e3
     med = statistics.median(ms[1:])
     print(f"train (a): {cfg.name} {cfg.num_layers} layers, {n / 1e9:.3f} B "
           f"parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, remat "
@@ -3181,6 +3210,8 @@ def train_granite() -> None:
     if ratio != want or not finite:
         raise AssertionError(f"train (a): PowerSGD ratio {ratio} != {want} "
                              f"or a non-finite round trip")
+    return {"state_bytes": state_bytes, "step_ms": med,
+            "peak_bytes": peak * 2 ** 30 - held}
 
 
 def train_mamba2(profile: bool = False) -> dict:
@@ -4199,21 +4230,194 @@ def seq_train_adafactor() -> None:
     check_freed("seq (d, e)")
 
 
-def phase_train(profile: bool = False) -> dict:
-    """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts.
-    ``profile``: also profile one kernel-route step of (b)."""
-    train_granite()
+def phase_train(profile: bool = False) -> tuple:
+    """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts and
+    (a)'s figures.  ``profile``: also profile one kernel-route step of
+    (b)."""
+    granite = train_granite()
     check_freed(TRAIN_ARCH)
     counts = train_mamba2(profile)
     check_freed(MAMBA_ARCH)
     train_restart()
     check_freed("train")
-    return counts
+    return counts, granite
+
+
+FIG2_SHAPES = ((4096, 468), (4096, 4096))   # the paper's and the path's
+FIG2_RANKS = (1, 10, 20, 50)
+FIG2_DECAY = 0.07        # the Fig. 2 benchmark's spectrum, exp(-0.07 i)
+FIG2_ROUTE_TOL = 1e-4    # singular values, kernel vs reference route
+FIG2_ORACLE_GAP = 0.02   # Lanczos's error over the oracle's, at most
+FIG2_SCAN = 20           # iterations past the rank the 2 % scan may take
+FIG2_RUNS = 5            # timed runs per contender (median)
+STATE_TOL = 0.01         # dry-run state bytes vs the card's
+
+
+def fig2_matrix(s: int, h: int, seed: int = 0):
+    """The Fig. 2 benchmark's activation on the card: orthonormal U [S, H]
+    and V [H, H] (QR on the card of numpy ``RandomState(seed)`` normals)
+    around the spectrum exp(-FIG2_DECAY i), float32."""
+    import numpy as np
+    import torch
+    g = np.random.RandomState(seed)
+    u = torch.linalg.qr(torch.from_numpy(
+        g.standard_normal((s, h)).astype(np.float32)).cuda())[0]
+    v = torch.linalg.qr(torch.from_numpy(
+        g.standard_normal((h, h)).astype(np.float32)).cuda())[0]
+    sv = torch.exp(-FIG2_DECAY * torch.arange(h, device="cuda",
+                                              dtype=torch.float32))
+    return ((u * sv) @ v.T).contiguous()
+
+
+def fig2_card() -> None:
+    """Phase 21 (a): Fig. 2's contenders on the card at each shape and
+    rank: the scalar ``lanczos_svd`` (iters min(r + 6, H)) through the
+    re-orth kernels (B = 1) and through ``backend="reference"``,
+    ``qr_iteration_svd`` (8 iterations) and ``randomized_svd``, each
+    one's error beside the oracle's and its median time; the kernel
+    route's singular values within FIG2_ROUTE_TOL of the reference
+    route's; the fewest iterations (r + 6, r + 8, ...) at which the
+    kernel route's error is within FIG2_ORACLE_GAP of the oracle's, found
+    within FIG2_SCAN iterations past the rank, and its time; the re-orth
+    launches exactly those the iterations imply (k left and k − 1 right
+    steps a run of k)."""
+    import torch
+    from repro_torch.core import lanczos as lz, svd_alt as alt
+    from repro_torch.engine.engine import default_z0
+    from repro_torch.kernels import ops
+    hooks = {r: ops.make_batched_hooks(backend=r)
+             for r in ("cuda", "reference")}
+    want = {"reorth_left_batched": 0, "reorth_right_batched": 0}
+
+    def lanczos(route, a, r, k, z0):
+        if route == "cuda":
+            want["reorth_left_batched"] += k
+            want["reorth_right_batched"] += k - 1
+        return lz.lanczos_svd(a, r, k, z0=z0, hooks=hooks[route])
+
+    ops.reset_launch_counts()
+    for s, h in FIG2_SHAPES:
+        a = fig2_matrix(s, h)
+        z0 = torch.from_numpy(default_z0(h)).cuda()
+        err = lambda out: float(alt.reconstruction_error(a, *out))  # noqa
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        uo, so, vo = torch.linalg.svd(a, full_matrices=False)
+        ev[1].record()
+        torch.cuda.synchronize()
+        o_ms = ev[0].elapsed_time(ev[1])
+        for r in FIG2_RANKS:
+            k = min(r + 6, h)
+            e_o = err((uo[:, :r], so[:r], vo[:r]))
+            gen = lambda seed: torch.Generator(  # noqa: E731
+                device="cuda").manual_seed(seed)
+            runs = {
+                "lanczos_kernel": lambda: lanczos("cuda", a, r, k, z0),
+                "lanczos_reference": lambda: lanczos("reference", a, r, k,
+                                                     z0),
+                "qr_iteration": lambda: alt.qr_iteration_svd(
+                    a, r, 8, generator=gen(1)),
+                "randomized": lambda: alt.randomized_svd(
+                    a, r, generator=gen(2))}
+            outs, line = {}, []
+            for name, fn in runs.items():
+                outs[name] = fn()
+                ms, _ = median_ms(fn, FIG2_RUNS)
+                e = err(outs[name])
+                line.append(f"{name} {e:.5f} ({e / e_o - 1:+.4f}) "
+                            f"{ms:.3f} ms")
+            s_k, s_r = outs["lanczos_kernel"][1], outs["lanczos_reference"][1]
+            gap = float((s_k - s_r).abs().max() / s_r.abs().max())
+            hit = None
+            for kk in range(k, min(r + FIG2_SCAN, h) + 1, 2):
+                if err(lanczos("cuda", a, r, kk, z0)) <= \
+                        (1 + FIG2_ORACLE_GAP) * e_o:
+                    hit = kk
+                    break
+            hit_ms = median_ms(lambda: lanczos("cuda", a, r, hit, z0),
+                               FIG2_RUNS)[0] if hit else float("nan")
+            print(f"fig2: [{s}, {h}] rank {r} iters {k}: oracle {e_o:.5f} "
+                  f"(full SVD {o_ms:.1f} ms, 1 run); " + "; ".join(line)
+                  + f"; kernel vs reference route s {gap:.2e}; within "
+                  f"{FIG2_ORACLE_GAP:.0%} of the oracle at iters {hit} "
+                  f"({hit_ms:.3f} ms)", flush=True)
+            if not gap <= FIG2_ROUTE_TOL:
+                raise AssertionError(f"fig2: [{s}, {h}] rank {r}: kernel "
+                                     f"route's singular values {gap:.2e} "
+                                     f"from the reference route's")
+            if hit is None:
+                raise AssertionError(
+                    f"fig2: [{s}, {h}] rank {r}: Lanczos not within "
+                    f"{FIG2_ORACLE_GAP:.0%} of the oracle's error by "
+                    f"{min(r + FIG2_SCAN, h)} iterations")
+        del a, uo, so, vo
+    got = {n: ops.launch_counts()[n] for n in want}
+    print(f"fig2: re-orth launches {got} (the iterations imply {want})",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"fig2: re-orth launches {got} != {want}")
+
+
+def dryrun_vs_card(granite: dict) -> None:
+    """Phase 21 (b): ``launch.dryrun``'s record of phase 17 (a)'s
+    configuration (granite-3-2b, 4 x 512, remat "full", AdamW) on a
+    (1, 1) mesh without ZeRO-1 (as phase 17 runs it, the DP step at
+    world 1), shape-only on the host, against phase 17 (a)'s run on
+    the card: the parameter and AdamW state bytes within STATE_TOL (both
+    exact counts), the predicted peak beside the measured (the gap is
+    printed, not gated) and the roofline terms beside the measured step
+    (model FLOPs over step time x the BF16 peak)."""
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.launch import dryrun
+    cfg = get_arch(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        mesh_shape=((1, 1), ("data", "model")), zero1=False,
+        optimizer=optim.make_optimizer(cfg, warmup=1))
+    m = rec["memory"]
+    state = m["param_bytes"] + m["opt_state_bytes"]
+    gap = state / granite["state_bytes"] - 1
+    print(f"dryrun: {cfg.name} 4 x 512 on (1, 1), shape-only on the host in "
+          f"{time.perf_counter() - t0:.1f} s: state {state / 2 ** 30:.3f} "
+          f"GiB predicted vs {granite['state_bytes'] / 2 ** 30:.3f} GiB "
+          f"allocated on the card ({gap:+.4%}); peak "
+          f"{m['peak_bytes'] / 2 ** 30:.2f} GiB predicted vs "
+          f"{granite['peak_bytes'] / 2 ** 30:.2f} GiB measured "
+          f"({m['peak_bytes'] / granite['peak_bytes'] - 1:+.2%}); "
+          f"{rec['flops_per_device']:.4e} FLOPs "
+          f"({rec['flops_by_dtype']}), {rec['hbm_bytes_per_device']:.4e} "
+          f"bytes of eager traffic, {rec['host_reads']} host reads "
+          f"answered", flush=True)
+    t = rec["roofline"]
+    peak = rates().PEAK_FLOPS_BF16
+    mfu = rec["model_flops_global"] / (granite["step_ms"] / 1e3 * peak)
+    print(f"roofline: {cfg.name} train 4 x 512: compute_s "
+          f"{t['compute_s']:.4f} memory_s {t['memory_s']:.4f} collective_s "
+          f"{t['collective_s']:.4f} (analytic, H100 SXM datasheet rates); "
+          f"measured step {granite['step_ms']:.1f} ms; model FLOPs "
+          f"{rec['model_flops_global']:.4e} / (step x "
+          f"{peak / 1e12:.0f} TFLOP/s) = {mfu:.4f}", flush=True)
+    if "refused" in rec or not abs(gap) <= STATE_TOL:
+        raise AssertionError(f"dryrun: state bytes {state} vs "
+                             f"{granite['state_bytes']} on the card "
+                             f"({rec.get('refused', f'{gap:+.4%}')})")
+
+
+def phase_tools(granite=None) -> None:
+    """Phase 21: (a) Fig. 2 on the card, (b) the dry-run against phase
+    17 (a) (run here when phase 17 did not run)."""
+    fig2_card()
+    if granite is None:
+        granite = train_granite()
+        check_freed(TRAIN_ARCH)
+    dryrun_vs_card(granite)
 
 
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal", "train", "mesh", "model", "seq")
+          "variants", "modal", "train", "mesh", "model", "seq", "tools")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -4368,9 +4572,10 @@ def main() -> int:
                 check_freed(arch)
                 print(f"{name}: {arch} {time.perf_counter() - t:.1f} s",
                       flush=True)
+    granite = None
     if "train" in only:
         with phase("train"):
-            train = phase_train(args.profile)
+            train, granite = phase_train(args.profile)
     if "mesh" in only:
         with phase("mesh (c)"):
             mesh_training()
@@ -4401,6 +4606,9 @@ def main() -> int:
                 seq_prefill_memory()
         finally:
             shutdown_distributed()
+    if "tools" in only:
+        with phase("tools"):
+            phase_tools(granite)
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

@@ -19,12 +19,14 @@ and recompute only the cheap elementwise ops).  The sharding field
 ``expert_sharding`` ("1d": experts over "model"; "2d" for
 ``kimi-k2-1t-a32b``: also the expert FFN dim over "data") is read by
 ``distributed.sharding``'s rules; ``seq_parallel`` turns on Megatron-SP
-(``distributed.tp.sp_on``).  :class:`ShapeSpec` names a workload shape.
+(``distributed.tp.sp_on``).  :class:`ShapeSpec` names a workload shape;
+:data:`SHAPES` holds the reference's four, and :func:`cells` says which
+of them an arch runs (the reference's dry-run cells).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +104,11 @@ class ArchConfig:
         return self.enc_layers > 0
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch decodes long contexts with O(1) state."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def kv_width(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
 
@@ -146,6 +153,18 @@ class ShapeSpec:
     global_batch: int
     kind: str
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -161,6 +180,19 @@ def get_arch(name: str) -> ArchConfig:
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; ported: "
                        f"{sorted(_REGISTRY)}") from None
+
+
+def all_archs() -> Dict[str, ArchConfig]:
+    return dict(_REGISTRY)
+
+
+def cells(arch: ArchConfig) -> Tuple[str, ...]:
+    """The :data:`SHAPES` names that apply to ``arch``: ``long_500k``
+    only for the sub-quadratic families."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.sub_quadratic:
+        names.append("long_500k")
+    return tuple(names)
 
 
 # The paper's own evaluation model (Tables 2-3).

@@ -15,6 +15,12 @@ per step — the JAX version rebuilds them functionally.
 The start vector ``z0`` is an explicit argument: the JAX package draws
 it from ``jax.random.normal(PRNGKey(0))``, which torch cannot replay, so
 parity tests pass JAX's value in.
+
+The scalar forms (:func:`lanczos_bidiag`, :func:`bidiag_to_svd`,
+:func:`lanczos_svd`: one matrix [S, H], Fig. 2's Lanczos) are the B = 1
+slice of the batched pipeline, so there is one copy of the iteration
+math; they take the same batched hooks (on the card the B = 1 launches
+of the re-orth kernels).
 """
 from __future__ import annotations
 
@@ -99,6 +105,35 @@ def bidiag_to_svd_batched(res: BidiagResult, rank: int):
     u = torch.einsum("bsk,bkr->bsr", res.u, p[..., :, :rank])
     vt = torch.einsum("brk,bhk->brh", qt[..., :rank, :], res.v)
     return u, s[..., :rank], vt
+
+
+def lanczos_bidiag(a: torch.Tensor, iters: int, z0: torch.Tensor,
+                   hooks: BatchedLanczosHooks) -> BidiagResult:
+    """Golub–Kahan bidiagonalization of one matrix ``a [S, H]``: U [S, k],
+    V [H, k], alpha [k], beta [k-1] (the B = 1 slice of
+    :func:`lanczos_bidiag_batched`)."""
+    res = lanczos_bidiag_batched(a[None], iters, z0, hooks)
+    return BidiagResult(res.u[0], res.v[0], res.alpha[0], res.beta[0])
+
+
+def bidiag_to_svd(res: BidiagResult, rank: int):
+    """(U [S, rank], s [rank], Vt [rank, H]) of a scalar
+    :func:`lanczos_bidiag` result."""
+    u, s, vt = bidiag_to_svd_batched(
+        BidiagResult(res.u[None], res.v[None], res.alpha[None],
+                     res.beta[None]), rank)
+    return u[0], s[0], vt[0]
+
+
+def lanczos_svd(a: torch.Tensor, rank: int, iters: Optional[int] = None, *,
+                z0: torch.Tensor, hooks: BatchedLanczosHooks):
+    """Truncated SVD of one matrix [S, H] by ``iters`` (default ``rank``)
+    Lanczos steps: (U [S, rank], s [rank], Vt [rank, H]) in float32."""
+    iters = rank if iters is None else iters
+    if iters < rank:
+        raise ValueError(f"need at least rank={rank} Lanczos iterations, "
+                         f"got {iters}")
+    return bidiag_to_svd(lanczos_bidiag(a, iters, z0, hooks), rank)
 
 
 def decompose(x: torch.Tensor, rank: int, iters: Optional[int] = None, *,

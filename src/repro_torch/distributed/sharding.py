@@ -376,30 +376,43 @@ def dp_rank(mesh) -> int:
 
 
 # Every collective of the port's serving, decomposition and train steps
-# is issued by the helpers below, which count it: (op, what) → [calls,
-# bytes this rank sent].  ``what`` names the caller's payload.
-_COLLECTIVES: Dict[Tuple[str, str], list] = {}
+# is issued by the helpers below, which count it: (op, what, global ranks
+# of the group) → [calls, bytes this rank sent].  ``what`` names the
+# caller's payload.
+_COLLECTIVES: Dict[Tuple[str, str, Tuple[int, ...]], list] = {}
 
 
-def _count(op: str, what: str, t) -> None:
-    c = _COLLECTIVES.setdefault((op, what), [0, 0])
+def _count(op: str, what: str, t, group) -> None:
+    import torch.distributed as dist
+    ranks = tuple(dist.get_process_group_ranks(
+        dist.group.WORLD if group is None else group))
+    c = _COLLECTIVES.setdefault((op, what, ranks), [0, 0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
 
 
-def collective_counts() -> Dict[str, Tuple[int, int]]:
+def collective_counts(by_group: bool = False) -> Dict[str, Any]:
     """``"op/what"`` → (collectives issued, bytes this rank sent) since
-    the last :func:`reset_collective_counts`."""
-    return {f"{op}/{what}": tuple(c) for (op, what), c in
-            sorted(_COLLECTIVES.items())}
+    the last :func:`reset_collective_counts`; with ``by_group`` →
+    {global ranks of the group: (issued, sent)} (what
+    ``launch.roofline.collective_stats`` prices per link)."""
+    out: Dict[str, Any] = {}
+    for (op, what, ranks), (n, b) in sorted(_COLLECTIVES.items()):
+        key = f"{op}/{what}"
+        if by_group:
+            out.setdefault(key, {})[ranks] = (n, b)
+        else:
+            n0, b0 = out.get(key, (0, 0))
+            out[key] = (n0 + n, b0 + b)
+    return out
 
 
 def reset_collective_counts() -> None:
     _COLLECTIVES.clear()
 
 
-def take_collective_delta(before: Dict[Tuple[str, str], list]
-                          ) -> Dict[Tuple[str, str], Tuple[int, int]]:
+def take_collective_delta(before: Dict[tuple, list]
+                          ) -> Dict[tuple, Tuple[int, int]]:
     """The collectives counted since ``before`` (a :func:`snapshot`),
     taken back out of the counts: what a CUDA graph's capture issued,
     which :func:`add_collectives` adds again on each replay."""
@@ -413,7 +426,7 @@ def take_collective_delta(before: Dict[Tuple[str, str], list]
     return delta
 
 
-def snapshot() -> Dict[Tuple[str, str], list]:
+def snapshot() -> Dict[tuple, list]:
     """A copy of the collective counts (:func:`take_collective_delta`)."""
     return {k: list(v) for k, v in _COLLECTIVES.items()}
 
@@ -430,7 +443,7 @@ def all_gather_into(out, t, group, what: str) -> None:
     """``out`` ← the group's ``t`` concatenated along dim 0, in rank
     order (:func:`gather_dim` for any other dim)."""
     import torch.distributed as dist
-    _count("all_gather", what, t)
+    _count("all_gather", what, t, group)
     # torch 2.13 renames all_gather_into_tensor all_gather_single and
     # deprecates the old name; torch 2.11 has only the old name
     fn = getattr(dist, "all_gather_single", None) \
@@ -444,7 +457,7 @@ def all_to_all(out, t, out_rows, in_rows, group, what: str) -> None:
     rows, block k for rank k, and this rank's ``out`` takes
     ``out_rows[j]`` rows from rank j (one counted all-to-all)."""
     import torch.distributed as dist
-    _count("all_to_all", what, t)
+    _count("all_to_all", what, t, group)
     dist.all_to_all_single(out, t, list(out_rows), list(in_rows),
                            group=group)
 
@@ -453,7 +466,7 @@ def all_reduce(t, group, what: str, op: str = "sum") -> None:
     """``t`` ← its sum (or ``op``: "min", "max") over ``group``, in
     place."""
     import torch.distributed as dist
-    _count("all_reduce", what, t)
+    _count("all_reduce", what, t, group)
     dist.all_reduce(t, op={"min": dist.ReduceOp.MIN,
                            "max": dist.ReduceOp.MAX}.get(
                                op, dist.ReduceOp.SUM), group=group)
@@ -466,7 +479,7 @@ def broadcast_int(v: int, group, device, what: str) -> int:
     import torch
     import torch.distributed as dist
     t = torch.tensor([int(v)], dtype=torch.int64, device=device)
-    _count("broadcast", what, t)
+    _count("broadcast", what, t, group)
     dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return int(t.item())
 
@@ -475,7 +488,7 @@ def broadcast(t, group, src: int, what: str) -> None:
     """``t`` ← the ``t`` of the group's rank ``src`` (its index in the
     group), in place, on every rank of ``group``."""
     import torch.distributed as dist
-    _count("broadcast", what, t)
+    _count("broadcast", what, t, group)
     dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
 
 
@@ -571,7 +584,7 @@ def reduce_scatter(t, group, what: str, dim: int = 0):
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    _count("reduce_scatter", what, src)
+    _count("reduce_scatter", what, src, group)
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim)
 

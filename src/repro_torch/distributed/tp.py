@@ -257,7 +257,8 @@ def sp_on(cfg, seq_len: int) -> bool:
         raise NotImplementedError(
             f"seq_parallel on {cfg.name} ({cfg.family}) over a 'model' axis "
             f"of {m}: the port's Megatron-SP runs the dense family with "
-            f"every TP dim sharded; {bad or 'family'} not divisible")
+            f"every TP dim sharded; {bad or 'family'} not divisible "
+            f"(ROADMAP.md A1's remaining item)")
     return True
 
 
@@ -389,7 +390,8 @@ def head_layout(cfg, tp: Optional[TP]) -> HeadLayout:
     elif nh % m:
         raise NotImplementedError(
             f"{nh} query heads on a 'model' axis of {m}: the rule splits "
-            f"a head's dims, which the port's attention does not run")
+            f"a head's dims, which the port's attention does not run "
+            f"(ROADMAP.md A1's remaining item)")
     else:
         nh_l, q0 = nh // m, r * (nh // m)
     kv_sharded = (kvh * hd) % m == 0
@@ -400,7 +402,7 @@ def head_layout(cfg, tp: Optional[TP]) -> HeadLayout:
     if nh_l % kvh_l:
         raise NotImplementedError(
             f"query heads [{q0}, {q0 + nh_l}) of a group of {g} map to "
-            f"{kvh_l} kv heads unevenly")
+            f"{kvh_l} kv heads unevenly (ROADMAP.md A1's remaining item)")
     if kvh % m == 0 and (kvh > 1 or m == 1):
         cache = -2
     elif hd % m == 0:
@@ -521,7 +523,8 @@ def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
     if nh % m:
         raise NotImplementedError(
             f"{nh} SSD heads on a 'model' axis of {m}: the port's Mamba2 "
-            f"runs a whole block of heads per rank")
+            f"runs a whole block of heads per rank (ROADMAP.md A1's "
+            f"remaining item)")
     nh_l = nh // m
     h0 = tp.rank * nh_l
     return SSMLayout(nh_l, h0, h0 * hd, nh_l * hd, (2 * di + 2 * ds + nh) % m

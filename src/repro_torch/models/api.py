@@ -28,6 +28,13 @@ prefill rows into a live cache IN PLACE, and :func:`tree_ready` /
 :func:`splice_on_ready` are the non-blocking done-probe and
 splice-if-done of the async engine's tickets, over ``torch.cuda.Event``s.
 
+Sizes: :func:`abstract_params` is a config's parameter tree on the
+``meta`` device (shapes and dtypes, no memory, nothing drawn), and
+:func:`param_count` / :func:`active_param_count` count it with the
+reference's conventions.  :func:`decomposed_fns` binds the decomposed
+entry points (the activation forward, the decomposed-KV prefill, decode
+and fold) to one ``DecomposeEngine``.
+
 Meshes: :func:`cache_shardings` gives the specs of a cache tree
 (``distributed.sharding.cache_pspec``), and :class:`SlotShard` is the
 slot arithmetic of a slot-sharded serving engine: which of the engine's
@@ -37,8 +44,10 @@ local index of a global slot, and the all-gather of per-slot results.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable, List, NamedTuple, Tuple
+import math
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -201,6 +210,116 @@ def splice_cache(cfg, old, new, slot_indices, src_indices=None):
 
     tree_map(one, old, new, axes)
     return old
+
+
+# ---------------------------------------------------------------------------
+# Abstract parameters and parameter counts
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg):
+    """The family's parameter tree on the ``meta`` device: the shapes and
+    dtypes of ``init``, with no memory allocated and nothing drawn."""
+    return model_fns(cfg).init(cfg, None, device="meta")
+
+
+def param_count(cfg) -> int:
+    """Elements of every parameter leaf (the padded vocab rows
+    included, as in the reference)."""
+    return sum(math.prod(t.shape) for t in tree_leaves(abstract_params(cfg)))
+
+
+def active_param_count(cfg) -> int:
+    """Matmul-active parameters per token, the N of the 6·N·D model-FLOPs
+    convention: a MoE layer counts top_k of its num_experts; the input
+    embedding is left out when untied (a gather, no FLOPs) and kept once
+    when tied (it is the head)."""
+    total = param_count(cfg)
+    if not cfg.tie_embeddings:
+        total -= cfg.padded_vocab * cfg.d_model
+    if not cfg.num_experts:
+        return total
+    n_moe_layers = cfg.num_layers - cfg.first_k_dense
+    expert_params = 3 * cfg.d_model * cfg.moe_d_ff
+    return total - n_moe_layers * (cfg.num_experts - cfg.top_k) \
+        * expert_params
+
+
+# ---------------------------------------------------------------------------
+# Decomposed execution bound to one engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecomposedFns:
+    """The decomposed entry points, bound to ONE ``DecomposeEngine``:
+    ``forward``/``logit_kl`` run the policy's decomposed blocks;
+    ``prefill_dkv``/``decode_step_dkv``/``compress_tail``/``splice_dkv``
+    are the decomposed-KV serving path.  Made by :func:`decomposed_fns`."""
+    engine: Any
+    forward: Callable               # (params, tokens) -> logits
+    logit_kl: Callable              # (params, tokens) -> scalar
+    prefill_dkv: Callable           # (params, tokens[, rank, ...])
+                                    # -> (logits, cache)
+    decode_step_dkv: Callable       # (params, token, cache, pos, frozen_len)
+    compress_tail: Callable         # (cache[, rank, frozen_len, fold,
+                                    #  new_frozen]) -> cache
+    splice_dkv: Callable = None     # (live, fresh, slot_indices) -> cache
+
+
+def decomposed_fns(cfg, engine) -> DecomposedFns:
+    """Bind the decomposed entry points of the dense family to
+    ``engine``, the one source of ranks, policy and kernels: a rank or
+    tail left None is the engine config's ``kv_rank``/``kv_tail``.
+    ``decode_step_dkv``'s ``frozen_len`` may be an int (every slot) or
+    int32 [B]; ``compress_tail`` with no ``frozen_len`` folds every
+    slot's tail at the prefix's end (the reference's uniform mode)."""
+    if cfg.family != "dense":
+        raise ValueError(f"decomposed execution runs the dense family, not "
+                         f"{cfg.family!r}")
+    from . import decomposed as D
+    from . import decomposed_kv as DK
+
+    def need_policy():
+        if engine.config.policy is None:
+            raise ValueError("the engine has no decomposition policy")
+
+    def forward(params, tokens, wfactors=None):
+        need_policy()
+        return D.forward(params, cfg, tokens, engine, wfactors)
+
+    def logit_kl(params, tokens, wfactors=None):
+        need_policy()
+        return D.logit_kl(params, cfg, tokens, engine, wfactors)
+
+    def prefill_dkv(params, tokens, rank=None, tail=None, exact=False):
+        return DK.prefill_dkv(
+            params, cfg, tokens,
+            engine.config.kv_rank if rank is None else rank,
+            tail=engine.config.kv_tail if tail is None else tail,
+            exact=exact, engine=engine)
+
+    def decode_step_dkv(params, token, cache, pos, frozen_len):
+        fl = torch.as_tensor(frozen_len, dtype=torch.int32,
+                             device=token.device).expand(token.shape[0])
+        return DK.decode_step_dkv(params, cfg, token, cache, pos, fl)
+
+    def compress_tail(cache, rank=None, frozen_len=None, fold=None,
+                      new_frozen=None):
+        b, tl = cache["tail"]["k"].shape[1:3]
+        t = cache["k_u"].shape[2]
+        dev = cache["k_u"].device
+        if frozen_len is None:
+            frozen_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+        if fold is None:
+            fold = torch.ones(b, dtype=torch.bool, device=dev)
+        if new_frozen is None:
+            new_frozen = torch.full((b,), t + tl, dtype=torch.int32,
+                                    device=dev)
+        return DK.compress_tail(
+            cache, cfg, engine.config.kv_rank if rank is None else rank,
+            frozen_len, fold, new_frozen)
+
+    return DecomposedFns(engine, forward, logit_kl, prefill_dkv,
+                         decode_step_dkv, compress_tail, DK.splice_dkv)
 
 
 # ---------------------------------------------------------------------------

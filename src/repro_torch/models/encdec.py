@@ -155,10 +155,14 @@ def batch_extras(cfg, b, s, make):
     return {"frames": make((b, s, cfg.d_model), torch_dtype(cfg.dtype))}
 
 
-def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
-    """Zero caches (under tensor parallelism, the rank's blocks)."""
+def init_cache(cfg, batch: int, max_len: int, device=None,
+               mem_len: Optional[int] = None) -> Params:
+    """Zero caches (under tensor parallelism, the rank's blocks); the
+    cross K/V hold ``mem_len`` encoder rows (``num_audio_frames`` by
+    default, the serving contract)."""
     kvh, hd = T.kv_dims(cfg)
-    nd, m = cfg.dec_layers, cfg.num_audio_frames
+    nd = cfg.dec_layers
+    m = cfg.num_audio_frames if mem_len is None else mem_len
     dt = torch_dtype(cfg.dtype)
     z = lambda *shape: torch.zeros(shape, device=device, dtype=dt)
     return {"self": {"k": z(nd, batch, max_len, kvh, hd),
@@ -170,9 +174,11 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
 def prefill(p: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Encode the frames, run the decoder over the prompt, emit both
-    caches → (last-position logits [B, V], cache)."""
+    caches → (last-position logits [B, V], cache); the cross cache holds
+    as many rows as ``frames`` (as the reference's)."""
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device,
+                       mem_len=frames.shape[1])
     x, cache = _decode_stack(p, cfg, tokens, encode(p, cfg, frames), cache)
     return T.logits_head(p, x[:, -1:], cfg)[:, 0], cache
 

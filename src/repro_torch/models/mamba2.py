@@ -64,10 +64,7 @@ def init_blocks(cfg, n: int, normal, device) -> Params:
     conv_ch = di + 2 * ds
 
     def stacked(shape, std):
-        w = torch.empty((n,) + shape, device=device, dtype=dt)
-        for i in range(n):
-            w[i] = normal(shape, std)
-        return w
+        return T.drawn_slices((n,), shape, std, normal, device, dt)
 
     def full(shape, value, dtype):
         return torch.full((n,) + shape, value, device=device, dtype=dtype)

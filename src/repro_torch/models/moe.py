@@ -59,17 +59,11 @@ def moe_ffn_init(cfg, n: int, normal, device) -> Params:
     e, h, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
 
     def experts(shape, std):
-        w = torch.empty((n, e) + shape, device=device, dtype=dt)
-        for i in range(n):
-            for j in range(e):
-                w[i, j] = normal(shape, std)
-        return w
+        return T.drawn_slices((n, e), shape, std, normal, device, dt)
 
     def stacked(in_dim, out_dim):
-        w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
-        for i in range(n):
-            w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
-        return {"w": w}
+        return {"w": T.drawn_slices((n,), (in_dim, out_dim), in_dim ** -0.5,
+                                    normal, device, dt)}
 
     p = {"router": stacked(h, e),
          "w_gate": experts((h, f), h ** -0.5),

@@ -28,6 +28,7 @@ block of k/v (``cache_pspec``: kv heads over "model", else head_dim).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -53,14 +54,25 @@ def normal_drawer(generator: torch.Generator, device, dtype):
     return normal
 
 
+def drawn_slices(lead: tuple, shape: tuple, std: float, normal, device,
+                 dt) -> torch.Tensor:
+    """A [*lead, *shape] tensor whose [*shape] slices are drawn one at a
+    time by ``normal`` in row-major order of ``lead``; on the ``meta``
+    device nothing is drawn (an abstract tree of a 1T-parameter model
+    takes no time)."""
+    w = torch.empty(tuple(lead) + tuple(shape), device=device, dtype=dt)
+    if w.device.type != "meta":
+        for idx in itertools.product(*map(range, lead)):
+            w[idx] = normal(tuple(shape), std)
+    return w
+
+
 def stacked_dense(n: int, in_dim: int, out_dim: int, normal, device, dt,
                   bias: bool = False) -> Params:
     """``n`` projections [in, out] stacked on a leading axis: N(0, 1/in)
     one matrix at a time, and zero biases [n, out] when ``bias``."""
-    w = torch.empty(n, in_dim, out_dim, device=device, dtype=dt)
-    for i in range(n):
-        w[i] = normal((in_dim, out_dim), in_dim ** -0.5)
-    p = {"w": w}
+    p = {"w": drawn_slices((n,), (in_dim, out_dim), in_dim ** -0.5, normal,
+                           device, dt)}
     if bias:
         p["b"] = torch.zeros(n, out_dim, device=device, dtype=dt)
     return p

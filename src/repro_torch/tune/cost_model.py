@@ -34,6 +34,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
+from ..launch.roofline import HBM_BW, PEAK_FLOPS_F32
+
 #: dtype name (with or without the ``torch.`` prefix) → bytes; others 4
 DTYPE_BYTES = {"float32": 4, "float16": 2, "bfloat16": 2}
 
@@ -75,11 +77,12 @@ H100_CTA_S = 1.06e-6       # per-CTA cost, spread over the SMs
 #: as a CUDA graph (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 H100_HOST_DISPATCH_S = 30.047e-3
 
-#: NVIDIA H100 SXM (data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on
-#: the CUDA cores (both kernels compute in float32), 132 SMs.
-H100 = DeviceModel("h100", peak_flops=67e12, hbm_bw=3.35e12, sms=132,
-                   sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S, split_s=0.0,
-                   host_dispatch_s=H100_HOST_DISPATCH_S)
+#: NVIDIA H100 SXM (data sheet, ``launch.roofline``): 3.35 TB/s HBM3,
+#: 67 TFLOP/s float32 on the CUDA cores (both kernels compute in
+#: float32), 132 SMs.
+H100 = DeviceModel("h100", peak_flops=PEAK_FLOPS_F32, hbm_bw=HBM_BW,
+                   sms=132, sat_warps=H100_SAT_WARPS, cta_s=H100_CTA_S,
+                   split_s=0.0, host_dispatch_s=H100_HOST_DISPATCH_S)
 
 #: ``device="cpu"`` runs of the plain versions: f engages no parallel
 #: units (the memory side is flat); each split of the plain matvec pair

@@ -110,6 +110,36 @@ def test_reorth_kernel_refuses_what_it_does_not_take(cuda):
                                           k, f)), (side, s, h, k, f)
 
 
+@pytest.mark.parametrize("s,h,rank", [(4096, 468, 10), (515, 470, 20),
+                                      (1024, 1024, 50)])
+def test_scalar_lanczos_svd_kernel_route_equals_reference(cuda, s, h, rank):
+    """``core.lanczos.lanczos_svd`` through the B = 1 re-orth kernels
+    equals the same call through the plain versions (Fig. 2's width 468,
+    a ragged width, iters rank + 6): singular values within 1e-4
+    relative, reconstructions within 1e-4 of their largest entry, and
+    exactly iters left and iters − 1 right launches."""
+    from repro_torch.core import lanczos as lz
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(s, rank, generator=g, device=cuda) @ torch.randn(
+        rank, h, generator=g, device=cuda)
+    a = a + 0.01 * torch.randn(s, h, generator=g, device=cuda)
+    z0 = torch.randn(h, generator=g, device=cuda)
+    k = rank + 6
+    left, right = (lr.reorth_left_batched.launches,
+                   lr.reorth_right_batched.launches)
+    out = lz.lanczos_svd(a, rank, k, z0=z0,
+                         hooks=ops.make_batched_hooks(backend="cuda"))
+    assert lr.reorth_left_batched.launches - left == k
+    assert lr.reorth_right_batched.launches - right == k - 1
+    ref = lz.lanczos_svd(a, rank, k, z0=z0,
+                         hooks=ops.make_batched_hooks(backend="reference"))
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-4,
+                               atol=1e-4 * float(ref[1].max()))
+    rec = (out[0] * out[1]) @ out[2]
+    want = (ref[0] * ref[1]) @ ref[2]
+    assert float((rec - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def _device_kernels(fn):
     """Names of the device kernels one call of ``fn`` launches (after a
     warm-up call, so one-time allocations are not counted)."""
