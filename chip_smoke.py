@@ -288,6 +288,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the predicted peak beside the measured one (the gap printed, not
    gated), and a ``roofline:`` line (compute_s, memory_s, the measured
    step, model FLOPs over step time x 989 TFLOP/s).
+22. MoE over the DP axis (``--only moe_dp``), at world 1 on one-rank
+   NCCL groups: ``olmoe-1b-7b`` at full width, (a) its depth cut to 8
+   (AdamW's float32 moments of all 16 layers do not fit beside the
+   weights and gradients), two AdamW steps of 4 × 512 tokens with the
+   batch split over a (1, 1) mesh's DP group in the reference's global
+   form and in its per-shard form (``cfg.moe_shard_map``) against the
+   same steps without a mesh: losses bit-equal, the MoE statistics'
+   collectives issued, no port kernel launched, each step's peak GiB
+   beside no mesh's; (b) at full depth, phase 4's traffic (32 new
+   tokens) slot-sharded on the mesh in both forms, single-step and in
+   fused blocks of 8: tokens equal to no mesh's.  The process group is
+   destroyed at the end.
 
 Each phase prints its seconds (``phase <name>: ... s``);
 ``--only a,b`` runs some phases for development and prints no result.
@@ -4230,6 +4242,115 @@ def seq_train_adafactor() -> None:
     check_freed("seq (d, e)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: MoE over the DP axis on a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+MOE_DP_LAYERS = 8          # olmoe-1b-7b's depth for the AdamW steps
+MOE_DP_STEPS = 2
+MOE_DP_FORMS = ("global", "shard_map")
+
+
+def moe_dp_phase() -> None:
+    """Phase 22 (module docstring): the split MoE train step and
+    slot-sharded MoE serving on a (1, 1) mesh, in both of the
+    reference's forms, against no mesh."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import steps
+    from repro_torch.serving import Engine
+    mesh = _mesh()
+    tcfg = get_arch(MOE_ARCH).replace(num_layers=MOE_DP_LAYERS)
+    batches = _train_batches(tcfg, MOE_DP_STEPS)
+
+    def train(cfg, on: bool):
+        params = init_weights(cfg)
+        opt = optim.make_optimizer(cfg, warmup=1)
+        state = opt.init(params)
+        step = steps.make_train_step(cfg, opt, mesh=mesh if on else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sh.reset_collective_counts()
+        losses, ms = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = (losses, ms, peak, ops.launch_counts(),
+               sh.collective_counts())
+        del params, state, step, opt
+        torch.cuda.empty_cache()
+        return out
+
+    base = train(tcfg, False)
+    for form in MOE_DP_FORMS:
+        cfg = tcfg.replace(moe_shard_map=form == "shard_map")
+        run = train(cfg, True)
+        stats = ("all_gather/moe_counts", "all_reduce/moe_route",
+                 "all_reduce/moe_route_grad") if form == "global" else (
+                     "all_reduce/aux", "all_reduce/aux_grad")
+        print(f"moe_dp (a) {form}: {cfg.name} depth {cfg.num_layers}, "
+              f"{MOE_DP_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"with the batch split over a (1, 1) mesh: losses {run[0]} "
+              f"vs no mesh {base[0]}, bit-equal {run[0] == base[0]}; step "
+              f"ms {_ms_list(run[1])} vs {_ms_list(base[1])}; peak GiB "
+              f"{run[2]:.2f} vs no mesh {base[2]:.2f}; collectives "
+              f"{json.dumps(run[4])}", flush=True)
+        if run[0] != base[0] or any(run[3].values()) \
+                or any(base[3].values()) or base[4] \
+                or not all(run[4].get(k, (0,))[0] for k in stats):
+            raise AssertionError(f"moe_dp (a) {form}: losses {run[0]} != "
+                                 f"{base[0]}, or port kernels launched, or "
+                                 f"the collectives {run[4]} lack {stats}")
+
+    cfg = get_arch(MOE_ARCH)
+    params = init_weights(cfg)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+               for n in SERVE_LENS]
+
+    def engine(c, on: bool, block: int):
+        ecfg = EngineConfig(mesh=mesh if on else None)
+        return lambda: Engine(c, params, slots=4, max_len=1024,
+                              decompose_engine=DecomposeEngine(ecfg),
+                              device="cuda", decode_block=block)
+    eng, want, launches, peak0 = serve_once(engine(cfg, False, 1), prompts,
+                                            32, title="moe_dp (b)")
+    st0 = eng.stats
+    del eng
+    for form in MOE_DP_FORMS:
+        c = cfg.replace(moe_shard_map=form == "shard_map")
+        for block in (1, FUSED_BLOCK):
+            sh.reset_collective_counts()
+            eng, toks, launches, peak = serve_once(
+                engine(c, True, block), prompts, 32,
+                title=f"moe_dp (b) {form}")
+            st = eng.stats
+            counts = sh.collective_counts()
+            sharded = eng.shard.sharded
+            del eng
+            print(f"moe_dp (b) {form}, decode_block={block}: slot-sharded "
+                  f"{sharded}, tokens equal to no mesh {toks == want}; "
+                  f"decode_tok/s {st.decode_tok_s:.2f} vs no mesh "
+                  f"{st0.decode_tok_s:.2f}; peak_mem_gib {peak:.2f} vs "
+                  f"{peak0:.2f}; collectives {json.dumps(counts)}",
+                  flush=True)
+            if toks != want or not sharded or any(launches.values()):
+                raise AssertionError(f"moe_dp (b) {form} block {block}: "
+                                     f"tokens differ from no mesh's, the "
+                                     f"slots are not sharded, or port "
+                                     f"kernels launched {launches}")
+    del params
+
+
 def phase_train(profile: bool = False) -> tuple:
     """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts and
     (a)'s figures.  ``profile``: also profile one kernel-route step of
@@ -4417,7 +4538,8 @@ def phase_tools(granite=None) -> None:
 
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
-          "variants", "modal", "train", "mesh", "model", "seq", "tools")
+          "variants", "modal", "train", "mesh", "model", "seq", "tools",
+          "moe_dp")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -4609,6 +4731,14 @@ def main() -> int:
     if "tools" in only:
         with phase("tools"):
             phase_tools(granite)
+    if "moe_dp" in only:
+        from repro_torch.launch.mesh import shutdown_distributed
+        try:
+            with phase("moe_dp"):
+                moe_dp_phase()
+                check_freed("moe_dp")
+        finally:
+            shutdown_distributed()
     if only != set(PHASES):
         print(f"only: phases {sorted(only)} passed (no result line: a "
               f"partial run)", flush=True)

@@ -53,6 +53,9 @@ class ArchConfig:
     first_k_dense: int = 0           # leading dense layers (kimi-style)
     capacity_factor: float = 1.25
     expert_sharding: str = "1d"      # "1d" = EP only; "2d" = EP x data
+    moe_shard_map: bool = False      # a token split over DP routes per
+                                     # shard (moe_ffn_shard_map), not with
+                                     # the global capacity of moe_ffn
     # --- SSM (mamba2) ---
     ssm_state: int = 0
     ssm_expand: int = 2

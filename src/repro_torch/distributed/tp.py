@@ -44,15 +44,22 @@ The operators are ``torch.autograd.Function``s with their own backward:
 Attention runs Megatron's layout (:class:`HeadLayout`): the rank's query
 heads, its kv heads or the whole K/V gathered, the cache in the rule's
 block; self-attention and the cross-attention of the vlm and audio
-families alike.  Mamba2 (:class:`SSMLayout`, the ssm and hybrid
-families) runs the rank's block of heads: in_proj's column block does
-not fall on head boundaries, so the rank all-gathers the projection
-once per layer (:func:`gather`, whose reduce-scatter backward sums the
-B/C gradient partials of the ranks' heads) and narrows it to its heads'
-z, x and dt and the whole B and C; the replicated leaves it reads in
-part (conv taps and bias, A, D, dt bias, the gated norm's scale) pass
-:func:`copy` before the rank slices them, so every model rank holds the
-same whole gradient of each.
+families alike.  Where M divides nh·hd but not nh, the rule's column
+block of ``wq`` cuts a head: the rank all-gathers q (:func:`q_heads`),
+runs every head its block touches (a head cut between two ranks runs
+on both: its scores need the whole head) and multiplies its own
+columns of their output (:func:`o_cols`) by its row block of ``wo``;
+where the touched query heads read their kv heads unevenly, each gets
+its own copy of its kv head (``kv_index``).  Mamba2 (:class:`SSMLayout`,
+the ssm and hybrid families) runs the heads its ``out_proj`` row block
+touches (its block of heads when M divides them): in_proj's column
+block does not fall on head boundaries, so the rank all-gathers the
+projection once per layer (:func:`gather`, whose reduce-scatter
+backward sums the B/C gradient partials of the ranks' heads) and
+narrows it to its heads' x and dt, its rows' z and the whole B and C;
+the replicated leaves it reads in part (conv taps and bias, A, D, dt
+bias, the gated norm's scale) pass :func:`copy` before the rank slices
+them, so every model rank holds the same whole gradient of each.
 
 Megatron-SP (``cfg.seq_parallel``, the dense family's training and
 prefill; the reference's ``_sp``): between the TP products the residual
@@ -72,7 +79,7 @@ Each collective goes through ``sharding``'s counted helpers.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -162,16 +169,6 @@ class _ReduceScatterAG(torch.autograd.Function):
                 None, None, None)
 
 
-class _MeanValue(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, n, what):
-        return _all_reduce(x, group, what) / n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None, None
-
-
 class _SumAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, what):
@@ -190,11 +187,10 @@ def sum_all(x: torch.Tensor, what: str) -> torch.Tensor:
     return x if tp is None else _SumAll.apply(x, tp.group, what)
 
 
-def mean_value(x: torch.Tensor, group, n: int, what: str) -> torch.Tensor:
-    """The mean of ``x`` over ``group`` (``n`` ranks) whose backward is
-    the identity: a data-parallel step that averages its ranks'
-    gradients then gets the gradient of the mean."""
-    return _MeanValue.apply(x, group, n, what)
+def group_sum(x: torch.Tensor, group, what: str) -> torch.Tensor:
+    """:func:`sum_all` over any ``group`` (the DP group's statistics of a
+    token split, ``distributed.tokens``)."""
+    return _SumAll.apply(x, group, what)
 
 
 def copy(x: torch.Tensor, what: str = "tp_in") -> torch.Tensor:
@@ -360,14 +356,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 class HeadLayout(NamedTuple):
     """How one rank's attention sees the heads.
 
-    * ``nh_l``, ``q0``: the rank's query heads [q0, q0 + nh_l);
+    * ``nh_l``, ``q0``: the query heads the rank computes [q0, q0 + nh_l)
+      (under a head split, every head its column block touches);
     * ``aligned``: the K/V projections hold whole kv heads, the ones the
       rank's query heads read ([k0, k0 + kvh_l)); else the rank computes
       the whole K/V (all-gathering the projection's columns when they
       are sharded) and picks heads [k0, k0 + kvh_l) for its queries;
     * ``kv_sharded``: the K/V projection's columns are sharded;
     * ``cache``: the dim of a K/V cache leaf [.., kvh, hd] sharded over
-      "model" (``cache_pspec``'s rule: -2 kv heads, -1 head_dim, None).
+      "model" (``cache_pspec``'s rule: -2 kv heads, -1 head_dim, None);
+    * ``split``: the rule's column block of ``wq`` (and row block of
+      ``wo``), [c0, c0 + nh·hd/M), does not fall on head boundaries (M
+      divides nh·hd but not nh): the rank all-gathers q over "model"
+      (:func:`q_heads`), runs its touched heads, and keeps the columns
+      [o0, o0 + ow) of their output, its block (:func:`o_cols`);
+    * ``kv_index``: when the touched query heads read their kv heads
+      unevenly (a group the block cuts), each one's kv head relative to
+      ``k0``: :func:`compute_heads` and friends then return one kv head
+      per query head (a group of 1); None for the grouped layout;
+    * ``hd``: the head dim.
     """
     nh_l: int
     q0: int
@@ -376,6 +383,11 @@ class HeadLayout(NamedTuple):
     aligned: bool
     kv_sharded: bool
     cache: Optional[int]
+    split: bool
+    o0: int
+    ow: int
+    kv_index: Optional[Tuple[int, ...]]
+    hd: int
 
 
 def head_layout(cfg, tp: Optional[TP]) -> HeadLayout:
@@ -383,33 +395,37 @@ def head_layout(cfg, tp: Optional[TP]) -> HeadLayout:
     nothing gathered)."""
     nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if tp is None:
-        return HeadLayout(nh, 0, kvh, 0, True, False, None)
+        return HeadLayout(nh, 0, kvh, 0, True, False, None, False, 0,
+                          nh * hd, None, hd)
     m, r = tp.size, tp.rank
+    split = False
     if (nh * hd) % m:
         nh_l, q0 = nh, 0                     # wq/wo replicated
     elif nh % m:
-        raise NotImplementedError(
-            f"{nh} query heads on a 'model' axis of {m}: the rule splits "
-            f"a head's dims, which the port's attention does not run "
-            f"(ROADMAP.md A1's remaining item)")
+        w = nh * hd // m                     # the rule's column block
+        q0 = r * w // hd
+        nh_l = (r * w + w - 1) // hd + 1 - q0
+        split = True
     else:
         nh_l, q0 = nh // m, r * (nh // m)
+    c0 = (r * (nh * hd // m)) if split else q0 * hd
     kv_sharded = (kvh * hd) % m == 0
-    aligned = kv_sharded and kvh % m == 0 and nh_l == nh // m
+    aligned = kv_sharded and kvh % m == 0 and nh_l == nh // m and not split
     g = nh // kvh
     k0 = q0 // g
     kvh_l = (q0 + nh_l - 1) // g + 1 - k0
-    if nh_l % kvh_l:
-        raise NotImplementedError(
-            f"query heads [{q0}, {q0 + nh_l}) of a group of {g} map to "
-            f"{kvh_l} kv heads unevenly (ROADMAP.md A1's remaining item)")
+    idx = tuple((q0 + j) // g - k0 for j in range(nh_l))
+    even = nh_l % kvh_l == 0 and idx == tuple(
+        j // (nh_l // kvh_l) for j in range(nh_l))
     if kvh % m == 0 and (kvh > 1 or m == 1):
         cache = -2
     elif hd % m == 0:
         cache = -1
     else:
         cache = None
-    return HeadLayout(nh_l, q0, kvh_l, k0, aligned, kv_sharded, cache)
+    ow = nh * hd // m if split else nh_l * hd
+    return HeadLayout(nh_l, q0, kvh_l, k0, aligned, kv_sharded, cache,
+                      split, c0 - q0 * hd, ow, None if even else idx, hd)
 
 
 def layout(cfg) -> HeadLayout:
@@ -442,13 +458,41 @@ def kv_local(whole: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
     return whole if lay.cache is None else block_of(whole, lay.cache)
 
 
+def q_heads(q: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The touched heads' query columns [.., nh_l·hd] from the rank's
+    ``wq`` block (a head split: the blocks all-gathered over "model",
+    whose backward reduce-scatters the ranks' partial gradients of a
+    head they share); ``q`` itself otherwise."""
+    if not lay.split:
+        return q
+    return gather(q, -1, "q_cols").narrow(-1, lay.q0 * lay.hd,
+                                          lay.nh_l * lay.hd)
+
+
+def o_cols(x: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """The rank's ``wo`` row block of the touched heads' attention
+    output [.., nh_l·hd] (a head split); ``x`` itself otherwise."""
+    return x.narrow(-1, lay.o0, lay.ow) if lay.split else x
+
+
+def _per_query(kv: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """kv heads [.., kvh_l, hd] → one per touched query head where the
+    mapping is uneven (``kv_index``); ``kv`` itself otherwise."""
+    if lay.kv_index is None:
+        return kv
+    idx = torch.tensor(lay.kv_index, device=kv.device)
+    return kv.index_select(kv.dim() - 2, idx)
+
+
 def compute_heads(block: torch.Tensor, lay: HeadLayout, what: str
                   ) -> torch.Tensor:
-    """The kv heads the rank's queries read [.., kvh_l, hd], from its
-    cache block (``aligned``: the block itself)."""
+    """The kv heads the rank's queries read [.., kvh_l, hd] (one per
+    query head under ``kv_index``), from its cache block (``aligned``:
+    the block itself)."""
     if lay.aligned:
         return block
-    return kv_whole(block, lay, what).narrow(-2, lay.k0, lay.kvh_l)
+    return _per_query(kv_whole(block, lay, what).narrow(-2, lay.k0,
+                                                        lay.kvh_l), lay)
 
 
 def my_heads(kv: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
@@ -456,7 +500,7 @@ def my_heads(kv: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
     (``aligned``: ``kv`` holds them already)."""
     if lay.aligned:
         return kv
-    return kv.narrow(-2, lay.k0, lay.kvh_l)
+    return _per_query(kv.narrow(-2, lay.k0, lay.kvh_l), lay)
 
 
 def width_sharded(width: int) -> bool:
@@ -470,12 +514,18 @@ def width_sharded(width: int) -> bool:
 def vt_heads(vt: torch.Tensor, lay: HeadLayout, width: int, hd: int,
              what: str) -> torch.Tensor:
     """The columns [.., r, kvh_l·hd] of a Vᵀ factor that the rank's queries
-    read, from its block of the kv width (``aligned``: the block)."""
+    read (one head's per query head under ``kv_index``), from its block
+    of the kv width (``aligned``: the block)."""
     if lay.aligned:
         return vt
     if width_sharded(width):
         vt = gather(vt, -1, what)
-    return vt.narrow(-1, lay.k0 * hd, lay.kvh_l * hd)
+    vt = vt.narrow(-1, lay.k0 * hd, lay.kvh_l * hd)
+    if lay.kv_index is None:
+        return vt
+    lead = tuple(vt.shape[:-1])
+    return _per_query(vt.reshape(lead + (lay.kvh_l, hd)), lay).reshape(
+        lead + (lay.nh_l * hd,))
 
 
 def vt_local(vt: torch.Tensor, width: int) -> torch.Tensor:
@@ -495,14 +545,22 @@ def vt_whole(vt: torch.Tensor, width: int, what: str) -> torch.Tensor:
 class SSMLayout(NamedTuple):
     """How one rank's Mamba2 block sees the heads.
 
-    * ``nh_l``, ``h0``: the rank's SSD heads [h0, h0 + nh_l);
-    * ``x0``, ``di_l``: their x channels [x0, x0 + di_l) of d_inner (and
-      their rows of ``out_proj``, the rule's row block);
+    * ``nh_l``, ``h0``: the SSD heads the rank runs [h0, h0 + nh_l)
+      (under a head split, every head its row block touches);
+    * ``x0``, ``di_l``: its rows [x0, x0 + di_l) of d_inner (the rule's
+      row block of ``out_proj``; its z rows and gated-norm scale);
     * ``proj_sharded``: in_proj's columns are sharded (the rank
       all-gathers the projection), else the rank computes it whole;
     * ``conv``: the ``conv`` cache's channels are sharded over "model"
       (the rule's contiguous block of d_inner + 2·d_state, which is not
-      head-aligned), else the rank holds the whole window.
+      head-aligned), else the rank holds the whole window;
+    * ``xc0``, ``xcw``: the x channels of the heads it runs [xc0, xc0 +
+      xcw) (its rows, unless ``split``);
+    * ``split``: M does not divide the heads (it divides d_inner): the
+      row block cuts a head, the rank runs its touched heads and keeps
+      its rows of their output (:func:`ssm_y`), and the ``ssm`` state
+      leaf is whole on every rank (``cache_pspec`` replicates it), the
+      rank reading and writing its touched heads (:func:`ssm_state`).
     """
     nh_l: int
     h0: int
@@ -510,6 +568,9 @@ class SSMLayout(NamedTuple):
     di_l: int
     proj_sharded: bool
     conv: bool
+    xc0: int
+    xcw: int
+    split: bool
 
 
 def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
@@ -518,17 +579,19 @@ def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
     nh, hd, di, ds = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_inner,
                       cfg.ssm_state)
     if tp is None:
-        return SSMLayout(nh, 0, 0, di, False, False)
+        return SSMLayout(nh, 0, 0, di, False, False, 0, di, False)
     m = tp.size
-    if nh % m:
+    if di % m:
         raise NotImplementedError(
-            f"{nh} SSD heads on a 'model' axis of {m}: the port's Mamba2 "
-            f"runs a whole block of heads per rank (ROADMAP.md A1's "
-            f"remaining item)")
-    nh_l = nh // m
-    h0 = tp.rank * nh_l
-    return SSMLayout(nh_l, h0, h0 * hd, nh_l * hd, (2 * di + 2 * ds + nh) % m
-                     == 0, (di + 2 * ds) % m == 0)
+            f"d_inner {di} on a 'model' axis of {m}: the rule replicates "
+            f"out_proj, which the port's Mamba2 does not run (ROADMAP.md "
+            f"A1's remaining item)")
+    di_l = di // m
+    x0 = tp.rank * di_l
+    h0 = x0 // hd
+    nh_l = (x0 + di_l - 1) // hd + 1 - h0
+    return SSMLayout(nh_l, h0, x0, di_l, (2 * di + 2 * ds + nh) % m == 0,
+                     (di + 2 * ds) % m == 0, h0 * hd, nh_l * hd, nh % m != 0)
 
 
 def ssm(cfg) -> SSMLayout:
@@ -545,11 +608,29 @@ def ssm_heads(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
 
 
 def ssm_rows(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
-    """The rank's heads' x channels [x0, x0 + di_l) of a d_inner-wide
-    last dim."""
+    """The rank's rows [x0, x0 + di_l) of a d_inner-wide last dim."""
     if current() is None:
         return t
     return t.narrow(-1, lay.x0, lay.di_l)
+
+
+def ssm_y(y: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The rank's rows of its heads' output [.., xcw] (a head split);
+    ``y`` itself otherwise."""
+    return y.narrow(-1, lay.x0 - lay.xc0, lay.di_l) if lay.split else y
+
+
+def ssm_state(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """The rank's heads of an ``ssm`` state leaf [.., nh, hd, ds] (a view;
+    a head split keeps the leaf whole); the leaf itself otherwise."""
+    return t.narrow(-3, lay.h0, lay.nh_l) if lay.split else t
+
+
+def ssm_state_heads(cfg) -> int:
+    """Heads of an ``ssm`` state leaf on this rank (``cache_pspec``: the
+    rank's block when M divides them, else all)."""
+    tp, nh = current(), cfg.ssm_heads
+    return nh // tp.size if tp is not None and nh % tp.size == 0 else nh
 
 
 def ssm_channels(t: torch.Tensor, lay: SSMLayout, di: int) -> torch.Tensor:
@@ -558,7 +639,7 @@ def ssm_channels(t: torch.Tensor, lay: SSMLayout, di: int) -> torch.Tensor:
     and C."""
     if current() is None:
         return t
-    return torch.cat([t.narrow(-1, lay.x0, lay.di_l),
+    return torch.cat([t.narrow(-1, lay.xc0, lay.xcw),
                       t.narrow(-1, di, t.shape[-1] - di)], dim=-1)
 
 

@@ -45,17 +45,21 @@ is answered by :class:`Traffic`: 0, False or 0.0 (a uniform batch's
 branch: equal token counts on every rank), or in a decomposed-KV decode
 cell the frozen prefix length; ``host_reads`` counts them.
 
-A cell the port refuses (``NotImplementedError``: the moe, vlm and audio
-families' batch-1 sequence sharding, ROADMAP.md A1) is recorded with the
-port's own error text.  Records go to ``results/dryrun_torch/`` through
-``ioutil``'s atomic write.
+A cell the port refuses (``NotImplementedError``, naming ROADMAP.md A1:
+what the port's distribution does not run yet, such as the vlm and
+audio families' batch-1 sequence sharding; none of the reference's 64
+cells at the default flags) is recorded with the port's own error text.
+Records go to ``results/dryrun_torch/`` through ``ioutil``'s atomic
+write.
 
 Flags: the reference's, where the port has the option.  ``--no-calibrate``,
 ``--donate`` and ``--score-bf16`` steer XLA only (its cost-analysis
-extrapolation, buffer donation and its score dtype) and
-``--moe-shard-map`` has nothing to switch (the port's MoE step is always
-``moe_ffn_shard_map``): they are refused (:data:`REFUSED_FLAGS`).
-``--attn-chunk`` and ``--ssd-chunk`` set ``models.layers.ATTN_CHUNK`` and
+extrapolation, buffer donation and its score dtype): they are refused
+(:data:`REFUSED_FLAGS`).  ``--moe-shard-map`` runs the MoE blocks in
+the reference's per-shard form (``cfg.moe_shard_map``: capacity and the
+aux loss from each DP rank's tokens) in place of its default global
+form (capacity from the whole step's tokens).  ``--attn-chunk`` and
+``--ssd-chunk`` set ``models.layers.ATTN_CHUNK`` and
 ``models.mamba2.CHUNK`` for the run.
 
 Importing this module initializes nothing; :func:`run_cell` refuses to
@@ -101,7 +105,6 @@ REFUSED_FLAGS = {
                       "extrapolated here)",
     "--donate": "XLA's buffer donation",
     "--score-bf16": "XLA's attention-score dtype",
-    "--moe-shard-map": "the port's MoE step is always moe_ffn_shard_map",
 }
 
 #: the dense recent-token tail of a decomposed-KV decode cell (the
@@ -201,13 +204,16 @@ def _blank_tree(tree):
 def resolve_cfg(arch, *, remat: Optional[bool] = None,
                 seq_parallel: bool = False,
                 remat_policy: Optional[str] = None,
-                capacity_factor: float = 0.0) -> ArchConfig:
+                capacity_factor: float = 0.0,
+                moe_shard_map: bool = False) -> ArchConfig:
     """``arch`` (a name or a config) with the cell's overrides."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     if remat is not None:
         cfg = cfg.replace(remat=remat)
     if seq_parallel:
         cfg = cfg.replace(seq_parallel=True)
+    if moe_shard_map:
+        cfg = cfg.replace(moe_shard_map=True)
     if remat_policy is not None:
         cfg = cfg.replace(remat_policy=remat_policy)
     if capacity_factor:
@@ -217,11 +223,9 @@ def resolve_cfg(arch, *, remat: Optional[bool] = None,
 
 def _rank_batch_bytes(cfg, batch, mesh) -> int:
     """Bytes of the rows of a GLOBAL training batch this rank trains on
-    (``steps._dp_shard``'s rule: a config with experts keeps all of it)."""
+    (``steps._dp_shard``'s rule)."""
     from ..distributed import sharding as sh
     from ..runtime import steps
-    if cfg.num_experts:
-        return _bytes(batch)
     dp = sh.dp_size(mesh)
     if steps.seq_batch(cfg, tuple(batch["tokens"].shape), mesh):
         return _bytes(batch) // dp
@@ -237,7 +241,8 @@ def build_cell(arch, shape, mesh, *, decomposed_kv: int = 0,
                remat: Optional[bool] = None, zero1: bool = True,
                microbatches: int = 1, seq_parallel: bool = False,
                remat_policy: Optional[str] = None,
-               capacity_factor: float = 0.0, optimizer=None):
+               capacity_factor: float = 0.0, moe_shard_map: bool = False,
+               optimizer=None):
     """(step, args, memory) of one cell on ``mesh``, called inside a
     ``FakeTensorMode`` (or, at a small size, in a real world): ``args``
     are this rank's blocks, zeros (the GLOBAL batch or prefill inputs,
@@ -250,7 +255,8 @@ def build_cell(arch, shape, mesh, *, decomposed_kv: int = 0,
     from ..runtime import steps
     cfg = resolve_cfg(arch, remat=remat, seq_parallel=seq_parallel,
                       remat_policy=remat_policy,
-                      capacity_factor=capacity_factor)
+                      capacity_factor=capacity_factor,
+                      moe_shard_map=moe_shard_map)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     mem = {"param_bytes": 0, "opt_state_bytes": 0, "batch_bytes": 0,
            "cache_bytes": 0}
@@ -304,7 +310,7 @@ def build_cell(arch, shape, mesh, *, decomposed_kv: int = 0,
     _, cache, _ = api.decode_input_specs(cfg, shape)
     cache = _blank_tree(api.shard_cache(cfg, cache, mesh))
     mem["cache_bytes"] = _bytes(cache)
-    step = steps.make_decode_step(cfg, mesh)
+    step = steps.make_decode_step(cfg, mesh, global_batch=b)
     return step, (params, tok, cache, _blank(tok)), mem
 
 
@@ -348,8 +354,8 @@ def run_cell(arch, shape, multi_pod: bool = False, *,
         sizes, names = mesh_shape
         mesh_name = "x".join(map(str, sizes))
     cfg = resolve_cfg(arch, **{k: kw[k] for k in (
-        "remat", "seq_parallel", "remat_policy", "capacity_factor")
-        if k in kw})
+        "remat", "seq_parallel", "remat_policy", "capacity_factor",
+        "moe_shard_map") if k in kw})
     shp = SHAPES[shape] if isinstance(shape, str) else shape
     options = dict(kw, attn_chunk=attn_chunk, ssd_chunk=ssd_chunk)
     options.pop("optimizer", None)
@@ -478,6 +484,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--remat-policy", default=None)
     ap.add_argument("--attn-chunk", type=int, default=0)
     ap.add_argument("--capacity-factor", type=float, default=0.0)
+    ap.add_argument("--moe-shard-map", action="store_true",
+                    help="MoE blocks in the per-shard form "
+                         "(moe_ffn_shard_map's capacity and aux loss)")
     ap.add_argument("--ssd-chunk", type=int, default=0)
     ap.add_argument("--results-dir", default=RESULTS_DIR)
     args = ap.parse_args(argv)
@@ -505,6 +514,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         kw["remat_policy"] = args.remat_policy
     if args.capacity_factor:
         kw["capacity_factor"] = args.capacity_factor
+    if args.moe_shard_map:
+        kw["moe_shard_map"] = True
     failures, n_refused = [], 0
     for arch, shp, mp in todo:
         mtag = "multi" if mp else "single"

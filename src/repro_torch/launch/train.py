@@ -22,8 +22,10 @@ Without ``--device cpu`` it raises when there is no GPU.
 serve CLI's ``--mesh``) trains SPMD on a (data, model) mesh, one process
 per card under torchrun: the batch over "data", every family
 tensor-parallel over "model" when M > 1, and with ``--zero1``
-AdamW's moments sharded over the DP axis.  The saved state is whole, so
-a run restarts on any other mesh:
+AdamW's moments sharded over the DP axis; a config with experts splits
+its batch too, its MoE blocks in the reference's global form (capacity
+from the whole batch), or with ``--moe-shard-map`` in its per-shard
+form.  The saved state is whole, so a run restarts on any other mesh:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch granite-3-2b --mesh 2x2 --zero1 --steps 5 --seq-len 512 \\
@@ -69,6 +71,11 @@ def main(argv=None) -> None:
                          "torchrun")
     ap.add_argument("--zero1", action="store_true",
                     help="shard AdamW's moments over the DP axis (ZeRO-1)")
+    ap.add_argument("--moe-shard-map", action="store_true",
+                    help="a config with experts routes each DP rank's "
+                         "tokens alone (the reference's moe_ffn_shard_map: "
+                         "per-shard capacity and aux loss), not with the "
+                         "whole batch's capacity")
     args = ap.parse_args(argv)
     mesh = parse_mesh(args.mesh, args.device)
     lead = True
@@ -79,6 +86,8 @@ def main(argv=None) -> None:
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.moe_shard_map:
+        cfg = cfg.replace(moe_shard_map=True)
     shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
     os.makedirs(args.ckpt_dir, exist_ok=True)
     res = train_loop(cfg, shape, total_steps=args.steps,

@@ -32,7 +32,8 @@ Under tensor parallelism (``distributed.tp.use(mesh)``) a rank holds
 head_dim) sharded.  Prefill and folds all-gather K/V (or the Vᵀ factor
 and the tail) to the whole kv width, so every model rank decomposes the
 same matrix and keeps its columns; decode runs the dkv kernel on the
-rank's query heads, [slots, nh/M, r] against the whole U, and the
+rank's query heads, [slots, nh/M, r] against the whole U (under a head
+split the heads its column block touches, ``tp.HeadLayout``), and the
 layout's ``aligned`` flag says whether the rank's block holds its kv
 heads or it gathers them (kvh % M ≠ 0).
 """

@@ -133,7 +133,7 @@ def init_state(cfg, batch: int, max_len: int, device=None) -> Params:
     conv_ch = TP.conv_width(cfg)
     kvh, hd = T.kv_dims(cfg)
     dt = torch_dtype(cfg.dtype)
-    w1, nh, shd, ds = (cfg.ssm_conv_width - 1, TP.ssm(cfg).nh_l,
+    w1, nh, shd, ds = (cfg.ssm_conv_width - 1, TP.ssm_state_heads(cfg),
                        cfg.ssm_head_dim, cfg.ssm_state)
 
     def z(shape, dtype=dt):
@@ -184,8 +184,8 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
         inputs = M._ssd_inputs(lp["ssd"], h_in, cfg)
         final = {}
         x = x + M._ssd_core(lp["ssd"], h_in, cfg, kernels, inputs, final)
-        for key, v in M.final_state(lp, inputs, cfg, lay, final).items():
-            _mamba_state(st, g, j)[key].copy_(v)
+        M.put_state(_mamba_state(st, g, j),
+                    M.final_state(lp, inputs, cfg, lay, final), lay)
         if g is not None and j == mpg - 1:
             a, k, v = T._self_attention(sh["attn"],
                                         T.norm(sh["attn_norm"], x, cfg),
@@ -212,14 +212,12 @@ def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
     ``live`` (bool [B]) is False writes nothing."""
     _, mpg, _ = _layout(cfg)
     x = T.embed(p, cfg, token)[:, None, :]
-    every = slice(None)
     sh = p["shared"]
     for g, j, lp in _mamba_blocks(p, cfg):
         cur = _mamba_state(state, g, j)
         y, new = M.ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x,
                                                    cfg.norm_eps), cur, cfg)
-        L.write_rows(cur["conv"], every, new["conv"], live)
-        L.write_rows(cur["ssm"], every, new["ssm"], live)
+        M.write_state(cur, new, cfg, live)
         x = x + y
         if g is not None and j == mpg - 1:
             kv = {"k": state["attn"]["k"][g], "v": state["attn"]["v"][g]}

@@ -354,13 +354,15 @@ def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor,
     ``kvh_c`` is the rank's kv heads when the layout is ``aligned`` (on
     one device: every head), else every kv head (the projection's
     columns all-gathered over "model", or computed whole where the rule
-    replicates them).  With ``sp`` (Megatron-SP) ``h`` is the rank's
-    block of the sequence, gathered whole here."""
+    replicates them).  Under a head split q is the heads the rank's
+    column block touches (``tp.q_heads``: the blocks all-gathered).
+    With ``sp`` (Megatron-SP) ``h`` is the rank's block of the sequence,
+    gathered whole here."""
     lay = TP.layout(cfg)
     hd = cfg.resolved_head_dim
     sharded = o_sharded(cfg)
     hc = TP.sp_in(h, sp) if sharded else h
-    q = split_heads(dense(p["wq"], hc), lay.nh_l)
+    q = split_heads(TP.q_heads(dense(p["wq"], hc), lay), lay.nh_l)
     if sharded and not lay.kv_sharded:
         # wk/wv replicated, read by the rank's heads only: each rank's
         # gradient of K/V is a partial sum, summed over "model" here (the
@@ -383,9 +385,11 @@ def o_sharded(cfg) -> bool:
 
 def o_proj(p: Params, x: torch.Tensor, cfg, sp: bool = False
            ) -> torch.Tensor:
-    """The attention's output projection ``p["wo"]``: row-parallel under
-    tensor parallelism."""
-    return row_dense(p["wo"], x, o_sharded(cfg), sp)
+    """The attention's output projection ``p["wo"]`` of the rank's query
+    heads' output: row-parallel under tensor parallelism (under a head
+    split, on the rank's row block of the touched heads' columns)."""
+    return row_dense(p["wo"], TP.o_cols(x, TP.layout(cfg)), o_sharded(cfg),
+                     sp)
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
@@ -399,7 +403,7 @@ def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
     b, s, _ = x.shape
     lay = TP.layout(cfg)
     xc = TP.copy(x) if o_sharded(cfg) else x
-    q = split_heads(dense(p["wq"], xc), lay.nh_l)
+    q = split_heads(TP.q_heads(dense(p["wq"], xc), lay), lay.nh_l)
     if cached:
         k, v = (TP.compute_heads(kv[0], lay, "xk_cache"),
                 TP.compute_heads(kv[1], lay, "xv_cache"))

@@ -21,14 +21,18 @@ float32) per layer, O(1) in sequence length; ``decode_step`` updates the
 state tree IN PLACE, one layer slice at a time.
 
 Under tensor parallelism (``distributed.tp.use(mesh)``; parameters are
-the rank's ``params_sharding`` blocks) each rank runs its block of heads
-(``tp.ssm``): the in_proj projection gathered whole once per layer and
-narrowed to the rank's z, x and dt and the whole B and C, the conv on
-the rank's channels, the SSD kernel at the rank's heads, the gated
-RMSNorm's sum of squares over the whole d_inner (``tp.sum_all``) and
-``out_proj`` row-parallel.  The ``ssm`` state holds the rank's heads;
-the ``conv`` state the rule's channel block, gathered whole by a decode
-step and written back as the block.  Without a "model" axis every
+the rank's ``params_sharding`` blocks) each rank runs the heads its
+``out_proj`` row block touches (``tp.ssm``; its block of heads when M
+divides them): the in_proj projection gathered whole once per layer
+and narrowed to the rank's rows' z, its heads' x and dt and the whole
+B and C, the conv on the rank's channels, the SSD kernel at the rank's
+heads, their output narrowed to the rank's rows (``tp.ssm_y``), the
+gated RMSNorm's sum of squares over the whole d_inner (``tp.sum_all``
+of each rank's rows) and ``out_proj`` row-parallel.  The ``ssm`` state
+holds the rank's heads (a head split keeps the rule's whole leaf and
+the rank reads and writes its heads, ``tp.ssm_state``); the ``conv``
+state the rule's channel block, gathered whole by a decode step and
+written back as the block.  Without a "model" axis every
 ``tp`` helper is the identity and the body is the single-device
 computation.
 """
@@ -168,13 +172,13 @@ def _ssd_inputs(p: Params, x_in: torch.Tensor, cfg):
     every channel)."""
     b, s, _ = x_in.shape
     lay = TP.ssm(cfg)
-    ds, hd, di_l = cfg.ssm_state, cfg.ssm_head_dim, lay.di_l
+    ds, hd, xw = cfg.ssm_state, cfg.ssm_head_dim, lay.xcw
     z, xbc_raw, dt_raw = _split_proj(_in_proj(p, x_in, lay), cfg, lay)
     xbc = _conv_causal(TP.ssm_channels(xbc_raw, lay, cfg.d_inner),
                        *_conv_params(p, lay, cfg))
-    xh = xbc[..., :di_l].reshape(b, s, lay.nh_l, hd).float()
-    bm = xbc[..., di_l:di_l + ds].float()
-    cm = xbc[..., di_l + ds:].float()
+    xh = xbc[..., :xw].reshape(b, s, lay.nh_l, hd).float()
+    bm = xbc[..., xw:xw + ds].float()
+    cm = xbc[..., xw + ds:].float()
     dt = softplus(dt_raw.float() + _heads(p["dt_bias"], lay))
     return z, xbc_raw, xh, bm, cm, dt
 
@@ -258,8 +262,8 @@ def _ssd_core(p: Params, x_in: torch.Tensor, cfg, kernels: KernelSet,
 
     y = (y_intra + y_inter).reshape(b, s, nh, hd) \
         + _heads(p["d"], lay)[None, None, :, None] * xh
-    return _out(p, y.reshape(b, s, lay.di_l) * L.silu(z.float()), cfg, lay,
-                x_in.dtype)
+    y = TP.ssm_y(y.reshape(b, s, lay.xcw), lay)
+    return _out(p, y * L.silu(z.float()), cfg, lay, x_in.dtype)
 
 
 def ssd_apply(p: Params, x_in: torch.Tensor, cfg,
@@ -280,7 +284,7 @@ def ssd_decode(p: Params, x_in: torch.Tensor, state: Params,
     b = x_in.shape[0]
     lay = TP.ssm(cfg)
     di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, lay.nh_l, cfg.ssm_head_dim
-    di_l = lay.di_l
+    xw = lay.xcw
     z, xbc, dt_raw = _split_proj(_in_proj(p, x_in, lay), cfg, lay)
 
     conv_in = torch.cat([TP.conv_whole(state["conv"], lay),
@@ -292,22 +296,21 @@ def ssd_decode(p: Params, x_in: torch.Tensor, state: Params,
     xbc_c = L.silu(xbc_c + conv_b.float())
     new_conv = TP.conv_local(conv_in[:, 1:, :], lay)
 
-    xh = xbc_c[:, :di_l].reshape(b, nh, hd)
-    bm = xbc_c[:, di_l:di_l + ds]                           # [B, ds]
-    cm = xbc_c[:, di_l + ds:]
+    xh = xbc_c[:, :xw].reshape(b, nh, hd)
+    bm = xbc_c[:, xw:xw + ds]                               # [B, ds]
+    cm = xbc_c[:, xw + ds:]
 
     dt = softplus(dt_raw[:, 0].float() + _heads(p["dt_bias"], lay))
     g = torch.exp(dt * -torch.exp(_heads(p["a_log"], lay)))  # [B, nh]
 
-    h = state["ssm"].float()
+    h = TP.ssm_state(state["ssm"], lay).float()
     h = g[:, :, None, None] * h \
         + (dt[:, :, None] * xh)[..., None] * bm[:, None, None, :]
     y = torch.einsum("bd,bnpd->bnp", cm, h) \
         + _heads(p["d"], lay)[None, :, None] * xh
-    y = y.reshape(b, 1, di_l) * L.silu(z.float())
+    y = TP.ssm_y(y.reshape(b, 1, xw), lay) * L.silu(z.float())
     return _out(p, y, cfg, lay, x_in.dtype), {"conv": new_conv,
-                                              "ssm": h.to(
-                                                  state["ssm"].dtype)}
+                                              "ssm": h.to(torch.float32)}
 
 
 # ---------------------------------------------------------------------------
@@ -355,9 +358,9 @@ def init_state(cfg, batch: int, max_len: Optional[int] = None,
         "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1,
                              TP.conv_width(cfg)),
                             device=device, dtype=torch_dtype(cfg.dtype)),
-        "ssm": torch.zeros((nl, batch, TP.ssm(cfg).nh_l, cfg.ssm_head_dim,
-                            cfg.ssm_state), device=device,
-                           dtype=torch.float32),
+        "ssm": torch.zeros((nl, batch, TP.ssm_state_heads(cfg),
+                            cfg.ssm_head_dim, cfg.ssm_state),
+                           device=device, dtype=torch.float32),
     }
 
 
@@ -381,8 +384,8 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
         inputs = _ssd_inputs(lp["ssd"], h_in, cfg)
         final = {}
         x = x + _ssd_core(lp["ssd"], h_in, cfg, kernels, inputs, final)
-        for k, v in final_state(lp, inputs, cfg, lay, final).items():
-            state[k][i] = v
+        put_state({k: state[k][i] for k in state},
+                  final_state(lp, inputs, cfg, lay, final), lay)
     if SEQ.current() is not None:
         x = SEQ.from_last(x[:, -1:, :], "last_hidden")
     logits = T.logits_head(p, x[:, -1:, :], cfg)[:, 0]
@@ -411,6 +414,23 @@ def final_state(lp: Params, inputs, cfg, lay, final: dict) -> Params:
     return {"conv": conv, "ssm": torch.einsum("bsd,bsnp->bnpd", bm, w)}
 
 
+def put_state(dst: Params, new: Params, lay) -> None:
+    """Copy a block's new (conv, ssm) state into its state slices
+    ``dst`` (the rank's heads of a whole ``ssm`` leaf under a head
+    split)."""
+    dst["conv"].copy_(new["conv"])
+    TP.ssm_state(dst["ssm"], lay).copy_(new["ssm"])
+
+
+def write_state(dst: Params, new: Params, cfg, live=None) -> None:
+    """:func:`ssd_decode`'s new state into the block's state slices
+    ``dst`` IN PLACE, except for a slot whose ``live`` is False."""
+    every = slice(None)
+    L.write_rows(dst["conv"], every, new["conv"], live)
+    L.write_rows(TP.ssm_state(dst["ssm"], TP.ssm(cfg)), every, new["ssm"],
+                 live)
+
+
 def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
                 pos: torch.Tensor, live=None) -> Tuple[torch.Tensor, Params]:
     """One-token step: token [B] → (logits [B, V], state).  ``pos`` is
@@ -419,13 +439,11 @@ def decode_step(p: Params, cfg, token: torch.Tensor, state: Params,
     (bool [B]) is False."""
     del pos
     x = T.embed(p, cfg, token)[:, None, :]
-    every = slice(None)
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         st = {"conv": state["conv"][i], "ssm": state["ssm"][i]}
-        y, st = ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x, cfg.norm_eps),
-                           st, cfg)
-        L.write_rows(state["conv"][i], every, st["conv"], live)
-        L.write_rows(state["ssm"][i], every, st["ssm"], live)
+        y, new = ssd_decode(lp["ssd"], L.rmsnorm(lp["norm"], x,
+                                                 cfg.norm_eps), st, cfg)
+        write_state(st, new, cfg, live)
         x = x + y
     return T.logits_head(p, x, cfg)[:, 0], state

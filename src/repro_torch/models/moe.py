@@ -27,6 +27,14 @@ kimi-k2 extras: ``first_k_dense`` leading dense blocks and
 ``n_shared_experts`` always-on shared experts added to the MoE output.
 Decode routes the WHOLE slot batch, dead and padding rows included, as
 the reference does: their tokens take capacity too.
+
+A call whose tokens are split over the DP group (``distributed.tokens``:
+a data-parallel train step's rows or a batch-1 sequence's blocks, a
+slot-sharded decode) runs one of the reference's two forms: by default
+its GSPMD ``moe_ffn`` (:func:`route`'s statistics over the group:
+global capacity, ranks and aux loss, token-equal to the whole call),
+with ``cfg.moe_shard_map`` its ``moe_ffn_shard_map`` (each rank's
+capacity and aux loss, the aux averaged over the group).
 """
 from __future__ import annotations
 
@@ -35,7 +43,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import seq as SEQ
 from ..distributed import sharding as sh
+from ..distributed import tokens as TOK
 from ..distributed import tp as TP
 from ..platform import torch_dtype
 from . import layers as L
@@ -114,9 +124,16 @@ def capacity(cfg, tokens: int) -> int:
                             / cfg.num_experts))
 
 
-def route(p: Params, xf: torch.Tensor, cfg):
+def route(p: Params, xf: torch.Tensor, cfg, split=None):
     """Router of ``xf`` [T, H] → (gates [T, k] float32, expert ids [T, k],
-    rank of each (token, slot) in its expert [T·k], aux loss)."""
+    rank of each (token, slot) in its expert [T·k], aux loss).  With
+    ``split`` (``distributed.tokens.Split``: ``xf`` is this rank's block
+    of a call's tokens) the statistics are the whole call's, as the
+    reference's GSPMD ``moe_ffn`` computes them: ``me`` and the top-1
+    counts summed over the group and divided by its tokens, and each
+    slot's rank offset by the exclusive scan of the per-expert counts
+    over the ranks before this one (their tokens come first in the flat
+    order: the global stable argsort's rank)."""
     e, k = cfg.num_experts, cfg.top_k
     t = xf.shape[0]
     dev = xf.device
@@ -130,7 +147,13 @@ def route(p: Params, xf: torch.Tensor, cfg):
     me = probs.mean(dim=0)
     first = torch.zeros(e, device=dev).scatter_add_(
         0, eidx[:, 0], torch.ones(t, device=dev))
-    aux = e * torch.sum(me * (first / t)) * AUX_LOSS_COEF
+    n_all = t
+    if split is not None:
+        n_all = t * split.size
+        stats = TOK.total(torch.cat([me * (t / n_all), first]), split,
+                          "moe_route")
+        me, first = stats[:e], stats[e:]
+    aux = e * torch.sum(me * (first / n_all)) * AUX_LOSS_COEF
 
     # rank in expert from sorted runs (both argsorts stable, as jnp's)
     slots_e = eidx.reshape(t * k)
@@ -140,6 +163,8 @@ def route(p: Params, xf: torch.Tensor, cfg):
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(t * k, device=dev) - starts[slots_e[order]]
     rank = rank_sorted[torch.argsort(order, stable=True)]
+    if split is not None:
+        rank = rank + TOK.offsets(counts, split, "moe_counts")[slots_e]
     return gate_vals, eidx, rank, aux
 
 
@@ -161,21 +186,31 @@ def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg, mesh
     """The expert-parallel MoE FFN (the reference's ``moe_ffn_shard_map``,
     with the mesh an argument instead of a module global): ``p`` holds the
     rank's E/M experts (``params_sharding``), ``x`` [B, S, H] is the
-    rank's tokens, model-replicated.  Every model rank routes all of
-    ``x``, dispatches locally into buffers of its own experts only, and
-    the gate-weighted combine is all-reduced over "model" in ``x``'s
-    dtype; the aux loss is averaged over the DP super-axis.  Capacity is
-    per call, from the rank's tokens: on each data shard this is
-    :func:`moe_ffn` of that shard (the reference's documented semantics),
-    and with the batch whole on every rank it is :func:`moe_ffn` itself.
-    ``expert_sharding="2d"`` all-gathers the F dim of the expert
-    weights over "data" first (its backward reduce-scatters the
-    gradient, which then has the rank's F block's shape)."""
+    rank's tokens (its block of the DP super-axis), model-replicated.
+    Every model rank routes all of ``x``, dispatches locally into buffers
+    of its own experts only, and the gate-weighted combine is
+    all-reduced over "model" in ``x``'s dtype; the aux loss is averaged
+    over the DP super-axis.  Capacity is per call, from the rank's
+    tokens: on each data shard this is :func:`moe_ffn` of that shard
+    (the reference's documented semantics).  ``expert_sharding="2d"``
+    all-gathers the F dim of the expert weights over "data" first (its
+    backward reduce-scatters the gradient, which then has the rank's F
+    block's shape)."""
+    split = TOK.of(mesh) if mesh is not None and sh.dp_size(mesh) > 1 \
+        else None
     with TP.use(mesh) as tp:
-        return _experts(p, x, cfg, mesh, tp)
+        return _experts(p, x, cfg, mesh, tp, split, per_shard=True)
 
 
-def _experts(p: Params, x: torch.Tensor, cfg, mesh, tp):
+def _experts(p: Params, x: torch.Tensor, cfg, mesh, tp, split,
+             per_shard: bool):
+    """The MoE FFN of ``x``, the rank's block of a call's tokens split
+    over ``split`` (None: the whole call).  ``per_shard``: capacity from
+    the rank's tokens, the aux loss averaged over the group (the
+    reference's ``moe_ffn_shard_map``); else the whole call's capacity,
+    ranks and aux loss (its GSPMD ``moe_ffn``: each rank's dispatch
+    buffer still holds the global capacity's slots, most of them other
+    ranks' tokens)."""
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
     m, m_idx = (1, 0) if tp is None else (tp.size, tp.rank)
@@ -184,14 +219,15 @@ def _experts(p: Params, x: torch.Tensor, cfg, mesh, tp):
                          f"of {m}")
     e_loc = e // m
     t = b * s
-    cap = capacity(cfg, t)
+    glob = None if per_shard else split
+    cap = capacity(cfg, t * (1 if glob is None else glob.size))
     dev = x.device
     xf = x.reshape(t, h)
-    gate_vals, eidx, rank, aux = route(p, xf, cfg)
-    dp = 1 if mesh is None else sh.dp_size(mesh)
-    if dp > 1:
-        aux = TP.mean_value(aux.reshape(1), sh.dp_group(mesh), dp,
-                            "aux").reshape(())
+    gate_vals, eidx, rank, aux = (route(p, xf, cfg) if glob is None
+                                  else route(p, xf, cfg, glob))
+    if per_shard and split is not None:
+        aux = TOK.total(aux.reshape(1), split, "aux").reshape(()) \
+            / split.size
     slots_e = eidx.reshape(t * k)
     slot_tok = torch.arange(t * k, device=dev) // k
 
@@ -233,9 +269,13 @@ def _experts(p: Params, x: torch.Tensor, cfg, mesh, tp):
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg):
-    """The block's MoE FFN: expert-parallel under tensor parallelism."""
+    """The block's MoE FFN: expert-parallel under tensor parallelism; over
+    a call whose tokens are split over the DP group
+    (``distributed.tokens``), the reference's global form, or with
+    ``cfg.moe_shard_map`` its per-shard form."""
     tp = TP.current()
-    return moe_ffn_shard_map(p, x, cfg, None if tp is None else tp.mesh)
+    return _experts(p, x, cfg, None if tp is None else tp.mesh, tp,
+                    TOK.current(), cfg.moe_shard_map)
 
 
 # ---------------------------------------------------------------------------
@@ -253,9 +293,8 @@ def moe_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
 def forward(p: Params, cfg, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] → (logits [B, S, V], summed aux loss)."""
-    b, s = tokens.shape
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = T.positions_of(tokens)
     for i in range(cfg.first_k_dense):
         x = T.block(L.layer_params(p["dense_layers"], i), x, positions, cfg)
     aux = torch.zeros((), device=tokens.device)
@@ -271,10 +310,9 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     ``kernels`` is unused (no port kernel on this path)."""
     del kernels
     tokens = batch["tokens"]
-    b, s = tokens.shape
     nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = T.positions_of(tokens)
     if nd:
         dense_body = L.ckpt(T.block, cfg)
         for lp in L.unstack(p["dense_layers"], nd):
@@ -312,29 +350,49 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
 def prefill(p: Params, cfg, tokens: torch.Tensor,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward that also emits the KV cache.  Returns
-    (last-position logits [B, V], cache)."""
+    (last-position logits [B, V], cache).  Under batch-1 sequence
+    sharding (``distributed.seq``; the caller splits the tokens over the
+    DP group, ``distributed.tokens``, too) ``tokens`` is the rank's block
+    of the prompt, the cache the rank's block of its time axis and the
+    logits the last rank's, as ``transformer.prefill``'s."""
     b, s = tokens.shape
     x = T.embed(p, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    positions = T.positions_of(tokens)
+    seq = SEQ.current() is not None
+    # sequence-sharded, each layer's rows are kept for seq_cache_rows;
+    # otherwise written into the cache at once (a row block of a K/V
+    # would keep the whole K/V alive)
+    cache = None if seq else init_cache(cfg, b, max_len or s,
+                                        device=tokens.device)
+    rows = {"dense": ([], []), "moe": ([], [])}
 
-    def attn(lp, x, c, i):
+    def attn(lp, x, name, i):
         a, k, v = T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x,
                                                        cfg), cfg, positions)
-        c["k"][i, :, :s] = k
-        c["v"][i, :, :s] = v
+        if seq:
+            rows[name][0].append(k)
+            rows[name][1].append(v)
+        else:
+            cache[name]["k"][i, :, :s] = k
+            cache[name]["v"][i, :, :s] = v
         return x + a
 
     for i in range(cfg.first_k_dense):
         lp = L.layer_params(p["dense_layers"], i)
-        x = attn(lp, x, cache["dense"], i)
+        x = attn(lp, x, "dense", i)
         x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
                       cfg.activation, cfg.d_ff)
     for i in range(cfg.num_layers - cfg.first_k_dense):
         lp = L.layer_params(p["layers"], i)
-        x = attn(lp, x, cache["moe"], i)
+        x = attn(lp, x, "moe", i)
         x = x + _ffn(lp["moe"], T.norm(lp["mlp_norm"], x, cfg), cfg)[0]
-    return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], cache
+    if not seq:
+        return T.logits_head(p, x[:, -1:, :], cfg)[:, 0], cache
+    cache = {name: {n: T.seq_cache_rows(r, cfg, max_len, n)
+                    for n, r in zip(("k", "v"), kv)}
+             for name, kv in rows.items() if kv[0]}
+    return T.logits_head(p, SEQ.from_last(x[:, -1:, :], "last_hidden"),
+                         cfg)[:, 0], cache
 
 
 def decode_step(p: Params, cfg, token: torch.Tensor, cache: Params,

@@ -31,13 +31,20 @@ its counted tokens, N the sum) before the sync averages it: the result
 is the gradient of the global mean whatever the shards' counts, and the
 scale is exactly 1 when they are equal.  The logged loss is the same
 weighted mean, all-reduced.  A config with experts (``num_experts`` > 0)
-keeps the whole batch on every rank instead, as its serving keeps every
-slot (``serving.families.MoEServing.slot_sharded``): ``moe_ffn`` sizes
-each expert's capacity from the tokens of the call, and the auxiliary
-balance loss is a statistic of the whole batch, so a split batch would
-drop other tokens and balance other counts than the reference's global
-step; every rank then computes the whole-batch gradient, and the sync
-averages identical gradients.  The sync is ``grad_transform``: by
+splits its batch too, and runs under ``distributed.tokens.use``: its
+MoE blocks see the rank's rows as a block of the whole batch's tokens.
+By default they reproduce the reference's global ``moe_ffn`` (capacity
+from the global token count, each slot's rank in its expert offset by
+the ranks before it, the auxiliary loss from the group's summed
+statistics); with ``cfg.moe_shard_map`` the reference's
+``moe_ffn_shard_map`` (capacity from the rank's tokens, the auxiliary
+loss averaged over the group).  Either way every rank's loss reads the
+group's statistics, so the weight scales the loss before the backward,
+whose all-reduces then sum the weighted contributions (the weights sum
+to dp, and the sync's mean makes them the gradient of the global
+loss).  With ``microbatches`` > 1 each rank holds its block of every
+microbatch of the global batch, so microbatch j routes the reference's
+microbatch j.  The sync is ``grad_transform``: by
 default ``distributed.compression.dp_mean`` over the DP group; a given
 transform must carry ``dp_sync`` (``compression.PowerSGD`` built with
 the group does).  Such a step resumes from a checkpoint through
@@ -67,8 +74,8 @@ blocks and updates through ``optim.Adafactor.update``'s layout; a leaf
 already sharded over "data" (2-D experts) keeps its parameter's blocks
 for AdamW's moments (:class:`_Layout`, ROADMAP.md caveat C10).
 
-On a mesh a batch-1 batch (``seq_batch``; the dense, ssm and hybrid
-families) runs each rank on its block of the sequence under
+On a mesh a batch-1 batch (``seq_batch``; the dense, ssm, hybrid and
+moe families) runs each rank on its block of the sequence under
 ``distributed.seq.use`` (a one-rank DP group included): the attention's
 keys gathered, Mamba2's conv halo and state scan.  Every rank's loss
 then reads every rank's keys and states, so the weight n_i·dp / N
@@ -87,6 +94,7 @@ import torch
 from ..configs import ArchConfig
 from ..distributed import compression as comp, sharding as sh
 from ..distributed import seq as SEQ
+from ..distributed import tokens as TOK
 from ..distributed import tp as TP
 from ..engine import DecomposeEngine, EngineConfig
 from ..engine.config import tp_mesh
@@ -372,9 +380,13 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
     def loss_of(params, batch):
         return fns.loss_fn(params, cfg, batch, kernels)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, weight=None):
+        """(loss, gradients), the microbatches' means; ``weight`` scales
+        the loss before the backward."""
+        fn = loss_of if weight is None else (
+            lambda p_, b_: loss_of(p_, b_) * weight)
         if microbatches == 1:
-            return value_and_grad(loss_of, params, batch)
+            return value_and_grad(fn, params, batch)
         loss = torch.zeros((), device=leaves(params)[0].device)
         grads = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
@@ -382,7 +394,7 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
             mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
                                + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
-            l_i, g_i = value_and_grad(loss_of, params, mb)
+            l_i, g_i = value_and_grad(fn, params, mb)
             tree_map(lambda a, b: a.add_(b.float()), grads, g_i)
             loss = loss + l_i
         loss = loss / microbatches
@@ -390,25 +402,24 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
         return loss, grads
 
     def train_step(params, opt_state, batch):
-        seq = False
+        seq = split = pre = False
         if mesh is not None:
             params, opt_state = local_blocks(params), local_blocks(opt_state)
             seq = seq_batch(cfg, batch["tokens"].shape, mesh)
-            batch, weight = _dp_shard(batch, mesh, cfg.num_experts == 0,
-                                      seq)
-        if seq and microbatches != 1:
-            raise ValueError("a batch-1 sequence-sharded step takes no "
-                             "microbatches")
-        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None):
-            if seq:
-                # the weight enters before the backward: every rank's loss
-                # reads every rank's keys and states
-                loss, grads = value_and_grad(
-                    lambda p_, b_: loss_of(p_, b_) * weight, params, batch)
-            else:
-                loss, grads = grads_of(params, batch)
+            if seq and microbatches != 1:
+                raise ValueError("a batch-1 sequence-sharded step takes no "
+                                 "microbatches")
+            split = seq or _rows_split(batch["tokens"].shape, mesh)
+            batch, weight = _dp_shard(batch, mesh, seq, microbatches)
+            # the weight enters before the backward where every rank's
+            # loss reads every rank's keys and states (seq) or its MoE
+            # statistics
+            pre = seq or (split and cfg.num_experts > 0)
+        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None), \
+                TOK.use(mesh if split else None):
+            loss, grads = grads_of(params, batch, weight if pre else None)
         if mesh is not None:
-            grads, loss = _dp_weigh(grads, loss, 1.0 if seq else weight,
+            grads, loss = _dp_weigh(grads, loss, 1.0 if pre else weight,
                                     mesh)
         if grad_transform is not None:
             grads = grad_transform(grads)
@@ -454,16 +465,16 @@ def _mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.reshape(())
 
 
-SEQ_FAMILIES = ("dense", "ssm", "hybrid")
+SEQ_FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def seq_batch(cfg, shape, mesh) -> bool:
     """Whether a batch whose tokens are ``shape`` [B, S] runs sequence
     sharded over the DP group on ``mesh``: at B = 1 always, as a batch-1
     decode cache's time axis is (``cache_pspec``), on a one-rank group
-    included; a length the group does not divide raises.  The moe, vlm
-    and audio families raise where the rules shard S (D > 1), and run
-    the batch path where they keep it."""
+    included; a length the group does not divide raises.  The vlm and
+    audio families raise where the rules shard S (D > 1), and run the
+    batch path where they keep it."""
     if mesh is None or shape[0] != 1:
         return False
     if cfg.family not in SEQ_FAMILIES:
@@ -481,20 +492,28 @@ def seq_batch(cfg, shape, mesh) -> bool:
     return True
 
 
-def _dp_shard(batch, mesh, split: bool, seq: bool = False):
-    """(this rank's block of ``batch``, or all of it unless ``split``, and
-    its gradient weight n_i·dp / N); with ``seq`` the block is the
-    rank's rows of each leaf's sequence (dim 1)."""
+def _rows_split(shape, mesh) -> bool:
+    """Whether the rules split a batch leaf of ``shape`` by its rows."""
+    spec = sh.batch_spec(tuple(shape), mesh)
+    return bool(spec) and spec[0] is not None
+
+
+def _dp_shard(batch, mesh, seq: bool = False, microbatches: int = 1):
+    """(this rank's block of ``batch`` and its gradient weight n_i·dp /
+    N): the rank's rows of each leaf the rules split by rows, its block
+    of every one of ``microbatches`` equal row blocks (so its local
+    microbatch j is its block of the global microbatch j); with ``seq``
+    the rank's block of each leaf's sequence (dim 1)."""
     dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
     local = dict(batch)
-    for k, v in (batch.items() if split else ()):
+    for k, v in batch.items():
         if seq:
             local[k] = _seq_block(v, dp, i)
-            continue
-        spec = sh.batch_spec(tuple(v.shape), mesh)
-        if spec and spec[0] is not None:
-            n = v.shape[0] // dp
-            local[k] = v[i * n:(i + 1) * n]
+        elif _rows_split(v.shape, mesh):
+            mb = v.reshape((microbatches, -1) + tuple(v.shape[1:]))
+            n = mb.shape[1] // dp
+            local[k] = mb[:, i * n:(i + 1) * n].reshape(
+                (-1,) + tuple(v.shape[1:]))
     n_i = torch.clamp((local["labels"] != -1).sum(), min=1).to(
         torch.float64)
     total = n_i.clone()
@@ -559,13 +578,15 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, backend: str = "cuda"
         tok = inputs[_token_input(cfg)]
         seq = seq_batch(cfg, tok.shape, mesh)
         dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
+        split = seq or tok.shape[0] % dp == 0
         if seq:
             inputs = tuple(_seq_block(x, dp, i) for x in inputs)
         else:
             inputs = tuple(x if x.shape[0] % dp else
                            x[i * (x.shape[0] // dp):
                              (i + 1) * (x.shape[0] // dp)] for x in inputs)
-        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None):
+        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None), \
+                TOK.use(mesh if split else None):
             return fns.prefill(params, cfg, *inputs, max_len=max_len, **kw)
     return prefill_step
 
@@ -580,14 +601,19 @@ def _seq_block(x: torch.Tensor, dp: int, i: int) -> torch.Tensor:
     return x[:, i * n:(i + 1) * n]
 
 
-def make_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
+def make_decode_step(cfg: ArchConfig, mesh=None,
+                     global_batch: Optional[int] = None) -> Callable:
     """decode(params, token [B], cache, pos [B]) → (logits [B, V], cache):
     one decode step, the cache updated in place.  With ``mesh``: under
     tensor parallelism on its "model" axis, ``cache`` being the rank's
     blocks (``api.shard_cache``): its slots (B over DP, the rank's
-    ``token``/``pos`` rows), or at B = 1 its block of every time axis
-    over "data" (``cache_pspec``'s B = 1 branch: the long-context
-    decode, each rank's rows reduced to flash statistics and merged)."""
+    ``token``/``pos`` rows, a block of the step's tokens for the MoE
+    family's statistics, ``distributed.tokens``), or at B = 1 its block
+    of every time axis over "data" (``cache_pspec``'s B = 1 branch: the
+    long-context decode, each rank's rows reduced to flash statistics
+    and merged).  ``global_batch`` is the step's whole batch (default:
+    a rank with more than one row holds the rules' block of the slots,
+    one row is a batch-1 step's)."""
     fns = api.model_fns(cfg)
     tpm = _tp_mesh(mesh, cfg)
     if mesh is not None:
@@ -603,8 +629,13 @@ def make_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
                     f"a batch-1 decode cache of the {cfg.family} family "
                     f"sharded over 'data' (ROADMAP.md A1's remaining item)")
             seq = False
+        # the rank's slots: its block of the step's tokens (the one token
+        # of a batch-1 step is every rank's)
+        split = token.shape[0] > 1 if global_batch is None else \
+            sh.token_sharding(mesh, global_batch)[0] is not None
         with TP.use(tpm, one_rank=True), \
-                SEQ.use(mesh if seq else None, "data"):
+                SEQ.use(mesh if seq else None, "data"), \
+                TOK.use(mesh if split else None):
             return fns.decode_step(local_blocks(params), cfg, token, cache,
                                    pos)
     return decode_step

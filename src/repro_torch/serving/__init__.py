@@ -99,9 +99,10 @@ undo_overrun``: nothing for a K/V cache, whose rows past a slot's
 position are rewritten alike before they are read; the dense tail rows
 for decomposed KV); a family whose state advances in place (Mamba2,
 hybrid) runs one-step blocks instead while a live slot has stop tokens
-on a sharded mesh of more than one rank.  The MoE family keeps every slot on
-every rank: its expert capacity couples the slots of a decode batch,
-so the batch must stay whole.
+on a sharded mesh of more than one rank.  The MoE family's expert
+capacity couples the slots of a decode batch: its decode steps run
+under ``distributed.tokens.use``, so the ranks' blocks route as the
+whole batch does on one device (``MoEServing``).
 
 Tensor parallelism (a "model" axis larger than 1).  Every family
 (dense, decomposed-KV slab and paged, moe, ssm, hybrid, vlm and audio;
@@ -449,8 +450,7 @@ class Engine:
         self.admit_log: List[int] = []             # uids in dispatch order
         cls = family_class(self)
         # the slots this rank holds (all of them without a mesh)
-        self.shard = SlotShard(slots, self.mesh if cls.slot_sharded
-                               else None)
+        self.shard = SlotShard(slots, self.mesh)
         self.decode_sampler = _rows_from(self.sampler, self.shard.first)
         with TP.use(self.tp_mesh):
             self.family = cls(self, paged=paged)

@@ -66,6 +66,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed import tokens as TOK
 from ..models import decomposed_kv as DK
 from ..models import api
 from ..models.api import model_fns, run_decode_block
@@ -214,9 +215,6 @@ class ServingFamily:
     #: gang admission may splice into a cache with live slots (dense
     #: alone); every other family gangs only on an all-free engine
     gang_live_splice = False
-    #: on a mesh, each rank holds its block of the slots (the rules'
-    #: batch rule); False keeps every slot on every rank
-    slot_sharded = True
     #: a fused block that ran past the global halt on this rank (its
     #: slots sampled no stop token where another rank's did) can be put
     #: back (:meth:`undo_overrun`); False: the engine runs one-step
@@ -446,11 +444,27 @@ class MoEServing(ServingFamily):
     included, so tokens equal another engine's only where the batches
     are the same (fused vs single-step, async-deterministic vs sync; the
     fused block keeps dead rows as single steps have them) or where
-    capacity never binds (the reference's conformance pins cf 8).  For
-    the same reason a mesh does not split the slots (``slot_sharded``
-    False): every rank decodes the whole slot batch, as the reference's
-    global computation routes it."""
-    slot_sharded = False
+    capacity never binds (the reference's conformance pins cf 8).  On a
+    mesh each rank decodes its block of the slots, as every family does,
+    under ``distributed.tokens.use``: the ranks' blocks are the
+    contiguous blocks of the slot batch, so the MoE blocks' global form
+    routes the whole batch as one device does (a prefill routes its
+    whole admission batch on every rank).  With ``cfg.moe_shard_map``
+    each rank's slots route alone (the reference's per-shard form)."""
+
+    def decode(self, tok: torch.Tensor) -> torch.Tensor:
+        with self._split():
+            return super().decode(tok)
+
+    def decode_block(self, tok: np.ndarray, n: int, stops: np.ndarray
+                     ) -> Tuple[np.ndarray, int]:
+        with self._split():
+            return super().decode_block(tok, n, stops)
+
+    def _split(self):
+        """The decode's token split: the DP group of a slot-sharded mesh."""
+        sd = self.eng.shard
+        return TOK.use(self.eng.mesh if sd.sharded else None)
 
 
 @register_family("hybrid")

@@ -2297,3 +2297,156 @@ def test_nccl_seq_sharding_sp_and_adafactor_zero1(cards, tmp_path):
                          text=True).stdout.strip().replace("\n", " | ")
     print(f"\nnccl seq ({smi}): " + "; ".join(seq_summary(out, SEQ_CELLS)))
     check_seq_cells(out, SEQ_CELLS)
+
+
+# ---------------------------------------------------------------------------
+# MoE over the DP axis and a head split on "model" (four cards)
+# ---------------------------------------------------------------------------
+
+MOE_DP_LAYERS = 4            # olmoe-1b-7b's depth for the float32 steps
+
+_NCCL_MOE_DP_WORKER = '''
+import os, pickle, sys
+import numpy as np
+import torch
+rank, world, store, out, layers = (int(sys.argv[1]), int(sys.argv[2]),
+                                   sys.argv[3], sys.argv[4],
+                                   int(sys.argv[5]))
+from repro_torch import optim
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as sh
+from repro_torch.engine import DecomposeEngine, EngineConfig
+from repro_torch.launch import mesh as M
+from repro_torch.models.api import model_fns
+from repro_torch.runtime import steps
+from repro_torch.runtime.driver import to_device
+from repro_torch.serving import Engine, Request
+M.init_distributed("cuda", rank=rank, world_size=world, store_path=store)
+m41 = M.make_host_mesh(4, 1, "cuda")
+m14 = M.make_host_mesh(1, 4, "cuda")
+res = {}
+
+def init(cfg):
+    return model_fns(cfg).init(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda")
+
+# (4, 1): olmoe-1b-7b at full width, depth cut, float32 (bf16 rounds
+# each rank's rows apart from the whole batch's), two AdamW steps of
+# 8 x 512
+tcfg = get_arch("olmoe-1b-7b").replace(num_layers=layers, dtype="float32")
+src = SyntheticLM(tcfg, ShapeSpec("t", 512, 8, "train"), DataConfig(seed=0))
+batches = [to_device(src.batch_at(i), "cuda") for i in range(2)]
+for tag, mesh, shard_map in (("plain", None, False), ("global", m41, False),
+                             ("shard_map", m41, True)):
+    cfg = tcfg.replace(moe_shard_map=shard_map)
+    p = init(cfg)
+    opt = optim.make_optimizer(cfg, warmup=1)
+    st = opt.init(p)
+    fn = steps.make_train_step(cfg, opt, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for b in batches:
+        p, st, m = fn(p, st, b)
+        losses.append(m["loss"].item())
+    res["train_" + tag] = (losses,
+                           torch.cuda.max_memory_allocated() / 2 ** 30)
+    del p, st, fn
+    torch.cuda.empty_cache()
+
+# (4, 1): full olmoe-1b-7b serving in float32 (greedy tokens are exact
+# only where no rank's rows round apart), one slot a card
+cfg = get_arch("olmoe-1b-7b").replace(dtype="float32")
+params = init(cfg)
+rng = np.random.RandomState(0)
+prompts = [rng.randint(0, cfg.vocab, n, dtype=np.int32)
+           for n in (128, 96, 64, 48)]
+
+def serve(c, p, mesh, block=1, slots=4, max_new=16, **kw):
+    eng = Engine(c, p, slots=slots, max_len=256, device="cuda",
+                 decompose_engine=DecomposeEngine(EngineConfig(mesh=mesh,
+                                                               **kw)),
+                 decode_block=block)
+    done = []
+    for step in range(400):
+        if step % 3 == 0 and step // 3 < len(prompts):
+            i = step // 3
+            eng.submit(Request(uid=i, prompt=prompts[i] % c.vocab,
+                               max_new_tokens=max_new))
+        done.extend(eng.step())
+        if len(done) == len(prompts) and not eng._occupied():
+            break
+    return {r.uid: r.out_tokens for r in done}, eng.shard.n
+
+sh.reset_collective_counts()
+res["moe_serve"] = serve(cfg, params, m41)
+res["moe_serve_counts"] = sh.collective_counts()
+res["moe_serve_fused"] = serve(cfg, params, m41, block=4)
+res["moe_serve_plain"] = serve(cfg, params, None)
+res["moe_serve_fused_plain"] = serve(cfg, params, None, block=4)
+del params
+torch.cuda.empty_cache()
+
+# (1, 4): a reduced float32 dense config of 6 query heads (hd 32, one kv
+# head): each rank's column block cuts a head
+dcfg = get_arch("granite-3-2b").reduced().replace(
+    dtype="float32", num_heads=6, num_kv_heads=1, head_dim=32)
+dp_ = init(dcfg)
+res["split"] = serve(dcfg, dp_, m14)
+res["split_dkv"] = serve(dcfg, dp_, m14, kv_rank=8, kv_tail=4)
+res["split_plain"] = serve(dcfg, dp_, None)
+res["split_dkv_plain"] = serve(dcfg, dp_, None, kv_rank=8, kv_tail=4)
+pickle.dump(res, open(os.path.join(out, f"moe{rank}.pkl"), "wb"))
+M.shutdown_distributed()
+'''
+
+
+def test_nccl_moe_dp_and_head_split(cards, tmp_path):
+    """Four ranks, one a card.  (4, 1): olmoe-1b-7b at full width (depth
+    cut to MOE_DP_LAYERS, float32) trains two AdamW steps with its batch
+    split over DP in the reference's global form: losses within 1e-5
+    relative of one card's whole-batch steps, each card's peak beside
+    one card's (the per-shard form's too); full float32 olmoe-1b-7b
+    serves slot-sharded (one slot a card, single-step and fused blocks
+    of 4) with the no-mesh engine's tokens.  (1, 4): a reduced dense config of
+    6 query heads, whose column blocks cut heads, serves (dense and
+    decomposed KV) with the no-mesh engine's tokens."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import numpy as np
+    if cards < 4:
+        pytest.skip("needs four CUDA devices: a (4, 1) and a (1, 4) mesh")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_MOE_DP_WORKER,
+                               str(r), "4", store, str(tmp_path),
+                               str(MOE_DP_LAYERS)], env=env)
+             for r in range(4)]
+    assert [p.wait(timeout=1500) for p in procs] == [0] * 4
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().replace("\n", " | ")
+    for r in range(4):
+        with open(tmp_path / f"moe{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        plain, peak_plain = res["train_plain"]
+        got, peak = res["train_global"]
+        sm, peak_sm = res["train_shard_map"]
+        same = {tag: res[tag][0] == res[tag + "_plain"][0]
+                for tag in ("moe_serve", "moe_serve_fused", "split",
+                            "split_dkv")}
+        if r == 0:
+            print(f"\nnccl moe_dp ({smi}): olmoe-1b-7b float32 depth "
+                  f"{MOE_DP_LAYERS} (4, 1) global-form losses {got} vs "
+                  f"one card's whole batch {plain}; peak GiB a card "
+                  f"{peak:.2f} (per-shard form {peak_sm:.2f}, losses "
+                  f"{sm}) vs one card {peak_plain:.2f}; tokens equal to "
+                  f"no mesh: {same}")
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, plain))
+        assert all(np.isfinite(sm))
+        assert res["moe_serve"][1] == 1 and all(same.values()), (r, same)
+        assert res["moe_serve_counts"]["all_gather/moe_counts"][0] > 0

@@ -33,7 +33,8 @@
     ZeRO-1 keeps the 2-D leaves' moments in the parameter's own blocks
     (C10); ``restore_for_mesh`` of the Adafactor state resumes equal to
     the uninterrupted run;
-  - the moe, vlm and audio families at batch 1 raise, naming ROADMAP A1;
+  - the vlm and audio families at batch 1 raise, naming ROADMAP A1 (the
+    moe family runs it: ``tests/test_torch_dp_moe.py``);
   - every rank's counted collectives equal.
 """
 import os
@@ -434,8 +435,7 @@ _WORKER = textwrap.dedent('''
 
     # ---- the families without batch-1 sequence sharding raise -------------
     raised = {}
-    for arch in ("olmoe-1b-7b", "llama-3.2-vision-11b",
-                 "seamless-m4t-medium"):
+    for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium"):
         cfg = cfg_of(arch)
         try:
             steps.make_train_step(cfg, mesh=m41, backend="reference")(
@@ -690,9 +690,10 @@ def test_seq_sharded_prefill_keeps_its_own_rows(world, decode_reference,
 
 def test_batch1_moe_where_the_rules_keep_the_sequence(
         world, train_reference, decode_reference, models):
-    """olmoe-1b-7b at batch 1 on (1, 4): D = 1 keeps S whole, so the
-    prefill and the train step take the batch path (no raise), the
-    prefill's logits and the step's loss the reference's."""
+    """olmoe-1b-7b at batch 1 on (1, 4): D = 1 keeps S whole (a one-rank
+    DP group), so the prefill and the train step run under the model
+    axis alone, the prefill's logits and the step's loss the
+    reference's."""
     _, out = world
     jcfg, jp = models["olmoe-1b-7b"][:2]
     want = np.asarray(jsteps.make_prefill_step(jcfg)(

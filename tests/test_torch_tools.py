@@ -314,10 +314,11 @@ def test_flops_are_linear_in_depth(arch, depths):
 
 
 def test_refused_cells_are_recorded():
-    """A cell the port refuses gives its own error text (naming ROADMAP.md
+    """A cell the port refuses (the vlm family's batch-1 decode cache
+    sharded over "data") gives its own error text (naming ROADMAP.md
     A1), and the process's state is as before."""
     import torch.distributed as dist
-    cfg = configs.get_arch("olmoe-1b-7b").reduced()
+    cfg = configs.get_arch("llama-3.2-vision-11b").reduced()
     rec = dryrun.run_cell(cfg, configs.ShapeSpec("l", 64, 1, "decode"),
                           mesh_shape=((4, 1), ("data", "model")))
     assert "A1" in rec["refused"] and "flops_per_device" not in rec
@@ -325,10 +326,32 @@ def test_refused_cells_are_recorded():
 
 
 def test_cli_refuses_xla_only_flags(tmp_path, capsys):
-    for flag in ("--no-calibrate", "--donate", "--score-bf16",
-                 "--moe-shard-map"):
+    for flag in ("--no-calibrate", "--donate", "--score-bf16"):
         with pytest.raises(SystemExit, match=flag):
             dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k", flag])
+
+
+def test_moe_shard_map_cell_holds_less_than_the_global_form():
+    """``--moe-shard-map`` (``run_cell(moe_shard_map=True)``) runs the MoE
+    blocks per shard: on (4, 1) each rank's dispatch buffers hold its own
+    tokens' capacity, not the whole step's, so the cell's per-device
+    peak and FLOPs fall below the default (global) form's; the batch-1
+    moe cells run, refusing nothing."""
+    glob = _cell("olmoe-1b-7b", "train", (4, 1))
+    per = dryrun.run_cell(configs.get_arch("olmoe-1b-7b").reduced(),
+                          _shape("train"),
+                          mesh_shape=((4, 1), ("data", "model")),
+                          moe_shard_map=True)
+    assert per["options"] == {"moe_shard_map": "True"}
+    assert per["memory"]["peak_bytes"] < glob["memory"]["peak_bytes"]
+    assert per["flops_per_device"] < glob["flops_per_device"]
+    assert per["memory"]["argument_bytes"] == \
+        glob["memory"]["argument_bytes"]
+    for kind in ("train", "prefill", "decode"):
+        rec = dryrun.run_cell(configs.get_arch("olmoe-1b-7b").reduced(),
+                              configs.ShapeSpec("b", 64, 1, kind),
+                              mesh_shape=((4, 1), ("data", "model")))
+        assert "refused" not in rec and rec["flops_per_device"] > 0
 
 
 _WORKER = textwrap.dedent('''

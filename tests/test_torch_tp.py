@@ -128,11 +128,17 @@ def test_shard_params_blocks_match_reference_specs(arch, shape):
     ((8, 1, 256), 4, (2, 1, False, True, -1)),   # gemma-2b: one kv head
     ((4, 1, 6), 4, (1, 1, False, False, None)),  # wq/wo sharded, wk/wv not
     ((4, 2, 32), None, (4, 2, True, False, None)),   # no model axis
+    # the rule splits a head (M divides nh·hd, not nh): each rank runs
+    # the heads its column block touches
+    ((6, 1, 32), 4, (2, 1, False, True, -1)),
+    ((8, 1, 256), 16, (1, 1, False, True, -1)),  # gemma-2b at M = 16
+    ((36, 4, 128), 16, (3, 1, False, True, -1)),  # starcoder2-7b
 ])
 def test_head_layout_follows_the_rules(geom, m, want):
     """A rank's heads, and where its K/V come from, under the reference's
     rule (``param_spec``: wq/wo and wk/wv shard their heads' dims when M
-    divides them; ``cache_pspec``: kv heads, else head_dim)."""
+    divides them; ``cache_pspec``: kv heads, else head_dim); where the
+    column block cuts a head, the heads it touches."""
     from repro_torch.distributed import tp as TP
     nh, kvh, hd = geom
     cfg = get_arch("granite-3-2b").reduced().replace(
@@ -142,7 +148,10 @@ def test_head_layout_follows_the_rules(geom, m, want):
                              else TP.TP(None, None, m, r))
         assert (lay.nh_l, lay.kvh_l, lay.aligned, lay.kv_sharded,
                 lay.cache) == want
-        assert lay.q0 == r * lay.nh_l
+        if lay.split:
+            assert lay.q0 == r * (nh * hd // m) // hd
+        else:
+            assert lay.q0 == r * lay.nh_l
         assert lay.k0 == lay.q0 // (nh // kvh)
 
 
