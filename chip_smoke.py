@@ -263,13 +263,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 20. the rest of the "model" axis (``--only seq``), at world 1 on
    one-rank NCCL groups: (a) zamba2-1.2b's long_500k decode (a seeded
    batch-1 cache of 524,288 bf16 rows) with and without a (1, 1) mesh,
-   whose decode merges the ranks' flash statistics; (b) llama2-7b
-   decomposed-KV decode at B = 1 over a frozen prefix of 32,768 rows;
+   whose decode merges the ranks' flash statistics; (b′) llama2-7b's
+   decomposed-KV prefill of one 32,768-token prompt sequence-sharded
+   (the time blocks moved to layer blocks by an all-to-all, each layer's
+   whole K and V through the batched re-orth kernels): factors bit-equal
+   and re-orth launches equal to no mesh's, 8 decode steps from each
+   cache, the prefill's and decomposition's ms and peak, then the
+   re-orth pair timed at one of four ranks' shape [8, 32768, 4096];
+   (b) llama2-7b decomposed-KV decode at B = 1 over a frozen prefix of
+   32,768 rows;
    (c) mamba2-780m (depth 4) batch-1 prefill and AdamW steps sharded
    along the sequence; (d) granite-3-2b (depth 4, float32) Adafactor
    ZeRO-1 with Megatron-SP on one-rank groups, (e) its resume; (f)
    zamba2-1.2b's float32 batch-1 prefill of 16,384 tokens with its peak
-   memory — each against the same work without a mesh.
+   memory; (g) the vlm and audio families (depth cut) at batch 1
+   sequence-sharded: prefill, 4 decode steps, one AdamW step; (h)
+   Megatron-SP in zamba2-1.2b's shared block and olmoe-1b-7b's dense
+   block (one given to it), and with batch-1 sequence sharding in
+   granite-3-2b: losses equal to no SP's, the SP collectives counted —
+   each against the same work without a mesh.
 21. the tools (``--only tools``): (a) Fig. 2's contenders on the card
    at [4096, 468] and [4096, 4096] float32 (the Fig. 2 benchmark's
    spectrum exp(-0.07 i) around orthonormal factors drawn from numpy's
@@ -3819,8 +3831,11 @@ def model_axis_families() -> None:
 SEQ_T = 524_288                 # long_500k: tokens of the batch-1 cache
 SEQ_DECODE_STEPS = 4            # (a)
 SEQ_F32_T = 65_536              # (a)'s float32 token check
-SEQ_DKV_T, SEQ_DKV_RANK, SEQ_DKV_TAIL = 32_768, 64, 16   # (b)
+SEQ_DKV_T, SEQ_DKV_RANK, SEQ_DKV_TAIL = 32_768, 64, 16   # (b), (b')
 SEQ_DKV_STEPS = 8
+SEQ_SV_TOL = 1e-5               # (b'): singular values, relative
+CARD = "card not read"          # nvidia-smi's name and power limit (main)
+SEQ_DKV_PEAK_GIB = 70.0         # (b'): above it, halve the prompt
 SEQ_TRAIN_S = 8192              # (c): one sequence of 8192 tokens
 SEQ_TRAIN_LAYERS = 4            # (c), (d), (e): depth cut, full width
 SEQ_LOGIT_TOL = 1e-2            # bf16 logits, relative to the largest
@@ -3947,6 +3962,147 @@ def seq_long_decode() -> None:
         del cache, keep, rows
     del params
     check_freed("seq (a)")
+
+
+def seq_dkv_prefill(cfg, params) -> None:
+    """Phase 20 (b′), on the loaded llama2-7b weights (bf16, full width and
+    depth): a batch-1 prompt of SEQ_DKV_T tokens (the reference's
+    ``prefill_32k`` length) through ``make_dkv_prefill_step`` at rank
+    SEQ_DKV_RANK, tail SEQ_DKV_TAIL, with no mesh and sequence-sharded on
+    a (1, 1) mesh (the time blocks moved to layer blocks by an
+    all-to-all, every layer's whole K and V through the batched re-orth
+    kernels, U·Σ moved back, Vᵀ all-gathered: at one rank each a copy):
+    the factors bit-equal, the singular values within SEQ_SV_TOL, the
+    re-orth launches equal; then SEQ_DKV_STEPS greedy decode steps from
+    each cache (the mesh run fed the no-mesh run's tokens), logits within
+    SEQ_LOGIT_TOL, tokens equal, ``dkv_attention_stats`` launched
+    SEQ_DKV_STEPS x L times each.  Prints the prefill's ms, its
+    decomposition's ms, its peak and the mesh run's collectives; then
+    times the re-orth pair at one of four ranks' shape [L/4, S, kvw]
+    float32, k = rank + 8."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.engine import DecomposeEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import steps
+
+    class Timed(DecomposeEngine):
+        """The engine, its ``decompose_kv`` calls timed on the host clock
+        (synchronized on both sides)."""
+        ms = 0.0
+
+        def decompose_kv(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = super().decompose_kv(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t) * 1e3
+            return out
+
+    mesh = _mesh()
+    t0 = time.perf_counter()
+    s, r, nl = SEQ_DKV_T, SEQ_DKV_RANK, cfg.num_layers
+    tok = torch.randint(0, cfg.vocab, (1, s),
+                        generator=torch.Generator().manual_seed(6)).cuda()
+    runs = {}
+    for on in (False, True):
+        eng = Timed()
+        step = steps.make_dkv_prefill_step(cfg, r, tail=SEQ_DKV_TAIL,
+                                           engine=eng,
+                                           mesh=mesh if on else None)
+        sh.reset_collective_counts()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        lg, cache = step(params, tok)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        runs[on] = dict(lg=lg, cache=cache,
+                        ms=(time.perf_counter() - ts) * 1e3, dec_ms=eng.ms,
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        right=n["reorth_right_batched"],
+                        left=n["reorth_left_batched"],
+                        coll=sh.collective_counts())
+    a, b = runs[False], runs[True]
+    factors = ("k_u", "k_vt", "v_u", "v_vt")
+    equal = all(torch.equal(a["cache"][k], b["cache"][k]) for k in factors)
+    svrel = max(_rel_max(b["cache"][k].float().norm(dim=2),
+                         a["cache"][k].float().norm(dim=2))
+                for k in ("k_u", "v_u"))
+    frozen = torch.tensor([s], dtype=torch.int32, device="cuda")
+    dec = {}
+    for on in (False, True):
+        step = steps.make_dkv_decode_step(cfg, mesh if on else None)
+        ops.reset_launch_counts()
+        feed = None if not on else dec[False][1]
+        dec[on] = _forced_decode(step, params, runs[on]["cache"],
+                                 runs[on]["lg"], s, SEQ_DKV_STEPS, feed,
+                                 frozen) + (
+            ops.launch_counts()["dkv_attention_stats"],)
+    rel = max(_rel_max(x, y) for x, y in zip(dec[True][0], dec[False][0]))
+    print(f"seq (b'): {cfg.name} bf16 full width, depth {nl}, batch-1 "
+          f"decomposed-KV prefill of {s} tokens (rank {r}, tail "
+          f"{SEQ_DKV_TAIL}) on {CARD}: (1, 1) mesh vs no mesh: factors "
+          f"bit-equal {equal}, singular values rel {svrel:.2e}; re-orth "
+          f"launches right/left {b['right']}/{b['left']} vs "
+          f"{a['right']}/{a['left']}; prefill ms {b['ms']:.1f} vs "
+          f"{a['ms']:.1f}, decomposition ms {b['dec_ms']:.1f} vs "
+          f"{a['dec_ms']:.1f}; peak GiB {b['peak']:.2f} vs "
+          f"{a['peak']:.2f}; mesh collectives {json.dumps(b['coll'])}; "
+          f"{SEQ_DKV_STEPS} greedy steps: logits rel {rel:.2e}, tokens "
+          f"{dec[True][2]} vs {dec[False][2]}, dkv_attention_stats "
+          f"launches {dec[True][3]} vs {dec[False][3]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    moved = {f"all_to_all/dkv_{k}_{w}" for k in "kv" for w in ("rows", "u")}
+    if not (equal and svrel <= SEQ_SV_TOL and a["right"] == b["right"] > 0
+            and a["left"] == b["left"] > 0 and rel <= SEQ_LOGIT_TOL
+            and dec[True][2] == dec[False][2] and not a["coll"]
+            and moved <= set(b["coll"])
+            and dec[True][3] == dec[False][3] == SEQ_DKV_STEPS * nl):
+        raise AssertionError(f"seq (b'): factors equal {equal}, sv rel "
+                             f"{svrel}, launches {b} vs {a}, logits rel "
+                             f"{rel}, tokens {dec[True][2]} vs "
+                             f"{dec[False][2]}, dkv {dec[True][3]} vs "
+                             f"{dec[False][3]}")
+    if b["peak"] > SEQ_DKV_PEAK_GIB:
+        raise AssertionError(f"seq (b'): peak {b['peak']:.1f} GiB over "
+                             f"{SEQ_DKV_PEAK_GIB}: halve the prompt")
+    launches = {"right": b["right"], "left": b["left"]}
+    del runs, a, b, dec
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k = r + 8                          # decompose_kv: rank + kv_iters_extra
+    for side in ("right", "left"):
+        row = reorth_case(side, nl // SEQ_RANKS, s, cfg.kv_width, k, k // 2,
+                          EngineConfig().expansion, gen)
+        keep = {key: row[key] for key in (
+            "name", "shape", "max_abs_err", "ms", "ms_l2_cold", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+        print(f"seq (b') row ({CARD}): " + json.dumps(dict(
+            keep, launches_per_sharded_prefill=launches[side])), flush=True)
+        del row
+        torch.cuda.empty_cache()
+
+
+def _forced_decode(step, params, cache, lg, pos0: int, n: int, feed,
+                   *extra):
+    """``n`` decode steps of ``step`` from prefill logits ``lg`` at
+    ``pos0``: greedy, or fed ``feed``'s tokens (the mesh run takes the
+    no-mesh run's, so that every step's logits compare): (each step's
+    logits, the tokens fed, each step's own greedy token)."""
+    import torch
+    logits, fed, own = [], [], []
+    nxt = int(lg.argmax(-1).item()) if feed is None else feed[0]
+    for i in range(n):
+        fed.append(nxt)
+        tok = torch.full((1,), nxt, dtype=torch.long, device="cuda")
+        pos = torch.full((1,), pos0 + i, dtype=torch.long, device="cuda")
+        out, cache = step(params, tok, cache, pos, *extra)
+        logits.append(out.float())
+        own.append(int(out.argmax(-1).item()))
+        nxt = feed[i + 1] if feed is not None and i + 1 < n else own[-1]
+    return logits, fed, own
 
 
 def seq_dkv_decode(cfg, params) -> None:
@@ -4240,6 +4396,174 @@ def seq_train_adafactor() -> None:
     if not rel <= SEQ_RESUME_TOL:
         raise AssertionError(f"seq (e): resumed losses differ by {rel}")
     check_freed("seq (d, e)")
+
+
+SEQ_MODAL_S = 1024              # (g): the batch-1 prompt's tokens
+SEQ_MODAL_TRAIN_S = 512         # (g): the batch-1 train step's tokens
+SEQ_MODAL_STEPS = 4             # (g): greedy decode steps
+
+
+def seq_modal() -> None:
+    """Phase 20 (g): the vlm and audio families at full width (depth cut
+    by ``MODEL_FAMILY_CUTS``), bf16, at batch 1 with no mesh and
+    sequence-sharded on a (1, 1) mesh (the image embeddings or frames a
+    second sequence, the cross-attention's K/V rows gathered over the
+    group, decode merging each rank's cross statistics as self-attention
+    does): a prompt of SEQ_MODAL_S tokens (the vlm's 1601 image tokens,
+    the audio's 4096 frames) prefilled, logits within SEQ_LOGIT_TOL;
+    SEQ_MODAL_STEPS decode steps (the mesh run fed the no-mesh run's
+    tokens), logits within SEQ_LOGIT_TOL and the same greedy tokens; one
+    AdamW step of one SEQ_MODAL_TRAIN_S-token sequence, losses within
+    SEQ_LOSS_TOL."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import to_device
+    mesh = _mesh()
+    for arch in MODAL_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).replace(**MODEL_FAMILY_CUTS[arch])
+        params = init_weights(cfg)
+        gen = torch.Generator().manual_seed(8)
+        tok = torch.randint(0, cfg.vocab, (1, SEQ_MODAL_S), generator=gen)
+        m = cfg.num_image_tokens if cfg.family == "vlm" else \
+            cfg.num_audio_frames
+        mem = (0.5 * torch.randn(1, m, cfg.d_model, generator=gen)).to(
+            params["embed"]["w"].dtype)
+        ins = tuple(x.cuda() for x in ((tok, mem) if cfg.family == "vlm"
+                                       else (mem, tok)))
+        runs = {}
+        for on in (False, True):
+            mm = mesh if on else None
+            sh.reset_collective_counts()
+            lg, cache = steps.make_prefill_step(cfg, mm)(
+                params, *ins, max_len=SEQ_MODAL_S + SEQ_MODAL_STEPS)
+            feed = None if not on else runs[False][1][1]
+            dec = _forced_decode(steps.make_decode_step(cfg, mm), params,
+                                 cache, lg, SEQ_MODAL_S, SEQ_MODAL_STEPS,
+                                 feed)
+            runs[on] = (lg.float(), dec, sh.collective_counts())
+            del lg, cache
+        src = SyntheticLM(cfg, ShapeSpec("t", SEQ_MODAL_TRAIN_S, 1,
+                                         "train"), DataConfig(seed=0))
+        batch = to_device(src.batch_at(0), "cuda")
+        losses = {}
+        for on in (False, True):
+            p = _clone_tree(params)
+            opt = optim.make_optimizer(cfg, warmup=1)
+            st = opt.init(p)
+            out = steps.make_train_step(cfg, opt, mesh=mesh if on
+                                        else None)(p, st, batch)
+            losses[on] = out[2]["loss"].item()
+            del p, st, opt, out
+        a, b = runs[False], runs[True]
+        rel = _rel_max(b[0], a[0])
+        drel = max(_rel_max(x, y) for x, y in zip(b[1][0], a[1][0]))
+        lrel = abs(losses[True] - losses[False]) / abs(losses[False])
+        print(f"seq (g): {cfg.name} ({cfg.family}) bf16 full width, depth "
+              f"{cfg.num_layers}, batch-1 prompt of {SEQ_MODAL_S} tokens "
+              f"and {m} memory rows on {CARD}: (1, 1) mesh vs no mesh: "
+              f"prefill logits rel {rel:.2e}; {SEQ_MODAL_STEPS} decode "
+              f"steps logits rel {drel:.2e}, greedy tokens {b[1][2]} vs "
+              f"{a[1][2]}; one AdamW step of {SEQ_MODAL_TRAIN_S} tokens "
+              f"loss {losses[True]} vs {losses[False]} (rel {lrel:.2e}); "
+              f"mesh collectives {json.dumps(b[2])}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not (rel <= SEQ_LOGIT_TOL and drel <= SEQ_LOGIT_TOL
+                and b[1][2] == a[1][2] and lrel <= SEQ_LOSS_TOL
+                and not a[2] and "all_gather/attn_stats" in b[2]):
+            raise AssertionError(f"seq (g) {arch}: logits rel {rel}, "
+                                 f"decode rel {drel}, tokens {b[1][2]} vs "
+                                 f"{a[1][2]}, loss rel {lrel}, collectives "
+                                 f"{b[2]} / {a[2]}")
+        del params, runs
+        check_freed(f"seq (g) {arch}")
+
+
+def _clone_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+#: the SP case: each family's depth cut at full width (zamba2-1.2b one
+#: group of 5 Mamba2 blocks and its shared block; olmoe-1b-7b given one
+#: leading dense layer, as kimi-k2 has, so that a block runs SP), and
+#: granite-3-2b at batch 1 sequence-sharded with SP on the same step
+SP_CASES = ((HYBRID_ARCH, dict(num_layers=6), False),
+            (MOE_ARCH, dict(num_layers=4, first_k_dense=1), False),
+            (TRAIN_ARCH, dict(num_layers=SEQ_TRAIN_LAYERS), True))
+SP_STEPS = 2
+SP_SEQ_S = 2048                 # granite's batch-1 sequence
+
+
+def seq_sp_families() -> None:
+    """Phase 20 (h), the SP case: each ``SP_CASES`` config with
+    ``seq_parallel=True`` on a (1, 1) mesh (Megatron-SP on a one-rank
+    "model" group) against no SP and no mesh, SP_STEPS AdamW steps of
+    the same batches: losses within SEQ_LOSS_TOL, and the SP
+    collectives counted where the reference runs ``transformer.block``
+    (the all-gathers and reduce-scatters along S; ``sp_whole`` where the
+    residual leaves a shared or dense block for a Mamba2 group or an MoE
+    block)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import to_device
+    mesh = _mesh()
+    for arch, cut, batch1 in SP_CASES:
+        t0 = time.perf_counter()
+        base = get_arch(arch).replace(**cut)
+        if batch1:
+            src = SyntheticLM(base, ShapeSpec("t", SP_SEQ_S, 1, "train"),
+                              DataConfig(seed=0))
+            batches = [to_device(src.batch_at(i), "cuda")
+                       for i in range(SP_STEPS)]
+        else:
+            batches = _train_batches(base, SP_STEPS)
+        runs = {}
+        for on in (False, True):
+            cfg = base.replace(seq_parallel=on)
+            params = init_weights(cfg)
+            opt = optim.make_optimizer(cfg, warmup=1)
+            state = opt.init(params)
+            fn = steps.make_train_step(cfg, opt, mesh=mesh if on else None)
+            sh.reset_collective_counts()
+            losses, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                params, state, met = fn(params, state, b)
+                losses.append(met["loss"].item())
+                ms.append((time.perf_counter() - ts) * 1e3)
+            runs[on] = (losses, ms, sh.collective_counts())
+            del params, state, opt, fn
+        a, b = runs[False], runs[True]
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(b[0], a[0]))
+        sp = {k: v[0] for k, v in b[2].items() if "/sp_" in k}
+        print(f"seq (h): {base.name} ({base.family}) full width, depth "
+              f"{base.num_layers}{', batch 1 x ' + str(SP_SEQ_S) if batch1 else ''}, "
+              f"seq_parallel on a (1, 1) mesh vs no SP on {CARD}: losses "
+              f"{b[0]} vs {a[0]} (max rel {lrel:.2e}, bit-equal "
+              f"{b[0] == a[0]}); step ms {_ms_list(b[1])} vs "
+              f"{_ms_list(a[1])}; SP collectives {json.dumps(sp)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        need = {"all_gather/sp_tp_in", "reduce_scatter/sp_tp_out",
+                "reduce_scatter/sp_tp_in_grad", "all_gather/sp_tp_out_grad"}
+        if base.family != "dense":
+            need.add("all_gather/sp_whole")
+        if batch1:
+            need.add("all_gather/k_rows")
+        if not lrel <= SEQ_LOSS_TOL or a[2] or not need <= set(b[2]):
+            raise AssertionError(f"seq (h) {arch}: losses rel {lrel}, "
+                                 f"collectives {sorted(b[2])} lack "
+                                 f"{need - set(b[2])} (no SP {a[2]})")
+        check_freed(f"seq (h) {arch}")
 
 
 # ---------------------------------------------------------------------------
@@ -4581,6 +4905,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    global CARD
+    CARD = smi[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -4654,6 +4980,8 @@ def main() -> int:
             with phase("model (a)"):
                 model_axis_serving(cfg, params)
         if "seq" in only:
+            with phase("seq (b')"):
+                seq_dkv_prefill(cfg, params)
             with phase("seq (b)"):
                 seq_dkv_decode(cfg, params)
         # a dropped engine frees its cache and weights at once (its family
@@ -4726,6 +5054,10 @@ def main() -> int:
                 seq_train_adafactor()
             with phase("seq (f)"):
                 seq_prefill_memory()
+            with phase("seq (g)"):
+                seq_modal()
+            with phase("seq (h)"):
+                seq_sp_families()
         finally:
             shutdown_distributed()
     if "tools" in only:

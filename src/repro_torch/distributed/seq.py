@@ -21,6 +21,12 @@ here:
   exclusive scan over the group of the ranks' end states and total
   decays (:func:`carry`); the backward runs the same in reverse, through
   the collectives' autograd duals;
+* cross-attention (the vlm and audio families) — the memory (image
+  embeddings, encoder frames) is a second sequence, split where the
+  group divides its length (:func:`memory`); every query reads every
+  memory row, so its K/V rows are all-gathered (:func:`gather_memory`),
+  and the encoder's bidirectional self-attention over the rank's frames
+  attends to every frame's keys;
 * decode (:func:`merge_softmax`, :func:`merge_stats`) — each rank reduces
   its block of the cache's rows to flash-decoding statistics (max and
   sum of exponentials; the decomposed cache's weighted values too),
@@ -38,7 +44,7 @@ block of D equal blocks; :func:`require_divisible` refuses the rest.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -116,6 +122,51 @@ def gather_rows(x: torch.Tensor, dim: int, what: str) -> torch.Tensor:
     """:func:`gather_time` without a backward (decode)."""
     s = current()
     return x if s is None else sh.gather_dim(x, s.group, what, dim)
+
+
+def splits(n: int) -> bool:
+    """Whether the current group shards a time axis of ``n`` whole rows
+    (the rules' condition: a group, and one that divides ``n``; else the
+    axis stays whole on every rank)."""
+    s = current()
+    return s is not None and n % s.size == 0
+
+
+def memory(mem: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(the rank's rows of a cross-attention memory [B, M, H] given whole —
+    image embeddings, encoder frames — where the group divides M, else
+    the whole memory; whether it was split).  The memory is a second
+    sequence: its rows are cut where the rules cut a batch-1 leaf's
+    dim 1."""
+    if not splits(mem.shape[1]):
+        return mem, False
+    s = current()
+    n = mem.shape[1] // s.size
+    return mem.narrow(1, s.rank * n, n), True
+
+
+def gather_memory(kv, split: bool):
+    """A cross-attention's K/V (k, v) [B, M_l, kvh, d] whole: every query
+    reads every memory row, so a split memory's rows are all-gathered
+    over the group (the backward reduce-scatters); ``kv`` itself when
+    the memory is whole."""
+    if not split:
+        return kv
+    return (gather_time(kv[0], 1, "xk_rows"), gather_time(kv[1], 1, "xv_rows"))
+
+
+def cached_memory(t_local: int, n_whole: int) -> bool:
+    """Whether a decode step's cross cache of ``t_local`` rows a rank
+    holds its block of a memory of ``n_whole`` rows (``cache_pspec``
+    shards a batch-1 k/v leaf's time axis over "data" where D divides
+    it) or the whole memory; any other length is not a cache this
+    memory made."""
+    split = splits(n_whole)
+    want = n_whole // current().size if split else n_whole
+    if t_local != want:
+        raise ValueError(f"a cross cache of {t_local} rows a rank for a "
+                         f"memory of {n_whole} rows (expected {want})")
+    return split
 
 
 def halo(tail: torch.Tensor, what: str = "conv_halo") -> torch.Tensor:

@@ -61,9 +61,10 @@ the replicated leaves it reads in part (conv taps and bias, A, D, dt
 bias, the gated norm's scale) pass :func:`copy` before the rank slices
 them, so every model rank holds the same whole gradient of each.
 
-Megatron-SP (``cfg.seq_parallel``, the dense family's training and
-prefill; the reference's ``_sp``): between the TP products the residual
-stream is the rank's block of the sequence [B, S/M, H].  Each
+Megatron-SP (``cfg.seq_parallel``, training, the forward and prefill;
+the reference's ``_sp``, in every block it sends through
+``transformer.block``): between the TP products the residual stream is
+the rank's block of the sequence [B, S/M, H].  Each
 column-parallel input is all-gathered along S (:func:`sp_in`, whose
 backward reduce-scatters) in place of :func:`copy`; each row-parallel
 output is reduce-scattered along S (:func:`sp_out`, whose backward
@@ -73,6 +74,9 @@ the rank's rows (norm scales and biases, the row-parallel biases) pass
 :func:`sp_rep`, so each rank's partial gradient is summed over "model".
 :func:`sp_on` says whether a full-sequence call runs it, and is passed
 down explicitly (a checkpointed block recomputes with the same flag).
+Around a block that the reference leaves unconstrained the residual is
+gathered whole once (:func:`sp_whole`) and split again after it
+(:func:`sp_split`).
 
 Each collective goes through ``sharding``'s counted helpers.
 """
@@ -232,15 +236,29 @@ def reduce_scatter_ag(x: torch.Tensor, group, dim: int, what: str
 # Megatron-SP: the residual stream sharded along S over "model"
 # ---------------------------------------------------------------------------
 
+#: the families whose blocks the reference sends through
+#: ``transformer.block`` (its ``_sp`` constrains the residual there): the
+#: dense blocks, moe's leading dense layers, the vlm's self-attention
+#: blocks and hybrid's shared attention block
+SP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
+
 def sp_on(cfg, seq_len: int) -> bool:
-    """Whether a full-sequence call of ``seq_len`` tokens runs Megatron-SP:
+    """Whether a full-sequence call of ``seq_len`` tokens (the rank's,
+    under batch-1 sequence sharding) runs Megatron-SP:
     ``cfg.seq_parallel`` under a tensor-parallel state (a "model" axis
     larger than 1, or a one-rank one: ``runtime.steps`` runs a
-    seq_parallel config on any mesh's "model" axis): a dense config
-    whose Q/O, K/V, MLP and vocab the rule shards, and whose sequence M
-    divides; else it raises."""
+    seq_parallel config on any mesh's "model" axis), in the blocks the
+    reference sends through ``transformer.block`` (:data:`SP_FAMILIES`;
+    moe only when it has leading dense layers), with the Q/O, K/V, MLP
+    and vocab dims the rule shards and a sequence M divides; else it
+    raises.  The family decides it once at its entry point and passes it
+    down.  The ssm and audio families never call ``transformer.block``
+    (nor does moe without dense layers), so there ``seq_parallel``
+    changes nothing, in the reference as here: False."""
     tp = current()
-    if not cfg.seq_parallel or tp is None:
+    if not cfg.seq_parallel or tp is None or cfg.family in ("ssm", "audio") \
+            or (cfg.family == "moe" and not cfg.first_k_dense):
         return False
     m = tp.size
     need = {"the sequence": seq_len,
@@ -249,11 +267,11 @@ def sp_on(cfg, seq_len: int) -> bool:
             "the MLP's hidden width": cfg.d_ff,
             "the padded vocab": cfg.padded_vocab}
     bad = [k for k, n in need.items() if n % m]
-    if cfg.family != "dense" or bad:
+    if cfg.family not in SP_FAMILIES or bad:
         raise NotImplementedError(
             f"seq_parallel on {cfg.name} ({cfg.family}) over a 'model' axis "
-            f"of {m}: the port's Megatron-SP runs the dense family with "
-            f"every TP dim sharded; {bad or 'family'} not divisible "
+            f"of {m}: the port's Megatron-SP runs {SP_FAMILIES} with every "
+            f"TP dim sharded; {bad or 'family'} not divisible "
             f"(ROADMAP.md A1's remaining item)")
     return True
 
@@ -273,6 +291,54 @@ def sp_out(y: torch.Tensor, sp: bool, what: str = "tp_out") -> torch.Tensor:
     if not sp:
         return reduce(y, what)
     return reduce_scatter_ag(y, current().group, 1, "sp_" + what)
+
+
+class _WholeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, what):
+        ctx.rank, ctx.n = rank, x.shape[1]
+        return sh.gather_dim(x, group, what, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size, what):
+        ctx.group, ctx.what = group, what
+        n = x.shape[1] // size
+        return x.narrow(1, rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (sh.gather_dim(g.contiguous(), ctx.group, ctx.what + "_grad",
+                              1), None, None, None, None)
+
+
+def sp_whole(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The whole sequence [B, S, H] of a residual held as the rank's SP
+    rows, before a block the reference does not constrain (an MoE layer,
+    a cross-attention block, a Mamba2 group): all-gathered over "model"
+    (``all_gather/sp_whole``).  The block then runs replicated, so each
+    rank's gradient of the whole is the whole gradient, and the backward
+    keeps the rank's rows of it.  ``x`` itself without SP."""
+    if not sp:
+        return x
+    tp = current()
+    return _WholeRows.apply(x, tp.group, tp.rank, "sp_whole")
+
+
+def sp_split(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The rank's SP rows of a whole (replicated) residual, after such a
+    block (:func:`sp_whole`'s inverse): the forward narrows, the backward
+    all-gathers the rows' gradients over "model"
+    (``all_gather/sp_split_grad``)."""
+    if not sp:
+        return x
+    tp = current()
+    return _SplitRows.apply(x, tp.group, tp.rank, tp.size, "sp_split")
 
 
 def sp_rep(t: torch.Tensor, sp: bool) -> torch.Tensor:

@@ -129,11 +129,14 @@ class DecomposeEngine:
         return self._z0[key]
 
     def decompose(self, x: torch.Tensor, rank: int,
-                  iters: Optional[int] = None) -> LowRank:
-        """x [..., S, H] → LowRank by one batched Lanczos run."""
+                  iters: Optional[int] = None,
+                  local: bool = False) -> LowRank:
+        """x [..., S, H] → LowRank by one batched Lanczos run (``local``:
+        on this rank's ``x`` alone, whatever ``config.mesh`` says — a
+        caller that has already distributed the batch itself)."""
         from ..distributed import sharding as sh
         batch = max(1, math.prod(int(d) for d in x.shape[:-2]))
-        mesh = self.config.mesh
+        mesh = None if local else self.config.mesh
         f = self.resolve_expansion(x.shape[-2], x.shape[-1], batch, x.dtype,
                                    x.device)
         if mesh is not None and self._auto_expansion:
@@ -218,12 +221,13 @@ class DecomposeEngine:
     # -- KV-cache decomposition (serving) ---------------------------------
     def decompose_kv(self, x: torch.Tensor, rank: int,
                      iters: Optional[int] = None,
-                     exact: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     exact: bool = False, local: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, T, kvw] → (U·Σ [B, T, r], Vᵀ [B, r, kvw]) in x's dtype.
 
         The rank caps at min(T, kvw); ``exact`` runs a direct SVD (the
         near-full-rank regime where floating-point Lanczos loses trailing
-        directions, §2.3)."""
+        directions, §2.3); ``local`` as :meth:`decompose`."""
         rank = min(rank, *x.shape[-2:])
         _OBS.counter("decompose_kv_total", "KV-cache factorizations",
                      mode="exact" if exact else "lanczos",
@@ -234,7 +238,7 @@ class DecomposeEngine:
         else:
             iters = iters or min(rank + self.config.kv_iters_extra,
                                  min(x.shape[-2:]))
-            lr = self.decompose(x32, rank, iters=iters)
+            lr = self.decompose(x32, rank, iters=iters, local=local)
         return lr.scaled_u().to(x.dtype), lr.vt.to(x.dtype)
 
     # -- stage 3: preserved-form consumption (paper §3.2) -----------------

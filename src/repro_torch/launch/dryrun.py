@@ -46,8 +46,8 @@ branch: equal token counts on every rank), or in a decomposed-KV decode
 cell the frozen prefix length; ``host_reads`` counts them.
 
 A cell the port refuses (``NotImplementedError``, naming ROADMAP.md A1:
-what the port's distribution does not run yet, such as the vlm and
-audio families' batch-1 sequence sharding; none of the reference's 64
+what the port's distribution does not run yet, such as Mamba2 on a
+"model" axis that does not divide d_inner; none of the reference's 64
 cells at the default flags) is recorded with the port's own error text.
 Records go to ``results/dryrun_torch/`` through ``ioutil``'s atomic
 write.
@@ -221,14 +221,15 @@ def resolve_cfg(arch, *, remat: Optional[bool] = None,
     return cfg
 
 
-def _rank_batch_bytes(cfg, batch, mesh) -> int:
+def _rank_batch_bytes(batch, mesh) -> int:
     """Bytes of the rows of a GLOBAL training batch this rank trains on
     (``steps._dp_shard``'s rule)."""
     from ..distributed import sharding as sh
     from ..runtime import steps
     dp = sh.dp_size(mesh)
-    if steps.seq_batch(cfg, tuple(batch["tokens"].shape), mesh):
-        return _bytes(batch) // dp
+    if steps.seq_batch(tuple(batch["tokens"].shape), mesh):
+        return sum(_bytes(v) // (dp if k in steps.SEQ_LEAVES else 1)
+                   for k, v in batch.items())
     total = 0
     for v in batch.values():
         spec = sh.batch_spec(tuple(v.shape), mesh)
@@ -271,7 +272,7 @@ def build_cell(arch, shape, mesh, *, decomposed_kv: int = 0,
         batch = _blank_tree(api.train_batch_specs(cfg, shape))
         mem.update(param_bytes=_bytes(params),
                    opt_state_bytes=_bytes(opt_state),
-                   batch_bytes=_rank_batch_bytes(cfg, batch, mesh))
+                   batch_bytes=_rank_batch_bytes(batch, mesh))
         step = steps.make_train_step(cfg, opt, microbatches=microbatches,
                                      backend="reference", mesh=mesh,
                                      zero1=zero1)

@@ -31,6 +31,7 @@ import torch
 
 from ..core.lowrank import LowRank
 from ..core.policy import DecompositionPolicy, LayerPolicy
+from ..distributed import tp as TP
 from ..engine import DecomposeEngine, EngineConfig
 from . import layers as L
 from . import transformer as T
@@ -132,6 +133,11 @@ def forward(params: Params, cfg, tokens: torch.Tensor,
             wfactors: Optional[Dict[int, Params]] = None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V]; layers the engine's policy
     selects run :func:`decomposed_block`, the rest the dense block."""
+    if cfg.seq_parallel and TP.current() is not None:
+        raise NotImplementedError(
+            f"seq_parallel in the decomposed forward of {cfg.name}: the "
+            f"port's decomposed blocks do not run Megatron-SP (ROADMAP.md "
+            f"A1's remaining item)")
     b, s = tokens.shape
     x = T.embed(params, cfg, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)

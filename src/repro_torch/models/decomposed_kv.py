@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from ..core.lowrank import LowRank, retruncate
 from ..distributed import seq as SEQ
+from ..distributed import sharding as sh
 from ..distributed import tp as TP
 from ..engine import DecomposeEngine
 from ..kernels.dkv_attention import (NEG, dkv_attention_stats,
@@ -116,35 +117,88 @@ def prefill_dkv(p: Params, cfg, tokens: torch.Tensor, rank: int, *,
                 ) -> Tuple[torch.Tensor, Params]:
     """Dense prefill that emits a decomposed KV cache: every layer's K
     and V of every prompt factorize in ONE batched ``decompose_kv`` call
-    each ([L·B, S, kvw] — the re-orth kernels see B = L·prompts)."""
+    each ([L·B, S, kvw] — the re-orth kernels see B = L·prompts).
+
+    Under batch-1 sequence sharding (``distributed.seq``: ``tokens`` is
+    the rank's block of the prompt) the rank's K/V rows [L, S/D, kvw]
+    decompose in the reference's layout (:func:`_decompose_blocks`): the
+    cache holds the rank's block of U·Σ's time axis and the whole Vᵀ
+    (``cache_pspec`` at B = 1), its tail the rank's block of the tail's
+    rows, and the logits are the last rank's."""
     if rank < 1:
         raise ValueError(f"prefill_dkv needs rank >= 1, got {rank}")
-    if SEQ.current() is not None:
-        raise NotImplementedError(
-            "prefill_dkv of a prompt sharded over the DP group: the "
-            "decomposition runs on the whole K/V (ROADMAP.md A1)")
     engine = engine or DecomposeEngine()
     b, s = tokens.shape
     nl, kvw = cfg.num_layers, cfg.kv_width
     x, ks, vs = T.forward_layers(p, cfg, tokens)
+    seq = SEQ.current()
+    if seq is not None:
+        x = SEQ.from_last(x[:, -1:, :], "last_hidden")
     logits = T.logits_head(p, x[:, -1:, :], cfg)[:, 0]
     lay = TP.layout(cfg)
 
-    def one(rows):
+    def one(rows, what):
         # every model rank decomposes the whole kv width, keeps its block
-        rows = TP.kv_whole(torch.stack(rows), lay, "prefill_kv")
-        flat = rows.reshape(nl * b, s, kvw)
-        u, vt = engine.decompose_kv(flat, rank, exact=exact)
-        r_eff = u.shape[-1]         # rank caps at min(s, kvw)
+        stacked = TP.kv_whole(torch.stack(rows), lay, "prefill_kv")
+        rows.clear()                  # the layers' rows: freed here
+        flat = stacked.reshape(nl * b, s, kvw)
+        del stacked
+        if seq is not None:
+            u, vt = _decompose_blocks(flat, rank, exact, engine, seq, what)
+        else:
+            u, vt = engine.decompose_kv(flat, rank, exact=exact)
+        del flat
+        r_eff = u.shape[-1]         # rank caps at min(S, kvw)
         vt = TP.vt_local(vt.reshape(nl, b, r_eff, kvw), kvw)
-        return (u.reshape(nl, b, s, r_eff).contiguous(), vt.contiguous())
+        return (u.reshape(nl, b, -1, r_eff).contiguous(), vt.contiguous())
 
-    k_u, k_vt = one(ks)
-    v_u, v_vt = one(vs)
-    zt = torch.zeros((nl, b, tail) + T.kv_dims(cfg),
+    k_u, k_vt = one(ks, "k")
+    v_u, v_vt = one(vs, "v")
+    t_l = tail // seq.size if SEQ.splits(tail) else tail
+    zt = torch.zeros((nl, b, t_l) + T.kv_dims(cfg),
                      device=tokens.device, dtype=torch_dtype(cfg.dtype))
     return logits, {"k_u": k_u, "k_vt": k_vt, "v_u": v_u, "v_vt": v_vt,
                     "tail": {"k": zt, "v": zt.clone()}}
+
+
+def _decompose_blocks(rows: torch.Tensor, rank: int, exact: bool,
+                      engine: DecomposeEngine, seq, what: str):
+    """The factors of every layer's K (or V) of a batch-1 prompt sharded
+    over the group ``seq``, from the rank's rows [L, n, kvw] (its block
+    of n = S/D time rows): (the rank's rows of U·Σ [L, n, r], the whole
+    Vᵀ [L, r, kvw]).
+
+    Where D divides L (the reference's layout: its engine shards the
+    flat [L·B] decomposition batch over DP, ``cache_pspec`` puts U's
+    time axis on "data"): one all-to-all turns the time blocks into
+    layer blocks [L/D, S, kvw], the rank decomposes its layers' whole
+    K/V through the engine's kernels (its batch alone, the engine's one
+    start vector), a second all-to-all returns U·Σ to the rank's time
+    block and Vᵀ is all-gathered.  Else every rank gathers the whole
+    K/V and decomposes every layer (the engine's replication fallback)
+    and keeps its rows.  Per element the arithmetic is the unsharded
+    call's."""
+    d, i = seq.size, seq.rank
+    nl, n, kvw = rows.shape
+    if nl % d:
+        whole = SEQ.gather_rows(rows, 1, f"dkv_{what}_rows")
+        u, vt = engine.decompose_kv(whole, rank, exact=exact, local=True)
+        return u.narrow(1, i * n, n), vt
+    lb = nl // d
+    got = rows.new_empty((d * lb, n, kvw))    # rank j's rows of my layers
+    sh.all_to_all(got, rows.contiguous(), [lb] * d, [lb] * d, seq.group,
+                  f"dkv_{what}_rows")
+    block = got.view(d, lb, n, kvw).transpose(0, 1).reshape(lb, d * n, kvw)
+    del got
+    u, vt = engine.decompose_kv(block, rank, exact=exact, local=True)
+    del block
+    r = u.shape[-1]
+    src = u.view(lb, d, n, r).transpose(0, 1).reshape(d * lb, n, r)
+    mine = u.new_empty((d * lb, n, r))      # my rows of rank j's layers
+    sh.all_to_all(mine, src.contiguous(), [lb] * d, [lb] * d, seq.group,
+                  f"dkv_{what}_u")
+    return mine, sh.gather_dim(vt.contiguous(), seq.group, f"dkv_{what}_vt",
+                               0)
 
 
 def _lowrank_attention(q, c: Params, tail_kv: Params, pos, frozen_len,

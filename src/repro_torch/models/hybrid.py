@@ -21,7 +21,11 @@ and the state holds the rank's blocks (``cache_pspec``: conv channels,
 ssm heads, K/V kv heads else head_dim).  A batch-1 sequence sharded
 over the DP group (``distributed.seq``) runs both: the Mamba2 blocks'
 halo and state scan, the shared block's gathered keys; its prefill
-keeps the rank's block of each K/V cache's time axis.
+keeps the rank's block of each K/V cache's time axis.  Megatron-SP
+(``cfg.seq_parallel``) runs in the shared block, as the reference's
+``transformer.block`` does; the Mamba2 groups between run on the whole
+residual (``tp.sp_split`` before each shared block, ``tp.sp_whole``
+after it).
 """
 from __future__ import annotations
 
@@ -90,12 +94,14 @@ def forward(p: Params, cfg, tokens: torch.Tensor,
             kernels: Optional[KernelSet] = None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] (the padded vocab tail masked)."""
     _, mpg, _ = _layout(cfg)
+    sp = TP.sp_on(cfg, tokens.shape[1])
     x = T.embed(p, cfg, tokens)
     positions = T.positions_of(tokens)
     for g, j, lp in _mamba_blocks(p, cfg):
         x = M.block(lp, x, cfg, kernels)
         if g is not None and j == mpg - 1:
-            x = T.block(p["shared"], x, positions, cfg)
+            x = TP.sp_whole(T.block(p["shared"], TP.sp_split(x, sp),
+                                    positions, cfg, sp), sp)
     return T.logits_head(p, x, cfg)
 
 
@@ -107,6 +113,7 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
     kernels = kernels or make_kernels()
     tokens = batch["tokens"]
     groups, mpg, tail = _layout(cfg)
+    sp = TP.sp_on(cfg, tokens.shape[1])
     x = T.embed(p, cfg, tokens)
     positions = T.positions_of(tokens)
     mblock = L.ckpt(M.block, cfg)
@@ -114,7 +121,8 @@ def loss_fn(p: Params, cfg, batch, kernels: Optional[KernelSet] = None
     for group in L.unstack2(p["mamba"], groups, mpg):
         for lp in group:
             x = mblock(lp, x, cfg, kernels)
-        x = ablock(p["shared"], x, positions, cfg)
+        x = TP.sp_whole(ablock(p["shared"], TP.sp_split(x, sp), positions,
+                               cfg, sp), sp)
     if tail:
         for lp in L.unstack(p["mamba_tail"], tail):
             x = mblock(lp, x, cfg, kernels)
@@ -170,6 +178,7 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
     kernels = kernels or make_kernels()
     b, s = tokens.shape
     _, mpg, _ = _layout(cfg)
+    sp = TP.sp_on(cfg, s)
     x = T.embed(p, cfg, tokens)
     positions = T.positions_of(tokens)
     seq = SEQ.current() is not None
@@ -187,14 +196,16 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
         M.put_state(_mamba_state(st, g, j),
                     M.final_state(lp, inputs, cfg, lay, final), lay)
         if g is not None and j == mpg - 1:
+            x = TP.sp_split(x, sp)
             a, k, v = T._self_attention(sh["attn"],
-                                        T.norm(sh["attn_norm"], x, cfg),
-                                        cfg, positions)
+                                        T.norm(sh["attn_norm"], x, cfg, sp),
+                                        cfg, positions, sp=sp)
             ks.append(k)
             vs.append(v)
             x = x + a
-            x = x + L.mlp(sh["mlp"], T.norm(sh["mlp_norm"], x, cfg),
-                          cfg.activation, cfg.d_ff)
+            x = TP.sp_whole(x + L.mlp(sh["mlp"],
+                                      T.norm(sh["mlp_norm"], x, cfg, sp),
+                                      cfg.activation, cfg.d_ff, sp), sp)
     for name, rows in (("k", ks), ("v", vs)):
         if seq and rows:
             st["attn"][name] = T.seq_cache_rows(rows, cfg, max_len, name)

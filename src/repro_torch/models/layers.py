@@ -393,13 +393,18 @@ def o_proj(p: Params, x: torch.Tensor, cfg, sp: bool = False
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
-                    cached: bool = False) -> torch.Tensor:
+                    cached: bool = False, split: bool = False
+                    ) -> torch.Tensor:
     """Attention of x [B, S, H] over memory K/V (no RoPE, no mask),
     through the query-chunked :func:`attend`.  ``kv`` is
     :func:`memory_kv`'s (k, v), or with ``cached`` the cross cache's
     (its rule block under tensor parallelism).  Megatron's layout as in
     :func:`qkv`: the rank's query heads, the kv heads they read, ``wo``
-    row-parallel."""
+    row-parallel.  With ``split`` (decode: one query row over a batch-1
+    cross cache whose rows are the rank's block over "data",
+    ``seq.cached_memory``) the rank's scores reduce to flash statistics
+    merged over the group (``seq.merge_softmax``), as self-attention's
+    do."""
     b, s, _ = x.shape
     lay = TP.layout(cfg)
     xc = TP.copy(x) if o_sharded(cfg) else x
@@ -409,6 +414,15 @@ def cross_attention(p: Params, x: torch.Tensor, kv, cfg,
                 TP.compute_heads(kv[1], lay, "xv_cache"))
     else:
         k, v = TP.my_heads(kv[0], lay), TP.my_heads(kv[1], lay)
+    if split:
+        hd = q.shape[-1]
+        kvh = k.shape[2]
+        qg = q[:, 0].reshape(b, kvh, q.shape[2] // kvh, hd).float()
+        sc = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (hd ** -0.5)
+        valid = torch.ones(b, k.shape[1], dtype=torch.bool, device=x.device)
+        out = SEQ.merge_softmax(sc, valid, v, "xattn").to(x.dtype).reshape(
+            b, 1, q.shape[2] * hd)
+        return o_proj(p, out, cfg)
     positions = torch.arange(s, device=x.device).expand(b, s)
     out = attend(q, k, v, positions, causal=False, out_dtype=x.dtype)
     return o_proj(p, out, cfg)

@@ -25,6 +25,9 @@ in torch).
 
 kimi-k2 extras: ``first_k_dense`` leading dense blocks and
 ``n_shared_experts`` always-on shared experts added to the MoE output.
+Under Megatron-SP (``cfg.seq_parallel``) the leading dense blocks run it,
+as the reference's ``transformer.block`` does, and the residual is
+gathered whole once before the MoE blocks (``tp.sp_whole``).
 Decode routes the WHOLE slot batch, dead and padding rows included, as
 the reference does: their tokens take capacity too.
 
@@ -292,11 +295,17 @@ def moe_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def forward(p: Params, cfg, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] → (logits [B, S, V], summed aux loss)."""
-    x = T.embed(p, cfg, tokens)
+    """tokens [B, S] → (logits [B, S, V], summed aux loss).  Under
+    Megatron-SP (``tp.sp_on``: a config with leading dense layers) the
+    dense blocks run it and the residual is gathered whole before the
+    MoE blocks."""
+    sp = TP.sp_on(cfg, tokens.shape[1])
+    x = T.embed(p, cfg, tokens, sp)
     positions = T.positions_of(tokens)
     for i in range(cfg.first_k_dense):
-        x = T.block(L.layer_params(p["dense_layers"], i), x, positions, cfg)
+        x = T.block(L.layer_params(p["dense_layers"], i), x, positions, cfg,
+                    sp)
+    x = TP.sp_whole(x, sp)
     aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.num_layers - cfg.first_k_dense):
         x, a = moe_block(L.layer_params(p["layers"], i), x, positions, cfg)
@@ -306,17 +315,20 @@ def forward(p: Params, cfg, tokens: torch.Tensor
 
 def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     """Cross-entropy of ``batch`` plus the summed load-balancing aux loss
-    of the MoE blocks; every block under :func:`layers.ckpt`.
-    ``kernels`` is unused (no port kernel on this path)."""
+    of the MoE blocks; every block under :func:`layers.ckpt` (the dense
+    ones under Megatron-SP as in :func:`forward`).  ``kernels`` is unused
+    (no port kernel on this path)."""
     del kernels
     tokens = batch["tokens"]
     nd, nm = cfg.first_k_dense, cfg.num_layers - cfg.first_k_dense
-    x = T.embed(p, cfg, tokens)
+    sp = TP.sp_on(cfg, tokens.shape[1])
+    x = T.embed(p, cfg, tokens, sp)
     positions = T.positions_of(tokens)
     if nd:
         dense_body = L.ckpt(T.block, cfg)
         for lp in L.unstack(p["dense_layers"], nd):
-            x = dense_body(lp, x, positions, cfg)
+            x = dense_body(lp, x, positions, cfg, sp)
+    x = TP.sp_whole(x, sp)
     body = L.ckpt(moe_block, cfg)
     aux = torch.zeros((), device=tokens.device)
     for lp in L.unstack(p["layers"], nm):
@@ -356,7 +368,8 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
     of the prompt, the cache the rank's block of its time axis and the
     logits the last rank's, as ``transformer.prefill``'s."""
     b, s = tokens.shape
-    x = T.embed(p, cfg, tokens)
+    sp = TP.sp_on(cfg, s)
+    x = T.embed(p, cfg, tokens, sp)
     positions = T.positions_of(tokens)
     seq = SEQ.current() is not None
     # sequence-sharded, each layer's rows are kept for seq_cache_rows;
@@ -366,9 +379,10 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
                                         device=tokens.device)
     rows = {"dense": ([], []), "moe": ([], [])}
 
-    def attn(lp, x, name, i):
+    def attn(lp, x, name, i, sp=False):
         a, k, v = T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x,
-                                                       cfg), cfg, positions)
+                                                       cfg, sp),
+                                    cfg, positions, sp=sp)
         if seq:
             rows[name][0].append(k)
             rows[name][1].append(v)
@@ -379,9 +393,10 @@ def prefill(p: Params, cfg, tokens: torch.Tensor,
 
     for i in range(cfg.first_k_dense):
         lp = L.layer_params(p["dense_layers"], i)
-        x = attn(lp, x, "dense", i)
-        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg),
-                      cfg.activation, cfg.d_ff)
+        x = attn(lp, x, "dense", i, sp)
+        x = x + L.mlp(lp["mlp"], T.norm(lp["mlp_norm"], x, cfg, sp),
+                      cfg.activation, cfg.d_ff, sp)
+    x = TP.sp_whole(x, sp)
     for i in range(cfg.num_layers - cfg.first_k_dense):
         lp = L.layer_params(p["layers"], i)
         x = attn(lp, x, "moe", i)

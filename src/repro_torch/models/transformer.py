@@ -216,17 +216,19 @@ def logits_head(p: Params, x: torch.Tensor, cfg,
 
 def _self_attention(lp: Params, h: torch.Tensor, cfg,
                     positions: torch.Tensor, causal: bool = True,
-                    sp: bool = False):
+                    sp: bool = False, whole: bool = False):
     """Self-attention of one block (causal unless asked otherwise, as an
     encoder's is); also returns its RoPE'd K and V [B, S, kvh, d] (the
     prefill cache rows; under tensor parallelism the rank's cache block
     of them).  ``positions`` are the queries' (global: a batch-1
     sequence sharded over the DP group, ``distributed.seq``, attends to
-    the keys gathered from every rank)."""
+    the keys gathered from every rank, unless ``whole`` says this
+    sequence is whole on every rank: an encoder memory the group does
+    not divide)."""
     q, k, v, lay = L.qkv(lp, h, cfg, positions, sp)
     kk, vv = TP.my_heads(k, lay), TP.my_heads(v, lay)
     kpos = None
-    if SEQ.current() is not None:
+    if SEQ.current() is not None and not whole:
         kk, vv = (SEQ.gather_time(kk, 1, "k_rows"),
                   SEQ.gather_time(vv, 1, "v_rows"))
         kpos = torch.arange(kk.shape[1], device=h.device).expand(

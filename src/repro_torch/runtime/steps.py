@@ -74,16 +74,20 @@ blocks and updates through ``optim.Adafactor.update``'s layout; a leaf
 already sharded over "data" (2-D experts) keeps its parameter's blocks
 for AdamW's moments (:class:`_Layout`, ROADMAP.md caveat C10).
 
-On a mesh a batch-1 batch (``seq_batch``; the dense, ssm, hybrid and
-moe families) runs each rank on its block of the sequence under
-``distributed.seq.use`` (a one-rank DP group included): the attention's
-keys gathered, Mamba2's conv halo and state scan.  Every rank's loss
-then reads every rank's keys and states, so the weight n_i·dp / N
-scales the loss before the backward, and the DP sync sums the ranks'
-contributions to the gradient of the global mean.  Megatron-SP
-(``cfg.seq_parallel``) runs inside the dense family's functions on the
-mesh's "model" axis, a one-rank one included (:func:`_tp_mesh`,
-``distributed.tp.sp_on``).
+On a mesh a batch-1 batch (``seq_batch``; every family) runs each rank
+on its block of the sequence under ``distributed.seq.use`` (a one-rank
+DP group included): the attention's keys gathered, Mamba2's conv halo
+and state scan; a cross-attention memory (the vlm's image embeddings,
+the audio frames) comes whole and the family keeps its rows where the
+group divides them, gathering their K/V.  Every rank's loss then reads
+every rank's keys and states, so the weight n_i·dp / N scales the loss
+before the backward, and the DP sync sums the ranks' contributions to
+the gradient of the global mean.  Megatron-SP (``cfg.seq_parallel``)
+runs inside the families' functions, in the blocks the reference sends
+through ``transformer.block``, on the mesh's "model" axis, a one-rank
+one included (:func:`_tp_mesh`, ``distributed.tp.sp_on``); with
+sequence sharding on the same step each rank's block of S is split
+again over "model".
 """
 from __future__ import annotations
 
@@ -405,7 +409,7 @@ def make_train_step(cfg: ArchConfig, optimizer=None,
         seq = split = pre = False
         if mesh is not None:
             params, opt_state = local_blocks(params), local_blocks(opt_state)
-            seq = seq_batch(cfg, batch["tokens"].shape, mesh)
+            seq = seq_batch(batch["tokens"].shape, mesh)
             if seq and microbatches != 1:
                 raise ValueError("a batch-1 sequence-sharded step takes no "
                                  "microbatches")
@@ -465,31 +469,21 @@ def _mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.reshape(())
 
 
-SEQ_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-
-
-def seq_batch(cfg, shape, mesh) -> bool:
+def seq_batch(shape, mesh) -> bool:
     """Whether a batch whose tokens are ``shape`` [B, S] runs sequence
     sharded over the DP group on ``mesh``: at B = 1 always, as a batch-1
     decode cache's time axis is (``cache_pspec``), on a one-rank group
-    included; a length the group does not divide raises.  The vlm and
-    audio families raise where the rules shard S (D > 1), and run the
-    batch path where they keep it."""
-    if mesh is None or shape[0] != 1:
-        return False
-    if cfg.family not in SEQ_FAMILIES:
-        spec = sh.batch_spec(tuple(shape), mesh)
-        if len(spec) < 2 or spec[1] is None:
-            return False
-        raise NotImplementedError(
-            f"batch-1 sequence sharding of the {cfg.family} family "
-            f"({cfg.name}): the port runs {SEQ_FAMILIES} (ROADMAP.md A1's "
-            f"remaining item)")
-    if cfg.seq_parallel and _tp_mesh(mesh, cfg) is not None:
-        raise NotImplementedError(
-            "batch-1 sequence sharding with Megatron-SP on the same step "
-            "(ROADMAP.md A1's remaining item)")
-    return True
+    included, every family and Megatron-SP with it (S split over "data",
+    each rank's block over "model"); a length the group does not divide
+    raises."""
+    return mesh is not None and shape[0] == 1
+
+
+#: the leaves of a batch-1 batch that hold the prompt's sequence; the
+#: others (image embeddings, encoder frames) are a cross-attention
+#: memory, given whole: the family keeps its rows where the group
+#: divides them (``distributed.seq.memory``)
+SEQ_LEAVES = ("tokens", "labels")
 
 
 def _rows_split(shape, mesh) -> bool:
@@ -503,12 +497,14 @@ def _dp_shard(batch, mesh, seq: bool = False, microbatches: int = 1):
     N): the rank's rows of each leaf the rules split by rows, its block
     of every one of ``microbatches`` equal row blocks (so its local
     microbatch j is its block of the global microbatch j); with ``seq``
-    the rank's block of each leaf's sequence (dim 1)."""
+    the rank's block of the sequence (dim 1) of the :data:`SEQ_LEAVES`,
+    the memory leaves whole (the family keeps its rows of them)."""
     dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
     local = dict(batch)
     for k, v in batch.items():
         if seq:
-            local[k] = _seq_block(v, dp, i)
+            if k in SEQ_LEAVES:
+                local[k] = _seq_block(v, dp, i)
         elif _rows_split(v.shape, mesh):
             mb = v.reshape((microbatches, -1) + tuple(v.shape[1:]))
             n = mb.shape[1] // dp
@@ -576,11 +572,13 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, backend: str = "cuda"
             return fns.prefill(params, cfg, *inputs, max_len=max_len, **kw)
         params = local_blocks(params)
         tok = inputs[_token_input(cfg)]
-        seq = seq_batch(cfg, tok.shape, mesh)
+        seq = seq_batch(tok.shape, mesh)
         dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
         split = seq or tok.shape[0] % dp == 0
-        if seq:
-            inputs = tuple(_seq_block(x, dp, i) for x in inputs)
+        if seq:     # the memory (image embeddings, frames) stays whole
+            t = _token_input(cfg)
+            inputs = tuple(_seq_block(x, dp, i) if j == t else x
+                           for j, x in enumerate(inputs))
         else:
             inputs = tuple(x if x.shape[0] % dp else
                            x[i * (x.shape[0] // dp):
@@ -623,12 +621,6 @@ def make_decode_step(cfg: ArchConfig, mesh=None,
         if mesh is None:
             return fns.decode_step(params, cfg, token, cache, pos)
         seq = token.shape[0] == 1 and cfg.family != "ssm"
-        if seq and cfg.family not in SEQ_FAMILIES:
-            if sh.axis_size(mesh, "data") > 1:
-                raise NotImplementedError(
-                    f"a batch-1 decode cache of the {cfg.family} family "
-                    f"sharded over 'data' (ROADMAP.md A1's remaining item)")
-            seq = False
         # the rank's slots: its block of the step's tokens (the one token
         # of a batch-1 step is every rank's)
         split = token.shape[0] > 1 if global_batch is None else \
@@ -661,18 +653,38 @@ def make_dkv_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
 
 
 def make_dkv_prefill_step(cfg: ArchConfig, rank: int, tail: int = 128,
-                          engine=None, exact: bool = False) -> Callable:
+                          engine=None, exact: bool = False,
+                          mesh=None) -> Callable:
     """prefill(params, tokens) → (logits, decomposed KV cache) through the
     engine's backend (the reference's ``make_dkv_prefill_step``: a thin
-    wrapper of ``decomposed_kv.prefill_dkv``)."""
+    wrapper of ``decomposed_kv.prefill_dkv``).  With ``mesh``: under
+    tensor parallelism on its "model" axis (the parameters the rank's
+    blocks), the GLOBAL prompt of batch 1 sharded along its sequence
+    over the DP group (:func:`seq_batch`): the rank prefills its block,
+    the factors come from ``decomposed_kv._decompose_blocks`` and the
+    cache is the one :func:`make_dkv_decode_step` decodes on the same
+    mesh (U·Σ's and the tail's rows the rank's block, Vᵀ whole).  A
+    batch of several prompts runs whole on every rank (the engine
+    shards its decomposition batch over DP when its config has the
+    mesh)."""
     from ..models import decomposed_kv as DK
     if isinstance(engine, EngineConfig):
         engine = DecomposeEngine(engine)
     engine = engine or DecomposeEngine()
+    tpm = _tp_mesh(mesh, cfg)
+    if mesh is not None:
+        sh.require_groups(mesh, "a prefill step")
 
     def prefill_step(params, tokens):
-        return DK.prefill_dkv(params, cfg, tokens, rank, tail=tail,
-                              exact=exact, engine=engine)
+        if mesh is None:
+            return DK.prefill_dkv(params, cfg, tokens, rank, tail=tail,
+                                  exact=exact, engine=engine)
+        seq = seq_batch(tokens.shape, mesh)
+        if seq:
+            tokens = _seq_block(tokens, sh.dp_size(mesh), sh.dp_rank(mesh))
+        with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None):
+            return DK.prefill_dkv(local_blocks(params), cfg, tokens, rank,
+                                  tail=tail, exact=exact, engine=engine)
     return prefill_step
 
 

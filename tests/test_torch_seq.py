@@ -33,8 +33,10 @@
     ZeRO-1 keeps the 2-D leaves' moments in the parameter's own blocks
     (C10); ``restore_for_mesh`` of the Adafactor state resumes equal to
     the uninterrupted run;
-  - the vlm and audio families at batch 1 raise, naming ROADMAP A1 (the
-    moe family runs it: ``tests/test_torch_dp_moe.py``);
+  - the vlm and audio families at batch 1, sequence-sharded on (4, 1)
+    (their image embeddings or frames a second sequence, split where 4
+    divides it): prefill, decode and one step's loss against the
+    reference's unsharded ones;
   - every rank's counted collectives equal.
 """
 import os
@@ -361,7 +363,8 @@ _WORKER = textwrap.dedent('''
 
     def batches(cfg, shape, n):
         src = SyntheticLM(cfg, shape, DataConfig())
-        return [{k: torch.from_numpy(v).long()
+        return [{k: torch.from_numpy(v).long() if k in ("tokens", "labels")
+                 else torch.from_numpy(v)
                  for k, v in src.batch_at(s).items()} for s in range(n)]
 
     def train(cfg, tag, shape, mesh, zero1, n, opt=None):
@@ -433,18 +436,23 @@ _WORKER = textwrap.dedent('''
                               **kw)
     out["kimi_resume"] = (first.losses, rest.losses, whole.losses)
 
-    # ---- the families without batch-1 sequence sharding raise -------------
-    raised = {}
-    for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium"):
-        cfg = cfg_of(arch)
-        try:
-            steps.make_train_step(cfg, mesh=m41, backend="reference")(
-                tree(arch), make_optimizer(cfg).init(tree(arch)),
-                batches(cfg, ShapeSpec("t", 16, 1, "train"), 1)[0])
-            raised[arch] = None
-        except NotImplementedError as e:
-            raised[arch] = str(e)
-    out["raised"] = raised
+    # ---- the vlm and audio families at batch 1, sequence-sharded ----------
+    for tag, arch, over in IN["modal_cases"]:
+        cfg = cfg_of(arch, **over)
+        p = tree(arch)
+        ins = [t(x) for x in IN["modal_inputs_" + tag]]
+        k = 1 if cfg.family == "audio" else 0
+        ins[k] = ins[k].long()
+        lg, cache = steps.make_prefill_step(cfg, m41, backend="reference")(
+            p, *ins, max_len=IN["max_len"])
+        shapes = {n: tuple(v.shape) for n, v in named_leaves(cache)}
+        dec = steps.make_decode_step(cfg, m41)
+        logits = [lg.numpy().copy()]
+        for tok, pos in IN["modal_feed_" + tag]:
+            lg, cache = dec(p, t(tok).long(), cache, t(pos).long())
+            logits.append(lg.numpy().copy())
+        out["modal_" + tag] = (logits, shapes, train(
+            cfg, arch, IN["modal_train"], m41, False, 1)[0])
     out["collectives"] = sh.collective_counts()
     pickle.dump(out, open(os.path.join(d, f"rank{rank}.pkl"), "wb"))
     M.shutdown_distributed()
@@ -517,8 +525,47 @@ def decode_reference(models):
     return out
 
 
+#: the vlm and audio families at batch 1 on (4, 1): (tag, arch, config
+#: overrides); 18 image tokens are a memory the group does not divide
+MODAL_CASES = (("vlm16", "llama-3.2-vision-11b", {}),
+               ("vlm18", "llama-3.2-vision-11b", dict(num_image_tokens=18)),
+               ("audio", "seamless-m4t-medium", {}))
+MODAL_TRAIN = ShapeSpec("t", 16, 1, "train")
+
+
+def _modal_cfgs(models, tag):
+    arch, over = next((a, o) for t, a, o in MODAL_CASES if t == tag)
+    jcfg, jp, tcfg, tp = models[arch]
+    return jcfg.replace(**over), jp, tcfg.replace(**over), tp
+
+
 @pytest.fixture(scope="module")
-def world_inputs(models, decode_reference, tmp_path_factory):
+def modal_reference(models):
+    """Per batch-1 vlm/audio case: the prompt's inputs, the reference's
+    prefill of PROMPT tokens into MAX_LEN rows and DECODE greedy steps
+    (the fed (token, pos) pairs, every logits)."""
+    out = {}
+    for i, (tag, _, _) in enumerate(MODAL_CASES):
+        jcfg, jp, tcfg, _ = _modal_cfgs(models, tag)
+        ins = _inputs(tcfg, 1, PROMPT, seed=30 + i)
+        lg, cache = jsteps.make_prefill_step(jcfg)(
+            jp, *[jnp.asarray(x) for x in ins], MAX_LEN)
+        dec = jax.jit(jsteps.make_decode_step(jcfg))
+        feed, logits = [], [np.asarray(lg)]
+        nxt = np.asarray(lg).argmax(-1).astype(np.int32)
+        for j in range(DECODE):
+            pos = np.full((1,), PROMPT + j, np.int32)
+            feed.append((nxt, pos))
+            lg, cache = dec(jp, jnp.asarray(nxt), cache, jnp.asarray(pos))
+            logits.append(np.asarray(lg))
+            nxt = np.asarray(lg).argmax(-1).astype(np.int32)
+        out[tag] = (ins, feed, logits)
+    return out
+
+
+@pytest.fixture(scope="module")
+def world_inputs(models, decode_reference, modal_reference,
+                 tmp_path_factory):
     """The workers' inputs, and the four workers started on them."""
     d = str(tmp_path_factory.mktemp("seqworld"))
     ref = decode_reference
@@ -539,6 +586,9 @@ def world_inputs(models, decode_reference, tmp_path_factory):
     cache0, feed, _ = ref["dkv"]
     tc = bridge.to_torch(cache0, "cpu")
     IN["dkv_template"], IN["dkv"], IN["dkv_feed"] = tc, _np_tree(tc), feed
+    IN["modal_cases"], IN["modal_train"] = MODAL_CASES, MODAL_TRAIN
+    for tag, (ins, feed, _) in modal_reference.items():
+        IN["modal_inputs_" + tag], IN["modal_feed_" + tag] = ins, feed
     with open(os.path.join(d, "in.pkl"), "wb") as f:
         pickle.dump(IN, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
@@ -602,6 +652,9 @@ def train_reference(world_inputs, models):
                                 models["kimi-k2-1t-a32b"][3], KIMI_TRAIN, 2)
     out["moe_b1"] = _jtrain(models["olmoe-1b-7b"][0],
                             models["olmoe-1b-7b"][3], MOE_TRAIN, 1)
+    for tag, _, _ in MODAL_CASES:
+        jcfg, _, _, tp = _modal_cfgs(models, tag)
+        out["modal_" + tag] = _jtrain(jcfg, tp, MODAL_TRAIN, 1)
     return out
 
 
@@ -827,11 +880,32 @@ def test_kimi_adafactor_resume_equals_uninterrupted(world):
             k: v for k, v in res["kimi_adafactor"][3].items() if k != "step"}
 
 
-def test_batch1_families_without_sequence_sharding_raise(world):
+@pytest.mark.parametrize("tag", [c[0] for c in MODAL_CASES])
+def test_batch1_families_without_sequence_sharding_raise(
+        world, modal_reference, train_reference, tag):
+    """The vlm and audio families at batch 1 on (4, 1), which the port
+    once refused, now run sequence-sharded: the prompt's 32 tokens 8 a
+    rank, the image embeddings or frames a second sequence (split where
+    4 divides them: 16 image tokens, 32 frames; 18 image tokens stay
+    whole).  The prefill's last logits within 1e-5 relative of the
+    reference's unsharded prefill; six greedy decode steps from the
+    cache it emitted (its self and split cross rows the rank's block
+    over "data") with the reference's tokens and logits within 1e-4; one
+    AdamW step's loss (16 tokens, 4 a rank) within 1e-5 relative."""
     _, out = world
+    _, _, want = modal_reference[tag]
+    jloss = train_reference["modal_" + tag][0][0]
+    n_img = {"vlm16": 16, "vlm18": 18, "audio": 32}[tag]
     for res in out:
-        for arch, msg in res["raised"].items():
-            assert msg is not None and "ROADMAP.md A1" in msg, (arch, msg)
+        logits, shapes, losses = res["modal_" + tag]
+        assert _rel(logits[0], want[0]) < 1e-5
+        for g, w in zip(logits[1:], want[1:]):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+            assert g.argmax(-1).tolist() == w.argmax(-1).tolist()
+        assert shapes["self/k"][-3] == MAX_LEN // WORLD
+        assert shapes["cross/k"][-3] == (n_img // WORLD if n_img % WORLD == 0
+                                         else n_img)
+        assert abs(losses[0] - jloss) <= 1e-5 * abs(jloss), (losses, jloss)
 
 
 def test_every_rank_issued_the_same_collectives(world):

@@ -314,15 +314,33 @@ def test_flops_are_linear_in_depth(arch, depths):
 
 
 def test_refused_cells_are_recorded():
-    """A cell the port refuses (the vlm family's batch-1 decode cache
-    sharded over "data") gives its own error text (naming ROADMAP.md
-    A1), and the process's state is as before."""
+    """A cell the port refuses (Mamba2 on a "model" axis that does not
+    divide d_inner: the rule replicates ``out_proj``) gives its own error
+    text (naming ROADMAP.md A1), and the process's state is as before."""
     import torch.distributed as dist
-    cfg = configs.get_arch("llama-3.2-vision-11b").reduced()
+    cfg = configs.get_arch("mamba2-780m").reduced()
     rec = dryrun.run_cell(cfg, configs.ShapeSpec("l", 64, 1, "decode"),
-                          mesh_shape=((4, 1), ("data", "model")))
+                          mesh_shape=((1, 3), ("data", "model")))
     assert "A1" in rec["refused"] and "flops_per_device" not in rec
+    assert "d_inner" in rec["refused"]
     assert not dist.is_initialized()
+
+
+def test_seq_parallel_cell_records_sp_collectives_beyond_dense():
+    """A reduced kimi-k2 cell (a leading dense layer, then MoE layers) with
+    ``seq_parallel`` on (2, 2): its record carries the Megatron-SP
+    collectives of the dense block (the all-gathers and reduce-scatters
+    along S, the residual gathered whole before the MoE blocks), where
+    the port once ran it without them."""
+    rec = _cell("kimi-k2-1t-a32b", "train", (2, 2), seq_parallel=True)
+    assert "refused" not in rec and rec["flops_per_device"] > 0
+    counts = rec["collective_counts"]
+    for k in ("all_gather/sp_tp_in", "reduce_scatter/sp_tp_out",
+              "reduce_scatter/sp_embed", "all_gather/sp_whole",
+              "reduce_scatter/sp_tp_in_grad", "all_gather/sp_tp_out_grad"):
+        assert counts.get(k, [0])[0] > 0, (k, sorted(counts))
+    plain = _cell("kimi-k2-1t-a32b", "train", (2, 2))
+    assert not [k for k in plain["collective_counts"] if "/sp_" in k]
 
 
 def test_cli_refuses_xla_only_flags(tmp_path, capsys):
