@@ -1604,22 +1604,15 @@ def _route_gap(logits_k, logits_r, log_k, log_r) -> dict:
                 n=len(same), same=sum(same), first_equal=same[:1] == [True])
 
 
-def activation_llama(cfg, params, profile: bool = False):
-    """Phase 6; returns the launch counts of one decomposed forward."""
-    import numpy as np
-    import torch
-    from repro_torch.core import outlier as ol
+def act_engines(cfg):
+    """(policy, {backend: engine}) of phase 6's decomposed forward: the
+    paper's best layer list at its rank, 3 % outliers, threshold 3.0,
+    attn_mode dense, the kernel route ("cuda") and the plain one."""
     from repro_torch.core.outlier import ThresholdTable
     from repro_torch.core.policy import (PAPER_BEST_CONFIG,
                                          PAPER_LAYER_CONFIGS,
                                          DecompositionPolicy)
     from repro_torch.engine import DecomposeEngine, EngineConfig
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.outlier_extract import outlier_stats_plain
-    from repro_torch.models import transformer as T
-    from repro_torch.runtime.steps import (make_decomposed_forward_step,
-                                           make_decomposed_quality_step)
-
     name, rank = PAPER_BEST_CONFIG
     policy = DecompositionPolicy.from_layer_list(
         cfg.num_layers, PAPER_LAYER_CONFIGS[name], rank=rank,
@@ -1628,14 +1621,36 @@ def activation_llama(cfg, params, profile: bool = False):
     # threshold of 6 would leave every count at 0; 3.0 makes the counts,
     # and not only the max |x| tiebreak, pick the channels.
     policy.thresholds = ThresholdTable(default=3.0)
-    engines = {b: DecomposeEngine(EngineConfig(policy=policy,
-                                               attn_mode="dense",
-                                               backend=b))
-               for b in ("cuda", "reference")}
+    return policy, {b: DecomposeEngine(EngineConfig(
+        policy=policy, attn_mode="dense", backend=b))
+        for b in ("cuda", "reference")}
+
+
+def act_tokens(cfg, seed: int):
+    """Phase 6's prompt [1, ACT_SEQ] from ``RandomState(seed)``."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (1, ACT_SEQ))).long().cuda()
+
+
+def activation_llama(cfg, params, profile: bool = False):
+    """Phase 6; returns the launch counts of one decomposed forward."""
+    import numpy as np
+    import torch
+    from repro_torch.core import outlier as ol
+    from repro_torch.core.policy import PAPER_BEST_CONFIG, PAPER_LAYER_CONFIGS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.outlier_extract import outlier_stats_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.steps import (make_decomposed_forward_step,
+                                           make_decomposed_quality_step)
+
+    name, rank = PAPER_BEST_CONFIG
+    policy, engines = act_engines(cfg)
     fwd = {b: make_decomposed_forward_step(cfg, e)
            for b, e in engines.items()}
-    tokens = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab, (1, ACT_SEQ))).long().cuda()
+    tokens = act_tokens(cfg, 0)
     num_c = max(1, round(0.03 * cfg.d_model))
     print(f"activation: {cfg.name} tokens [1, {ACT_SEQ}], layers "
           f"{PAPER_LAYER_CONFIGS[name]} rank {rank}, {num_c} outlier "
@@ -1678,8 +1693,7 @@ def activation_llama(cfg, params, profile: bool = False):
         logits_f = fwd["reference"](params, tokens)
     forced = _route_gap(logits_k, logits_f, log_k, log_r)
     del logits_k, logits_f
-    tokens1 = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab, (1, ACT_SEQ))).long().cuda()
+    tokens1 = act_tokens(cfg, 1)
     x10 = log_k[2][0].float()        # layer 10's attention input, for (c)
     log_k.clear()
     log_r.clear()
@@ -4675,6 +4689,85 @@ def moe_dp_phase() -> None:
     del params
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the activation-decomposition forward on a mesh
+# ---------------------------------------------------------------------------
+
+def dist_rest_activation(cfg, params) -> None:
+    """Phase 23: phase 6's decomposed forward (full llama2-7b, [1, 4096],
+    10 decomposed layers at rank 20, bf16) through
+    ``make_decomposed_forward_step(..., mesh=)`` on a (1, 1) mesh, with
+    ``seq_parallel`` off and on (a one-rank "model" group: every
+    collective a copy), against no mesh: the logits bit-equal, the kernel
+    launches equal (phase 6's counts), the kernel route against the plain
+    one within phase 6's bf16 bar on each mesh run, and under SP one
+    ``sp_whole`` gather and one ``sp_split`` around each decomposed
+    block.  Prints each run's ms beside the card."""
+    import torch
+    from unittest import mock
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_decomposed_forward_step
+    policy, engines = act_engines(cfg)
+    n_dec = len(policy.decomposed_layers())
+    tokens = act_tokens(cfg, 0)
+    mesh = _mesh()
+    runs = {"no mesh": (cfg, None), "(1, 1)": (cfg, mesh),
+            "(1, 1) SP": (cfg.replace(seq_parallel=True), mesh)}
+    splits = [0]
+    real_split = TP.sp_split
+
+    def split(x, sp):
+        splits[0] += bool(sp)
+        return real_split(x, sp)
+    out, ms = {}, {}
+    for tag, (c, m) in runs.items():
+        fwd = make_decomposed_forward_step(c, engines["cuda"], m)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        sh.reset_collective_counts()
+        splits[0] = 0
+        with mock.patch.object(TP, "sp_split", split):
+            logits = fwd(params, tokens)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        coll = {k: v[0] for k, v in sh.collective_counts().items()}
+        ms[tag], every = median_ms(lambda: fwd(params, tokens))
+        gap = None
+        if m is not None:
+            ref = make_decomposed_forward_step(c, engines["reference"], m)(
+                params, tokens).float()
+            gap = ((logits.float() - ref).norm() / ref.norm()).item()
+            del ref
+        out[tag] = logits
+        print(f"dist_rest: {tag}: launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}) + f", kernel vs "
+            f"plain route logits rel L2 {gap}, sp_whole gathers "
+            f"{coll.get('all_gather/sp_whole', 0)}, sp_split calls "
+            f"{splits[0]}, collectives {json.dumps(coll)}; forward ms "
+            f"(median of 3) {ms[tag]:.2f} {every} on {CARD}", flush=True)
+        if launches != ACT_LAUNCHES:
+            raise AssertionError(f"{tag}: launches {launches} != "
+                                 f"{ACT_LAUNCHES}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{tag}: non-finite logits")
+        if gap is not None and not gap <= ACT_LOGITS_TOL:
+            raise AssertionError(f"{tag}: kernel and plain routes differ "
+                                 f"by {gap} (tol {ACT_LOGITS_TOL})")
+        sp = c.seq_parallel
+        if (coll.get("all_gather/sp_whole", 0), splits[0]) != (
+                (n_dec, n_dec) if sp else (0, 0)):
+            raise AssertionError(f"{tag}: sp_whole {coll} / sp_split "
+                                 f"{splits[0]} around {n_dec} blocks")
+    base = out.pop("no mesh")
+    equal = {tag: torch.equal(lg, base) for tag, lg in out.items()}
+    print(f"dist_rest: logits bit-equal to no mesh's: {json.dumps(equal)}",
+          flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"mesh logits differ from no mesh's: {equal}")
+
+
 def phase_train(profile: bool = False) -> tuple:
     """Phase 17: (a), (b), (c); returns (b)'s kernel launch counts and
     (a)'s figures.  ``profile``: also profile one kernel-route step of
@@ -4863,7 +4956,7 @@ def phase_tools(granite=None) -> None:
 PHASES = ("kernels", "serve", "conformance", "activation", "paged",
           "async", "sampler", "obs", "mamba2", "hybrid", "moe", "fig12",
           "variants", "modal", "train", "mesh", "model", "seq", "tools",
-          "moe_dp")
+          "moe_dp", "dist_rest")
 
 
 def check_freed(what: str, limit_gib: float = 0.5) -> None:
@@ -4943,7 +5036,7 @@ def main() -> int:
         with phase("kernels"):
             rows = phase_kernels(cfg)
     if only & {"serve", "conformance", "activation", "paged", "async",
-               "sampler", "obs", "mesh", "model", "seq"}:
+               "sampler", "obs", "mesh", "model", "seq", "dist_rest"}:
         params = init_weights(cfg)
         if "serve" in only:
             with phase("serve"):
@@ -4984,6 +5077,13 @@ def main() -> int:
                 seq_dkv_prefill(cfg, params)
             with phase("seq (b)"):
                 seq_dkv_decode(cfg, params)
+        if "dist_rest" in only:
+            from repro_torch.launch.mesh import shutdown_distributed
+            try:
+                with phase("dist_rest"):
+                    dist_rest_activation(cfg, params)
+            finally:
+                shutdown_distributed()
         # a dropped engine frees its cache and weights at once (its family
         # holds it weakly), so no garbage collection runs between phases
         del params

@@ -249,6 +249,16 @@ def _with_outlier_concat(lr: LowRank) -> Tuple[torch.Tensor, torch.Tensor]:
     return su, vt
 
 
+def fold_outliers(lr: LowRank) -> LowRank:
+    """``lr`` as one track (U·Σ, 1, Vᵀ): its outlier track folded in as
+    extra rank (:func:`_with_outlier_concat`), so that a caller may
+    select columns of Vᵀ (a tensor-parallel rank's heads) and hand the
+    result to :func:`preserved_qk_scores` / :func:`preserved_pv`."""
+    su, vt = _with_outlier_concat(lr)
+    return LowRank(su, torch.ones(su.shape[:-2] + (su.shape[-1],),
+                                  dtype=su.dtype, device=su.device), vt)
+
+
 def preserved_residual_add(lr: LowRank, residual: LowRank) -> LowRank:
     """Exact x + y for two LowRanks: rank-concat (grows rank; callers
     retruncate on a policy-chosen cadence)."""

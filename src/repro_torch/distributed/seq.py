@@ -38,8 +38,11 @@ Prefill and training shard over the DP super-axis (``batch_spec`` names
 single-pod mesh both are the "data" group.  :func:`use` makes a group
 current for the calls inside it (process-wide, as ``tp.use``: autograd's
 backward runs on other threads).  Each collective goes through
-``sharding``'s counted helpers.  Every time axis a rank holds must be a
-block of D equal blocks; :func:`require_divisible` refuses the rest.
+``sharding``'s counted helpers.  A sequence runs sharded where the group
+divides its length (``runtime.steps.seq_batch``), its block i of D equal
+blocks; the rules keep a time axis D does not divide whole on every
+rank (a prompt then runs whole, and a prefill cache of such a length is
+gathered whole, :func:`to_blocks`).
 """
 from __future__ import annotations
 
@@ -92,16 +95,6 @@ def use(mesh, axis: str = "dp"):
         yield _CURRENT[0]
     finally:
         _CURRENT[0] = prev
-
-
-def require_divisible(n: int, what: str) -> None:
-    """Refuse a time axis of ``n`` rows that the group does not divide
-    (the rules would replicate it, which the port does not run)."""
-    s = current()
-    if s is not None and n % s.size:
-        raise NotImplementedError(
-            f"{what}: {n} rows over {s.size} ranks; batch-1 sequence "
-            f"sharding needs a time axis the DP group divides")
 
 
 def offset(n_local: int) -> int:
@@ -274,12 +267,18 @@ def to_blocks(rows: torch.Tensor, t_whole: int, what: str) -> torch.Tensor:
     """The rank's block of a time axis of ``t_whole`` rows (zeros past
     the sequence) from its ``rows`` [1, n, ...] of the sequence's n·D:
     one all-to-all that moves each rank only the rows its block holds
-    (none at all where ``t_whole`` is the sequence's length)."""
+    (none at all where ``t_whole`` is the sequence's length).  A length
+    D does not divide stays whole on every rank (``cache_pspec``): the
+    rows are all-gathered."""
     s = current()
     n = rows.shape[1]
     if t_whole == n * s.size:
         return rows
-    require_divisible(t_whole, what)
+    if t_whole % s.size:
+        every = gather_rows(rows, 1, what + "_whole")
+        out = every.new_zeros((1, t_whole) + tuple(every.shape[2:]))
+        out[:, :every.shape[1]] = every
+        return out
     m, i = t_whole // s.size, s.rank
 
     def span(a, b):                      # rows of block a (n) in block b (m)

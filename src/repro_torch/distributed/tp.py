@@ -72,11 +72,16 @@ all-gathers) in place of :func:`reduce`'s all-reduce; the vocab-parallel
 embedding reduce-scatters too.  The replicated parameters that act on
 the rank's rows (norm scales and biases, the row-parallel biases) pass
 :func:`sp_rep`, so each rank's partial gradient is summed over "model".
-:func:`sp_on` says whether a full-sequence call runs it, and is passed
-down explicitly (a checkpointed block recomputes with the same flag).
-Around a block that the reference leaves unconstrained the residual is
-gathered whole once (:func:`sp_whole`) and split again after it
-(:func:`sp_split`).
+:func:`sp_on` says whether a full-sequence call runs it (as the
+sequence's length S, 0 when off), and is passed down explicitly (a
+checkpointed block recomputes with the same value).  A length M does
+not divide runs over uneven blocks: ceil(S/M) rows a rank, the last
+blocks padded with zero rows, trimmed at every gather.  Around a block
+that the reference leaves unconstrained, and around a product whose
+weight the rule replicates (a Q/O, K/V, MLP or vocab dim M does not
+divide), the residual is gathered whole (:func:`sp_whole`, whose
+backward keeps the rank's rows of the replicated gradient) and split
+again after it (:func:`sp_split`).
 
 Each collective goes through ``sharding``'s counted helpers.
 """
@@ -243,65 +248,92 @@ def reduce_scatter_ag(x: torch.Tensor, group, dim: int, what: str
 SP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
-def sp_on(cfg, seq_len: int) -> bool:
+def sp_on(cfg, seq_len: int) -> int:
     """Whether a full-sequence call of ``seq_len`` tokens (the rank's,
-    under batch-1 sequence sharding) runs Megatron-SP:
-    ``cfg.seq_parallel`` under a tensor-parallel state (a "model" axis
-    larger than 1, or a one-rank one: ``runtime.steps`` runs a
-    seq_parallel config on any mesh's "model" axis), in the blocks the
-    reference sends through ``transformer.block`` (:data:`SP_FAMILIES`;
-    moe only when it has leading dense layers), with the Q/O, K/V, MLP
-    and vocab dims the rule shards and a sequence M divides; else it
-    raises.  The family decides it once at its entry point and passes it
-    down.  The ssm and audio families never call ``transformer.block``
-    (nor does moe without dense layers), so there ``seq_parallel``
-    changes nothing, in the reference as here: False."""
-    tp = current()
-    if not cfg.seq_parallel or tp is None or cfg.family in ("ssm", "audio") \
+    under batch-1 sequence sharding) runs Megatron-SP, as the length the
+    call runs it on (truthy), else 0: ``cfg.seq_parallel`` under a
+    tensor-parallel state (a "model" axis larger than 1, or a one-rank
+    one: ``runtime.steps`` runs a seq_parallel config on any mesh's
+    "model" axis), in the blocks the reference sends through
+    ``transformer.block`` (:data:`SP_FAMILIES`; moe only when it has
+    leading dense layers).  The family decides it once at its entry
+    point and passes it down as ``sp``.  A length M does not divide runs
+    over uneven blocks (:func:`sp_rows`); a Q/O, K/V, MLP or vocab dim
+    that the rule replicates runs its product on the whole residual
+    (:func:`sp_whole`, then :func:`sp_split` after a row-parallel
+    product).  The ssm and audio families never call
+    ``transformer.block`` (nor does moe without dense layers), so there
+    ``seq_parallel`` changes nothing, in the reference as here: 0."""
+    if not cfg.seq_parallel or current() is None \
+            or cfg.family not in SP_FAMILIES \
             or (cfg.family == "moe" and not cfg.first_k_dense):
-        return False
-    m = tp.size
-    need = {"the sequence": seq_len,
-            "the query heads' dims": cfg.num_heads * cfg.resolved_head_dim,
-            "the kv heads' dims": cfg.num_kv_heads * cfg.resolved_head_dim,
-            "the MLP's hidden width": cfg.d_ff,
-            "the padded vocab": cfg.padded_vocab}
-    bad = [k for k, n in need.items() if n % m]
-    if cfg.family not in SP_FAMILIES or bad:
-        raise NotImplementedError(
-            f"seq_parallel on {cfg.name} ({cfg.family}) over a 'model' axis "
-            f"of {m}: the port's Megatron-SP runs {SP_FAMILIES} with every "
-            f"TP dim sharded; {bad or 'family'} not divisible "
-            f"(ROADMAP.md A1's remaining item)")
-    return True
+        return 0
+    return seq_len
 
 
-def sp_in(x: torch.Tensor, sp: bool, what: str = "tp_in") -> torch.Tensor:
+def sp_rows(sp: int) -> int:
+    """Rows of the sequence a rank holds under Megatron-SP over a
+    sequence of ``sp`` rows: ceil(S / M), rank i holding rows [i·n,
+    (i+1)·n) of the sequence padded with zero rows to M·n (the last
+    blocks padded where M does not divide S)."""
+    return -(-sp // current().size)
+
+
+def _sp_pad(x: torch.Tensor, sp: int) -> torch.Tensor:
+    """A whole sequence [B, S, ..] padded with zero rows to M·n (the
+    backward drops the padding's gradient)."""
+    pad = current().size * sp_rows(sp) - x.shape[1]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(
+        x.shape[2:]))], dim=1)
+
+
+def _sp_trim(x: torch.Tensor, sp: int) -> torch.Tensor:
+    """The sequence's ``sp`` rows of the gathered blocks [B, M·n, ..]
+    (the backward pads the gradient with zero rows)."""
+    return x if x.shape[1] == sp else x.narrow(1, 0, sp)
+
+
+def sp_in(x: torch.Tensor, sp: int, what: str = "tp_in") -> torch.Tensor:
     """A column-parallel product's input: under SP the whole sequence
     gathered over "model" (reduce-scatter backward), else :func:`copy`."""
     if not sp:
         return copy(x, what)
-    return gather_rs(x, current().group, 1, "sp_" + what)
+    return _sp_trim(gather_rs(x, current().group, 1, "sp_" + what), sp)
 
 
-def sp_out(y: torch.Tensor, sp: bool, what: str = "tp_out") -> torch.Tensor:
+def sp_out(y: torch.Tensor, sp: int, what: str = "tp_out") -> torch.Tensor:
     """A row-parallel product's output: under SP the rank's block of the
     sequence of the group's sum (all-gather backward), else
     :func:`reduce`."""
     if not sp:
         return reduce(y, what)
-    return reduce_scatter_ag(y, current().group, 1, "sp_" + what)
+    return reduce_scatter_ag(_sp_pad(y, sp), current().group, 1,
+                             "sp_" + what)
 
 
 class _WholeRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, rank, what):
-        ctx.rank, ctx.n = rank, x.shape[1]
-        return sh.gather_dim(x, group, what, 1)
+    def forward(ctx, x, group, rank, what, dim):
+        ctx.rank, ctx.n, ctx.dim = rank, x.shape[dim], dim
+        return sh.gather_dim(x, group, what, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(1, ctx.rank * ctx.n, ctx.n), None, None, None
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None,
+                None, None)
+
+
+def gather_keep(x: torch.Tensor, dim: int, what: str) -> torch.Tensor:
+    """The "model" group's ``x`` concatenated along ``dim``, for a
+    computation every rank then runs alike: the backward keeps the
+    rank's block of the (whole, replicated) gradient, where
+    :func:`gather`'s reduce-scatter would sum M copies of it."""
+    tp = current()
+    if tp is None:
+        return x
+    return _WholeRows.apply(x, tp.group, tp.rank, what, dim % x.dim())
 
 
 class _SplitRows(torch.autograd.Function):
@@ -317,20 +349,20 @@ class _SplitRows(torch.autograd.Function):
                               1), None, None, None, None)
 
 
-def sp_whole(x: torch.Tensor, sp: bool) -> torch.Tensor:
+def sp_whole(x: torch.Tensor, sp: int) -> torch.Tensor:
     """The whole sequence [B, S, H] of a residual held as the rank's SP
     rows, before a block the reference does not constrain (an MoE layer,
-    a cross-attention block, a Mamba2 group): all-gathered over "model"
-    (``all_gather/sp_whole``).  The block then runs replicated, so each
-    rank's gradient of the whole is the whole gradient, and the backward
-    keeps the rank's rows of it.  ``x`` itself without SP."""
+    a cross-attention block, a Mamba2 group, a decomposed block) or a
+    product whose weight the rule replicates: all-gathered over "model"
+    (``all_gather/sp_whole``).  That computation then runs replicated,
+    so each rank's gradient of the whole is the whole gradient, and the
+    backward keeps the rank's rows of it.  ``x`` itself without SP."""
     if not sp:
         return x
-    tp = current()
-    return _WholeRows.apply(x, tp.group, tp.rank, "sp_whole")
+    return _sp_trim(gather_keep(x, 1, "sp_whole"), sp)
 
 
-def sp_split(x: torch.Tensor, sp: bool) -> torch.Tensor:
+def sp_split(x: torch.Tensor, sp: int) -> torch.Tensor:
     """The rank's SP rows of a whole (replicated) residual, after such a
     block (:func:`sp_whole`'s inverse): the forward narrows, the backward
     all-gathers the rows' gradients over "model"
@@ -338,10 +370,11 @@ def sp_split(x: torch.Tensor, sp: bool) -> torch.Tensor:
     if not sp:
         return x
     tp = current()
-    return _SplitRows.apply(x, tp.group, tp.rank, tp.size, "sp_split")
+    return _SplitRows.apply(_sp_pad(x, sp), tp.group, tp.rank, tp.size,
+                            "sp_split")
 
 
-def sp_rep(t: torch.Tensor, sp: bool) -> torch.Tensor:
+def sp_rep(t: torch.Tensor, sp: int) -> torch.Tensor:
     """A replicated parameter read on the rank's rows under SP (its
     gradient is summed over "model"); itself otherwise."""
     return copy(t, "sp_rep") if sp else t
@@ -360,7 +393,7 @@ def block_of(t: torch.Tensor, dim: int) -> torch.Tensor:
 # Vocab-parallel embedding and loss
 # ---------------------------------------------------------------------------
 
-def embed(w: torch.Tensor, tokens: torch.Tensor, sp: bool = False
+def embed(w: torch.Tensor, tokens: torch.Tensor, sp: int = 0
           ) -> torch.Tensor:
     """``W[tokens]`` where ``w`` is this rank's rows [V/M, H] of W: rows of
     other ranks read as zeros, then the group's sum (under SP its
@@ -626,7 +659,14 @@ class SSMLayout(NamedTuple):
       row block cuts a head, the rank runs its touched heads and keeps
       its rows of their output (:func:`ssm_y`), and the ``ssm`` state
       leaf is whole on every rank (``cache_pspec`` replicates it), the
-      rank reading and writing its touched heads (:func:`ssm_state`).
+      rank reading and writing its touched heads (:func:`ssm_state`);
+    * ``rep``: M does not divide d_inner, so the rule replicates
+      ``out_proj`` (and the ``ssm`` state): every rank runs every head
+      alike, the in_proj projection gathered whole where the rule shards
+      its columns (:func:`gather_keep`: the backward keeps the rank's
+      block of the whole gradient), the gated norm over the whole
+      d_inner and ``out_proj`` with no collective; the replicated leaves
+      get the whole gradient on every rank with no sum over "model".
     """
     nh_l: int
     h0: int
@@ -637,6 +677,7 @@ class SSMLayout(NamedTuple):
     xc0: int
     xcw: int
     split: bool
+    rep: bool = False
 
 
 def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
@@ -647,22 +688,30 @@ def ssm_layout(cfg, tp: Optional[TP]) -> SSMLayout:
     if tp is None:
         return SSMLayout(nh, 0, 0, di, False, False, 0, di, False)
     m = tp.size
+    proj_sharded = (2 * di + 2 * ds + nh) % m == 0
+    conv = (di + 2 * ds) % m == 0
     if di % m:
-        raise NotImplementedError(
-            f"d_inner {di} on a 'model' axis of {m}: the rule replicates "
-            f"out_proj, which the port's Mamba2 does not run (ROADMAP.md "
-            f"A1's remaining item)")
+        return SSMLayout(nh, 0, 0, di, proj_sharded, conv, 0, di, False,
+                         True)
     di_l = di // m
     x0 = tp.rank * di_l
     h0 = x0 // hd
     nh_l = (x0 + di_l - 1) // hd + 1 - h0
-    return SSMLayout(nh_l, h0, x0, di_l, (2 * di + 2 * ds + nh) % m == 0,
-                     (di + 2 * ds) % m == 0, h0 * hd, nh_l * hd, nh % m != 0)
+    return SSMLayout(nh_l, h0, x0, di_l, proj_sharded, conv, h0 * hd,
+                     nh_l * hd, nh % m != 0)
 
 
 def ssm(cfg) -> SSMLayout:
     """:func:`ssm_layout` under the current "model" axis."""
     return ssm_layout(cfg, current())
+
+
+def ssm_rep(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:
+    """A replicated Mamba2 leaf the rank reads (conv taps and bias, A, D,
+    dt bias, the gated norm's scale): through :func:`copy` when the
+    ranks read parts of it (each holds a partial gradient, summed over
+    "model"); itself where every rank reads all of it alike (``rep``)."""
+    return t if lay.rep else copy(t, "ssm_rep")
 
 
 def ssm_heads(t: torch.Tensor, lay: SSMLayout) -> torch.Tensor:

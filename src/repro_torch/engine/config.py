@@ -62,7 +62,12 @@ Counterpart of ``repro.engine.config.EngineConfig``:
                     (``DecomposeEngine.decompose``) and a serving engine
                     shards its slots over it (``serving.Engine``); a
                     "model" axis larger than 1 runs the model
-                    tensor-parallel on it (:func:`tp_mesh`).
+                    tensor-parallel on it (:func:`tp_mesh`).  The
+                    activation-decomposition forward runs on a mesh
+                    through its step builders
+                    (``runtime.steps.make_decomposed_forward_step(
+                    mesh=)``, ``models.api.decomposed_fns(mesh=)``),
+                    which split the batch themselves.
                     None (default) is the single-device path, unchanged;
                     a mesh changes no value and no token.
 """

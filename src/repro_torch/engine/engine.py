@@ -186,8 +186,11 @@ class DecomposeEngine:
     def decompose_activation(self, x: torch.Tensor,
                              layer_idx: Optional[int] = None,
                              lp: Optional[LayerPolicy] = None,
-                             threshold: Optional[float] = None) -> LowRank:
-        """x [B, S, H] → LowRank with a dense outlier channel track.
+                             threshold: Optional[float] = None,
+                             local: bool = False) -> LowRank:
+        """x [B, S, H] → LowRank with a dense outlier channel track
+        (``local``: x is this rank's block of a batch its caller split
+        over DP, decomposed alone, as :meth:`decompose`'s).
 
         Each prompt decomposes on its own (paper §3.1).  The channel count
         is ``max(1, round(outlier_frac · H))`` (Python's ``round``, as in
@@ -212,7 +215,8 @@ class DecomposeEngine:
             base, vals = ol.split_outliers(x32, idx)
         else:
             base = x32
-        lr = self.decompose(base, lp.rank, iters=lp.effective_iters)
+        lr = self.decompose(base, lp.rank, iters=lp.effective_iters,
+                            local=local)
         lr = lr.astype(x.dtype)
         if num_c:
             lr = ol.attach_dense_outliers(lr, vals.to(x.dtype), idx)

@@ -45,10 +45,10 @@ is answered by :class:`Traffic`: 0, False or 0.0 (a uniform batch's
 branch: equal token counts on every rank), or in a decomposed-KV decode
 cell the frozen prefix length; ``host_reads`` counts them.
 
-A cell the port refuses (``NotImplementedError``, naming ROADMAP.md A1:
-what the port's distribution does not run yet, such as Mamba2 on a
-"model" axis that does not divide d_inner; none of the reference's 64
-cells at the default flags) is recorded with the port's own error text.
+A cell the port refuses (``NotImplementedError`` from a step builder or
+a step: none of the reference's 64 cells, nor any mesh the port's
+distribution knows since its last refusals ran) is recorded with the
+port's own error text.
 Records go to ``results/dryrun_torch/`` through ``ioutil``'s atomic
 write.
 

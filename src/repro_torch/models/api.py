@@ -265,14 +265,19 @@ class DecomposedFns:
     splice_dkv: Callable = None     # (live, fresh, slot_indices) -> cache
 
 
-def decomposed_fns(cfg, engine) -> DecomposedFns:
+def decomposed_fns(cfg, engine, mesh=None) -> DecomposedFns:
     """Bind the decomposed entry points of the dense family to
     ``engine``, the one source of ranks, policy and kernels: a rank or
     tail left None is the engine config's ``kv_rank``/``kv_tail``.
+    ``forward`` and ``logit_kl`` run on ``mesh`` as
+    ``runtime.steps.make_decomposed_forward_step`` /
+    ``make_decomposed_quality_step`` do (the rank's parameter blocks,
+    the GLOBAL tokens).
     ``decode_step_dkv``'s ``frozen_len`` may be an int (every slot) or
     int32 [B]; ``compress_tail`` with no ``frozen_len`` folds every
     slot's tail at the prefix's end (the reference's uniform mode)."""
-    if cfg.family != "dense":
+    # a guard that raises, not a second dispatch table
+    if cfg.family != "dense":  # dcomlint: disable=F1
         raise ValueError(f"decomposed execution runs the dense family, not "
                          f"{cfg.family!r}")
     from . import decomposed as D
@@ -284,11 +289,15 @@ def decomposed_fns(cfg, engine) -> DecomposedFns:
 
     def forward(params, tokens, wfactors=None):
         need_policy()
-        return D.forward(params, cfg, tokens, engine, wfactors)
+        from ..runtime import steps
+        return steps.make_decomposed_forward_step(cfg, engine, mesh)(
+            params, tokens, wfactors)
 
     def logit_kl(params, tokens, wfactors=None):
         need_policy()
-        return D.logit_kl(params, cfg, tokens, engine, wfactors)
+        from ..runtime import steps
+        return steps.make_decomposed_quality_step(cfg, engine, mesh)(
+            params, tokens, wfactors)
 
     def prefill_dkv(params, tokens, rank=None, tail=None, exact=False):
         return DK.prefill_dkv(

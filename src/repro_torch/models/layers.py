@@ -200,13 +200,17 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def row_dense(p: Params, x: torch.Tensor, sharded: bool,
-              sp: bool = False) -> torch.Tensor:
+              sp: int = 0) -> torch.Tensor:
     """A row-parallel product: the rank's partial sum all-reduced over
     "model" when the weight's rows are sharded (with ``sp``
-    reduce-scattered along the sequence), then the bias."""
+    reduce-scattered along the sequence), then the bias.  Under SP a
+    replicated weight's product ran on the whole sequence
+    (:func:`mlp`, :func:`qkv`): the rank keeps its rows of it."""
     y = x @ p["w"]
     if sharded:
         y = TP.sp_out(y, sp)
+    elif sp:
+        y = TP.sp_split(y, sp)
     if "b" in p:
         y = y + TP.sp_rep(p["b"], sp)
     return y
@@ -348,7 +352,7 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params,
 
 
 def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor,
-        sp: bool = False):
+        sp: int = 0):
     """Q/K/V of one block → (q [B, S, nh_l, d] on the rank's query heads,
     k and v [B, S, kvh_c, d] RoPE'd, the rank's ``tp.layout``):
     ``kvh_c`` is the rank's kv heads when the layout is ``aligned`` (on
@@ -357,18 +361,22 @@ def qkv(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor,
     replicates them).  Under a head split q is the heads the rank's
     column block touches (``tp.q_heads``: the blocks all-gathered).
     With ``sp`` (Megatron-SP) ``h`` is the rank's block of the sequence,
-    gathered whole here."""
+    gathered whole here (where the rule replicates ``wq``, or ``wk`` and
+    ``wv``, by ``tp.sp_whole``: that product then runs alike on every
+    rank)."""
     lay = TP.layout(cfg)
     hd = cfg.resolved_head_dim
     sharded = o_sharded(cfg)
-    hc = TP.sp_in(h, sp) if sharded else h
+    hc = TP.sp_in(h, sp) if sharded else TP.sp_whole(h, sp)
     q = split_heads(TP.q_heads(dense(p["wq"], hc), lay), lay.nh_l)
     if sharded and not lay.kv_sharded:
         # wk/wv replicated, read by the rank's heads only: each rank's
         # gradient of K/V is a partial sum, summed over "model" here (the
-        # input is h, not hc: K/V's share of h's gradient is then whole)
-        k = TP.copy(dense(p["wk"], h), "kv_in")
-        v = TP.copy(dense(p["wv"], h), "kv_in")
+        # input is h whole, not hc: K/V's share of h's gradient is then
+        # whole)
+        hw = TP.sp_whole(h, sp)
+        k = TP.copy(dense(p["wk"], hw), "kv_in")
+        v = TP.copy(dense(p["wv"], hw), "kv_in")
     else:
         k = TP.full_kv(dense(p["wk"], hc), lay, "k_cols")
         v = TP.full_kv(dense(p["wv"], hc), lay, "v_cols")
@@ -383,7 +391,7 @@ def o_sharded(cfg) -> bool:
     return TP.width_sharded(cfg.num_heads * cfg.resolved_head_dim)
 
 
-def o_proj(p: Params, x: torch.Tensor, cfg, sp: bool = False
+def o_proj(p: Params, x: torch.Tensor, cfg, sp: int = 0
            ) -> torch.Tensor:
     """The attention's output projection ``p["wo"]`` of the rank's query
     heads' output: row-parallel under tensor parallelism (under a head
@@ -457,16 +465,16 @@ def cross_cache(kv, cfg):
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str,
-        d_ff: int = None, sp: bool = False) -> torch.Tensor:
+        d_ff: int = None, sp: int = 0) -> torch.Tensor:
     """down(act(gate(x)) · up(x)) when the MLP is gated, else
     down(act(up(x))).  Under tensor parallelism ``d_ff`` is the whole
     hidden width: the rule shards it over "model" when M divides it.
     With ``sp`` (Megatron-SP) ``x`` and the output are the rank's block
-    of the sequence."""
+    of the sequence (a replicated hidden width runs on the whole
+    sequence, ``tp.sp_whole``)."""
     act = _ACT[activation]
     sharded = d_ff is not None and TP.width_sharded(d_ff)
-    if sharded:
-        x = TP.sp_in(x, sp)
+    x = TP.sp_in(x, sp) if sharded else TP.sp_whole(x, sp)
     if "gate" in p:
         h = act(dense(p["gate"], x)) * dense(p["up"], x)
     else:

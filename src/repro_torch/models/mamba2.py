@@ -32,7 +32,11 @@ of each rank's rows) and ``out_proj`` row-parallel.  The ``ssm`` state
 holds the rank's heads (a head split keeps the rule's whole leaf and
 the rank reads and writes its heads, ``tp.ssm_state``); the ``conv``
 state the rule's channel block, gathered whole by a decode step and
-written back as the block.  Without a "model" axis every
+written back as the block.  Where M does not divide d_inner the rule
+replicates ``out_proj`` (``tp.SSMLayout.rep``): every rank runs every
+head alike, in_proj gathered whole where its columns are sharded, the
+plain gated norm, ``out_proj`` with no all-reduce, the whole ``ssm``
+state.  Without a "model" axis every
 ``tp`` helper is the identity and the body is the single-device
 computation.
 """
@@ -131,13 +135,17 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor,
 def _in_proj(p: Params, x_in: torch.Tensor, lay) -> torch.Tensor:
     """The whole in_proj projection [.., 2·di + 2·ds + nh]: under tensor
     parallelism the rank's column block all-gathered (its input through
-    ``tp.copy``), or, where the rule replicates in_proj, the whole
-    product whose gradient is summed over "model" (each rank's heads
-    read part of it)."""
+    ``tp.copy``; where every rank runs every head, ``rep``, the gather's
+    backward keeps the rank's block), or, where the rule replicates
+    in_proj, the whole product, whose gradient is summed over "model"
+    when each rank's heads read part of it."""
     if lay.proj_sharded:
-        return TP.gather(L.dense(p["in_proj"], TP.copy(x_in)), -1,
-                         "in_proj")
-    return TP.copy(L.dense(p["in_proj"], x_in), "in_proj_rep")
+        y = L.dense(p["in_proj"], TP.copy(x_in))
+        if lay.rep:
+            return TP.gather_keep(y, -1, "in_proj")
+        return TP.gather(y, -1, "in_proj")
+    y = L.dense(p["in_proj"], x_in)
+    return y if lay.rep else TP.copy(y, "in_proj_rep")
 
 
 def _split_proj(proj: torch.Tensor, cfg, lay):
@@ -155,13 +163,13 @@ def _heads(t: torch.Tensor, lay) -> torch.Tensor:
     through ``tp.copy``: every model rank reads a part of the leaf, so
     its gradient is summed over "model" and every rank holds the whole
     of it (as for the conv taps and bias and the gated norm's scale)."""
-    return TP.ssm_heads(TP.copy(t, "ssm_rep"), lay)
+    return TP.ssm_heads(TP.ssm_rep(t, lay), lay)
 
 
 def _conv_params(p: Params, lay, cfg):
     """The conv taps and bias of the rank's channels (through
     ``tp.copy``, as :func:`_heads`)."""
-    return tuple(TP.ssm_channels(TP.copy(p[k], "ssm_rep"), lay, cfg.d_inner)
+    return tuple(TP.ssm_channels(TP.ssm_rep(p[k], lay), lay, cfg.d_inner)
                  for k in ("conv_w", "conv_b"))
 
 
@@ -186,13 +194,14 @@ def _ssd_inputs(p: Params, x_in: torch.Tensor, cfg):
 def _gated_norm(p: Params, y: torch.Tensor, cfg, lay) -> torch.Tensor:
     """The gated RMSNorm over the whole d_inner of y [.., di_l]: under
     tensor parallelism the sum of squares over the rank's channels,
-    summed over "model" forward and backward (``tp.sum_all``)."""
-    if TP.current() is None:
+    summed over "model" forward and backward (``tp.sum_all``); where
+    every rank holds the whole d_inner (``rep``), the plain norm."""
+    if TP.current() is None or lay.rep:
         return L.rmsnorm(p, y, cfg.norm_eps)
     y32 = y.float()
     var = TP.sum_all((y32 * y32).sum(-1, keepdim=True),
                      "gated_norm") / cfg.d_inner
-    scale = TP.ssm_rows(TP.copy(p["scale"], "ssm_rep"), lay)
+    scale = TP.ssm_rows(TP.ssm_rep(p["scale"], lay), lay)
     return (y32 * torch.rsqrt(var + cfg.norm_eps)
             * scale.float()).to(y.dtype)
 

@@ -158,7 +158,7 @@ def param_bytes(p) -> int:
 # Forward pieces
 # ---------------------------------------------------------------------------
 
-def norm(p: Params, x: torch.Tensor, cfg, sp: bool = False) -> torch.Tensor:
+def norm(p: Params, x: torch.Tensor, cfg, sp: int = 0) -> torch.Tensor:
     """layernorm with ``use_bias`` (starcoder2, seamless), else rmsnorm
     (under Megatron-SP on the rank's rows: its parameters pass
     ``tp.sp_rep``)."""
@@ -169,7 +169,7 @@ def norm(p: Params, x: torch.Tensor, cfg, sp: bool = False) -> torch.Tensor:
     return L.rmsnorm(p, x, cfg.norm_eps)
 
 
-def embed(p: Params, cfg, tokens: torch.Tensor, sp: bool = False
+def embed(p: Params, cfg, tokens: torch.Tensor, sp: int = 0
           ) -> torch.Tensor:
     """Embedding rows, times √d_model rounded to the config's dtype when
     the embeddings are tied (the reference multiplies by
@@ -178,7 +178,7 @@ def embed(p: Params, cfg, tokens: torch.Tensor, sp: bool = False
     if vocab_sharded(cfg):
         x = TP.embed(p["embed"]["w"], tokens, sp)
     else:
-        x = p["embed"]["w"][tokens]
+        x = TP.sp_split(p["embed"]["w"][tokens], sp)
     if cfg.tie_embeddings:
         x = x * L._const(cfg.d_model ** 0.5, x)
     return x
@@ -191,7 +191,7 @@ def vocab_sharded(cfg) -> bool:
 
 
 def logits_head(p: Params, x: torch.Tensor, cfg,
-                whole: bool = True, sp: bool = False) -> torch.Tensor:
+                whole: bool = True, sp: int = 0) -> torch.Tensor:
     """Final norm, then the head: ``lm_head``, or the embedding table
     [V, H] itself when tied (``einsum("...h,vh->...v")``).  Vocab-parallel,
     the rank's columns, all-gathered unless ``whole`` is False; under
@@ -199,8 +199,7 @@ def logits_head(p: Params, x: torch.Tensor, cfg,
     every position's."""
     h = norm(p["final_norm"], x, cfg, sp)
     sharded = vocab_sharded(cfg)
-    if sharded:
-        h = TP.sp_in(h, sp)
+    h = TP.sp_in(h, sp) if sharded else TP.sp_whole(h, sp)
     if cfg.tie_embeddings:
         logits = h @ p["embed"]["w"].t()
     else:
@@ -216,7 +215,7 @@ def logits_head(p: Params, x: torch.Tensor, cfg,
 
 def _self_attention(lp: Params, h: torch.Tensor, cfg,
                     positions: torch.Tensor, causal: bool = True,
-                    sp: bool = False, whole: bool = False):
+                    sp: int = 0, whole: bool = False):
     """Self-attention of one block (causal unless asked otherwise, as an
     encoder's is); also returns its RoPE'd K and V [B, S, kvh, d] (the
     prefill cache rows; under tensor parallelism the rank's cache block
@@ -240,7 +239,7 @@ def _self_attention(lp: Params, h: torch.Tensor, cfg,
 
 
 def block(p: Params, x: torch.Tensor, positions: torch.Tensor,
-          cfg, sp: bool = False) -> torch.Tensor:
+          cfg, sp: int = 0) -> torch.Tensor:
     """One dense block: x [B, S, H] → x + attn(norm(x)) + mlp(norm(·));
     under Megatron-SP (``sp``) x is the rank's block of the sequence and
     ``positions`` the whole sequence's."""
@@ -285,14 +284,14 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
 
 
 def loss_head(p: Params, x: torch.Tensor, cfg, labels: torch.Tensor,
-              sp: bool = False) -> torch.Tensor:
+              sp: int = 0) -> torch.Tensor:
     """The head and the mean cross-entropy of the final hidden ``x``
     (vocab-parallel: over the rank's logit columns; under Megatron-SP
     ``x`` is the rank's rows, ``labels`` every position's)."""
     if vocab_sharded(cfg):
         return TP.cross_entropy(logits_head(p, x, cfg, whole=False, sp=sp),
                                 labels)
-    return L.cross_entropy(logits_head(p, x, cfg), labels)
+    return L.cross_entropy(logits_head(p, x, cfg, sp=sp), labels)
 
 
 def forward_layers(p: Params, cfg, tokens: torch.Tensor):
@@ -314,7 +313,7 @@ def forward_layers(p: Params, cfg, tokens: torch.Tensor):
         ks.append(k)
         vs.append(v)
     if sp:
-        x = TP.gather(x, 1, "sp_hidden")
+        x = TP.gather(x, 1, "sp_hidden").narrow(1, 0, sp)
     return x, ks, vs
 
 

@@ -103,7 +103,7 @@ def cross_block(cp: Params, x: torch.Tensor, kv, cfg,
     return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * m
 
 
-def _self_block(lp: Params, x, cfg, positions, sp: bool = False):
+def _self_block(lp: Params, x, cfg, positions, sp: int = 0):
     """One self block → (x, its RoPE'd K and V)."""
     a, k, v = T._self_attention(lp["attn"], T.norm(lp["attn_norm"], x, cfg,
                                                    sp),
@@ -150,7 +150,7 @@ def loss_fn(p: Params, cfg, batch, kernels=None) -> torch.Tensor:
     xblock = L.ckpt(_cross_from_embeds, cfg)
     crosses = L.unstack(p["cross"], groups)
     for g, group in enumerate(L.unstack2(p["self"], groups, spg)):
-        x = TP.sp_split(x, sp and g > 0)
+        x = TP.sp_split(x, sp if g else 0)
         for lp in group:
             x = sblock(lp, x, positions, cfg, sp)
         x = TP.sp_whole(x, sp)
@@ -207,7 +207,7 @@ def _run(p: Params, cfg, tokens, image_embeds, cache, max_len=None):
     rows = ([], [])
     for g in range(groups):
         gp = L.layer_params(p["self"], g)
-        x = TP.sp_split(x, sp and g > 0)
+        x = TP.sp_split(x, sp if g else 0)
         for j in range(spg):
             x, k, v = _self_block(L.layer_params(gp, j), x, cfg, positions,
                                   sp)

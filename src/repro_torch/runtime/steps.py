@@ -87,7 +87,14 @@ runs inside the families' functions, in the blocks the reference sends
 through ``transformer.block``, on the mesh's "model" axis, a one-rank
 one included (:func:`_tp_mesh`, ``distributed.tp.sp_on``); with
 sequence sharding on the same step each rank's block of S is split
-again over "model".
+again over "model".  A batch-1 sequence the DP group does not divide
+runs whole on every rank, as the rules keep it (:func:`seq_batch`).
+
+The decomposed forward and quality steps take ``mesh`` as the prefill
+step does: the rank's parameter blocks, its rows of the GLOBAL batch
+over DP (decomposed alone: ``local``), its blocks tensor-parallel
+(``models.decomposed``), the quality step's KL averaged over the DP
+group.
 """
 from __future__ import annotations
 
@@ -123,24 +130,70 @@ def _resolve_policy_engine(engine: EngineLike) -> DecomposeEngine:
     return engine
 
 
-def make_decomposed_forward_step(cfg: ArchConfig,
-                                 engine: EngineLike) -> Callable:
-    """forward(params, tokens [B, S]) → logits [B, S, V] with
-    policy-selected decomposed execution."""
-    engine = _resolve_policy_engine(engine)
+def _decomposed_on(cfg: ArchConfig, mesh, what: str) -> Callable:
+    """run(body, params, tokens) → (body's result, split): ``body(params,
+    tokens, local)`` without a mesh as it is; with ``mesh`` on the
+    rank's blocks of ``params`` (``local_blocks``) and its rows of the
+    GLOBAL ``tokens`` over DP where dp divides B (``split``; else the
+    whole batch), under tensor parallelism on its "model" axis (a
+    one-rank one for a seq_parallel config), ``local`` telling the body
+    that its rows are already split."""
+    tpm = _tp_mesh(mesh, cfg)
+    if mesh is not None:
+        sh.require_groups(mesh, what)
 
-    def forward_step(params, tokens):
-        return D.forward(params, cfg, tokens, engine)
+    def run(body, params, tokens):
+        if mesh is None:
+            return body(params, tokens, False), False
+        dp, i = sh.dp_size(mesh), sh.dp_rank(mesh)
+        split = tokens.shape[0] % dp == 0
+        if split:
+            n = tokens.shape[0] // dp
+            tokens = tokens[i * n:(i + 1) * n]
+        with TP.use(tpm, one_rank=True):
+            return body(local_blocks(params), tokens, split), split
+    return run
+
+
+def make_decomposed_forward_step(cfg: ArchConfig, engine: EngineLike,
+                                 mesh=None) -> Callable:
+    """forward(params, tokens [B, S], wfactors=None) → logits [B, S, V]
+    with policy-selected decomposed execution; ``wfactors`` are the
+    whole weights' offline factors (Table 3 mode,
+    ``decomposed.decompose_layer_weights``).  With ``mesh``
+    (:func:`make_prefill_step`'s contract): the parameters are the
+    rank's blocks, the tokens GLOBAL, and the rank runs its rows of the
+    batch over DP where dp divides B (else the whole batch), its blocks
+    tensor-parallel on the "model" axis (``models.decomposed``); the
+    logits are its rows'."""
+    engine = _resolve_policy_engine(engine)
+    run = _decomposed_on(cfg, mesh, "a decomposed forward step")
+
+    def forward_step(params, tokens, wfactors=None):
+        return run(lambda p, t, local: D.forward(p, cfg, t, engine,
+                                                 wfactors, local),
+                   params, tokens)[0]
     return forward_step
 
 
-def make_decomposed_quality_step(cfg: ArchConfig,
-                                 engine: EngineLike) -> Callable:
-    """quality(params, tokens) → KL(dense ‖ decomposed) over the vocab."""
+def make_decomposed_quality_step(cfg: ArchConfig, engine: EngineLike,
+                                 mesh=None) -> Callable:
+    """quality(params, tokens, wfactors=None) → KL(dense ‖ decomposed)
+    over the vocab, averaged over every position of the batch; on
+    ``mesh`` as :func:`make_decomposed_forward_step`, the ranks' means
+    of their rows averaged over the DP group."""
     engine = _resolve_policy_engine(engine)
+    run = _decomposed_on(cfg, mesh, "a decomposed quality step")
 
-    def quality_step(params, tokens):
-        return D.logit_kl(params, cfg, tokens, engine)
+    def quality_step(params, tokens, wfactors=None):
+        kl, split = run(lambda p, t, local: D.logit_kl(p, cfg, t, engine,
+                                                       wfactors, local),
+                        params, tokens)
+        if split:
+            kl = kl.reshape(1).clone()
+            sh.all_reduce(kl, sh.dp_group(mesh), "kl")
+            kl = (kl / sh.dp_size(mesh)).reshape(())
+        return kl
     return quality_step
 
 
@@ -471,12 +524,30 @@ def _mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def seq_batch(shape, mesh) -> bool:
     """Whether a batch whose tokens are ``shape`` [B, S] runs sequence
-    sharded over the DP group on ``mesh``: at B = 1 always, as a batch-1
-    decode cache's time axis is (``cache_pspec``), on a one-rank group
-    included, every family and Megatron-SP with it (S split over "data",
-    each rank's block over "model"); a length the group does not divide
-    raises."""
-    return mesh is not None and shape[0] == 1
+    sharded over the DP group on ``mesh``: at B = 1 where the group
+    divides S (``batch_spec``'s S branch), on a one-rank group included,
+    every family and Megatron-SP with it (S split over "data", each
+    rank's block over "model").  A length the group does not divide
+    stays whole on every rank, as the rule keeps it: the batch then runs
+    whole on each, and a prefill's cache is cut to the rules' blocks of
+    its time axes (:func:`time_blocks`)."""
+    return mesh is not None and shape[0] == 1 \
+        and shape[1] % sh.dp_size(mesh) == 0
+
+
+def time_blocks(cache, mesh):
+    """The rank's blocks, over "data", of the time axes of a whole-prompt
+    batch-1 prefill cache (``cache_pspec``'s B == 1 branch: a time axis
+    "data" divides is split, any other stays whole); the leaves' "model"
+    blocks are the prefill's own."""
+    from ..tree import named_leaves, rebuild
+
+    def one(name, t):
+        spec = sh.cache_pspec(name, tuple(t.shape), mesh)
+        blk = sh.local_block(t, sh.Spec(*(e if e == "data" else None
+                                          for e in spec)), mesh)
+        return t if blk.shape == t.shape else blk.clone()
+    return rebuild(cache, {n: one(n, t) for n, t in named_leaves(cache)})
 
 
 #: the leaves of a batch-1 batch that hold the prompt's sequence; the
@@ -585,22 +656,24 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, backend: str = "cuda"
                              (i + 1) * (x.shape[0] // dp)] for x in inputs)
         with TP.use(tpm, one_rank=True), SEQ.use(mesh if seq else None), \
                 TOK.use(mesh if split else None):
-            return fns.prefill(params, cfg, *inputs, max_len=max_len, **kw)
+            logits, cache = fns.prefill(params, cfg, *inputs,
+                                        max_len=max_len, **kw)
+        if tok.shape[0] == 1 and not seq:
+            cache = time_blocks(cache, mesh)
+        return logits, cache
     return prefill_step
 
 
 def _seq_block(x: torch.Tensor, dp: int, i: int) -> torch.Tensor:
-    """Rank ``i``'s block of ``dp`` along a batch-1 input's sequence."""
-    if x.shape[1] % dp:
-        raise NotImplementedError(
-            f"a sequence of {x.shape[1]} over {dp} DP ranks: batch-1 "
-            f"sequence sharding needs a length they divide")
+    """Rank ``i``'s block of ``dp`` along a batch-1 input's sequence (a
+    length they divide, :func:`seq_batch`)."""
     n = x.shape[1] // dp
     return x[:, i * n:(i + 1) * n]
 
 
 def make_decode_step(cfg: ArchConfig, mesh=None,
-                     global_batch: Optional[int] = None) -> Callable:
+                     global_batch: Optional[int] = None,
+                     cache_len: Optional[int] = None) -> Callable:
     """decode(params, token [B], cache, pos [B]) → (logits [B, V], cache):
     one decode step, the cache updated in place.  With ``mesh``: under
     tensor parallelism on its "model" axis, ``cache`` being the rank's
@@ -611,7 +684,10 @@ def make_decode_step(cfg: ArchConfig, mesh=None,
     long-context decode, each rank's rows reduced to flash statistics
     and merged).  ``global_batch`` is the step's whole batch (default:
     a rank with more than one row holds the rules' block of the slots,
-    one row is a batch-1 step's)."""
+    one row is a batch-1 step's); ``cache_len`` the whole time axis of a
+    batch-1 cache (default: the rules' blocks): a length "data" does
+    not divide is whole on every rank (:func:`time_blocks`), and the
+    step then runs the rows whole (:func:`_whole_time`)."""
     fns = api.model_fns(cfg)
     tpm = _tp_mesh(mesh, cfg)
     if mesh is not None:
@@ -620,6 +696,11 @@ def make_decode_step(cfg: ArchConfig, mesh=None,
     def decode_step(params, token, cache, pos):
         if mesh is None:
             return fns.decode_step(params, cfg, token, cache, pos)
+        if token.shape[0] == 1 and _whole_time(mesh, cache_len):
+            with TP.use(tpm, one_rank=True):
+                return _with_whole_cross(
+                    cfg, mesh, cache, lambda c: fns.decode_step(
+                        local_blocks(params), cfg, token, c, pos))
         seq = token.shape[0] == 1 and cfg.family != "ssm"
         # the rank's slots: its block of the step's tokens (the one token
         # of a batch-1 step is every rank's)
@@ -633,18 +714,48 @@ def make_decode_step(cfg: ArchConfig, mesh=None,
     return decode_step
 
 
-def make_dkv_decode_step(cfg: ArchConfig, mesh=None) -> Callable:
+def _whole_time(mesh, cache_len: Optional[int]) -> bool:
+    """Whether a batch-1 cache of ``cache_len`` rows is whole on every
+    rank (the rules split a time axis over "data" where it divides)."""
+    return cache_len is not None \
+        and cache_len % sh.axis_size(mesh, "data") != 0
+
+
+def _with_whole_cross(cfg, mesh, cache, step):
+    """``step(cache)`` on a batch-1 cache whose self rows are whole: a
+    cross-attention cache whose rows the rules split over "data" (its
+    memory's length divisible, ``seq.cached_memory``) is all-gathered
+    whole for the step (decode only reads it), and the returned cache
+    keeps the rank's block of it."""
+    cross = cache.get("cross") if isinstance(cache, dict) else None
+    n = cfg.num_image_tokens if cfg.family == "vlm" else \
+        cfg.num_audio_frames
+    d = sh.axis_size(mesh, "data")
+    if cross is None or n % d or d == 1:
+        return step(cache)
+    group = sh.axis_group(mesh, "data")
+    whole = dict(cache, cross={k: sh.gather_dim(v, group, "x" + k + "_whole",
+                                                v.dim() - 3)
+                               for k, v in cross.items()})
+    logits, out = step(whole)
+    return logits, dict(out, cross=cross)
+
+
+def make_dkv_decode_step(cfg: ArchConfig, mesh=None,
+                         cache_len: Optional[int] = None) -> Callable:
     """decode(params, token, cache, pos, frozen_len) → (logits, cache):
     one step over a decomposed KV cache (``decomposed_kv.decode_step_dkv``,
     the kernel route), on ``mesh`` as :func:`make_decode_step` (at B = 1
-    the rank's block of the prefix rows and of the tail)."""
+    the rank's block of the prefix rows and of the tail, or, where
+    ``cache_len`` is a length "data" does not divide, the whole rows)."""
     from ..models import decomposed_kv as DK
     tpm = _tp_mesh(mesh, cfg)
     if mesh is not None:
         sh.require_groups(mesh, "a decode step")
 
     def decode_step(params, token, cache, pos, frozen_len):
-        seq = mesh is not None and token.shape[0] == 1
+        seq = mesh is not None and token.shape[0] == 1 \
+            and not _whole_time(mesh, cache_len)
         with TP.use(tpm, one_rank=True), \
                 SEQ.use(mesh if seq else None, "data"):
             return DK.decode_step_dkv(local_blocks(params), cfg, token,

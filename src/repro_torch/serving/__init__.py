@@ -574,7 +574,8 @@ class Engine:
             toks = sampler(logits, 1)
         if stream == 0:
             toks = self.shard.gather(toks)
-        return toks.cpu().numpy()
+        # the step's one readback: the sampled tokens
+        return toks.cpu().numpy()  # dcomlint: disable=J2
 
     def _stops(self, req: Request) -> frozenset:
         eos = req.eos_id if req.eos_id is not None else self.eos_id

@@ -186,7 +186,8 @@ class BlockGraphs:
         def readback(out: torch.Tensor) -> np.ndarray:
             if gather is not None:
                 out = gather(out)
-            return out.cpu().numpy()
+            # the block's one readback: its tokens and step count
+            return out.cpu().numpy()  # dcomlint: disable=J2
 
         if not capture:
             flat = torch.from_numpy(_pack(feed)).to(self.device)

@@ -123,6 +123,7 @@ def test_port_imports_no_jax_and_no_repro():
     banned = ("jax", "jaxlib", "repro")
     files = list(_port_files())
     assert len(files) > 15
+    assert any(os.path.join("repro_torch", "lint", "") in f for f in files)
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), filename=path)

@@ -247,14 +247,18 @@ def test_c10_zero1_spec_names_data_twice():
     (dict(num_heads=4, num_kv_heads=1, head_dim=6), 16),   # wk/wv whole
 ])
 def test_seq_parallel_refuses_what_it_does_not_run(over, seq):
+    """A sequence M does not divide and a kv projection the rule
+    replicates, once refused, run Megatron-SP: ``sp_on`` holds (the
+    gloo world of ``tests/test_torch_dist_rest.py`` holds both against
+    the reference)."""
     cfg = get_arch("granite-3-2b").reduced().replace(seq_parallel=True,
                                                      **over)
     assert not TP.sp_on(cfg, seq)              # no model axis: off
     prev = TP._CURRENT[0]
     TP._CURRENT[0] = TP.TP(None, None, 4, 0)
     try:
-        with pytest.raises(NotImplementedError, match="seq_parallel"):
-            TP.sp_on(cfg, seq)
+        assert TP.sp_on(cfg, seq) == seq
+        assert TP.sp_rows(seq) == -(-seq // 4)
         assert TP.sp_on(cfg.replace(**{k: getattr(
             get_arch("granite-3-2b").reduced(), k) for k in over}), 16)
         assert not TP.sp_on(cfg.replace(seq_parallel=False), 16)

@@ -313,17 +313,32 @@ def test_flops_are_linear_in_depth(arch, depths):
         6 * api.active_param_count(cfg) * 8 * 32
 
 
-def test_refused_cells_are_recorded():
-    """A cell the port refuses (Mamba2 on a "model" axis that does not
-    divide d_inner: the rule replicates ``out_proj``) gives its own error
-    text (naming ROADMAP.md A1), and the process's state is as before."""
+@pytest.mark.parametrize("case", ["mamba2_runs", "refusal_recorded"])
+def test_refused_cells_are_recorded(case, monkeypatch):
+    """Mamba2 on a "model" axis that does not divide d_inner (the rule
+    replicates ``out_proj``), once refused, runs: the (1, 3) decode cell
+    has a record, every rank runs every head, and ``out_proj`` and the
+    gated norm issue no all-reduce.  A cell the port refuses
+    (``NotImplementedError``, here a patched step builder) still gives
+    its own error text, and the process's state is as before."""
     import torch.distributed as dist
+    from repro_torch.runtime import steps as tsteps
     cfg = configs.get_arch("mamba2-780m").reduced()
+    assert cfg.d_inner % 3
+    if case == "refusal_recorded":
+        def refuse(*a, **kw):
+            raise NotImplementedError("not run here (ROADMAP.md A1)")
+        monkeypatch.setattr(tsteps, "make_decode_step", refuse)
     rec = dryrun.run_cell(cfg, configs.ShapeSpec("l", 64, 1, "decode"),
                           mesh_shape=((1, 3), ("data", "model")))
-    assert "A1" in rec["refused"] and "flops_per_device" not in rec
-    assert "d_inner" in rec["refused"]
     assert not dist.is_initialized()
+    if case == "refusal_recorded":
+        assert "A1" in rec["refused"] and "flops_per_device" not in rec
+        return
+    assert "refused" not in rec and rec["flops_per_device"] > 0
+    counts = rec["collective_counts"]
+    assert "all_gather/in_proj" in counts, sorted(counts)
+    assert not {"all_reduce/tp_out", "all_reduce/gated_norm"} & set(counts)
 
 
 def test_seq_parallel_cell_records_sp_collectives_beyond_dense():
