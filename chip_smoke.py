@@ -25,7 +25,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    beside the plain version's, their f and their cluster's CTAs), and
    the dkv rows also their
    reruns held bit-identical and their and SDPA's times with the L2
-   flushed before each call;
+   flushed before each call.  The operating-point knobs: the GEMM row at
+   N 4096 also holds the bf16 kernel at expansion 1, 8, 16, 32 x n_block
+   128, 512, and phase 4's dkv row the kernel at expansion 1, 8, 32, each
+   against its plain version at the same point, reruns bit-identical
+   (their ``knobs`` fields: error and warm ms);
 4. decomposed-KV serving of llama2-7b at full width and depth (random
    bf16 weights from a seed): 4 requests of 512/384/300/128 prompt
    tokens, two admitted while others decode, slots 4, rank 64, tail 16,
@@ -105,7 +109,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    re-orth kernel's blocks per element f (a cluster of min(f, 16) CTAs)
    at phase 4's [32, 512, 4096] and phase 6's [1, 4096, 4096] (printed
    with the model's curve, not gated; a second tune hits the cache) and
-   the left step's curve at both; and an
+   the left step's curve at both; measured tunes of the ``lowrank_matmul``
+   (expansion x n_block) and ``dkv_attention`` (expansion) spaces in bf16
+   at (k, H, N) (20, 4096, 4096) and (20, 4096, 11008) and (B, G, T, r)
+   (4, 32, 512, 64) and (1, 32, 8192, 64) (7 launches a candidate and no
+   other kernel's, a second tune from the cache, asserted; the measured
+   and model curves beside the card's own plan and torch.matmul / SDPA at
+   the measured shape, not gated); and an
    ``EngineConfig(expansion="auto")`` decomposition of one such batch,
    bit-identical to the engine pinned at the resolved f.  The tuning
    cache is a temporary file of the run.
@@ -523,10 +533,38 @@ def reorth_case(side: str, b: int, s: int, h: int, k: int, filled: int,
                           "order differs)")
 
 
-def lowrank_matmul_case(k: int, h: int, n: int, gen):
+LRMM_KNOBS = tuple((f, nb) for f in (1, 8, 16, 32) for nb in (128, 512))
+
+
+def lowrank_matmul_knobs(vt, w) -> dict:
+    """The bf16 GEMM at each (expansion, n_block) of :data:`LRMM_KNOBS`
+    against its plain version at the same point (one bf16 ulp of the
+    largest output), reruns bit-identical; {"f<f>/nb<nb>": [max abs err,
+    warm ms]}."""
+    import torch
+    from repro_torch.kernels import lowrank_matmul as lm
+    out = {}
+    for f, nb in LRMM_KNOBS:
+        run = lambda: lm.lowrank_matmul(vt, w, expansion=f,  # noqa: E731
+                                        n_block=nb)
+        got, again = run(), run()
+        want = lm.lowrank_matmul_plain(vt, w, expansion=f, n_block=nb)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -7 * want.float().abs().max().item()
+        if not (err <= tol and torch.equal(got, again)):
+            raise AssertionError(f"lowrank_matmul f={f} n_block={nb}: err "
+                                 f"{err:.3e} (tol {tol:.3e}) or reruns "
+                                 f"differ")
+        out[f"f{f}/nb{nb}"] = [err, time_ms(run)]
+    return out
+
+
+def lowrank_matmul_case(k: int, h: int, n: int, gen, knobs: bool = False):
     """Eq. 6 at the activation path's shapes: Vᵀ [1, k, H] @ W [H, N] in
     bf16 (the main path), then the float32 instantiation on the same
-    values."""
+    values; ``knobs`` also holds the bf16 kernel at each operating point
+    of :data:`LRMM_KNOBS` (``knobs`` field: error and warm ms)."""
     import torch
     from repro_torch.kernels import lowrank_matmul as lm
     dev = "cuda"
@@ -560,6 +598,7 @@ def lowrank_matmul_case(k: int, h: int, n: int, gen):
     lib_ms = time_ms(lambda: torch.matmul(vt2, w))
     bytes_ = 2 * (k * h + h * n + k * n)
     bms, by = bound(bytes_, 2 * k * h * n, "bfloat16")
+    extra = dict(knobs=lowrank_matmul_knobs(vt, w)) if knobs else {}
     return dict(name="lowrank_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/lowrank_matmul.cu",
                 replaces="src/repro/kernels/lowrank_matmul.py:59",
@@ -567,7 +606,7 @@ def lowrank_matmul_case(k: int, h: int, n: int, gen):
                 bound_by=by, library_ms=lib_ms,
                 shape=dict(vt=[1, k, h], w=[h, n], dtype="bfloat16"),
                 ms_l2_cold=cold_ms, library_ms_l2_cold=lib_cold_ms,
-                max_abs_err_float32=err32,
+                max_abs_err_float32=err32, **extra,
                 tolerance="bf16: <= 2^-7 max|plain| (one bf16 ulp: both "
                           "round float32 sums once); float32: <= 1e-4 "
                           "max|plain| (sum order differs); reruns "
@@ -623,7 +662,14 @@ def kernel_and_library_ms(kern, lib) -> dict:
                 library_ms_l2_cold=time_ms_cold(lib))
 
 
-def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
+DKV_KNOBS = (1, 8, 32)
+
+
+def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen,
+             knobs=()):
+    """The slab dkv kernel against its plain version (reruns
+    bit-identical), then at each expansion of ``knobs`` against the plain
+    version at the same f (``knobs`` field: a error and warm ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import dkv_attention as dk
@@ -635,20 +681,32 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
     kern = lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv)  # noqa: E731
     got = kern()
     again = kern()
-    a_k, m_k, l_k = got
-    a_p, m_p, l_p = dk.dkv_attention_stats_plain(inner, k_u, v_u, tv)
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(got, again)):
-        raise AssertionError("dkv_attention_stats: reruns differ")
-    err = (a_k - a_p).abs().max().item()
-    tol = 1e-4 * a_p.abs().max().item()
-    merr = (m_k - m_p).abs().max().item()
-    lerr = ((l_k - l_p).abs() / l_p.abs()).max().item()
-    if not (err <= tol and merr <= 1e-4 * m_p.abs().max().item()
-            and lerr <= 1e-4):
-        raise AssertionError(f"dkv_attention_stats: a err {err:.3e} (tol "
-                             f"{tol:.3e}), m err {merr:.3e}, l rel err "
-                             f"{lerr:.3e}")
+    def check(got, again, f=None):
+        a_k, m_k, l_k = got
+        a_p, m_p, l_p = dk.dkv_attention_stats_plain(inner, k_u, v_u, tv,
+                                                     expansion=f)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"dkv_attention_stats f={f}: reruns "
+                                 f"differ")
+        err = (a_k - a_p).abs().max().item()
+        tol = 1e-4 * a_p.abs().max().item()
+        merr = (m_k - m_p).abs().max().item()
+        lerr = ((l_k - l_p).abs() / l_p.abs()).max().item()
+        if not (err <= tol and merr <= 1e-4 * m_p.abs().max().item()
+                and lerr <= 1e-4):
+            raise AssertionError(f"dkv_attention_stats f={f}: a err "
+                                 f"{err:.3e} (tol {tol:.3e}), m err "
+                                 f"{merr:.3e}, l rel err {lerr:.3e}")
+        return err
+
+    err = check(got, again)
+    knob_rows = {}
+    for f in knobs:
+        run = lambda: dk.dkv_attention_stats(  # noqa: E731
+            inner, k_u, v_u, tv, expansion=f)
+        knob_rows[f"f{f}"] = [check(run(), run(), f), time_ms(run)]
+    extra = dict(knobs=knob_rows) if knobs else {}
     plain_ms = time_ms(lambda: dk.dkv_attention_stats_plain(inner, k_u,
                                                             v_u, tv))
     # yardstick: one SDPA call over the same prefix rows (normalized a/l)
@@ -666,7 +724,7 @@ def dkv_case(b: int, g: int, t: int, r: int, t_valid, dtype, gen):
                 source="src/repro_torch/kernels/csrc/dkv_attention.cu",
                 replaces="src/repro/kernels/dkv_attention.py:115",
                 max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, **kernel_and_library_ms(kern, lib),
+                bound_by=by, **kernel_and_library_ms(kern, lib), **extra,
                 shape=dict(B=b, G=g, T=t, r=r, t_valid=list(t_valid),
                            dtype=str(dtype)),
                 tolerance="max|a_kernel - a_plain| <= 1e-4 max|a_plain|, "
@@ -946,7 +1004,7 @@ def phase_kernels(cfg):
             rows.append(rec)
         torch.cuda.empty_cache()
     dkv = dkv_case(4, cfg.num_heads, 512, rank, (512, 384, 304, 128),
-                   torch.bfloat16, gen)
+                   torch.bfloat16, gen, knobs=DKV_KNOBS)
     dkv["launch_floor_ms"] = floor
     print(json.dumps(dkv), flush=True)
     rows.append(dkv)
@@ -958,7 +1016,7 @@ def phase_kernels(cfg):
     # the activation path (phase 6): one 4096-token prompt, rank 20
     h, seq, r = cfg.d_model, 4096, 20
     act = [lowrank_matmul_case(r, h, cfg.num_heads * cfg.resolved_head_dim,
-                               gen),
+                               gen, knobs=True),
            lowrank_matmul_case(r, h, cfg.d_ff, gen),
            outlier_stats_case(seq, h, gen, dtype="bfloat16"),
            outlier_stats_case(seq, h, gen, dtype="float32")]
@@ -2142,6 +2200,98 @@ FIG12_POINTS = (("matvec", FIG12_SCALAR, "float32"),
                 ("rmatvec", FIG12_BATCHED, "bfloat16"))
 REORTH_TUNE = (32, 512, 4096)            # phase 4's re-orth shape (B = 32)
 REORTH_TUNE_ACT = (1, 4096, 4096)        # phase 6's (B = 1)
+#: the knob spaces' measured tunes (bf16): the Eq. 6 GEMM at phase 6's two
+#: shapes (k, H, N), the dkv statistics at phase 4's (B, G, T, r) and at
+#: batch 1 over 8192 rows
+KNOB_TUNES = (("lowrank_matmul", (20, 4096, 4096)),
+              ("lowrank_matmul", (20, 4096, 11008)),
+              ("dkv_attention", (4, 32, 512, 64)),
+              ("dkv_attention", (1, 32, 8192, 64)))
+
+
+def _knob_library(kernel: str, shape, dev: str = "cuda"):
+    """(the card's plan, the one-call library yardstick) at a tune's
+    measured shape, on the tune's own inputs: the kernel with no knobs
+    and ``torch.matmul`` for the GEMM; the dkv kernel's 32-row chunks
+    and SDPA over the same rows for the statistics."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dkv_attention as dk
+    from repro_torch.kernels import lowrank_matmul as lm
+    from repro_torch.tune.measure import _rand
+    dv = torch.device(dev)
+    if kernel == "lowrank_matmul":
+        k, h, n = shape
+        vt, w = _rand(0, (k, h), "bfloat16", dv), _rand(1, (h, n),
+                                                        "bfloat16", dv)
+        return lambda: lm.lowrank_matmul(vt, w), lambda: torch.matmul(vt, w)
+    b, g, t, r = shape
+    inner = _rand(0, (b, g, r), "float32", dv)
+    k_u, v_u = _rand(1, (b, t, r), "bfloat16", dv), _rand(2, (b, t, r),
+                                                          "bfloat16", dv)
+    tv = torch.full((b,), t, dtype=torch.int32, device=dv)
+    q4, k4, v4 = inner.bfloat16()[:, None], k_u[:, None], v_u[:, None]
+    return (lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0))
+
+
+def knob_tunes() -> None:
+    """Measured tunes of the ``lowrank_matmul`` and ``dkv_attention``
+    spaces (every candidate the kernel takes, 7 launches each: asserted)
+    at :data:`KNOB_TUNES`; a second tune must answer from the cache, and
+    no other kernel's launch count may move.  Prints the measured and
+    model curves (the tuner times the bucketed shape) beside the card's
+    own plan and the library call at that shape, under the same timer.
+    Speed is not gated."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+    name = {"lowrank_matmul": "lowrank_matmul",
+            "dkv_attention": "dkv_attention_stats"}
+    for kernel, shape in KNOB_TUNES:
+        before = ops.launch_counts()
+        res = tune.tune(kernel, shape, "bfloat16", prune=None,
+                        measure_candidates=True, device="cuda", force=True)
+        after = ops.launch_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if ran != {name[kernel]: len(res.table) * 7}:
+            raise AssertionError(f"{kernel} tune at {shape}: launches {ran}, "
+                                 f"want {len(res.table) * 7} of "
+                                 f"{name[kernel]} and no other")
+        again = tune.tune(kernel, shape, "bfloat16", measure_candidates=True,
+                          device="cuda")
+        if again.source != "cache" or again.best != res.best:
+            raise AssertionError(f"{kernel} tune at {shape} did not hit its "
+                                 f"cache entry: {again.source} {again.best}")
+        if ops.launch_counts() != after:
+            raise AssertionError(f"{kernel}: the cached tune launched")
+        # the card's plan, the measured best again and the library call,
+        # each the median of 21 calls under the tuner's timer
+        plan, lib = _knob_library(kernel, res.shape)
+        plan_s = tune.timeit(plan, reps=21, device="cuda")
+        best_s = tune.measure_candidate(kernel, res.shape, "bfloat16",
+                                        res.best, reps=21, device="cuda")
+        lib_s = tune.timeit(lib, reps=21, device="cuda")
+        torch.cuda.empty_cache()
+        key = lambda c: "/".join(f"{c[p]}" for p in sorted(c))  # noqa: E731
+        curve = " ".join(f"{key(c)}={m * 1e3:.5f}" for c, _, m in res.table)
+        model = " ".join(f"{key(c)}={p * 1e3:.5f}" for c, p, _ in res.table)
+        pick = min(res.table, key=lambda r: r[1])[0]
+        print(f"fig12: {kernel} tune at {list(shape)} (measured at "
+              f"{list(res.shape)}, bf16; points {'/'.join(sorted(pick))}): "
+              f"measured ms {curve}; model ms {model}; model pick {pick}, "
+              f"measured best {res.best} at {res.measured_s * 1e3:.5f} ms "
+              f"({best_s * 1e3:.5f} over 21 calls); card's plan "
+              f"{plan_s * 1e3:.5f} ms; "
+              f"{'torch.matmul' if kernel == 'lowrank_matmul' else 'SDPA'} "
+              f"{lib_s * 1e3:.5f} ms (not gated); second tune answered from "
+              f"the {again.source}", flush=True)
+        print("fig12: " + json.dumps(dict(
+            kernel=kernel, shape=list(shape), measured_shape=list(res.shape),
+            table=[[c, p, m] for c, p, m in res.table], best=res.best,
+            model_pick=pick, best_ms_21=best_s * 1e3, plan_ms=plan_s * 1e3,
+            library_ms=lib_s * 1e3,
+            launches=len(res.table) * 7)), flush=True)
 
 
 def phase_fig12():
@@ -2154,7 +2304,9 @@ def phase_fig12():
     and an
     ``EngineConfig(expansion="auto")`` decomposition of one [32, 512,
     4096] batch, bit-identical to the engine pinned at the resolved f.
-    Returns the launch counts of the four A/Bs."""
+    Before that, :func:`knob_tunes`: the Eq. 6 GEMM's and the dkv
+    statistics' spaces tuned on the card.  Returns the launch counts of
+    the four A/Bs."""
     import torch
     from repro_torch import tune
     from repro_torch.engine import DecomposeEngine, EngineConfig
@@ -2237,6 +2389,12 @@ def phase_fig12():
               f"{(b, s, h)}: measured ms {curve} (warm)", flush=True)
         del a
         torch.cuda.empty_cache()
+
+    knob_tunes()
+    if {k: ops.launch_counts()[k] for k in MATVEC_LINES} != {
+            k: launches[k] for k in MATVEC_LINES}:
+        raise AssertionError("fig12: the knob tunes moved the matvec "
+                             "launch counts")
 
     x = torch.randn(*REORTH_TUNE, generator=gen, device="cuda")
     auto = DecomposeEngine(EngineConfig(expansion="auto"))

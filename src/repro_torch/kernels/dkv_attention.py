@@ -21,15 +21,24 @@ the card it is the same kernel with another row loader, bit-identical to
 
 Each wrapper dispatches on the device of ``inner``: CPU takes the plain
 version; CUDA launches ``csrc/dkv_attention.cu`` or raises.  One call is
-one launch: the time axis is cut into 32-row chunks over CTAs, and the
-last CTA of each (slot, head group) merges the chunks (it takes a ticket
+one launch: the time axis is cut into blocks over CTAs, and the last CTA
+of each (slot, head group) merges the blocks in order (it takes a ticket
 from a per-device counter buffer that it leaves zeroed, so launches that
 share it run one after another on one stream).
+
+The slab statistics take the reference's operating point ``expansion``
+(``dkv_attention.py:90-139``): f blocks per (slot, head group) of
+ceil(t_valid / f) rows each, which a CTA walks in 32-row tiles with the
+online-softmax update.  A call without it cuts the rows into 32-row
+chunks, one CTA each — what serving runs, bit-equal to the paged twin,
+which takes no knob (as in the reference).  The tunable space registered
+below names the reference's default point (f 8); the tuner times it, no
+path consults it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,12 +49,38 @@ NEG = -1e30
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def dkv_attention_stats_plain(inner, k_u, v_u, t_valid) -> Stats:
+MAX_EXPANSION = 1 << 20
+
+
+def _check_expansion(expansion) -> Optional[int]:
+    if expansion is None:
+        return None
+    f = int(expansion)
+    if f != expansion or not 1 <= f <= MAX_EXPANSION:
+        raise ValueError(f"dkv_attention_stats: expansion must be an int in "
+                         f"1..{MAX_EXPANSION}, got {expansion!r}")
+    return f
+
+
+def block_rows(t_valid: int, expansion: int) -> int:
+    """Rows of each of the ``expansion`` time blocks of a slot with
+    ``t_valid`` rows: ceil(t_valid / f) (the reference's blocks of a time
+    axis padded to a multiple of f), at least 1."""
+    return max(1, -(-int(t_valid) // int(expansion)))
+
+
+def dkv_attention_stats_plain(inner, k_u, v_u, t_valid, *,
+                              expansion: Optional[int] = None) -> Stats:
     """Plain version: the masked softmax statistics of each slot over
     exactly its ``t_valid`` rows, one slot at a time — so the result
     does not depend on how many rows follow ``t_valid`` or how they are
     laid out (the paged plain version, on gathered rows, is this one bit
-    for bit).  inner [B,G,r]; k_u, v_u [B,T,r]; t_valid int [B]."""
+    for bit).  inner [B,G,r]; k_u, v_u [B,T,r]; t_valid int [B].
+    With ``expansion`` f: each of the f blocks' statistics
+    (:func:`block_rows`), merged in block order."""
+    f = _check_expansion(expansion)
+    if f is not None:
+        return _blocked_plain(inner, k_u, v_u, t_valid, f)
     b, g, r = inner.shape
     f32 = dict(device=inner.device, dtype=torch.float32)
     a = torch.zeros(b, g, r, **f32)
@@ -62,6 +97,31 @@ def dkv_attention_stats_plain(inner, k_u, v_u, t_valid) -> Stats:
     return a, m, l_
 
 
+def _blocked_plain(inner, k_u, v_u, t_valid, f: int) -> Stats:
+    b, g, r = inner.shape
+    f32 = dict(device=inner.device, dtype=torch.float32)
+    a = torch.zeros(b, g, r, **f32)
+    m = torch.full((b, g), NEG, **f32)
+    l_ = torch.zeros(b, g, **f32)
+    for i, n in enumerate(t_valid.clamp(0, k_u.shape[1]).tolist()):
+        if n == 0:
+            continue
+        step = block_rows(n, f)
+        parts = []
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            s = inner[i].float() @ k_u[i, lo:hi].float().T
+            mc = s.amax(-1)
+            p = torch.exp(s - mc[:, None])
+            parts.append((mc, p.sum(-1), p @ v_u[i, lo:hi].float()))
+        m[i] = torch.stack([mc for mc, _, _ in parts]).amax(0)
+        for mc, lc, ac in parts:
+            e = torch.exp(mc - m[i])
+            l_[i] = l_[i] + lc * e
+            a[i] = a[i] + ac * e[:, None]
+    return a, m, l_
+
+
 _BOUND = False
 
 
@@ -71,14 +131,14 @@ def _lib() -> ctypes.CDLL:
     if not _BOUND:
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.dcom_dkv_stats_f32, lib.dcom_dkv_stats_bf16):
-            fn.argtypes = [vp] * 9 + [i] * 4 + [vp]
+            fn.argtypes = [vp] * 9 + [i] * 5 + [vp]
             fn.restype = i
         for fn in (lib.dcom_dkv_stats_paged_f32,
                    lib.dcom_dkv_stats_paged_bf16):
             fn.argtypes = [vp] * 10 + [i] * 6 + [vp]
             fn.restype = i
-        lib.dcom_dkv_smem_bytes.argtypes = [i, i]
-        lib.dcom_dkv_scratch_floats.argtypes = [i, i, i, i]
+        lib.dcom_dkv_smem_bytes.argtypes = [i, i, i]
+        lib.dcom_dkv_scratch_floats.argtypes = [i, i, i, i, i]
         lib.dcom_dkv_smem_bytes.restype = ctypes.c_size_t
         lib.dcom_dkv_scratch_floats.restype = ctypes.c_size_t
         lib.dcom_dkv_tickets.argtypes = [i, i]
@@ -87,14 +147,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
+def dkv_attention_stats(inner, k_u, v_u, t_valid, *,
+                        expansion: Optional[int] = None) -> Stats:
     """Rank-space flash statistics of the low-rank prefix.
 
     inner [B, G, r] float32 (scaled q·Vᵀ_k for all G query heads);
     k_u, v_u [B, T, r] float32 or bfloat16; t_valid int32 [B] →
-    (a [B, G, r], m [B, G], l [B, G]) float32."""
+    (a [B, G, r], m [B, G], l [B, G]) float32.  ``expansion`` f: f time
+    blocks per slot and head group (None: 32-row chunks)."""
     if inner.device.type == "cpu":
-        return dkv_attention_stats_plain(inner, k_u, v_u, t_valid)
+        return dkv_attention_stats_plain(inner, k_u, v_u, t_valid,
+                                         expansion=expansion)
     if inner.device.type != "cuda":
         raise ValueError(f"dkv_attention_stats: unsupported device "
                          f"{inner.device}")
@@ -115,13 +178,14 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
         if not t_.is_contiguous() or t_.device != inner.device:
             raise ValueError("dkv_attention_stats: inputs must be "
                              f"contiguous and on {inner.device}")
+    f = _check_expansion(expansion) or 0
     lib = _lib()
-    part, tk, a, m, l_ = _buffers(lib, "dkv_attention_stats", inner, t)
+    part, tk, a, m, l_ = _buffers(lib, "dkv_attention_stats", inner, t, f)
     fn = lib.dcom_dkv_stats_f32 if k_u.dtype == torch.float32 \
         else lib.dcom_dkv_stats_bf16
     err = fn(inner.data_ptr(), k_u.data_ptr(), v_u.data_ptr(),
              t_valid.data_ptr(), part.data_ptr(), tk.data_ptr(),
-             a.data_ptr(), m.data_ptr(), l_.data_ptr(), b, g, t, r,
+             a.data_ptr(), m.data_ptr(), l_.data_ptr(), b, g, t, r, f,
              torch.cuda.current_stream(inner.device).cuda_stream)
     if err:
         raise RuntimeError(f"dkv_attention_stats kernel launch failed "
@@ -133,16 +197,18 @@ def dkv_attention_stats(inner, k_u, v_u, t_valid) -> Stats:
 dkv_attention_stats.launches = 0
 
 
-def _buffers(lib, name: str, inner, t: int):
-    """Check the CTA's shared memory for T = ``t`` rows and allocate the
-    chunks' float32 scratch, the ticket counters and (a, m, l)."""
+def _buffers(lib, name: str, inner, t: int, f: int = 0):
+    """Check the CTA's shared memory for T = ``t`` rows at expansion
+    ``f`` (0: 32-row chunks) and allocate the blocks' float32 scratch,
+    the ticket counters and (a, m, l)."""
     b, g, r = inner.shape
-    smem = lib.dcom_dkv_smem_bytes(r, t)
+    smem = lib.dcom_dkv_smem_bytes(r, t, f)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: r={r} over T={t} rows needs {smem} B of "
-                         f"shared memory per block (limit {SMEM_LIMIT})")
+        raise ValueError(f"{name}: r={r} over T={t} rows at expansion "
+                         f"{f or None} needs {smem} B of shared memory per "
+                         f"block (limit {SMEM_LIMIT})")
     f32 = dict(device=inner.device, dtype=torch.float32)
-    return (torch.empty(lib.dcom_dkv_scratch_floats(b, g, t, r), **f32),
+    return (torch.empty(lib.dcom_dkv_scratch_floats(b, g, t, r, f), **f32),
             tickets(inner.device, lib.dcom_dkv_tickets(b, g), "dkv"),
             torch.empty(b, g, r, **f32), torch.empty(b, g, **f32),
             torch.empty(b, g, **f32))
@@ -242,3 +308,14 @@ def merge_with_tail(a, m, l, v_vt, tail_scores, tail_v) -> torch.Tensor:
     out_pre = (a @ v_vt.float()) * c_pre
     denom = l * c_pre + l_t * c_t
     return (out_pre + o_t * c_t) / torch.clamp(denom, min=1e-30)
+
+
+# -- tunable space (see repro_torch.tune): time blocks of the slab
+# statistics; the default names the reference's, a call without the knob
+# runs 32-row chunks -----------------------------------------------------
+from ..tune.space import (EXPANSION_GRID, TunableParam,  # noqa: E402
+                          TunableSpace, register_space)
+
+register_space(TunableSpace("dkv_attention", (
+    TunableParam("expansion", EXPANSION_GRID, default=8),
+)))

@@ -215,12 +215,94 @@ def _terms_lanczos_reorth(shape, dtb, cand) -> Terms:
             / moved, extra, ctas, 0.0)
 
 
+#: the Eq. 6 GEMM's ring (csrc/lowrank_matmul.cu): four stages of 64 rows
+#: of a 128-column W tile, all but the one being multiplied in flight
+LRMM_STAGES = 4
+LRMM_STAGE_ROWS = 64
+LRMM_TILE_COLS = 128
+
+
+def lrmm_rows(m: int) -> Tuple[int, int]:
+    """(rows of Vᵀ one CTA takes, M chunks) of the GEMM's plan: M padded to
+    a multiple of 8 up to 32 rows a CTA, else 64."""
+    nb = -(-m // 8)
+    mt = 8 * (8 if nb > 4 else nb)
+    return mt, -(-m // mt)
+
+
+def _terms_lowrank_matmul(shape, dtb, cand) -> Terms:
+    """Vᵀ [k, H] @ W [H, N] in one launch over (⌈N / n_block⌉ blocks of
+    columns, f splits of H, M chunks) CTAs, each walking its n_block /
+    128 tiles with a ring of four 64 × 128 stages of W, three of them
+    (at most its whole split × 128 slice) in flight.  The bytes count
+    W, Vᵀ and the output once; for f > 1 the float32 partials are
+    written and read back once (through the cluster's shared memory up
+    to 8 splits, through scratch past it).  bf16 multiplies on the
+    tensor cores: its operations are counted at the float32 rate's
+    equivalent (× 67 / 989)."""
+    from ..kernels.lowrank_matmul import split_rows
+    from ..launch.roofline import PEAK_FLOPS_BF16
+    k, h, n = shape
+    f = int(cand["expansion"])
+    nb = max(LRMM_TILE_COLS, int(cand.get("n_block", 512)))
+    mt, chunks = lrmm_rows(k)
+    rows = split_rows(h, f)
+    ctas = -(-n // nb) * f * chunks
+    flight = min(LRMM_STAGES - 1, -(-rows // LRMM_STAGE_ROWS)) \
+        * LRMM_STAGE_ROWS * LRMM_TILE_COLS * dtb
+    bytes_ = dtb * (k * h + h * n + k * n)
+    flops = 2.0 * chunks * mt * h * n
+    if dtb == 2:
+        flops *= PEAK_FLOPS_F32 / PEAK_FLOPS_BF16
+    extra = 8.0 * f * chunks * mt * n if f > 1 else 0.0
+    return (bytes_, flops, ctas * flight / MATVEC_WARP_FLIGHT, extra, ctas,
+            -(-h // rows))
+
+
+#: the dkv statistics' tile (csrc/dkv_attention.cu): 32 rows of U_k and
+#: U_v a step, one CTA per 8 query heads of a slot
+DKV_TILE_ROWS = 32
+DKV_HEADS = 8
+
+
+def _terms_dkv_attention(shape, dtb, cand) -> Terms:
+    """Rank-space flash statistics over U_k, U_v [B, T, r] for G query
+    heads (shape (g, t, r), or (b, g, t, r) for every slot of one
+    launch): B × ⌈G / 8⌉ × f CTAs, each walking ⌈T / (32 f)⌉ tiles in
+    series with one tile of U_k and U_v (at most its block) in flight.
+    The bytes count U once per slot, inner and the outputs; for f > 1
+    the merge writes and reads f partials of (r + 2) floats a head."""
+    b, g, t, r = shape if len(shape) == 4 else (1, *shape)
+    f = int(cand["expansion"])
+    groups = -(-g // DKV_HEADS)
+    ctas = b * groups * f
+    rows = -(-t // f)
+    flight = min(DKV_TILE_ROWS, rows) * 2 * r * dtb
+    bytes_ = b * (2 * t * r * dtb + 4 * g * r + 4 * g * (r + 2))
+    extra = 8.0 * b * groups * DKV_HEADS * f * (r + 2) if f > 1 else 0.0
+    return (bytes_, 4.0 * b * g * t * r, ctas * flight / MATVEC_WARP_FLIGHT,
+            extra, ctas, b * -(-t // rows))
+
+
 KERNEL_TERMS: Dict[str, Callable[[Sequence[int], int, Mapping[str, Any]],
                                  Terms]] = {
+    "dkv_attention": _terms_dkv_attention,
     "lanczos_reorth": _terms_lanczos_reorth,
+    "lowrank_matmul": _terms_lowrank_matmul,
     "matvec_expand": _terms_matvec_expand,
     "rmatvec_expand": _terms_rmatvec_expand,
 }
+
+
+def reaches(kernel: str, shape: Sequence[int],
+            cand: Mapping[str, Any]) -> bool:
+    """Whether the card's kernel takes ``cand`` at ``shape``: the Eq. 6
+    GEMM refuses splits of H shorter than one ring stage
+    (``kernels.lowrank_matmul.reaches``); every other point is taken."""
+    if kernel == "lowrank_matmul":
+        from ..kernels.lowrank_matmul import reaches as lrmm_reaches
+        return lrmm_reaches(int(shape[-2]), int(cand["expansion"]))
+    return True
 
 
 def _predict_decode_block(shape: Sequence[int], dtb: int,

@@ -111,6 +111,32 @@ def _bench_expand(name: str, block_key: str):
     return build
 
 
+def _bench_lowrank_matmul(shape, dtype, cand, device) -> Callable[[], Any]:
+    """One Eq. 6 GEMM Vᵀ [k, H] @ W [H, N] (shape (k, h, n), the
+    reference's) at the candidate's (expansion, n_block)."""
+    from ..kernels.lowrank_matmul import lowrank_matmul
+    k, h, n = shape
+    vt = _rand(0, (k, h), dtype, device)
+    w = _rand(1, (h, n), dtype, device)
+    f, nb = int(cand["expansion"]), int(cand.get("n_block", 512))
+    return lambda: lowrank_matmul(vt, w, expansion=f, n_block=nb)
+
+
+def _bench_dkv_attention(shape, dtype, cand, device) -> Callable[[], Any]:
+    """One launch of the slab dkv statistics at the candidate's
+    expansion: shape (g, t, r), the reference's one (batch, kv-head)
+    slice, or (b, g, t, r), every slot at once as the port's kernel
+    takes them; float32 inner, U in ``dtype``, t_valid = t."""
+    from ..kernels.dkv_attention import dkv_attention_stats
+    b, g, t, r = shape if len(shape) == 4 else (1, *shape)
+    inner = _rand(0, (b, g, r), "float32", device)
+    k_u = _rand(1, (b, t, r), dtype, device)
+    v_u = _rand(2, (b, t, r), dtype, device)
+    tv = torch.full((b,), t, dtype=torch.int32, device=device)
+    f = int(cand["expansion"])
+    return lambda: dkv_attention_stats(inner, k_u, v_u, tv, expansion=f)
+
+
 DECODE_TOKENS = 32              # tokens one decode_block measurement runs
 
 
@@ -160,7 +186,9 @@ def _bench_decode_block(shape, dtype, cand, device) -> Callable[[], Any]:
 
 _BENCH = {
     "decode_block": _bench_decode_block,
+    "dkv_attention": _bench_dkv_attention,
     "lanczos_reorth": _bench_lanczos_reorth,
+    "lowrank_matmul": _bench_lowrank_matmul,
     "matvec_expand": _bench_expand("matvec", "row_block"),
     "rmatvec_expand": _bench_expand("rmatvec", "col_block"),
 }

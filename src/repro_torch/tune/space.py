@@ -100,7 +100,8 @@ def available_spaces() -> List[str]:
 def _import_kernel_spaces() -> None:
     """Trigger the side-effect registrations in ``repro_torch.kernels``
     (lazy, to keep this module a leaf)."""
-    from ..kernels import lanczos_reorth, matvec_expand  # noqa: F401
+    from ..kernels import (dkv_attention, lanczos_reorth,  # noqa: F401
+                           lowrank_matmul, matvec_expand)
 
 
 # The f grid every expansion kernel shares: powers of two spanning both

@@ -187,6 +187,13 @@ def _to_entry(res: TuneResult) -> Dict[str, Any]:
                        "measured_s": m} for c, p, m in res.table]}
 
 
+def _bucket_floor(bucket: Sequence[int]) -> Tuple[int, ...]:
+    """The least shape of a bucket (each dim one past the power of two
+    below it): a candidate the kernel takes there it takes at every shape
+    the bucket's entry answers."""
+    return tuple(n // 2 + 1 if n > 1 else 1 for n in bucket)
+
+
 def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
          fix: Optional[Mapping[str, Any]] = None,
          measure_candidates: bool = False,
@@ -204,7 +211,9 @@ def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
     the model-ranked top ``prune`` candidates (None = all) are timed at
     the bucketed shape (``flush_l2`` flushes the L2 before each timed
     call) and the winner persisted.  ``fix`` pins params; ``force``
-    ignores the cache."""
+    ignores the cache.  A candidate the card's kernel does not take at
+    some shape of the bucket (``cost_model.reaches``) is skipped, on
+    either device."""
     cache = cache if cache is not None else default_cache()
     dev = cost_model.detect_device(device)
     bucket = shape_bucket(shape)
@@ -220,7 +229,8 @@ def tune(kernel: str, shape: Sequence[int], dtype: Any = "float32", *,
             _answered(kernel, "cache")
             return _from_entry(key, entry)
 
-    cands = candidates_for(kernel, fix)
+    cands = [c for c in candidates_for(kernel, fix)
+             if cost_model.reaches(kernel, _bucket_floor(bucket), c)]
     scored = sorted(((c, cost_model.predict(kernel, bucket, dt, c, dev))
                      for c in cands), key=lambda cp: cp[1])
 

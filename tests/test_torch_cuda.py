@@ -854,6 +854,123 @@ def test_measured_tune_on_card_hits_cache(cuda, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# The operating-point knobs of the Eq. 6 GEMM and the dkv statistics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,k,h,n", [(1, 20, 4096, 1000),
+                                     (1, 20, 4160, 4096),
+                                     (2, 13, 3000, 300)])
+@pytest.mark.parametrize("f", [1, 8, 16, 32])
+@pytest.mark.parametrize("nb", [128, 512])
+def test_lowrank_matmul_knobs_match_plain(cuda, dtype, b, k, h, n, f, nb):
+    """The GEMM at (expansion, n_block) against its plain version at the
+    same point: splits combined in the cluster (f <= 8) and by the last
+    CTA of a tile (f 16, 32); splits of 136 and 96 rows whose last stage
+    holds the next split's rows (H 4160 and 3000 at f 32; H 3000 in bf16
+    by element copies, its N 300 not a whole 16-byte row); a CTA walking
+    four tiles of which the last is partial (N 1000 at n_block 512).  The tolerances of the unknobbed
+    test; reruns bit-identical; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(b * k + h + n + f)
+    dt = getattr(torch, dtype)
+    vt = torch.randn(b, k, h, generator=g, device=cuda).to(dt)
+    w = (torch.randn(h, n, generator=g, device=cuda) * h ** -0.5).to(dt)
+    before = lrmm.lowrank_matmul.launches
+    got = lrmm.lowrank_matmul(vt, w, expansion=f, n_block=nb)
+    assert lrmm.lowrank_matmul.launches == before + 1
+    want = lrmm.lowrank_matmul_plain(vt, w, expansion=f, n_block=nb)
+    assert got.dtype == dt and got.shape == (b, k, n)
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * scale if dtype == "float32" else 2 ** -7 * scale
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+    assert torch.equal(got, lrmm.lowrank_matmul(vt, w, expansion=f,
+                                                n_block=nb))
+    kernels = _device_kernels(
+        lambda: lrmm.lowrank_matmul(vt, w, expansion=f, n_block=nb))
+    assert len(kernels) == 1 and "lrmm_kernel" in kernels[0], kernels
+
+
+def test_lowrank_matmul_refuses_splits_shorter_than_a_stage(cuda):
+    """f 8 over H 256 makes 32-row splits: the wrapper raises naming the
+    shape, launches nothing and does not run the plain version; f 1 at
+    H 40 is one split of all of H and runs."""
+    vt = torch.randn(1, 20, 256, device=cuda)
+    w = torch.randn(256, 512, device=cuda)
+    before = lrmm.lowrank_matmul.launches
+    with pytest.raises(ValueError, match="H=256"):
+        lrmm.lowrank_matmul(vt, w, expansion=8)
+    assert lrmm.lowrank_matmul.launches == before
+    vt, w = torch.randn(3, 40, device=cuda), torch.randn(40, 300, device=cuda)
+    got = lrmm.lowrank_matmul(vt, w, expansion=1, n_block=256)
+    torch.testing.assert_close(got, lrmm.lowrank_matmul_plain(vt, w), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nh,t,r,t_valid", [
+    (3, 6, 77, 10, (77, 31, 0)),
+    (4, 32, 512, 64, (512, 384, 304, 128)),   # phase 4's decode shape
+    (1, 32, 8192, 64, (8192,)),               # batch 1 over 8192 rows
+    (2, 12, 1000, 40, (1000, 33)),
+])
+@pytest.mark.parametrize("f", [1, 2, 8, 32])
+def test_dkv_kernel_expansion_matches_plain(cuda, dtype, b, nh, t, r,
+                                            t_valid, f):
+    """The dkv kernel at f time blocks (each walked in 32-row tiles with
+    the online-softmax update, merged in block order) against the plain
+    version at the same f; f 1 writes directly, t_valid 0 and 31 rows
+    over 32 blocks (fewer blocks than f hold rows); reruns and U padded
+    past T bit-identical; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(t + r + f)
+    dt = getattr(torch, dtype)
+    inner = torch.randn(b, nh, r, generator=g, device=cuda) * 0.5
+    k_u = torch.randn(b, t, r, generator=g, device=cuda).to(dt)
+    v_u = torch.randn(b, t, r, generator=g, device=cuda).to(dt)
+    tv = torch.tensor(t_valid, dtype=torch.int32, device=cuda)
+    before = dk.dkv_attention_stats.launches
+    got = dk.dkv_attention_stats(inner, k_u, v_u, tv, expansion=f)
+    assert dk.dkv_attention_stats.launches == before + 1
+    want = dk.dkv_attention_stats_plain(inner, k_u, v_u, tv, expansion=f)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **TOL)
+    for x, y in zip(got, dk.dkv_attention_stats(inner, k_u, v_u, tv,
+                                                expansion=f)):
+        assert torch.equal(x, y)
+    pad = lambda u: torch.cat([u, torch.randn(  # noqa: E731
+        b, 40, r, device=cuda, generator=g).to(dt)], 1).contiguous()
+    for x, y in zip(got, dk.dkv_attention_stats(inner, pad(k_u), pad(v_u),
+                                                tv, expansion=f)):
+        assert torch.equal(x, y)
+    kernels = _device_kernels(
+        lambda: dk.dkv_attention_stats(inner, k_u, v_u, tv, expansion=f))
+    assert len(kernels) == 1 and "dkv_stats_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("lowrank_matmul", (20, 1024, 2048), "bfloat16"),
+    ("dkv_attention", (4, 32, 512, 64), "bfloat16"),
+])
+def test_measured_tune_of_knob_spaces_on_card(cuda, tmp_path, monkeypatch,
+                                              kernel, shape, dtype):
+    """A measured tune of each knob space on the card launches the kernel
+    7 times a candidate, keys its entry under the card's device kind, and
+    a second tune answers from the cache file."""
+    from repro_torch import tune
+    path = str(tmp_path / "cache.json")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", path)
+    fn = lrmm.lowrank_matmul if kernel == "lowrank_matmul" \
+        else dk.dkv_attention_stats
+    before = fn.launches
+    r1 = tune.tune(kernel, shape, dtype, measure_candidates=True, prune=None,
+                   device=cuda)
+    assert fn.launches - before == 7 * len(r1.table)
+    assert r1.source == "measured" and r1.key.startswith("torch-cuda:")
+    r2 = tune.tune(kernel, shape, dtype, measure_candidates=True,
+                   cache=tune.TuningCache(path), device=cuda)
+    assert r2.source == "cache" and r2.best == r1.best
+
+
+# ---------------------------------------------------------------------------
 # Fused decode blocks replayed as CUDA graphs
 # ---------------------------------------------------------------------------
 

@@ -30,7 +30,8 @@ from repro_torch import tune  # noqa: E402
 from repro_torch.engine import DecomposeEngine, EngineConfig  # noqa: E402
 from repro_torch.tune import cost_model  # noqa: E402
 
-KERNELS = ("lanczos_reorth", "matvec_expand", "rmatvec_expand")
+KERNELS = ("lanczos_reorth", "matvec_expand", "rmatvec_expand",
+           "lowrank_matmul", "dkv_attention")
 
 
 @pytest.fixture()
@@ -55,9 +56,13 @@ def _x(shape, seed=0):
 def test_spaces_match_jax_where_the_meaning_is_shared():
     assert tune.EXPANSION_GRID == jtune.EXPANSION_GRID
     assert tune.BLOCK_GRID == jtune.BLOCK_GRID
-    assert dataclasses.astuple(tune.get_space("matvec_expand")) == \
-        dataclasses.astuple(jtune.get_space("matvec_expand"))
+    for kernel in ("matvec_expand", "lowrank_matmul", "dkv_attention"):
+        assert dataclasses.astuple(tune.get_space(kernel)) == \
+            dataclasses.astuple(jtune.get_space(kernel))
     assert set(tune.available_spaces()) == set(KERNELS) | {"decode_block"}
+    assert tune.get_space("lowrank_matmul").default() == {"expansion": 8,
+                                                          "n_block": 512}
+    assert tune.get_space("dkv_attention").default() == {"expansion": 8}
     # the fused serving decode's block space is the reference's
     assert tune.DECODE_BLOCK_GRID == jtune.space.DECODE_BLOCK_GRID
     assert dataclasses.astuple(tune.get_space("decode_block")) == \
@@ -135,8 +140,10 @@ def test_cache_corruption_reads_as_empty(tmp_cache, text):
 
 def _curve(kernel, shape, dtype, model):
     space = tune.get_space(kernel)
-    block = [p.name for p in space.params if p.name.endswith("block")]
-    fix = {block[0]: 512} if block else {"backend": "cuda"}
+    names = [p.name for p in space.params]
+    block = [n for n in names if n.endswith("block")]
+    fix = {block[0]: 512} if block else (
+        {"backend": "cuda"} if "backend" in names else None)
     return [t for _, t in tune.predict_curve(
         kernel, shape, dtype, tune.candidates_for(kernel, fix), model)]
 
@@ -155,7 +162,14 @@ def _unimodal(ts):
        model=st.sampled_from([tune.H100, tune.CPU]))
 def test_cost_models_are_unimodal_along_the_grid(kernel, b, s, h, two_d,
                                                   dtype, model):
-    shape = (s, h) if two_d and kernel != "lanczos_reorth" else (b, s, h)
+    if kernel == "lowrank_matmul":          # (k, H, N)
+        shape = (b, s, h)
+    elif kernel == "dkv_attention":         # (g, T, r) or (B, g, T, r)
+        shape = (b, s, 1 + h % 256) if two_d else (
+            1 + b % 8, b, s, 1 + h % 256)
+    else:
+        shape = (s, h) if two_d and kernel != "lanczos_reorth" \
+            else (b, s, h)
     ts = _curve(kernel, shape, dtype, model)
     assert all(t > 0 for t in ts) and _unimodal(ts), ts
 
@@ -250,6 +264,51 @@ def test_reorth_term_counts_cluster_ctas_and_q_once_where_it_fits(
     assert extra == 8.0 * ctas * f * k and splits == 0.0
 
 
+@pytest.mark.parametrize("shape,dtype,f,nb,ctas,stages", [
+    ((20, 4096, 4096), "bfloat16", 8, 512, 8 * 8, 3),   # row 7's N 4096
+    ((20, 4096, 11008), "bfloat16", 32, 128, 86 * 32, 2),
+    ((20, 4096, 4096), "bfloat16", 1, 128, 32, 3),
+    ((40, 256, 300), "float32", 2, 256, 2 * 2 * 1, 2),  # M 40: one chunk
+    ((72, 4096, 128), "float32", 4, 128, 1 * 4 * 2, 3),  # two M chunks
+])
+def test_lowrank_term_counts_ctas_and_stages_in_flight(shape, dtype, f, nb,
+                                                       ctas, stages):
+    """The GEMM's term follows its kernel: ceil(N / n_block) x f x M
+    chunks CTAs, each with three 64 x 128 stages of W in flight (fewer
+    where its split is shorter), counted in 2 KB warps; the partials'
+    traffic for f > 1 over M padded to the CTA's rows."""
+    from repro_torch.tune import cost_model as cm
+    k, h, n = shape
+    dtb = cm.dtype_bytes(dtype)
+    _, _, warps, extra, n_ctas, splits = cm._terms_lowrank_matmul(
+        shape, dtb, {"expansion": f, "n_block": nb})
+    assert n_ctas == ctas
+    assert warps == ctas * stages * 64 * 128 * dtb / cm.MATVEC_WARP_FLIGHT
+    mt, chunks = cm.lrmm_rows(k)
+    assert extra == (8.0 * f * mt * chunks * n if f > 1 else 0.0)
+    assert splits == -(-h // -(-h // f))
+
+
+@pytest.mark.parametrize("shape,f,ctas,rows", [
+    ((4, 32, 512, 64), 8, 4 * 4 * 8, 32),     # row 5's shape
+    ((1, 32, 8192, 64), 1, 4, 32),            # row 5‴'s: one walking CTA
+    ((4, 96, 16), 32, 1 * 1 * 32, 3),         # the reference's pretune
+    ((2, 9, 40, 8), 2, 2 * 2 * 2, 20),
+])
+def test_dkv_term_counts_ctas_and_tile_in_flight(shape, f, ctas, rows):
+    """The dkv term follows the walking kernel: B x ceil(G / 8) x f CTAs,
+    each with one tile of U_k and U_v (32 rows, at most its block) in
+    flight; the merge's f partials of (r + 2) floats a head for f > 1."""
+    from repro_torch.tune import cost_model as cm
+    b, g, t, r = shape if len(shape) == 4 else (1, *shape)
+    _, _, warps, extra, n_ctas, _ = cm._terms_dkv_attention(shape, 2,
+                                                            {"expansion": f})
+    assert n_ctas == ctas
+    assert warps == ctas * rows * 2 * r * 2 / cm.MATVEC_WARP_FLIGHT
+    assert extra == (8.0 * b * -(-g // 8) * 8 * f * (r + 2) if f > 1
+                     else 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Tuner on the host
 # ---------------------------------------------------------------------------
@@ -275,6 +334,40 @@ def test_measured_tune_on_cpu_persists_and_hits_cache(tmp_cache):
     r2 = tune.tune("matvec_expand", measure_candidates=True,
                    cache=tune.TuningCache(tmp_cache), **kw)
     assert r2.source == "cache" and r2.best == r1.best
+
+
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("lowrank_matmul", (4, 256, 200), "bfloat16"),
+    ("dkv_attention", (2, 4, 40, 8), "float32"),
+])
+def test_measured_tune_of_the_new_spaces_on_cpu(tmp_cache, kernel, shape,
+                                                dtype):
+    """A measured tune of each new space on the host times the plain
+    versions at every candidate it keeps, persists the winner, and a
+    second tune answers from the file."""
+    r1 = tune.tune(kernel, shape, dtype, measure_candidates=True,
+                   prune=None, reps=1, device="cpu")
+    assert r1.source == "measured" and r1.measured_s > 0
+    assert all(m is not None and m > 0 for _, _, m in r1.table)
+    assert r1.best in [c for c, _, _ in r1.table]
+    r2 = tune.tune(kernel, shape, dtype, measure_candidates=True,
+                   cache=tune.TuningCache(tmp_cache), device="cpu")
+    assert r2.source == "cache" and r2.best == r1.best
+    assert r2.key.startswith(f"torch-cpu/{kernel}/")
+
+
+def test_tuner_skips_splits_the_kernel_does_not_take(tmp_cache):
+    """At H 256 (bucket 256, least H 129) the GEMM's kernel takes f 1 and
+    2 only (splits of at least one 64-row stage): the tuner scores no
+    other f; at H 4096 every f of the grid survives."""
+    small = tune.tune("lowrank_matmul", (20, 256, 512), "bfloat16",
+                      device="cpu")
+    assert {c["expansion"] for c, _, _ in small.table} == {1, 2}
+    big = tune.tune("lowrank_matmul", (20, 4096, 4096), "bfloat16",
+                    device="cpu")
+    assert {c["expansion"] for c, _, _ in big.table} == set(
+        tune.EXPANSION_GRID)
+    assert len(big.table) == tune.get_space("lowrank_matmul").size() == 18
 
 
 def test_cache_entry_outside_its_own_space_is_ignored(tmp_cache):
@@ -327,9 +420,13 @@ def test_tuned_expansion_is_an_in_process_lru(tmp_cache, tmp_path,
 
 def test_pretune_warms_the_cache(tmp_cache):
     out = tune.pretune({"lanczos_reorth": [(2, 48, 96), (4, 48, 96)],
-                        "matvec_expand": [(64, 128)]},
+                        "matvec_expand": [(64, 128)],
+                        "lowrank_matmul": [(20, 4096, 4096)]},
                        fix=None, device="cpu")
-    assert len(out) == 3
+    # the reference's own pretune dict (tests/test_tune.py)
+    out.update(tune.pretune({"dkv_attention": [(4, 96, 16)]},
+                            device="cpu"))
+    assert len(out) == 5
     for key, res in out.items():
         assert key.startswith("torch-cpu/") and "expansion" in res.best
         assert tune.default_cache().get(key) is not None
